@@ -10,8 +10,9 @@
 // written once (8 bytes) for a handful of flops, far below the ~20 flop/byte
 // ridge of fp32 at 3.35 TB/s. So the design is one pass: 16-byte (float4)
 // loads and stores, a grid-stride loop over enough blocks to fill the card,
-// and the scale and offset as kernel arguments (tensorwise) or read from a
-// small device vector that stays in L1/L2 (channelwise).
+// and the scale and offset as kernel arguments or one device scalar each
+// (tensorwise) or read from a small device vector that stays in L1/L2
+// (channelwise).
 //
 // Channelwise keeps the tensor's own layout: the channel of flat index i is
 // (i / inner) % C, so the JAX wrapper's transpose and padding are not needed.
@@ -22,39 +23,18 @@
 //   * the clip uses comparisons, so a NaN stays a NaN as in jnp.clip;
 //   * built without --use_fast_math and with -fmad=false, so no fused
 //     multiply-add changes a rounding.
-// The offset arrives already rounded (the wrapper rounds it, as
-// quantization/qfunction.py does).
+// A host offset arrives already rounded (the wrapper rounds it, as
+// quantization/qfunction.py does); an offset read from the card is rounded
+// here with rintf, which is torch.round's and jnp.round's half-to-even.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rounding.cuh"
+
+using namespace ppq;
+
 namespace {
-
-// Codes of ppq_tpu_torch/kernels/quant.py ROUNDING_CODES.
-enum Rounding {
-  HALF_EVEN = 0,
-  HALF_UP = 1,
-  HALF_DOWN = 2,
-  HALF_TOWARDS_ZERO = 3,
-  HALF_FAR_FROM_ZERO = 4,
-  UP = 5,
-  DOWN = 6,
-};
-
-__device__ __forceinline__ float sign_of(float v) {
-  return (v > 0.f ? 1.f : 0.f) - (v < 0.f ? 1.f : 0.f);
-}
-
-template <int R>
-__device__ __forceinline__ float round_value(float v) {
-  if (R == HALF_EVEN) return rintf(v);
-  if (R == HALF_UP) return floorf(v + 0.5f);
-  if (R == HALF_DOWN) return ceilf(v - 0.5f);
-  if (R == HALF_TOWARDS_ZERO) return sign_of(v) * ceilf(fabsf(v) - 0.5f);
-  if (R == HALF_FAR_FROM_ZERO) return sign_of(v) * floorf(fabsf(v) + 0.5f);
-  if (R == UP) return ceilf(v);
-  return floorf(v);
-}
 
 template <int R, bool CODES>
 __device__ __forceinline__ float quant_one(float x, float s, float o,
@@ -70,7 +50,13 @@ template <int R, bool CODES>
 __global__ void fake_quant_tensor_kernel(const float* __restrict__ x,
                                          float* __restrict__ y, int64_t n,
                                          int64_t n_vec, float s, float o,
+                                         const float* __restrict__ s_dev,
+                                         const float* __restrict__ o_dev,
                                          float qmin, float qmax) {
+  if (s_dev != nullptr) {  // a scale that lives on the card (LSQ training)
+    s = *s_dev;
+    o = rintf(*o_dev);
+  }
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   const int64_t start = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const float4* x4 = reinterpret_cast<const float4*>(x);
@@ -105,40 +91,25 @@ __global__ void fake_quant_channel_kernel(const float* __restrict__ x,
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       Index c = ((i * 4 + k) / inner) % channels;
-      e[k] = quant_one<R, CODES>(e[k], scale[c], offset[c], qmin, qmax);
+      e[k] = quant_one<R, CODES>(e[k], scale[c], rintf(offset[c]), qmin, qmax);
     }
     y4[i] = v;
   }
   for (Index i = n_vec * 4 + start; i < n; i += stride) {
     Index c = (i / inner) % channels;
-    y[i] = quant_one<R, CODES>(x[i], scale[c], offset[c], qmin, qmax);
+    y[i] = quant_one<R, CODES>(x[i], scale[c], rintf(offset[c]), qmin, qmax);
   }
 }
-
-int grid_for(int64_t work, int threads) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 132;
-  }
-  int64_t blocks = (work + threads - 1) / threads;
-  int64_t cap = (int64_t)sms * 32;
-  if (blocks > cap) blocks = cap;
-  return blocks < 1 ? 1 : (int)blocks;
-}
-
-bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 template <int R, bool CODES>
 void launch_tensor(const float* x, float* y, int64_t n, float s, float o,
-                   float qmin, float qmax, cudaStream_t stream) {
+                   const float* s_dev, const float* o_dev, float qmin,
+                   float qmax, cudaStream_t stream) {
   const int threads = 256;
   int64_t n_vec = (aligned16(x) && aligned16(y)) ? n / 4 : 0;
   int blocks = grid_for(n_vec > 0 ? n_vec : n, threads);
   fake_quant_tensor_kernel<R, CODES><<<blocks, threads, 0, stream>>>(
-      x, y, n, n_vec, s, o, qmin, qmax);
+      x, y, n, n_vec, s, o, s_dev, o_dev, qmin, qmax);
 }
 
 template <int R, bool CODES>
@@ -200,8 +171,22 @@ extern "C" int ppq_fake_quant_tensorwise(const float* x, float* y, int64_t n,
                                          float qmax, int rounding, int codes,
                                          void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  DISPATCH_ROUNDING(rounding, codes, launch_tensor, x, y, n, s, o, qmin, qmax,
-                    st);
+  DISPATCH_ROUNDING(rounding, codes, launch_tensor, x, y, n, s, o, nullptr,
+                    nullptr, qmin, qmax, st);
+  return (int)cudaGetLastError();
+}
+
+// The same kernel with scale and offset read from the card: a trainable
+// scale never crosses to the host. The offset is rounded in the kernel.
+extern "C" int ppq_fake_quant_tensorwise_dev(const float* x, float* y,
+                                             int64_t n, const float* s,
+                                             const float* o, float qmin,
+                                             float qmax, int rounding,
+                                             int codes, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (s == nullptr || o == nullptr) return (int)cudaErrorInvalidValue;
+  DISPATCH_ROUNDING(rounding, codes, launch_tensor, x, y, n, 1.f, 0.f, s, o,
+                    qmin, qmax, st);
   return (int)cudaGetLastError();
 }
 

@@ -17,11 +17,15 @@ redesign of ppq/executor/torch.py:76-682:
     trainable scales, reference torch.py:296,610).
   * `tracing_operation_meta` fills Variable.shape/dtype by running once.
   * `partial_graph_forward` runs a contiguous op span (blockwise finetune).
+  * `forward_with_gradient`, and `partial_graph_forward(with_gradient=True)`,
+    record the autograd graph: fake-quant sites are differentiable
+    (quantization/qfunction.py), and `parameters` replaces named parameters
+    by the caller's tensors, so that a pass can train leaf tensors of its
+    own while the IR keeps its values.
 
 Eager per-op execution keeps data-dependent (SOI) ops trivially correct —
 they run host-side numpy. The JAX package's whole-graph compiled path
-(executor/compile.py) and `forward_with_gradient` are later slices of the
-port (ROADMAP.md).
+(executor/compile.py) is a later slice of the port (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -68,6 +72,11 @@ class TorchExecutor(BaseGraphExecutor):
         # variable name -> (host array it was made from, device value)
         self._params: Dict[str, Any] = {}
 
+    @property
+    def device(self) -> torch.device:
+        """The device this executor runs on."""
+        return self._device
+
     # -------------------------------------------------------------- delegates
     def register_quantize_delegate(self, config: TensorQuantizationConfig,
                                    delegator: QuantizeDelegator):
@@ -88,8 +97,13 @@ class TorchExecutor(BaseGraphExecutor):
             return tensor
         return ppq_fake_quant(tensor.contiguous(), config)
 
-    def _parameter(self, var: Variable):
-        """The device value of a parameter, uploaded once per host array."""
+    def _parameter(self, var: Variable, overrides=None):
+        """The device value of a parameter: the caller's override, else the
+        IR's value, uploaded once per host array. The cache goes by the
+        identity of the host array, so a pass that assigns a new array to
+        `Variable.value` is seen by the next forward."""
+        if overrides is not None and var.name in overrides:
+            return overrides[var.name]
         value = var.value
         cached = self._params.get(var.name)
         if cached is not None and cached[0] is value:
@@ -141,9 +155,22 @@ class TorchExecutor(BaseGraphExecutor):
             values[graph_inputs[0].name] = self._to_device(inputs)
         return values
 
+    def forward_with_gradient(self, inputs,
+                              output_names: Optional[List[str]] = None,
+                              parameters: Optional[Dict[str, torch.Tensor]] = None
+                              ) -> List:
+        """Differentiable forward (reference torch.py:412): the outputs carry
+        the autograd graph back to `parameters` ({parameter name: tensor},
+        used in place of the IR's values), to the scales and offsets that
+        registered delegates hold, and to inputs that require a gradient."""
+        with torch.enable_grad(), simulation_precision():
+            return self.__forward(inputs, output_names, hooks=None,
+                                  parameters=parameters)
+
     def __forward(self, inputs, output_names=None,
                   hooks: Optional[Dict[str, RuntimeHook]] = None,
-                  op_list: Optional[Sequence[Operation]] = None) -> List:
+                  op_list: Optional[Sequence[Operation]] = None,
+                  parameters: Optional[Dict[str, torch.Tensor]] = None) -> List:
         values = self._feed(inputs)
         graph = self.graph
         if output_names is None:
@@ -176,7 +203,7 @@ class TorchExecutor(BaseGraphExecutor):
                 if var.name in values:
                     in_vals.append(values[var.name])
                 elif var.is_parameter:
-                    in_vals.append(self._parameter(var))
+                    in_vals.append(self._parameter(var, parameters))
                 else:
                     raise RuntimeError(
                         f'Executing {op.name}: input variable {var.name} has '
@@ -230,7 +257,8 @@ class TorchExecutor(BaseGraphExecutor):
             if name in values:
                 results.append(values[name])
             elif name in graph.variables and graph.variables[name].is_parameter:
-                results.append(self._parameter(graph.variables[name]))
+                results.append(self._parameter(graph.variables[name],
+                                               parameters))
             else:
                 raise RuntimeError(f'Requested output {name!r} was not produced')
         return results
@@ -238,11 +266,15 @@ class TorchExecutor(BaseGraphExecutor):
     # ----------------------------------------------------------------- extras
     def partial_graph_forward(self, operations: Sequence[Operation],
                               feed_dict: Dict[str, Any],
-                              output_names: List[str]) -> List:
-        """Run a sub-block only (reference torch.py:654)."""
-        with torch.no_grad(), simulation_precision():
+                              output_names: List[str],
+                              with_gradient: bool = False,
+                              parameters: Optional[Dict[str, torch.Tensor]] = None
+                              ) -> List:
+        """Run a sub-block only (reference torch.py:654); with_gradient
+        records the autograd graph, as forward_with_gradient does."""
+        with torch.set_grad_enabled(with_gradient), simulation_precision():
             return self.__forward(feed_dict, output_names, hooks=None,
-                                  op_list=operations)
+                                  op_list=operations, parameters=parameters)
 
     def tracing_operation_meta(self, inputs,
                                output_names: Optional[List[str]] = None):

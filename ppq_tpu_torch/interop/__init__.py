@@ -7,8 +7,10 @@ of the same model with `load_parameters` / `load_quantization_configs`.
 The port's simulated forward can then be held alone against TPUExecutor's.
 """
 
-from .carry import (load_parameters, load_quantization_configs,
-                    parameters_of, quantization_configs_of)
+from .carry import (block_caches_from_numpy, block_caches_to_numpy,
+                    load_parameters, load_quantization_configs, parameters_of,
+                    quantization_configs_of)
 
 __all__ = ['load_parameters', 'load_quantization_configs', 'parameters_of',
-           'quantization_configs_of']
+           'quantization_configs_of', 'block_caches_to_numpy',
+           'block_caches_from_numpy']

@@ -3,16 +3,21 @@
     parameters:  {variable name: np.ndarray}
     TQCs:        {(op name, 'in' | 'out', index):
                       {'scale': np.ndarray | None, 'offset': np.ndarray | None,
-                       'state': QuantizationStates name}}
+                       'state': QuantizationStates name,
+                       'policy': int (the QuantizationPolicy bits, which say
+                                 linear or floating), 'exponent_bits': int,
+                       'num_of_bits': int, 'quant_min', 'quant_max'}}
+    block caches: [{variable name: np.ndarray}], one dict per cached batch
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
+import torch
 
-from ..core import QuantizationStates
+from ..core import QuantizationPolicy, QuantizationStates
 from ..ir import BaseGraph, QuantableOperation
 
 ConfigKey = Tuple[str, str, int]
@@ -60,16 +65,21 @@ def quantization_configs_of(graph) -> Dict[ConfigKey, dict]:
                     'scale': np.array(cfg.scale, copy=True) if has else None,
                     'offset': np.array(cfg.offset, copy=True) if has else None,
                     'state': cfg.state.name,
+                    'policy': int(cfg.policy),
+                    'exponent_bits': int(cfg.exponent_bits),
+                    'num_of_bits': int(cfg.num_of_bits),
+                    'quant_min': cfg.quant_min, 'quant_max': cfg.quant_max,
                 }
     return out
 
 
 def load_quantization_configs(graph: BaseGraph,
                               configs: Dict[ConfigKey, dict]) -> None:
-    """Set the state of every named TQC, and the scale and offset of those
-    that are their own root. Dominated TQCs read their root's, so the
-    graph must have the sharing links of the graph the configs came from
-    (the same quantizer and passes build the same links)."""
+    """Set the state of every named TQC, its policy, bit layout and range
+    where the entry carries them, and the scale and offset of those that
+    are their own root. Dominated TQCs read their root's, so the graph must
+    have the sharing links of the graph the configs came from (the same
+    quantizer and passes build the same links)."""
     for (op_name, side, idx), entry in configs.items():
         op = graph.operations.get(op_name)
         if not isinstance(op, QuantableOperation):
@@ -77,6 +87,27 @@ def load_quantization_configs(graph: BaseGraph,
                            f'{graph.name!r}')
         cfg = _configs(op, side)[idx]
         cfg.state = QuantizationStates[entry['state']]
+        if 'policy' in entry:
+            cfg.policy = QuantizationPolicy(entry['policy'])
+            cfg.exponent_bits = entry['exponent_bits']
+            cfg.num_of_bits = entry['num_of_bits']
+            cfg.quant_min = entry['quant_min']
+            cfg.quant_max = entry['quant_max']
         if cfg.is_root and entry['scale'] is not None:
             cfg.scale = np.asarray(entry['scale'], np.float32)
             cfg.offset = np.asarray(entry['offset'], np.float32)
+
+
+def block_caches_to_numpy(cache) -> List[Dict[str, np.ndarray]]:
+    """A training pass's block cache (quantized block inputs or fp32 block
+    targets; tensors or arrays) as host numpy, one dict per batch."""
+    return [{name: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                    else np.asarray(v)) for name, v in batch.items()}
+            for batch in cache]
+
+
+def block_caches_from_numpy(cache, device) -> List[Dict[str, torch.Tensor]]:
+    """Host numpy block caches as tensors on `device`, as the port's
+    training passes keep them."""
+    return [{name: torch.as_tensor(np.array(v, copy=True), device=device)
+             for name, v in batch.items()} for batch in cache]

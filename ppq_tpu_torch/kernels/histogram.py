@@ -14,13 +14,12 @@ round trip (the JAX kernel's f32 counts stop being exact above 2^24).
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import numpy as np
 import torch
 
-from .loader import LAUNCHES, check, library
+from .loader import LAUNCHES, check, library, stream_of
 
 # shared memory a block may use without opting in: 48 KB of int32 bins
 MAX_BINS = 12288
@@ -68,7 +67,7 @@ def histogram(x: torch.Tensor, scale: float, bins: int,
         return out
     lib = library('histogram')
     with torch.cuda.device(x.device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+        stream = stream_of(x.device)
         rc = lib.ppq_histogram(x.data_ptr(), n, float(np.float32(scale)),
                                int(bins), int(bool(absolute)), out.data_ptr(),
                                stream)

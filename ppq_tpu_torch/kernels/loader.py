@@ -21,6 +21,8 @@ import threading
 import time
 from typing import Dict, Iterable, List
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(SRC_DIR, 'build')
@@ -36,13 +38,33 @@ _I64 = ctypes.c_int64
 _F = ctypes.c_float
 _INT = ctypes.c_int
 
+# headers that every source includes: a library is stale when one is newer
+HEADERS = ('rounding.cuh',)
+
 # library name -> (source file, {C entry point: argtypes})
 LIBRARIES: Dict[str, tuple] = {
     'fake_quant': ('fake_quant.cu', {
         'ppq_fake_quant_tensorwise':
             [_P, _P, _I64, _F, _F, _F, _F, _INT, _INT, _P],
+        'ppq_fake_quant_tensorwise_dev':
+            [_P, _P, _I64, _P, _P, _F, _F, _INT, _INT, _P],
         'ppq_fake_quant_channelwise':
             [_P, _P, _I64, _P, _P, _I64, _I64, _F, _F, _INT, _INT, _P],
+    }),
+    'fake_quant_bwd': ('fake_quant_bwd.cu', {
+        'ppq_fake_quant_bwd_tensorwise':
+            [_P, _P, _P, _I64, _P, _P, _F, _F, _INT, _P, _INT, _P, _P, _P],
+        'ppq_fake_quant_bwd_channelwise':
+            [_P, _P, _P, _I64, _P, _P, _I64, _I64, _F, _F, _INT, _P, _INT,
+             _P, _P, _P],
+    }),
+    'floating': ('floating.cu', {
+        'ppq_floating_quant_tensorwise':
+            [_P, _P, _I64, _F, _P, _F, _F, _INT, _F, _F, _F, _P],
+        'ppq_floating_quant_channelwise':
+            [_P, _P, _I64, _P, _I64, _I64, _F, _F, _INT, _F, _F, _F, _P],
+        'ppq_floating_quant_bwd':
+            [_P, _P, _P, _I64, _F, _P, _F, _F, _P],
     }),
     'histogram': ('histogram.cu', {
         'ppq_histogram': [_P, _I64, _F, _INT, _INT, _P, _P],
@@ -54,6 +76,10 @@ LAUNCHES: Dict[str, int] = {
     'fake_quant_tensorwise': 0,
     'fake_quant_channelwise': 0,
     'histogram': 0,
+    'fake_quant_bwd_tensorwise': 0,
+    'fake_quant_bwd_channelwise': 0,
+    'floating_quant': 0,
+    'floating_quant_bwd': 0,
 }
 
 _lock = threading.Lock()
@@ -82,7 +108,10 @@ def _paths(name: str):
 
 def _stale(name: str) -> bool:
     src, so = _paths(name)
-    return not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src)
+    if not os.path.exists(so):
+        return True
+    sources = [src] + [os.path.join(SRC_DIR, h) for h in HEADERS]
+    return os.path.getmtime(so) < max(os.path.getmtime(f) for f in sources)
 
 
 def build(names: Iterable[str] = tuple(LIBRARIES)) -> Dict[str, float]:
@@ -137,3 +166,16 @@ def check(rc: int, what: str) -> None:
     """Raise on a CUDA error code returned by a C entry point."""
     if rc != 0:
         raise RuntimeError(f'{what}: CUDA error {rc} at launch')
+
+
+def stream_of(device) -> ctypes.c_void_p:
+    """PyTorch's current stream on `device`, as the C entry points take it."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def check_cuda_input(x, what: str) -> None:
+    """The kernels take contiguous float32 tensors."""
+    if x.dtype != torch.float32:
+        raise TypeError(f'{what} takes float32, got {x.dtype}')
+    if not x.is_contiguous():
+        raise ValueError(f'{what} takes a contiguous tensor')

@@ -16,7 +16,7 @@ Observer registry mirrors OBSERVER_TABLE (observer/__init__.py:15-23):
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Type
+from typing import Dict, List, Optional, Tuple, Type
 
 import numpy as np
 import torch
@@ -26,7 +26,6 @@ from ..core import (OBSERVER_KL_HIST_BINS, OBSERVER_MIN_SCALE,
                     OBSERVER_PERCENTILE_MANUL_OVERRIDE, QuantizationStates,
                     TensorQuantizationConfig)
 from ..kernels.histogram import histogram
-from .qfunction import _FLOATING_TODO
 from .rounding import round_to_power_of_2
 
 
@@ -316,10 +315,43 @@ class ConstantObserver(BaseTensorObserver):
 
 class DirectMSEObserver(BaseTensorObserver):
     """Sample-based MSE scale search for floating quant
-    (observer/floating.py:51): it runs floating fake-quant, a later slice."""
+    (observer/floating.py:51). Collects a bounded sample, then sweeps scale
+    candidates minimizing fake-quant MSE. The sample stays on the device the
+    values came from (the card for activations, the host for parameters), and
+    the sweep runs floating fake-quant there."""
+
+    CANDIDATES = np.power(2.0, np.arange(-8, 9, dtype=np.float64))
 
     def __init__(self, cfg):
-        raise NotImplementedError(_FLOATING_TODO)
+        super().__init__(cfg)
+        self._samples: List[torch.Tensor] = []
+        self._budget = 4096 * 8
+
+    def observe(self, value):
+        flat = _as_tensor(value).reshape(-1)
+        if sum(s.numel() for s in self._samples) < self._budget:
+            step = max(1, flat.numel() // 4096)
+            self._samples.append(flat[::step][:4096].contiguous())
+
+    def render_quantization_config(self):
+        from .qfunction import floating_fake_quant
+        if not self._samples:
+            raise RuntimeError('DirectMSEObserver rendered before observing data')
+        device = self._samples[-1].device
+        sample = torch.cat([s.to(device) for s in self._samples])
+        mantissa = self.cfg.num_of_bits - 1 - self.cfg.exponent_bits
+        errs = []
+        for cand in self.CANDIDATES:
+            q = floating_fake_quant(sample, np.float32(cand),
+                                    self.cfg.exponent_bits, mantissa,
+                                    self.cfg.quant_min, self.cfg.quant_max)
+            errs.append(torch.mean((q - sample) ** 2))
+        errs = torch.stack(errs).cpu().numpy()     # one read for all 17
+        best_scale, best_err = 1.0, np.inf
+        for cand, err in zip(self.CANDIDATES, errs):
+            if err < best_err:                     # the first best wins
+                best_err, best_scale = float(err), float(cand)
+        self._activate(np.float32(best_scale), np.float32(0.0))
 
 
 OBSERVER_TABLE: Dict[str, Type[BaseTensorObserver]] = {

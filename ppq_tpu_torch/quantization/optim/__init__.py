@@ -9,6 +9,9 @@ from .calibration import (CalibrationHook, IsotoneCalibrationPass,
 from .parameters import ParameterQuantizePass, PassiveParameterQuantizePass
 from .refine import (MishFusionPass, QuantAlignmentPass, QuantizeFusionPass,
                      QuantizeSimplifyPass, SwishFusionPass)
+from .training import (AdaroundPass, BiasCorrectionPass, BlockRuntime,
+                       LearnedStepSizePass, RoundTuningPass,
+                       TrainableQuantDelegator, TrainingBasedPass)
 
 __all__ = [
     'QuantizationOptimizationPass', 'QuantizationOptimizationPipeline',
@@ -16,4 +19,7 @@ __all__ = [
     'OperationObserver', 'RuntimeCalibrationPass', 'ParameterQuantizePass',
     'PassiveParameterQuantizePass', 'MishFusionPass', 'QuantAlignmentPass',
     'QuantizeFusionPass', 'QuantizeSimplifyPass', 'SwishFusionPass',
+    'AdaroundPass', 'BiasCorrectionPass', 'LearnedStepSizePass',
+    'RoundTuningPass', 'TrainingBasedPass', 'BlockRuntime',
+    'TrainableQuantDelegator',
 ]

@@ -5,15 +5,18 @@ Port of ppq_tpu/quantization/qfunction.py to PyTorch:
   * `linear_fake_quant`   — y = (clip(round(x/s) + o, qmin, qmax) - o) * s,
     per-tensor or per-channel, 7 rounding policies. On a CUDA tensor it
     launches the hand-written kernel (kernels/quant.py), on a CPU tensor it
-    runs the kernel's plain version.
-  * `linear_quant_codes`  — the centered integer codes of the same map.
+    runs the kernel's plain version. Where a gradient is recorded it is a
+    `torch.autograd.Function`: clip-aware STE for x and LSQ gradients for
+    scale and offset, from the backward kernel in one pass.
+  * `linear_quant_codes` / `linear_recover_codes` — the centered integer
+    codes of the same map, from a raw or an already fake-quantized value.
+  * `dynamic_linear_fake_quant` — scale taken from the tensor at run time.
+  * `floating_fake_quant` — FP8-style exponent/mantissa quantization through
+    the kernels of kernels/floating.py; the gradient is the kernel's STE.
   * `ppq_fake_quant(x, cfg)` — TQC-driven dispatch (qfunction/__init__.py:10)
   * `ppq_quant_toint(value, cfg)` — real integer output for exporters
     (qfunction/linear.py:218), host-side numpy.
   * `fake_quant_np` — host-side fake quant used by ParameterBakingPass.
-
-Gradients (STE/LSQ) belong to the training slice, floating (FP8) and
-dynamic fake-quant to later slices; see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -24,23 +27,57 @@ import numpy as np
 import torch
 
 from ..core import RoundingPolicy, TensorQuantizationConfig
-from ..kernels.quant import linear_quant
-
-_FLOATING_TODO = ('floating (FP8) fake-quant is not ported yet: ROADMAP.md '
-                  'queue 1, item 9 (TPU_FP8 and the other platforms)')
-_DYNAMIC_TODO = ('dynamic fake-quant is not ported yet: ROADMAP.md queue 1, '
-                 'item 2 (the rest of quantization/qfunction.py)')
+from ..kernels.floating import (float_max, floating_quant,
+                                floating_quant_bwd)
+from ..kernels.quant import (_as_param, _broadcast, linear_quant,
+                             linear_quant_bwd)
 
 # ========================================================== linear quant ===
+
+
+def _needs_grad(*values) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(v, torch.Tensor) and v.requires_grad for v in values)
+
+
+class _LinearFakeQuant(torch.autograd.Function):
+    """Forward: the fake-quant kernel. Backward: the LSQ kernel, which
+    gives dx, dscale and doffset from one pass over x and the gradient
+    (ppq_tpu/quantization/qfunction.py `_linear_quant_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, offset, qmin, qmax, rounding, channel_axis):
+        ctx.save_for_backward(x, scale, offset)
+        ctx.args = (qmin, qmax, rounding, channel_axis)
+        return linear_quant(x, scale, offset, qmin, qmax, rounding,
+                            channel_axis)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, scale, offset = ctx.saved_tensors
+        qmin, qmax, rounding, channel_axis = ctx.args
+        dx, ds, do = linear_quant_bwd(x, gy.contiguous(), scale, offset,
+                                      qmin, qmax, rounding, channel_axis)
+        need = ctx.needs_input_grad
+        return (dx if need[0] else None,
+                ds.reshape(scale.shape) if need[1] else None,
+                do.reshape(offset.shape) if need[2] else None,
+                None, None, None, None)
 
 
 def linear_fake_quant(x: torch.Tensor, scale, offset,
                       quant_min: float, quant_max: float,
                       rounding: RoundingPolicy = RoundingPolicy.ROUND_HALF_EVEN,
                       channel_axis: Optional[int] = None) -> torch.Tensor:
-    """Linear fake-quant (tensorwise or channelwise)."""
-    return linear_quant(x, scale, offset, float(quant_min), float(quant_max),
-                        rounding, channel_axis)
+    """Linear fake-quant (tensorwise or channelwise), differentiable in x,
+    scale and offset. Where no gradient is recorded it is one kernel launch
+    and saves nothing."""
+    if not _needs_grad(x, scale, offset):
+        return linear_quant(x, scale, offset, float(quant_min),
+                            float(quant_max), rounding, channel_axis)
+    return _LinearFakeQuant.apply(
+        x, _as_param(scale, x.device), _as_param(offset, x.device),
+        float(quant_min), float(quant_max), rounding, channel_axis)
 
 
 def linear_quant_codes(x: torch.Tensor, scale, offset,
@@ -54,19 +91,110 @@ def linear_quant_codes(x: torch.Tensor, scale, offset,
                         rounding, channel_axis, codes=True)
 
 
-def dynamic_linear_fake_quant(x, quant_min, quant_max, symmetric=True,
-                              rounding=RoundingPolicy.ROUND_HALF_EVEN,
-                              channel_axis=None):
-    """Dynamic quantization (qfunction/linear.py:99-130): a later slice."""
-    raise NotImplementedError(_DYNAMIC_TODO)
+def linear_recover_codes(x_fq: torch.Tensor, scale, offset, quant_min: float,
+                         quant_max: float,
+                         channel_axis: Optional[int] = None) -> torch.Tensor:
+    """Recover centered integer codes from an ALREADY fake-quantized value
+    (x_fq == codes * s exactly, up to one fp32 rounding): round(x_fq / s),
+    clipped to the code range."""
+    s = _broadcast(_as_param(scale, x_fq.device), x_fq.ndim, channel_axis)
+    o_r = torch.round(_broadcast(_as_param(offset, x_fq.device), x_fq.ndim,
+                                 channel_axis))
+    codes = torch.round(x_fq / s)
+    return torch.minimum(torch.maximum(codes, quant_min - o_r),
+                         quant_max - o_r)
+
+
+def dynamic_linear_fake_quant(x: torch.Tensor, quant_min: float,
+                              quant_max: float, symmetric: bool = True,
+                              rounding: RoundingPolicy = RoundingPolicy.ROUND_HALF_EVEN,
+                              channel_axis: Optional[int] = None) -> torch.Tensor:
+    """Dynamic quantization: scale computed from the tensor itself at run
+    time (qfunction/linear.py:99-130), on the tensor's device; the
+    quantization itself goes through the fake-quant kernel."""
+    if channel_axis is not None:
+        axis = channel_axis % x.ndim
+        dims = [i for i in range(x.ndim) if i != axis]
+    else:
+        dims = list(range(x.ndim))
+    # divisors are tensors: CUDA PyTorch would turn a division by a host
+    # number into a multiplication by its reciprocal
+    floor = torch.as_tensor(np.float32(1e-8), device=x.device)
+    if symmetric:
+        amax = torch.amax(torch.abs(x), dim=dims)
+        span = torch.as_tensor(np.float32(quant_max), device=x.device)
+        scale = torch.maximum(amax / span, floor)
+        offset = torch.zeros_like(scale)
+    else:
+        hi = torch.amax(x, dim=dims)
+        lo = torch.amin(x, dim=dims)
+        span = torch.as_tensor(np.float32(quant_max - quant_min),
+                               device=x.device)
+        scale = torch.maximum((hi - lo) / span, floor)
+        offset = torch.round(float(quant_min) - lo / scale)
+    return linear_fake_quant(x, scale, offset, quant_min, quant_max, rounding,
+                             channel_axis)
 
 
 # ======================================================== floating quant ===
 
-def floating_fake_quant(x, scale, exponent_bits, mantissa_bits, quant_min,
-                        quant_max, channel_axis=None):
-    """FP8-style fake quant (qfunction/floating.py): the TPU_FP8 slice."""
-    raise NotImplementedError(_FLOATING_TODO)
+_float_minmax = float_max
+
+
+class _FloatingFakeQuant(torch.autograd.Function):
+    """Forward: the floating fake-quant kernel. Backward: dx from the STE
+    kernel; dscale, where asked for, by plain reductions over the saved
+    tensors (the JAX package has no kernel for it either):
+    sum(g * (y/s - where(inside, x/s, 0)))."""
+
+    @staticmethod
+    def forward(ctx, x, scale, e_bits, m_bits, qmin, qmax):
+        y = floating_quant(x, scale, e_bits, m_bits, qmin, qmax)
+        ctx.args = (qmin, qmax)
+        if ctx.needs_input_grad[1]:
+            ctx.save_for_backward(x, scale, y)
+        else:
+            ctx.save_for_backward(x, scale)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        qmin, qmax = ctx.args
+        x, scale = ctx.saved_tensors[:2]
+        gy = gy.contiguous()
+        dx = (floating_quant_bwd(x, gy, scale, qmin, qmax)
+              if ctx.needs_input_grad[0] else None)
+        ds = None
+        if ctx.needs_input_grad[1]:
+            y = ctx.saved_tensors[2]
+            s = scale.reshape(())
+            raw = x / s
+            inside = (raw >= qmin) & (raw <= qmax)
+            ds = torch.sum(gy * (y / s - torch.where(
+                inside, raw, torch.zeros_like(raw)))).reshape(scale.shape)
+        return dx, ds, None, None, None, None
+
+
+def floating_fake_quant(x: torch.Tensor, scale, exponent_bits: int,
+                        mantissa_bits: int, quant_min: float,
+                        quant_max: float,
+                        channel_axis: Optional[int] = None) -> torch.Tensor:
+    """FP8-style fake quant: y = float_round(clip(x/s)) * s, onto the grid
+    of a 1-sign / E / M float (reference: csrc/cuda/floating.cu
+    QuantizeTensor_FT). The gradient is the kernel's straight-through
+    estimator (ppq_tpu/kernels/floating.py `pallas_floating_quant_bwd`), for
+    a tensorwise scale."""
+    if not _needs_grad(x, scale):
+        return floating_quant(x, scale, int(exponent_bits),
+                              int(mantissa_bits), float(quant_min),
+                              float(quant_max), channel_axis)
+    if channel_axis is not None:
+        raise NotImplementedError(
+            'the gradient of floating fake-quant is tensorwise, as the '
+            'backward kernel is')
+    return _FloatingFakeQuant.apply(
+        x, _as_param(scale, x.device), int(exponent_bits), int(mantissa_bits),
+        float(quant_min), float(quant_max))
 
 
 # ======================================================= TQC-driven APIs ===
@@ -78,16 +206,22 @@ def ppq_fake_quant(x: torch.Tensor, cfg: TensorQuantizationConfig) -> torch.Tens
     if not cfg.is_active:
         return x
     pol = cfg.policy
-    if pol.dynamic:
-        raise NotImplementedError(_DYNAMIC_TODO)
-    if not pol.linear:
-        raise NotImplementedError(_FLOATING_TODO)
     axis = cfg.channel_axis if pol.per_channel else None
+    if pol.dynamic:
+        return dynamic_linear_fake_quant(
+            x, cfg.quant_min, cfg.quant_max, symmetric=pol.symmetric,
+            rounding=cfg.rounding, channel_axis=axis)
     scale = np.asarray(cfg.scale, np.float32)
-    offset = (np.asarray(cfg.offset, np.float32) if pol.asymmetric
-              else np.zeros_like(scale))
-    return linear_fake_quant(x, scale, offset, cfg.quant_min, cfg.quant_max,
-                             cfg.rounding, channel_axis=axis)
+    if pol.linear:
+        offset = (np.asarray(cfg.offset, np.float32) if pol.asymmetric
+                  else np.zeros_like(scale))
+        return linear_fake_quant(x, scale, offset, cfg.quant_min,
+                                 cfg.quant_max, cfg.rounding,
+                                 channel_axis=axis)
+    mantissa_bits = cfg.num_of_bits - 1 - cfg.exponent_bits
+    return floating_fake_quant(x, scale, cfg.exponent_bits, mantissa_bits,
+                               cfg.quant_min, cfg.quant_max,
+                               channel_axis=axis)
 
 
 def ppq_quant_toint(value: np.ndarray, cfg: TensorQuantizationConfig) -> np.ndarray:
@@ -122,10 +256,11 @@ def fake_quant_np(value: np.ndarray, cfg: TensorQuantizationConfig) -> np.ndarra
     if not cfg.is_active:
         return np.asarray(value, np.float32)
     value = np.asarray(value, np.float32)
-    if not cfg.policy.linear:
-        raise NotImplementedError(_FLOATING_TODO)
-    if cfg.policy.dynamic:
-        raise NotImplementedError(_DYNAMIC_TODO)
+    if not cfg.policy.linear or cfg.policy.dynamic:
+        # floating / dynamic: the tensor path on a CPU tensor (parameters
+        # live on the host, and so does their baking)
+        return ppq_fake_quant(torch.from_numpy(np.ascontiguousarray(value)),
+                              cfg).numpy()
     scale = np.asarray(cfg.scale, np.float32)
     offset = (np.round(np.asarray(cfg.offset, np.float32))
               if cfg.policy.asymmetric else np.zeros_like(scale))
