@@ -1,0 +1,63 @@
+"""Carry a serving parameter tree or KV cache across from the JAX package,
+as numpy arrays.
+
+The JAX package's tree (`embed`, `final_norm`, `lm_head`, `layers[i]` with
+`w_int` / `scale` / `w` leaves, fused or not) maps leaf for leaf onto the
+port's dictionaries of tensors. numpy has no bfloat16: bf16 leaves (`embed`,
+`w`, a 16-bit cache's `k` / `v`) cross as float32, which holds every bf16
+value exactly, and are rounded back on arrival.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# leaves the packages keep in bfloat16
+_BF16_LEAVES = ('embed', 'w')
+
+
+def _walk(tree, leaf, key=None):
+    if isinstance(tree, dict):
+        return {k: _walk(v, leaf, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_walk(v, leaf, key) for v in tree]
+    return leaf(key, tree)
+
+
+def llama_params_from_numpy(params, device='cpu'):
+    """A tree of numpy arrays -> the port's parameter tree on `device`."""
+    device = torch.device(device)
+
+    def leaf(key, value):
+        t = torch.from_numpy(np.ascontiguousarray(value)).to(device)
+        return t.to(torch.bfloat16) if key in _BF16_LEAVES else t
+    return _walk(params, leaf)
+
+
+def llama_params_to_numpy(params):
+    """The port's parameter tree -> numpy arrays (bf16 leaves as float32)."""
+    def leaf(key, value):
+        if value.dtype == torch.bfloat16:
+            value = value.to(torch.float32)
+        return value.detach().cpu().numpy()
+    return _walk(params, leaf)
+
+
+def kv_cache_from_numpy(cache, device='cpu'):
+    """A KV cache of numpy arrays (`k`, `v` int8 with `k_scale`, `v_scale`,
+    or float32 `k`, `v` of a 16-bit cache) -> tensors on `device`."""
+    device = torch.device(device)
+    out = {}
+    for key, value in cache.items():
+        t = torch.from_numpy(np.ascontiguousarray(value)).to(device)
+        if key in ('k', 'v') and t.dtype == torch.float32:
+            t = t.to(torch.bfloat16)
+        out[key] = t
+    return out
+
+
+def kv_cache_to_numpy(cache):
+    return {key: (value.to(torch.float32) if value.dtype == torch.bfloat16
+                  else value).detach().cpu().numpy()
+            for key, value in cache.items()}

@@ -10,6 +10,10 @@ PyTorch version.
 | quant.pallas_linear_quant_bwd, channelwise    | quant.linear_quant_bwd     |
 | floating.pallas_floating_quant (both bodies)  | floating.floating_quant    |
 | floating.pallas_floating_quant_bwd            | floating.floating_quant_bwd|
+| qmm.qmm_int8                                  | qmm.qmm_int8               |
+| qmm.qmm_gateup (INT8 body)                    | qmm.qmm_gateup             |
+| bank_write.bank_write_inplace                 | bank_write.bank_write_inplace |
+| window_write.window_write_inplace             | window_write.window_write_inplace |
 
 The kernels are built by `loader.build()` at first use; a wrapper given a
 CPU tensor runs the plain version, a CUDA tensor launches the kernel or
@@ -22,9 +26,17 @@ from .quant import (linear_quant, linear_quant_bwd, linear_quant_bwd_plain,
                     linear_quant_plain)
 from .floating import (floating_quant, floating_quant_bwd,
                        floating_quant_bwd_plain, floating_quant_plain)
+from .qmm import qmm_gateup, qmm_gateup_plain, qmm_int8, qmm_int8_plain
+from .bank_write import (Bank, bank_write_inplace, bank_write_plain,
+                         supports_bank)
+from .window_write import (supports_dense, window_write_inplace,
+                           window_write_plain)
 
 __all__ = ['LAUNCHES', 'build', 'reset_launches', 'histogram',
            'histogram_plain', 'linear_quant', 'linear_quant_plain',
            'linear_quant_bwd', 'linear_quant_bwd_plain', 'floating_quant',
            'floating_quant_plain', 'floating_quant_bwd',
-           'floating_quant_bwd_plain']
+           'floating_quant_bwd_plain', 'qmm_int8', 'qmm_int8_plain',
+           'qmm_gateup', 'qmm_gateup_plain', 'bank_write_inplace',
+           'bank_write_plain', 'supports_bank', 'Bank', 'window_write_inplace',
+           'window_write_plain', 'supports_dense']

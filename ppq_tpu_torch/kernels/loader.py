@@ -28,10 +28,11 @@ SRC_DIR = os.path.join(_PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(SRC_DIR, 'build')
 
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC',
-              # no fused multiply-add and no fast math: the kernels must
-              # round exactly like their plain versions
-              '-fmad=false', '-Xptxas', '-v']
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+# the fake-quant libraries: no fused multiply-add and no fast math, they
+# must round exactly like their plain versions. The matmul and copy
+# libraries keep the compiler's default (their epilogues name each rounding)
+EXACT_FLAGS = ['-fmad=false']
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -41,7 +42,7 @@ _INT = ctypes.c_int
 # headers that every source includes: a library is stale when one is newer
 HEADERS = ('rounding.cuh',)
 
-# library name -> (source file, {C entry point: argtypes})
+# library name -> (source file, {C entry point: argtypes}, extra nvcc flags)
 LIBRARIES: Dict[str, tuple] = {
     'fake_quant': ('fake_quant.cu', {
         'ppq_fake_quant_tensorwise':
@@ -50,14 +51,14 @@ LIBRARIES: Dict[str, tuple] = {
             [_P, _P, _I64, _P, _P, _F, _F, _INT, _INT, _P],
         'ppq_fake_quant_channelwise':
             [_P, _P, _I64, _P, _P, _I64, _I64, _F, _F, _INT, _INT, _P],
-    }),
+    }, EXACT_FLAGS),
     'fake_quant_bwd': ('fake_quant_bwd.cu', {
         'ppq_fake_quant_bwd_tensorwise':
             [_P, _P, _P, _I64, _P, _P, _F, _F, _INT, _P, _INT, _P, _P, _P],
         'ppq_fake_quant_bwd_channelwise':
             [_P, _P, _P, _I64, _P, _P, _I64, _I64, _F, _F, _INT, _P, _INT,
              _P, _P, _P],
-    }),
+    }, EXACT_FLAGS),
     'floating': ('floating.cu', {
         'ppq_floating_quant_tensorwise':
             [_P, _P, _I64, _F, _P, _F, _F, _INT, _F, _F, _F, _P],
@@ -65,10 +66,22 @@ LIBRARIES: Dict[str, tuple] = {
             [_P, _P, _I64, _P, _I64, _I64, _F, _F, _INT, _F, _F, _F, _P],
         'ppq_floating_quant_bwd':
             [_P, _P, _P, _I64, _F, _P, _F, _F, _P],
-    }),
+    }, EXACT_FLAGS),
     'histogram': ('histogram.cu', {
         'ppq_histogram': [_P, _I64, _F, _INT, _INT, _P, _P],
-    }),
+    }, EXACT_FLAGS),
+    'qmm': ('qmm.cu', {
+        'ppq_qmm_int8':
+            [_P, _P, _P, _P, _P, _INT, _P, _INT, _I64, _I64, _I64, _INT, _P],
+        'ppq_qmm_gateup':
+            [_P, _P, _P, _P, _P, _INT, _I64, _I64, _I64, _INT, _P],
+    }, []),
+    'kv_write': ('kv_write.cu', {
+        'ppq_bank_write':
+            [_P, _P, _INT, _I64, _I64, _I64, _I64, _P, _P],
+        'ppq_window_write':
+            [_P, _P, _INT, _I64, _I64, _I64, _I64, _I64, _P, _P],
+    }, []),
 }
 
 # kernel name -> launches since the last reset_launches()
@@ -80,6 +93,10 @@ LAUNCHES: Dict[str, int] = {
     'fake_quant_bwd_channelwise': 0,
     'floating_quant': 0,
     'floating_quant_bwd': 0,
+    'qmm_int8': 0,
+    'qmm_gateup': 0,
+    'bank_write': 0,
+    'window_write': 0,
 }
 
 _lock = threading.Lock()
@@ -126,7 +143,8 @@ def build(names: Iterable[str] = tuple(LIBRARIES)) -> Dict[str, float]:
             continue
         src, so = _paths(name)
         tmp = f'{so}.{os.getpid()}.tmp'
-        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, '-o', tmp, src],
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, *LIBRARIES[name][2],
+                                 '-o', tmp, src],
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         started[name] = (proc, tmp, so, time.perf_counter())
@@ -171,6 +189,12 @@ def check(rc: int, what: str) -> None:
 def stream_of(device) -> ctypes.c_void_p:
     """PyTorch's current stream on `device`, as the C entry points take it."""
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def pointer_array(tensors) -> ctypes.Array:
+    """The tensors' device addresses as a C array of pointers, for an entry
+    point that takes several arrays in one launch."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
 def check_cuda_input(x, what: str) -> None:

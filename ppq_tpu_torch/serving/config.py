@@ -1,0 +1,109 @@
+"""Serving engine configuration."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+
+@dataclass
+class LlamaConfig:
+    """Llama-class decoder architecture + quantization + serving knobs:
+    quantized inference with INT8 weights and an INT8 KV cache on one card.
+
+    The fields are those of the JAX package's `LlamaConfig`; its switch
+    `use_pallas_matmul` is `use_kernel_matmul` here. Values whose code path
+    is not ported yet are kept and raise `NotImplementedError` at engine
+    build (see `unported`).
+    """
+
+    vocab_size: int = 32000
+    d_model: int = 2048
+    n_layers: int = 16
+    n_heads: int = 16
+    n_kv_heads: int = 8             # GQA
+    d_ff: int = 5632
+    rope_theta: float = 10000.0
+    rms_eps: float = 1e-5
+    max_seq_len: int = 2048
+
+    # mixture-of-experts (0 = dense FFN)
+    n_experts: int = 0
+    top_k: int = 2
+
+    # quantization
+    weight_bits: int = 8            # 8 | 4 | 16 (16 = bf16, no quant)
+    # lm_head precision; None resolves to 8 when weight_bits == 4
+    lm_head_bits: Optional[int] = None
+    weight_quant_method: str = 'minmax'   # 'minmax' | 'mse' scale search
+    # runtime marker set by model.fuse_decode_params when every rms_norm
+    # gamma folded into the following matmul's weights: the decode burst
+    # then fuses the norm's rsqrt into the matmul kernel's epilogue
+    norm_folded: bool = False
+    kv_cache_bits: int = 8          # 8 | 16
+    act_dtype: str = 'bfloat16'
+    act_bits: int = 16              # 16 (bf16 acts) | 8 (W8A8 prefill)
+
+    # serving
+    max_batch: int = 8
+    prefill_buckets: tuple = (128, 512, 2048)
+    # automatic prefix caching (paged_kv only)
+    prefix_cache_blocks: int = 0
+
+    # Kernel fast paths (None = resolved at engine build: True on a CUDA
+    # device). use_kernel_matmul sends decode-sized matmuls through the
+    # fused dequant-matmul kernels (kernels/qmm.py), which read the int8
+    # weight bytes; use_ragged_attention reads only filled KV-cache blocks
+    # in burst decode through the paged-attention kernel.
+    use_kernel_matmul: Optional[bool] = None
+    use_ragged_attention: Optional[bool] = None
+
+    # paged KV cache: sequences draw kv_block_size-token blocks from a
+    # shared pool instead of reserving max_batch x max_seq_len up front
+    paged_kv: bool = False
+    kv_pool_blocks: Optional[int] = None
+    kv_block_size: int = 256
+
+    # longest single decode burst
+    max_decode_burst: int = 128
+    # in-burst banked-buffer chunk length (None = one chunk): the current
+    # chunk's columns are read masked, finished chunks unmasked
+    burst_chunk: Optional[int] = None
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    @property
+    def resolved_lm_head_bits(self) -> int:
+        if self.lm_head_bits is not None:
+            return self.lm_head_bits
+        return 8 if self.weight_bits == 4 else self.weight_bits
+
+    @classmethod
+    def tiny(cls) -> 'LlamaConfig':
+        """Test-sized config."""
+        return cls(vocab_size=256, d_model=128, n_layers=2, n_heads=4,
+                   n_kv_heads=2, d_ff=256, max_seq_len=128, max_batch=4,
+                   prefill_buckets=(16, 64))
+
+    def unported(self) -> Optional[str]:
+        """The first setting of this configuration whose code path the port
+        does not have yet, with the ROADMAP item that will bring it, or
+        None. Callers raise NotImplementedError with it: nothing falls back
+        silently."""
+        if self.use_ragged_attention:
+            return ('use_ragged_attention=True (the paged-attention decode '
+                    'kernels: ROADMAP item 12, queue 2 rows 11-12)')
+        if self.paged_kv:
+            return ('paged_kv=True (serving/paged.py and the pool-write '
+                    'kernel: ROADMAP item 12, queue 2 rows 16 and 13)')
+        if self.weight_bits == 4 or self.resolved_lm_head_bits == 4:
+            return ('weight_bits=4 (the split-half INT4 matmul kernels: '
+                    'ROADMAP item 11, queue 2 row 9)')
+        if self.act_bits == 8:
+            return ('act_bits=8 (the W8A8 prefill branch of qmatmul: '
+                    'ROADMAP item 11)')
+        if self.n_experts > 0:
+            return ('n_experts>0 (serving/moe.py: ROADMAP item 12)')
+        return None

@@ -293,3 +293,230 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         floating_quant(x, np.ones(3, np.float32), 4, 3, -448.0, 448.0,
                        channel_axis=1)
+
+
+# ------------------------------------------------- the serving kernels ----
+
+def _qmm_inputs(cuda, B, D, F, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(B, D, device=cuda, generator=gen).bfloat16()
+    w = torch.randint(-127, 128, (D, F), device=cuda, generator=gen,
+                      dtype=torch.int8)
+    scale = torch.rand(F, device=cuda, generator=gen) * 0.01 + 0.001
+    row = torch.rand(B, device=cuda, generator=gen) + 0.5
+    res = torch.randn(B, F, device=cuda, generator=gen).bfloat16()
+    return x, w, scale, row, res
+
+
+def _assert_sum_close(got, want, x, w, scale, row):
+    """The kernel and the plain version multiply the same bf16 operands
+    exactly in f32 and differ in the order of the f32 sum: 1e-5 of the row's
+    absolute mass sum |x||w| * scale * row (plus one bf16 step, 2^-7, where
+    the output is bf16)."""
+    mass = torch.matmul(x.float().abs(), w.float().abs()) * scale
+    if row is not None:
+        mass = mass * row.reshape(-1, 1)
+    tol = 1e-5 * mass + 1e-6
+    if got.dtype == torch.bfloat16:
+        tol = tol + 2 ** -7 * want.float().abs()
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= tol).all()), float((err / tol).max())
+
+
+@pytest.mark.parametrize('out', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('has_row,has_res', [(False, False), (True, False),
+                                             (False, True), (True, True)])
+@pytest.mark.parametrize('B,D,F', [(128, 2048, 4096), (128, 2048, 2048),
+                                   (128, 5632, 2048), (1, 256, 128),
+                                   (37, 512, 384), (200, 256, 256)])
+def test_qmm_int8_kernel_vs_plain(cuda, B, D, F, has_row, has_res, out):
+    from ppq_tpu_torch.kernels import qmm_int8, qmm_int8_plain
+    x, w, scale, row, res = _qmm_inputs(cuda, B, D, F, seed=B + F)
+    row, res = (row if has_row else None), (res if has_res else None)
+    reset_launches()
+    got = qmm_int8(x, w, scale, out_dtype=out, row_scale=row, residual=res)
+    assert LAUNCHES['qmm_int8'] == 1 and sum(LAUNCHES.values()) == 1
+    want = qmm_int8_plain(x, w, scale, out_dtype=torch.float32,
+                          row_scale=row, residual=res)
+    torch.cuda.synchronize()
+    assert got.dtype == out and tuple(got.shape) == (B, F)
+    _assert_sum_close(got, want, x, w, scale, row)
+
+
+def test_qmm_int8_kernel_f32_residual_and_lm_head_width(cuda):
+    from ppq_tpu_torch.kernels import qmm_int8, qmm_int8_plain
+    x, w, scale, row, res = _qmm_inputs(cuda, 128, 2048, 32768, seed=1)
+    got = qmm_int8(x, w, scale, row_scale=row)
+    want = qmm_int8_plain(x, w, scale, torch.float32, row_scale=row)
+    _assert_sum_close(got, want, x, w, scale, row)
+    x, w, scale, row, res = _qmm_inputs(cuda, 16, 256, 256, seed=2)
+    got = qmm_int8(x, w, scale, torch.float32, residual=res.float())
+    want = qmm_int8_plain(x, w, scale, torch.float32, residual=res.float())
+    _assert_sum_close(got, want, x, w, scale, None)
+
+
+@pytest.mark.parametrize('out', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('has_row', [False, True])
+@pytest.mark.parametrize('B,D,F', [(128, 2048, 5632), (3, 256, 128),
+                                   (130, 512, 256)])
+def test_qmm_gateup_kernel_vs_plain(cuda, B, D, F, has_row, out):
+    """silu(g) * u has derivative of order 1 in g and u, so the sums'
+    tolerance carries over: 1e-5 of (mass_g * |u| + mass_u * |g|) scaled by
+    at most 1.1 (the slope of silu), plus a bf16 step for a bf16 output."""
+    from ppq_tpu_torch.kernels import qmm_gateup, qmm_gateup_plain
+    x, w, scale, row, _ = _qmm_inputs(cuda, B, D, 2 * F, seed=B + F)
+    row = row if has_row else None
+    reset_launches()
+    got = qmm_gateup(x, w, scale, out_dtype=out, row_scale=row)
+    assert LAUNCHES['qmm_gateup'] == 1 and sum(LAUNCHES.values()) == 1
+    want = qmm_gateup_plain(x, w, scale, torch.float32, row_scale=row)
+    torch.cuda.synchronize()
+    both = torch.matmul(x.float(), w.float()) * scale
+    mass = torch.matmul(x.float().abs(), w.float().abs()) * scale
+    if row is not None:
+        both, mass = both * row.reshape(-1, 1), mass * row.reshape(-1, 1)
+    tol = 1.1e-5 * (mass[:, :F] * both[:, F:].abs()
+                    + mass[:, F:] * both[:, :F].abs()) + 1e-6
+    if out == torch.bfloat16:
+        tol = tol + 2 ** -7 * want.abs()
+    err = (got.float() - want).abs()
+    assert got.dtype == out and tuple(got.shape) == (B, F)
+    assert bool((err <= tol).all()), float((err / tol).max())
+
+
+@pytest.mark.parametrize('dtype', [torch.int8, torch.bfloat16],
+                         ids=['int8', 'bf16'])
+@pytest.mark.parametrize('n_arrays,B,CH,KV,Dh', [(32, 128, 32, 8, 128),
+                                                 (3, 5, 7, 1, 128),
+                                                 (130, 2, 3, 1, 128)])
+def test_bank_write_kernel_bit_equal(cuda, n_arrays, B, CH, KV, Dh, dtype):
+    from ppq_tpu_torch.kernels import (Bank, bank_write_inplace,
+                                       bank_write_plain)
+    gen = torch.Generator(device=cuda).manual_seed(n_arrays)
+
+    def codes(shape):
+        t = torch.randint(-128, 128, shape, device=cuda, generator=gen)
+        return t.to(dtype)
+
+    whole = [codes((B, 2 * CH, KV, Dh)) for _ in range(n_arrays)]
+    want = [t.clone() for t in whole]
+    news = [codes((B, 1, KV, Dh)) for _ in range(n_arrays)]
+    for col in (0, CH - 1, 2):
+        # the second half of each buffer, as the burst's chunk views are
+        views = [t[:, CH:] for t in whole]
+        reset_launches()
+        got = bank_write_inplace(
+            Bank(views), news,
+            torch.tensor([col], dtype=torch.int32, device=cuda))
+        assert LAUNCHES['bank_write'] == -(-n_arrays // 128)
+        bank_write_plain(Bank([t[:, CH:] for t in want]), news, col)
+        torch.cuda.synchronize()
+        assert all(g is v for g, v in zip(got, views))
+        for a, b in zip(whole, want):
+            assert torch.equal(a, b)
+    host_col = bank_write_inplace(Bank([t[:, :CH] for t in whole]), news, 1)
+    bank_write_plain(Bank([t[:, :CH] for t in want]), news, 1)
+    assert all(torch.equal(a, b) for a, b in zip(whole, want)) and host_col
+
+
+@pytest.mark.parametrize('dtype', [torch.int8, torch.bfloat16],
+                         ids=['int8', 'bf16'])
+@pytest.mark.parametrize('L,B,S,n,KV,Dh', [(16, 128, 64, 32, 8, 128),
+                                           (2, 3, 16, 5, 1, 128),
+                                           (1, 4, 8, 8, 2, 256)])
+def test_window_write_kernel_bit_equal(cuda, L, B, S, n, KV, Dh, dtype):
+    from ppq_tpu_torch.kernels import (window_write_inplace,
+                                       window_write_plain)
+    gen = torch.Generator(device=cuda).manual_seed(L + S)
+
+    def codes(shape):
+        t = torch.randint(-128, 128, shape, device=cuda, generator=gen)
+        return t.to(dtype)
+
+    slabs = [codes((L, B, S, KV, Dh)) for _ in range(2)]
+    want = [t.clone() for t in slabs]
+    news = [codes((L, B, n, KV, Dh)) for _ in range(2)]
+    pos = torch.randint(0, S - n + 1, (B,), device=cuda, generator=gen,
+                        dtype=torch.int32)
+    reset_launches()
+    got = window_write_inplace(slabs, news, pos)
+    assert LAUNCHES['window_write'] == 1 and sum(LAUNCHES.values()) == 1
+    window_write_plain(want, news, pos)
+    torch.cuda.synchronize()
+    assert all(g is s for g, s in zip(got, slabs))
+    for a, b in zip(slabs, want):
+        assert torch.equal(a, b)
+
+
+def test_serving_kernels_refuse_what_they_do_not_take(cuda):
+    from ppq_tpu_torch.kernels import (Bank, bank_write_inplace, qmm_gateup,
+                                       qmm_int8, window_write_inplace)
+    x, w, scale, _, _ = _qmm_inputs(cuda, 4, 128, 128, seed=0)
+    with pytest.raises(ValueError):
+        qmm_int8(x, w, scale)                           # D % 256
+    with pytest.raises(TypeError):
+        qmm_int8(x, w.float(), scale)
+    with pytest.raises(ValueError):
+        qmm_gateup(x, w, scale)
+    buf = torch.zeros(2, 4, 1, 32, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        bank_write_inplace(Bank([buf]), [buf[:, :1].float()], 0)
+    with pytest.raises(ValueError, match='outside'):
+        bank_write_inplace(Bank([buf]), [buf[:, :1].contiguous()], 4)
+    x, w, scale, _, _ = _qmm_inputs(cuda, 4, 256, 128, seed=0)
+    odd = torch.ones(129, device=cuda)[1:]             # 4 bytes past 16
+    with pytest.raises(ValueError, match='aligned'):
+        qmm_int8(x, w, odd)
+    x, w, scale, _, _ = _qmm_inputs(cuda, 4, 256, 256, seed=0)
+    with pytest.raises(ValueError, match='aligned'):
+        qmm_gateup(x, w, torch.ones(257, device=cuda)[1:])
+    slab = torch.zeros(1, 2, 8, 1, 128, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        window_write_inplace([slab], [slab[:, :, :4].contiguous()],
+                             torch.zeros(2, dtype=torch.int64, device=cuda))
+
+
+def test_serving_engine_on_the_card(cuda):
+    """The engine runs on the card by default, through the four kernels; a
+    burst equals the same engine on the plain versions within the logits'
+    tolerance (greedy tokens compared where they are not near-ties: at
+    least 90 % equal)."""
+    from ppq_tpu_torch.serving import (LlamaConfig, Request, ServingEngine,
+                                       init_llama_params)
+    cfg = LlamaConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=2,
+                      n_kv_heads=1, d_ff=512, max_seq_len=128, max_batch=4,
+                      prefill_buckets=(16,), use_ragged_attention=False)
+    engine = ServingEngine(cfg, init_llama_params(cfg, seed=0))
+    assert engine.device.type == 'cuda' and cfg.use_kernel_matmul is True
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, [int(t) for t in rng.integers(1, 512, size=5 + i)],
+                    max_new_tokens=9) for i in range(6)]
+    reset_launches()
+    engine.run(reqs, sync_every=4)
+    assert all(r.done and len(r.generated) == 9 for r in reqs)
+    for name in ('qmm_int8', 'qmm_gateup', 'bank_write', 'window_write'):
+        assert LAUNCHES[name] > 0, name
+
+
+def test_serving_engine_raises_without_a_card_or_for_unported_settings():
+    """Runs with or without a card: device='cpu' is the only way onto the
+    CPU, and settings whose path is not ported raise."""
+    from ppq_tpu_torch.serving import (LlamaConfig, ServingEngine,
+                                       init_llama_params)
+    small = dict(vocab_size=256, d_model=128, n_layers=1, n_heads=4,
+                 n_kv_heads=2, d_ff=256, max_seq_len=64, max_batch=2,
+                 prefill_buckets=(16,))
+    params = init_llama_params(LlamaConfig(**small), device='cpu')
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            ServingEngine(LlamaConfig(**small), params)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            init_llama_params(LlamaConfig(**small))
+    for field, value in (('use_ragged_attention', True), ('paged_kv', True),
+                         ('weight_bits', 4)):
+        cfg = LlamaConfig(**small)
+        setattr(cfg, field, value)
+        with pytest.raises(NotImplementedError, match='ROADMAP'):
+            ServingEngine(cfg, params, device='cpu')

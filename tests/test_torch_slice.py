@@ -38,6 +38,18 @@ SHAPE = [2, 3, 32, 32]
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One PyTorch thread for this module: with more, every convolution
+    opens an OpenMP region whose workers spin at its barriers, and under a
+    test run of several processes that stalls this module and takes the
+    cores from the others. What is checked does not depend on it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _loader():
     rng = np.random.RandomState(0)
     return [rng.randn(*SHAPE).astype(np.float32) for _ in range(2)]

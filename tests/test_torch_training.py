@@ -47,6 +47,18 @@ from ppq_tpu_torch.zoo import tiny_cnn as torch_tiny_cnn
 SHAPE = (2, 3, 16, 16)
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One PyTorch thread for this module: with more, every convolution
+    opens an OpenMP region whose workers spin at its barriers, and under a
+    test run of several processes that stalls this module and takes the
+    cores from the others. What is checked does not depend on it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _loader():
     rng = np.random.RandomState(5)
     return [rng.randn(*SHAPE).astype(np.float32) for _ in range(4)]
