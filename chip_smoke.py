@@ -27,12 +27,22 @@ Phases (each raises on failure, and the script then exits non-zero):
      through `manop`;
   7. path D: the serving engine at the full width of the 1B Llama-class
      model (16 layers, d_model 2048, INT8 weights, INT8 KV cache, 128
-     slots): `run` over 160 seeded requests in two waves, with a chunked
-     prefill, eos stops and per-request sampling; `benchmark_decode` at fill
-     16 and 512; then, outside the counts, a burst against the same steps
-     taken one by one, the kernel path against the plain versions, and a
-     torch.profiler window over one burst;
-  8. launches: every kernel ran on a path (the counts are set to 0 before
+     slots) with the dense cache read (`use_ragged_attention=False`): `run`
+     over 160 seeded requests in two waves, with a chunked prefill, eos
+     stops and per-request sampling; `benchmark_decode` at fill 16 and 512;
+     then, outside the counts, a burst against the same steps taken one by
+     one, the kernel path against the plain versions, and a torch.profiler
+     window over one burst;
+  8. path E: the engine's default configuration on the same weights: the
+     ragged read through the paged-attention kernels (grouped at fill 16,
+     per slot at fill 512), `run` and `benchmark_decode` as in D; then the
+     ragged burst against D's dense burst, the kernel path against the plain
+     path, every launch against its plain version, the profile and the
+     window repack's device time;
+  9. path F: INT4 weights (an INT8 lm_head), ragged read, 128 slots:
+     `benchmark_decode` at fill 16 and 512, a short `run`, the kernel path
+     against the plain path and every launch against its plain version;
+ 10. launches: every kernel ran on a path (the counts are set to 0 before
      each path and read after it); then, outside the counts, the time and
      the launches of an LSQ step block by block on the INT8 and the FP8
      graph, and torch.profiler breakdowns of the forward and of the first
@@ -85,8 +95,15 @@ KERNELS = {
     'floating_quant_bwd': ('ppq_tpu_torch/csrc/floating.cu',
                            'ppq_tpu/kernels/floating.py:126'),
     'qmm_int8': ('ppq_tpu_torch/csrc/qmm.cu', 'ppq_tpu/kernels/qmm.py:142'),
-    # the INT8 body; the INT4 body is not ported yet
+    'qmm_int4': ('ppq_tpu_torch/csrc/qmm.cu', 'ppq_tpu/kernels/qmm.py:249'),
+    # the INT8 body and the INT4 body of one TPU kernel
     'qmm_gateup': ('ppq_tpu_torch/csrc/qmm.cu', 'ppq_tpu/kernels/qmm.py:351'),
+    'qmm_gateup_int4': ('ppq_tpu_torch/csrc/qmm.cu',
+                        'ppq_tpu/kernels/qmm.py:351'),
+    'paged_attention_fused': ('ppq_tpu_torch/csrc/paged_attention.cu',
+                              'ppq_tpu/kernels/paged_attention.py:323'),
+    'paged_attention_grouped': ('ppq_tpu_torch/csrc/paged_attention.cu',
+                                'ppq_tpu/kernels/paged_attention.py:629'),
     'bank_write': ('ppq_tpu_torch/csrc/kv_write.cu',
                    'ppq_tpu/kernels/bank_write.py:81'),
     'window_write': ('ppq_tpu_torch/csrc/kv_write.cu',
@@ -116,6 +133,21 @@ SERVE_REQUESTS, SERVE_SYNC, BURST = 160, 16, 32
 SERVE_LOGIT_TOL, SERVE_CODE_SHARE_FIRST = 3e-2, 1e-3
 SERVE_KERNEL_VS_PLAIN = dict(code_share=0.5, code_step=6)
 SERVE_BURST_VS_STEPS = dict(code_share=0.1, code_step=4)
+# path E holds the ragged read against the dense read under the kernel-vs-
+# plain limits: both attend over the same codes, but p rounds to bf16
+# against the running block max in one and as a normalised probability in
+# the other, which is the same order of bf16 noise
+SERVE_RAGGED_VS_DENSE = SERVE_KERNEL_VS_PLAIN
+# path F's run: fewer requests (its decode is timed by benchmark_decode)
+INT4_REQUESTS = 48
+# the serving kernels of each path, and nothing else
+PATH_KERNELS = {
+    'D': ('qmm_int8', 'qmm_gateup', 'bank_write', 'window_write'),
+    'E': ('qmm_int8', 'qmm_gateup', 'bank_write', 'window_write',
+          'paged_attention_fused', 'paged_attention_grouped'),
+    'F': ('qmm_int8', 'qmm_int4', 'qmm_gateup_int4', 'bank_write',
+          'window_write', 'paged_attention_fused', 'paged_attention_grouped'),
+}
 
 
 def log(*args):
@@ -262,6 +294,8 @@ def phase_kernels(dev):
     del act, weight
     torch.cuda.empty_cache()
     results.update(kernels_serving(dev, flush))
+    results.update(kernels_int4(dev, flush))
+    results.update(kernels_ragged(dev, flush))
     for name, r in results.items():
         lib = ('none' if r['library_ms'] is None
                else f'{r["library_ms"]:.4f} ms')
@@ -635,18 +669,339 @@ def kernels_serving(dev, flush):
     return results
 
 
+def kernels_int4(dev, flush):
+    """Row 9 and row 10's INT4 body at path F's shapes (128 slots): the
+    weights split-half packed, held against their plain versions (the
+    nibbles unpacked, then row 8's and row 10's arithmetic) with rows 8 and
+    10's tolerances on the unpacked weight."""
+    from ppq_tpu_torch.kernels import (pack_int4_splithalf, qmm_gateup,
+                                       qmm_gateup_plain, qmm_int4,
+                                       qmm_int4_plain, unpack_int4_splithalf)
+    B, D, Fq, Fh = 128, SERVE['d_model'], 4096, SERVE['d_ff']
+    gen = torch.Generator(device=dev).manual_seed(4)
+    bf16 = torch.bfloat16
+    results = {}
+
+    def weight(d, f):
+        codes = torch.randint(-8, 8, (d, f), device=dev, generator=gen,
+                              dtype=torch.int8)
+        return (codes, pack_int4_splithalf(codes),
+                torch.rand(f, device=dev, generator=gen) * 0.01 + 0.001)
+
+    variants = {}
+    worst = 0.0
+    for label, d, f, has_row, has_res in (
+            ('wqkv row_scale', D, Fq, True, False),
+            ('wo residual', D, D, False, True),
+            ('w_down residual', Fh, D, False, True)):
+        x = torch.randn(B, d, device=dev, generator=gen).to(bf16)
+        codes, w, scale = weight(d, f)
+        row = torch.rand(B, device=dev, generator=gen) + 0.5 if has_row else None
+        res = torch.randn(B, f, device=dev, generator=gen).to(bf16) if has_res else None
+        want = qmm_int4_plain(x, w, scale, torch.float32, row, res)
+        tol, _ = _qmm_tolerance(x, codes, scale, row)
+        for out in (torch.float32, bf16):
+            got = qmm_int4(x, w, scale, out, row, res)
+            err = (got.float() - want).abs()
+            lim = tol + (_bf16_step(want) if out == bf16 else 0.0)
+            if not bool((err <= lim).all()):
+                raise AssertionError(f'qmm_int4 {label} {out}: off by up to '
+                                     f'{float((err / lim).max()):.2f} of the tolerance')
+            if out == torch.float32 and float(err.max()) >= worst:
+                worst, worst_of = float(err.max()), float(want.flatten()[err.argmax()])
+
+        def library():
+            out = torch.matmul(x, unpack_int4_splithalf(w).to(bf16)).float() * scale
+            if row is not None:
+                out = out * row.reshape(-1, 1)
+            if res is not None:
+                out = out + res
+            return out.to(bf16)
+
+        moved = d // 2 * f + 2 * B * d + 4 * f + 2 * B * f \
+            + (4 * B if has_row else 0) + (2 * B * f if has_res else 0)
+        b, by = bound_ms(moved, 2.0 * B * d * f, BF16_OPS_PER_S)
+        variants[label] = dict(
+            shape=[B, d, f], bound_ms=b, bound_by=by,
+            ms=time_ms(lambda: qmm_int4(x, w, scale, bf16, row, res), flush),
+            plain_ms=time_ms(lambda: qmm_int4_plain(x, w, scale, bf16, row, res),
+                             flush),
+            # yardstick, several calls: unpack, to bf16, matmul, epilogue
+            library_ms=time_ms(library, flush))
+        log(f'[kernel] qmm_int4 {label}: {json.dumps(variants[label])}')
+        del x, codes, w, scale, row, res, want, tol
+    results['qmm_int4'] = dict(max_abs_err=worst, variants=variants,
+                               **variants['wqkv row_scale'])
+    log(f'[kernel] qmm_int4 largest f32 error {worst:.3e} on an output of '
+        f'{worst_of:.3e}')
+
+    x = torch.randn(B, D, device=dev, generator=gen).to(bf16)
+    codes, w, scale = weight(D, 2 * Fh)
+    row = torch.rand(B, device=dev, generator=gen) + 0.5
+    worst = 0.0
+    for r in (row, None):
+        want = qmm_gateup_plain(x, w, scale, torch.float32, r)
+        tol = _gateup_tolerance(x, codes, scale, r)
+        for out in (torch.float32, bf16):
+            got = qmm_gateup(x, w, scale, out, r)
+            err = (got.float() - want).abs()
+            lim = tol + (_bf16_step(want) if out == bf16 else 0.0)
+            if not bool((err <= lim).all()):
+                raise AssertionError(f'qmm_gateup INT4 {out}: off by up to '
+                                     f'{float((err / lim).max()):.2f} of the tolerance')
+            if out == torch.float32 and float(err.max()) >= worst:
+                worst, worst_of = float(err.max()), float(want.flatten()[err.argmax()])
+        del want, tol
+    log(f'[kernel] qmm_gateup_int4 largest f32 error {worst:.3e} on an output '
+        f'of {worst_of:.3e}')
+
+    def library_gateup():
+        both = torch.matmul(x, unpack_int4_splithalf(w).to(bf16)).float() \
+            * scale * row.reshape(-1, 1)
+        return (torch.nn.functional.silu(both[:, :Fh]) * both[:, Fh:]).to(bf16)
+
+    moved = D // 2 * 2 * Fh + 2 * B * D + 8 * Fh + 4 * B + 2 * B * Fh
+    b, by = bound_ms(moved, 2.0 * B * D * 2 * Fh, BF16_OPS_PER_S)
+    results['qmm_gateup_int4'] = dict(
+        max_abs_err=worst, shape=[B, D, 2 * Fh], bound_ms=b, bound_by=by,
+        ms=time_ms(lambda: qmm_gateup(x, w, scale, bf16, row), flush),
+        plain_ms=time_ms(lambda: qmm_gateup_plain(x, w, scale, bf16, row), flush),
+        # yardstick, several calls: unpack, to bf16, matmul, scales, silu, mul
+        library_ms=time_ms(library_gateup, flush))
+    del x, codes, w, scale, row
+    torch.cuda.empty_cache()
+    return results
+
+
+def _attention_tolerance(got, want, q, k, v, ks, vs, lens):
+    """Rows 11 and 12 against their plain versions on the same inputs.
+    s sums Dh exact bf16 x code products in another order: delta = 2e-5 of
+    its absolute mass sum |q||k| k_scale / sqrt(Dh) (m's tolerance); p moves
+    by 2 delta relative; l sums n values of p in another order (l (4 delta
+    + 2 n 2^-24)); acc sums p v_scale rounded to bf16 times v, where a p
+    that moved may round to the neighbouring bf16 number: sum |p vs v| (2^-7
+    + 4 delta + 2 n 2^-24). k, v: the slots' (B, S, KV, Dh); ks, vs
+    (B, S, KV) or None. Raises past the tolerance; returns the worst share
+    of it, and the largest |acc| difference."""
+    B, KV, rep, Dh = q.shape
+    S = k.shape[1]
+    qf = q.float()
+    kss = torch.ones(k.shape[:3], device=q.device) if ks is None else ks
+    vss = torch.ones(k.shape[:3], device=q.device) if vs is None else vs
+    lens = lens.long().clamp(0, S)
+    valid = (torch.arange(S, device=q.device)[None] < lens[:, None])[:, None, None, :]
+    inv = 1.0 / np.sqrt(Dh)
+    kt = kss.transpose(1, 2)[:, :, None]
+    s = torch.einsum('bkrd,bskd->bkrs', qf, k.float()) * kt * inv
+    mass = torch.einsum('bkrd,bskd->bkrs', qf.abs(), k.float().abs()) * kt * inv
+    s = torch.where(valid, s, -torch.inf)
+    m_ref = s.amax(-1).clamp_min(-1e30)
+    p = torch.where(valid, torch.exp(s - m_ref[..., None]), 0.0)
+    del s
+    n = lens.float()[:, None, None]
+    delta = 2e-5 * torch.where(valid, mass, 0.0).amax(-1) + 1e-6
+    del mass
+    summ = 2 * n * 2.0 ** -24
+    acc_mass = torch.einsum('bkrs,bskd->bkrd', p * vss.transpose(1, 2)[:, :, None],
+                            v.float().abs())
+    (ga, gm, gl), (wa, wm, wl) = got, want
+    shares = [float(((gm - wm).abs() / delta).max()),
+              float(((gl - wl).abs() / (wl * (4 * delta + summ) + 1e-30)).max()),
+              float(((ga - wa).abs() / (acc_mass * (2.0 ** -7 + 4 * delta[..., None]
+                                                    + summ[..., None]) + 1e-6)).max())]
+    empty = lens == 0
+    if max(shares) > 1.0 or not bool((ga[empty] == 0).all()) \
+            or not bool((gl[empty] == 0).all()):
+        raise AssertionError(f'paged attention off its plain version: shares '
+                             f'of the tolerance (m, l, acc) {shares}')
+    return max(shares), float((ga - wa).abs().max())
+
+
+def _dense_slots(pool, scale, layer, B, tables=None):
+    """The slots' dense (B, S, KV, Dh) k and v and (B, S, KV) scales behind a
+    fused pool read through `tables`, or a block-major window (tables
+    None)."""
+    pool = pool[layer]
+    scale = None if scale is None else scale[layer]
+    NB, _, BLK, KVDh = pool.shape
+    if tables is None:
+        MB = NB // B
+        blocks = pool.view(MB, B, 2, BLK, KVDh).transpose(0, 1)
+        sc = None if scale is None else \
+            scale[..., :BLK].reshape(MB, B, 2, -1, BLK).transpose(0, 1)
+    else:
+        MB = tables.shape[1]
+        blocks = pool[tables.long()]
+        sc = None if scale is None else scale[tables.long()]
+    KV = KVDh // 128
+    k = blocks[:, :, 0].reshape(B, MB * BLK, KV, 128)
+    v = blocks[:, :, 1].reshape(B, MB * BLK, KV, 128)
+    if sc is None:
+        return k, v, None, None
+    ks = sc[:, :, 0].transpose(-1, -2).reshape(B, MB * BLK, KV)
+    vs = sc[:, :, 1].transpose(-1, -2).reshape(B, MB * BLK, KV)
+    return k, v, ks, vs
+
+
+def _attention_bound(lens, q, pool, tables_cols=0):
+    """Bytes: every filled position's K and V head rows and their scales,
+    read once; q read, (acc, m, l) written once; the fills and tables.
+    Operations: 4 rep Dh a position and KV head, at the bf16 rate."""
+    B, KV, rep, Dh = q.shape
+    tokens = float(lens.long().sum())
+    moved = tokens * (2 * KV * Dh * pool.element_size() + 2 * KV * 4) \
+        + B * KV * rep * Dh * 2 + B * KV * rep * (Dh + 2) * 4 + 4 * B \
+        + 4 * B * tables_cols
+    return bound_ms(moved, tokens * KV * rep * Dh * 4.0, BF16_OPS_PER_S)
+
+
+def kernels_ragged(dev, flush):
+    """Rows 11 and 12 at path E's shapes: 128 slots, 16 layers, 8 KV heads
+    of 128, the int8 cache of max_seq_len 1024. Row 11 at fill 512 (window
+    512, one 512-position block a slot, the layout `burst_forward` repacks
+    for the per-slot kernel); row 12 at fill 16 (window 32, blocks of 32,
+    groups of 32). Each against its plain version at the path's fills and
+    at mixed fills; the library column is the dense read that path D does
+    for one layer at the same fill (upcast, two products and softmax:
+    several calls). Also the repack of the window, per burst."""
+    from ppq_tpu_torch.kernels import (blockmajor_window, grouped_group_size,
+                                       identity_block_tables,
+                                       paged_attention_decode_fused,
+                                       paged_attention_decode_fused_plain,
+                                       paged_attention_decode_grouped,
+                                       paged_attention_decode_grouped_plain,
+                                       read_faults, slotmajor_window)
+    from ppq_tpu_torch.serving.model import _pv_context, _qk_logits
+    B, L, KV, S = SERVE['max_batch'], SERVE['n_layers'], SERVE['n_kv_heads'], SERVE['max_seq_len']
+    rep, Dh = SERVE['n_heads'] // KV, SERVE['d_model'] // SERVE['n_heads']
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cache = {key: torch.randint(-128, 128, (L, B, S, KV, Dh), device=dev,
+                                generator=gen, dtype=torch.int8)
+             for key in ('k', 'v')}
+    for key in ('k_scale', 'v_scale'):
+        cache[key] = torch.rand(L, B, S, KV, device=dev, generator=gen) * 0.02 + 0.001
+    q = torch.randn(B, KV, rep, Dh, device=dev, generator=gen).bfloat16()
+    layer = L // 2
+    results = {}
+    read_faults(dev)
+
+    def dense_read(fill, bucket):
+        """Path D's frozen-cache read for one layer (without its in-burst
+        part): codes upcast, logits, softmax, the context product."""
+        lens = torch.full((B,), fill, dtype=torch.int32, device=dev)
+        q5 = q[:, None]
+        mask = (torch.arange(bucket, device=dev)[None, None, None, :]
+                < lens[:, None, None, None])
+
+        def run():
+            lf = _qk_logits(q5, cache['k'][layer][:, :bucket])[:, :, :, 0, :]
+            lf = lf * cache['k_scale'][layer][:, :bucket].transpose(1, 2)[:, :, None, :]
+            lf = torch.where(mask, lf / np.sqrt(Dh), -1e30)
+            pf = torch.softmax(lf, dim=-1) \
+                * cache['v_scale'][layer][:, :bucket].transpose(1, 2)[:, :, None, :]
+            return _pv_context(pf[:, :, :, None, :], cache['v'][layer][:, :bucket])
+        return time_ms(run, flush)
+
+    # row 11: fill 512 takes the per-slot kernel, one block of 512
+    cap, blk = 512, 512
+    repack_fused = time_ms(lambda: slotmajor_window(
+        cache['k'], cache['v'], cache['k_scale'], cache['v_scale'], cap, blk), flush)
+    pool, sc = slotmajor_window(cache['k'], cache['v'], cache['k_scale'],
+                                cache['v_scale'], cap, blk)
+    tables = identity_block_tables(B, cap, blk, dev)
+    path_lens = torch.full((B,), 512, dtype=torch.int32, device=dev)
+    mixed = torch.randint(0, cap + 1, (B,), device=dev, generator=gen,
+                          dtype=torch.int32)
+    mixed[::9] = 0
+    worst = 0.0
+    dense = _dense_slots(pool, sc, layer, B, tables)
+    for lens in (path_lens, mixed):
+        got = paged_attention_decode_fused(q, pool, sc, tables, lens, layer,
+                                           block_size=blk)
+        want = paged_attention_decode_fused_plain(q, pool, sc, tables, lens,
+                                                  layer, block_size=blk)
+        share, err = _attention_tolerance(got, want, q, *dense, lens)
+        worst = max(worst, err)
+        log(f'[kernel] paged_attention_fused: worst share of the tolerance '
+            f'{share:.3f}, largest |acc| difference {err:.3e}')
+    b, by = _attention_bound(path_lens, q, pool, tables.shape[1])
+    results['paged_attention_fused'] = dict(
+        max_abs_err=worst, shape=[B, KV, rep, Dh, L, B * cap // blk, blk],
+        fill=512, bound_ms=b, bound_by=by, repack_ms_per_burst=repack_fused,
+        ms=time_ms(lambda: paged_attention_decode_fused(
+            q, pool, sc, tables, path_lens, layer, block_size=blk), flush),
+        plain_ms=time_ms(lambda: paged_attention_decode_fused_plain(
+            q, pool, sc, tables, path_lens, layer, block_size=blk), flush),
+        # yardstick, several calls: path D's dense read of one layer
+        library_ms=dense_read(512, 512))
+    del pool, sc, dense
+
+    # row 12: fill 16 takes the grouped kernel, window 32, blocks of 32
+    cap = blk = 32
+    G = grouped_group_size(B, blk, kv_dh=KV * Dh, itemsize=1)
+    repack_grouped = time_ms(lambda: blockmajor_window(
+        cache['k'], cache['v'], cache['k_scale'], cache['v_scale'], cap, blk), flush)
+    kv_bm, sc_bm = blockmajor_window(cache['k'], cache['v'], cache['k_scale'],
+                                     cache['v_scale'], cap, blk)
+    path_lens = torch.full((B,), 16, dtype=torch.int32, device=dev)
+    mixed = torch.randint(0, cap + 1, (B,), device=dev, generator=gen,
+                          dtype=torch.int32)
+    mixed[::5] = 0
+    worst = 0.0
+    dense = _dense_slots(kv_bm, sc_bm, layer, B)
+    for lens in (path_lens, mixed):
+        got = paged_attention_decode_grouped(q, kv_bm, sc_bm, lens, layer,
+                                             block_size=blk, group=G)
+        want = paged_attention_decode_grouped_plain(q, kv_bm, sc_bm, lens,
+                                                    layer, block_size=blk,
+                                                    group=G)
+        share, err = _attention_tolerance(got, want, q, *dense, lens)
+        worst = max(worst, err)
+        log(f'[kernel] paged_attention_grouped: worst share of the tolerance '
+            f'{share:.3f}, largest |acc| difference {err:.3e}')
+    b, by = _attention_bound(path_lens, q, kv_bm)
+    results['paged_attention_grouped'] = dict(
+        max_abs_err=worst, shape=[B, KV, rep, Dh, L, B * cap // blk, blk],
+        fill=16, group=G, bound_ms=b, bound_by=by,
+        repack_ms_per_burst=repack_grouped,
+        ms=time_ms(lambda: paged_attention_decode_grouped(
+            q, kv_bm, sc_bm, path_lens, layer, block_size=blk, group=G), flush),
+        plain_ms=time_ms(lambda: paged_attention_decode_grouped_plain(
+            q, kv_bm, sc_bm, path_lens, layer, block_size=blk, group=G), flush),
+        library_ms=dense_read(16, 32))
+    faults = read_faults(dev)
+    if faults:
+        raise AssertionError(f'the kernels reported faults: {faults}')
+    log(f'[kernel] window repack (16 layers, 128 slots) per burst: '
+        f'{repack_fused:.4f} ms at window 512 (per-slot layout), '
+        f'{repack_grouped:.4f} ms at window 32 (block-major)')
+    log('[kernel] rows 9 and 10 INT4 within rows 8 and 10\'s tolerances on '
+        'the unpacked weight; rows 11 and 12 within the attention tolerance '
+        '(2e-5 of the logits\' mass; one bf16 step of p v_scale)')
+    del cache, kv_bm, sc_bm, dense, q
+    torch.cuda.empty_cache()
+    return results
+
+
 class _PlainKernels:
     """Send the serving model through the kernels' plain versions on the
     card: the model looks its kernels up in their modules at call time."""
 
     def __enter__(self):
-        from ppq_tpu_torch.kernels import bank_write, qmm, window_write
+        from ppq_tpu_torch.kernels import (bank_write, paged_attention, qmm,
+                                           window_write)
+        pa = paged_attention
         self.saved = [(qmm, 'qmm_int8', qmm.qmm_int8_plain),
+                      (qmm, 'qmm_int4', qmm.qmm_int4_plain),
                       (qmm, 'qmm_gateup', qmm.qmm_gateup_plain),
                       (bank_write, 'bank_write_inplace',
                        bank_write.bank_write_plain),
                       (window_write, 'window_write_inplace',
-                       window_write.window_write_plain)]
+                       window_write.window_write_plain),
+                      (pa, 'paged_attention_decode_fused',
+                       pa.paged_attention_decode_fused_plain),
+                      (pa, 'paged_attention_decode_grouped',
+                       pa.paged_attention_decode_grouped_plain)]
         self.saved = [(mod, name, getattr(mod, name), plain)
                       for mod, name, plain in self.saved]
         for mod, name, _, plain in self.saved:
@@ -659,17 +1014,20 @@ class _PlainKernels:
 
 
 class _ShadowKernels:
-    """The witness for path D's loose KV-code limit: the model runs on the
-    kernels, and every launch is also held against its plain version on that
-    launch's own inputs. Given the same inputs, rows 8 and 10 must stay
-    within their tolerance in every layer, the K (before the rotation) and V
-    codes quantized from both wqkv results must differ on at most
-    SERVE_CODE_SHARE_FIRST of entries in every layer, and rows 14 and 15 must
-    be bit-equal. What the full comparison shows beyond that in the later
-    layers is then carried by the residual stream, not made there."""
+    """The witness for the serving paths' loose KV-code limit: the model runs
+    on the kernels, and every launch is also held against its plain version
+    on that launch's own inputs. Given the same inputs, rows 8, 9 and 10
+    must stay within their tolerance in every layer, the K (before the
+    rotation) and V codes quantized from both wqkv results must differ on at
+    most SERVE_CODE_SHARE_FIRST of entries in every layer, rows 11 and 12
+    must stay within the attention tolerance (`_attention_tolerance`), and
+    rows 14 and 15 must be bit-equal. What the full comparison shows beyond
+    that in the later layers is then carried by the residual stream, not
+    made there."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, tag='D'):
         self.cfg = cfg
+        self.tag = tag
         self.kv_from = cfg.n_heads * cfg.head_dim
         self.qkv_width = (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
         self.stats = {}
@@ -681,8 +1039,8 @@ class _ShadowKernels:
         lim = tol + (_bf16_step(want) if got.dtype == torch.bfloat16 else 0.0)
         ratio = float((err / lim).max())
         if ratio > 1.0:
-            raise AssertionError(f'path D, {name} on the path\'s own inputs: '
-                                 f'off by {ratio:.2f} of the tolerance')
+            raise AssertionError(f'path {self.tag}, {name} on the path\'s own '
+                                 f'inputs: off by {ratio:.2f} of the tolerance')
         entry = self.stats.setdefault(name, dict(
             launches=0, worst_share_of_tolerance=0.0,
             outputs_rounded_differently=0.0))
@@ -692,30 +1050,88 @@ class _ShadowKernels:
         entry['outputs_rounded_differently'] += float(
             (got != want.to(got.dtype)).float().mean())
 
+    def _codes(self, got, want, F, row_scale):
+        """The K and V codes of a wqkv result and of its plain version."""
+        from ppq_tpu_torch.serving.model import _kv_quant
+        if F == self.qkv_width and row_scale is not None:
+            heads = (got.shape[0], 1, 2 * self.cfg.n_kv_heads, self.cfg.head_dim)
+            a, _ = _kv_quant(got[:, self.kv_from:].reshape(heads))
+            b, _ = _kv_quant(want.to(got.dtype)[:, self.kv_from:].reshape(heads))
+            self.code_share.append(float((a != b).float().mean()))
+
     def qmm_int8(self, x, w_int, scale, out_dtype=torch.bfloat16,
                  row_scale=None, residual=None):
         from ppq_tpu_torch.kernels.qmm import qmm_int8_plain
-        from ppq_tpu_torch.serving.model import _kv_quant
         got = self.kernels['qmm_int8'](x, w_int, scale, out_dtype, row_scale,
                                        residual)
         want = qmm_int8_plain(x, w_int, scale, torch.float32, row_scale, residual)
         tol, _ = _qmm_tolerance(x.bfloat16(), w_int, scale, row_scale, residual)
         D, F = w_int.shape
         self._hold(f'qmm_int8 {D}x{F}', got, want, tol)
-        if F == self.qkv_width and row_scale is not None:
-            heads = (x.shape[0], 1, 2 * self.cfg.n_kv_heads, self.cfg.head_dim)
-            a, _ = _kv_quant(got[:, self.kv_from:].reshape(heads))
-            b, _ = _kv_quant(want.to(got.dtype)[:, self.kv_from:].reshape(heads))
-            self.code_share.append(float((a != b).float().mean()))
+        self._codes(got, want, F, row_scale)
+        return got
+
+    def qmm_int4(self, x, w_packed, scale, out_dtype=torch.bfloat16,
+                 row_scale=None, residual=None):
+        from ppq_tpu_torch.kernels.qmm import (qmm_int4_plain,
+                                               unpack_int4_splithalf)
+        got = self.kernels['qmm_int4'](x, w_packed, scale, out_dtype,
+                                       row_scale, residual)
+        want = qmm_int4_plain(x, w_packed, scale, torch.float32, row_scale,
+                              residual)
+        tol, _ = _qmm_tolerance(x.bfloat16(), unpack_int4_splithalf(w_packed),
+                                scale, row_scale, residual)
+        Dp, F = w_packed.shape
+        self._hold(f'qmm_int4 {2 * Dp}x{F}', got, want, tol)
+        self._codes(got, want, F, row_scale)
         return got
 
     def qmm_gateup(self, x, w_int, scale, out_dtype=torch.bfloat16,
                    row_scale=None):
-        from ppq_tpu_torch.kernels.qmm import qmm_gateup_plain
+        from ppq_tpu_torch.kernels.qmm import (qmm_gateup_plain,
+                                               unpack_int4_splithalf)
         got = self.kernels['qmm_gateup'](x, w_int, scale, out_dtype, row_scale)
         want = qmm_gateup_plain(x, w_int, scale, torch.float32, row_scale)
-        self._hold('qmm_gateup', got, want,
-                   _gateup_tolerance(x.bfloat16(), w_int, scale, row_scale))
+        int4 = w_int.shape[0] * 2 == x.shape[1]
+        w = unpack_int4_splithalf(w_int) if int4 else w_int
+        self._hold('qmm_gateup_int4' if int4 else 'qmm_gateup', got, want,
+                   _gateup_tolerance(x.bfloat16(), w, scale, row_scale))
+        return got
+
+    def _attention(self, name, q, got, want, dense, seq_lens):
+        ratio, _ = _attention_tolerance(got, want, q, *dense, seq_lens)
+        entry = self.stats.setdefault(name, dict(
+            launches=0, worst_share_of_tolerance=0.0))
+        entry['launches'] += 1
+        entry['worst_share_of_tolerance'] = max(
+            entry['worst_share_of_tolerance'], ratio)
+
+    def paged_attention_decode_fused(self, q, kv_pool, kv_scale, block_tables,
+                                     seq_lens, layer=None, *, block_size=128):
+        from ppq_tpu_torch.kernels import paged_attention_decode_fused_plain
+        got = self.kernels['paged_attention_decode_fused'](
+            q, kv_pool, kv_scale, block_tables, seq_lens, layer,
+            block_size=block_size)
+        want = paged_attention_decode_fused_plain(
+            q, kv_pool, kv_scale, block_tables, seq_lens, layer,
+            block_size=block_size)
+        self._attention('paged_attention_fused', q, got, want,
+                        _dense_slots(kv_pool, kv_scale, layer, q.shape[0],
+                                     block_tables), seq_lens)
+        return got
+
+    def paged_attention_decode_grouped(self, q, kv_bm, sc_bm, seq_lens,
+                                       layer=None, *, block_size, group):
+        from ppq_tpu_torch.kernels import paged_attention_decode_grouped_plain
+        got = self.kernels['paged_attention_decode_grouped'](
+            q, kv_bm, sc_bm, seq_lens, layer, block_size=block_size,
+            group=group)
+        want = paged_attention_decode_grouped_plain(
+            q, kv_bm, sc_bm, seq_lens, layer, block_size=block_size,
+            group=group)
+        self._attention('paged_attention_grouped', q, got, want,
+                        _dense_slots(kv_bm, sc_bm, layer, q.shape[0]),
+                        seq_lens)
         return got
 
     def bank_write_inplace(self, bank, news, col):
@@ -724,8 +1140,8 @@ class _ShadowKernels:
         got = self.kernels['bank_write_inplace'](bank, news, col)
         bank_write_plain(want, news, col)
         if not all(torch.equal(a, b) for a, b in zip(got, want.bufs)):
-            raise AssertionError('path D: bank_write != plain on the path\'s '
-                                 'own inputs')
+            raise AssertionError(f'path {self.tag}: bank_write != plain on '
+                                 f'the path\'s own inputs')
         self.copies['bank_write'] += 1
         return got
 
@@ -735,16 +1151,19 @@ class _ShadowKernels:
         got = self.kernels['window_write_inplace'](slabs, news, write_pos)
         window_write_plain(want, news, write_pos)
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
-            raise AssertionError('path D: window_write != plain on the path\'s '
-                                 'own inputs')
+            raise AssertionError(f'path {self.tag}: window_write != plain on '
+                                 f'the path\'s own inputs')
         self.copies['window_write'] += 1
         return got
 
     def __enter__(self):
-        from ppq_tpu_torch.kernels import bank_write, qmm, window_write
-        self.modules = dict(qmm_int8=qmm, qmm_gateup=qmm,
+        from ppq_tpu_torch.kernels import (bank_write, paged_attention, qmm,
+                                           window_write)
+        self.modules = dict(qmm_int8=qmm, qmm_int4=qmm, qmm_gateup=qmm,
                             bank_write_inplace=bank_write,
-                            window_write_inplace=window_write)
+                            window_write_inplace=window_write,
+                            paged_attention_decode_fused=paged_attention,
+                            paged_attention_decode_grouped=paged_attention)
         self.kernels = {name: getattr(mod, name)
                         for name, mod in self.modules.items()}
         for name, mod in self.modules.items():
@@ -760,20 +1179,21 @@ class _ShadowKernels:
         L = self.cfg.n_layers
         if len(self.code_share) != L * steps or not all(self.copies.values()):
             raise AssertionError(
-                f'path D witness: {len(self.code_share)} wqkv launches for '
-                f'{L} layers x {steps} steps, copies {self.copies}')
+                f'path {self.tag} witness: {len(self.code_share)} wqkv launches '
+                f'for {L} layers x {steps} steps, copies {self.copies}')
         by_layer = [max(self.code_share[li::L]) for li in range(L)]
         for entry in self.stats.values():
-            entry['outputs_rounded_differently'] /= entry['launches']
+            if 'outputs_rounded_differently' in entry:
+                entry['outputs_rounded_differently'] /= entry['launches']
         summary = dict(
             steps=steps, kernels=self.stats, copies_bit_equal=self.copies,
             kv_codes_differing_share_by_layer=[round(v, 6) for v in by_layer],
             limit=SERVE_CODE_SHARE_FIRST)
-        log(f'[path D] every launch against its plain version on the same '
-            f'inputs: {json.dumps(summary)}')
+        log(f'[path {self.tag}] every launch against its plain version on the '
+            f'same inputs: {json.dumps(summary)}')
         if max(by_layer) > SERVE_CODE_SHARE_FIRST:
-            raise AssertionError('path D witness: a layer\'s own KV codes '
-                                 'differ beyond the first layer\'s limit')
+            raise AssertionError(f'path {self.tag} witness: a layer\'s own KV '
+                                 f'codes differ beyond the first layer\'s limit')
         return summary
 
 
@@ -795,7 +1215,8 @@ def _serve_requests(vocab):
     return reqs
 
 
-def _teacher_forced(engine, cache, cur, seq, forced, n_per_burst):
+def _teacher_forced(engine, cache, cur, seq, forced, n_per_burst,
+                    ragged=False, prefer_grouped=True):
     """Decode len(forced) steps from `cache` in bursts of n_per_burst, each
     step fed forced[i] whatever its logits say. Returns the per-step logits
     (on the card) and the cache."""
@@ -812,12 +1233,13 @@ def _teacher_forced(engine, cache, cur, seq, forced, n_per_burst):
             burst_forward(engine.params, cache,
                           cur if start == 0 else forced[start - 1],
                           seq + start, n_per_burst, cfg, select,
-                          s_limit=engine._decode_bucket(int(seq.max()) + len(forced)))
+                          s_limit=engine._decode_bucket(int(seq.max()) + len(forced)),
+                          ragged=ragged, prefer_grouped=prefer_grouped)
     return seen, cache
 
 
 def _hold_against(tag, logits_a, toks_a, cache_a, logits_b, cache_b, fills, n,
-                  code_share, code_step):
+                  code_share, code_step, path='D'):
     """Run b (teacher-forced with run a's tokens) against run a: logits
     within SERVE_LOGIT_TOL of the largest |logit|; b's argmax equal to a's
     token wherever a's top-1 margin exceeds that tolerance; the rows of the
@@ -854,65 +1276,62 @@ def _hold_against(tag, logits_a, toks_a, cache_a, logits_b, cache_b, fills, n,
                    limits=dict(logits=SERVE_LOGIT_TOL,
                                code_share_first_layer=SERVE_CODE_SHARE_FIRST,
                                code_share=code_share, code_step=code_step))
-    log(f'[path D] {tag}: {json.dumps(summary)}')
+    log(f'[path {path}] {tag}: {json.dumps(summary)}')
     if worst > SERVE_LOGIT_TOL or margin_flips or step > code_step \
             or by_layer[0] > SERVE_CODE_SHARE_FIRST \
             or max(by_layer) > code_share:
-        raise AssertionError(f'path D {tag}: beyond tolerance')
+        raise AssertionError(f'path {path} {tag}: beyond tolerance')
     return summary
 
 
-def phase_path_d(dev):
-    """The serving engine at full width: run, benchmark_decode, then the
-    comparisons and the profile outside the launch counts."""
-    from ppq_tpu_torch.kernels import LAUNCHES, reset_launches
-    from ppq_tpu_torch.serving import (LlamaConfig, ServingEngine,
-                                       init_llama_params)
-    from ppq_tpu_torch.serving.model import burst_forward, forward
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    cfg = LlamaConfig(**SERVE)
-    # this slice reads the frozen cache with the dense product; the ragged
-    # paged-attention kernels are not ported yet
-    cfg.use_ragged_attention = False
-    reset_launches()
-    t0 = time.perf_counter()
-    params = init_llama_params(cfg, seed=0)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+def _serve_engine(tag, cfg, params):
+    """The engine on the card, with the kernel matmuls and the folded
+    norms on, and the bytes of its weights and KV cache."""
+    from ppq_tpu_torch.serving import ServingEngine
     engine = ServingEngine(cfg, params)
-    del params
     if not (cfg.use_kernel_matmul and cfg.norm_folded):
-        raise AssertionError('path D: the kernel matmuls or the folded norms '
-                             'are off')
+        raise AssertionError(f'path {tag}: the kernel matmuls or the folded '
+                             f'norms are off')
     weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(engine.params))
     cache_bytes = sum(t.numel() * t.element_size() for t in engine.cache.values())
+    return engine, weight_bytes, cache_bytes
 
-    # (1) run: two waves, chunked prefill, eos, per-request sampling
-    reqs = _serve_requests(cfg.vocab_size)
+
+def _serve_run(tag, engine, reqs):
+    """`run` over the requests: every one done within its budget, tokens in
+    the vocabulary, eos respected. Returns its seconds and tokens."""
+    vocab = engine.cfg.vocab_size
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     engine.run(reqs, sync_every=SERVE_SYNC)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches_run = dict(LAUNCHES)
     generated = 0
     for r in reqs:
         toks = r.generated
         if not r.done or not 1 <= len(toks) <= r.max_new_tokens:
-            raise AssertionError(f'request {r.rid}: done={r.done}, '
+            raise AssertionError(f'path {tag} request {r.rid}: done={r.done}, '
                                  f'{len(toks)} of {r.max_new_tokens} tokens')
-        if not all(0 <= t < cfg.vocab_size for t in toks):
-            raise AssertionError(f'request {r.rid}: a token outside the vocabulary')
+        if not all(0 <= t < vocab for t in toks):
+            raise AssertionError(f'path {tag} request {r.rid}: a token outside '
+                                 f'the vocabulary')
         if r.eos_id is not None and r.eos_id in toks[:-1]:
-            raise AssertionError(f'request {r.rid} ran past its eos')
+            raise AssertionError(f'path {tag} request {r.rid} ran past its eos')
         if r.eos_id is None and len(toks) != r.max_new_tokens:
-            raise AssertionError(f'request {r.rid} stopped early without an eos')
+            raise AssertionError(f'path {tag} request {r.rid} stopped early '
+                                 f'without an eos')
         generated += len(toks)
     if any(r is not None for r in engine.slot_req):
-        raise AssertionError('path D: a slot is still taken after run')
+        raise AssertionError(f'path {tag}: a slot is still taken after run')
+    return dict(run_s=run_s, requests=len(reqs),
+                requests_per_s=len(reqs) / run_s, generated_tokens=generated,
+                generated_tokens_per_s=generated / run_s, sync_every=SERVE_SYNC)
 
-    # (4) benchmark_decode at a near-empty and a half-full cache
+
+def _serve_decode(engine):
+    """benchmark_decode at a near-empty and a half-full cache, with the
+    launches of each fill per decode step."""
+    from ppq_tpu_torch.kernels import LAUNCHES
     decode = {}
     for fill in (16, 512):
         before = dict(LAUNCHES)
@@ -925,11 +1344,13 @@ def phase_path_d(dev):
             k: (LAUNCHES[k] - v) / steps for k, v in before.items()
             if LAUNCHES[k] != v}
         decode[f'fill_{fill}'] = result
-    launches = dict(LAUNCHES)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    # what the host pays to enqueue one small PyTorch operation: 2000
-    # in-place adds on 8 floats, which the card finishes faster than the host
-    # enqueues them
+    return decode
+
+
+def _host_us(dev):
+    """What the host pays to enqueue one small PyTorch operation: 2000
+    in-place adds on 8 floats, which the card finishes faster than the host
+    enqueues them."""
     tiny = torch.zeros(8, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -937,9 +1358,17 @@ def phase_path_d(dev):
         tiny.add_(1.0)
     host_us = (time.perf_counter() - t0) / 2000 * 1e6
     torch.cuda.synchronize()
+    return host_us
 
-    # ---- comparisons and the profile: these launches are not the path's --
-    B, T, n = cfg.max_batch, cfg.prefill_buckets[0], 8
+
+def _forced_start(tag, engine, dev, n, ragged=False, prefer_grouped=True):
+    """The comparisons' start: a 128-token prefill of every slot, fills 8 to
+    120, and a greedy burst of n steps from there. Returns the cache before
+    the burst, the first token, the fills, and the burst's logits, tokens
+    and cache."""
+    from ppq_tpu_torch.serving.model import burst_forward, forward
+    cfg = engine.cfg
+    B, T = cfg.max_batch, cfg.prefill_buckets[0]
     rng = np.random.default_rng(1)
     prompts = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(B, T)),
                               dtype=torch.int32, device=dev)
@@ -953,7 +1382,7 @@ def phase_path_d(dev):
             torch.zeros(B, dtype=torch.int32, device=dev),
             torch.full((B,), T, dtype=torch.int32, device=dev), cfg)
     if tuple(logits.shape) != (B, T, cfg.vocab_size) or not torch.isfinite(logits).all():
-        raise AssertionError('path D: prefill logits not finite or misshapen')
+        raise AssertionError(f'path {tag}: prefill logits not finite or misshapen')
     cur = torch.gather(logits.argmax(-1), 1, (fills.long() - 1)[:, None])[:, 0] \
         .to(torch.int32)
     del logits
@@ -967,7 +1396,79 @@ def phase_path_d(dev):
 
     with torch.no_grad():
         burst_forward(engine.params, cache_a, cur, fills, n, cfg, greedy,
-                      s_limit=engine._decode_bucket(int(fills.max()) + n))
+                      s_limit=engine._decode_bucket(int(fills.max()) + n),
+                      ragged=ragged, prefer_grouped=prefer_grouped)
+    return start, cur, fills, logits_a, toks_a, cache_a
+
+
+def _kernel_vs_plain(tag, engine, start, cur, fills, logits_a, toks_a,
+                     cache_a, n, ragged=False, prefer_grouped=True):
+    """The same teacher-forced steps through the kernels' plain versions."""
+    from ppq_tpu_torch.kernels import LAUNCHES
+    cache_c = {k: v.clone() for k, v in start.items()}
+    before = dict(LAUNCHES)
+    with _PlainKernels():
+        logits_c, _ = _teacher_forced(engine, cache_c, cur, fills, toks_a, n,
+                                      ragged, prefer_grouped)
+    if LAUNCHES != before:
+        raise AssertionError(f'path {tag}: the plain path launched a kernel')
+    return _hold_against('kernel path against plain path', logits_a, toks_a,
+                         cache_a, logits_c, cache_c, fills, n,
+                         **SERVE_KERNEL_VS_PLAIN, path=tag)
+
+
+def _witness(tag, engine, start, cur, fills, toks, n, ragged=False,
+             prefer_grouped=True):
+    """Every launch of n teacher-forced steps against its plain version on
+    that launch's own inputs (_ShadowKernels)."""
+    cache_d = {k: v.clone() for k, v in start.items()}
+    with _ShadowKernels(engine.cfg, tag) as shadow:
+        _teacher_forced(engine, cache_d, cur, fills, toks[:n], n, ragged,
+                        prefer_grouped)
+    return shadow.report(n)
+
+
+def _check_path_kernels(tag, launches):
+    """The path launched each of its serving kernels and no other kernel."""
+    mine = PATH_KERNELS[tag]
+    if any(launches[k] <= 0 for k in mine) or any(
+            launches[k] for k in launches if k not in mine):
+        raise AssertionError(f'path {tag} did not run exactly its kernels '
+                             f'{mine}: {launches}')
+
+
+def phase_path_d(dev):
+    """The serving engine at full width with the dense cache read: run,
+    benchmark_decode, then the comparisons and the profile outside the
+    launch counts. Returns the raw parameters too (path E reuses them)."""
+    from ppq_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ppq_tpu_torch.serving import LlamaConfig, init_llama_params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = LlamaConfig(**SERVE)
+    # the dense read of the frozen cache (the engine's default on a card is
+    # the ragged read, path E)
+    cfg.use_ragged_attention = False
+    reset_launches()
+    t0 = time.perf_counter()
+    params = init_llama_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine, weight_bytes, cache_bytes = _serve_engine('D', cfg, params)
+
+    # (1) run: two waves, chunked prefill, eos, per-request sampling
+    reqs = _serve_requests(cfg.vocab_size)
+    run = _serve_run('D', engine, reqs)
+    launches_run = dict(LAUNCHES)
+    # (4) benchmark_decode at a near-empty and a half-full cache
+    decode = _serve_decode(engine)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    host_us = _host_us(dev)
+
+    # ---- comparisons and the profile: these launches are not the path's --
+    n = 8
+    start, cur, fills, logits_a, toks_a, cache_a = _forced_start('D', engine, dev, n)
     # (2) the burst against the same steps taken one by one
     cache_b = {k: v.clone() for k, v in start.items()}
     logits_b, _ = _teacher_forced(engine, cache_b, cur, fills, toks_a, 1)
@@ -976,37 +1477,168 @@ def phase_path_d(dev):
                                    **SERVE_BURST_VS_STEPS)
     del cache_b, logits_b
     # (3) the kernel path against the plain versions
-    cache_c = {k: v.clone() for k, v in start.items()}
-    before = dict(LAUNCHES)
-    with _PlainKernels():
-        logits_c, _ = _teacher_forced(engine, cache_c, cur, fills, toks_a, n)
-    if LAUNCHES != before:
-        raise AssertionError('path D: the plain path launched a kernel')
-    kernel_vs_plain = _hold_against('kernel path against plain path', logits_a,
-                                    toks_a, cache_a, logits_c, cache_c, fills, n,
-                                    **SERVE_KERNEL_VS_PLAIN)
+    kernel_vs_plain = _kernel_vs_plain('D', engine, start, cur, fills,
+                                       logits_a, toks_a, cache_a, n)
     # the witness: every launch of the real path against its plain version
     # on the launch's own inputs
-    cache_d = {k: v.clone() for k, v in start.items()}
-    with _ShadowKernels(cfg) as shadow:
-        _teacher_forced(engine, cache_d, cur, fills, toks_a, n)
-    same_inputs = shadow.report(n)
-    del cache_a, cache_c, cache_d, start, logits_a, logits_c
+    same_inputs = _witness('D', engine, start, cur, fills, toks_a, n)
+    del cache_a, start, logits_a
     torch.cuda.empty_cache()
-    for fill in (16, 512):
-        _profile_burst(engine, fill)
+    profile = {f'fill_{fill}': _profile_burst(engine, fill) for fill in (16, 512)}
 
     summary = dict(
         model=SERVE, weights_gib=weight_bytes / 2 ** 30,
-        kv_cache_gib=cache_bytes / 2 ** 30, init_params_s=init_s,
-        run_s=run_s, requests=len(reqs), requests_per_s=len(reqs) / run_s,
-        generated_tokens=generated, generated_tokens_per_s=generated / run_s,
-        sync_every=SERVE_SYNC, launches_in_run=launches_run, decode=decode,
+        kv_cache_gib=cache_bytes / 2 ** 30, init_params_s=init_s, **run,
+        launches_in_run=launches_run, decode=decode,
         host_us_per_small_launch=host_us,
         burst_vs_steps=burst_vs_steps, kernel_vs_plain=kernel_vs_plain,
-        kernel_vs_plain_on_the_same_inputs=same_inputs,
+        kernel_vs_plain_on_the_same_inputs=same_inputs, profile=profile,
         peak_mem_gib_run_and_decode=peak)
     log(f'[path D] {json.dumps(summary)}')
+    del engine
+    torch.cuda.empty_cache()
+    return launches, summary, params
+
+
+def phase_path_e(dev, params):
+    """The engine's default configuration on the card, on path D's weights:
+    `use_ragged_attention` left None must resolve to True. run and
+    benchmark_decode as in D, the kernel of each fill checked; then, outside
+    the counts, the ragged burst against the dense burst on the same cache,
+    the kernel path against the plain path, every launch against its plain
+    version (the gate's grouped kernel over 8 steps, the per-slot kernel
+    over 2), and the profile of each fill."""
+    from ppq_tpu_torch.kernels import LAUNCHES, read_faults, reset_launches
+    from ppq_tpu_torch.serving import LlamaConfig
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = LlamaConfig(**SERVE)
+    reset_launches()
+    engine, weight_bytes, cache_bytes = _serve_engine('E', cfg, params)
+    if cfg.use_ragged_attention is not True:
+        raise AssertionError('path E: use_ragged_attention did not resolve to '
+                             'True on the card')
+    reqs = _serve_requests(cfg.vocab_size)
+    run = _serve_run('E', engine, reqs)
+    launches_run = dict(LAUNCHES)
+    decode = _serve_decode(engine)
+    for fill, used, unused in ((16, 'paged_attention_grouped',
+                                'paged_attention_fused'),
+                               (512, 'paged_attention_fused',
+                                'paged_attention_grouped')):
+        per_step = decode[f'fill_{fill}']['launches_per_step']
+        if per_step.get(used, 0) <= 0 or per_step.get(unused, 0):
+            raise AssertionError(f'path E fill {fill}: expected {used} and not '
+                                 f'{unused}, got {per_step}')
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    faults = read_faults(dev)
+    if faults:
+        raise AssertionError(f'path E: the kernels reported faults: {faults}')
+    host_us = _host_us(dev)
+
+    n = 8
+    B = cfg.max_batch
+    rng = np.random.default_rng(1)
+    rng.integers(1, cfg.vocab_size, size=(B, cfg.prefill_buckets[0]))
+    host_fills = [int(f) for f in rng.integers(8, 121, size=B)]
+    bucket = engine._decode_bucket(max(host_fills) + n)
+    grouped = engine._grouped_gate(host_fills, n, bucket)
+    start, cur, fills, logits_a, toks_a, cache_a = _forced_start(
+        'E', engine, dev, n, ragged=True, prefer_grouped=grouped)
+    if fills.tolist() != host_fills:
+        raise AssertionError('path E: the comparisons\' fills moved')
+    cache_b = {k: v.clone() for k, v in start.items()}
+    logits_b, _ = _teacher_forced(engine, cache_b, cur, fills, toks_a, n,
+                                  ragged=False)
+    ragged_vs_dense = _hold_against(
+        'ragged burst against the dense burst', logits_a, toks_a, cache_a,
+        logits_b, cache_b, fills, n, **SERVE_RAGGED_VS_DENSE, path='E')
+    del cache_b, logits_b
+    kernel_vs_plain = _kernel_vs_plain('E', engine, start, cur, fills,
+                                       logits_a, toks_a, cache_a, n,
+                                       ragged=True, prefer_grouped=grouped)
+    same_inputs = _witness('E', engine, start, cur, fills, toks_a, n,
+                           ragged=True, prefer_grouped=grouped)
+    same_inputs_fused = _witness('E', engine, start, cur, fills, toks_a, 2,
+                                 ragged=True, prefer_grouped=False)
+    del cache_a, start, logits_a
+    torch.cuda.empty_cache()
+    profile = {f'fill_{fill}': _profile_burst(engine, fill, tag='E')
+               for fill in (16, 512)}
+    summary = dict(
+        model=SERVE, use_ragged_attention=cfg.use_ragged_attention,
+        weights_gib=weight_bytes / 2 ** 30, kv_cache_gib=cache_bytes / 2 ** 30,
+        **run, launches_in_run=launches_run, decode=decode,
+        host_us_per_small_launch=host_us,
+        comparisons_kernel=('grouped' if grouped else 'fused'),
+        ragged_vs_dense=ragged_vs_dense, kernel_vs_plain=kernel_vs_plain,
+        kernel_vs_plain_on_the_same_inputs=same_inputs,
+        kernel_vs_plain_on_the_same_inputs_fused=same_inputs_fused,
+        profile=profile, peak_mem_gib_run_and_decode=peak)
+    log(f'[path E] {json.dumps(summary)}')
+    del engine
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def phase_path_f(dev):
+    """INT4 weights (an INT8 lm_head), the ragged read, 128 slots: the
+    configuration bench.py serves at weight_bits=4. benchmark_decode at fill
+    16 and 512 and a short run; then, outside the counts, the kernel path
+    against the plain path and every launch against its plain version."""
+    from ppq_tpu_torch.kernels import LAUNCHES, read_faults, reset_launches
+    from ppq_tpu_torch.serving import LlamaConfig, init_llama_params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = LlamaConfig(**dict(SERVE, weight_bits=4))
+    reset_launches()
+    t0 = time.perf_counter()
+    params = init_llama_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine, weight_bytes, cache_bytes = _serve_engine('F', cfg, params)
+    del params
+    if not (cfg.use_ragged_attention and 'w_packed' in engine.params['layers'][0]['wqkv']
+            and 'w_int' in engine.params['lm_head']):
+        raise AssertionError('path F: not INT4 weights with an INT8 lm_head '
+                             'and the ragged read')
+    decode = _serve_decode(engine)
+    reqs = _serve_requests(cfg.vocab_size)[:INT4_REQUESTS]
+    run = _serve_run('F', engine, reqs)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    faults = read_faults(dev)
+    if faults:
+        raise AssertionError(f'path F: the kernels reported faults: {faults}')
+
+    n = 8
+    B = cfg.max_batch
+    rng = np.random.default_rng(1)
+    rng.integers(1, cfg.vocab_size, size=(B, cfg.prefill_buckets[0]))
+    host_fills = [int(f) for f in rng.integers(8, 121, size=B)]
+    grouped = engine._grouped_gate(host_fills, n,
+                                   engine._decode_bucket(max(host_fills) + n))
+    start, cur, fills, logits_a, toks_a, cache_a = _forced_start(
+        'F', engine, dev, n, ragged=True, prefer_grouped=grouped)
+    kernel_vs_plain = _kernel_vs_plain('F', engine, start, cur, fills,
+                                       logits_a, toks_a, cache_a, n,
+                                       ragged=True, prefer_grouped=grouped)
+    same_inputs = _witness('F', engine, start, cur, fills, toks_a, n,
+                           ragged=True, prefer_grouped=grouped)
+    del cache_a, start, logits_a
+    torch.cuda.empty_cache()
+    profile = {f'fill_{fill}': _profile_burst(engine, fill, tag='F')
+               for fill in (16, 512)}
+    summary = dict(
+        model=dict(SERVE, weight_bits=4),
+        lm_head_bits=cfg.resolved_lm_head_bits,
+        weights_gib=weight_bytes / 2 ** 30, kv_cache_gib=cache_bytes / 2 ** 30,
+        init_params_s=init_s, **run, decode=decode,
+        kernel_vs_plain=kernel_vs_plain,
+        kernel_vs_plain_on_the_same_inputs=same_inputs, profile=profile,
+        peak_mem_gib_run_and_decode=peak)
+    log(f'[path F] {json.dumps(summary)}')
     del engine
     torch.cuda.empty_cache()
     return launches, summary
@@ -1023,17 +1655,19 @@ def _leaves(tree):
         yield tree
 
 
-def _profile_burst(engine, fill, n=8):
+def _profile_burst(engine, fill, n=8, tag='D'):
     """Where a decode step's time goes: torch.profiler over one burst of n
     steps at the given cache fill: the device's busy share of the wall time
-    and the top kernels by device time."""
+    and the top kernels by device time. Returns the summary."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     B = engine.cfg.max_batch
     cache = engine._new_cache()
     tokens = torch.zeros((B,), dtype=torch.int32, device=engine.device)
     seq = torch.full((B,), fill, dtype=torch.int32, device=engine.device)
-    fn = engine._build_decode_burst(n, engine._decode_bucket(fill))
+    bucket = engine._decode_bucket(fill)
+    fn = engine._build_decode_burst(
+        n, bucket, grouped=engine._grouped_gate([fill] * B, n, bucket))
     fn(engine.params, cache, tokens, seq)[0].cpu()
     t0 = time.perf_counter()
     fn(engine.params, cache, tokens, seq)[0].cpu()
@@ -1047,15 +1681,16 @@ def _profile_burst(engine, fill, n=8):
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if not rows:
-        log(f'[profile D fill {fill}] the profiler recorded no device time: '
-            f'not measured')
-        return
+        log(f'[profile {tag} fill {fill}] the profiler recorded no device '
+            f'time: not measured')
+        return None
     busy_us = sum(t for _, t, _ in rows)
     ours = {name: sum(t for k, t, _ in rows if pattern in k)
-            for name, pattern in (('qmm (int8 and gate-up)', 'qmm_kernel'),
+            for name, pattern in (('qmm (int8, int4 and gate-up)', 'qmm_kernel'),
+                                  ('paged_attention', 'paged_attention_kernel'),
                                   ('bank_write', 'bank_write_kernel'),
                                   ('window_write', 'window_write_kernel'))}
-    log(f'[profile D fill {fill}] burst of {n}: {unprofiled_ms:.3f} ms/step '
+    log(f'[profile {tag} fill {fill}] burst of {n}: {unprofiled_ms:.3f} ms/step '
         f'unprofiled, {wall_us / n / 1e3:.3f} ms/step under the profiler, '
         f'device busy {busy_us / n / 1e3:.3f} ms/step, busy share of the '
         f'profiled wall time {busy_us / wall_us:.3f}, of the unprofiled step '
@@ -1063,10 +1698,16 @@ def _profile_burst(engine, fill, n=8):
         f'{sum(c for _, _, c in rows) / n:.0f}; the port\'s kernels ms/step '
         f'{json.dumps({k: round(v / n / 1e3, 4) for k, v in ours.items()})}')
     for key, t, count in sorted(rows, key=lambda r: -r[1])[:12]:
-        log(f'[profile D fill {fill}]   {t / n / 1e3:8.3f} ms/step  '
+        log(f'[profile {tag} fill {fill}]   {t / n / 1e3:8.3f} ms/step  '
             f'{count / n:7.1f} calls  {key[:90]}')
     del cache
     torch.cuda.empty_cache()
+    return dict(unprofiled_ms_per_step=unprofiled_ms,
+                device_busy_ms_per_step=busy_us / n / 1e3,
+                busy_share_profiled=busy_us / wall_us,
+                busy_share_unprofiled=busy_us / n / 1e3 / unprofiled_ms,
+                device_events_per_step=sum(c for _, _, c in rows) / n,
+                ours_ms_per_step={k: v / n / 1e3 for k, v in ours.items()})
 
 
 def _plain_delegate(tensor, cfg):
@@ -1614,18 +2255,18 @@ def main() -> int:
     launches_a, _, kl_graph = phase_main_path(dev)
     launches_b, _, lsq_graph, train_loader = phase_path_b(dev, kl_graph)
     launches_c, _, fp8_graph, _ = phase_path_c(dev)
-    launches_d, _ = phase_path_d(dev)
+    launches_d, _, serve_params = phase_path_d(dev)
+    launches_e, _ = phase_path_e(dev, serve_params)
+    del serve_params
+    launches_f, _ = phase_path_f(dev)
+    paths = dict(A=launches_a, B=launches_b, C=launches_c, D=launches_d,
+                 E=launches_e, F=launches_f)
     # each path's counts were set to 0 before it and read just after it
-    launches = {k: launches_a[k] + launches_b[k] + launches_c[k]
-                + launches_d[k] for k in launches_a}
-    log(f'[launches] path A {json.dumps(launches_a)}')
-    log(f'[launches] path B {json.dumps(launches_b)}')
-    log(f'[launches] path C {json.dumps(launches_c)}')
-    log(f'[launches] path D {json.dumps(launches_d)}')
-    serving = ('qmm_int8', 'qmm_gateup', 'bank_write', 'window_write')
-    if any(launches_d[k] <= 0 for k in serving) or any(
-            launches_d[k] for k in launches_d if k not in serving):
-        raise AssertionError('path D did not run exactly its four kernels')
+    launches = {k: sum(p[k] for p in paths.values()) for k in launches_a}
+    for tag, counts in paths.items():
+        log(f'[launches] path {tag} {json.dumps(counts)}')
+    for tag in ('D', 'E', 'F'):
+        _check_path_kernels(tag, paths[tag])
     missing = [k for k in KERNELS if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f'kernels not launched on any path: {missing}')

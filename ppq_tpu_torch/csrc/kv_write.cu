@@ -23,7 +23,11 @@
 // burst) memory-bound.
 //
 // A column or a window that does not fit its destination is skipped, never
-// written out of bounds: the callers guarantee that it fits.
+// written out of bounds, and sets a bit of *fault (4 for a column, 8 for a
+// window) that the caller reads when it chooses (`loader.read_faults`): the
+// callers guarantee that it fits, and a broken guarantee shows there. (The
+// JAX package's TPU kernels do not check: their DMA gets the index as it
+// is.)
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,9 +51,13 @@ struct WindowArgs {
 // dst_slot_vecs vectors between two slots of a destination.
 __global__ void bank_write_kernel(BankArgs args, const int* __restrict__ col,
                                   int CH, int64_t row_vecs,
-                                  int64_t dst_slot_vecs) {
+                                  int64_t dst_slot_vecs, int* fault) {
   const int c = *col;
-  if (c < 0 || c >= CH) return;
+  if (c < 0 || c >= CH) {
+    if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0)
+      atomicOr(fault, 4);
+    return;
+  }
   const int64_t b = blockIdx.x;
   const int4* src = static_cast<const int4*>(args.src[blockIdx.y]) + b * row_vecs;
   int4* dst = static_cast<int4*>(args.dst[blockIdx.y]) + b * dst_slot_vecs +
@@ -60,10 +68,14 @@ __global__ void bank_write_kernel(BankArgs args, const int* __restrict__ col,
 // grid (B, L, arrays); row_vecs 16-byte vectors per cache row.
 __global__ void window_write_kernel(WindowArgs args,
                                     const int* __restrict__ pos, int64_t B,
-                                    int64_t S, int64_t n, int64_t row_vecs) {
+                                    int64_t S, int64_t n, int64_t row_vecs,
+                                    int* fault) {
   const int64_t b = blockIdx.x, l = blockIdx.y;
   const int64_t p = pos[b];
-  if (p < 0 || p + n > S) return;
+  if (p < 0 || p + n > S) {
+    if (l == 0 && blockIdx.z == 0 && threadIdx.x == 0) atomicOr(fault, 8);
+    return;
+  }
   const int4* src = static_cast<const int4*>(args.src[blockIdx.z]) +
                     (l * B + b) * n * row_vecs;
   int4* dst = static_cast<int4*>(args.dst[blockIdx.z]) +
@@ -76,11 +88,12 @@ __global__ void window_write_kernel(WindowArgs args,
 
 // dsts, srcs: host arrays of n_arrays device pointers; col: device int32.
 // row_bytes: bytes of one (slot, column); dst_slot_bytes: bytes between two
-// slots of a destination (CH * row_bytes when it is contiguous).
+// slots of a destination (CH * row_bytes when it is contiguous); fault: one
+// device int32.
 extern "C" int ppq_bank_write(const void* const* dsts, const void* const* srcs,
                               int n_arrays, int64_t B, int64_t CH,
                               int64_t row_bytes, int64_t dst_slot_bytes,
-                              const void* col, void* stream) {
+                              const void* col, void* fault, void* stream) {
   if (n_arrays <= 0 || n_arrays > MAX_BANK || B <= 0 || B > 2147483647 ||
       CH <= 0 || row_bytes <= 0 || row_bytes % 16 != 0 ||
       dst_slot_bytes % 16 != 0)
@@ -95,17 +108,18 @@ extern "C" int ppq_bank_write(const void* const* dsts, const void* const* srcs,
   const dim3 grid((unsigned int)B, (unsigned int)n_arrays);
   bank_write_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       args, static_cast<const int*>(col), (int)CH, row_vecs,
-      dst_slot_bytes / 16);
+      dst_slot_bytes / 16, static_cast<int*>(fault));
   return (int)cudaGetLastError();
 }
 
 // dsts: n_arrays device pointers to (L, B, S, row) arrays; srcs: to
-// (L, B, n, row) arrays, all contiguous; pos: device int32 (B,).
+// (L, B, n, row) arrays, all contiguous; pos: device int32 (B,); fault: one
+// device int32.
 extern "C" int ppq_window_write(const void* const* dsts,
                                 const void* const* srcs, int n_arrays,
                                 int64_t L, int64_t B, int64_t S, int64_t n,
                                 int64_t row_bytes, const void* pos,
-                                void* stream) {
+                                void* fault, void* stream) {
   if (n_arrays <= 0 || n_arrays > MAX_WINDOW || L <= 0 || L > 65535 ||
       B <= 0 || B > 2147483647 || S <= 0 || n <= 0 || row_bytes <= 0 ||
       row_bytes % 16 != 0)
@@ -117,6 +131,7 @@ extern "C" int ppq_window_write(const void* const* dsts,
   }
   const dim3 grid((unsigned int)B, (unsigned int)L, (unsigned int)n_arrays);
   window_write_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      args, static_cast<const int*>(pos), B, S, n, row_bytes / 16);
+      args, static_cast<const int*>(pos), B, S, n, row_bytes / 16,
+      static_cast<int*>(fault));
   return (int)cudaGetLastError();
 }

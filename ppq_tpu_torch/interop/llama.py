@@ -2,8 +2,9 @@
 as numpy arrays.
 
 The JAX package's tree (`embed`, `final_norm`, `lm_head`, `layers[i]` with
-`w_int` / `scale` / `w` leaves, fused or not) maps leaf for leaf onto the
-port's dictionaries of tensors. numpy has no bfloat16: bf16 leaves (`embed`,
+`w_int` / `w_packed` / `scale` / `w` leaves, fused or not) maps leaf for
+leaf onto the port's dictionaries of tensors; a packed INT4 leaf crosses as
+its int8 bytes. numpy has no bfloat16: bf16 leaves (`embed`,
 `w`, a 16-bit cache's `k` / `v`) cross as float32, which holds every bf16
 value exactly, and are rounded back on arrival.
 """

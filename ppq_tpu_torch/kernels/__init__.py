@@ -11,32 +11,54 @@ PyTorch version.
 | floating.pallas_floating_quant (both bodies)  | floating.floating_quant    |
 | floating.pallas_floating_quant_bwd            | floating.floating_quant_bwd|
 | qmm.qmm_int8                                  | qmm.qmm_int8               |
-| qmm.qmm_gateup (INT8 body)                    | qmm.qmm_gateup             |
+| qmm.qmm_int4                                  | qmm.qmm_int4               |
+| qmm.qmm_gateup (INT8 and INT4 bodies)         | qmm.qmm_gateup             |
+| paged_attention.paged_attention_decode_fused  | paged_attention.paged_attention_decode_fused |
+| paged_attention.paged_attention_decode_grouped | paged_attention.paged_attention_decode_grouped |
 | bank_write.bank_write_inplace                 | bank_write.bank_write_inplace |
 | window_write.window_write_inplace             | window_write.window_write_inplace |
 
 The kernels are built by `loader.build()` at first use; a wrapper given a
 CPU tensor runs the plain version, a CUDA tensor launches the kernel or
-raises.
+raises. Inputs that only the card can check (a device-side column, fill or
+table row out of range) set a bit of the device's fault word, which
+`read_faults` reads.
 """
 
-from .loader import LAUNCHES, build, reset_launches
+from .loader import LAUNCHES, build, read_faults, reset_launches
 from .histogram import histogram, histogram_plain
 from .quant import (linear_quant, linear_quant_bwd, linear_quant_bwd_plain,
                     linear_quant_plain)
 from .floating import (floating_quant, floating_quant_bwd,
                        floating_quant_bwd_plain, floating_quant_plain)
-from .qmm import qmm_gateup, qmm_gateup_plain, qmm_int8, qmm_int8_plain
+from .qmm import (pack_int4_splithalf, qmm_gateup, qmm_gateup_plain,
+                  qmm_int4, qmm_int4_plain, qmm_int8, qmm_int8_plain,
+                  unpack_int4_splithalf)
+from .paged_attention import (blockmajor_window, grouped_group_size,
+                              identity_block_tables, merge_attention,
+                              paged_attention_decode_fused,
+                              paged_attention_decode_fused_plain,
+                              paged_attention_decode_grouped,
+                              paged_attention_decode_grouped_plain,
+                              paged_attention_reference, slotmajor_window)
 from .bank_write import (Bank, bank_write_inplace, bank_write_plain,
                          supports_bank)
 from .window_write import (supports_dense, window_write_inplace,
                            window_write_plain)
 
-__all__ = ['LAUNCHES', 'build', 'reset_launches', 'histogram',
+__all__ = ['LAUNCHES', 'build', 'read_faults', 'reset_launches', 'histogram',
            'histogram_plain', 'linear_quant', 'linear_quant_plain',
            'linear_quant_bwd', 'linear_quant_bwd_plain', 'floating_quant',
            'floating_quant_plain', 'floating_quant_bwd',
            'floating_quant_bwd_plain', 'qmm_int8', 'qmm_int8_plain',
-           'qmm_gateup', 'qmm_gateup_plain', 'bank_write_inplace',
+           'qmm_gateup', 'qmm_gateup_plain', 'qmm_int4', 'qmm_int4_plain',
+           'pack_int4_splithalf', 'unpack_int4_splithalf',
+           'paged_attention_decode_fused',
+           'paged_attention_decode_fused_plain',
+           'paged_attention_decode_grouped',
+           'paged_attention_decode_grouped_plain',
+           'paged_attention_reference', 'blockmajor_window',
+           'slotmajor_window', 'identity_block_tables', 'grouped_group_size',
+           'merge_attention', 'bank_write_inplace',
            'bank_write_plain', 'supports_bank', 'Bank', 'window_write_inplace',
            'window_write_plain', 'supports_dense']

@@ -12,8 +12,10 @@ stride; the trailing three dimensions dense); they are wrapped in a `Bank`,
 which checks them once. news are (B, 1, KV, Dh); col is a Python int or a
 one-element int32 tensor on the buffers' device, which the kernel reads
 there. The caller guarantees 0 <= col < CH: a device-side col cannot be
-checked without a host read, and the kernel writes nothing for a column
-outside the buffers. The buffers are updated in place and handed back.
+checked without a host read, so the kernel writes nothing for a column
+outside the buffers and sets a bit of the device's fault word, which
+`loader.read_faults` reads (tests and `chip_smoke.py` do). The buffers are
+updated in place and handed back.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from typing import Sequence, Tuple
 
 import torch
 
-from .loader import LAUNCHES, check, library, pointer_array, stream_of
+from .loader import (LAUNCHES, check, fault_word, library, pointer_array,
+                     stream_of)
 
 # pointers that fit one launch's arguments (csrc/kv_write.cu MAX_BANK)
 MAX_ARRAYS = 128
@@ -64,6 +67,7 @@ class Bank:
         if self.row_bytes % 16 or self.slot_bytes % 16:
             raise ValueError(f'bank_write moves 16-byte vectors: a row of '
                              f'{self.row_bytes} bytes does not divide')
+        self.fault = fault_word(first.device)
         self.parts = [(pointer_array(self.bufs[at:at + MAX_ARRAYS]), at,
                        len(self.bufs[at:at + MAX_ARRAYS]))
                       for at in range(0, len(self.bufs), MAX_ARRAYS)]
@@ -123,7 +127,8 @@ def bank_write_inplace(bank: Bank, news: Sequence[torch.Tensor],
             srcs = (ctypes.c_void_p * count)(*pointers[at:at + count])
             rc = lib.ppq_bank_write(dsts, srcs, count, bank.B, bank.CH,
                                     bank.row_bytes, bank.slot_bytes,
-                                    col.data_ptr(), stream)
+                                    col.data_ptr(),
+                                    bank.fault.data_ptr(), stream)
             check(rc, 'bank_write')
             LAUNCHES['bank_write'] += 1
     return bank.bufs

@@ -75,12 +75,20 @@ LIBRARIES: Dict[str, tuple] = {
             [_P, _P, _P, _P, _P, _INT, _P, _INT, _I64, _I64, _I64, _INT, _P],
         'ppq_qmm_gateup':
             [_P, _P, _P, _P, _P, _INT, _I64, _I64, _I64, _INT, _P],
+        'ppq_qmm_int4':
+            [_P, _P, _P, _P, _P, _INT, _P, _INT, _I64, _I64, _I64, _INT, _P],
+        'ppq_qmm_gateup_int4':
+            [_P, _P, _P, _P, _P, _INT, _I64, _I64, _I64, _INT, _P],
     }, []),
     'kv_write': ('kv_write.cu', {
         'ppq_bank_write':
-            [_P, _P, _INT, _I64, _I64, _I64, _I64, _P, _P],
+            [_P, _P, _INT, _I64, _I64, _I64, _I64, _P, _P, _P],
         'ppq_window_write':
-            [_P, _P, _INT, _I64, _I64, _I64, _I64, _I64, _P, _P],
+            [_P, _P, _INT, _I64, _I64, _I64, _I64, _I64, _P, _P, _P],
+    }, []),
+    'paged_attention': ('paged_attention.cu', {
+        'ppq_paged_attention':
+            [_P] * 9 + [_INT] + [_I64] * 9 + [_F, _P],
     }, []),
 }
 
@@ -95,6 +103,10 @@ LAUNCHES: Dict[str, int] = {
     'floating_quant_bwd': 0,
     'qmm_int8': 0,
     'qmm_gateup': 0,
+    'qmm_int4': 0,
+    'qmm_gateup_int4': 0,
+    'paged_attention_fused': 0,
+    'paged_attention_grouped': 0,
     'bank_write': 0,
     'window_write': 0,
 }
@@ -178,6 +190,45 @@ def library(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             _loaded[name] = lib
         return lib
+
+
+# bits of the fault word: inputs a kernel was given that it must not be
+# given, found on the card (where checking them would cost a host read)
+FAULTS = {
+    1: 'paged attention: a seq_lens entry outside [0, blocks * block size]',
+    2: 'paged attention: a block-table row outside the pool',
+    4: 'bank_write: a column outside the buffers',
+    8: 'window_write: a window outside the slab',
+}
+_fault_words: Dict[torch.device, torch.Tensor] = {}
+
+
+def fault_word(device) -> torch.Tensor:
+    """The device's fault word: one int32 that kernels OR their fault bits
+    into. Allocated at first use; nothing reads it but read_faults."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    with _lock:
+        word = _fault_words.get(device)
+        if word is None:
+            word = torch.zeros(1, dtype=torch.int32, device=device)
+            _fault_words[device] = word
+        return word
+
+
+def read_faults(device=None, reset: bool = True) -> List[str]:
+    """What the kernels on `device` (every device used, if None) reported
+    since the last reset, as FAULTS' descriptions; empty when all inputs were
+    in range. Reads the card (a synchronisation)."""
+    words = [fault_word(device)] if device is not None \
+        else list(_fault_words.values())
+    bits = 0
+    for word in words:
+        bits |= int(word.item())
+        if reset:
+            word.zero_()
+    return [text for bit, text in FAULTS.items() if bits & bit]
 
 
 def check(rc: int, what: str) -> None:

@@ -1,24 +1,28 @@
-"""Fused dequant-matmul for weight-only INT8 serving: the CUDA kernels'
-wrappers and their plain versions.
+"""Fused dequant-matmul for weight-only INT8 and INT4 serving: the CUDA
+kernels' wrappers and their plain versions.
 
 Counterpart of ppq_tpu/kernels/qmm.py `qmm_int8` (`_qmm8_kernel`,
-`_mk_qmm8_ex`) and `qmm_gateup` (INT8 body, `_qmm8_gu_kernel`). The kernels
-are `ppq_tpu_torch/csrc/qmm.cu`; its source says what bounds them on the
-card and how the design meets that.
+`_mk_qmm8_ex`), `qmm_int4` (`_mk_qmm4_ex`) and `qmm_gateup` (both bodies,
+`_qmm8_gu_kernel` and `_qmm4_gu_kernel`). The kernels are
+`ppq_tpu_torch/csrc/qmm.cu`; its source says what bounds them on the card
+and how the design meets that.
 
     qmm_int8:   out = (x_bf16 @ w_int8, f32 sum) * scale[F]
                       [* row_scale[B]] [+ residual[B, F]]
+    qmm_int4:   the same with w split-half packed (D/2, F): byte row r holds
+                w[r] in its low nibble and w[r + D/2] in its high nibble
     qmm_gateup: g = (x @ Wg) * sg [* row]; u = (x @ Wu) * su [* row]
-                out = g * sigmoid(g) * u,  weight = [Wg | Wu]  (D, 2 F)
+                out = g * sigmoid(g) * u,  weight = [Wg | Wu]  (D, 2 F) int8
+                or (D/2, 2 F) packed (the INT4 body: rows * 2 == D)
 
-The epilogue runs in f32 in that order and the result is cast once. The
-INT4 bodies (split-half packed nibbles) are not ported yet.
+The epilogue runs in f32 in that order and the result is cast once.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .loader import LAUNCHES, check, library, stream_of
@@ -34,11 +38,52 @@ def supports(d: int, f: int, b: int = 64) -> bool:
     return d % 256 == 0 and f % 128 == 0 and b >= 1
 
 
+def supports_int4(dp: int, f: int, b: int = 64) -> bool:
+    """dp = packed contraction depth (D // 2). The JAX package's rule
+    without its fast-memory budget (which also refuses shapes whose unpacked
+    panel would not fit 16 MiB of TPU memory; nothing here corresponds)."""
+    return dp % 256 == 0 and f % 128 == 0 and b >= 1
+
+
 def supports_gateup(d: int, f2: int, b: int, bits: int = 8) -> bool:
-    """f2 = fused gate|up output width (2 * d_ff). INT8 only."""
-    if f2 % 2 or bits != 8:
+    """f2 = fused gate|up output width (2 * d_ff); bits 8 or 4."""
+    if f2 % 2 or bits not in (8, 4):
         return False
-    return d % 256 == 0 and (f2 // 2) % 128 == 0 and b >= 1
+    f = f2 // 2
+    if bits == 8:
+        return d % 256 == 0 and f % 128 == 0 and b >= 1
+    return d % 2 == 0 and (d // 2) % 256 == 0 and f % 128 == 0 and b >= 1
+
+
+# ------------------------------------------------------- int4 packing ----
+
+def pack_int4_splithalf(q):
+    """(D, F) int8 in [-8, 7] -> (D//2, F) packed: row r =
+    (q[r] & 0xF) | (q[r + D//2] << 4). numpy in, numpy out; a tensor in, a
+    tensor out on its device."""
+    D = q.shape[0]
+    if D % 2:
+        raise ValueError(f'split-half packing needs an even depth, got {D}')
+    if isinstance(q, np.ndarray):
+        lo = q[: D // 2] & 0x0F
+        hi = (q[D // 2:] & 0x0F) << 4
+        return (lo | hi).astype(np.int8)
+    q32 = q.to(torch.int32)
+    packed = (q32[: D // 2] & 0x0F) | ((q32[D // 2:] & 0x0F) << 4)
+    # 0..255 -> the int8 with the same bits
+    return torch.where(packed > 127, packed - 256, packed).to(torch.int8)
+
+
+def unpack_int4_splithalf(packed):
+    """Inverse of pack_int4_splithalf: (D//2, F) -> (D, F) int8 in [-8, 7].
+    The low nibble sign-extends as ((p & 15) ^ 8) - 8, the high nibble is an
+    arithmetic shift of the signed byte."""
+    if isinstance(packed, np.ndarray):
+        p32 = packed.astype(np.int32)
+        return np.concatenate([((p32 & 15) ^ 8) - 8, p32 >> 4],
+                              axis=0).astype(np.int8)
+    p32 = packed.to(torch.int32)
+    return torch.cat([((p32 & 15) ^ 8) - 8, p32 >> 4], dim=0).to(torch.int8)
 
 
 def _row(row_scale, rows):
@@ -62,8 +107,19 @@ def qmm_int8_plain(x, w_int, scale, out_dtype=torch.bfloat16,
     return acc.to(out_dtype)
 
 
+def qmm_int4_plain(x, w_packed, scale, out_dtype=torch.bfloat16,
+                   row_scale=None, residual=None):
+    """The INT4 kernel's arithmetic: the nibbles unpacked (exact), then the
+    INT8 kernel's."""
+    return qmm_int8_plain(x, unpack_int4_splithalf(w_packed), scale,
+                          out_dtype, row_scale, residual)
+
+
 def qmm_gateup_plain(x, w_int, scale, out_dtype=torch.bfloat16,
                      row_scale=None):
+    """Both bodies: a packed weight (rows * 2 == D) is unpacked first."""
+    if w_int.shape[0] * 2 == x.shape[1]:
+        w_int = unpack_int4_splithalf(w_int)
     B = x.shape[0]
     F = w_int.shape[1] // 2
     both = torch.matmul(x.to(torch.bfloat16).to(torch.float32),
@@ -75,8 +131,10 @@ def qmm_gateup_plain(x, w_int, scale, out_dtype=torch.bfloat16,
     return (g * torch.sigmoid(g) * u).to(out_dtype)
 
 
-def _check(x, w_int, scale, out_dtype, what):
-    if x.dim() != 2 or w_int.dim() != 2 or x.shape[1] != w_int.shape[0]:
+def _check(x, w_int, scale, out_dtype, what, depth=1):
+    """depth: unpacked rows per weight row (2 for a packed INT4 weight)."""
+    if x.dim() != 2 or w_int.dim() != 2 \
+            or x.shape[1] != depth * w_int.shape[0]:
         raise ValueError(f'{what}: x {tuple(x.shape)} against w '
                          f'{tuple(w_int.shape)}')
     if w_int.dtype != torch.int8 or scale.dtype != torch.float32:
@@ -103,6 +161,36 @@ def _narrow(f_out: int, rows: int) -> int:
     return int((f_out // 64) * -(-rows // 128) < _SMS)
 
 
+def _launch_qmm(entry, what, x, w, scale, out_dtype, row_scale, residual):
+    """The INT8 and INT4 kernels' launch: x (B, D) bf16, w (D or D/2, F)."""
+    B, D = x.shape
+    F = w.shape[1]
+    x = x.to(torch.bfloat16).contiguous()
+    row = None
+    if row_scale is not None:
+        row = _row(row_scale, B).contiguous()
+    res = None
+    if residual is not None:
+        res = residual.reshape(B, F)
+        if res.dtype not in (torch.float32, torch.bfloat16):
+            res = res.to(torch.float32)
+        res = res.contiguous()
+    out = torch.empty((B, F), dtype=out_dtype, device=x.device)
+    _aligned(what, x, w, scale, row, res, out)
+    lib = library('qmm')
+    with torch.cuda.device(x.device):
+        rc = getattr(lib, entry)(
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+            None if row is None else row.data_ptr(),
+            None if res is None else res.data_ptr(),
+            int(res is not None and res.dtype == torch.float32),
+            out.data_ptr(), int(out_dtype == torch.float32), B, D, F,
+            _narrow(F, B), stream_of(x.device))
+    check(rc, what)
+    LAUNCHES[what] += 1
+    return out
+
+
 def qmm_int8(x: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
              out_dtype=torch.bfloat16,
              row_scale: Optional[torch.Tensor] = None,
@@ -120,47 +208,51 @@ def qmm_int8(x: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
     F = w_int.shape[1]
     if not supports(D, F, B):
         raise ValueError(f'qmm_int8 does not tile D={D}, F={F}')
-    x = x.to(torch.bfloat16).contiguous()
-    row = None
-    if row_scale is not None:
-        row = _row(row_scale, B).contiguous()
-    res = None
-    if residual is not None:
-        res = residual.reshape(B, F)
-        if res.dtype not in (torch.float32, torch.bfloat16):
-            res = res.to(torch.float32)
-        res = res.contiguous()
-    out = torch.empty((B, F), dtype=out_dtype, device=x.device)
-    _aligned('qmm_int8', x, w_int, scale, row, res, out)
-    lib = library('qmm')
-    with torch.cuda.device(x.device):
-        rc = lib.ppq_qmm_int8(
-            x.data_ptr(), w_int.data_ptr(), scale.data_ptr(),
-            None if row is None else row.data_ptr(),
-            None if res is None else res.data_ptr(),
-            int(res is not None and res.dtype == torch.float32),
-            out.data_ptr(), int(out_dtype == torch.float32), B, D, F,
-            _narrow(F, B), stream_of(x.device))
-    check(rc, 'qmm_int8')
-    LAUNCHES['qmm_int8'] += 1
-    return out
+    return _launch_qmm('ppq_qmm_int8', 'qmm_int8', x, w_int, scale,
+                       out_dtype, row_scale, residual)
+
+
+def qmm_int4(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor,
+             out_dtype=torch.bfloat16,
+             row_scale: Optional[torch.Tensor] = None,
+             residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x: (B, D); w_packed: (D//2, F) split-half int4; scale: (F,) f32 ->
+    (B, F), with qmm_int8's epilogue in its order. The low nibbles multiply
+    x[:, :D/2], the high nibbles x[:, D/2:]. CPU tensors take the plain
+    version; CUDA tensors the kernel."""
+    _check(x, w_packed, scale, out_dtype, 'qmm_int4', depth=2)
+    if x.device.type == 'cpu':
+        return qmm_int4_plain(x, w_packed, scale, out_dtype, row_scale,
+                              residual)
+    if x.device.type != 'cuda':
+        raise ValueError(f'qmm_int4 runs on cpu or cuda, not {x.device}')
+    B, D = x.shape
+    F = w_packed.shape[1]
+    if not supports_int4(D // 2, F, B):
+        raise ValueError(f'qmm_int4 does not tile D={D}, F={F}')
+    return _launch_qmm('ppq_qmm_int4', 'qmm_int4', x, w_packed, scale,
+                       out_dtype, row_scale, residual)
 
 
 def qmm_gateup(x: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
                out_dtype=torch.bfloat16,
                row_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused SwiGLU front half: silu(x @ Wg) * (x @ Wu), the weight being
-    the [gate | up] concatenation (D, 2 F) int8. The (B, 2 F) projection
-    never reaches device memory. CPU tensors take the plain version; CUDA
-    tensors the kernel."""
-    _check(x, w_int, scale, out_dtype, 'qmm_gateup')
+    the [gate | up] concatenation, (D, 2 F) int8 or (D/2, 2 F) split-half
+    INT4 (chosen as the JAX package chooses: rows * 2 == D). The (B, 2 F)
+    projection never reaches device memory. CPU tensors take the plain
+    version; CUDA tensors the kernel. The INT4 body counts its launches as
+    `qmm_gateup_int4`."""
+    int4 = x.dim() == 2 and w_int.dim() == 2 \
+        and w_int.shape[0] * 2 == x.shape[1]
+    _check(x, w_int, scale, out_dtype, 'qmm_gateup', depth=2 if int4 else 1)
+    B, D = x.shape
     if x.device.type == 'cpu':
         return qmm_gateup_plain(x, w_int, scale, out_dtype, row_scale)
     if x.device.type != 'cuda':
         raise ValueError(f'qmm_gateup runs on cpu or cuda, not {x.device}')
-    B, D = x.shape
     F2 = w_int.shape[1]
-    if not supports_gateup(D, F2, B, 8):
+    if not supports_gateup(D, F2, B, 4 if int4 else 8):
         raise ValueError(f'qmm_gateup does not tile D={D}, 2F={F2}')
     F = F2 // 2
     x = x.to(torch.bfloat16).contiguous()
@@ -168,12 +260,13 @@ def qmm_gateup(x: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((B, F), dtype=out_dtype, device=x.device)
     _aligned('qmm_gateup', x, w_int, scale, row, out)
     lib = library('qmm')
+    entry = lib.ppq_qmm_gateup_int4 if int4 else lib.ppq_qmm_gateup
     with torch.cuda.device(x.device):
-        rc = lib.ppq_qmm_gateup(
-            x.data_ptr(), w_int.data_ptr(), scale.data_ptr(),
-            None if row is None else row.data_ptr(), out.data_ptr(),
-            int(out_dtype == torch.float32), B, D, F, _narrow(F, B),
-            stream_of(x.device))
-    check(rc, 'qmm_gateup')
-    LAUNCHES['qmm_gateup'] += 1
+        rc = entry(x.data_ptr(), w_int.data_ptr(), scale.data_ptr(),
+                   None if row is None else row.data_ptr(), out.data_ptr(),
+                   int(out_dtype == torch.float32), B, D, F, _narrow(F, B),
+                   stream_of(x.device))
+    name = 'qmm_gateup_int4' if int4 else 'qmm_gateup'
+    check(rc, name)
+    LAUNCHES[name] += 1
     return out

@@ -11,8 +11,9 @@ source says what bounds it on the card.
 slabs are (L, B, S, KV, Dh), news (L, B, n, KV, Dh), write_pos (B,) int32 on
 the slabs' device, read there. The caller guarantees 0 <= write_pos and
 write_pos + n <= S: positions on the device cannot be checked without a host
-read, and the kernel writes nothing for a slot whose window does not fit. The
-slabs are updated in place and handed back.
+read, so the kernel writes nothing for a slot whose window does not fit and
+sets a bit of the device's fault word (`loader.read_faults`). The slabs are
+updated in place and handed back.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ from typing import Sequence, Tuple
 
 import torch
 
-from .loader import LAUNCHES, check, library, pointer_array, stream_of
+from .loader import (LAUNCHES, check, fault_word, library, pointer_array,
+                     stream_of)
 
 # pointers that fit one launch's arguments (csrc/kv_write.cu MAX_WINDOW)
 MAX_ARRAYS = 8
@@ -93,7 +95,8 @@ def window_write_inplace(slabs: Sequence[torch.Tensor],
     with torch.cuda.device(first.device):
         rc = lib.ppq_window_write(
             pointer_array(slabs), pointer_array(news), len(slabs), L, B, S, n,
-            row_bytes, write_pos.data_ptr(), stream_of(first.device))
+            row_bytes, write_pos.data_ptr(),
+            fault_word(first.device).data_ptr(), stream_of(first.device))
     check(rc, 'window_write')
     LAUNCHES['window_write'] += 1
     return slabs

@@ -9,7 +9,8 @@ from typing import Optional
 @dataclass
 class LlamaConfig:
     """Llama-class decoder architecture + quantization + serving knobs:
-    quantized inference with INT8 weights and an INT8 KV cache on one card.
+    quantized inference with INT8 or INT4 weights and an INT8 KV cache on
+    one card.
 
     The fields are those of the JAX package's `LlamaConfig`; its switch
     `use_pallas_matmul` is `use_kernel_matmul` here. Values whose code path
@@ -52,9 +53,10 @@ class LlamaConfig:
 
     # Kernel fast paths (None = resolved at engine build: True on a CUDA
     # device). use_kernel_matmul sends decode-sized matmuls through the
-    # fused dequant-matmul kernels (kernels/qmm.py), which read the int8
+    # fused dequant-matmul kernels (kernels/qmm.py), which read the integer
     # weight bytes; use_ragged_attention reads only filled KV-cache blocks
-    # in burst decode through the paged-attention kernel.
+    # in burst decode through the paged-attention kernels (on a card it
+    # resolves True when head_dim and max_seq_len are multiples of 128).
     use_kernel_matmul: Optional[bool] = None
     use_ragged_attention: Optional[bool] = None
 
@@ -92,18 +94,13 @@ class LlamaConfig:
         does not have yet, with the ROADMAP item that will bring it, or
         None. Callers raise NotImplementedError with it: nothing falls back
         silently."""
-        if self.use_ragged_attention:
-            return ('use_ragged_attention=True (the paged-attention decode '
-                    'kernels: ROADMAP item 12, queue 2 rows 11-12)')
         if self.paged_kv:
             return ('paged_kv=True (serving/paged.py and the pool-write '
-                    'kernel: ROADMAP item 12, queue 2 rows 16 and 13)')
-        if self.weight_bits == 4 or self.resolved_lm_head_bits == 4:
-            return ('weight_bits=4 (the split-half INT4 matmul kernels: '
-                    'ROADMAP item 11, queue 2 row 9)')
+                    'kernel: ROADMAP item 13, queue 2 rows 16 and 13)')
         if self.act_bits == 8:
             return ('act_bits=8 (the W8A8 prefill branch of qmatmul: '
                     'ROADMAP item 11)')
         if self.n_experts > 0:
-            return ('n_experts>0 (serving/moe.py: ROADMAP item 12)')
+            return ('n_experts>0 (the moe branches and serving/moe.py: '
+                    'ROADMAP items 11 and 14)')
         return None

@@ -4,7 +4,10 @@ The single-device dense part of the JAX package's
 
   * decode is a batched single-token forward over the int8 KV cache, which
     is updated in place; `sync_every > 1` decodes that many steps per host
-    round-trip with the cache frozen (model.burst_forward).
+    round-trip with the cache frozen (model.burst_forward). On a card the
+    burst reads the frozen cache through the ragged paged-attention kernels,
+    the grouped one at shallow or mixed fills and the per-slot one where
+    every slot is deep (`_grouped_gate`).
   * prefill pads the prompt to bucket lengths; all max_batch slots run
     through one masked forward, so a wave of admits costs one prefill.
     Prompts longer than every bucket stream through in chunk-size pieces.
@@ -14,8 +17,8 @@ The single-device dense part of the JAX package's
 
 Not ported yet (each raises NotImplementedError, see LlamaConfig.unported
 and ROADMAP.md): meshes and every tp/pp/sp branch, the paged KV cache and
-the prefix cache, ragged attention, the planned (fully asynchronous) run
-loop, prewarming and the serving benchmarks.
+the prefix cache, W8A8 prefill, MoE layers, the planned (fully
+asynchronous) run loop, prewarming and the serving benchmarks.
 """
 
 from __future__ import annotations
@@ -80,7 +83,7 @@ class ServingEngine:
         `params` are moved to the engine's device if they lie elsewhere."""
         if mesh is not None:
             raise NotImplementedError(
-                'a device mesh (tp / pp / sp / dp serving: ROADMAP item 12)')
+                'a device mesh (tp / pp / sp / dp serving: ROADMAP item 15)')
         self.device = resolve_device(device)
         self.cfg = cfg
         self.mesh = None
@@ -96,11 +99,9 @@ class ServingEngine:
         missing = cfg.unported()
         if missing is not None:
             raise NotImplementedError(missing)
-        if any('moe' in layer or any('w_packed' in v for v in layer.values()
-                                     if isinstance(v, dict))
-               for layer in params['layers']):
+        if any('moe' in layer for layer in params['layers']):
             raise NotImplementedError(
-                'MoE layers and packed INT4 weights (ROADMAP items 11-12)')
+                'MoE layers (serving/moe.py: ROADMAP items 11 and 14)')
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(self.sampling.seed)
         params = _to_device(params, self.device)
@@ -271,11 +272,25 @@ class ServingEngine:
             b *= 2
         return min(b, self.cfg.max_seq_len)
 
-    def _build_decode_burst(self, n_steps: int, s_limit: Optional[int] = None):
+    def _grouped_gate(self, active_fills, n: int,
+                      s_limit: Optional[int]) -> bool:
+        """Host-side choice between the grouped and the per-slot attention
+        kernel for a burst, the JAX package's rule: the per-slot (fused)
+        kernel, one block per deep slot, once even the SHALLOWEST active
+        slot is past 3/4 of the read bucket; the grouped kernel otherwise
+        (shallow or mixed fills). The fill is compared with the bucket, not
+        fill + n: the burst's own tokens never enter the frozen window."""
+        if s_limit is None or not len(active_fills):
+            return True
+        return min(active_fills) < 0.75 * s_limit
+
+    def _build_decode_burst(self, n_steps: int, s_limit: Optional[int] = None,
+                            grouped: bool = True):
         """n decode steps with the cache frozen and one host round-trip per
-        burst."""
-        if (n_steps, s_limit) in self._decode_burst:
-            return self._decode_burst[(n_steps, s_limit)]
+        burst. grouped: the ragged read's kernel (see _grouped_gate)."""
+        key = (n_steps, s_limit, grouped)
+        if key in self._decode_burst:
+            return self._decode_burst[key]
         cfg = self.cfg
 
         def decode_burst(params, cache, tokens, seq_lens, samp=None):
@@ -284,8 +299,8 @@ class ServingEngine:
                     params, cache, tokens, seq_lens, n_steps, cfg,
                     lambda logits, step: self._select(logits, samp),
                     s_limit=s_limit, ragged=bool(cfg.use_ragged_attention),
-                    chunk=cfg.burst_chunk)
-        self._decode_burst[(n_steps, s_limit)] = decode_burst
+                    prefer_grouped=grouped, chunk=cfg.burst_chunk)
+        self._decode_burst[key] = decode_burst
         return decode_burst
 
     def _prefill_fn(self, bucket: int):
@@ -485,7 +500,10 @@ class ServingEngine:
                 toks_np = next_tok.cpu().numpy()[None, :]     # (1, B)
             else:
                 s_need = int(max(self.slot_len[s] for s in active))
-                fn = self._build_decode_burst(n, self._decode_bucket(s_need))
+                bucket = self._decode_bucket(s_need)
+                fills = [int(self.slot_len[s]) for s in active]
+                fn = self._build_decode_burst(
+                    n, bucket, grouped=self._grouped_gate(fills, n, bucket))
                 toks, self.cache = fn(self.params, self.cache,
                                       self._tensor(cur_tok), seq_lens, samp)
                 toks_np = toks.cpu().numpy()                  # (n, B)
@@ -530,7 +548,10 @@ class ServingEngine:
         seq_lens = torch.full((B,), fill, dtype=torch.int32,
                               device=self.device)
         if burst and burst > 1:
-            fn = self._build_decode_burst(burst, self._decode_bucket(fill))
+            bucket = self._decode_bucket(fill)
+            fn = self._build_decode_burst(
+                burst, bucket,
+                grouped=self._grouped_gate([fill] * B, burst, bucket))
             n_bursts = max(1, steps // burst)
             toks, cache = fn(self.params, cache, tokens, seq_lens)
             toks.cpu()                            # warm + full sync

@@ -2,13 +2,19 @@
 and an INT8 KV cache. The dense part of the JAX package's
 `ppq_tpu/serving/model.py`, function for function.
 
-  * weights live as INT8 integers + per-output-channel f32 scales. Decode-
-    sized matmuls go through the fused dequant-matmul kernels
-    (kernels/qmm.py), which read the int8 bytes and apply the scale to the
-    f32 dot result; larger ones (prefill) and 16-bit weights take the
-    library product of the weight dequantized to bf16, as in the JAX package.
-    The two numerics differ (scale before or after the dot) and each is kept
-    where the JAX package has it.
+  * weights live as INT8 integers (or INT4 nibbles packed split-half,
+    `w_packed`) + per-output-channel f32 scales. Decode-sized matmuls go
+    through the fused dequant-matmul kernels (kernels/qmm.py), which read the
+    integer bytes and apply the scale to the f32 dot result; larger ones
+    (prefill) and 16-bit weights take the library product of the weight
+    dequantized to bf16, as in the JAX package. The two numerics differ
+    (scale before or after the dot) and each is kept where the JAX package
+    has it.
+  * burst decode reads the frozen cache either densely (every slot's window
+    up to the read bucket, as library products) or ragged: through the
+    paged-attention kernels (kernels/paged_attention.py), which read only
+    each slot's filled positions and return a partial softmax that merges
+    exactly with the in-burst buffer.
   * the KV cache stores int8 + per-(token, kv-head) scales; quantize on
     write, scales applied to the logits / probabilities on read.
   * activations run bf16; matrix products round their operands to bf16 and
@@ -29,6 +35,7 @@ import torch.nn.functional as F_
 
 from ..executor.executor import resolve_device
 from ..kernels import bank_write as _bank
+from ..kernels import paged_attention as _pa
 from ..kernels import qmm as _qmm
 from ..kernels import window_write as _window
 from .config import LlamaConfig
@@ -69,8 +76,6 @@ def quantize_weight(w, bits: int, method: str = 'minmax',
     device = torch.device(device)
     if bits >= 16:
         return {'w': torch.as_tensor(w).to(device=device, dtype=BF16)}
-    if bits == 4:
-        raise NotImplementedError(LlamaConfig(weight_bits=4).unported())
     qmax = (1 << (bits - 1)) - 1
     if method == 'mse':
         w_np = np.asarray(w.cpu() if isinstance(w, torch.Tensor) else w,
@@ -87,7 +92,16 @@ def quantize_weight(w, bits: int, method: str = 'minmax',
     else:
         raise ValueError(f'unknown weight quant method {method!r}')
     q = torch.round(wt / scale).clamp(-qmax - 1, qmax).to(torch.int8)
+    if bits == 4:
+        # split-half packing (kernels/qmm.py): byte row r holds w[r] in the
+        # low nibble and w[r + in/2] in the high nibble
+        return {'w_packed': _qmm.pack_int4_splithalf(q), 'scale': scale}
     return {'w_int': q, 'scale': scale}
+
+
+def _unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """(in//2, out) int8 -> (in, out) int8 in [-8, 7] (split-half layout)."""
+    return _qmm.unpack_int4_splithalf(packed)
 
 
 # rows x depth cap for the fused kernels, as in the JAX package: decode and
@@ -108,8 +122,10 @@ def qmatmul(x: torch.Tensor, wq: Dict[str, torch.Tensor],
     """x @ dequant(w).
 
     kernel=True routes supported shapes through the fused dequant-matmul
-    kernel: the scale multiplies the f32 dot result. Otherwise the weight is
-    dequantized to bf16 (`w_int * scale` rounded to bf16) before the dot.
+    kernels (INT8 `w_int`, INT4 `w_packed`): the scale multiplies the f32
+    dot result. Otherwise the weight is dequantized to bf16 (`w_int * scale`
+    or the unpacked nibbles times the scale, rounded to bf16) before the
+    dot.
 
     row_scale (lead-shaped, or (..., 1)): per-row f32 multiplier, the
     folded-rms_norm rsqrt factor. residual (same shape as the output): added
@@ -120,10 +136,13 @@ def qmatmul(x: torch.Tensor, wq: Dict[str, torch.Tensor],
     R = int(np.prod(lead)) if lead else 1
 
     if kernel and 'w' not in wq and R * D * 2 <= _KERNEL_QMM_MAX_X_BYTES:
-        Fo = wq['w_int'].shape[1]
-        if _qmm.supports(D, Fo, R):
-            out = _qmm.qmm_int8(
-                x.reshape(R, D), wq['w_int'], wq['scale'],
+        int4 = 'w_packed' in wq
+        wk = wq['w_packed'] if int4 else wq['w_int']
+        Fo = wk.shape[1]
+        if (_qmm.supports_int4(D // 2, Fo, R) and D % 2 == 0) if int4 \
+                else _qmm.supports(D, Fo, R):
+            out = (_qmm.qmm_int4 if int4 else _qmm.qmm_int8)(
+                x.reshape(R, D), wk, wq['scale'],
                 out_dtype=x.dtype if x.dtype in (BF16, F32) else F32,
                 row_scale=None if row_scale is None
                 else row_scale.reshape(R, 1).to(F32),
@@ -132,8 +151,10 @@ def qmatmul(x: torch.Tensor, wq: Dict[str, torch.Tensor],
             return out.reshape(*lead, Fo).to(x.dtype)
     if 'w' in wq:
         w = wq['w']
-    else:
+    elif 'w_int' in wq:
         w = wq['w_int'].to(BF16) * wq['scale'].to(BF16)
+    else:
+        w = _unpack_int4(wq['w_packed']).to(BF16) * wq['scale'].to(BF16)
     out = _bf16_product(x, w)
     flat = out.reshape(R, -1)
     if row_scale is not None:
@@ -152,8 +173,7 @@ def init_llama_params(cfg: LlamaConfig, seed: int = 0,
     package's order, so a seed means the same weights in both packages; each
     matrix is quantized on the device."""
     device = resolve_device(device)
-    if cfg.n_experts > 0 or (quantized and 4 in (cfg.weight_bits,
-                                                 cfg.resolved_lm_head_bits)):
+    if cfg.n_experts > 0:
         raise NotImplementedError(cfg.unported())
     rng = np.random.default_rng(seed)
     D, H, KV, Dh, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
@@ -198,7 +218,7 @@ def _concat_qweights(parts):
     keys = set(parts[0])
     assert all(set(p) == keys for p in parts), 'mixed weight formats'
     return {k: torch.cat([p[k] for p in parts], dim=-1).contiguous()
-            for k in ('w', 'w_int', 'scale') if k in keys}
+            for k in ('w', 'w_int', 'w_packed', 'scale') if k in keys}
 
 
 def fold_norm_gamma(params: Params) -> bool:
@@ -263,8 +283,9 @@ def fuse_decode_params(params: Params, cfg: LlamaConfig) -> Params:
     Fo = next(iter(lm.values())).shape[-1] if lm else 0
     pad = (-Fo) % 1024
     if pad and 'w' not in lm:
+        key = 'w_int' if 'w_int' in lm else 'w_packed'
         out['lm_head'] = {
-            'w_int': F_.pad(lm['w_int'], (0, pad)).contiguous(),
+            key: F_.pad(lm[key], (0, pad)).contiguous(),
             'scale': F_.pad(lm['scale'], (0, pad), value=1.0).contiguous()}
     return out
 
@@ -496,9 +517,11 @@ def mlp(x, layer, cfg=None, row_scale=None, residual=None):
     if (kern and 'w_gateup' in layer and 'w' not in layer['w_gateup']
             and R * D * 2 <= _KERNEL_QMM_MAX_X_BYTES):
         wgu = layer['w_gateup']
-        if _qmm.supports_gateup(D, wgu['w_int'].shape[1], R, 8):
+        wkey = 'w_int' if 'w_int' in wgu else 'w_packed'
+        bits = 8 if wkey == 'w_int' else 4
+        if _qmm.supports_gateup(D, wgu[wkey].shape[1], R, bits):
             act = _qmm.qmm_gateup(
-                x.reshape(R, D), wgu['w_int'], wgu['scale'],
+                x.reshape(R, D), wgu[wkey], wgu['scale'],
                 row_scale=None if row_scale is None
                 else row_scale.reshape(R, 1))
             act = act.reshape(*lead, act.shape[-1]).to(x.dtype)
@@ -534,6 +557,7 @@ def burst_forward(params: Params, cache: Dict[str, torch.Tensor],
                   tokens: torch.Tensor, seq_lens: torch.Tensor,
                   n_steps: int, cfg: LlamaConfig, select_fn,
                   s_limit: Optional[int] = None, ragged: bool = False,
+                  prefer_grouped: bool = True,
                   chunk: Optional[int] = None):
     """n consecutive decode steps with the big KV cache FROZEN: in-burst K/V
     live in small (L, B, n, KV, Dh) buffers; the cache is written ONCE at
@@ -543,6 +567,18 @@ def burst_forward(params: Params, cache: Dict[str, torch.Tensor],
     s_limit bounds the frozen-cache READ to the first s_limit slots (a
     bucket the engine picks as the smallest power of two covering
     max(seq_lens)); writes still land in the full cache.
+
+    ragged=True reads the frozen cache through the paged-attention kernels
+    (kernels/paged_attention.py): each slot's filled positions only, as a
+    partial softmax (acc, m, l) that `merge_attention` joins exactly with the
+    in-burst buffer's. The window [0, cap) (cap: s_limit rounded up to 32)
+    is repacked ONCE per burst, all layers in one stacked (L, ...) pool that
+    the kernels index with `layer=`, at an adaptive block size RBLK. With
+    prefer_grouped (the engine's shallow or mixed fills, and every window of
+    64 slots or fewer) the window is block-major and the grouped kernel
+    reads it, `grouped_group_size` slots sharing a loop bound; otherwise the
+    fused kernel reads it slot by slot through identity block tables. The
+    choices of cap, RBLK and G are the JAX package's.
 
     chunk: the burst's columns are read in chunks of that many; the current
     chunk masked, finished chunks unmasked (the JAX package's chunked scan
@@ -558,9 +594,6 @@ def burst_forward(params: Params, cache: Dict[str, torch.Tensor],
     select_fn(logits (B, vocab) f32, step index) -> (B,) next tokens.
     Returns (toks (n, B) int32, the cache, updated in place).
     """
-    if ragged:
-        raise NotImplementedError(
-            LlamaConfig(use_ragged_attention=True).unported())
     layers = params['layers']
     L = len(layers)
     B = tokens.shape[0]
@@ -594,6 +627,48 @@ def burst_forward(params: Params, cache: Dict[str, torch.Tensor],
     frozen_mask = slot_ids < seq_lens[:, None, None, None]   # (B,1,1,S)
     # the bank kernel reads its column from device memory
     columns = torch.arange(CH, dtype=torch.int32, device=dev)
+
+    if ragged:
+        Sf = cache['k'].shape[2]
+        if Sf % 128 or Dh % 128:
+            raise ValueError(f'ragged attention needs max_seq_len and '
+                             f'head_dim multiples of 128, not {Sf}, {Dh}')
+        # only the window [0, cap) can hold tokens this burst
+        cap = Sf if s_limit is None else min(-(-s_limit // 32) * 32, Sf)
+        if cap <= 64:
+            prefer_grouped = True    # shallow windows: grouped, one block
+        if prefer_grouped:
+            RBLK = cap if cap <= 64 else max(32, min(512, cap // 2))
+        elif cap <= 512:
+            RBLK = cap               # deep fills: one block per slot
+        elif cap % 512 == 0:
+            RBLK = 512
+        else:
+            RBLK = max(128, min(512, cap // 2))
+        G = _pa.grouped_group_size(B, RBLK, kv_dh=KV * Dh,
+                                   itemsize=1 if int8_cache else 2) \
+            if prefer_grouped else 1
+        repack = _pa.blockmajor_window if G > 1 else _pa.slotmajor_window
+        kv_pool_l, sc_pool_l = repack(
+            cache['k'], cache['v'], cache.get('k_scale') if int8_cache
+            else None, cache.get('v_scale') if int8_cache else None,
+            cap, RBLK)
+        tbl = None if G > 1 else _pa.identity_block_tables(B, cap, RBLK, dev)
+
+    def buf_readout(pb, v_chunks, vs_chunks):
+        """sum over chunks of (p * v_scale, rounded to bf16) @ v_chunk:
+        (B, KV, rep, cols) -> (B, 1, KV, rep, Dh) f32."""
+        acc = None
+        off = 0
+        for vc, vs in zip(v_chunks, vs_chunks):
+            w = vc.shape[1]
+            p = pb[..., off:off + w]
+            off += w
+            if int8_cache:
+                p = p * vs[:, :, None, :]
+            t = _pv_context(p[:, :, :, None, :], vc)
+            acc = t if acc is None else acc + t
+        return acc
 
     def buf_logits(q_g, buf, scales, lim):
         """q against (B, cols, KV, Dh) codes -> (B, KV, rep, cols); lim:
@@ -671,27 +746,39 @@ def burst_forward(params: Params, cache: Dict[str, torch.Tensor],
             lb = torch.cat(lb_parts, dim=-1) if len(lb_parts) > 1 \
                 else lb_parts[0]
 
-            # frozen-cache logits (codes read, scales folded post-dot)
-            lf = _qk_logits(q_g, cache['k'][li][:, :S])[:, :, :, 0, :]
-            if int8_cache:
-                lf = lf * cache['k_scale'][li][:, :S] \
-                    .transpose(1, 2)[:, :, None, :]
-            lf = torch.where(frozen_mask, lf / root_dh, -1e30)
-
-            probs = torch.softmax(torch.cat([lf, lb], dim=-1), dim=-1)
-            pf, pb = probs[..., :S], probs[..., S:]
-            if int8_cache:
-                pf = pf * cache['v_scale'][li][:, :S] \
-                    .transpose(1, 2)[:, :, None, :]
-            ctx = _pv_context(pf[:, :, :, None, :], cache['v'][li][:, :S])
-            off = 0
-            for vc, vs in zip(v_chunks, vs_chunks):
-                w = vc.shape[1]
-                p = pb[..., off:off + w]
-                off += w
+            if ragged:
+                # the frozen part through the paged-attention kernel (filled
+                # positions only); the buffer joins by an exact merge of the
+                # two partial softmaxes
+                if G > 1:
+                    acc_f, m_f, l_f = _pa.paged_attention_decode_grouped(
+                        q_g[:, 0], kv_pool_l, sc_pool_l, seq_lens, layer=li,
+                        block_size=RBLK, group=G)
+                else:
+                    acc_f, m_f, l_f = _pa.paged_attention_decode_fused(
+                        q_g[:, 0], kv_pool_l, sc_pool_l, tbl, seq_lens,
+                        layer=li, block_size=RBLK)
+                m_b = lb.amax(-1)                            # (B,KV,rep)
+                p_b = torch.exp(lb - m_b[..., None])
+                l_b = p_b.sum(-1)
+                acc_b = buf_readout(p_b, v_chunks, vs_chunks)[:, 0]
+                ctx = _pa.merge_attention([(acc_f, m_f, l_f),
+                                           (acc_b, m_b, l_b)])
+            else:
+                # frozen-cache logits (codes read, scales folded post-dot)
+                lf = _qk_logits(q_g, cache['k'][li][:, :S])[:, :, :, 0, :]
                 if int8_cache:
-                    p = p * vs[:, :, None, :]
-                ctx = ctx + _pv_context(p[:, :, :, None, :], vc)
+                    lf = lf * cache['k_scale'][li][:, :S] \
+                        .transpose(1, 2)[:, :, None, :]
+                lf = torch.where(frozen_mask, lf / root_dh, -1e30)
+
+                probs = torch.softmax(torch.cat([lf, lb], dim=-1), dim=-1)
+                pf, pb = probs[..., :S], probs[..., S:]
+                if int8_cache:
+                    pf = pf * cache['v_scale'][li][:, :S] \
+                        .transpose(1, 2)[:, :, None, :]
+                ctx = _pv_context(pf[:, :, :, None, :], cache['v'][li][:, :S]) \
+                    + buf_readout(pb, v_chunks, vs_chunks)
             ctx = ctx.reshape(B, 1, H * Dh).to(x.dtype)
             if folded:
                 # residual adds + norms ride the kernels' epilogues

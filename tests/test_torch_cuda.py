@@ -514,9 +514,263 @@ def test_serving_engine_raises_without_a_card_or_for_unported_settings():
             ServingEngine(LlamaConfig(**small), params)
         with pytest.raises(RuntimeError, match='device="cpu"'):
             init_llama_params(LlamaConfig(**small))
-    for field, value in (('use_ragged_attention', True), ('paged_kv', True),
-                         ('weight_bits', 4)):
+    for field, value in (('act_bits', 8), ('paged_kv', True),
+                         ('n_experts', 4)):
         cfg = LlamaConfig(**small)
         setattr(cfg, field, value)
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             ServingEngine(cfg, params, device='cpu')
+
+
+# --------------------------------- INT4 matmuls and ragged attention ----
+
+def _int4_inputs(cuda, B, D, F, seed):
+    from ppq_tpu_torch.kernels import pack_int4_splithalf
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(B, D, device=cuda, generator=gen).bfloat16()
+    codes = torch.randint(-8, 8, (D, F), device=cuda, generator=gen,
+                          dtype=torch.int8)
+    scale = torch.rand(F, device=cuda, generator=gen) * 0.01 + 0.001
+    row = torch.rand(B, device=cuda, generator=gen) + 0.5
+    res = torch.randn(B, F, device=cuda, generator=gen).bfloat16()
+    return x, pack_int4_splithalf(codes), codes, scale, row, res
+
+
+@pytest.mark.parametrize('out', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('has_row,has_res', [(False, False), (True, False),
+                                             (False, True), (True, True)])
+@pytest.mark.parametrize('B,D,F', [(128, 2048, 4096), (128, 2048, 2048),
+                                   (128, 5632, 2048), (1, 512, 128),
+                                   (37, 1024, 384), (200, 512, 256)])
+def test_qmm_int4_kernel_vs_plain(cuda, B, D, F, has_row, has_res, out):
+    """Row 9: the unpacked weight's mass is the tolerance's, as for row 8."""
+    from ppq_tpu_torch.kernels import qmm_int4, qmm_int4_plain
+    x, w, codes, scale, row, res = _int4_inputs(cuda, B, D, F, seed=B + F)
+    row, res = (row if has_row else None), (res if has_res else None)
+    reset_launches()
+    got = qmm_int4(x, w, scale, out_dtype=out, row_scale=row, residual=res)
+    assert LAUNCHES['qmm_int4'] == 1 and sum(LAUNCHES.values()) == 1
+    want = qmm_int4_plain(x, w, scale, out_dtype=torch.float32,
+                          row_scale=row, residual=res)
+    torch.cuda.synchronize()
+    assert got.dtype == out and tuple(got.shape) == (B, F)
+    _assert_sum_close(got, want, x, codes, scale, row)
+
+
+@pytest.mark.parametrize('out', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('has_row', [False, True])
+@pytest.mark.parametrize('B,D,F', [(128, 2048, 5632), (3, 512, 128),
+                                   (130, 1024, 256)])
+def test_qmm_gateup_int4_kernel_vs_plain(cuda, B, D, F, has_row, out):
+    """Row 10's INT4 body, with row 10's tolerance on the unpacked weight."""
+    from ppq_tpu_torch.kernels import qmm_gateup, qmm_gateup_plain
+    x, w, codes, scale, row, _ = _int4_inputs(cuda, B, D, 2 * F, seed=B + F)
+    row = row if has_row else None
+    reset_launches()
+    got = qmm_gateup(x, w, scale, out_dtype=out, row_scale=row)
+    assert LAUNCHES['qmm_gateup_int4'] == 1 and sum(LAUNCHES.values()) == 1
+    want = qmm_gateup_plain(x, w, scale, torch.float32, row_scale=row)
+    torch.cuda.synchronize()
+    both = torch.matmul(x.float(), codes.float()) * scale
+    mass = torch.matmul(x.float().abs(), codes.float().abs()) * scale
+    if row is not None:
+        both, mass = both * row.reshape(-1, 1), mass * row.reshape(-1, 1)
+    tol = 1.1e-5 * (mass[:, :F] * both[:, F:].abs()
+                    + mass[:, F:] * both[:, :F].abs()) + 1e-6
+    if out == torch.bfloat16:
+        tol = tol + 2 ** -7 * want.abs()
+    err = (got.float() - want).abs()
+    assert got.dtype == out and tuple(got.shape) == (B, F)
+    assert bool((err <= tol).all()), float((err / tol).max())
+
+
+def _attention_case(cuda, B, KV, rep, S, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    if dtype == torch.int8:
+        k = torch.randint(-128, 128, (2, B, S, KV, 128), device=cuda,
+                          generator=gen, dtype=torch.int8)
+        v = torch.randint(-128, 128, (2, B, S, KV, 128), device=cuda,
+                          generator=gen, dtype=torch.int8)
+        ks = torch.rand(2, B, S, KV, device=cuda, generator=gen) * 0.02 + 0.001
+        vs = torch.rand(2, B, S, KV, device=cuda, generator=gen) * 0.02 + 0.001
+    else:
+        k = torch.randn(2, B, S, KV, 128, device=cuda, generator=gen).bfloat16()
+        v = torch.randn(2, B, S, KV, 128, device=cuda, generator=gen).bfloat16()
+        ks = vs = None
+    q = torch.randn(B, KV, rep, 128, device=cuda, generator=gen).bfloat16()
+    return q, k, v, ks, vs
+
+
+def _assert_attention_close(got, want, q, k, v, ks, vs, lens):
+    """The kernel against its plain version: s sums Dh exact products in
+    another order (delta = 2e-5 of its absolute mass); p moves by 2 delta;
+    l sums n p (2 n 2^-24); acc sums p * v_scale rounded to bf16, where a p
+    that moved may round to the neighbouring bf16 number (2^-7). k, v: the
+    slots' (B, S, KV, Dh); ks, vs (B, S, KV) or None."""
+    B, KV, rep, Dh = q.shape
+    S = k.shape[1]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    kss = torch.ones(k.shape[:3], device=q.device) if ks is None else ks
+    vss = torch.ones(k.shape[:3], device=q.device) if vs is None else vs
+    valid = (torch.arange(S, device=q.device)[None] < lens[:, None].long())
+    valid = valid[:, None, None, :]
+    inv = 1.0 / np.sqrt(Dh)
+    s = torch.einsum('bkrd,bskd->bkrs', qf, kf) * kss.transpose(1, 2)[:, :, None] * inv
+    mass = torch.einsum('bkrd,bskd->bkrs', qf.abs(), kf.abs()) \
+        * kss.transpose(1, 2)[:, :, None] * inv
+    s = torch.where(valid, s, -torch.inf)
+    m_ref = s.amax(-1).clamp_min(-1e30)
+    p = torch.where(valid, torch.exp(s - m_ref[..., None]), 0.0)
+    n = lens.float()[:, None, None]
+    delta = 2e-5 * torch.where(valid, mass, 0.0).amax(-1) + 1e-6
+    summ = 2 * n * 2.0 ** -24
+    acc_mass = torch.einsum('bkrs,bskd->bkrd', p * vss.transpose(1, 2)[:, :, None],
+                            vf.abs())
+    (ga, gm, gl), (wa, wm, wl) = got, want
+    assert bool(((gm - wm).abs() <= delta).all())
+    assert bool(((gl - wl).abs() <= wl * (4 * delta + summ) + 1e-30).all())
+    tol = acc_mass * (2.0 ** -7 + 4 * delta[..., None] + summ[..., None]) + 1e-6
+    assert bool(((ga - wa).abs() <= tol).all())
+    empty = lens == 0
+    assert bool((ga[empty] == 0).all()) and bool((gl[empty] == 0).all())
+
+
+@pytest.mark.parametrize('dtype', [torch.int8, torch.bfloat16],
+                         ids=['int8', 'bf16'])
+@pytest.mark.parametrize('blk,rep', [(32, 2), (128, 2), (256, 1), (512, 4)])
+def test_paged_attention_fused_kernel_vs_plain(cuda, blk, rep, dtype):
+    """Row 11 through a permuted block table, layered and one layer: empty
+    slots, partial last blocks, a full window."""
+    from ppq_tpu_torch.kernels import (paged_attention_decode_fused,
+                                       paged_attention_decode_fused_plain,
+                                       read_faults, slotmajor_window)
+    B, KV, S = 9, 2, 1024
+    q, k, v, ks, vs = _attention_case(cuda, B, KV, rep, S, dtype, blk + rep)
+    pool, sc = slotmajor_window(k, v, ks, vs, S, blk)
+    nb = S // blk
+    perm = torch.randperm(B * nb, generator=torch.Generator().manual_seed(blk))
+    pool = pool[:, torch.argsort(perm).to(cuda)].contiguous()
+    sc = None if sc is None else sc[:, torch.argsort(perm).to(cuda)].contiguous()
+    tables = perm.reshape(B, nb).to(torch.int32).to(cuda)
+    lens = torch.tensor([0, 1, 15, 16, blk - 1, blk, blk + 3, 1000, S],
+                        dtype=torch.int32, device=cuda)
+    read_faults(cuda)
+    for layer, p_, s_ in ((1, pool, sc), (None, pool[0], None if sc is None
+                                          else sc[0])):
+        reset_launches()
+        got = paged_attention_decode_fused(q, p_, s_, tables, lens, layer,
+                                           block_size=blk)
+        assert LAUNCHES['paged_attention_fused'] == 1
+        want = paged_attention_decode_fused_plain(q, p_, s_, tables, lens,
+                                                  layer, block_size=blk)
+        torch.cuda.synchronize()
+        li = 0 if layer is None else layer
+        _assert_attention_close(got, want, q, k[li], v[li],
+                                None if ks is None else ks[li],
+                                None if vs is None else vs[li], lens)
+    assert read_faults(cuda) == []
+
+
+@pytest.mark.parametrize('dtype', [torch.int8, torch.bfloat16],
+                         ids=['int8', 'bf16'])
+@pytest.mark.parametrize('blk,group,rep', [(32, 32, 2), (64, 4, 2),
+                                           (256, 8, 4), (512, 2, 1)])
+def test_paged_attention_grouped_kernel_vs_plain(cuda, blk, group, rep, dtype):
+    """Row 12 over a block-major window: groups whose slots differ in depth
+    (empty beside full), scales lane-padded below 128 columns."""
+    from ppq_tpu_torch.kernels import (blockmajor_window,
+                                       paged_attention_decode_grouped,
+                                       paged_attention_decode_grouped_plain,
+                                       read_faults)
+    B, KV, cap = 64, 2, 1024 if blk >= 256 else 128
+    q, k, v, ks, vs = _attention_case(cuda, B, KV, rep, cap, dtype, blk + group)
+    kv_bm, sc_bm = blockmajor_window(k, v, ks, vs, cap, blk)
+    gen = torch.Generator(device=cuda).manual_seed(blk)
+    lens = torch.randint(0, cap + 1, (B,), device=cuda, generator=gen,
+                         dtype=torch.int32)
+    lens[::7] = 0
+    lens[1::9] = cap
+    read_faults(cuda)
+    reset_launches()
+    got = paged_attention_decode_grouped(q, kv_bm, sc_bm, lens, 1,
+                                         block_size=blk, group=group)
+    assert LAUNCHES['paged_attention_grouped'] == 1
+    want = paged_attention_decode_grouped_plain(q, kv_bm, sc_bm, lens, 1,
+                                                block_size=blk, group=group)
+    torch.cuda.synchronize()
+    _assert_attention_close(got, want, q, k[1], v[1],
+                            None if ks is None else ks[1],
+                            None if vs is None else vs[1], lens)
+    assert read_faults(cuda) == []
+
+
+def test_kernels_flag_inputs_out_of_range(cuda):
+    """What only the card can check sets the fault word: a bank_write column
+    past the buffers (nothing written), a window past the slab, a fill past
+    the block table (cut there) and a table row outside the pool (read as
+    empty)."""
+    from ppq_tpu_torch.kernels import (Bank, bank_write_inplace,
+                                       paged_attention_decode_fused,
+                                       paged_attention_decode_fused_plain,
+                                       read_faults, slotmajor_window,
+                                       window_write_inplace)
+    read_faults(cuda)
+    buf = torch.zeros(2, 4, 1, 128, dtype=torch.int8, device=cuda)
+    new = torch.ones(2, 1, 1, 128, dtype=torch.int8, device=cuda)
+    bank_write_inplace(Bank([buf]), [new],
+                       torch.tensor([4], dtype=torch.int32, device=cuda))
+    assert not buf.any()
+    assert read_faults(cuda) == ['bank_write: a column outside the buffers']
+    slab = torch.zeros(1, 2, 8, 1, 128, dtype=torch.int8, device=cuda)
+    window_write_inplace([slab], [torch.ones(1, 2, 4, 1, 128, dtype=torch.int8,
+                                             device=cuda)],
+                         torch.tensor([0, 5], dtype=torch.int32, device=cuda))
+    assert slab[:, 0, :4].all() and not slab[:, 1].any()
+    assert read_faults(cuda) == ['window_write: a window outside the slab']
+    q, k, v, ks, vs = _attention_case(cuda, 2, 2, 2, 64, torch.int8, 0)
+    pool, sc = slotmajor_window(k[0], v[0], ks[0], vs[0], 64, 32)
+    tables = torch.tensor([[0, 1], [2, 99]], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([500, 64], dtype=torch.int32, device=cuda)
+    got = paged_attention_decode_fused(q, pool, sc, tables, lens,
+                                       block_size=32)
+    want = paged_attention_decode_fused_plain(q, pool, sc, tables, lens,
+                                              block_size=32)
+    assert set(read_faults(cuda)) == {
+        'paged attention: a seq_lens entry outside [0, blocks * block size]',
+        'paged attention: a block-table row outside the pool'}
+    cut = torch.tensor([64, 32], dtype=torch.int32, device=cuda)
+    _assert_attention_close(got, want, q, k[0], v[0], ks[0], vs[0], cut)
+
+
+def test_serving_engine_default_is_ragged_on_the_card(cuda):
+    """With no knob set the engine reads the frozen cache through the
+    ragged kernels (grouped at shallow fills, per slot where every slot is
+    deep), at INT8 and at INT4 weights (with an INT8 lm_head)."""
+    from ppq_tpu_torch.kernels import read_faults
+    from ppq_tpu_torch.serving import (LlamaConfig, Request, ServingEngine,
+                                       init_llama_params)
+    for bits in (8, 4):
+        cfg = LlamaConfig(vocab_size=512, d_model=512, n_layers=2, n_heads=4,
+                          n_kv_heads=2, d_ff=1024, max_seq_len=256,
+                          max_batch=4, prefill_buckets=(16, 128),
+                          weight_bits=bits)
+        engine = ServingEngine(cfg, init_llama_params(cfg, seed=0))
+        assert cfg.use_ragged_attention is True and cfg.use_kernel_matmul
+        rng = np.random.default_rng(0)
+        reqs = [Request(i, [int(t) for t in rng.integers(1, 512, size=5 + 30 * i)],
+                        max_new_tokens=9) for i in range(6)]
+        reset_launches()
+        engine.run(reqs, sync_every=4)
+        assert all(r.done and len(r.generated) == 9 for r in reqs)
+        assert LAUNCHES['paged_attention_grouped'] > 0
+        names = ('qmm_int4', 'qmm_gateup_int4') if bits == 4 \
+            else ('qmm_gateup',)
+        for name in names + ('qmm_int8', 'bank_write', 'window_write'):
+            assert LAUNCHES[name] > 0, name
+        reset_launches()
+        out = engine.benchmark_decode(steps=8, burst=8, repeats=1, fill=200)
+        assert LAUNCHES['paged_attention_fused'] > 0
+        assert LAUNCHES['paged_attention_grouped'] == 0
+        assert out['tokens_per_sec'] > 0 and read_faults(cuda) == []

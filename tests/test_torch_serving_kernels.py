@@ -106,7 +106,9 @@ def test_qmm_routing_rules_match():
                      (128, 512, 4)]:
         assert tqmm.supports_gateup(d, f2, b, 8) == \
             jqmm.supports_gateup(d, f2, b, 8), (d, f2, b)
-    assert not tqmm.supports_gateup(512, 512, 4, 4)      # INT4: not ported
+    # the INT4 body: ported, with the same rule
+    assert tqmm.supports_gateup(512, 512, 4, 4) == \
+        jqmm.supports_gateup(512, 512, 4, 4) is True
 
 
 def _codes(rng, shape, dtype):
