@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..executor.executor import resolve_device
+
 # leaves the packages keep in bfloat16
 _BF16_LEAVES = ('embed', 'w')
 
@@ -26,9 +28,10 @@ def _walk(tree, leaf, key=None):
     return leaf(key, tree)
 
 
-def llama_params_from_numpy(params, device='cpu'):
-    """A tree of numpy arrays -> the port's parameter tree on `device`."""
-    device = torch.device(device)
+def llama_params_from_numpy(params, device=None):
+    """A tree of numpy arrays -> the port's parameter tree on `device` (the
+    card unless named)."""
+    device = resolve_device(device)
 
     def leaf(key, value):
         t = torch.from_numpy(np.ascontiguousarray(value)).to(device)
@@ -45,10 +48,11 @@ def llama_params_to_numpy(params):
     return _walk(params, leaf)
 
 
-def kv_cache_from_numpy(cache, device='cpu'):
+def kv_cache_from_numpy(cache, device=None):
     """A KV cache of numpy arrays (`k`, `v` int8 with `k_scale`, `v_scale`,
-    or float32 `k`, `v` of a 16-bit cache) -> tensors on `device`."""
-    device = torch.device(device)
+    or float32 `k`, `v` of a 16-bit cache) -> tensors on `device` (the card
+    unless named)."""
+    device = resolve_device(device)
     out = {}
     for key, value in cache.items():
         t = torch.from_numpy(np.ascontiguousarray(value)).to(device)

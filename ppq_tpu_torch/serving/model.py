@@ -67,13 +67,13 @@ def _mse_weight_scale(w: np.ndarray, qmax: int, n_grid: int = 32,
 
 
 def quantize_weight(w, bits: int, method: str = 'minmax',
-                    device='cpu') -> Dict[str, torch.Tensor]:
+                    device=None) -> Dict[str, torch.Tensor]:
     """Per-output-channel symmetric weight quantization. w: (in, out), a
-    numpy array or a tensor; the result lies on `device`, where the division
-    and the rounding run (the same IEEE float32 arithmetic as numpy's, so
-    codes and scales do not depend on the device).
+    numpy array or a tensor; the result lies on `device` (the card unless
+    named), where the division and the rounding run (the same IEEE float32
+    arithmetic as numpy's, so codes and scales do not depend on the device).
     method: 'minmax' (absmax range) or 'mse' (per-channel grid search)."""
-    device = torch.device(device)
+    device = resolve_device(device)
     if bits >= 16:
         return {'w': torch.as_tensor(w).to(device=device, dtype=BF16)}
     qmax = (1 << (bits - 1)) - 1

@@ -403,7 +403,7 @@ def _prefilled_pair(kernel, seed=0, **extra):
     128-token prefill (slot 2 inactive: its rows stay empty)."""
     jcfg, tcfg = _configs(kernel, **extra)
     jp = jmodel.init_llama_params(jcfg, seed=seed)
-    tp = llama_params_from_numpy(_np_tree(jp))
+    tp = llama_params_from_numpy(_np_tree(jp), device='cpu')
     jp, tp = jmodel.fuse_decode_params(jp, jcfg), tmodel.fuse_decode_params(tp, tcfg)
     B, T = 4, 128
     rng = np.random.default_rng(seed + 1)
@@ -535,7 +535,7 @@ def test_engine_grouped_gate_and_ragged_run():
     jcfg, tcfg = _configs()
     jcfg.use_pallas_matmul = tcfg.use_kernel_matmul = None
     jp = jmodel.init_llama_params(jcfg, seed=0)
-    teng = ServingEngine(tcfg, llama_params_from_numpy(_np_tree(jp)),
+    teng = ServingEngine(tcfg, llama_params_from_numpy(_np_tree(jp), device='cpu'),
                          device='cpu')
     jeng = jengine.ServingEngine(jcfg, jp)
     assert tcfg.use_ragged_attention is True and tcfg.use_kernel_matmul is False

@@ -97,7 +97,7 @@ def _pair(size, kernel=False, seed=0):
     """(jcfg, fused JAX params, tcfg, fused port params carried across)."""
     jcfg, tcfg = _configs(size, kernel)
     jp = jmodel.init_llama_params(jcfg, seed=seed)
-    tp = llama_params_from_numpy(_np_tree(jp))
+    tp = llama_params_from_numpy(_np_tree(jp), device='cpu')
     return (jcfg, jmodel.fuse_decode_params(jp, jcfg),
             tcfg, tmodel.fuse_decode_params(tp, tcfg))
 
@@ -127,7 +127,7 @@ def test_quantize_weight_bit_equal(bits, method):
     w = np.random.default_rng(3).standard_normal((96, 40)).astype(np.float32)
     w[:, 5] = 0.0                                  # the 1e-8 floor
     want = jmodel.quantize_weight(w, bits, method=method)
-    got = tmodel.quantize_weight(w, bits, method=method)
+    got = tmodel.quantize_weight(w, bits, method=method, device='cpu')
     _assert_trees_equal(want, got)
 
 
@@ -176,7 +176,7 @@ def test_fuse_decode_params_leaf_for_leaf(bits):
                 elif isinstance(leaf, dict) and 'w' in leaf:
                     leaf['w'] = leaf['w'].astype(jnp.bfloat16)
         jf = jmodel.fuse_decode_params(as_jax, jcfg)
-        tf = tmodel.fuse_decode_params(llama_params_from_numpy(base), tcfg)
+        tf = tmodel.fuse_decode_params(llama_params_from_numpy(base, device='cpu'), tcfg)
         _assert_trees_equal(jf, tf)
         assert tcfg.norm_folded == jcfg.norm_folded
         assert tcfg.norm_folded == (not real_gammas or bits == 16)
@@ -240,7 +240,7 @@ def test_qmatmul_both_numerics(kernel, epilogue, monkeypatch):
     rng = np.random.default_rng(1)
     w = jmodel.quantize_weight(
         rng.standard_normal((256, 384)).astype(np.float32) / 16, 8)
-    wt = llama_params_from_numpy(_np_tree(w))
+    wt = llama_params_from_numpy(_np_tree(w), device='cpu')
     x = _bf16_np(rng.standard_normal((2, 3, 256)).astype(np.float32))
     row = (rng.random((2, 3)) + 0.5).astype(np.float32)
     res = _bf16_np(rng.standard_normal((2, 3, 384)).astype(np.float32))
@@ -265,7 +265,7 @@ def test_qmatmul_routing_over_the_row_cap():
     assert tmodel._KERNEL_QMM_MAX_X_BYTES == jmodel._PALLAS_QMM_MAX_X_BYTES
     rng = np.random.default_rng(2)
     w = llama_params_from_numpy(_np_tree(jmodel.quantize_weight(
-        rng.standard_normal((256, 128)).astype(np.float32), 8)))
+        rng.standard_normal((256, 128)).astype(np.float32), 8)), device='cpu')
     x = torch.from_numpy(rng.standard_normal((4097, 256)).astype(np.float32))
     x = x.bfloat16()
     over = tmodel.qmatmul(x, w, kernel=True)
@@ -419,7 +419,7 @@ def test_burst_forward_chunked_and_unfolded(monkeypatch):
     as_jax = jax.tree.map(jnp.asarray, base)
     as_jax['embed'] = as_jax['embed'].astype(jnp.bfloat16)
     pair = (jcfg, jmodel.fuse_decode_params(as_jax, jcfg), tcfg,
-            tmodel.fuse_decode_params(llama_params_from_numpy(base), tcfg))
+            tmodel.fuse_decode_params(llama_params_from_numpy(base, device='cpu'), tcfg))
     assert not jcfg.norm_folded and not tcfg.norm_folded
     caches, seq = _prefilled(pair, seed=13)
     rng = np.random.default_rng(14)
@@ -512,7 +512,7 @@ def _engines(size):
         jcfg, tcfg = _configs(size)
         jcfg.use_pallas_matmul = tcfg.use_kernel_matmul = None  # both resolve off
         jp = jmodel.init_llama_params(jcfg, seed=0)
-        tp = llama_params_from_numpy(_np_tree(jp))
+        tp = llama_params_from_numpy(_np_tree(jp), device='cpu')
         _ENGINES[size] = (jengine.ServingEngine(jcfg, jp),
                           ServingEngine(tcfg, tp, device='cpu'))
     return _ENGINES[size]
@@ -649,11 +649,25 @@ def test_engine_refuses_what_is_not_ported():
 def test_interop_round_trip():
     tcfg = LlamaConfig(**SIZES['dh32'], kv_cache_bits=16)
     params = init_llama_params(tcfg, seed=6, quantized=False, device='cpu')
-    back = llama_params_from_numpy(llama_params_to_numpy(params))
+    back = llama_params_from_numpy(llama_params_to_numpy(params), device='cpu')
     for a, b in zip(jax.tree.leaves(params), jax.tree.leaves(back)):
         assert a.dtype == b.dtype and torch.equal(a, b)
     cache = tmodel.init_kv_cache(tcfg, 2, 'cpu')
     cache['k'].normal_()
-    again = kv_cache_from_numpy(kv_cache_to_numpy(cache))
+    again = kv_cache_from_numpy(kv_cache_to_numpy(cache), device='cpu')
     assert again['k'].dtype == torch.bfloat16
     assert torch.equal(again['k'], cache['k'])
+
+
+def test_weight_and_interop_entry_points_need_a_card_or_device_cpu():
+    """quantize_weight and the interop loaders run on the card unless given
+    a device: without a card and without device='cpu' they raise."""
+    if torch.cuda.is_available():
+        pytest.skip('a card is present: the default device is the card')
+    w = np.random.default_rng(0).standard_normal((16, 8)).astype(np.float32)
+    cache = {'k': np.zeros((1, 1, 4, 1, 8), np.int8)}
+    for call in (lambda: tmodel.quantize_weight(w, 8),
+                 lambda: llama_params_from_numpy({'embed': w}),
+                 lambda: kv_cache_from_numpy(cache)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()

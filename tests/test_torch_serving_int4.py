@@ -98,7 +98,7 @@ def test_quantize_weight_int4_bit_equal(method):
     w = np.random.default_rng(3).standard_normal((96, 40)).astype(np.float32)
     w[:, 5] = 0.0
     want = jmodel.quantize_weight(w, 4, method=method)
-    got = tmodel.quantize_weight(w, 4, method=method)
+    got = tmodel.quantize_weight(w, 4, method=method, device='cpu')
     assert set(got) == {'w_packed', 'scale'}
     _assert_trees_equal(want, got)
 
@@ -194,7 +194,7 @@ def test_qmatmul_int4_both_numerics(kernel, epilogue, monkeypatch):
     rng = np.random.default_rng(1)
     w = jmodel.quantize_weight(
         rng.standard_normal((512, 384)).astype(np.float32) / 16, 4)
-    wt = llama_params_from_numpy(_np_tree(w))
+    wt = llama_params_from_numpy(_np_tree(w), device='cpu')
     x = _bf16(rng.standard_normal((2, 3, 512)).astype(np.float32))
     row = (rng.random((2, 3)) + 0.5).astype(np.float32)
     res = _bf16(rng.standard_normal((2, 3, 384)).astype(np.float32))
@@ -268,7 +268,7 @@ def test_int4_prefill_decode_and_burst(kernel, monkeypatch):
                 getattr(jqmm, name), interpret=True))
     jcfg, tcfg = _configs(kernel)
     jp = jmodel.init_llama_params(jcfg, seed=0)
-    tp = llama_params_from_numpy(_np_tree(jp))
+    tp = llama_params_from_numpy(_np_tree(jp), device='cpu')
     jp, tp = jmodel.fuse_decode_params(jp, jcfg), tmodel.fuse_decode_params(tp, tcfg)
     assert 'w_packed' in tp['layers'][0]['w_gateup']
     B, T = 4, 16
@@ -338,7 +338,7 @@ def test_engine_run_int4_greedy_tokens():
     jcfg, tcfg = _configs(None)
     jp = jmodel.init_llama_params(jcfg, seed=0)
     jeng = jengine.ServingEngine(jcfg, jp)
-    teng = ServingEngine(tcfg, llama_params_from_numpy(_np_tree(jp)),
+    teng = ServingEngine(tcfg, llama_params_from_numpy(_np_tree(jp), device='cpu'),
                          device='cpu')
     assert tcfg.resolved_lm_head_bits == 8 and 'w_int' in teng.params['lm_head']
     rng = np.random.default_rng(21)
