@@ -10,8 +10,9 @@ Phases (each raises on failure, and the script then exits non-zero):
      (fake-quant forward, its `dx` and the floating fake-quant bit for bit,
      the LSQ sums against a float64 sum of the plain terms and run to run
      exactly, histogram counts exactly, the dequant-matmuls within 1e-5 of
-     the row's absolute mass, the KV writes bit for bit), with kernel, plain
-     and library times and the bound;
+     the row's absolute mass, the KV and pool writes bit for bit, the paged
+     reads within the attention tolerance), with kernel, plain and library
+     times and the bound;
   4. path A: zoo ResNet-18 at full width, `quantize_graph` with TPU_INT8
      over 16 seeded batches of 32 (percentile), a second quantization with
      KL over 4 batches, and the simulated forward at batch 32; the forward
@@ -39,10 +40,21 @@ Phases (each raises on failure, and the script then exits non-zero):
      ragged burst against D's dense burst, the kernel path against the plain
      path, every launch against its plain version, the profile and the
      window repack's device time;
-  9. path F: INT4 weights (an INT8 lm_head), ragged read, 128 slots:
+  9. path G: path D's model with the paged KV cache (`paged_kv=True`,
+     blocks of 256, the default pool of 513 blocks): `run` over the same
+     160 requests with every block back at its start, `benchmark_decode` at
+     fill 16 and 512 with the window repack's time, and one burst at each
+     fill on which row 13 reads every layer's inputs at one step (held
+     against its plain version and the engine's composition); then,
+     outside the counts, a prefix-cache run (32 requests sharing a 512-token
+     prefix) against the same requests with the cache off, the paged burst
+     against path E's ragged burst on the same prompt KV, the kernel path
+     against the plain path, every launch against its plain version and the
+     profile;
+ 10. path F: INT4 weights (an INT8 lm_head), ragged read, 128 slots:
      `benchmark_decode` at fill 16 and 512, a short `run`, the kernel path
      against the plain path and every launch against its plain version;
- 10. launches: every kernel ran on a path (the counts are set to 0 before
+ 11. launches: every kernel ran on a path (the counts are set to 0 before
      each path and read after it); then, outside the counts, the time and
      the launches of an LSQ step block by block on the INT8 and the FP8
      graph, and torch.profiler breakdowns of the forward and of the first
@@ -108,6 +120,10 @@ KERNELS = {
                    'ppq_tpu/kernels/bank_write.py:81'),
     'window_write': ('ppq_tpu_torch/csrc/kv_write.cu',
                      'ppq_tpu/kernels/window_write.py:97'),
+    'paged_attention_buffered': ('ppq_tpu_torch/csrc/paged_attention.cu',
+                                 'ppq_tpu/kernels/paged_attention.py:858'),
+    'pool_write': ('ppq_tpu_torch/csrc/kv_write.cu',
+                   'ppq_tpu/kernels/pool_write.py:156'),
 }
 
 # path D: the model bench.py serves, at full width and depth
@@ -147,7 +163,14 @@ PATH_KERNELS = {
           'paged_attention_fused', 'paged_attention_grouped'),
     'F': ('qmm_int8', 'qmm_int4', 'qmm_gateup_int4', 'bank_write',
           'window_write', 'paged_attention_fused', 'paged_attention_grouped'),
+    # row 13 is not the engine's: path G launches it on its bursts' inputs
+    'G': ('qmm_int8', 'qmm_gateup', 'bank_write', 'pool_write',
+          'paged_attention_grouped', 'paged_attention_buffered'),
 }
+# path G: path D's model with the paged KV cache (bench.py's paged
+# configuration: blocks of 256, the default pool of 128 * 1024 / 256 + 1
+# blocks); its prefix-cache run: 32 requests sharing a 512-token prefix
+PAGED_PREFIX, PAGED_PREFIX_REQUESTS, PAGED_PREFIX_BLOCKS = 512, 32, 64
 
 
 def log(*args):
@@ -296,6 +319,7 @@ def phase_kernels(dev):
     results.update(kernels_serving(dev, flush))
     results.update(kernels_int4(dev, flush))
     results.update(kernels_ragged(dev, flush))
+    results.update(kernels_paged(dev, flush))
     for name, r in results.items():
         lib = ('none' if r['library_ms'] is None
                else f'{r["library_ms"]:.4f} ms')
@@ -983,15 +1007,239 @@ def kernels_ragged(dev, flush):
     return results
 
 
+def _buffered_tolerance(q, k, v, ks, vs, lens, kb, vb, ksb, vsb, step):
+    """Row 13's context against another evaluation of its arithmetic: s sums
+    Dh exact bf16 x code products in another order (delta = 2e-5 of its
+    absolute mass, as for rows 11 and 12); p moves by 2 delta and may then
+    round to the neighbouring bf16 number (2^-7 relative), so each term of
+    acc moves by |p v_eff| (2^-7 + 4 delta), l by 4 delta, and the context
+    acc / l by (sum |p v_eff| / l) (2^-7 + 8 delta). k, v: the slots'
+    (B, S, KV, Dh) behind the tables, ks, vs (B, S, KV) or None; the buffer
+    kb, vb (B, n, KV, Dh), ksb, vsb (B, KV, n) with columns [0, step]
+    valid. Returns the (B, KV, rep, Dh) tolerance."""
+    B, KV, rep, Dh = q.shape
+    S, n = k.shape[1], kb.shape[1]
+    dev = q.device
+    ones = lambda m: torch.ones(B, m, KV, device=dev)  # noqa: E731
+    kss = torch.cat([ones(S) if ks is None else ks,
+                     ones(n) if ksb is None else ksb.transpose(1, 2)], 1)
+    vss = torch.cat([ones(S) if vs is None else vs,
+                     ones(n) if vsb is None else vsb.transpose(1, 2)], 1)
+    keys = torch.cat([k.float(), kb.float()], 1)
+    valid = torch.cat([torch.arange(S, device=dev)[None] < lens.long()[:, None],
+                       (torch.arange(n, device=dev) <= step)[None].expand(B, n)],
+                      1)[:, None, None, :]
+    kt = kss.transpose(1, 2)[:, :, None] / np.sqrt(Dh)
+    qf = q.float()
+    s = torch.where(valid, torch.einsum('bkrd,bskd->bkrs', qf, keys) * kt,
+                    -torch.inf)
+    mass = torch.einsum('bkrd,bskd->bkrs', qf.abs(), keys.abs()) * kt
+    delta = 2e-5 * torch.where(valid, mass, 0.0).amax(-1) + 1e-6
+    del mass, keys
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    del s
+    vals = torch.cat([v.float(), vb.float()], 1).abs() * vss[..., None]
+    spread = torch.einsum('bkrs,bskd->bkrd', p, vals) / p.sum(-1)[..., None]
+    return spread * (2.0 ** -7 + 8 * delta[..., None]) + 1e-6
+
+
+def _composition(q, kv_bm, sc_bm, lens, layer, rblk, group, kb, vb, ksb, vsb,
+                 step):
+    """What the engine computes for the context of one layer at burst step
+    `step`: row 12 over the repacked window, the buffer's columns below
+    `step` and the step's own column (column `step`) as two more partial
+    softmaxes, and merge_attention (serving/paged.py burst_forward_paged).
+    kb, vb (B, n, KV, Dh); ksb, vsb (B, KV, n)."""
+    from ppq_tpu_torch.kernels import (merge_attention,
+                                       paged_attention_decode_grouped)
+    from ppq_tpu_torch.serving.model import _pv_context, _qk_logits
+    Dh = q.shape[-1]
+    root = np.sqrt(Dh)
+    frozen = paged_attention_decode_grouped(q, kv_bm, sc_bm, lens, layer,
+                                            block_size=rblk, group=group)
+    n = kb.shape[1]
+    ids = torch.arange(n, device=q.device)[None, None, None, :]
+    lb = _qk_logits(q[:, None], kb)[:, :, :, 0, :] * ksb[:, :, None, :]
+    lb = torch.where(ids < step, lb / root, -1e30)
+    m_b = lb.amax(-1)
+    p_b = torch.exp(lb - m_b[..., None])
+    acc_b = _pv_context((p_b * vsb[:, :, None, :])[:, :, :, None, :], vb)[:, 0]
+    m_s = torch.einsum('bkrd,bkd->bkr', q.float(), kb[:, step].float()) \
+        * ksb[:, :, step][:, :, None] / root
+    acc_s = vb[:, step].float()[:, :, None, :] * vsb[:, :, step][:, :, None, None]
+    return merge_attention([frozen, (acc_b, m_b, p_b.sum(-1)),
+                            (acc_s.expand_as(frozen[0]), m_s,
+                             torch.ones_like(m_s))])
+
+
+def _hold_buffered(got, want, tol, what, factor=1.0):
+    share = float(((got - want).abs() / (factor * tol)).max())
+    if share > 1.0:
+        raise AssertionError(f'{what}: off by {share:.2f} of the tolerance')
+    return share
+
+
+def kernels_paged(dev, flush):
+    """Rows 16 and 13 at path G's shapes: the pool (16, 513, 2, 256, 1024)
+    int8 and its f32 scales, 128 slots of 3 blocks (fill 512 and a burst of
+    32). Row 16 writes a burst's 32 columns at position 512 (its timed
+    case) and a 128-token prefill window at 0, each against its plain
+    version bit for bit on the whole pool; the library column is index_put_
+    of codes and scales (two calls, indices and values prepared outside the
+    window). Row 13 reads one layer's strided planes of that pool and a
+    32-column buffer at step 31 (fill 512, its timed case; also mixed fills
+    and step 0) against its plain version, and against the engine's
+    composition on the same inputs; the library column is that composition
+    (row 12 over the repacked window, the buffer's products and
+    merge_attention: several calls, the repack not included)."""
+    from ppq_tpu_torch.kernels import (paged_attention_decode_buffered,
+                                       paged_attention_decode_buffered_plain,
+                                       pool_write_inplace, pool_write_plain,
+                                       read_faults)
+    from ppq_tpu_torch.kernels.paged_attention import grouped_group_size
+    from ppq_tpu_torch.serving.paged import BlockAllocator, gather_window
+    B, L, KV = SERVE['max_batch'], SERVE['n_layers'], SERVE['n_kv_heads']
+    S, Dh = SERVE['max_seq_len'], SERVE['d_model'] // SERVE['n_heads']
+    rep, BLK, fill, T = SERVE['n_heads'] // KV, 256, 512, BURST
+    MB = S // BLK
+    NB = B * MB + 1
+    gen = torch.Generator(device=dev).manual_seed(7)
+    codes = lambda *s: torch.randint(-128, 128, s, device=dev, generator=gen,  # noqa: E731
+                                     dtype=torch.int8)
+    scales = lambda *s: torch.rand(*s, device=dev, generator=gen) * 0.02 + 0.001  # noqa: E731
+    pool, scale = codes(L, NB, 2, BLK, KV * Dh), scales(L, NB, 2, KV, BLK)
+    alloc = BlockAllocator(NB, B, MB, BLK)
+    for slot in range(B):
+        alloc.ensure(slot, fill + T)
+    tables = torch.as_tensor(alloc.tables(), device=dev)
+    kbuf, vbuf = codes(L, B, T, KV, Dh), codes(L, B, T, KV, Dh)
+    ksb, vsb = scales(L, B, KV, T), scales(L, B, KV, T)
+    wp = torch.full((B,), fill, dtype=torch.int32, device=dev)
+    results = {}
+    read_faults(dev)
+
+    # row 16: the burst's window, then a prefill window (scales as the
+    # prefill hands them: a transposed view)
+    want = (pool.clone(), scale.clone())
+    pool_write_inplace(pool, scale, kbuf, vbuf, ksb, vsb, tables, wp)
+    pool_write_plain(*want, kbuf, vbuf, ksb, vsb, tables, wp)
+    kp, vp = codes(L, B, 128, KV, Dh), codes(L, B, 128, KV, Dh)
+    ksp = scales(L, B, 128, KV).transpose(2, 3)
+    vsp = scales(L, B, 128, KV).transpose(2, 3)
+    zero = torch.zeros((B,), dtype=torch.int32, device=dev)
+    pool_write_inplace(pool, scale, kp, vp, ksp, vsp, tables, zero)
+    pool_write_plain(*want, kp, vp, ksp, vsp, tables, zero)
+    if not (torch.equal(pool, want[0]) and torch.equal(scale, want[1])):
+        raise AssertionError('pool_write != plain on the whole pool')
+    err = max(float((pool.to(torch.int16) - want[0].to(torch.int16)).abs().max()),
+              float((scale - want[1]).abs().max()))
+    # the library's yardstick: index_put_ on the pool as (L*NB, 2, BLK, KVDh)
+    pos = wp.long()[:, None] + torch.arange(T, device=dev)
+    rows = torch.gather(tables.long(), 1, pos // BLK)
+    lrows = (torch.arange(L, device=dev)[:, None, None] * NB + rows[None])
+    off = (pos % BLK)[None].expand_as(lrows)
+    plane = torch.arange(2, device=dev)
+    new_kv = torch.stack([kbuf.reshape(L, B, T, -1), vbuf.reshape(L, B, T, -1)], 3)
+    new_sc = torch.stack([ksb.transpose(2, 3), vsb.transpose(2, 3)], 3)
+    flat_kv, flat_sc = pool.view(L * NB, 2, BLK, -1), scale.view(L * NB, 2, KV, BLK)
+    head = torch.arange(KV, device=dev)
+
+    def library_pool():
+        flat_kv.index_put_((lrows[..., None], plane, off[..., None]), new_kv)
+        flat_sc.index_put_((lrows[..., None, None], plane[:, None], head,
+                            off[..., None, None]), new_sc)
+
+    moved = 2.0 * L * B * T * 2 * (KV * Dh + KV * 4) + 4 * B * (MB + 1)
+    b, by = bound_ms(moved, 0.0)
+    results['pool_write'] = dict(
+        max_abs_err=err, shape=[L, NB, 2, BLK, KV * Dh], window=T, bound_ms=b,
+        bound_by=by,
+        ms=time_ms(lambda: pool_write_inplace(pool, scale, kbuf, vbuf, ksb, vsb,
+                                              tables, wp), flush),
+        prefill_window_128_ms=time_ms(lambda: pool_write_inplace(
+            pool, scale, kp, vp, ksp, vsp, tables, zero), flush),
+        plain_ms=time_ms(lambda: pool_write_plain(pool, scale, kbuf, vbuf, ksb,
+                                                  vsb, tables, wp), flush),
+        library_ms=time_ms(library_pool, flush))
+    del want, kp, vp, ksp, vsp, new_kv, new_sc, lrows, off
+    torch.cuda.empty_cache()
+
+    # row 13: one layer's planes of the pool and a 32-column buffer
+    layer = L // 2
+    planes = (pool[layer, :, 0], pool[layer, :, 1], scale[layer, :, 0],
+              scale[layer, :, 1])
+    q = torch.randn(B, KV, rep, Dh, device=dev, generator=gen).bfloat16()
+    kb, vb = kbuf[layer], vbuf[layer]                  # (B, T, KV, Dh)
+    kb3, vb3 = kb.reshape(B, T, -1), vb.reshape(B, T, -1)
+    ks1, vs1 = ksb[layer], vsb[layer]
+    path_lens = torch.full((B,), fill, dtype=torch.int32, device=dev)
+    mixed = torch.randint(0, fill + 1, (B,), device=dev, generator=gen,
+                          dtype=torch.int32)
+    mixed[::9] = 0
+    dense = _dense_slots(pool, scale, layer, B, tables)
+    kv_bm, sc_bm, rblk = gather_window({'kv': pool, 'kv_scale': scale},
+                                       tables, read_limit=fill)
+    group = grouped_group_size(B, rblk, KV * Dh, 1, SERVE['n_heads'])
+    worst = worst_plain = worst_comp = 0.0
+    for lens, step in ((path_lens, T - 1), (mixed, T - 1), (path_lens, 0)):
+        args = (q, *planes, tables, lens, kb3, vb3, ks1, vs1, step)
+        got = paged_attention_decode_buffered(*args, block_size=BLK)
+        want = paged_attention_decode_buffered_plain(*args, block_size=BLK)
+        tol = _buffered_tolerance(q, *dense, lens, kb, vb, ks1, vs1, step)
+        worst_plain = max(worst_plain, _hold_buffered(
+            got, want, tol, 'paged_attention_buffered against its plain version'))
+        # the composition folds the v scale into p, row 13 into the values:
+        # two more bf16 roundings of each term
+        comp = _composition(q, kv_bm, sc_bm, lens, layer, rblk, group, kb, vb,
+                            ks1, vs1, step)
+        worst_comp = max(worst_comp, _hold_buffered(
+            got, comp, tol, 'paged_attention_buffered against the composition',
+            factor=2.0))
+        worst = max(worst, float((got - want).abs().max()))
+    faults = read_faults(dev)
+    if faults:
+        raise AssertionError(f'the kernels reported faults: {faults}')
+    log(f'[kernel] paged_attention_buffered: worst share of the tolerance '
+        f'{worst_plain:.3f} against its plain version, {worst_comp:.3f} of '
+        f'twice it against the engine\'s composition')
+    step = T - 1
+    args = (q, *planes, tables, path_lens, kb3, vb3, ks1, vs1, step)
+    tokens = float(path_lens.long().sum()) + B * (step + 1)
+    moved = tokens * 2 * (KV * Dh + KV * 4) + B * KV * rep * Dh * (2 + 4) \
+        + 4 * B * (MB + 1)
+    b, by = bound_ms(moved, tokens * KV * rep * Dh * 4.0, BF16_OPS_PER_S)
+    results['paged_attention_buffered'] = dict(
+        max_abs_err=worst, shape=[B, KV, rep, Dh, NB, BLK, T], fill=fill,
+        step=step, bound_ms=b, bound_by=by,
+        worst_share_of_tolerance=worst_plain,
+        worst_share_against_composition=worst_comp,
+        ms=time_ms(lambda: paged_attention_decode_buffered(*args, block_size=BLK),
+                   flush),
+        plain_ms=time_ms(lambda: paged_attention_decode_buffered_plain(
+            *args, block_size=BLK), flush),
+        # yardstick, several calls: the composition the engine runs instead
+        library_ms=time_ms(lambda: _composition(
+            q, kv_bm, sc_bm, path_lens, layer, rblk, group, kb, vb, ks1, vs1,
+            step), flush))
+    log('[kernel] pool_write bit-equal to its plain version on the whole pool; '
+        'paged_attention_buffered within its tolerance (row 11\'s delta, one '
+        'bf16 step of p, divided by l)')
+    del pool, scale, kv_bm, sc_bm, dense, kbuf, vbuf, ksb, vsb, q
+    torch.cuda.empty_cache()
+    return results
+
+
 class _PlainKernels:
     """Send the serving model through the kernels' plain versions on the
     card: the model looks its kernels up in their modules at call time."""
 
     def __enter__(self):
-        from ppq_tpu_torch.kernels import (bank_write, paged_attention, qmm,
-                                           window_write)
+        from ppq_tpu_torch.kernels import (bank_write, paged_attention,
+                                           pool_write, qmm, window_write)
         pa = paged_attention
-        self.saved = [(qmm, 'qmm_int8', qmm.qmm_int8_plain),
+        self.saved = [(pool_write, 'pool_write_inplace',
+                       pool_write.pool_write_plain),
+                      (qmm, 'qmm_int8', qmm.qmm_int8_plain),
                       (qmm, 'qmm_int4', qmm.qmm_int4_plain),
                       (qmm, 'qmm_gateup', qmm.qmm_gateup_plain),
                       (bank_write, 'bank_write_inplace',
@@ -1032,7 +1280,7 @@ class _ShadowKernels:
         self.qkv_width = (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
         self.stats = {}
         self.code_share = []           # one entry per wqkv launch, in order
-        self.copies = dict(bank_write=0, window_write=0)
+        self.copies = {}               # copy kernel -> launches held
 
     def _hold(self, name, got, want, tol):
         err = (got.float() - want).abs()
@@ -1142,7 +1390,7 @@ class _ShadowKernels:
         if not all(torch.equal(a, b) for a, b in zip(got, want.bufs)):
             raise AssertionError(f'path {self.tag}: bank_write != plain on '
                                  f'the path\'s own inputs')
-        self.copies['bank_write'] += 1
+        self.copies['bank_write'] = self.copies.get('bank_write', 0) + 1
         return got
 
     def window_write_inplace(self, slabs, news, write_pos):
@@ -1153,15 +1401,29 @@ class _ShadowKernels:
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f'path {self.tag}: window_write != plain on '
                                  f'the path\'s own inputs')
-        self.copies['window_write'] += 1
+        self.copies['window_write'] = self.copies.get('window_write', 0) + 1
+        return got
+
+    def pool_write_inplace(self, kv_pool, sc_pool, k, v, ks, vs, tables,
+                           write_pos, active=None):
+        from ppq_tpu_torch.kernels import pool_write_plain
+        want = (kv_pool.clone(), None if sc_pool is None else sc_pool.clone())
+        got = self.kernels['pool_write_inplace'](kv_pool, sc_pool, k, v, ks,
+                                                 vs, tables, write_pos, active)
+        pool_write_plain(*want, k, v, ks, vs, tables, write_pos, active)
+        if not all(a is None or torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f'path {self.tag}: pool_write != plain on '
+                                 f'the path\'s own inputs')
+        self.copies['pool_write'] = self.copies.get('pool_write', 0) + 1
         return got
 
     def __enter__(self):
-        from ppq_tpu_torch.kernels import (bank_write, paged_attention, qmm,
-                                           window_write)
+        from ppq_tpu_torch.kernels import (bank_write, paged_attention,
+                                           pool_write, qmm, window_write)
         self.modules = dict(qmm_int8=qmm, qmm_int4=qmm, qmm_gateup=qmm,
                             bank_write_inplace=bank_write,
                             window_write_inplace=window_write,
+                            pool_write_inplace=pool_write,
                             paged_attention_decode_fused=paged_attention,
                             paged_attention_decode_grouped=paged_attention)
         self.kernels = {name: getattr(mod, name)
@@ -1174,10 +1436,11 @@ class _ShadowKernels:
         for name, mod in self.modules.items():
             setattr(mod, name, self.kernels[name])
 
-    def report(self, steps):
-        """Log and check what the run saw; returns the summary."""
+    def report(self, steps, copies=('bank_write', 'window_write')):
+        """Log and check what the run saw (the path's copy kernels among
+        it); returns the summary."""
         L = self.cfg.n_layers
-        if len(self.code_share) != L * steps or not all(self.copies.values()):
+        if len(self.code_share) != L * steps or set(self.copies) != set(copies):
             raise AssertionError(
                 f'path {self.tag} witness: {len(self.code_share)} wqkv launches '
                 f'for {L} layers x {steps} steps, copies {self.copies}')
@@ -1238,12 +1501,31 @@ def _teacher_forced(engine, cache, cur, seq, forced, n_per_burst,
     return seen, cache
 
 
-def _hold_against(tag, logits_a, toks_a, cache_a, logits_b, cache_b, fills, n,
-                  code_share, code_step, path='D'):
+def _written(cache, fills, n):
+    """The K and V codes that n steps from `fills` wrote into a dense cache:
+    {'k', 'v'} (L, B, n, KV, Dh)."""
+    rows = fills.long()[:, None] + torch.arange(n, device=fills.device)
+    slots = torch.arange(len(fills), device=fills.device)[:, None].expand_as(rows)
+    return {key: cache[key][:, slots, rows] for key in ('k', 'v')}
+
+
+def _pool_written(pools, tables, fills, n, kv_heads):
+    """The same read out of paged pools through the block tables."""
+    blk = pools['kv'].shape[3]
+    pos = fills.long()[:, None] + torch.arange(n, device=fills.device)
+    rows = torch.gather(tables.long(), 1, pos // blk)
+    L = pools['kv'].shape[0]
+    return {key: pools['kv'][:, rows, plane, pos % blk].reshape(
+                L, len(fills), n, kv_heads, -1)
+            for plane, key in enumerate(('k', 'v'))}
+
+
+def _hold_against(tag, logits_a, toks_a, written_a, logits_b, written_b, fills,
+                  n, code_share, code_step, path='D'):
     """Run b (teacher-forced with run a's tokens) against run a: logits
     within SERVE_LOGIT_TOL of the largest |logit|; b's argmax equal to a's
-    token wherever a's top-1 margin exceeds that tolerance; the rows of the
-    KV cache that the steps wrote equal up to SERVE_CODE_SHARE_FIRST of
+    token wherever a's top-1 margin exceeds that tolerance; the K and V codes
+    that the steps wrote (`_written`) equal up to SERVE_CODE_SHARE_FIRST of
     entries in the first layer (whose inputs are identical) and code_share
     in any layer, by at most code_step codes."""
     worst = margin_flips = flips = 0.0
@@ -1255,24 +1537,23 @@ def _hold_against(tag, logits_a, toks_a, cache_a, logits_b, cache_b, fills, n,
         top2 = la.topk(2, dim=-1).values
         clear = (top2[:, 0] - top2[:, 1]) > SERVE_LOGIT_TOL * scale
         margin_flips += int((differ & clear).sum())
-    rows = fills.long()[:, None] + torch.arange(n, device=fills.device)
-    slots = torch.arange(len(fills), device=fills.device)[:, None].expand_as(rows)
     step = 0.0
-    exact = True
+    exact = all(torch.equal(la, lb) for la, lb in zip(logits_a, logits_b))
     by_layer = None
     for key in ('k', 'v'):
-        a = cache_a[key][:, slots, rows].to(torch.int16)
-        b = cache_b[key][:, slots, rows].to(torch.int16)
+        a = written_a[key].to(torch.int16)
+        b = written_b[key].to(torch.int16)
         differ = (a != b).float().mean(dim=(1, 2, 3, 4))        # per layer
         by_layer = differ if by_layer is None else torch.maximum(by_layer, differ)
         step = max(step, float((a - b).abs().max()))
-        exact = exact and torch.equal(cache_a[key], cache_b[key])
+    codes_exact = max(by_layer.tolist()) == 0.0
     by_layer = [round(v, 5) for v in by_layer.tolist()]
     summary = dict(logits_max_diff_share_of_scale=worst, argmax_flips=int(flips),
                    argmax_flips_with_clear_margin=int(margin_flips),
                    steps=len(toks_a), slots=len(fills),
                    kv_codes_differing_share_by_layer=by_layer,
-                   kv_codes_max_step=step, kv_cache_bit_equal=exact,
+                   kv_codes_max_step=step, logits_bit_equal=exact,
+                   written_codes_bit_equal=codes_exact,
                    limits=dict(logits=SERVE_LOGIT_TOL,
                                code_share_first_layer=SERVE_CODE_SHARE_FIRST,
                                code_share=code_share, code_step=code_step))
@@ -1413,7 +1694,8 @@ def _kernel_vs_plain(tag, engine, start, cur, fills, logits_a, toks_a,
     if LAUNCHES != before:
         raise AssertionError(f'path {tag}: the plain path launched a kernel')
     return _hold_against('kernel path against plain path', logits_a, toks_a,
-                         cache_a, logits_c, cache_c, fills, n,
+                         _written(cache_a, fills, n), logits_c,
+                         _written(cache_c, fills, n), fills, n,
                          **SERVE_KERNEL_VS_PLAIN, path=tag)
 
 
@@ -1473,7 +1755,8 @@ def phase_path_d(dev):
     cache_b = {k: v.clone() for k, v in start.items()}
     logits_b, _ = _teacher_forced(engine, cache_b, cur, fills, toks_a, 1)
     burst_vs_steps = _hold_against('burst of 8 against 8 single steps', logits_a,
-                                   toks_a, cache_a, logits_b, cache_b, fills, n,
+                                   toks_a, _written(cache_a, fills, n), logits_b,
+                                   _written(cache_b, fills, n), fills, n,
                                    **SERVE_BURST_VS_STEPS)
     del cache_b, logits_b
     # (3) the kernel path against the plain versions
@@ -1552,8 +1835,9 @@ def phase_path_e(dev, params):
     logits_b, _ = _teacher_forced(engine, cache_b, cur, fills, toks_a, n,
                                   ragged=False)
     ragged_vs_dense = _hold_against(
-        'ragged burst against the dense burst', logits_a, toks_a, cache_a,
-        logits_b, cache_b, fills, n, **SERVE_RAGGED_VS_DENSE, path='E')
+        'ragged burst against the dense burst', logits_a, toks_a,
+        _written(cache_a, fills, n), logits_b, _written(cache_b, fills, n),
+        fills, n, **SERVE_RAGGED_VS_DENSE, path='E')
     del cache_b, logits_b
     kernel_vs_plain = _kernel_vs_plain('E', engine, start, cur, fills,
                                        logits_a, toks_a, cache_a, n,
@@ -1644,6 +1928,345 @@ def phase_path_f(dev):
     return launches, summary
 
 
+def _paged_forced(engine, pools, tables, cur, seq, forced, n, observe=None):
+    """n teacher-forced steps of one paged burst from `pools`, step i fed
+    forced[i]. Returns the per-step logits (on the card)."""
+    from ppq_tpu_torch.serving.paged import burst_forward_paged
+    seen = []
+
+    def select(logits, step):
+        seen.append(logits)
+        return forced[step]
+    with torch.no_grad():
+        burst_forward_paged(engine.params, pools, cur, seq, tables, n,
+                            engine.cfg, select,
+                            read_limit=engine._decode_bucket(int(seq.max())),
+                            observe=observe)
+    return seen
+
+
+def _paged_slots(engine, tokens_each):
+    """A fresh allocator with every slot's blocks through tokens_each, and
+    the tables bucketed as the run loop buckets them."""
+    from ppq_tpu_torch.serving.paged import BlockAllocator
+    a = engine._alloc
+    alloc = BlockAllocator(a.num_blocks, a.max_batch, a.max_blocks_per_seq,
+                           a.block_size)
+    for slot in range(a.max_batch):
+        alloc.ensure(slot, tokens_each)
+    return torch.as_tensor(
+        alloc.tables()[:, :engine._table_width(tokens_each)],
+        device=engine.device)
+
+
+def _row13_on_the_burst(engine, dev, fill, n=8, probe=5):
+    """One paged burst of n greedy steps at `fill` over the engine's pool
+    (codes and scales seeded at random), in which, at step `probe` and for
+    every layer, row 13 reads that step's query, the layer's pool planes,
+    the tables, the fills and the burst's buffers with the step's own
+    column written (step = probe). Each launch is held against its plain
+    version and against the context the engine's composition produced
+    (`_buffered_tolerance`, twice it for the composition). Also times the
+    window repack of that burst. Returns the summary."""
+    from ppq_tpu_torch.kernels import (paged_attention_decode_buffered,
+                                       paged_attention_decode_buffered_plain)
+    from ppq_tpu_torch.serving.paged import burst_forward_paged, gather_window
+    cfg = engine.cfg
+    B, blk = cfg.max_batch, engine._alloc.block_size
+    pools = engine.cache
+    gen = torch.Generator(device=dev).manual_seed(fill)
+    pools['kv'].random_(-128, 128, generator=gen)
+    pools['kv_scale'].uniform_(0.001, 0.02, generator=gen)
+    tables = _paged_slots(engine, fill + n)
+    seq = torch.full((B,), fill, dtype=torch.int32, device=dev)
+    cur = torch.randint(1, cfg.vocab_size, (B,), device=dev, generator=gen,
+                        dtype=torch.int32)
+    shares = dict(plain=0.0, composition=0.0)
+
+    def observe(at):
+        if at['step'] != probe:
+            return
+        li, step = at['layer'], at['step']
+        kb, vb = at['kbuf'].clone(), at['vbuf'].clone()
+        kb[:, step], vb[:, step] = at['k'], at['v']
+        ksb, vsb = at['ksb'].clone(), at['vsb'].clone()
+        ksb[:, :, step], vsb[:, :, step] = at['ks'], at['vs']
+        args = (at['q'], pools['kv'][li, :, 0], pools['kv'][li, :, 1],
+                pools['kv_scale'][li, :, 0], pools['kv_scale'][li, :, 1],
+                at['tables'], at['seq_lens'], kb.reshape(B, n, -1),
+                vb.reshape(B, n, -1), ksb, vsb, step)
+        got = paged_attention_decode_buffered(*args, block_size=blk)
+        want = paged_attention_decode_buffered_plain(*args, block_size=blk)
+        tol = _buffered_tolerance(
+            at['q'], *_dense_slots(pools['kv'], pools['kv_scale'], li, B,
+                                   at['tables']),
+            at['seq_lens'], kb, vb, ksb, vsb, step)
+        shares['plain'] = max(shares['plain'], _hold_buffered(
+            got, want, tol, f'path G fill {fill}: row 13 against its plain '
+            f'version'))
+        shares['composition'] = max(shares['composition'], _hold_buffered(
+            got, at['ctx'], tol, f'path G fill {fill}: row 13 against the '
+            f'engine\'s composition', factor=2.0))
+
+    with torch.no_grad():
+        burst_forward_paged(engine.params, pools, cur, seq, tables, n, cfg,
+                            lambda logits, step: logits.argmax(-1),
+                            read_limit=engine._decode_bucket(fill),
+                            observe=observe)
+    repack_ms = statistics.median(
+        _event_ms(lambda: gather_window(pools, tables, engine._decode_bucket(fill)))
+        for _ in range(5))
+    return dict(fill=fill, probe_step=probe, layers=cfg.n_layers,
+                worst_share_of_tolerance=shares['plain'],
+                worst_share_of_twice_it_against_composition=shares['composition'],
+                repack_ms_per_burst=repack_ms)
+
+
+def _event_ms(fn):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def _reference_next_logits(params, cfg, seq, dev):
+    """The dense forward over the whole sequence: its next token's logits."""
+    from ppq_tpu_torch.serving.model import forward, init_kv_cache
+    T = len(seq)
+    cache = init_kv_cache(cfg, 1, dev)
+    with torch.no_grad():
+        logits, _ = forward(params, cache, torch.tensor([seq], dtype=torch.int32,
+                                                        device=dev),
+                            torch.arange(T, dtype=torch.int32, device=dev)[None],
+                            torch.zeros(1, dtype=torch.int32, device=dev),
+                            torch.full((1,), T, dtype=torch.int32, device=dev),
+                            cfg)
+    return logits[0, -1].float().cpu().numpy()
+
+
+def _prefix_run(tag, engine, dev):
+    """32 requests sharing a PAGED_PREFIX-token prefix with distinct 8-64
+    token tails: the first arrives at 0, the other 31 10 ms later, while the
+    first one's admission runs (a wave matches before it inserts, so they
+    must come after it). Returns the requests and the counts and times."""
+    from ppq_tpu_torch.serving import Request
+    vocab = engine.cfg.vocab_size
+    rng = np.random.default_rng(2)
+    prefix = [int(t) for t in rng.integers(1, vocab, size=PAGED_PREFIX)]
+    reqs = [Request(i, prefix + [int(t) for t in rng.integers(
+                1, vocab, size=int(rng.integers(8, 65)))], max_new_tokens=16)
+            for i in range(PAGED_PREFIX_REQUESTS)]
+    admit = dict(s=0.0, calls=0)
+    admit_batch = engine._admit_batch
+
+    def timed(admits):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        admit_batch(admits)
+        torch.cuda.synchronize()
+        admit['s'] += time.perf_counter() - t0
+        admit['calls'] += 1
+    engine._admit_batch = timed
+    free0 = engine._alloc.free_blocks
+    t0 = time.perf_counter()
+    engine.run(reqs, sync_every=SERVE_SYNC,
+               arrivals=[0.0] + [0.01] * (PAGED_PREFIX_REQUESTS - 1))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    del engine._admit_batch
+    if not all(r.done and len(r.generated) == r.max_new_tokens for r in reqs):
+        raise AssertionError(f'path {tag}: a prefix-run request did not finish')
+    cache = engine.prefix_cache
+    summary = dict(requests=len(reqs), run_s=run_s, admit_s=admit['s'],
+                   admit_calls=admit['calls'])
+    if cache is not None:
+        held = len(cache.index)
+        summary.update(hits=cache.hits, misses=cache.misses, cached_blocks=held)
+        if engine._alloc.free_blocks != free0 - held:
+            raise AssertionError(f'path {tag}: blocks leaked in the prefix run')
+        cache.clear()
+    if engine._alloc.free_blocks != engine._alloc.num_blocks - 1:
+        raise AssertionError(f'path {tag}: blocks leaked in the prefix run')
+    return reqs, summary
+
+
+def _near_tie_tokens(tag, ref, got, params, cfg, dev):
+    """test_engine_run_greedy_tokens' rule on the card: where a token
+    differs, both candidates' logits (the dense forward over the sequence so
+    far) lie within SERVE_LOGIT_TOL of the largest |logit| of each other and
+    of the top, and that request's comparison ends there."""
+    compared = equal = differing = 0
+    for a, b in zip(ref, got):
+        for i, (x, y) in enumerate(zip(a.generated, b.generated)):
+            compared += 1
+            if x == y:
+                equal += 1
+                continue
+            differing += 1
+            logits = _reference_next_logits(params, cfg,
+                                            b.prompt + b.generated[:i], dev)
+            scale = SERVE_LOGIT_TOL * np.abs(logits).max()
+            if abs(logits[x] - logits[y]) > scale \
+                    or logits.max() - min(logits[x], logits[y]) > scale:
+                raise AssertionError(f'path {tag}: request {b.rid} token {i} '
+                                     f'differs without a near-tie')
+            break
+    return dict(tokens_compared=compared, tokens_equal=equal,
+                requests_ending_at_a_near_tie=differing)
+
+
+def phase_path_g(dev, params):
+    """Path D's model with the paged KV cache (bench.py's paged
+    configuration): run over the 160 requests (the 200-token prompt through
+    the chunked paged prefill) with every block back at its start,
+    benchmark_decode at fill 16 and 512, and one burst at each fill on which
+    row 13 reads every layer's inputs at one step; then, outside the counts,
+    the prefix-cache run against the same requests with the cache off, the
+    paged burst against path E's ragged burst on the same prompt KV, the
+    kernel path against the plain path, every launch against its plain
+    version, and the profile of each fill."""
+    from ppq_tpu_torch.kernels import LAUNCHES, read_faults, reset_launches
+    from ppq_tpu_torch.serving import LlamaConfig, ServingEngine
+    from ppq_tpu_torch.serving.model import burst_forward, forward, init_kv_cache
+    from ppq_tpu_torch.serving.paged import write_kv_window
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = LlamaConfig(**SERVE, paged_kv=True)
+    reset_launches()
+    engine, weight_bytes, cache_bytes = _serve_engine('G', cfg, params)
+    B, L, KV = cfg.max_batch, cfg.n_layers, cfg.n_kv_heads
+    pool_shape = tuple(engine.cache['kv'].shape)
+    if pool_shape != (L, B * cfg.max_seq_len // cfg.kv_block_size + 1, 2,
+                      cfg.kv_block_size, KV * cfg.head_dim) \
+            or cfg.kv_block_size != 256:
+        raise AssertionError(f'path G: pool {pool_shape}, blocks of '
+                             f'{cfg.kv_block_size}')
+    free0 = engine._alloc.free_blocks
+    reqs = _serve_requests(cfg.vocab_size)
+    run = _serve_run('G', engine, reqs)
+    if engine._alloc.free_blocks != free0:
+        raise AssertionError(f'path G: {engine._alloc.free_blocks} blocks free '
+                             f'after run, {free0} before')
+    launches_run = dict(LAUNCHES)
+    decode = _serve_decode(engine)
+    engine.cache = engine._new_cache()
+    row13 = [_row13_on_the_burst(engine, dev, fill) for fill in (16, 512)]
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    faults = read_faults(dev)
+    if faults:
+        raise AssertionError(f'path G: the kernels reported faults: {faults}')
+    host_us = _host_us(dev)
+
+    # ---- comparisons and the profile: these launches are not the path's --
+    engine.cache = engine._new_cache()
+    off_reqs, prefix_off = _prefix_run('G', engine, dev)
+    del engine.cache
+    torch.cuda.empty_cache()
+    cached = ServingEngine(LlamaConfig(**SERVE, paged_kv=True,
+                                       prefix_cache_blocks=PAGED_PREFIX_BLOCKS),
+                           params)
+    on_reqs, prefix_on = _prefix_run('G', cached, dev)
+    del cached
+    torch.cuda.empty_cache()
+    if prefix_on['hits'] != PAGED_PREFIX_REQUESTS - 1 or prefix_on['misses'] != 1:
+        raise AssertionError(f'path G: prefix cache {prefix_on}')
+    ref_cfg = LlamaConfig(**SERVE)
+    ref_cfg.use_kernel_matmul, ref_cfg.norm_folded = True, cfg.norm_folded
+    prefix_tokens = _near_tie_tokens('G', off_reqs, on_reqs, engine.params,
+                                     ref_cfg, dev)
+
+    # the paged burst against path E's ragged burst on the same prompt KV
+    n = 8
+    T = cfg.prefill_buckets[0]
+    rng = np.random.default_rng(1)
+    prompts = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(B, T)),
+                              dtype=torch.int32, device=dev)
+    fills = torch.as_tensor(rng.integers(8, 121, size=B), dtype=torch.int32,
+                            device=dev)
+    e_cfg = LlamaConfig(**SERVE)
+    e_cfg.use_kernel_matmul, e_cfg.use_ragged_attention = True, True
+    e_cfg.norm_folded = cfg.norm_folded
+    dense = init_kv_cache(e_cfg, B, dev)
+    with torch.no_grad():
+        logits, _ = forward(
+            engine.params, dense, prompts,
+            torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T),
+            torch.zeros(B, dtype=torch.int32, device=dev),
+            torch.full((B,), T, dtype=torch.int32, device=dev), e_cfg)
+    cur = torch.gather(logits.argmax(-1), 1, (fills.long() - 1)[:, None])[:, 0] \
+        .to(torch.int32)
+    del logits
+    engine.cache = engine._new_cache()
+    tables = _paged_slots(engine, int(fills.max()) + n)
+    # the prompt's codes and scales, copied into the pool through row 16
+    write_kv_window(engine.cache, dense['k'][:, :, :T].contiguous(),
+                    dense['v'][:, :, :T].contiguous(),
+                    dense['k_scale'][:, :, :T].transpose(2, 3),
+                    dense['v_scale'][:, :, :T].transpose(2, 3), tables,
+                    torch.zeros(B, dtype=torch.int32, device=dev))
+    start = {k: v.clone() for k, v in engine.cache.items()}
+    bucket = engine._decode_bucket(int(fills.max()) + n)
+    grouped = engine._grouped_gate(fills.tolist(), n, bucket)
+    logits_e, toks_e = [], []
+
+    def greedy(lg, step):
+        logits_e.append(lg)
+        toks_e.append(lg.argmax(-1).to(torch.int32))
+        return toks_e[-1]
+    with torch.no_grad():
+        burst_forward(engine.params, dense, cur, fills, n, e_cfg, greedy,
+                      s_limit=bucket, ragged=True, prefer_grouped=grouped)
+    logits_g = _paged_forced(engine, engine.cache, tables, cur, fills, toks_e, n)
+    written_g = _pool_written(engine.cache, tables, fills, n, KV)
+    paged_vs_ragged = _hold_against(
+        'paged burst against path E\'s ragged burst', logits_e, toks_e,
+        _written(dense, fills, n), logits_g, written_g, fills, n,
+        **SERVE_RAGGED_VS_DENSE, path='G')
+    del dense, logits_e
+    # the kernel path against the plain path, from the same pool
+    plain_pools = {k: v.clone() for k, v in start.items()}
+    before = dict(LAUNCHES)
+    with _PlainKernels():
+        logits_p = _paged_forced(engine, plain_pools, tables, cur, fills, toks_e,
+                                 n)
+    if LAUNCHES != before:
+        raise AssertionError('path G: the plain path launched a kernel')
+    kernel_vs_plain = _hold_against(
+        'kernel path against plain path', logits_g, toks_e, written_g, logits_p,
+        _pool_written(plain_pools, tables, fills, n, KV), fills, n,
+        **SERVE_KERNEL_VS_PLAIN, path='G')
+    del plain_pools, logits_p, logits_g
+    # every launch against its plain version on that launch's own inputs
+    engine.cache = start
+    with _ShadowKernels(cfg, 'G') as shadow:
+        _paged_forced(engine, engine.cache, tables, cur, fills, toks_e, n)
+    same_inputs = shadow.report(n, copies=('bank_write', 'pool_write'))
+    del start
+    engine.cache = None
+    torch.cuda.empty_cache()
+    profile = {f'fill_{fill}': _profile_burst(engine, fill, tag='G')
+               for fill in (16, 512)}
+    summary = dict(
+        model=dict(SERVE, paged_kv=True, kv_block_size=cfg.kv_block_size),
+        pool=list(pool_shape), pool_blocks=pool_shape[1],
+        weights_gib=weight_bytes / 2 ** 30, kv_pool_gib=cache_bytes / 2 ** 30,
+        **run, free_blocks_before_and_after_run=free0,
+        launches_in_run=launches_run, decode=decode, row13_on_the_burst=row13,
+        host_us_per_small_launch=host_us,
+        prefix_cache=dict(on=prefix_on, off=prefix_off, tokens=prefix_tokens),
+        paged_vs_ragged=paged_vs_ragged, kernel_vs_plain=kernel_vs_plain,
+        kernel_vs_plain_on_the_same_inputs=same_inputs, profile=profile,
+        peak_mem_gib_run_decode_row13=peak)
+    log(f'[path G] {json.dumps(summary)}')
+    del engine
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for value in tree.values():
@@ -1666,16 +2289,31 @@ def _profile_burst(engine, fill, n=8, tag='D'):
     tokens = torch.zeros((B,), dtype=torch.int32, device=engine.device)
     seq = torch.full((B,), fill, dtype=torch.int32, device=engine.device)
     bucket = engine._decode_bucket(fill)
-    fn = engine._build_decode_burst(
-        n, bucket, grouped=engine._grouped_gate([fill] * B, n, bucket))
-    fn(engine.params, cache, tokens, seq)[0].cpu()
+    if engine._paged:
+        # every slot's blocks through fill + n, as benchmark_decode has them
+        for slot in range(B):
+            engine._alloc.ensure(slot, fill + n)
+        tables = torch.as_tensor(
+            engine._alloc.tables()[:, :engine._table_width(fill + n)],
+            device=engine.device)
+        paged = engine._build_decode_burst_paged(n, read_limit=bucket)
+
+        def burst():
+            return paged(engine.params, cache, tokens, seq, tables)[0].cpu()
+    else:
+        dense = engine._build_decode_burst(
+            n, bucket, grouped=engine._grouped_gate([fill] * B, n, bucket))
+
+        def burst():
+            return dense(engine.params, cache, tokens, seq)[0].cpu()
+    burst()
     t0 = time.perf_counter()
-    fn(engine.params, cache, tokens, seq)[0].cpu()
+    burst()
     unprofiled_ms = (time.perf_counter() - t0) * 1e3 / n
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fn(engine.params, cache, tokens, seq)[0].cpu()
+        burst()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages()
@@ -1689,7 +2327,8 @@ def _profile_burst(engine, fill, n=8, tag='D'):
             for name, pattern in (('qmm (int8, int4 and gate-up)', 'qmm_kernel'),
                                   ('paged_attention', 'paged_attention_kernel'),
                                   ('bank_write', 'bank_write_kernel'),
-                                  ('window_write', 'window_write_kernel'))}
+                                  ('window_write', 'window_write_kernel'),
+                                  ('pool_write', 'pool_write_kernel'))}
     log(f'[profile {tag} fill {fill}] burst of {n}: {unprofiled_ms:.3f} ms/step '
         f'unprofiled, {wall_us / n / 1e3:.3f} ms/step under the profiler, '
         f'device busy {busy_us / n / 1e3:.3f} ms/step, busy share of the '
@@ -2257,15 +2896,16 @@ def main() -> int:
     launches_c, _, fp8_graph, _ = phase_path_c(dev)
     launches_d, _, serve_params = phase_path_d(dev)
     launches_e, _ = phase_path_e(dev, serve_params)
+    launches_g, _ = phase_path_g(dev, serve_params)
     del serve_params
     launches_f, _ = phase_path_f(dev)
     paths = dict(A=launches_a, B=launches_b, C=launches_c, D=launches_d,
-                 E=launches_e, F=launches_f)
+                 E=launches_e, F=launches_f, G=launches_g)
     # each path's counts were set to 0 before it and read just after it
     launches = {k: sum(p[k] for p in paths.values()) for k in launches_a}
     for tag, counts in paths.items():
         log(f'[launches] path {tag} {json.dumps(counts)}')
-    for tag in ('D', 'E', 'F'):
+    for tag in ('D', 'E', 'F', 'G'):
         _check_path_kernels(tag, paths[tag])
     missing = [k for k in KERNELS if launches.get(k, 0) <= 0]
     if missing:

@@ -292,6 +292,261 @@ paged_attention_kernel(Args a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Row 13, `paged_attention_decode_buffered` (`_make_buffered_kernel`): the
+// frozen pool and the in-burst buffer in one online softmax, the context
+// normalised. Separate K and V pools (NB, BLK, KV*DH), given as views with a
+// block stride (one layer's planes of the fused (NB, 2, BLK, KV*DH) pool
+// pass without a copy), scales (NB, KV, BLK) likewise; the buffer
+// (B, NBUF, KV*DH) codes and (B, KV, NBUF) scales with a slot stride, of
+// which columns [0, step] count. Its numerics are the TPU kernel's, which
+// differ from rows 11 and 12 in one place: the v scale is rounded to bf16
+// and folded into the values (v_eff = bf16(code * bf16(v_scale))), and p is
+// rounded to bf16 alone. The design is row 11's (one thread block per slot
+// and KV head, a block's logits in shared memory), with the buffer taken as
+// one more block after the slot's last filled one; the TPU kernel carried
+// (m, l, acc) in scratch across its sequential grid instead. What bounds it:
+// bytes, the filled K and V codes and scales and the buffer's valid columns
+// read once (147 MB at 128 slots of fill 512 with 8 KV heads, 0.044 ms at
+// 3.35 TB/s).
+
+struct BufArgs {
+  const __nv_bfloat16* q;  // (B, KV, REP, DH)
+  const void* kp;          // (NB, BLK, KV*DH) rows, block stride kp_blk
+  const void* vp;
+  const float* ks;         // (NB, KV, BLK), block stride ks_blk, or null
+  const float* vs;
+  const int* tables;       // (B, MB)
+  const int* seq_lens;     // (B,)
+  const void* kb;          // (B, NBUF, KV*DH), slot stride kb_slot
+  const void* vb;
+  const float* ksb;        // (B, KV, NBUF), slot stride ksb_slot, or null
+  const float* vsb;
+  float* ctx;              // (B, KV, REP, DH)
+  int* fault;
+  int64_t kp_blk, vp_blk, ks_blk, vs_blk, kb_slot, vb_slot, ksb_slot,
+      vsb_slot;
+  int B, KV, MB, NB, BLK, NBUF, step, s_width;
+  float inv_sqrt;
+};
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// One block of nv <= s_width positions into the running (m, l, acc):
+// kb, vb point at this lane's chunk of the block's first row (row stride
+// KVDh); ksc, vsc at the block's scales of this head, or null.
+template <typename T, int REP>
+__device__ __forceinline__ void buffered_block(
+    const T* kb, const T* vb, int64_t KVDh, const float* ksc,
+    const float* vsc, int nv, const float (&qv)[REP][CHUNK],
+    float (&acc)[REP][CHUNK], float (&m_run)[REP], float (&l_run)[REP],
+    float* s_buf, int s_width, float* red_max, float* red_sum,
+    float inv_sqrt) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int sub = lane / LANES_PER_ROW, c = lane % LANES_PER_ROW;
+  for (int t0 = 0; t0 < nv; t0 += TOKENS_PER_PASS) {
+    const int t = t0 + warp * (32 / LANES_PER_ROW) + sub;
+    float part[REP];
+#pragma unroll
+    for (int r = 0; r < REP; ++r) part[r] = 0.0f;
+    if (t < nv) {
+      float kv[CHUNK];
+      load_chunk(kb + t * KVDh, kv);
+#pragma unroll
+      for (int r = 0; r < REP; ++r)
+#pragma unroll
+        for (int i = 0; i < CHUNK; ++i) part[r] += qv[r][i] * kv[i];
+    }
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+      part[r] += __shfl_xor_sync(0xffffffffu, part[r], 1);
+      part[r] += __shfl_xor_sync(0xffffffffu, part[r], 2);
+      part[r] += __shfl_xor_sync(0xffffffffu, part[r], 4);
+    }
+    if (c == 0 && t < nv) {
+#pragma unroll
+      for (int r = 0; r < REP; ++r) {
+        float sv = part[r];
+        if (ksc) sv = __fmul_rn(sv, ksc[t]);
+        s_buf[r * s_width + t] = __fmul_rn(sv, inv_sqrt);
+      }
+    }
+  }
+  __syncthreads();
+  float m_new[REP], corr[REP];
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+    float v = NEG_INF;
+    for (int t = tid; t < nv; t += THREADS) v = fmaxf(v, s_buf[r * s_width + t]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+    if (lane == 0) red_max[warp * REP + r] = v;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+    float v = red_max[r];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) v = fmaxf(v, red_max[w * REP + r]);
+    m_new[r] = fmaxf(m_run[r], v);
+    corr[r] = expf(m_run[r] - m_new[r]);
+    float sum = 0.0f;
+    for (int t = tid; t < nv; t += THREADS) {
+      const float p = expf(s_buf[r * s_width + t] - m_new[r]);
+      sum += p;
+      s_buf[r * s_width + t] = bf16_round(p);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) red_sum[warp * REP + r] = sum;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+    float sum = red_sum[r];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) sum += red_sum[w * REP + r];
+    l_run[r] = __fadd_rn(__fmul_rn(l_run[r], corr[r]), sum);
+    m_run[r] = m_new[r];
+#pragma unroll
+    for (int i = 0; i < CHUNK; ++i) acc[r][i] = __fmul_rn(acc[r][i], corr[r]);
+  }
+  // readout: bf16 p times the values with the v scale folded in, bf16
+  for (int t0 = 0; t0 < nv; t0 += TOKENS_PER_PASS) {
+    const int t = t0 + warp * (32 / LANES_PER_ROW) + sub;
+    if (t < nv) {
+      float vv[CHUNK];
+      load_chunk(vb + t * KVDh, vv);
+      if (vsc) {
+        const float vsc_t = bf16_round(vsc[t]);
+#pragma unroll
+        for (int i = 0; i < CHUNK; ++i) vv[i] = bf16_round(vv[i] * vsc_t);
+      }
+#pragma unroll
+      for (int r = 0; r < REP; ++r) {
+        const float p = s_buf[r * s_width + t];
+#pragma unroll
+        for (int i = 0; i < CHUNK; ++i) acc[r][i] += p * vv[i];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+template <typename T, int REP>
+__global__ void __launch_bounds__(THREADS)
+buffered_attention_kernel(BufArgs a) {
+  extern __shared__ float smem[];
+  float* s_buf = smem;                          // REP * s_width
+  float* red_max = s_buf + REP * a.s_width;     // WARPS * REP
+  float* red_sum = red_max + WARPS * REP;       // WARPS * REP
+  float* fin = red_sum + WARPS * REP;           // WARPS * REP * DH
+
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int sub = lane / LANES_PER_ROW, c = lane % LANES_PER_ROW;
+  const int64_t KVDh = (int64_t)a.KV * DH;
+  const int64_t lane_off = h * DH + c * CHUNK;
+  const int limit = a.MB * a.BLK;
+
+  const int raw = a.seq_lens[b];
+  const int len = min(max(raw, 0), limit);
+  if (raw != len && h == 0 && tid == 0) atomicOr(a.fault, 1);
+
+  float qv[REP][CHUNK];
+  {
+    const __nv_bfloat16* qp = a.q + ((int64_t)(b * a.KV + h) * REP) * DH +
+                              c * CHUNK;
+#pragma unroll
+    for (int r = 0; r < REP; ++r) load_chunk(qp + r * DH, qv[r]);
+  }
+  float acc[REP][CHUNK];
+  float m_run[REP], l_run[REP];
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+    m_run[r] = NEG_INF;
+    l_run[r] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < CHUNK; ++i) acc[r][i] = 0.0f;
+  }
+
+  const int nblk = (len + a.BLK - 1) / a.BLK;
+  for (int j = 0; j < nblk; ++j) {
+    const int nv = min(len - j * a.BLK, a.BLK);
+    const int64_t row = a.tables[(int64_t)b * a.MB + j];
+    if (row < 0 || row >= a.NB) {
+      if (h == 0 && tid == 0) atomicOr(a.fault, 2);
+      continue;
+    }
+    const T* kb = static_cast<const T*>(a.kp) + row * a.kp_blk + lane_off;
+    const T* vb = static_cast<const T*>(a.vp) + row * a.vp_blk + lane_off;
+    const float* ksc = a.ks ? a.ks + row * a.ks_blk + (int64_t)h * a.BLK
+                            : nullptr;
+    const float* vsc = a.vs ? a.vs + row * a.vs_blk + (int64_t)h * a.BLK
+                            : nullptr;
+    buffered_block<T, REP>(kb, vb, KVDh, ksc, vsc, nv, qv, acc, m_run, l_run,
+                           s_buf, a.s_width, red_max, red_sum, a.inv_sqrt);
+  }
+  {
+    // the in-burst buffer: columns [0, step]
+    const int nv = min(a.step + 1, a.NBUF);
+    const T* kb = static_cast<const T*>(a.kb) + b * a.kb_slot + lane_off;
+    const T* vb = static_cast<const T*>(a.vb) + b * a.vb_slot + lane_off;
+    const float* ksc = a.ksb ? a.ksb + b * a.ksb_slot + (int64_t)h * a.NBUF
+                             : nullptr;
+    const float* vsc = a.vsb ? a.vsb + b * a.vsb_slot + (int64_t)h * a.NBUF
+                             : nullptr;
+    buffered_block<T, REP>(kb, vb, KVDh, ksc, vsc, nv, qv, acc, m_run, l_run,
+                           s_buf, a.s_width, red_max, red_sum, a.inv_sqrt);
+  }
+
+#pragma unroll
+  for (int r = 0; r < REP; ++r)
+#pragma unroll
+    for (int i = 0; i < CHUNK; ++i) {
+      acc[r][i] += __shfl_xor_sync(0xffffffffu, acc[r][i], 8);
+      acc[r][i] += __shfl_xor_sync(0xffffffffu, acc[r][i], 16);
+    }
+  if (sub == 0) {
+#pragma unroll
+    for (int r = 0; r < REP; ++r)
+#pragma unroll
+      for (int i = 0; i < CHUNK; ++i)
+        fin[(warp * REP + r) * DH + c * CHUNK + i] = acc[r][i];
+  }
+  __syncthreads();
+  const int64_t out0 = (int64_t)(b * a.KV + h) * REP;
+  for (int idx = tid; idx < REP * DH; idx += THREADS) {
+    float v = fin[idx];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) v += fin[w * REP * DH + idx];
+    a.ctx[out0 * DH + idx] = v / fmaxf(l_run[idx / DH], 1e-30f);
+  }
+}
+
+template <typename T, int REP>
+cudaError_t launch_buffered(const BufArgs& a, cudaStream_t stream) {
+  const size_t bytes = sizeof(float) * ((size_t)REP * a.s_width +
+                                        2 * WARPS * REP + WARPS * REP * DH);
+  buffered_attention_kernel<T, REP>
+      <<<dim3((unsigned int)a.B, (unsigned int)a.KV), THREADS, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_buffered_rep(const BufArgs& a, int rep, cudaStream_t stream) {
+  switch (rep) {
+    case 1: return launch_buffered<T, 1>(a, stream);
+    case 2: return launch_buffered<T, 2>(a, stream);
+    case 4: return launch_buffered<T, 4>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T, int REP, bool GROUPED>
 cudaError_t launch_one(const Args& a, cudaStream_t stream) {
   const size_t bytes =
@@ -360,4 +615,61 @@ extern "C" int ppq_paged_attention(const void* q, const void* pool,
     rc = grouped ? launch_rep<int8_t, true>(a, (int)rep, s)
                  : launch_rep<int8_t, false>(a, (int)rep, s);
   return (int)rc;
+}
+
+// q: (B, KV, rep, dh) bf16; kp, vp: pool planes, rows of KV*dh int8 or bf16
+// (pool_bf16 != 0), block strides kp_blk, vp_blk (elements); ks, vs:
+// (NB, KV, BLK) f32 views with block strides, or null; tables (B, MB) and
+// seq_lens (B,) int32; kb, vb: (B, nbuf, KV*dh) with slot strides; ksb, vsb:
+// (B, KV, nbuf) f32 with slot strides, or null; step: buffer columns
+// [0, step] count; ctx: (B, KV, rep, dh) f32; fault: one int32.
+extern "C" int ppq_paged_attention_buffered(
+    const void* q, const void* kp, const void* vp, const void* ks,
+    const void* vs, const void* tables, const void* seq_lens, const void* kb,
+    const void* vb, const void* ksb, const void* vsb, void* ctx, void* fault,
+    int pool_bf16, int64_t B, int64_t KV, int64_t rep, int64_t dh, int64_t MB,
+    int64_t NB, int64_t BLK, int64_t nbuf, int64_t step, int64_t kp_blk,
+    int64_t vp_blk, int64_t ks_blk, int64_t vs_blk, int64_t kb_slot,
+    int64_t vb_slot, int64_t ksb_slot, int64_t vsb_slot, float inv_sqrt,
+    void* stream) {
+  if (B <= 0 || B > 2147483647 || KV <= 0 || KV > 65535 || dh != DH ||
+      MB <= 0 || NB <= 0 || BLK <= 0 || BLK > MAX_BLK || nbuf <= 0 ||
+      nbuf > MAX_BLK || step < 0 || (int64_t)MB * BLK > 2147483647 ||
+      (ks == nullptr) != (vs == nullptr) ||
+      (ksb == nullptr) != (ks == nullptr))
+    return (int)cudaErrorInvalidValue;
+  BufArgs a;
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.kp = kp;
+  a.vp = vp;
+  a.ks = static_cast<const float*>(ks);
+  a.vs = static_cast<const float*>(vs);
+  a.tables = static_cast<const int*>(tables);
+  a.seq_lens = static_cast<const int*>(seq_lens);
+  a.kb = kb;
+  a.vb = vb;
+  a.ksb = static_cast<const float*>(ksb);
+  a.vsb = static_cast<const float*>(vsb);
+  a.ctx = static_cast<float*>(ctx);
+  a.fault = static_cast<int*>(fault);
+  a.kp_blk = kp_blk;
+  a.vp_blk = vp_blk;
+  a.ks_blk = ks_blk;
+  a.vs_blk = vs_blk;
+  a.kb_slot = kb_slot;
+  a.vb_slot = vb_slot;
+  a.ksb_slot = ksb_slot;
+  a.vsb_slot = vsb_slot;
+  a.B = (int)B;
+  a.KV = (int)KV;
+  a.MB = (int)MB;
+  a.NB = (int)NB;
+  a.BLK = (int)BLK;
+  a.NBUF = (int)nbuf;
+  a.step = (int)(step < nbuf ? step : nbuf - 1);
+  a.s_width = (int)(BLK > nbuf ? BLK : nbuf);
+  a.inv_sqrt = inv_sqrt;
+  const auto s = static_cast<cudaStream_t>(stream);
+  return (int)(pool_bf16 ? launch_buffered_rep<__nv_bfloat16>(a, (int)rep, s)
+                         : launch_buffered_rep<int8_t>(a, (int)rep, s));
 }

@@ -66,3 +66,36 @@ def kv_cache_to_numpy(cache):
     return {key: (value.to(torch.float32) if value.dtype == torch.bfloat16
                   else value).detach().cpu().numpy()
             for key, value in cache.items()}
+
+
+def paged_pools_from_numpy(pools, device=None):
+    """Paged KV pools of numpy arrays (`kv` (L, NB, 2, BLK, KV*Dh) int8 with
+    `kv_scale` (L, NB, 2, KV, BLK), or a float32 `kv` of a 16-bit cache) ->
+    tensors on `device` (the card unless named)."""
+    device = resolve_device(device)
+    out = {}
+    for key, value in pools.items():
+        t = torch.from_numpy(np.ascontiguousarray(value)).to(device)
+        if key == 'kv' and t.dtype == torch.float32:
+            t = t.to(torch.bfloat16)
+        out[key] = t
+    return out
+
+
+def paged_pools_to_numpy(pools):
+    return {key: (value.to(torch.float32) if value.dtype == torch.bfloat16
+                  else value).detach().cpu().numpy()
+            for key, value in pools.items()}
+
+
+def block_allocator_from(alloc):
+    """A port BlockAllocator in the state of the JAX package's Python one
+    (duck-typed: its `free`, `slot_blocks` and `_refs`), so that tables,
+    free list and reference counts carry over with the pools."""
+    from ..serving.paged import BlockAllocator
+    out = BlockAllocator(alloc.num_blocks, alloc.max_batch,
+                         alloc.max_blocks_per_seq, alloc.block_size)
+    out.free = [int(b) for b in alloc.free]
+    out.slot_blocks = [[int(b) for b in blocks] for blocks in alloc.slot_blocks]
+    out._refs = [int(r) for r in alloc._refs]
+    return out

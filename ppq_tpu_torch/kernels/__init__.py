@@ -15,8 +15,10 @@ PyTorch version.
 | qmm.qmm_gateup (INT8 and INT4 bodies)         | qmm.qmm_gateup             |
 | paged_attention.paged_attention_decode_fused  | paged_attention.paged_attention_decode_fused |
 | paged_attention.paged_attention_decode_grouped | paged_attention.paged_attention_decode_grouped |
+| paged_attention.paged_attention_decode_buffered | paged_attention.paged_attention_decode_buffered |
 | bank_write.bank_write_inplace                 | bank_write.bank_write_inplace |
 | window_write.window_write_inplace             | window_write.window_write_inplace |
+| pool_write.pool_write                         | pool_write.pool_write_inplace |
 
 The kernels are built by `loader.build()` at first use; a wrapper given a
 CPU tensor runs the plain version, a CUDA tensor launches the kernel or
@@ -36,6 +38,8 @@ from .qmm import (pack_int4_splithalf, qmm_gateup, qmm_gateup_plain,
                   unpack_int4_splithalf)
 from .paged_attention import (blockmajor_window, grouped_group_size,
                               identity_block_tables, merge_attention,
+                              paged_attention_decode_buffered,
+                              paged_attention_decode_buffered_plain,
                               paged_attention_decode_fused,
                               paged_attention_decode_fused_plain,
                               paged_attention_decode_grouped,
@@ -45,6 +49,7 @@ from .bank_write import (Bank, bank_write_inplace, bank_write_plain,
                          supports_bank)
 from .window_write import (supports_dense, window_write_inplace,
                            window_write_plain)
+from .pool_write import pool_write_inplace, pool_write_plain
 
 __all__ = ['LAUNCHES', 'build', 'read_faults', 'reset_launches', 'histogram',
            'histogram_plain', 'linear_quant', 'linear_quant_plain',
@@ -57,8 +62,11 @@ __all__ = ['LAUNCHES', 'build', 'read_faults', 'reset_launches', 'histogram',
            'paged_attention_decode_fused_plain',
            'paged_attention_decode_grouped',
            'paged_attention_decode_grouped_plain',
+           'paged_attention_decode_buffered',
+           'paged_attention_decode_buffered_plain',
            'paged_attention_reference', 'blockmajor_window',
            'slotmajor_window', 'identity_block_tables', 'grouped_group_size',
            'merge_attention', 'bank_write_inplace',
            'bank_write_plain', 'supports_bank', 'Bank', 'window_write_inplace',
-           'window_write_plain', 'supports_dense']
+           'window_write_plain', 'supports_dense', 'pool_write_inplace',
+           'pool_write_plain']

@@ -85,10 +85,13 @@ LIBRARIES: Dict[str, tuple] = {
             [_P, _P, _INT, _I64, _I64, _I64, _I64, _P, _P, _P],
         'ppq_window_write':
             [_P, _P, _INT, _I64, _I64, _I64, _I64, _I64, _P, _P, _P],
+        'ppq_pool_write': [_P] * 10 + [_I64] * 12 + [_P],
     }, []),
     'paged_attention': ('paged_attention.cu', {
         'ppq_paged_attention':
             [_P] * 9 + [_INT] + [_I64] * 9 + [_F, _P],
+        'ppq_paged_attention_buffered':
+            [_P] * 13 + [_INT] + [_I64] * 17 + [_F, _P],
     }, []),
 }
 
@@ -107,8 +110,10 @@ LAUNCHES: Dict[str, int] = {
     'qmm_gateup_int4': 0,
     'paged_attention_fused': 0,
     'paged_attention_grouped': 0,
+    'paged_attention_buffered': 0,
     'bank_write': 0,
     'window_write': 0,
+    'pool_write': 0,
 }
 
 _lock = threading.Lock()
@@ -199,6 +204,8 @@ FAULTS = {
     2: 'paged attention: a block-table row outside the pool',
     4: 'bank_write: a column outside the buffers',
     8: 'window_write: a window outside the slab',
+    16: 'pool_write: a position outside the block table',
+    32: 'pool_write: a block-table row outside the pool',
 }
 _fault_words: Dict[torch.device, torch.Tensor] = {}
 

@@ -184,16 +184,47 @@ def _inv_sqrt(dh: int) -> float:
     return float(np.float32(1.0 / np.sqrt(dh)))
 
 
-def _online(q, lens, n_blocks, blk, fetch):
+def _online_update(qf, state, k, v, ks, vs, mask, live, fold_v=False):
+    """One block of the kernels' online softmax: state (acc, m, l) -> the
+    new state, rows where `live` is False unchanged. k, v: (B, BLK, KV, Dh)
+    f32; ks, vs: (B, KV, BLK) or None; mask: (B, 1, 1, BLK). fold_v: row
+    13's numerics (v_scale rounded to bf16 and folded into the values, p
+    rounded to bf16 alone), else rows 11 and 12's (bf16(p * v_scale))."""
+    acc, m, l = state
+    inv_sqrt = torch.tensor(_inv_sqrt(qf.shape[-1]), dtype=F32,
+                            device=qf.device)
+    s = torch.einsum('bkrd,btkd->bkrt', qf, k)
+    if ks is not None:
+        s = s * ks[:, :, None, :]
+    s = torch.where(mask, s * inv_sqrt, NEG_INF)
+    m_new = torch.maximum(m, s.amax(-1))
+    corr = torch.exp(m - m_new)
+    p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+    l_new = l * corr + p.sum(-1)
+    if fold_v:
+        if vs is not None:
+            v = (v * vs.to(BF16).to(F32).transpose(1, 2)[..., None]) \
+                .to(BF16).to(F32)
+    elif vs is not None:
+        p = p * vs[:, :, None, :]
+    pv = torch.einsum('bkrt,btkd->bkrd', p.to(BF16).to(F32), v)
+    acc_new = acc * corr[..., None] + pv
+    keep = live[:, None, None]
+    return (torch.where(keep[..., None], acc_new, acc),
+            torch.where(keep, m_new, m), torch.where(keep, l_new, l))
+
+
+def _online(q, lens, n_blocks, blk, fetch, fold_v=False, state=None):
     """The kernels' arithmetic, block by block. fetch(j) -> (ok (B,) bool,
-    k, v (B, BLK, KV, Dh) f32, ks, vs (B, KV, BLK) f32 or None)."""
+    k, v (B, BLK, KV, Dh) f32, ks, vs (B, KV, BLK) f32 or None). Starts from
+    `state` (acc, m, l) or the empty one."""
     B, KV, rep, Dh = q.shape
     dev = q.device
     qf = q.to(BF16).to(F32)
-    m = torch.full((B, KV, rep), NEG_INF, dtype=F32, device=dev)
-    l = torch.zeros((B, KV, rep), dtype=F32, device=dev)
-    acc = torch.zeros((B, KV, rep, Dh), dtype=F32, device=dev)
-    inv_sqrt = torch.tensor(_inv_sqrt(Dh), dtype=F32, device=dev)
+    if state is None:
+        state = (torch.zeros((B, KV, rep, Dh), dtype=F32, device=dev),
+                 torch.full((B, KV, rep), NEG_INF, dtype=F32, device=dev),
+                 torch.zeros((B, KV, rep), dtype=F32, device=dev))
     lanes = torch.arange(blk, device=dev)[None, :]
     for j in range(n_blocks):
         nv = lens - j * blk
@@ -201,25 +232,10 @@ def _online(q, lens, n_blocks, blk, fetch):
         if not bool(live.any()):
             continue
         ok, k, v, ks, vs = fetch(j)
-        live = live & ok
         mask = (lanes < nv[:, None])[:, None, None, :]        # (B,1,1,BLK)
-        s = torch.einsum('bkrd,btkd->bkrt', qf, k)
-        if ks is not None:
-            s = s * ks[:, :, None, :]
-        s = torch.where(mask, s * inv_sqrt, NEG_INF)
-        m_new = torch.maximum(m, s.amax(-1))
-        corr = torch.exp(m - m_new)
-        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
-        l_new = l * corr + p.sum(-1)
-        if vs is not None:
-            p = p * vs[:, :, None, :]
-        pv = torch.einsum('bkrt,btkd->bkrd', p.to(BF16).to(F32), v)
-        acc_new = acc * corr[..., None] + pv
-        keep = live[:, None, None]
-        m = torch.where(keep, m_new, m)
-        l = torch.where(keep, l_new, l)
-        acc = torch.where(keep[..., None], acc_new, acc)
-    return acc, m, l
+        state = _online_update(qf, state, k, v, ks, vs, mask, live & ok,
+                               fold_v)
+    return state
 
 
 def _slab(t, layer):
@@ -416,3 +432,150 @@ def paged_attention_decode_grouped(q: torch.Tensor, kv_bm: torch.Tensor,
         raise ValueError(f'{what} runs on cpu or cuda, not {q.device}')
     return _launch(what, q, kv_bm, sc_bm, None, seq_lens, layer,
                    NBtot // B, NBtot, SCP, group)
+
+
+# -------------------------------------------- row 13: pool + buffer ----
+
+def paged_attention_decode_buffered_plain(q, k_pool, v_pool, k_scale,
+                                          v_scale, block_tables, seq_lens,
+                                          kbuf, vbuf, ks_buf, vs_buf, step,
+                                          *, block_size: int = 128):
+    """Row 13's arithmetic in plain PyTorch, on any device: the slot's
+    filled pool blocks, then buffer columns [0, step] as one more block, in
+    one online softmax with the v scale folded into the values; returns the
+    normalised context."""
+    B, KV, rep, Dh = q.shape
+    NB, BLK, _ = k_pool.shape
+    MB = block_tables.shape[1]
+    nbuf = kbuf.shape[1]
+    lens = seq_lens.to(torch.int64).clamp(0, MB * BLK)
+    tables = block_tables.to(torch.int64)
+
+    def fetch(j):
+        rows = tables[:, j]
+        ok = (rows >= 0) & (rows < NB)
+        rows = rows.clamp(0, NB - 1)
+        k = k_pool[rows].to(F32).reshape(B, BLK, KV, Dh)
+        v = v_pool[rows].to(F32).reshape(B, BLK, KV, Dh)
+        if k_scale is None:
+            return ok, k, v, None, None
+        return ok, k, v, k_scale[rows], v_scale[rows]
+    state = _online(q, lens, MB, BLK, fetch, fold_v=True)
+    cols = torch.full((B,), min(int(step) + 1, nbuf), dtype=torch.int64,
+                      device=q.device)
+
+    def fetch_buffer(_):
+        ok = torch.ones(B, dtype=torch.bool, device=q.device)
+        return (ok, kbuf.to(F32).reshape(B, nbuf, KV, Dh),
+                vbuf.to(F32).reshape(B, nbuf, KV, Dh), ks_buf, vs_buf)
+    acc, _, l = _online(q, cols, 1, nbuf, fetch_buffer, fold_v=True,
+                        state=state)
+    return acc / torch.clamp_min(l, 1e-30)[..., None]
+
+
+def _rows_view(t, what, rank, device):
+    """t's element strides, after checking that it is a view whose last
+    `rank` dimensions are dense, 16-byte aligned where it holds codes."""
+    if t.device != device:
+        raise ValueError(f'{what} lies on {t.device}, not {device}')
+    dense = t[(0,) * (t.dim() - rank)]
+    if not dense.is_contiguous():
+        raise ValueError(f'{what} must be dense below its leading axis')
+    return t.stride(0)
+
+
+def paged_attention_decode_buffered(q: torch.Tensor, k_pool: torch.Tensor,
+                                    v_pool: torch.Tensor,
+                                    k_scale: Optional[torch.Tensor],
+                                    v_scale: Optional[torch.Tensor],
+                                    block_tables: torch.Tensor,
+                                    seq_lens: torch.Tensor,
+                                    kbuf: torch.Tensor, vbuf: torch.Tensor,
+                                    ks_buf: Optional[torch.Tensor],
+                                    vs_buf: Optional[torch.Tensor],
+                                    step: int, *, block_size: int = 128):
+    """Decode attention over the frozen pool AND the in-burst buffer in one
+    online softmax, the context normalised.
+
+    q:        (B, KV, rep, Dh) grouped query heads after rope
+    k_pool, v_pool: (NB, BLK, KV*Dh) int8 | bf16; views with any block
+              stride (`pools['kv'][layer, :, 0]` and `[:, 1]`) pass as they
+              are
+    k_scale, v_scale: (NB, KV, BLK) f32 (views likewise), or None
+    block_tables: (B, MB) int32; seq_lens: (B,) int32
+    kbuf, vbuf: (B, n, KV*Dh) of the pool's type, any slot stride
+    ks_buf, vs_buf: (B, KV, n) f32, any slot stride, or None
+    step: buffer columns [0, step] are valid (0 <= step)
+
+    Returns ctx (B, KV, rep, Dh) f32. CPU tensors take the plain version;
+    CUDA tensors the kernel, or a ValueError for what it does not take."""
+    what = 'paged_attention_buffered'
+    B, KV, rep, Dh = q.shape
+    NB, BLK, KVDh = k_pool.shape
+    MB = block_tables.shape[1]
+    nbuf = kbuf.shape[1]
+    step = int(step)
+    int8 = k_scale is not None
+    if KVDh != KV * Dh or BLK != block_size or v_pool.shape != k_pool.shape \
+            or kbuf.shape != (B, nbuf, KVDh) or vbuf.shape != kbuf.shape \
+            or block_tables.shape != (B, MB) or seq_lens.shape != (B,) \
+            or step < 0:
+        raise ValueError(f'{what}: q {tuple(q.shape)}, pools '
+                         f'{tuple(k_pool.shape)}, buffers {tuple(kbuf.shape)}, '
+                         f'tables {tuple(block_tables.shape)}, step {step}')
+    if int8 != (v_scale is not None) or int8 != (ks_buf is not None) \
+            or int8 != (vs_buf is not None):
+        raise ValueError(f'{what} takes all four scales or none')
+    if int8 and (k_scale.shape != (NB, KV, BLK) or v_scale.shape != (NB, KV, BLK)
+                 or ks_buf.shape != (B, KV, nbuf)
+                 or vs_buf.shape != (B, KV, nbuf)):
+        raise ValueError(f'{what}: scales {tuple(k_scale.shape)}, buffer '
+                         f'scales {tuple(ks_buf.shape)}')
+    if q.device.type == 'cpu':
+        return paged_attention_decode_buffered_plain(
+            q, k_pool, v_pool, k_scale, v_scale, block_tables, seq_lens,
+            kbuf, vbuf, ks_buf, vs_buf, step, block_size=block_size)
+    if q.device.type != 'cuda':
+        raise ValueError(f'{what} runs on cpu or cuda, not {q.device}')
+    if Dh != KERNEL_HEAD_DIM or rep not in KERNEL_REPS \
+            or BLK > KERNEL_MAX_BLOCK or nbuf > KERNEL_MAX_BLOCK:
+        raise ValueError(f'{what}: the kernel takes head dim '
+                         f'{KERNEL_HEAD_DIM}, {KERNEL_REPS} query heads per KV '
+                         f'head and blocks and buffers of at most '
+                         f'{KERNEL_MAX_BLOCK}')
+    if k_pool.dtype not in (torch.int8, BF16) or v_pool.dtype != k_pool.dtype \
+            or kbuf.dtype != k_pool.dtype or vbuf.dtype != k_pool.dtype:
+        raise TypeError(f'{what} reads int8 or bfloat16 pools and buffers of '
+                        f'one type')
+    dev = q.device
+    codes = (k_pool, v_pool, kbuf, vbuf)
+    strides = [_rows_view(t, what, 2, dev) for t in codes]
+    if any(t.data_ptr() % 16 or t.stride(0) * t.element_size() % 16
+           for t in codes) or KVDh * k_pool.element_size() % 16:
+        raise ValueError(f'{what} takes 16-byte aligned rows and blocks')
+    scales = (k_scale, v_scale, ks_buf, vs_buf) if int8 else ()
+    if any(t.dtype != F32 for t in scales):
+        raise TypeError(f'{what} takes float32 scales')
+    strides += [_rows_view(t, what, 2, dev) for t in scales] \
+        or [0, 0, 0, 0]
+    for t in (block_tables, seq_lens):
+        if t.dtype != torch.int32 or t.device != dev or not t.is_contiguous():
+            raise ValueError(f'{what} takes contiguous int32 tables and '
+                             f'seq_lens on {dev}')
+    q = q.to(BF16).contiguous()
+    ctx = torch.empty((B, KV, rep, Dh), dtype=F32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    lib = library('paged_attention')
+    with torch.cuda.device(dev):
+        rc = lib.ppq_paged_attention_buffered(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ptr(k_scale),
+            ptr(v_scale), block_tables.data_ptr(), seq_lens.data_ptr(),
+            kbuf.data_ptr(), vbuf.data_ptr(), ptr(ks_buf), ptr(vs_buf),
+            ctx.data_ptr(), fault_word(dev).data_ptr(),
+            int(k_pool.dtype == BF16), B, KV, rep, Dh, MB, NB, BLK, nbuf,
+            step, strides[0], strides[1], strides[4], strides[5],
+            strides[2], strides[3], strides[6], strides[7], _inv_sqrt(Dh),
+            stream_of(dev))
+    check(rc, what)
+    LAUNCHES[what] += 1
+    return ctx

@@ -1,5 +1,6 @@
-"""The serving engine's dense decode path: a Llama-class decoder with INT8
-weights and an INT8 KV cache, continuous batching, burst decode."""
+"""The serving engine on one card: a Llama-class decoder with INT8 or INT4
+weights and an INT8 KV cache (dense, or paged with a prefix cache),
+continuous batching, burst decode."""
 
 from .config import LlamaConfig
 from .engine import Request, SamplingParams, ServingEngine

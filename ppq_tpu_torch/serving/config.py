@@ -61,7 +61,9 @@ class LlamaConfig:
     use_ragged_attention: Optional[bool] = None
 
     # paged KV cache: sequences draw kv_block_size-token blocks from a
-    # shared pool instead of reserving max_batch x max_seq_len up front
+    # shared pool instead of reserving max_batch x max_seq_len up front;
+    # kv_pool_blocks None = max_batch * max_seq_len / kv_block_size + 1
+    # (trash block 0 included), the contiguous cache's worst case
     paged_kv: bool = False
     kv_pool_blocks: Optional[int] = None
     kv_block_size: int = 256
@@ -94,9 +96,6 @@ class LlamaConfig:
         does not have yet, with the ROADMAP item that will bring it, or
         None. Callers raise NotImplementedError with it: nothing falls back
         silently."""
-        if self.paged_kv:
-            return ('paged_kv=True (serving/paged.py and the pool-write '
-                    'kernel: ROADMAP item 13, queue 2 rows 16 and 13)')
         if self.act_bits == 8:
             return ('act_bits=8 (the W8A8 prefill branch of qmatmul: '
                     'ROADMAP item 11)')

@@ -1,6 +1,5 @@
 """Serving engine: quantized single-card inference with continuous batching.
-The single-device dense part of the JAX package's
-`ppq_tpu/serving/engine.py`.
+The single-device part of the JAX package's `ppq_tpu/serving/engine.py`.
 
   * decode is a batched single-token forward over the int8 KV cache, which
     is updated in place; `sync_every > 1` decodes that many steps per host
@@ -14,11 +13,16 @@ The single-device dense part of the JAX package's
   * continuous batching: a slot-based scheduler admits requests into free
     batch slots between decode bursts and retires finished sequences
     eagerly.
+  * paged_kv=True backs every sequence with kv_block_size-token blocks of
+    one shared pool (serving/paged.py): a host-side allocator hands out
+    pool rows, the card sees block tables; with prefix_cache_blocks > 0,
+    requests that share a prompt prefix adopt its cached blocks and
+    prefill only the tail.
 
 Not ported yet (each raises NotImplementedError, see LlamaConfig.unported
-and ROADMAP.md): meshes and every tp/pp/sp branch, the paged KV cache and
-the prefix cache, W8A8 prefill, MoE layers, the planned (fully
-asynchronous) run loop, prewarming and the serving benchmarks.
+and ROADMAP.md): meshes and every tp/pp/sp/dp branch, W8A8 prefill, MoE
+layers, the planned (fully asynchronous) run loop, prewarming and the
+serving benchmarks.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ from ..executor.executor import resolve_device
 from .config import LlamaConfig
 from .model import (Params, burst_forward, forward, fuse_decode_params,
                     init_kv_cache)
+from .paged import (BlockAllocator, PrefixCache, burst_forward_paged,
+                    init_paged_pools, prefill_chunk_paged, prefill_paged)
 
 
 # --------------------------------------------------------------- request ---
@@ -109,6 +115,24 @@ class ServingEngine:
         # projections into single matmuls (numerically identical:
         # column-wise dequant is independent per column)
         self.params = fuse_decode_params(params, cfg)
+        self._paged = bool(cfg.paged_kv)
+        self.prefix_cache = None
+        if self._paged:
+            # a block never needs to span more than max_seq_len
+            blk = min(cfg.kv_block_size, cfg.max_seq_len)
+            cfg.kv_block_size = blk
+            if blk % 128 or cfg.max_seq_len % blk:
+                raise ValueError('paged_kv needs kv_block_size % 128 == 0 '
+                                 'and max_seq_len % kv_block_size == 0')
+            # one card always takes the kernel path, as the JAX package does
+            # on one device
+            if cfg.head_dim % 128:
+                raise ValueError('paged_kv kernel path needs head_dim % '
+                                 '128 == 0')
+            mb_per_seq = cfg.max_seq_len // blk
+            n_blocks = cfg.kv_pool_blocks or (cfg.max_batch * mb_per_seq + 1)
+            self._alloc = BlockAllocator(n_blocks, cfg.max_batch, mb_per_seq,
+                                         block_size=blk)
         self.cache = self._new_cache()
         B = cfg.max_batch
         self.slot_len = np.zeros(B, np.int64)        # tokens in cache per slot
@@ -119,7 +143,19 @@ class ServingEngine:
 
     # --------------------------------------------------------------- state
     def _new_cache(self):
-        return init_kv_cache(self.cfg, self.cfg.max_batch, self.device)
+        """A fresh KV cache. Paged: fresh pools, a fresh allocator and an
+        empty prefix cache (an index of the old allocator's blocks would
+        hand out rows that are free in the new one)."""
+        if not self._paged:
+            return init_kv_cache(self.cfg, self.cfg.max_batch, self.device)
+        old = self._alloc
+        self._alloc = BlockAllocator(old.num_blocks, old.max_batch,
+                                     old.max_blocks_per_seq,
+                                     block_size=old.block_size)
+        if self.cfg.prefix_cache_blocks:
+            self.prefix_cache = PrefixCache(self._alloc, old.block_size,
+                                            self.cfg.prefix_cache_blocks)
+        return init_paged_pools(self.cfg, old.num_blocks, self.device)
 
     def _tensor(self, array, dtype=None):
         return torch.as_tensor(np.asarray(array), dtype=dtype,
@@ -348,6 +384,145 @@ class ServingEngine:
         self._prefill[key] = prefill_chunk
         return prefill_chunk
 
+    def _prefill_paged_fn(self, bucket: int):
+        """Paged batched prefill: writes the prompt windows into pool
+        blocks through the slots' block tables (serving/paged.py)."""
+        key = ('paged', bucket)
+        if key in self._prefill:
+            return self._prefill[key]
+
+        def prefill(params, pools, tokens, lengths, tables, active):
+            with torch.no_grad():
+                logits, pools = prefill_paged(params, pools, tokens, lengths,
+                                              tables, active, self.cfg)
+            last = torch.gather(
+                torch.argmax(logits, dim=-1),
+                1, torch.clamp_min(lengths.long() - 1, 0)[:, None])[:, 0]
+            return last.to(torch.int32), pools
+        self._prefill[key] = prefill
+        return prefill
+
+    def _prefill_chunk_paged_fn(self, chunk: int, prefix_blocks: int):
+        key = ('pagedchunk', chunk, prefix_blocks)
+        if key in self._prefill:
+            return self._prefill[key]
+
+        def prefill_chunk(params, pools, tokens, write_pos, tables, active):
+            with torch.no_grad():
+                logits, pools = prefill_chunk_paged(
+                    params, pools, tokens, write_pos, tables, active,
+                    prefix_blocks, self.cfg)
+            return torch.argmax(logits, dim=-1).to(torch.int32), pools
+        self._prefill[key] = prefill_chunk
+        return prefill_chunk
+
+    def _chunk_prefill_paged(self, req: Request, slot: int, offsets):
+        """Stream req.prompt's windows at `offsets` through the pool: one
+        chunked paged prefill each, the gathered prefix bucketed to powers
+        of two of blocks. Only the slot's own row runs: a row's result
+        depends on its own tokens and blocks alone, and the JAX package's
+        other max_batch - 1 rows (one compiled program for every slot) are
+        masked out of the write. A last window whose padding passes the
+        table's end sees trash columns there (its padding is never read).
+        Returns the last window's tokens, (1, chunk) on the card."""
+        blk = self._alloc.block_size
+        chunk = self.cfg.prefill_buckets[-1]
+        table = self._alloc.tables()[slot:slot + 1]
+        past = -(-(offsets[-1] + chunk) // blk) - table.shape[1]
+        tables = self._tensor(np.pad(table, ((0, 0), (0, max(past, 0)))))
+        active = self._tensor(np.ones(1, bool))
+        last = None
+        for off in offsets:
+            pb = 1
+            while pb < max(1, -(-off // blk)):
+                pb *= 2
+            fn = self._prefill_chunk_paged_fn(chunk,
+                                              min(pb, table.shape[1]))
+            toks = np.zeros((1, chunk), np.int32)
+            window = req.prompt[off: off + chunk]
+            toks[0, :len(window)] = window
+            last, self.cache = fn(self.params, self.cache, self._tensor(toks),
+                                  self._tensor(np.array([off], np.int32)),
+                                  tables, active)
+        self.slot_req[slot] = req
+        self.slot_len[slot] = len(req.prompt)
+        if self.prefix_cache is not None:
+            self.prefix_cache.insert(req.prompt,
+                                     self._alloc.slot_block_ids(slot),
+                                     slot=slot)
+        return last
+
+    def _admit_long_paged(self, req: Request, slot: int):
+        """Chunked paged prefill of an over-bucket prompt (the final window
+        overlaps backward, so no padding lands in the pool). Returns the
+        first generated token as a DEVICE scalar."""
+        chunk = self.cfg.prefill_buckets[-1]
+        n = len(req.prompt)
+        if n >= self.cfg.max_seq_len:
+            raise ValueError(f'prompt length {n} exceeds max_seq_len '
+                             f'{self.cfg.max_seq_len}')
+        self._alloc.ensure(slot, n)
+        offsets = list(range(0, n - chunk, chunk)) + [n - chunk]
+        last = self._chunk_prefill_paged(req, slot, offsets)
+        return last[0, n - 1 - offsets[-1]]
+
+    def _admit_prefix_shared(self, req: Request, slot: int,
+                             shared: List[int]):
+        """Admit a request whose prompt prefix is in the pool (a prefix-
+        cache hit): adopt the cached blocks and prefill only the tail, in
+        fixed-width windows from the first uncached block (the last
+        window's padding past the prompt lands where decode overwrites it
+        before reading). Returns the first generated token as a DEVICE
+        scalar."""
+        chunk = self.cfg.prefill_buckets[-1]
+        n = len(req.prompt)
+        base = len(shared) * self._alloc.block_size
+        self._alloc.adopt(slot, shared)
+        self._alloc.ensure(slot, n)
+        offsets = list(range(base, n, chunk))
+        last = self._chunk_prefill_paged(req, slot, offsets)
+        return last[0, n - 1 - offsets[-1]]
+
+    def _build_decode_burst_paged(self, n_steps: int,
+                                  read_limit: Optional[int] = None):
+        key = ('paged', n_steps, read_limit)
+        if key in self._decode_burst:
+            return self._decode_burst[key]
+        cfg = self.cfg
+
+        def decode_burst(params, pools, tokens, seq_lens, tables, samp=None):
+            with torch.no_grad():
+                return burst_forward_paged(
+                    params, pools, tokens, seq_lens, tables, n_steps, cfg,
+                    lambda logits, step: self._select(logits, samp),
+                    chunk=cfg.burst_chunk, read_limit=read_limit)
+        self._decode_burst[key] = decode_burst
+        return decode_burst
+
+    def _table_width(self, tokens: int) -> int:
+        """The block tables' width for `tokens` positions: a power of two of
+        blocks, at most the full table (fewer table columns, fewer blocks
+        to walk)."""
+        need = max(1, -(-tokens // self._alloc.block_size))
+        mb = 1
+        while mb < need:
+            mb *= 2
+        return min(mb, self._alloc.max_blocks_per_seq)
+
+    def _paged_decode(self, n: int, cur_tok, seq_lens, active, samp=None):
+        """One paged decode burst (n >= 1): grow each active slot's block
+        list to cover the burst, ship the tables, run. The frozen read's
+        bucket covers the fills only: the burst's own tokens live in its
+        buffers."""
+        for slot in active:
+            self._alloc.ensure(slot, int(self.slot_len[slot]) + n)
+        max_fill = int(max(self.slot_len[s] for s in active))
+        mb = self._table_width(max_fill + n)
+        fn = self._build_decode_burst_paged(
+            n, read_limit=self._decode_bucket(max(max_fill, 1)))
+        return fn(self.params, self.cache, cur_tok, seq_lens,
+                  self._tensor(self._alloc.tables()[:, :mb]), samp)
+
     # ------------------------------------------------------------- serving
     def _bucket_for(self, n: int) -> int:
         for b in self.cfg.prefill_buckets:
@@ -389,8 +564,23 @@ class ServingEngine:
         return last[slot, n - 1 - offsets[-1]]
 
     def _admit_batch(self, admits):
-        """admits: list of (slot, Request): one masked batched prefill."""
+        """admits: list of (slot, Request): one masked batched prefill.
+        Paged with a prefix cache: hits take the shared-adopt path (the
+        match runs before any of this wave is inserted), misses the batched
+        admit."""
         B = self.cfg.max_batch
+        if self.prefix_cache is not None:
+            rest = []
+            for slot, req in admits:
+                shared = self.prefix_cache.match(req.prompt, slot=slot)
+                if shared:
+                    tok = self._admit_prefix_shared(req, slot, shared)
+                    req.generated.append(int(tok))
+                else:
+                    rest.append((slot, req))
+            if not rest:
+                return
+            admits = rest
         longest = max(len(r.prompt) for _, r in admits)
         if self._bucket_for(longest) == -1:
             # split: chunked path for over-bucket prompts, batched for rest
@@ -398,7 +588,10 @@ class ServingEngine:
                            if self._bucket_for(len(r.prompt)) == -1]
             short_admits = [a for a in admits if a not in long_admits]
             for slot, req in long_admits:
-                self._admit_long(req, slot)
+                if self._paged:
+                    req.generated.append(int(self._admit_long_paged(req, slot)))
+                else:
+                    self._admit_long(req, slot)
             if short_admits:
                 self._admit_batch(short_admits)
             return
@@ -410,14 +603,26 @@ class ServingEngine:
             toks[slot, :len(req.prompt)] = req.prompt
             lengths[slot] = len(req.prompt)
             active[slot] = True
-        fn = self._prefill_fn(bucket)
-        last, self.cache = fn(self.params, self.cache, self._tensor(toks),
-                              self._tensor(lengths), self._tensor(active))
+            if self._paged:
+                self._alloc.ensure(slot, len(req.prompt))
+        if self._paged:
+            last, self.cache = self._prefill_paged_fn(bucket)(
+                self.params, self.cache, self._tensor(toks),
+                self._tensor(lengths), self._tensor(self._alloc.tables()),
+                self._tensor(active))
+        else:
+            last, self.cache = self._prefill_fn(bucket)(
+                self.params, self.cache, self._tensor(toks),
+                self._tensor(lengths), self._tensor(active))
         last = last.cpu().numpy()
         for slot, req in admits:
             self.slot_req[slot] = req
             self.slot_len[slot] = len(req.prompt)
             req.generated.append(int(last[slot]))
+            if self.prefix_cache is not None:
+                self.prefix_cache.insert(req.prompt,
+                                         self._alloc.slot_block_ids(slot),
+                                         slot=slot)
 
     def run(self, requests: List[Request], sync_every: int = 1,
             progress: bool = False,
@@ -493,7 +698,11 @@ class ServingEngine:
 
             seq_lens = self._tensor(self.slot_len, torch.int32)
             samp = self._samp_arrays()
-            if n == 1:
+            if self._paged:
+                toks, self.cache = self._paged_decode(
+                    n, self._tensor(cur_tok), seq_lens, active, samp)
+                toks_np = toks.cpu().numpy()                  # (n, B)
+            elif n == 1:
                 next_tok, self.cache = self._decode(
                     self.params, self.cache, self._tensor(cur_tok), seq_lens,
                     samp)
@@ -527,6 +736,8 @@ class ServingEngine:
                     req.t_done = time.perf_counter()
                     self.slot_req[slot] = None
                     self.slot_len[slot] = 0
+                    if self._paged:
+                        self._alloc.release(slot)
         return requests
 
     def benchmark_decode(self, batch: Optional[int] = None, steps: int = 50,
@@ -547,6 +758,30 @@ class ServingEngine:
         tokens = torch.zeros((B,), dtype=torch.int32, device=self.device)
         seq_lens = torch.full((B,), fill, dtype=torch.int32,
                               device=self.device)
+        if self._paged:
+            # every slot's blocks through fill + n, the tables bucketed to
+            # the fill as the run loop buckets them (_paged_decode)
+            n = burst if burst and burst > 1 else 1
+            for slot in range(B):
+                self._alloc.ensure(slot, fill + n)
+            tables = self._tensor(
+                self._alloc.tables()[:, :self._table_width(fill + n)])
+            fn = self._build_decode_burst_paged(
+                n, read_limit=self._decode_bucket(max(fill, 1)))
+            n_bursts = max(1, steps // n)
+            toks, cache = fn(self.params, cache, tokens, seq_lens, tables)
+            toks.cpu()                            # warm + full sync
+            best = float('inf')
+            for _ in range(repeats):
+                t0 = time.perf_counter()
+                for _ in range(n_bursts):
+                    toks, cache = fn(self.params, cache, tokens, seq_lens,
+                                     tables)
+                toks.cpu()
+                best = min(best, time.perf_counter() - t0)
+            return {'tokens_per_sec': B * n_bursts * n / best,
+                    'ms_per_step': best / (n_bursts * n) * 1e3,
+                    'batch': B}
         if burst and burst > 1:
             bucket = self._decode_bucket(fill)
             fn = self._build_decode_burst(

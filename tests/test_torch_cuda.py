@@ -514,12 +514,15 @@ def test_serving_engine_raises_without_a_card_or_for_unported_settings():
             ServingEngine(LlamaConfig(**small), params)
         with pytest.raises(RuntimeError, match='device="cpu"'):
             init_llama_params(LlamaConfig(**small))
-    for field, value in (('act_bits', 8), ('paged_kv', True),
-                         ('n_experts', 4)):
+    for field, value in (('act_bits', 8), ('n_experts', 4)):
         cfg = LlamaConfig(**small)
         setattr(cfg, field, value)
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             ServingEngine(cfg, params, device='cpu')
+    # the paged KV cache builds (head dim 128, blocks of 128)
+    paged = dict(small, d_model=256, n_heads=2, n_kv_heads=1, max_seq_len=128)
+    cfg = LlamaConfig(**paged, paged_kv=True)
+    ServingEngine(cfg, init_llama_params(cfg, device='cpu'), device='cpu')
 
 
 # --------------------------------- INT4 matmuls and ragged attention ----
@@ -774,3 +777,196 @@ def test_serving_engine_default_is_ragged_on_the_card(cuda):
         assert LAUNCHES['paged_attention_fused'] > 0
         assert LAUNCHES['paged_attention_grouped'] == 0
         assert out['tokens_per_sec'] > 0 and read_faults(cuda) == []
+
+
+# ------------------------------------ the paged pool: rows 16 and 13 ----
+
+def _pool_case(cuda, dtype, T, write_pos, MB=4, L=3, NB=24, BLK=128, KV=2,
+               Dh=64, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    B = len(write_pos)
+    if dtype == torch.int8:
+        codes = lambda *s: torch.randint(-128, 128, s, device=cuda,  # noqa
+                                         generator=gen, dtype=torch.int8)
+    else:
+        codes = lambda *s: torch.randn(*s, device=cuda,  # noqa
+                                       generator=gen).bfloat16()
+    pool = codes(L, NB, 2, BLK, KV * Dh)
+    k, v = codes(L, B, T, KV, Dh), codes(L, B, T, KV, Dh)
+    scale = ks = vs = None
+    if dtype == torch.int8:
+        scale = torch.rand(L, NB, 2, KV, BLK, device=cuda, generator=gen)
+        ks = torch.rand(L, B, KV, T, device=cuda, generator=gen)
+        # the prefill's layout: a transposed view
+        vs = torch.rand(L, B, T, KV, device=cuda, generator=gen).transpose(2, 3)
+        ks = ks.transpose(2, 3).contiguous().transpose(2, 3)
+    perm = torch.randperm(NB - 1, generator=torch.Generator().manual_seed(seed))
+    tables = (perm[:B * MB] + 1).reshape(B, MB).to(torch.int32).to(cuda)
+    active = torch.ones(B, dtype=torch.bool, device=cuda)
+    active[2 % B] = False
+    wp = torch.tensor(write_pos, dtype=torch.int32, device=cuda)
+    return pool, scale, k, v, ks, vs, tables, wp, active
+
+
+@pytest.mark.parametrize('dtype', [torch.int8, torch.bfloat16],
+                         ids=['int8', 'bf16'])
+@pytest.mark.parametrize('T', [1, 32, 128, 300])
+def test_pool_write_kernel_bit_equal(cuda, dtype, T):
+    """Row 16 against its plain version bit for bit on the whole pool:
+    aligned, mid-block, inactive, at-boundary and crossing windows (a
+    window of 300 crosses two block boundaries), the trash row untouched."""
+    from ppq_tpu_torch.kernels import (pool_write_inplace, pool_write_plain,
+                                       read_faults)
+    case = _pool_case(cuda, dtype, T, (0, 100, 120, 96, 127))
+    pool, scale, k, v, ks, vs, tables, wp, active = case
+    want_pool, want_scale = pool.clone(), None if scale is None else scale.clone()
+    read_faults(cuda)
+    reset_launches()
+    pool_write_inplace(pool, scale, k, v, ks, vs, tables, wp, active)
+    assert LAUNCHES['pool_write'] == 1 and sum(LAUNCHES.values()) == 1
+    pool_write_plain(want_pool, want_scale, k, v, ks, vs, tables, wp, active)
+    torch.cuda.synchronize()
+    assert torch.equal(pool.view(torch.int8), want_pool.view(torch.int8))
+    if scale is not None:
+        assert torch.equal(scale, want_scale)
+    assert read_faults(cuda) == []
+    # every slot active, no mask given
+    pool_write_inplace(pool, scale, k, v, ks, vs, tables, wp)
+    pool_write_plain(want_pool, want_scale, k, v, ks, vs, tables, wp)
+    assert torch.equal(pool.view(torch.int8), want_pool.view(torch.int8))
+
+
+def test_pool_write_kernel_flags_what_lies_outside(cuda):
+    """A window past the table's last column writes its fitting part and
+    sets bit 16; a table row past the pool is skipped and sets bit 32; the
+    plain version skips the same tokens."""
+    from ppq_tpu_torch.kernels import (pool_write_inplace, pool_write_plain,
+                                       read_faults)
+    case = _pool_case(cuda, torch.int8, 32, (246, 0), MB=2)
+    pool, scale, k, v, ks, vs, tables, wp, active = case
+    active[:] = True
+    tables[1, 0] = pool.shape[1] + 5
+    want_pool, want_scale = pool.clone(), scale.clone()
+    read_faults(cuda)
+    pool_write_inplace(pool, scale, k, v, ks, vs, tables, wp, active)
+    assert set(read_faults(cuda)) == {
+        'pool_write: a position outside the block table',
+        'pool_write: a block-table row outside the pool'}
+    pool_write_plain(want_pool, want_scale, k, v, ks, vs, tables, wp, active)
+    assert torch.equal(pool, want_pool) and torch.equal(scale, want_scale)
+    row = int(tables[0, 1])
+    assert torch.equal(pool[:, row, 0, 118:], k[:, 0, :10].reshape(3, 10, -1))
+
+
+def _assert_ctx_close(got, want, q, k, v, ks, vs, lens, kb, vb, ksb, vsb,
+                      step):
+    """Row 13 against its plain version: s sums Dh exact products in another
+    order (delta = 2e-5 of its absolute mass); p moves by 2 delta and may
+    round to the neighbouring bf16 number (2^-7); l by 4 delta; the context
+    acc / l by (sum |p v_eff| / l) (2^-7 + 8 delta). k, v: the slots'
+    (B, S, KV, Dh); ks, vs (B, S, KV) or None; the buffer (B, n, KV, Dh)."""
+    B, KV, rep, Dh = q.shape
+    S, n = k.shape[1], kb.shape[1]
+    keys = torch.cat([k.float(), kb.float()], 1)
+    vals = torch.cat([v.float(), vb.float()], 1)
+    ones = lambda m: torch.ones(B, m, KV, device=q.device)  # noqa
+    kss = torch.cat([ones(S) if ks is None else ks,
+                     ones(n) if ksb is None else ksb.transpose(1, 2)], 1)
+    vss = torch.cat([ones(S) if vs is None else vs,
+                     ones(n) if vsb is None else vsb.transpose(1, 2)], 1)
+    valid = torch.cat([torch.arange(S, device=q.device)[None] < lens[:, None].long(),
+                       (torch.arange(n, device=q.device) <= step)[None].expand(B, n)], 1)
+    valid = valid[:, None, None, :]
+    qf = q.float()
+    s = torch.einsum('bkrd,bskd->bkrs', qf, keys) * kss.transpose(1, 2)[:, :, None] \
+        / np.sqrt(Dh)
+    mass = torch.einsum('bkrd,bskd->bkrs', qf.abs(), keys.abs()) \
+        * kss.transpose(1, 2)[:, :, None] / np.sqrt(Dh)
+    s = torch.where(valid, s, -torch.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    delta = 2e-5 * torch.where(valid, mass, 0.0).amax(-1) + 1e-6
+    spread = torch.einsum('bkrs,bskd->bkrd', p, vals.abs() * vss[..., None]) \
+        / p.sum(-1)[..., None]
+    tol = spread * (2.0 ** -7 + 8 * delta[..., None]) + 1e-6
+    assert bool(((got - want).abs() <= tol).all()), \
+        float(((got - want).abs() / tol).max())
+
+
+@pytest.mark.parametrize('dtype', [torch.int8, torch.bfloat16],
+                         ids=['int8', 'bf16'])
+@pytest.mark.parametrize('blk,rep,step', [(128, 2, 17), (256, 2, 0),
+                                          (256, 4, 31), (512, 1, 5)])
+def test_paged_attention_buffered_kernel_vs_plain(cuda, blk, rep, step, dtype):
+    """Row 13 over a fused pool's strided planes and over separate
+    contiguous pools: empty slots, partial and full blocks, step 0 and the
+    last column."""
+    from ppq_tpu_torch.kernels import (paged_attention_decode_buffered,
+                                       paged_attention_decode_buffered_plain,
+                                       read_faults, slotmajor_window)
+    B, KV, S, n = 9, 2, 1024, 32
+    q, k, v, ks, vs = _attention_case(cuda, B, KV, rep, S, dtype, blk + rep)
+    fused, sc = slotmajor_window(k[0], v[0], None if ks is None else ks[0],
+                                 None if vs is None else vs[0], S, blk)
+    nb = S // blk
+    perm = torch.randperm(B * nb, generator=torch.Generator().manual_seed(blk))
+    fused = fused[torch.argsort(perm).to(cuda)].contiguous()
+    sc = None if sc is None else sc[torch.argsort(perm).to(cuda)].contiguous()
+    tables = perm.reshape(B, nb).to(torch.int32).to(cuda)
+    lens = torch.tensor([0, 1, 15, 16, blk - 1, blk, blk + 3, 1000, S],
+                        dtype=torch.int32, device=cuda)
+    kb, vb = k[1, :, :n].reshape(B, n, -1), v[1, :, :n].reshape(B, n, -1)
+    ksb = None if ks is None else ks[1, :, :n].transpose(1, 2).contiguous()
+    vsb = None if vs is None else vs[1, :, :n].transpose(1, 2).contiguous()
+    read_faults(cuda)
+    planes = (fused[:, 0], fused[:, 1], None if sc is None else sc[:, 0],
+              None if sc is None else sc[:, 1])
+    separate = tuple(None if t is None else t.contiguous() for t in planes)
+    for pools in (planes, separate):
+        reset_launches()
+        got = paged_attention_decode_buffered(q, *pools, tables, lens, kb,
+                                              vb, ksb, vsb, step,
+                                              block_size=blk)
+        assert LAUNCHES['paged_attention_buffered'] == 1
+        assert sum(LAUNCHES.values()) == 1
+        want = paged_attention_decode_buffered_plain(
+            q, *pools, tables, lens, kb, vb, ksb, vsb, step, block_size=blk)
+        torch.cuda.synchronize()
+        _assert_ctx_close(got, want, q, k[0], v[0],
+                          None if ks is None else ks[0],
+                          None if vs is None else vs[0], lens,
+                          k[1, :, :n], v[1, :, :n], ksb, vsb, step)
+    assert read_faults(cuda) == []
+
+
+def test_paged_serving_engine_on_the_card(cuda):
+    """paged_kv on the card: run serves every request through the pool
+    write and the grouped read, with prefix-cache hits whose last window's
+    padding passes the table's end (trash columns there, no fault), returns
+    every block, and reports no fault."""
+    from ppq_tpu_torch.kernels import read_faults
+    from ppq_tpu_torch.serving import (LlamaConfig, Request, ServingEngine,
+                                       init_llama_params)
+    cfg = LlamaConfig(vocab_size=512, d_model=512, n_layers=2, n_heads=4,
+                      n_kv_heads=2, d_ff=1024, max_seq_len=512, max_batch=4,
+                      prefill_buckets=(16, 384), paged_kv=True,
+                      kv_block_size=128, prefix_cache_blocks=8)
+    engine = ServingEngine(cfg, init_llama_params(cfg, seed=0))
+    rng = np.random.default_rng(0)
+    head = [int(t) for t in rng.integers(1, 512, size=260)]
+    reqs = [Request(i, ([int(t) for t in rng.integers(1, 512, size=5 + 30 * i)]
+                        if i % 2 else head + [i]), max_new_tokens=9)
+            for i in range(6)]
+    read_faults(cuda)
+    reset_launches()
+    engine.run(reqs[:1], sync_every=4)
+    engine.run(reqs[1:], sync_every=4)
+    assert all(r.done and len(r.generated) == 9 for r in reqs)
+    assert engine.prefix_cache.hits >= 2
+    for name in ('qmm_int8', 'qmm_gateup', 'bank_write', 'pool_write',
+                 'paged_attention_grouped'):
+        assert LAUNCHES[name] > 0, name
+    assert LAUNCHES['window_write'] == 0
+    engine.prefix_cache.clear()
+    assert engine._alloc.free_blocks == engine._alloc.num_blocks - 1
+    out = engine.benchmark_decode(steps=8, burst=8, repeats=1, fill=200)
+    assert out['tokens_per_sec'] > 0 and read_faults(cuda) == []

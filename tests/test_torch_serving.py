@@ -619,31 +619,40 @@ def test_sampler_thresholds_and_sampled_tokens():
 
 def test_engine_refuses_what_is_not_ported():
     """What the port does not have yet raises, naming its ROADMAP item:
-    paged KV, W8A8 prefill, MoE, a mesh. Ragged attention and INT4 weights
-    are ported and build."""
+    W8A8 prefill, MoE, a mesh (paged or not). Ragged attention, INT4
+    weights and the paged KV cache are ported and build."""
     tcfg = LlamaConfig(**SIZES['dh32'])
     params = init_llama_params(tcfg, seed=0, device='cpu')
-    for field, value in (('paged_kv', True), ('act_bits', 8),
-                         ('n_experts', 4)):
+    for field, value in (('act_bits', 8), ('n_experts', 4)):
         cfg = LlamaConfig(**SIZES['dh32'])
         setattr(cfg, field, value)
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             ServingEngine(cfg, params, device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        ServingEngine(tcfg, params, mesh=object(), device='cpu')
+    for paged in (False, True):
+        with pytest.raises(NotImplementedError, match='ROADMAP'):
+            ServingEngine(LlamaConfig(**SIZES['dh32'], paged_kv=paged),
+                          params, mesh=object(), device='cpu')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         init_llama_params(LlamaConfig(**SIZES['dh32'], n_experts=4),
                           device='cpu')
     moe = dict(params, layers=[dict(layer, moe={}) for layer in params['layers']])
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         ServingEngine(LlamaConfig(**SIZES['dh32']), moe, device='cpu')
-    for field, value in (('use_ragged_attention', True), ('weight_bits', 4)):
+    for field, value in (('use_ragged_attention', True), ('weight_bits', 4),
+                         ('paged_kv', True)):
         cfg = LlamaConfig(**SIZES['dh32'])
         setattr(cfg, field, value)
         assert cfg.unported() is None
     int4 = LlamaConfig(**SIZES['dh32'], weight_bits=4)
     ServingEngine(int4, init_llama_params(int4, seed=0, device='cpu'),
                   device='cpu')
+    # the paged path's kernels take head dim 128 and blocks of 128
+    paged = LlamaConfig(**dict(SIZES['dh128'], max_seq_len=128),
+                        paged_kv=True)
+    engine = ServingEngine(paged, init_llama_params(paged, seed=0,
+                                                    device='cpu'),
+                           device='cpu')
+    assert engine._alloc.num_blocks == paged.max_batch + 1
 
 
 def test_interop_round_trip():
