@@ -2013,23 +2013,14 @@ def _row13_on_the_burst(engine, dev, fill, n=8, probe=5):
                             lambda logits, step: logits.argmax(-1),
                             read_limit=engine._decode_bucket(fill),
                             observe=observe)
-    repack_ms = statistics.median(
-        _event_ms(lambda: gather_window(pools, tables, engine._decode_bucket(fill)))
-        for _ in range(5))
+    flush = torch.empty(512 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
+    repack_ms = time_ms(
+        lambda: gather_window(pools, tables, engine._decode_bucket(fill)), flush)
+    del flush
     return dict(fill=fill, probe_step=probe, layers=cfg.n_layers,
                 worst_share_of_tolerance=shares['plain'],
                 worst_share_of_twice_it_against_composition=shares['composition'],
                 repack_ms_per_burst=repack_ms)
-
-
-def _event_ms(fn):
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end)
 
 
 def _reference_next_logits(params, cfg, seq, dev):

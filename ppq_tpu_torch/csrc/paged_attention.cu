@@ -107,18 +107,208 @@ struct Args {
   float inv_sqrt;
 };
 
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The shared memory of a thread block: a block's logits (then p) for each
+// query row, the warps' partial maxima and sums, and the final per-warp
+// sums of acc.
+struct Smem {
+  float* s_buf;    // REP * width
+  float* red_max;  // WARPS * REP
+  float* red_sum;  // WARPS * REP
+  float* fin;      // WARPS * REP * DH
+};
+
+template <int REP>
+__device__ __forceinline__ Smem carve(float* smem, int width) {
+  Smem m;
+  m.s_buf = smem;
+  m.red_max = m.s_buf + REP * width;
+  m.red_sum = m.red_max + WARPS * REP;
+  m.fin = m.red_sum + WARPS * REP;
+  return m;
+}
+
+template <int REP>
+size_t smem_bytes(int width) {
+  return sizeof(float) * ((size_t)REP * width + 2 * WARPS * REP +
+                          WARPS * REP * DH);
+}
+
+// The rep query rows of (slot b, KV head h), this lane's chunk, as floats.
+template <int REP>
+__device__ __forceinline__ void load_q(const __nv_bfloat16* q, int b, int h,
+                                       int KV, float (&qv)[REP][CHUNK]) {
+  const int c = (threadIdx.x & 31) % LANES_PER_ROW;
+  const __nv_bfloat16* qp = q + ((int64_t)(b * KV + h) * REP) * DH + c * CHUNK;
+#pragma unroll
+  for (int r = 0; r < REP; ++r) load_chunk(qp + r * DH, qv[r]);
+}
+
+// One block of nv positions into the running (m, l, acc). kb, vb point at
+// this lane's chunk of the block's first row (rows KVDh apart); ksc, vsc at
+// the block's scales of this head, or null. FOLD_V: row 13's numerics, the v
+// scale rounded to bf16 and folded into the values, p rounded alone; else
+// rows 11 and 12's, bf16(p * v_scale). Every branch is uniform over the
+// thread block.
+template <typename T, int REP, bool FOLD_V>
+__device__ __forceinline__ void online_block(
+    const T* kb, const T* vb, int64_t KVDh, const float* ksc,
+    const float* vsc, int nv, const float (&qv)[REP][CHUNK],
+    float (&acc)[REP][CHUNK], float (&m_run)[REP], float (&l_run)[REP],
+    const Smem& sm, int width, float inv_sqrt) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int sub = lane / LANES_PER_ROW, c = lane % LANES_PER_ROW;
+  // logits of the block's filled positions
+  for (int t0 = 0; t0 < nv; t0 += TOKENS_PER_PASS) {
+    const int t = t0 + warp * (32 / LANES_PER_ROW) + sub;
+    float part[REP];
+#pragma unroll
+    for (int r = 0; r < REP; ++r) part[r] = 0.0f;
+    if (t < nv) {
+      float kv[CHUNK];
+      load_chunk(kb + t * KVDh, kv);
+#pragma unroll
+      for (int r = 0; r < REP; ++r)
+#pragma unroll
+        for (int i = 0; i < CHUNK; ++i) part[r] += qv[r][i] * kv[i];
+    }
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+      part[r] += __shfl_xor_sync(0xffffffffu, part[r], 1);
+      part[r] += __shfl_xor_sync(0xffffffffu, part[r], 2);
+      part[r] += __shfl_xor_sync(0xffffffffu, part[r], 4);
+    }
+    if (c == 0 && t < nv) {
+#pragma unroll
+      for (int r = 0; r < REP; ++r) {
+        float s = part[r];
+        if (ksc) s = __fmul_rn(s, ksc[t]);
+        sm.s_buf[r * width + t] = __fmul_rn(s, inv_sqrt);
+      }
+    }
+  }
+  __syncthreads();
+
+  // the block's max, then p and its sum
+  float m_new[REP], corr[REP];
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+    float v = NEG_INF;
+    for (int t = tid; t < nv; t += THREADS) v = fmaxf(v, sm.s_buf[r * width + t]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+    if (lane == 0) sm.red_max[warp * REP + r] = v;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+    float v = sm.red_max[r];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) v = fmaxf(v, sm.red_max[w * REP + r]);
+    m_new[r] = fmaxf(m_run[r], v);
+    corr[r] = expf(m_run[r] - m_new[r]);
+    float sum = 0.0f;
+    for (int t = tid; t < nv; t += THREADS) {
+      const float p = expf(sm.s_buf[r * width + t] - m_new[r]);
+      sum += p;
+      const float pv = (!FOLD_V && vsc) ? __fmul_rn(p, vsc[t]) : p;
+      sm.s_buf[r * width + t] = bf16_round(pv);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) sm.red_sum[warp * REP + r] = sum;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+    float sum = sm.red_sum[r];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) sum += sm.red_sum[w * REP + r];
+    l_run[r] = __fadd_rn(__fmul_rn(l_run[r], corr[r]), sum);
+    m_run[r] = m_new[r];
+#pragma unroll
+    for (int i = 0; i < CHUNK; ++i) acc[r][i] = __fmul_rn(acc[r][i], corr[r]);
+  }
+
+  // readout: p (bf16) times the lane's chunk of each filled v row
+  for (int t0 = 0; t0 < nv; t0 += TOKENS_PER_PASS) {
+    const int t = t0 + warp * (32 / LANES_PER_ROW) + sub;
+    if (t < nv) {
+      float vv[CHUNK];
+      load_chunk(vb + t * KVDh, vv);
+      if (FOLD_V && vsc) {
+        const float vsc_t = bf16_round(vsc[t]);
+#pragma unroll
+        for (int i = 0; i < CHUNK; ++i) vv[i] = bf16_round(vv[i] * vsc_t);
+      }
+#pragma unroll
+      for (int r = 0; r < REP; ++r) {
+        const float p = sm.s_buf[r * width + t];
+#pragma unroll
+        for (int i = 0; i < CHUNK; ++i) acc[r][i] += p * vv[i];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The token lanes' partial sums of acc: across the 4 row groups of a warp
+// into sm.fin, one (REP, DH) slice per warp; the caller adds the warps'
+// slices in a fixed order.
+template <int REP>
+__device__ __forceinline__ void park_acc(float (&acc)[REP][CHUNK],
+                                         const Smem& sm) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int sub = lane / LANES_PER_ROW, c = lane % LANES_PER_ROW;
+#pragma unroll
+  for (int r = 0; r < REP; ++r)
+#pragma unroll
+    for (int i = 0; i < CHUNK; ++i) {
+      acc[r][i] += __shfl_xor_sync(0xffffffffu, acc[r][i], 8);
+      acc[r][i] += __shfl_xor_sync(0xffffffffu, acc[r][i], 16);
+    }
+  if (sub == 0) {
+#pragma unroll
+    for (int r = 0; r < REP; ++r)
+#pragma unroll
+      for (int i = 0; i < CHUNK; ++i)
+        sm.fin[(warp * REP + r) * DH + c * CHUNK + i] = acc[r][i];
+  }
+  __syncthreads();
+}
+
+template <int REP>
+__device__ __forceinline__ float warp_sum(const Smem& sm, int idx) {
+  float v = sm.fin[idx];
+#pragma unroll
+  for (int w = 1; w < WARPS; ++w) v += sm.fin[w * REP * DH + idx];
+  return v;
+}
+
+template <int REP>
+__device__ __forceinline__ void reset(float (&acc)[REP][CHUNK],
+                                      float (&m_run)[REP], float (&l_run)[REP]) {
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+    m_run[r] = NEG_INF;
+    l_run[r] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < CHUNK; ++i) acc[r][i] = 0.0f;
+  }
+}
+
 template <typename T, int REP, bool GROUPED>
 __global__ void __launch_bounds__(THREADS)
 paged_attention_kernel(Args a) {
   extern __shared__ float smem[];
-  float* s_buf = smem;                          // REP * BLK logits, then p
-  float* red_max = s_buf + REP * a.BLK;         // WARPS * REP
-  float* red_sum = red_max + WARPS * REP;       // WARPS * REP
-  float* fin = red_sum + WARPS * REP;           // WARPS * REP * DH
-
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int sub = lane / LANES_PER_ROW, c = lane % LANES_PER_ROW;
+  const Smem sm = carve<REP>(smem, a.BLK);
+  const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
+  const int c = (tid & 31) % LANES_PER_ROW;
   const int64_t KVDh = (int64_t)a.KV * DH;
   const int limit = a.MB * a.BLK;
 
@@ -133,25 +323,10 @@ paged_attention_kernel(Args a) {
   }
   const int nblk = (reach + a.BLK - 1) / a.BLK;
 
-  float qv[REP][CHUNK];
-  {
-    const __nv_bfloat16* qp = a.q + ((int64_t)(b * a.KV + h) * REP) * DH +
-                              c * CHUNK;
-#pragma unroll
-    for (int r = 0; r < REP; ++r) load_chunk(qp + r * DH, qv[r]);
-  }
-  float acc[REP][CHUNK];
-  float m_run[REP], l_run[REP];
-#pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    m_run[r] = NEG_INF;
-    l_run[r] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < CHUNK; ++i) acc[r][i] = 0.0f;
-  }
-
+  float qv[REP][CHUNK], acc[REP][CHUNK], m_run[REP], l_run[REP];
+  load_q<REP>(a.q, b, h, a.KV, qv);
+  reset<REP>(acc, m_run, l_run);
   for (int j = 0; j < nblk; ++j) {
-    // every branch below is uniform over the thread block
     const int nv = min(len - j * a.BLK, a.BLK);
     if (nv <= 0) continue;         // the group's surplus: all masked, a no-op
     int64_t row;
@@ -166,126 +341,18 @@ paged_attention_kernel(Args a) {
     }
     const T* kb = static_cast<const T*>(a.pool) + row * 2 * a.BLK * KVDh +
                   h * DH + c * CHUNK;
-    const T* vb = kb + (int64_t)a.BLK * KVDh;
     const float* ksc = a.scale ? a.scale + (row * 2 * a.KV + h) * a.SCP
                                : nullptr;
-    const float* vsc = a.scale ? ksc + (int64_t)a.KV * a.SCP : nullptr;
-
-    // logits of the block's filled positions
-    for (int t0 = 0; t0 < nv; t0 += TOKENS_PER_PASS) {
-      const int t = t0 + warp * (32 / LANES_PER_ROW) + sub;
-      float part[REP];
-#pragma unroll
-      for (int r = 0; r < REP; ++r) part[r] = 0.0f;
-      if (t < nv) {
-        float kv[CHUNK];
-        load_chunk(kb + t * KVDh, kv);
-#pragma unroll
-        for (int r = 0; r < REP; ++r)
-#pragma unroll
-          for (int i = 0; i < CHUNK; ++i) part[r] += qv[r][i] * kv[i];
-      }
-#pragma unroll
-      for (int r = 0; r < REP; ++r) {
-        part[r] += __shfl_xor_sync(0xffffffffu, part[r], 1);
-        part[r] += __shfl_xor_sync(0xffffffffu, part[r], 2);
-        part[r] += __shfl_xor_sync(0xffffffffu, part[r], 4);
-      }
-      if (c == 0 && t < nv) {
-#pragma unroll
-        for (int r = 0; r < REP; ++r) {
-          float s = part[r];
-          if (ksc) s = __fmul_rn(s, ksc[t]);
-          s_buf[r * a.BLK + t] = __fmul_rn(s, a.inv_sqrt);
-        }
-      }
-    }
-    __syncthreads();
-
-    // the block's max, then p and its sum
-    float m_new[REP], corr[REP];
-#pragma unroll
-    for (int r = 0; r < REP; ++r) {
-      float v = NEG_INF;
-      for (int t = tid; t < nv; t += THREADS) v = fmaxf(v, s_buf[r * a.BLK + t]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-      if (lane == 0) red_max[warp * REP + r] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < REP; ++r) {
-      float v = red_max[r];
-#pragma unroll
-      for (int w = 1; w < WARPS; ++w) v = fmaxf(v, red_max[w * REP + r]);
-      m_new[r] = fmaxf(m_run[r], v);
-      corr[r] = expf(m_run[r] - m_new[r]);
-      float sum = 0.0f;
-      for (int t = tid; t < nv; t += THREADS) {
-        const float p = expf(s_buf[r * a.BLK + t] - m_new[r]);
-        sum += p;
-        const float pv = vsc ? __fmul_rn(p, vsc[t]) : p;
-        s_buf[r * a.BLK + t] = __bfloat162float(__float2bfloat16_rn(pv));
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) red_sum[warp * REP + r] = sum;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < REP; ++r) {
-      float sum = red_sum[r];
-#pragma unroll
-      for (int w = 1; w < WARPS; ++w) sum += red_sum[w * REP + r];
-      l_run[r] = __fadd_rn(__fmul_rn(l_run[r], corr[r]), sum);
-      m_run[r] = m_new[r];
-#pragma unroll
-      for (int i = 0; i < CHUNK; ++i) acc[r][i] = __fmul_rn(acc[r][i], corr[r]);
-    }
-
-    // readout: p (bf16) times the lane's chunk of each filled v row
-    for (int t0 = 0; t0 < nv; t0 += TOKENS_PER_PASS) {
-      const int t = t0 + warp * (32 / LANES_PER_ROW) + sub;
-      if (t < nv) {
-        float vv[CHUNK];
-        load_chunk(vb + t * KVDh, vv);
-#pragma unroll
-        for (int r = 0; r < REP; ++r) {
-          const float p = s_buf[r * a.BLK + t];
-#pragma unroll
-          for (int i = 0; i < CHUNK; ++i) acc[r][i] += p * vv[i];
-        }
-      }
-    }
-    __syncthreads();
+    online_block<T, REP, false>(kb, kb + (int64_t)a.BLK * KVDh, KVDh, ksc,
+                                ksc ? ksc + (int64_t)a.KV * a.SCP : nullptr,
+                                nv, qv, acc, m_run, l_run, sm, a.BLK,
+                                a.inv_sqrt);
   }
 
-  // the token lanes' partial sums: across the 4 row groups of a warp, then
-  // across the warps, in a fixed order
-#pragma unroll
-  for (int r = 0; r < REP; ++r)
-#pragma unroll
-    for (int i = 0; i < CHUNK; ++i) {
-      acc[r][i] += __shfl_xor_sync(0xffffffffu, acc[r][i], 8);
-      acc[r][i] += __shfl_xor_sync(0xffffffffu, acc[r][i], 16);
-    }
-  if (sub == 0) {
-#pragma unroll
-    for (int r = 0; r < REP; ++r)
-#pragma unroll
-      for (int i = 0; i < CHUNK; ++i)
-        fin[(warp * REP + r) * DH + c * CHUNK + i] = acc[r][i];
-  }
-  __syncthreads();
+  park_acc<REP>(acc, sm);
   const int64_t out0 = (int64_t)(b * a.KV + h) * REP;
-  for (int idx = tid; idx < REP * DH; idx += THREADS) {
-    float v = fin[idx];
-#pragma unroll
-    for (int w = 1; w < WARPS; ++w) v += fin[w * REP * DH + idx];
-    a.acc[out0 * DH + idx] = v;
-  }
+  for (int idx = tid; idx < REP * DH; idx += THREADS)
+    a.acc[out0 * DH + idx] = warp_sum<REP>(sm, idx);
   if (tid < REP) {
     a.m[out0 + tid] = m_run[tid];
     a.l[out0 + tid] = l_run[tid];
@@ -330,125 +397,13 @@ struct BufArgs {
   float inv_sqrt;
 };
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// One block of nv <= s_width positions into the running (m, l, acc):
-// kb, vb point at this lane's chunk of the block's first row (row stride
-// KVDh); ksc, vsc at the block's scales of this head, or null.
-template <typename T, int REP>
-__device__ __forceinline__ void buffered_block(
-    const T* kb, const T* vb, int64_t KVDh, const float* ksc,
-    const float* vsc, int nv, const float (&qv)[REP][CHUNK],
-    float (&acc)[REP][CHUNK], float (&m_run)[REP], float (&l_run)[REP],
-    float* s_buf, int s_width, float* red_max, float* red_sum,
-    float inv_sqrt) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int sub = lane / LANES_PER_ROW, c = lane % LANES_PER_ROW;
-  for (int t0 = 0; t0 < nv; t0 += TOKENS_PER_PASS) {
-    const int t = t0 + warp * (32 / LANES_PER_ROW) + sub;
-    float part[REP];
-#pragma unroll
-    for (int r = 0; r < REP; ++r) part[r] = 0.0f;
-    if (t < nv) {
-      float kv[CHUNK];
-      load_chunk(kb + t * KVDh, kv);
-#pragma unroll
-      for (int r = 0; r < REP; ++r)
-#pragma unroll
-        for (int i = 0; i < CHUNK; ++i) part[r] += qv[r][i] * kv[i];
-    }
-#pragma unroll
-    for (int r = 0; r < REP; ++r) {
-      part[r] += __shfl_xor_sync(0xffffffffu, part[r], 1);
-      part[r] += __shfl_xor_sync(0xffffffffu, part[r], 2);
-      part[r] += __shfl_xor_sync(0xffffffffu, part[r], 4);
-    }
-    if (c == 0 && t < nv) {
-#pragma unroll
-      for (int r = 0; r < REP; ++r) {
-        float sv = part[r];
-        if (ksc) sv = __fmul_rn(sv, ksc[t]);
-        s_buf[r * s_width + t] = __fmul_rn(sv, inv_sqrt);
-      }
-    }
-  }
-  __syncthreads();
-  float m_new[REP], corr[REP];
-#pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    float v = NEG_INF;
-    for (int t = tid; t < nv; t += THREADS) v = fmaxf(v, s_buf[r * s_width + t]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-    if (lane == 0) red_max[warp * REP + r] = v;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    float v = red_max[r];
-#pragma unroll
-    for (int w = 1; w < WARPS; ++w) v = fmaxf(v, red_max[w * REP + r]);
-    m_new[r] = fmaxf(m_run[r], v);
-    corr[r] = expf(m_run[r] - m_new[r]);
-    float sum = 0.0f;
-    for (int t = tid; t < nv; t += THREADS) {
-      const float p = expf(s_buf[r * s_width + t] - m_new[r]);
-      sum += p;
-      s_buf[r * s_width + t] = bf16_round(p);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0) red_sum[warp * REP + r] = sum;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    float sum = red_sum[r];
-#pragma unroll
-    for (int w = 1; w < WARPS; ++w) sum += red_sum[w * REP + r];
-    l_run[r] = __fadd_rn(__fmul_rn(l_run[r], corr[r]), sum);
-    m_run[r] = m_new[r];
-#pragma unroll
-    for (int i = 0; i < CHUNK; ++i) acc[r][i] = __fmul_rn(acc[r][i], corr[r]);
-  }
-  // readout: bf16 p times the values with the v scale folded in, bf16
-  for (int t0 = 0; t0 < nv; t0 += TOKENS_PER_PASS) {
-    const int t = t0 + warp * (32 / LANES_PER_ROW) + sub;
-    if (t < nv) {
-      float vv[CHUNK];
-      load_chunk(vb + t * KVDh, vv);
-      if (vsc) {
-        const float vsc_t = bf16_round(vsc[t]);
-#pragma unroll
-        for (int i = 0; i < CHUNK; ++i) vv[i] = bf16_round(vv[i] * vsc_t);
-      }
-#pragma unroll
-      for (int r = 0; r < REP; ++r) {
-        const float p = s_buf[r * s_width + t];
-#pragma unroll
-        for (int i = 0; i < CHUNK; ++i) acc[r][i] += p * vv[i];
-      }
-    }
-  }
-  __syncthreads();
-}
-
 template <typename T, int REP>
 __global__ void __launch_bounds__(THREADS)
 buffered_attention_kernel(BufArgs a) {
   extern __shared__ float smem[];
-  float* s_buf = smem;                          // REP * s_width
-  float* red_max = s_buf + REP * a.s_width;     // WARPS * REP
-  float* red_sum = red_max + WARPS * REP;       // WARPS * REP
-  float* fin = red_sum + WARPS * REP;           // WARPS * REP * DH
-
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int sub = lane / LANES_PER_ROW, c = lane % LANES_PER_ROW;
+  const Smem sm = carve<REP>(smem, a.s_width);
+  const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
+  const int c = (tid & 31) % LANES_PER_ROW;
   const int64_t KVDh = (int64_t)a.KV * DH;
   const int64_t lane_off = h * DH + c * CHUNK;
   const int limit = a.MB * a.BLK;
@@ -457,83 +412,45 @@ buffered_attention_kernel(BufArgs a) {
   const int len = min(max(raw, 0), limit);
   if (raw != len && h == 0 && tid == 0) atomicOr(a.fault, 1);
 
-  float qv[REP][CHUNK];
-  {
-    const __nv_bfloat16* qp = a.q + ((int64_t)(b * a.KV + h) * REP) * DH +
-                              c * CHUNK;
-#pragma unroll
-    for (int r = 0; r < REP; ++r) load_chunk(qp + r * DH, qv[r]);
-  }
-  float acc[REP][CHUNK];
-  float m_run[REP], l_run[REP];
-#pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    m_run[r] = NEG_INF;
-    l_run[r] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < CHUNK; ++i) acc[r][i] = 0.0f;
-  }
-
+  float qv[REP][CHUNK], acc[REP][CHUNK], m_run[REP], l_run[REP];
+  load_q<REP>(a.q, b, h, a.KV, qv);
+  reset<REP>(acc, m_run, l_run);
   const int nblk = (len + a.BLK - 1) / a.BLK;
   for (int j = 0; j < nblk; ++j) {
-    const int nv = min(len - j * a.BLK, a.BLK);
     const int64_t row = a.tables[(int64_t)b * a.MB + j];
     if (row < 0 || row >= a.NB) {
       if (h == 0 && tid == 0) atomicOr(a.fault, 2);
       continue;
     }
-    const T* kb = static_cast<const T*>(a.kp) + row * a.kp_blk + lane_off;
-    const T* vb = static_cast<const T*>(a.vp) + row * a.vp_blk + lane_off;
-    const float* ksc = a.ks ? a.ks + row * a.ks_blk + (int64_t)h * a.BLK
-                            : nullptr;
-    const float* vsc = a.vs ? a.vs + row * a.vs_blk + (int64_t)h * a.BLK
-                            : nullptr;
-    buffered_block<T, REP>(kb, vb, KVDh, ksc, vsc, nv, qv, acc, m_run, l_run,
-                           s_buf, a.s_width, red_max, red_sum, a.inv_sqrt);
+    online_block<T, REP, true>(
+        static_cast<const T*>(a.kp) + row * a.kp_blk + lane_off,
+        static_cast<const T*>(a.vp) + row * a.vp_blk + lane_off, KVDh,
+        a.ks ? a.ks + row * a.ks_blk + (int64_t)h * a.BLK : nullptr,
+        a.vs ? a.vs + row * a.vs_blk + (int64_t)h * a.BLK : nullptr,
+        min(len - j * a.BLK, a.BLK), qv, acc, m_run, l_run, sm, a.s_width,
+        a.inv_sqrt);
   }
-  {
-    // the in-burst buffer: columns [0, step]
-    const int nv = min(a.step + 1, a.NBUF);
-    const T* kb = static_cast<const T*>(a.kb) + b * a.kb_slot + lane_off;
-    const T* vb = static_cast<const T*>(a.vb) + b * a.vb_slot + lane_off;
-    const float* ksc = a.ksb ? a.ksb + b * a.ksb_slot + (int64_t)h * a.NBUF
-                             : nullptr;
-    const float* vsc = a.vsb ? a.vsb + b * a.vsb_slot + (int64_t)h * a.NBUF
-                             : nullptr;
-    buffered_block<T, REP>(kb, vb, KVDh, ksc, vsc, nv, qv, acc, m_run, l_run,
-                           s_buf, a.s_width, red_max, red_sum, a.inv_sqrt);
-  }
+  // the in-burst buffer: columns [0, step]
+  online_block<T, REP, true>(
+      static_cast<const T*>(a.kb) + b * a.kb_slot + lane_off,
+      static_cast<const T*>(a.vb) + b * a.vb_slot + lane_off, KVDh,
+      a.ksb ? a.ksb + b * a.ksb_slot + (int64_t)h * a.NBUF : nullptr,
+      a.vsb ? a.vsb + b * a.vsb_slot + (int64_t)h * a.NBUF : nullptr,
+      min(a.step + 1, a.NBUF), qv, acc, m_run, l_run, sm, a.s_width,
+      a.inv_sqrt);
 
-#pragma unroll
-  for (int r = 0; r < REP; ++r)
-#pragma unroll
-    for (int i = 0; i < CHUNK; ++i) {
-      acc[r][i] += __shfl_xor_sync(0xffffffffu, acc[r][i], 8);
-      acc[r][i] += __shfl_xor_sync(0xffffffffu, acc[r][i], 16);
-    }
-  if (sub == 0) {
-#pragma unroll
-    for (int r = 0; r < REP; ++r)
-#pragma unroll
-      for (int i = 0; i < CHUNK; ++i)
-        fin[(warp * REP + r) * DH + c * CHUNK + i] = acc[r][i];
-  }
-  __syncthreads();
+  park_acc<REP>(acc, sm);
   const int64_t out0 = (int64_t)(b * a.KV + h) * REP;
-  for (int idx = tid; idx < REP * DH; idx += THREADS) {
-    float v = fin[idx];
-#pragma unroll
-    for (int w = 1; w < WARPS; ++w) v += fin[w * REP * DH + idx];
-    a.ctx[out0 * DH + idx] = v / fmaxf(l_run[idx / DH], 1e-30f);
-  }
+  for (int idx = tid; idx < REP * DH; idx += THREADS)
+    a.ctx[out0 * DH + idx] = warp_sum<REP>(sm, idx) /
+                             fmaxf(l_run[idx / DH], 1e-30f);
 }
 
 template <typename T, int REP>
 cudaError_t launch_buffered(const BufArgs& a, cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * ((size_t)REP * a.s_width +
-                                        2 * WARPS * REP + WARPS * REP * DH);
   buffered_attention_kernel<T, REP>
-      <<<dim3((unsigned int)a.B, (unsigned int)a.KV), THREADS, bytes, stream>>>(a);
+      <<<dim3((unsigned int)a.B, (unsigned int)a.KV), THREADS,
+         smem_bytes<REP>(a.s_width), stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -549,10 +466,9 @@ cudaError_t launch_buffered_rep(const BufArgs& a, int rep, cudaStream_t stream) 
 
 template <typename T, int REP, bool GROUPED>
 cudaError_t launch_one(const Args& a, cudaStream_t stream) {
-  const size_t bytes =
-      sizeof(float) * ((size_t)REP * a.BLK + 2 * WARPS * REP + WARPS * REP * DH);
   paged_attention_kernel<T, REP, GROUPED>
-      <<<dim3((unsigned int)a.B, (unsigned int)a.KV), THREADS, bytes, stream>>>(a);
+      <<<dim3((unsigned int)a.B, (unsigned int)a.KV), THREADS,
+         smem_bytes<REP>(a.BLK), stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -2,8 +2,9 @@
 kernels' wrappers, their plain versions and the layout glue around them.
 
 Counterpart of ppq_tpu/kernels/paged_attention.py
-`paged_attention_decode_fused` (`_make_kernel`) and
-`paged_attention_decode_grouped` (`_make_grouped_kernel`), with
+`paged_attention_decode_fused` (`_make_kernel`),
+`paged_attention_decode_grouped` (`_make_grouped_kernel`) and
+`paged_attention_decode_buffered` (`_make_buffered_kernel`), with
 `identity_block_tables`, `blockmajor_window`, `grouped_group_size`,
 `merge_attention` and `paged_attention_reference`. The kernels are
 `ppq_tpu_torch/csrc/paged_attention.cu`; its source says what bounds them on
@@ -29,6 +30,12 @@ exp (and, through those, where p * v_scale rounds to bf16).
 A seq_lens entry outside [0, MB * BLK] is clamped there; a block-table row
 outside the pool is read as an empty block. On the card the kernel also sets
 a bit of the device's fault word (`loader.read_faults`).
+
+The buffered read (row 13) runs the same online softmax over the slot's
+filled pool blocks and then over the in-burst buffer's columns [0, step] as
+one more block, and returns acc / max(l, 1e-30). Its values take the TPU
+kernel's numerics: v_eff = bf16(v_code * bf16(v_scale)), and p rounds to
+bf16 alone (rows 11 and 12 round bf16(p * v_scale) instead).
 """
 
 from __future__ import annotations

@@ -758,47 +758,39 @@ class ServingEngine:
         tokens = torch.zeros((B,), dtype=torch.int32, device=self.device)
         seq_lens = torch.full((B,), fill, dtype=torch.int32,
                               device=self.device)
-        if self._paged:
-            # every slot's blocks through fill + n, the tables bucketed to
-            # the fill as the run loop buckets them (_paged_decode)
+        if self._paged or (burst and burst > 1):
             n = burst if burst and burst > 1 else 1
-            for slot in range(B):
-                self._alloc.ensure(slot, fill + n)
-            tables = self._tensor(
-                self._alloc.tables()[:, :self._table_width(fill + n)])
-            fn = self._build_decode_burst_paged(
-                n, read_limit=self._decode_bucket(max(fill, 1)))
+            bucket = self._decode_bucket(max(fill, 1))
+            if self._paged:
+                # every slot's blocks through fill + n, the tables bucketed
+                # as the run loop buckets them (_paged_decode)
+                for slot in range(B):
+                    self._alloc.ensure(slot, fill + n)
+                tables = self._tensor(
+                    self._alloc.tables()[:, :self._table_width(fill + n)])
+                paged = self._build_decode_burst_paged(n, read_limit=bucket)
+
+                def burst_fn(cache):
+                    return paged(self.params, cache, tokens, seq_lens, tables)
+            else:
+                dense = self._build_decode_burst(
+                    n, bucket, grouped=self._grouped_gate([fill] * B, n,
+                                                          bucket))
+
+                def burst_fn(cache):
+                    return dense(self.params, cache, tokens, seq_lens)
             n_bursts = max(1, steps // n)
-            toks, cache = fn(self.params, cache, tokens, seq_lens, tables)
+            toks, cache = burst_fn(cache)
             toks.cpu()                            # warm + full sync
             best = float('inf')
             for _ in range(repeats):
                 t0 = time.perf_counter()
                 for _ in range(n_bursts):
-                    toks, cache = fn(self.params, cache, tokens, seq_lens,
-                                     tables)
-                toks.cpu()
-                best = min(best, time.perf_counter() - t0)
-            return {'tokens_per_sec': B * n_bursts * n / best,
-                    'ms_per_step': best / (n_bursts * n) * 1e3,
-                    'batch': B}
-        if burst and burst > 1:
-            bucket = self._decode_bucket(fill)
-            fn = self._build_decode_burst(
-                burst, bucket,
-                grouped=self._grouped_gate([fill] * B, burst, bucket))
-            n_bursts = max(1, steps // burst)
-            toks, cache = fn(self.params, cache, tokens, seq_lens)
-            toks.cpu()                            # warm + full sync
-            best = float('inf')
-            for _ in range(repeats):
-                t0 = time.perf_counter()
-                for _ in range(n_bursts):
-                    toks, cache = fn(self.params, cache, tokens, seq_lens)
+                    toks, cache = burst_fn(cache)
                 toks.cpu()
                 best = min(best, time.perf_counter() - t0)
             dt = best
-            n_steps = n_bursts * burst
+            n_steps = n_bursts * n
         else:
             for _ in range(warmup):
                 tok, cache = self._decode(self.params, cache, tokens,

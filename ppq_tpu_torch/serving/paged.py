@@ -43,8 +43,8 @@ from .model import (BF16, F32, Params, _kv_quant, _pv_context, _qk_logits,
                     mlp, project_qkv, qmatmul, rms_norm, rope_apply,
                     rope_tables, row_rsqrt)
 
-# Default pool block size of callers that predate the configurable
-# granularity; the engine reads cfg.kv_block_size, the functions the pool.
+# the allocator's default block size (the JAX package's); the engine passes
+# cfg.kv_block_size, and the functions read the pool's own
 BLK = 128
 
 
@@ -60,8 +60,8 @@ def init_paged_pools(cfg: LlamaConfig, num_blocks: int,
     """The shared block pools on `device` (the card unless named).
     num_blocks INCLUDES the reserved trash block 0."""
     device = resolve_device(device)
-    L, KV, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-    blk = getattr(cfg, 'kv_block_size', BLK)
+    L, KV, Dh, blk = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, \
+        cfg.kv_block_size
     if cfg.kv_cache_bits == 8:
         return {
             'kv': torch.zeros((L, num_blocks, 2, blk, KV * Dh),

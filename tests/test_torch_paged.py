@@ -353,10 +353,6 @@ def _pair():
     return _PAIR['params']
 
 
-def _fresh_pools(tcfg, nb):
-    return tpaged.init_paged_pools(tcfg, nb, device='cpu')
-
-
 def _assert_codes_close(got, want, rows):
     a = got[:, rows].astype(np.int32)
     b = want[:, rows].astype(np.int32)
@@ -381,7 +377,7 @@ def test_prefill_paged_and_chunk_against_jax():
     active = np.array([True, True, False, True])
     tables = np.array([[3, 4], [1, 2], [0, 0], [8, 5]], np.int32)
     jpools = jpaged.init_paged_pools(jcfg, nb)
-    tpools = _fresh_pools(tcfg, nb)
+    tpools = tpaged.init_paged_pools(tcfg, nb, device='cpu')
     jl, jpools = jpaged.prefill_paged(
         jf, jpools, jnp.asarray(tokens), jnp.asarray(lengths),
         jnp.asarray(tables), jnp.asarray(active), jcfg, use_kernel=True,
