@@ -1221,9 +1221,11 @@ def kernels_paged(dev, flush):
         library_ms=time_ms(lambda: _composition(
             q, kv_bm, sc_bm, path_lens, layer, rblk, group, kb, vb, ks1, vs1,
             step), flush))
-    log('[kernel] pool_write bit-equal to its plain version on the whole pool; '
-        'paged_attention_buffered within its tolerance (row 11\'s delta, one '
-        'bf16 step of p, divided by l)')
+    log(f'[kernel] pool_write bit-equal to its plain version on the whole '
+        f'pool; a 128-column prefill window '
+        f'{results["pool_write"]["prefill_window_128_ms"]:.4f} ms; '
+        f'paged_attention_buffered within its tolerance (row 11\'s delta, '
+        f'one bf16 step of p, divided by l)')
     del pool, scale, kv_bm, sc_bm, dense, kbuf, vbuf, ksb, vsb, q
     torch.cuda.empty_cache()
     return results
