@@ -60,9 +60,13 @@ KERNEL_MAX_BLOCK = 2048
 # ------------------------------------------------------------ host glue ----
 
 def identity_block_tables(B: int, S: int, block_size: int = 128,
-                          device='cpu') -> torch.Tensor:
+                          device=None) -> torch.Tensor:
     """Block tables mapping each slot's logical blocks to its own rows of
-    the reshaped contiguous cache ((B, S, ...) -> (B*S/BLK, BLK, ...))."""
+    the reshaped contiguous cache ((B, S, ...) -> (B*S/BLK, BLK, ...)).
+    On the card unless `device` names another; without a card and without a
+    named device this raises, like every entry point of the port."""
+    from ..executor.executor import resolve_device
+    device = resolve_device(device)
     MB = S // block_size
     return (torch.arange(B, dtype=torch.int32, device=device)[:, None] * MB
             + torch.arange(MB, dtype=torch.int32, device=device)[None, :])

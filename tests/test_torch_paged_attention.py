@@ -142,9 +142,21 @@ def _assert_triple(got, want, q, k, v, ks, vs, lens):
 @pytest.mark.parametrize('B,S,blk', [(4, 256, 128), (3, 64, 32), (1, 512, 512)])
 def test_identity_block_tables_bit_equal(B, S, blk):
     want = np.asarray(jpa.identity_block_tables(B, S, blk))
-    got = tpa.identity_block_tables(B, S, blk)
+    got = tpa.identity_block_tables(B, S, blk, device='cpu')
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_identity_block_tables_runs_on_the_card_unless_told(monkeypatch):
+    """Like every entry point of the port: the card unless the caller names
+    another device, and without a card it raises instead of taking the
+    CPU."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tpa.identity_block_tables(2, 256, 128)
+    got = tpa.identity_block_tables(2, 256, 128, device='cpu')
+    assert got.device.type == 'cpu'
+    assert got.tolist() == [[0, 1], [2, 3]]
 
 
 @pytest.mark.parametrize('layered', [True, False], ids=['layered', 'one-layer'])
@@ -327,7 +339,7 @@ def test_fused_equals_grouped_and_reference():
     lens = torch.tensor([1, 64, 200, 256], dtype=torch.int32)
     q = torch.from_numpy(_query(12, B, KV, rep, Dh)).bfloat16()
     pool, sc = tpa.slotmajor_window(*(_tt(a) for a in (k, v, ks, vs)), cap, blk)
-    tables = tpa.identity_block_tables(B, cap, blk)
+    tables = tpa.identity_block_tables(B, cap, blk, device='cpu')
     fused = tpa.paged_attention_decode_fused(q, pool, sc, tables, lens, 0,
                                              block_size=blk)
     bm, sbm = tpa.blockmajor_window(*(_tt(a) for a in (k, v, ks, vs)), cap, blk)
@@ -351,7 +363,7 @@ def test_out_of_range_inputs_read_as_documented():
     B, KV, rep, Dh, blk = 2, 2, 2, 128, 32
     k, v, ks, vs = _cache(13, 1, B, 64, KV, Dh, 'int8')
     pool, sc = tpa.slotmajor_window(*(_tt(a) for a in (k, v, ks, vs)), 64, blk)
-    tables = tpa.identity_block_tables(B, 64, blk)
+    tables = tpa.identity_block_tables(B, 64, blk, device='cpu')
     q = torch.from_numpy(_query(14, B, KV, rep, Dh)).bfloat16()
     over = tpa.paged_attention_decode_fused(
         q, pool, sc, tables, torch.tensor([999, -3], dtype=torch.int32), 0,
