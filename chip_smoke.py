@@ -214,10 +214,10 @@ def phase_card():
     return name, smi
 
 
-def phase_build():
+def phase_build(names=None):
     from ppq_tpu_torch.kernels import loader as kbuild
     t0 = time.perf_counter()
-    seconds = kbuild.build()
+    seconds = kbuild.build(*([names] if names else []))
     log(f'[build] {time.perf_counter() - t0:.2f} s wall, per library '
         f'{json.dumps({k: round(v, 2) for k, v in seconds.items()})}')
     for name, out in kbuild.BUILD_LOG.items():
@@ -513,17 +513,54 @@ def _code_diff(got, want):
                for a, b in zip(got, want))
 
 
-def kernels_serving(dev, flush):
-    """Rows 8, 10, 14, 15 at path D's shapes (128 slots): every (D, F) and
-    epilogue variant of the dequant-matmul that a decode step launches, the
-    gate-up kernel, the one-column bank write over 32 buffers and the
-    32-row window write into the full KV cache."""
-    from ppq_tpu_torch.kernels import (Bank, bank_write_inplace,
-                                       bank_write_plain, qmm_gateup, qmm_gateup_plain, qmm_int8,
-                                       qmm_int8_plain, window_write_inplace,
-                                       window_write_plain)
+def _int8pack_mm_on_card() -> bool:
+    """Whether this PyTorch build has a CUDA kernel for the one call that
+    computes x @ w.T * scale from an int8 weight (a yardstick only)."""
+    return torch._C._dispatch_has_kernel_for_dispatch_key(
+        'aten::_weight_int8pack_mm', 'CUDA')
+
+
+def _qmm_yardsticks(x, w, scale, flush):
+    """Two single-call yardsticks on the same inputs, timed here and used
+    nowhere in the port: a bf16 `matmul` on a weight already in bf16 (one
+    cuBLAS call reading twice the weight's bytes) and, where this build has
+    one on the card, `_weight_int8pack_mm` (the int8 weight transposed
+    first, its scales in bf16; no row scale, residual or silu). Either is
+    None where it does not exist or refuses the shape."""
+    w16 = w.to(torch.bfloat16)
+    mm = time_ms(lambda: torch.matmul(x, w16), flush)
+    del w16
+    pack, why = None, 'none on this build'
+    if _int8pack_mm_on_card():
+        wt, s16 = w.t().contiguous(), scale.to(torch.bfloat16)
+        try:
+            pack, why = time_ms(lambda: torch._weight_int8pack_mm(x, wt, s16),
+                                flush), ''
+        except RuntimeError as e:     # a yardstick, not a check of the port
+            why = f'refused: {str(e).splitlines()[0][:120]}'
+        del wt, s16
+    return mm, pack, why
+
+
+def _qmm_launch(B, d, f, gateup):
+    """S, the column tile and the load pipeline of an INT8 launch, as the
+    wrapper of this checkout picks them."""
+    from ppq_tpu_torch.kernels import qmm
+    if not hasattr(qmm, 'int8_launch'):
+        return 'one block a tile (no split-K in this checkout)'
+    return json.dumps(qmm.int8_launch(B, d, f, gateup))
+
+
+def kernels_qmm(dev, flush):
+    """Rows 8 and 10 (INT8 bodies) at path D's shapes (128 slots): every
+    (D, F) and epilogue variant of the dequant-matmul that a decode step
+    launches, and the gate-up kernel; each within its tolerance of the plain
+    version in f32 and bf16, two calls on the same inputs bit-equal (also
+    after calls of other shapes), timed beside the several-call composition
+    and two single-call yardsticks."""
+    from ppq_tpu_torch.kernels import (qmm_gateup, qmm_gateup_plain, qmm_int8,
+                                       qmm_int8_plain)
     B, D, Fq, Fh, V = 128, SERVE['d_model'], 4096, SERVE['d_ff'], 32768
-    L, KV, Dh, S = SERVE['n_layers'], SERVE['n_kv_heads'], 128, SERVE['max_seq_len']
     gen = torch.Generator(device=dev).manual_seed(3)
     bf16 = torch.bfloat16
     results = {}
@@ -533,10 +570,19 @@ def kernels_serving(dev, flush):
                               dtype=torch.int8),
                 torch.rand(f, device=dev, generator=gen) * 0.01 + 0.001)
 
+    def twice(fn, label):
+        """Two calls, bit-equal, or raise; returns the first."""
+        a, b = fn(), fn()
+        if not torch.equal(a, b):
+            raise AssertionError(f'{label}: two calls on the same inputs '
+                                 f'differ ({int(a.ne(b).sum())} outputs)')
+        return a
+
     variants = {}
     worst = 0.0
-    cases = (('wqkv row_scale', D, Fq, True, False),
-             ('wqkv no epilogue', D, Fq, False, False),
+    first = None
+    cases = (('wqkv no epilogue', D, Fq, False, False),
+             ('wqkv row_scale', D, Fq, True, False),
              ('wo residual', D, D, False, True),
              ('w_down residual', Fh, D, False, True),
              ('lm_head row_scale', D, V, True, False),
@@ -549,7 +595,8 @@ def kernels_serving(dev, flush):
         want = qmm_int8_plain(x, w, scale, torch.float32, row, res)
         tol, _ = _qmm_tolerance(x, w, scale, row)
         for out in (torch.float32, bf16):
-            got = qmm_int8(x, w, scale, out, row, res)
+            got = twice(lambda: qmm_int8(x, w, scale, out, row, res),
+                        f'qmm_int8 {label} {out}')
             err = (got.float() - want).abs()
             lim = tol + (_bf16_step(want) if out == bf16 else 0.0)
             if not bool((err <= lim).all()):
@@ -557,6 +604,8 @@ def kernels_serving(dev, flush):
                                      f'{float((err / lim).max()):.2f} of the tolerance')
             if out == torch.float32 and float(err.max()) >= worst:
                 worst, worst_of = float(err.max()), float(want.flatten()[err.argmax()])
+            if first is None:
+                first = (x, w, scale, got)
         ms = time_ms(lambda: qmm_int8(x, w, scale, bf16, row, res), flush)
         plain = time_ms(lambda: qmm_int8_plain(x, w, scale, bf16, row, res), flush)
 
@@ -568,21 +617,39 @@ def kernels_serving(dev, flush):
                 out = out + res
             return out.to(bf16)
 
-        lib = time_ms(library, flush)
+        composed = time_ms(library, flush)
+        mm, pack, why = _qmm_yardsticks(x, w, scale, flush)
         moved = d * f + 2 * B * d + 4 * f + 2 * B * f \
             + (4 * B if has_row else 0) + (2 * B * f if has_res else 0)
         b, by = bound_ms(moved, 2.0 * B * d * f, BF16_OPS_PER_S)
         variants[label] = dict(shape=[B, d, f], ms=ms, plain_ms=plain,
-                               library_ms=lib, bound_ms=b, bound_by=by)
-        log(f'[kernel] qmm_int8 {label} {[B, d, f]}: {ms:.4f} ms, plain '
-            f'{plain:.4f} ms, library (to bf16 + matmul + epilogue, several '
-            f'calls) {lib:.4f} ms, bound {b:.4f} ms ({by}), share of bound '
-            f'{b / ms:.3f}')
+                               composed_ms=composed, bf16_matmul_ms=mm,
+                               int8pack_mm_ms=pack, bound_ms=b, bound_by=by,
+                               launch=_qmm_launch(B, d, f, False))
+        pack_s = f'{pack:.4f} ms' if pack is not None else why
+        log(f'[kernel] qmm_int8 {label} {[B, d, f]}: {ms:.4f} ms '
+            f'({variants[label]["launch"]}), plain {plain:.4f} ms, library '
+            f'(to bf16 + matmul + epilogue, several calls) {composed:.4f} ms, '
+            f'bf16 matmul on a bf16 weight {mm:.4f} ms, _weight_int8pack_mm '
+            f'{pack_s}, bound {b:.4f} ms ({by}), share of bound {b / ms:.3f}')
         del x, w, scale, row, res, want, tol
-    results['qmm_int8'] = dict(max_abs_err=worst, variants=variants,
-                               **variants['wqkv row_scale'])
+    # the first shape again, after calls of every other shape
+    x, w, scale, got = first
+    if not torch.equal(qmm_int8(x, w, scale, torch.float32), got):
+        raise AssertionError('qmm_int8: a call after calls of other shapes '
+                             'differs from the first call on its inputs')
+    del first, x, w, scale, got
+    wq = variants['wqkv no epilogue']
+    # one PyTorch call computes this variant (scales in bf16), where the
+    # build has it; else the several-call composition as before
+    results['qmm_int8'] = dict(
+        max_abs_err=worst, variants=variants,
+        library_ms=(wq['int8pack_mm_ms'] if wq['int8pack_mm_ms'] is not None
+                    else wq['composed_ms']),
+        **{k: v for k, v in wq.items() if k not in ('composed_ms',)})
     log(f'[kernel] qmm_int8 largest f32 error {worst:.3e} on an output of '
-        f'{worst_of:.3e}')
+        f'{worst_of:.3e}; every variant bit-equal over two calls and after '
+        f'calls of other shapes')
 
     x = torch.randn(B, D, device=dev, generator=gen).to(bf16)
     w, scale = weight(D, 2 * Fh)
@@ -592,7 +659,8 @@ def kernels_serving(dev, flush):
         want = qmm_gateup_plain(x, w, scale, torch.float32, r)
         tol = _gateup_tolerance(x, w, scale, r)
         for out in (torch.float32, bf16):
-            got = qmm_gateup(x, w, scale, out, r)
+            got = twice(lambda: qmm_gateup(x, w, scale, out, r),
+                        f'qmm_gateup {out}')
             err = (got.float() - want).abs()
             lim = tol + (_bf16_step(want) if out == bf16 else 0.0)
             if not bool((err <= lim).all()):
@@ -602,7 +670,7 @@ def kernels_serving(dev, flush):
                 worst, worst_of = float(err.max()), float(want.flatten()[err.argmax()])
         del want, tol
     log(f'[kernel] qmm_gateup largest f32 error {worst:.3e} on an output of '
-        f'{worst_of:.3e}')
+        f'{worst_of:.3e}; bit-equal over two calls')
 
     def library_gateup():
         both = torch.matmul(x, w.to(bf16)).float() * scale * row.reshape(-1, 1)
@@ -610,13 +678,38 @@ def kernels_serving(dev, flush):
 
     moved = D * 2 * Fh + 2 * B * D + 8 * Fh + 4 * B + 2 * B * Fh
     b, by = bound_ms(moved, 2.0 * B * D * 2 * Fh, BF16_OPS_PER_S)
+    mm, pack, why = _qmm_yardsticks(x, w, scale, flush)
     results['qmm_gateup'] = dict(
         max_abs_err=worst, shape=[B, D, 2 * Fh], bound_ms=b, bound_by=by,
         ms=time_ms(lambda: qmm_gateup(x, w, scale, bf16, row), flush),
         plain_ms=time_ms(lambda: qmm_gateup_plain(x, w, scale, bf16, row), flush),
         # yardstick, several calls: to bf16, matmul, scales, silu, mul
-        library_ms=time_ms(library_gateup, flush))
+        library_ms=time_ms(library_gateup, flush),
+        bf16_matmul_ms=mm, int8pack_mm_ms=pack,
+        launch=_qmm_launch(B, D, Fh, True))
+    r = results['qmm_gateup']
+    pack_s = f'{pack:.4f} ms' if pack is not None else why
+    log(f'[kernel] qmm_gateup {[B, D, 2 * Fh]}: {r["ms"]:.4f} ms '
+        f'({r["launch"]}), plain {r["plain_ms"]:.4f} ms, library (several '
+        f'calls) {r["library_ms"]:.4f} ms, bf16 matmul of the projection on '
+        f'a bf16 weight {mm:.4f} ms, _weight_int8pack_mm of the projection '
+        f'{pack_s}, bound {b:.4f} ms ({by}), share of bound {b / r["ms"]:.3f}')
     del x, w, scale, row
+    torch.cuda.empty_cache()
+    return results
+
+
+def kernels_serving(dev, flush):
+    """Rows 8, 10, 14, 15 at path D's shapes (128 slots): the dequant-matmul
+    variants and the gate-up kernel (kernels_qmm), the one-column bank write
+    over 32 buffers and the 32-row window write into the full KV cache."""
+    from ppq_tpu_torch.kernels import (Bank, bank_write_inplace,
+                                       bank_write_plain, window_write_inplace,
+                                       window_write_plain)
+    B = 128
+    L, KV, Dh, S = SERVE['n_layers'], SERVE['n_kv_heads'], 128, SERVE['max_seq_len']
+    gen = torch.Generator(device=dev).manual_seed(4)
+    results = kernels_qmm(dev, flush)
 
     def codes(shape):
         return torch.randint(-128, 128, shape, device=dev, generator=gen,
@@ -2317,7 +2410,7 @@ def _profile_burst(engine, fill, n=8, tag='D'):
         return None
     busy_us = sum(t for _, t, _ in rows)
     ours = {name: sum(t for k, t, _ in rows if pattern in k)
-            for name, pattern in (('qmm (int8, int4 and gate-up)', 'qmm_kernel'),
+            for name, pattern in (('qmm (int8, int4 and gate-up)', 'qmm'),
                                   ('paged_attention', 'paged_attention_kernel'),
                                   ('bank_write', 'bank_write_kernel'),
                                   ('window_write', 'window_write_kernel'),
@@ -2876,7 +2969,41 @@ def phase_profile(executor, x_dev, n=3):
             f'{key[:90]}')
 
 
+def main_qmm(package_root=None) -> int:
+    """`--qmm`: the card, the build and rows 8 and 10's kernel phase alone
+    (kernels_qmm), the quick loop for work on those kernels. With
+    `--package-root DIR` the package is imported from the checkout at DIR
+    (another commit's tree), so two commits are timed in one call on one
+    card, in turns."""
+    t_start = time.perf_counter()
+    _, smi = phase_card()
+    if package_root:
+        sys.path.insert(0, package_root)
+    import ppq_tpu_torch
+    log(f'[qmm] package {ppq_tpu_torch.__file__}')
+    dev = torch.device('cuda', 0)
+    torch.cuda.set_device(dev)
+    phase_build(['qmm'])
+    flush = torch.empty(512 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
+    results = kernels_qmm(dev, flush)
+    log(f'[done] {time.perf_counter() - t_start:.1f} s; {smi}')
+    log(json.dumps({'qmm': results, 'card': smi}))
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) > 1:
+        import argparse
+        ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+        ap.add_argument('--qmm', action='store_true',
+                        help='rows 8 and 10 alone: build, hold, time')
+        ap.add_argument('--package-root', default=None,
+                        help='with --qmm: import ppq_tpu_torch from this '
+                             'checkout')
+        args = ap.parse_args()
+        if not args.qmm:
+            ap.error('the only option is --qmm')
+        return main_qmm(args.package_root)
     t_start = time.perf_counter()
     name, smi = phase_card()
     import ppq_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)

@@ -99,6 +99,49 @@ __device__ __forceinline__ float silu_mul(float g, float u) {
   return __fmul_rn(__fmul_rn(g, sig), u);
 }
 
+// Split-K across gridDim.z blocks of one output tile. `pairs(f)` calls
+// f(v0, v1, row, col) on each pair of neighbouring accumulators a thread
+// holds, col being the pair's first column of the (M, Fw) weight product.
+// Every block writes its partial sums to its plane of ws (S, M, Fw) and
+// counts itself in; the block that arrives last sums the S planes in the
+// order s = 0 .. S-1 back into its accumulators, resets the counter for the
+// next launch and returns true. The others return false. The order of the
+// sum does not depend on which block arrives last, so two launches on the
+// same inputs agree bit for bit.
+template <typename Pairs>
+__device__ __forceinline__ bool reduce_splits(Pairs pairs, float* ws,
+                                              int* counter, int M, int Fw) {
+  __shared__ int last;
+  const int S = gridDim.z;
+  const size_t plane = (size_t)M * Fw;
+  pairs([&](float& v0, float& v1, int row, int col) {
+    if (row < M)
+      __stcg(reinterpret_cast<float2*>(ws + blockIdx.z * plane +
+                                       (size_t)row * Fw + col),
+             make_float2(v0, v1));
+  });
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(counter, 1) == S - 1;
+    if (last) *counter = 0;  // every block of the tile has arrived
+  }
+  __syncthreads();
+  if (!last) return false;
+  __threadfence();
+  // one pass over a thread's pairs a plane: its loads go out together
+  for (int s = 0; s < S; ++s) {
+    pairs([&](float& v0, float& v1, int row, int col) {
+      if (row >= M) return;
+      const float2 p = __ldcg(reinterpret_cast<const float2*>(
+          ws + s * plane + (size_t)row * Fw + col));
+      v0 = s == 0 ? p.x : __fadd_rn(v0, p.x);
+      v1 = s == 0 ? p.y : __fadd_rn(v1, p.y);
+    });
+  }
+  return true;
+}
+
 // Shared memory of one block: PLANES x tiles (BM, LDA) bf16, then
 // NPAN * PLANES weight tiles of BN * KW words.
 template <int NT, bool GATEUP, bool INT4>
@@ -116,7 +159,8 @@ __global__ void __launch_bounds__(THREADS)
 qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
            const float* __restrict__ scale, const float* __restrict__ row_scale,
            const void* __restrict__ residual, int residual_f32,
-           void* __restrict__ out, int out_f32, int M, int D, int Fo) {
+           void* __restrict__ out, int out_f32, int M, int D, int Fo,
+           float* __restrict__ ws, int* __restrict__ counters, int per) {
   constexpr int BN = 16 * NT;
   constexpr int NPAN = GATEUP ? 2 : 1;
   constexpr int PLANES = INT4 ? 2 : 1;  // x tiles (and weight planes) a step
@@ -206,12 +250,14 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
     }
   };
 
-  const int steps = Dx / BK;
-  load_tile(0);
+  // this block's share of the depth: steps [k_begin, k_end) of BK
+  const int k_begin = blockIdx.z * per;
+  const int k_end = min(Dx / BK, k_begin + per);
+  load_tile(k_begin * BK);
   store_tile();
   __syncthreads();
-  for (int kt = 0; kt < steps; ++kt) {
-    if (kt + 1 < steps) load_tile((kt + 1) * BK);
+  for (int kt = k_begin; kt < k_end; ++kt) {
+    if (kt + 1 < k_end) load_tile((kt + 1) * BK);
 #pragma unroll
     for (int q = 0; q < PLANES; ++q) {
 #pragma unroll
@@ -242,8 +288,27 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
       }
     }
     __syncthreads();
-    if (kt + 1 < steps) store_tile();
+    if (kt + 1 < k_end) store_tile();
     __syncthreads();
+  }
+
+  if (gridDim.z > 1) {
+    auto pairs = [&](auto f) {
+#pragma unroll
+      for (int p = 0; p < NPAN; ++p)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+              f(acc[p][mt][nt][half * 2], acc[p][mt][nt][half * 2 + 1],
+                m0 + warp_m * 32 + mt * 16 + g + half * 8,
+                p * Fo + n0 + warp_n * (NT * 8) + nt * 8 + 2 * c);
+    };
+    if (!reduce_splits(pairs, ws, counters + blockIdx.y * gridDim.x +
+                                      blockIdx.x, M, Fw))
+      return;
   }
 
   // epilogue: accumulator element e of tile (mt, nt) is row g (+8 for
@@ -302,8 +367,8 @@ template <int NT, bool GATEUP, bool INT4>
 cudaError_t launch_tile(dim3 grid, const __nv_bfloat16* x, const int8_t* w,
                         const float* scale, const float* row_scale,
                         const void* residual, int residual_f32, void* out,
-                        int out_f32, int M, int D, int Fo,
-                        cudaStream_t stream) {
+                        int out_f32, int M, int D, int Fo, float* ws,
+                        int* counters, int per, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<NT, GATEUP, INT4>();
   // above 48 KB a block's shared memory must be asked for, once per
   // instantiation
@@ -314,7 +379,8 @@ cudaError_t launch_tile(dim3 grid, const __nv_bfloat16* x, const int8_t* w,
       : cudaSuccess;
   if (attr != cudaSuccess) return attr;
   qmm_kernel<NT, GATEUP, INT4><<<grid, THREADS, bytes, stream>>>(
-      x, w, scale, row_scale, residual, residual_f32, out, out_f32, M, D, Fo);
+      x, w, scale, row_scale, residual, residual_f32, out, out_f32, M, D, Fo,
+      ws, counters, per);
   return cudaGetLastError();
 }
 
@@ -322,10 +388,19 @@ template <bool GATEUP, bool INT4>
 int launch(const void* x, const void* w, const void* scale,
            const void* row_scale, const void* residual, int residual_f32,
            void* out, int out_f32, int64_t M, int64_t D, int64_t Fo,
-           int narrow, cudaStream_t stream) {
+           int narrow, int splits, void* ws, void* counters,
+           cudaStream_t stream) {
   if (M <= 0 || D <= 0 || Fo <= 0 || D % ((INT4 ? 2 : 1) * BK) != 0 ||
       Fo % 64 != 0)
     return (int)cudaErrorInvalidValue;
+  // S splits of `per` steps each, the last one shorter, none empty
+  const int steps = (int)(D / ((INT4 ? 2 : 1) * BK));
+  const int per = splits > 0 ? (steps + splits - 1) / splits : 0;
+  if (splits < 1 || (splits - 1) * per >= steps ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  auto* wsp = static_cast<float*>(ws);
+  auto* cp = static_cast<int*>(counters);
   const unsigned int row_tiles = (unsigned int)((M + BM - 1) / BM);
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
   const auto* wp = static_cast<const int8_t*>(w);
@@ -333,11 +408,13 @@ int launch(const void* x, const void* w, const void* scale,
   const auto* rp = static_cast<const float*>(row_scale);
   if (narrow)
     return (int)launch_tile<2, GATEUP, INT4>(
-        dim3((unsigned int)(Fo / 32), row_tiles), xp, wp, sp, rp, residual,
-        residual_f32, out, out_f32, (int)M, (int)D, (int)Fo, stream);
+        dim3((unsigned int)(Fo / 32), row_tiles, (unsigned int)splits), xp, wp,
+        sp, rp, residual, residual_f32, out, out_f32, (int)M, (int)D, (int)Fo,
+        wsp, cp, per, stream);
   return (int)launch_tile<4, GATEUP, INT4>(
-      dim3((unsigned int)(Fo / 64), row_tiles), xp, wp, sp, rp, residual,
-      residual_f32, out, out_f32, (int)M, (int)D, (int)Fo, stream);
+      dim3((unsigned int)(Fo / 64), row_tiles, (unsigned int)splits), xp, wp,
+      sp, rp, residual, residual_f32, out, out_f32, (int)M, (int)D, (int)Fo,
+      wsp, cp, per, stream);
 }
 
 }  // namespace
@@ -345,14 +422,18 @@ int launch(const void* x, const void* w, const void* scale,
 // x: (M, D) bf16; w: (D, F) int8; scale: (F,) f32; row_scale: (M,) f32 or
 // null; residual: (M, F) bf16 or f32, or null; out: (M, F) bf16 or f32.
 // narrow != 0 takes 32-column blocks (more blocks for a narrow weight).
+// splits: S, the blocks that share a tile's depth; S > 1 takes ws, S * M * F
+// floats, and counters, one int a tile, zero before the first launch (each
+// launch leaves them zero).
 extern "C" int ppq_qmm_int8(const void* x, const void* w, const void* scale,
                             const void* row_scale, const void* residual,
                             int residual_f32, void* out, int out_f32,
                             int64_t M, int64_t D, int64_t F, int narrow,
+                            int splits, void* ws, void* counters,
                             void* stream) {
   return launch<false, false>(x, w, scale, row_scale, residual, residual_f32,
-                              out, out_f32, M, D, F, narrow,
-                              static_cast<cudaStream_t>(stream));
+                              out, out_f32, M, D, F, narrow, splits, ws,
+                              counters, static_cast<cudaStream_t>(stream));
 }
 
 // w: (D / 2, F) int8, split-half packed; D is the unpacked depth of x.
@@ -362,17 +443,19 @@ extern "C" int ppq_qmm_int4(const void* x, const void* w, const void* scale,
                             int64_t M, int64_t D, int64_t F, int narrow,
                             void* stream) {
   return launch<false, true>(x, w, scale, row_scale, residual, residual_f32,
-                             out, out_f32, M, D, F, narrow,
-                             static_cast<cudaStream_t>(stream));
+                             out, out_f32, M, D, F, narrow, 1, nullptr,
+                             nullptr, static_cast<cudaStream_t>(stream));
 }
 
 // w: (D, 2 * Fo) int8, [gate | up]; scale: (2 * Fo,) f32; out: (M, Fo).
+// splits as for ppq_qmm_int8, ws then S * M * 2 * Fo floats.
 extern "C" int ppq_qmm_gateup(const void* x, const void* w, const void* scale,
                               const void* row_scale, void* out, int out_f32,
                               int64_t M, int64_t D, int64_t Fo, int narrow,
+                              int splits, void* ws, void* counters,
                               void* stream) {
   return launch<true, false>(x, w, scale, row_scale, nullptr, 0, out,
-                             out_f32, M, D, Fo, narrow,
+                             out_f32, M, D, Fo, narrow, splits, ws, counters,
                              static_cast<cudaStream_t>(stream));
 }
 
@@ -383,6 +466,6 @@ extern "C" int ppq_qmm_gateup_int4(const void* x, const void* w,
                                    int64_t D, int64_t Fo, int narrow,
                                    void* stream) {
   return launch<true, true>(x, w, scale, row_scale, nullptr, 0, out, out_f32,
-                            M, D, Fo, narrow,
+                            M, D, Fo, narrow, 1, nullptr, nullptr,
                             static_cast<cudaStream_t>(stream));
 }

@@ -20,7 +20,7 @@ The epilogue runs in f32 in that order and the result is cast once.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +30,10 @@ from .loader import LAUNCHES, check, library, stream_of
 # SMs of an H100: a weight too narrow to give every SM a 64-column block
 # takes 32-column blocks
 _SMS = 132
+# the kernels' tile: rows of x a block, depth a step
+_BM, _BK = 128, 64
+# split-K: aim for two blocks an SM, each split at least this many steps
+_MIN_SPLIT_STEPS = 4
 
 
 def supports(d: int, f: int, b: int = 64) -> bool:
@@ -161,6 +165,87 @@ def _narrow(f_out: int, rows: int) -> int:
     return int((f_out // 64) * -(-rows // 128) < _SMS)
 
 
+def _bn(M: int, F: int, gateup: bool) -> int:
+    """Output columns of an INT8 body's tile; F is the output width
+    (gate-up: one panel's)."""
+    return 32 if _narrow(F, M) else 64
+
+
+def _tiles(M: int, F: int, gateup: bool = False) -> int:
+    """Output tiles of an INT8 launch."""
+    return -(-M // _BM) * (F // _bn(M, F, gateup))
+
+
+def _splits(M: int, D: int, F: int, gateup: bool = False) -> int:
+    """S, the blocks that share each output tile's depth in the INT8 bodies,
+    from the shape alone. 1 where the tiles alone give every SM a block;
+    else as many as make about two blocks an SM, each split at least
+    _MIN_SPLIT_STEPS steps deep, then evened out so that no split is empty.
+    F is the output width (gate-up: one panel's); the two bodies tile alike."""
+    tiles = _tiles(M, F, gateup)
+    steps = D // _BK
+    if tiles >= _SMS:
+        return 1
+    s = max(1, min(-(-2 * _SMS // tiles), steps // _MIN_SPLIT_STEPS))
+    per = -(-steps // s)
+    return -(-steps // per)
+
+
+def int8_launch(M: int, D: int, F: int, gateup: bool = False) -> dict:
+    """How an INT8 body launches at this shape: S, the weight columns of a
+    tile (gate-up: of each panel) and how the loads are pipelined."""
+    return dict(S=_splits(M, D, F, gateup), BN=_bn(M, F, gateup),
+                loads='registers, one step ahead')
+
+
+def split_ranges(M: int, D: int, F: int, gateup: bool = False):
+    """The depth range [k0, k1) each split of an INT8 launch sums, as the
+    kernel cuts it: S ranges of ceil(steps / S) steps, the last shorter."""
+    S, steps = _splits(M, D, F, gateup), D // _BK
+    per = -(-steps // S)
+    return [(s * per * _BK, min(steps, (s + 1) * per) * _BK)
+            for s in range(S)]
+
+
+def workspace_bytes(M: int, D: int, F: int, gateup: bool = False) -> int:
+    """Bytes of the f32 partial sums an INT8 launch writes: S planes of the
+    (M, F) product, both panels for gate-up; none when S is 1."""
+    S = _splits(M, D, F, gateup)
+    return 0 if S == 1 else S * M * F * 4 * (2 if gateup else 1)
+
+
+# (device, stream) -> (partial sums, tile counters): allocated at the first
+# split launch on that stream, grown when a larger shape arrives, never
+# shrunk. Launches on one stream run one after another, and each leaves its
+# counters at 0 for the next. A captured CUDA graph (ROADMAP item 12) must
+# allocate them before capture, at the largest shape it will replay.
+_workspaces: Dict[Tuple[torch.device, int], Tuple[torch.Tensor,
+                                                  torch.Tensor]] = {}
+
+
+def _workspace(device: torch.device, stream: int, floats: int, tiles: int):
+    key = (device, stream)
+    ws, counters = _workspaces.get(key, (None, None))
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(floats, dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < tiles:
+        counters = torch.zeros(tiles, dtype=torch.int32, device=device)
+    _workspaces[key] = (ws, counters)
+    return ws, counters
+
+
+def _split_args(x, M, D, F, gateup):
+    """(S, workspace pointer, counters pointer) of an INT8 launch."""
+    S = _splits(M, D, F, gateup)
+    if S == 1:
+        return 1, None, None
+    ws, counters = _workspace(x.device,
+                              torch.cuda.current_stream(x.device).cuda_stream,
+                              workspace_bytes(M, D, F, gateup) // 4,
+                              _tiles(M, F, gateup))
+    return S, ws.data_ptr(), counters.data_ptr()
+
+
 def _launch_qmm(entry, what, x, w, scale, out_dtype, row_scale, residual):
     """The INT8 and INT4 kernels' launch: x (B, D) bf16, w (D or D/2, F)."""
     B, D = x.shape
@@ -178,6 +263,8 @@ def _launch_qmm(entry, what, x, w, scale, out_dtype, row_scale, residual):
     out = torch.empty((B, F), dtype=out_dtype, device=x.device)
     _aligned(what, x, w, scale, row, res, out)
     lib = library('qmm')
+    # the INT4 body keeps one block a tile
+    split = () if what == 'qmm_int4' else _split_args(x, B, D, F, False)
     with torch.cuda.device(x.device):
         rc = getattr(lib, entry)(
             x.data_ptr(), w.data_ptr(), scale.data_ptr(),
@@ -185,7 +272,7 @@ def _launch_qmm(entry, what, x, w, scale, out_dtype, row_scale, residual):
             None if res is None else res.data_ptr(),
             int(res is not None and res.dtype == torch.float32),
             out.data_ptr(), int(out_dtype == torch.float32), B, D, F,
-            _narrow(F, B), stream_of(x.device))
+            _narrow(F, B), *split, stream_of(x.device))
     check(rc, what)
     LAUNCHES[what] += 1
     return out
@@ -261,11 +348,13 @@ def qmm_gateup(x: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
     _aligned('qmm_gateup', x, w_int, scale, row, out)
     lib = library('qmm')
     entry = lib.ppq_qmm_gateup_int4 if int4 else lib.ppq_qmm_gateup
+    # the INT4 body keeps one block a tile
+    split = () if int4 else _split_args(x, B, D, F, True)
     with torch.cuda.device(x.device):
         rc = entry(x.data_ptr(), w_int.data_ptr(), scale.data_ptr(),
                    None if row is None else row.data_ptr(), out.data_ptr(),
                    int(out_dtype == torch.float32), B, D, F, _narrow(F, B),
-                   stream_of(x.device))
+                   *split, stream_of(x.device))
     name = 'qmm_gateup_int4' if int4 else 'qmm_gateup'
     check(rc, name)
     LAUNCHES[name] += 1

@@ -386,6 +386,111 @@ def test_qmm_gateup_kernel_vs_plain(cuda, B, D, F, has_row, out):
     assert bool((err <= tol).all()), float((err / tol).max())
 
 
+def _assert_gateup_close(got, want, x, w, scale, row):
+    """Row 10's tolerance, as in test_qmm_gateup_kernel_vs_plain."""
+    F = w.shape[1] // 2
+    both = torch.matmul(x.float(), w.float()) * scale
+    mass = torch.matmul(x.float().abs(), w.float().abs()) * scale
+    if row is not None:
+        both, mass = both * row.reshape(-1, 1), mass * row.reshape(-1, 1)
+    tol = 1.1e-5 * (mass[:, :F] * both[:, F:].abs()
+                    + mass[:, F:] * both[:, :F].abs()) + 1e-6
+    if got.dtype == torch.bfloat16:
+        tol = tol + 2 ** -7 * want.abs()
+    err = (got.float() - want).abs()
+    assert bool((err <= tol).all()), float((err / tol).max())
+
+
+# split-K: shapes on which the INT8 bodies split the depth (S > 1) and
+# shapes on which one block walks it alone (S = 1); test_splits_cover_both
+# keeps both kinds in these lists
+SPLIT_M = [1, 37, 128, 129, 200, 512]
+SPLIT_DF = [(256, 128), (2048, 2048), (2048, 4096), (5632, 2048),
+            (2048, 32768)]
+SPLIT_GATEUP = [(128, 2048, 5632), (1, 2048, 5632), (37, 5632, 2048),
+                (512, 2048, 5632), (200, 256, 128)]
+
+
+def test_splits_cover_both():
+    from ppq_tpu_torch.kernels.qmm import _splits
+    int8 = {_splits(M, D, F) > 1 for M in SPLIT_M for D, F in SPLIT_DF}
+    gateup = {_splits(M, D, F, True) > 1 for M, D, F in SPLIT_GATEUP}
+    assert int8 == gateup == {True, False}
+
+
+@pytest.mark.parametrize('out', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('D,F', SPLIT_DF)
+@pytest.mark.parametrize('M', SPLIT_M)
+def test_qmm_int8_kernel_split_shapes(cuda, M, D, F, out):
+    """Row 8 with the full epilogue (row scale and residual) at split and
+    unsplit shapes, one launch each."""
+    from ppq_tpu_torch.kernels import qmm_int8, qmm_int8_plain
+    x, w, scale, row, res = _qmm_inputs(cuda, M, D, F, seed=M * 7 + D + F)
+    reset_launches()
+    got = qmm_int8(x, w, scale, out_dtype=out, row_scale=row, residual=res)
+    assert LAUNCHES['qmm_int8'] == 1 and sum(LAUNCHES.values()) == 1
+    want = qmm_int8_plain(x, w, scale, torch.float32, row, res)
+    torch.cuda.synchronize()
+    assert got.dtype == out and tuple(got.shape) == (M, F)
+    _assert_sum_close(got, want, x, w, scale, row)
+
+
+@pytest.mark.parametrize('out', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('M,D,F', SPLIT_GATEUP)
+def test_qmm_gateup_kernel_split_shapes(cuda, M, D, F, out):
+    from ppq_tpu_torch.kernels import qmm_gateup, qmm_gateup_plain
+    x, w, scale, row, _ = _qmm_inputs(cuda, M, D, 2 * F, seed=M * 7 + D + F)
+    reset_launches()
+    got = qmm_gateup(x, w, scale, out_dtype=out, row_scale=row)
+    assert LAUNCHES['qmm_gateup'] == 1 and sum(LAUNCHES.values()) == 1
+    want = qmm_gateup_plain(x, w, scale, torch.float32, row_scale=row)
+    torch.cuda.synchronize()
+    assert got.dtype == out and tuple(got.shape) == (M, F)
+    _assert_gateup_close(got, want, x, w, scale, row)
+
+
+def test_qmm_split_calls_are_bit_equal(cuda):
+    """The last block of a tile sums the partials in a fixed order and
+    leaves the tile's counter at 0: two calls on the same inputs agree bit
+    for bit, and so does a call after calls of other shapes (which reuse
+    the workspace and the counters)."""
+    from ppq_tpu_torch.kernels import qmm_gateup, qmm_int8
+    from ppq_tpu_torch.kernels.qmm import _splits
+    x, w, scale, row, res = _qmm_inputs(cuda, 128, 5632, 2048, seed=5)
+    assert _splits(128, 5632, 2048) > 1
+    first = qmm_int8(x, w, scale, torch.float32, row, res)
+    assert torch.equal(qmm_int8(x, w, scale, torch.float32, row, res), first)
+    xg, wg, sg, rg, _ = _qmm_inputs(cuda, 128, 5632, 2 * 2048, seed=6)
+    assert _splits(128, 5632, 2048, True) > 1
+    gate = qmm_gateup(xg, wg, sg, torch.float32, rg)
+    for M, D, F in ((37, 2048, 4096), (512, 2048, 2048), (1, 256, 128)):
+        xo, wo, so, ro, reso = _qmm_inputs(cuda, M, D, F, seed=M)
+        qmm_int8(xo, wo, so, torch.bfloat16, ro, reso)
+    assert torch.equal(qmm_int8(x, w, scale, torch.float32, row, res), first)
+    assert torch.equal(qmm_gateup(xg, wg, sg, torch.float32, rg), gate)
+    torch.cuda.synchronize()
+
+
+def test_qmm_int4_bodies_launch_one_block_a_tile(cuda):
+    """The INT4 bodies keep their launch: at shapes where the INT8 bodies
+    split, they take no workspace and no counters."""
+    from ppq_tpu_torch.kernels import qmm_gateup, qmm_int4
+    from ppq_tpu_torch.kernels import qmm as tqmm
+    tqmm._workspaces.clear()
+    x, w, codes, scale, row, res = _int4_inputs(cuda, 128, 2048, 2048, seed=8)
+    assert tqmm._splits(128, 2048, 2048) > 1
+    got = qmm_int4(x, w, scale, torch.float32, row, res)
+    x, wg, codes_g, sg, rg, _ = _int4_inputs(cuda, 128, 5632, 2 * 2048, seed=9)
+    assert tqmm._splits(128, 5632, 2048, True) > 1
+    gate = qmm_gateup(x, wg, sg, torch.float32, rg)
+    torch.cuda.synchronize()
+    assert not tqmm._workspaces
+    assert got.shape == (128, 2048) and gate.shape == (128, 2048)
+    assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(gate).all())
+
+
 @pytest.mark.parametrize('dtype', [torch.int8, torch.bfloat16],
                          ids=['int8', 'bf16'])
 @pytest.mark.parametrize('n_arrays,B,CH,KV,Dh', [(32, 128, 32, 8, 128),

@@ -111,6 +111,70 @@ def test_qmm_routing_rules_match():
         jqmm.supports_gateup(512, 512, 4, 4) is True
 
 
+# split-K of the INT8 bodies: decode shapes (M = 128) of the 1B model,
+# prefill shapes up to the 2 MiB cap on x, and small ones
+SPLIT_M = (1, 37, 128, 129, 200, 512)
+SPLIT_DF = ((256, 128), (2048, 2048), (2048, 4096), (5632, 2048),
+            (2048, 32768), (2048, 5632))
+
+
+@pytest.mark.parametrize('gateup', [False, True], ids=['int8', 'gateup'])
+@pytest.mark.parametrize('D,F', SPLIT_DF)
+@pytest.mark.parametrize('M', SPLIT_M)
+def test_qmm_splits_cover_the_depth(M, D, F, gateup):
+    """The splits cut [0, D) into S ranges of whole 64-deep steps, none
+    empty, every one but the last at least _MIN_SPLIT_STEPS steps deep; one
+    split where the tiles alone give every SM a block (so always where the
+    grid has two blocks an SM); and the workspace holds S planes of the
+    (M, F) product, both panels for gate-up, none without a split."""
+    S = tqmm._splits(M, D, F, gateup)
+    ranges = tqmm.split_ranges(M, D, F, gateup)
+    assert len(ranges) == S >= 1
+    assert ranges[0][0] == 0 and ranges[-1][1] == D
+    assert all(b == c for (_, b), (c, _) in zip(ranges, ranges[1:]))
+    assert all(a % 64 == 0 and b % 64 == 0 and b > a for a, b in ranges)
+    if S > 1:
+        assert all(b - a >= tqmm._MIN_SPLIT_STEPS * 64 for a, b in ranges[:-1])
+    tiles = tqmm._tiles(M, F, gateup)
+    if tiles >= tqmm._SMS:
+        assert S == 1
+    # no more splits than about two blocks an SM needs
+    assert tiles * (S - 1) < 2 * tqmm._SMS
+    want = 0 if S == 1 else S * M * F * 4 * (2 if gateup else 1)
+    assert tqmm.workspace_bytes(M, D, F, gateup) == want
+    launch = tqmm.int8_launch(M, D, F, gateup)
+    assert launch['S'] == S and F % launch['BN'] == 0
+
+
+def test_qmm_splits_depend_on_the_shape_alone(monkeypatch):
+    """_splits reads (M, D, F) and the body, nothing of the device, the
+    environment or the call; the decode shapes of the 1B model (M = 128)
+    split: wqkv, wo and w_down."""
+    import inspect
+    assert list(inspect.signature(tqmm._splits).parameters) == \
+        ['M', 'D', 'F', 'gateup']
+    shapes = [(M, D, F, g) for M in SPLIT_M for D, F in SPLIT_DF
+              for g in (False, True)]
+    before = [tqmm._splits(*s) for s in shapes]
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    monkeypatch.setenv('CUDA_VISIBLE_DEVICES', '3')
+    assert [tqmm._splits(*s) for s in reversed(shapes)] == before[::-1]
+    for D, F, gateup in ((2048, 4096, False), (2048, 2048, False),
+                         (5632, 2048, False)):
+        assert tqmm._splits(128, D, F, gateup) > 1, (D, F, gateup)
+
+
+def test_qmm_cpu_wrappers_take_no_workspace():
+    """On CPU tensors the wrappers run the plain versions: no split, no
+    workspace, no launch."""
+    tqmm._workspaces.clear()
+    x, w, scale, row, res = (torch.from_numpy(a)
+                             for a in _qmm_case(128, 2048, 2048, seed=3))
+    LAUNCHES['qmm_int8'] = 0
+    qmm_int8(x, w, scale, torch.float32, row, res)
+    assert not tqmm._workspaces and LAUNCHES['qmm_int8'] == 0
+
+
 def _codes(rng, shape, dtype):
     if dtype == 'int8':
         return rng.integers(-128, 128, size=shape).astype(np.int8)
