@@ -155,7 +155,7 @@ constexpr int smem_bytes() {
 // Fo is then the output width and the weight has 2 * Fo columns.
 // INT4: the weight is (D/2, Fw) packed split-half; D is the unpacked depth.
 template <int NT, bool GATEUP, bool INT4>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, INT4 ? 1 : 2)
 qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
            const float* __restrict__ scale, const float* __restrict__ row_scale,
            const void* __restrict__ residual, int residual_f32,
@@ -165,7 +165,8 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
   constexpr int NPAN = GATEUP ? 2 : 1;
   constexpr int PLANES = INT4 ? 2 : 1;  // x tiles (and weight planes) a step
   constexpr int NG = BN / 8;            // 8-column groups per weight row
-  constexpr int B_THREADS = KW * NG;    // threads that move weight bytes
+  constexpr int B_TASKS = KW * NG;      // (k pair, 8 columns) of a tile
+  constexpr int B_EACH = (B_TASKS + THREADS - 1) / THREADS;
   const int Fw = GATEUP ? 2 * Fo : Fo;  // columns of the weight
   const int Dx = INT4 ? D / 2 : D;      // packed rows; x offset of plane 1
 
@@ -181,10 +182,9 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
 
-  // this thread's share of a weight tile: rows 2*kp and 2*kp + 1, eight
-  // columns from n0 + 8 * ng
-  const int ng = tid % NG, kp = tid / NG;
-  const bool moves_b = tid < B_THREADS;
+  // this thread's share of a weight tile: task v = tid + i * THREADS moves
+  // rows 2 * (v / NG) and 2 * (v / NG) + 1, eight columns from
+  // n0 + 8 * (v % NG)
 
   float acc[NPAN][2][NT][4];  // INT4: both planes sum into one accumulator
 #pragma unroll
@@ -197,7 +197,7 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
         for (int e = 0; e < 4; ++e) acc[p][mt][nt][e] = 0.0f;
 
   uint4 a_reg[PLANES][4];
-  uint2 b_reg[NPAN][2];
+  uint2 b_reg[B_EACH][NPAN][2];
 
   auto load_tile = [&](int k0) {
 #pragma unroll
@@ -212,12 +212,15 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
             : make_uint4(0u, 0u, 0u, 0u);
       }
     }
-    if (moves_b) {
+#pragma unroll
+    for (int i = 0; i < B_EACH; ++i) {
+      const int v = tid + i * THREADS, ng = v % NG, kp = v / NG;
+      if (v >= B_TASKS) break;
 #pragma unroll
       for (int p = 0; p < NPAN; ++p) {
         const int8_t* src = w + (size_t)(k0 + 2 * kp) * Fw + n0 + p * Fo + ng * 8;
-        b_reg[p][0] = *reinterpret_cast<const uint2*>(src);
-        b_reg[p][1] = *reinterpret_cast<const uint2*>(src + Fw);
+        b_reg[i][p][0] = *reinterpret_cast<const uint2*>(src);
+        b_reg[i][p][1] = *reinterpret_cast<const uint2*>(src + Fw);
       }
     }
   };
@@ -232,13 +235,16 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
                                       (v & 7) * 8]) = a_reg[q][i];
       }
     }
-    if (moves_b) {
+#pragma unroll
+    for (int i = 0; i < B_EACH; ++i) {
+      const int v = tid + i * THREADS, ng = v % NG, kp = v / NG;
+      if (v >= B_TASKS) break;
 #pragma unroll
       for (int p = 0; p < NPAN; ++p) {
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          const uint32_t even = j < 4 ? b_reg[p][0].x : b_reg[p][0].y;
-          const uint32_t odd = j < 4 ? b_reg[p][1].x : b_reg[p][1].y;
+          const uint32_t even = j < 4 ? b_reg[i][p][0].x : b_reg[i][p][0].y;
+          const uint32_t odd = j < 4 ? b_reg[i][p][1].x : b_reg[i][p][1].y;
           const int at = b_index(ng * 8 + j, kp);
           Bs[(p * PLANES) * BN * KW + at] =
               pack_bf16<INT4, 0>(even, odd, 8 * (j & 3));
@@ -406,37 +412,47 @@ int launch(const void* x, const void* w, const void* scale,
   const auto* wp = static_cast<const int8_t*>(w);
   const auto* sp = static_cast<const float*>(scale);
   const auto* rp = static_cast<const float*>(row_scale);
-  if (narrow)
-    return (int)launch_tile<2, GATEUP, INT4>(
-        dim3((unsigned int)(Fo / 32), row_tiles, (unsigned int)splits), xp, wp,
+  if constexpr (!INT4) {
+    // 128 weight columns a step: one 128-column panel, or gate-up's two
+    // 64-column panels
+    constexpr int NT = GATEUP ? 4 : 8;
+    if (Fo % (16 * NT) != 0) return (int)cudaErrorInvalidValue;
+    return (int)launch_tile<NT, GATEUP, false>(
+        dim3((unsigned int)(Fo / (16 * NT)), row_tiles, (unsigned int)splits),
+        xp, wp, sp, rp, residual, residual_f32, out, out_f32, (int)M, (int)D,
+        (int)Fo, wsp, cp, per, stream);
+  } else {
+    if (narrow)
+      return (int)launch_tile<2, GATEUP, INT4>(
+          dim3((unsigned int)(Fo / 32), row_tiles, (unsigned int)splits), xp, wp,
+          sp, rp, residual, residual_f32, out, out_f32, (int)M, (int)D, (int)Fo,
+          wsp, cp, per, stream);
+    return (int)launch_tile<4, GATEUP, INT4>(
+        dim3((unsigned int)(Fo / 64), row_tiles, (unsigned int)splits), xp, wp,
         sp, rp, residual, residual_f32, out, out_f32, (int)M, (int)D, (int)Fo,
         wsp, cp, per, stream);
-  return (int)launch_tile<4, GATEUP, INT4>(
-      dim3((unsigned int)(Fo / 64), row_tiles, (unsigned int)splits), xp, wp,
-      sp, rp, residual, residual_f32, out, out_f32, (int)M, (int)D, (int)Fo,
-      wsp, cp, per, stream);
+  }
 }
 
 }  // namespace
 
 // x: (M, D) bf16; w: (D, F) int8; scale: (F,) f32; row_scale: (M,) f32 or
 // null; residual: (M, F) bf16 or f32, or null; out: (M, F) bf16 or f32.
-// narrow != 0 takes 32-column blocks (more blocks for a narrow weight).
 // splits: S, the blocks that share a tile's depth; S > 1 takes ws, S * M * F
 // floats, and counters, one int a tile, zero before the first launch (each
 // launch leaves them zero).
 extern "C" int ppq_qmm_int8(const void* x, const void* w, const void* scale,
                             const void* row_scale, const void* residual,
                             int residual_f32, void* out, int out_f32,
-                            int64_t M, int64_t D, int64_t F, int narrow,
-                            int splits, void* ws, void* counters,
-                            void* stream) {
+                            int64_t M, int64_t D, int64_t F, int splits,
+                            void* ws, void* counters, void* stream) {
   return launch<false, false>(x, w, scale, row_scale, residual, residual_f32,
-                              out, out_f32, M, D, F, narrow, splits, ws,
-                              counters, static_cast<cudaStream_t>(stream));
+                              out, out_f32, M, D, F, 0, splits, ws, counters,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // w: (D / 2, F) int8, split-half packed; D is the unpacked depth of x.
+// narrow != 0 takes 32-column blocks (more blocks for a narrow weight).
 extern "C" int ppq_qmm_int4(const void* x, const void* w, const void* scale,
                             const void* row_scale, const void* residual,
                             int residual_f32, void* out, int out_f32,
@@ -451,11 +467,10 @@ extern "C" int ppq_qmm_int4(const void* x, const void* w, const void* scale,
 // splits as for ppq_qmm_int8, ws then S * M * 2 * Fo floats.
 extern "C" int ppq_qmm_gateup(const void* x, const void* w, const void* scale,
                               const void* row_scale, void* out, int out_f32,
-                              int64_t M, int64_t D, int64_t Fo, int narrow,
-                              int splits, void* ws, void* counters,
-                              void* stream) {
+                              int64_t M, int64_t D, int64_t Fo, int splits,
+                              void* ws, void* counters, void* stream) {
   return launch<true, false>(x, w, scale, row_scale, nullptr, 0, out,
-                             out_f32, M, D, Fo, narrow, splits, ws, counters,
+                             out_f32, M, D, Fo, 0, splits, ws, counters,
                              static_cast<cudaStream_t>(stream));
 }
 

@@ -72,11 +72,10 @@ LIBRARIES: Dict[str, tuple] = {
     }, EXACT_FLAGS),
     'qmm': ('qmm.cu', {
         'ppq_qmm_int8':
-            [_P, _P, _P, _P, _P, _INT, _P, _INT, _I64, _I64, _I64, _INT,
-             _INT, _P, _P, _P],
+            [_P, _P, _P, _P, _P, _INT, _P, _INT, _I64, _I64, _I64, _INT, _P,
+             _P, _P],
         'ppq_qmm_gateup':
-            [_P, _P, _P, _P, _P, _INT, _I64, _I64, _I64, _INT, _INT, _P, _P,
-             _P],
+            [_P, _P, _P, _P, _P, _INT, _I64, _I64, _I64, _INT, _P, _P, _P],
         'ppq_qmm_int4':
             [_P, _P, _P, _P, _P, _INT, _P, _INT, _I64, _I64, _I64, _INT, _P],
         'ppq_qmm_gateup_int4':

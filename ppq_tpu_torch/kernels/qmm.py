@@ -27,8 +27,8 @@ import torch
 
 from .loader import LAUNCHES, check, library, stream_of
 
-# SMs of an H100: a weight too narrow to give every SM a 64-column block
-# takes 32-column blocks
+# SMs of an H100. The INT4 bodies give a weight too narrow to give every SM
+# a 64-column block 32-column blocks; the INT8 bodies split the depth
 _SMS = 132
 # the kernels' tile: rows of x a block, depth a step
 _BM, _BK = 128, 64
@@ -166,9 +166,9 @@ def _narrow(f_out: int, rows: int) -> int:
 
 
 def _bn(M: int, F: int, gateup: bool) -> int:
-    """Output columns of an INT8 body's tile; F is the output width
-    (gate-up: one panel's)."""
-    return 32 if _narrow(F, M) else 64
+    """Output columns of an INT8 body's tile, 128 weight columns a step:
+    one panel of 128, or gate-up's two of 64."""
+    return 64 if gateup else 128
 
 
 def _tiles(M: int, F: int, gateup: bool = False) -> int:
@@ -263,8 +263,9 @@ def _launch_qmm(entry, what, x, w, scale, out_dtype, row_scale, residual):
     out = torch.empty((B, F), dtype=out_dtype, device=x.device)
     _aligned(what, x, w, scale, row, res, out)
     lib = library('qmm')
-    # the INT4 body keeps one block a tile
-    split = () if what == 'qmm_int4' else _split_args(x, B, D, F, False)
+    # the INT4 body keeps one block a tile, 32 or 64 columns wide
+    split = (_narrow(F, B),) if what == 'qmm_int4' \
+        else _split_args(x, B, D, F, False)
     with torch.cuda.device(x.device):
         rc = getattr(lib, entry)(
             x.data_ptr(), w.data_ptr(), scale.data_ptr(),
@@ -272,7 +273,7 @@ def _launch_qmm(entry, what, x, w, scale, out_dtype, row_scale, residual):
             None if res is None else res.data_ptr(),
             int(res is not None and res.dtype == torch.float32),
             out.data_ptr(), int(out_dtype == torch.float32), B, D, F,
-            _narrow(F, B), *split, stream_of(x.device))
+            *split, stream_of(x.device))
     check(rc, what)
     LAUNCHES[what] += 1
     return out
@@ -348,13 +349,13 @@ def qmm_gateup(x: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
     _aligned('qmm_gateup', x, w_int, scale, row, out)
     lib = library('qmm')
     entry = lib.ppq_qmm_gateup_int4 if int4 else lib.ppq_qmm_gateup
-    # the INT4 body keeps one block a tile
-    split = () if int4 else _split_args(x, B, D, F, True)
+    # the INT4 body keeps one block a tile, 32 or 64 columns a panel
+    split = (_narrow(F, B),) if int4 else _split_args(x, B, D, F, True)
     with torch.cuda.device(x.device):
         rc = entry(x.data_ptr(), w_int.data_ptr(), scale.data_ptr(),
                    None if row is None else row.data_ptr(), out.data_ptr(),
-                   int(out_dtype == torch.float32), B, D, F, _narrow(F, B),
-                   *split, stream_of(x.device))
+                   int(out_dtype == torch.float32), B, D, F, *split,
+                   stream_of(x.device))
     name = 'qmm_gateup_int4' if int4 else 'qmm_gateup'
     check(rc, name)
     LAUNCHES[name] += 1

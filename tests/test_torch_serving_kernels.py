@@ -149,7 +149,7 @@ def test_qmm_splits_cover_the_depth(M, D, F, gateup):
 def test_qmm_splits_depend_on_the_shape_alone(monkeypatch):
     """_splits reads (M, D, F) and the body, nothing of the device, the
     environment or the call; the decode shapes of the 1B model (M = 128)
-    split: wqkv, wo and w_down."""
+    split: wqkv, wo, w_down and gate-up."""
     import inspect
     assert list(inspect.signature(tqmm._splits).parameters) == \
         ['M', 'D', 'F', 'gateup']
@@ -160,7 +160,7 @@ def test_qmm_splits_depend_on_the_shape_alone(monkeypatch):
     monkeypatch.setenv('CUDA_VISIBLE_DEVICES', '3')
     assert [tqmm._splits(*s) for s in reversed(shapes)] == before[::-1]
     for D, F, gateup in ((2048, 4096, False), (2048, 2048, False),
-                         (5632, 2048, False)):
+                         (5632, 2048, False), (2048, 5632, True)):
         assert tqmm._splits(128, D, F, gateup) > 1, (D, F, gateup)
 
 
