@@ -2197,8 +2197,11 @@ def _near_tie_tokens(tag, ref, got, params, cfg, dev):
             scale = SERVE_LOGIT_TOL * np.abs(logits).max()
             if abs(logits[x] - logits[y]) > scale \
                     or logits.max() - min(logits[x], logits[y]) > scale:
-                raise AssertionError(f'path {tag}: request {b.rid} token {i} '
-                                     f'differs without a near-tie')
+                raise AssertionError(
+                    f'path {tag}: request {b.rid} token {i} differs without a '
+                    f'near-tie: tokens {x} / {y}, logits {logits[x]:.4f} / '
+                    f'{logits[y]:.4f}, top {logits.max():.4f} (token '
+                    f'{int(logits.argmax())}), tolerance {scale:.4f}')
             break
     return dict(tokens_compared=compared, tokens_equal=equal,
                 requests_ending_at_a_near_tie=differing)

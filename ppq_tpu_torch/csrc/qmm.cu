@@ -15,34 +15,55 @@
 // (`qmm_gateup`, both bodies) of ppq_tpu/kernels/qmm.py.
 // The TPU kernel keeps the whole activation in its fast memory and streams
 // (D, TF) weight panels through a sequential grid. Here blocks run in
-// parallel and nothing carries over, so each block owns a 128-row by 64- or
-// 32-column output tile and loops over the contraction depth itself:
-//   * the weight bytes are read from device memory once, as int8, 8 bytes a
-//     thread; int8 -> bf16 is exact and happens in registers on the way to
-//     shared memory, where the tile is kept transposed (k contiguous) so
-//     that a tensor-core B fragment is one 32-bit load. An XOR swizzle keeps
-//     both the transposed stores and the fragment loads off each other's
-//     banks;
-//   * the x tile (shared by every block, so it comes from L2) goes to shared
-//     memory as bf16 with 16-byte copies, rows padded by 16 bytes;
+// parallel and nothing carries over. Common to every body:
+//   * a block owns a 128-row output tile and sums a range of the contraction
+//     depth in steps of 64;
+//   * int8 -> bf16 is exact and happens on chip; the weight tile is kept
+//     transposed (k contiguous) in shared memory, so that a tensor-core B
+//     fragment is one 32-bit load, and an XOR swizzle keeps both the
+//     transposed stores and the fragment loads off each other's banks;
+//   * x tiles (shared by every block, so they come from L2) are bf16 in
+//     shared memory, rows padded by 16 bytes;
 //   * the product is `mma.sync.m16n8k16` on bf16 fragments with f32
 //     accumulators: 8 warps as 4 (rows) x 2 (columns), each 32 rows wide;
-//   * the next tile is prefetched into registers while the current one is
-//     multiplied (one shared buffer, two barriers a step);
 //   * gate-up multiplies two column panels of the same weight (j and
 //     j + F/2) against one x tile and applies silu(g) * u to the
-//     accumulators, so the (M, F) projection never reaches device memory;
-//   * INT4: a step reads 64 packed rows once and unpacks them in registers
-//     into two bf16 planes, lo = ((p & 15) ^ 8) - 8 and hi = p >> 4
-//     (arithmetic), both exact; the lo plane multiplies x[:, k0 : k0 + 64]
-//     and the hi plane x[:, D/2 + k0 : D/2 + k0 + 64], through the same
-//     mma body. x and weight tiles double, so shared memory is dynamic.
-// What bounds it on an H100 at the decode shapes (M = 128): D * F weight
-// bytes against 2 * M * D * F operations are about level, 2.5 us each at
-// D = 2048, F = 4096; INT4 halves the bytes (1.3 us at that shape), so the
-// operations (2.2 us) bound it. This first version has neither wgmma nor TMA nor a
-// deep pipeline, and a narrow weight (F = 2048) gives only 64 blocks for 132
-// SMs: it is correct first; its time stands beside the bound in PERF.md.
+//     accumulators, so the (M, F) projection never reaches device memory.
+//
+// The INT8 bodies (qmm8_kernel). What bounds them on an H100 at the decode
+// shapes (M = 128) is latency: D * F weight bytes against 2 * M * D * F
+// operations are about level (2.5 us each at D = 2048, F = 4096), but a
+// block that walks the whole depth alone waits about one memory round trip
+// (~1.1 us) a step. So:
+//   * split-K: S blocks share a tile's depth (grid z); each writes its f32
+//     partial tile to a workspace, and the last to arrive adds the S
+//     partials in the fixed order s = 0 .. S-1 and runs the epilogue, in the
+//     same launch (finish). S comes from the weight's shape alone
+//     (kernels/qmm.py `_splits`): the quickest by a cost model of waves,
+//     steps and partial tiles for one row tile, each split at least 4 steps
+//     deep; 1 where the column tiles alone fill the card. It does not
+//     depend on M, so a row's sums are taken in the same order whatever the
+//     batch;
+//   * 128 weight columns a step (one 128-column panel, or gate-up's two of
+//     64), so each x tile read from L2 serves twice to four times the weight
+//     bytes it did at 32 or 64 columns;
+//   * a 4-stage ring of `cp.async.cg` copies: x and the raw int8 weight of
+//     the next three steps are in flight while one step is converted and
+//     multiplied (24 KB of weight an SM). A 128 x 128 tile holds 64 f32
+//     accumulators a thread, so one block an SM (255 registers) runs
+//     without spills; two (128 registers) spilled 48-256 bytes a thread
+//     and ran 1.5x slower (PERF.md);
+//   * int8 -> bf16 without a conversion instruction: the biased byte becomes
+//     the low mantissa bits of 2^23 and 2^23 + 128 is taken off in f32.
+// The INT4 bodies (qmm_kernel) keep one block a tile, 64 or 32 columns wide,
+// and prefetch the next step into registers while one is multiplied (one
+// shared buffer, two barriers a step). A step reads 64 packed rows once and
+// unpacks them in registers into two bf16 planes, lo = ((p & 15) ^ 8) - 8
+// and hi = p >> 4 (arithmetic), both exact; the lo plane multiplies
+// x[:, k0 : k0 + 64] and the hi plane x[:, D/2 + k0 : D/2 + k0 + 64]. INT4
+// halves the bytes, so at the decode shapes the operations (2.2 us at
+// D = 2048, F = 4096) bound them. Neither body has wgmma or TMA yet: their
+// times stand beside the bound in PERF.md.
 //
 // The epilogue uses __fmul_rn / __fadd_rn so that no multiply-add is
 // contracted: scale, row scale and residual round one by one, as in the
@@ -60,6 +81,16 @@ constexpr int THREADS = 256;  // 8 warps: 4 along rows, 2 along columns
 constexpr int LDA = BK + 8;   // bf16 elements per x row in shared memory
 constexpr int KW = BK / 2;    // 32-bit words (bf16 pairs) per weight column
 
+// INT8 bodies: 128 weight columns a step through a STAGES-deep ring; a ring
+// slot holds the x tile (BM x LDA bf16) and the raw weight (BK rows of
+// WLD bytes, rows padded by 16 bytes), then the bf16 weight tile follows
+constexpr int STAGES = 4;
+constexpr int WCOLS = 128;
+constexpr int WLD = WCOLS + 16;
+constexpr int SLOT_X = BM * LDA * 2;
+constexpr int SLOT = SLOT_X + BK * WLD;
+constexpr int RING_BYTES = STAGES * SLOT + WCOLS * KW * 4;
+
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
   asm volatile(
@@ -67,6 +98,26 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 16 bytes from global to shared memory, asynchronously; bytes < 16 fills
+// the rest with zeros (0: all zeros, src is not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Word index of (column n, k pair kw) in the transposed weight tile.
@@ -94,86 +145,256 @@ __device__ __forceinline__ uint32_t pack_bf16(uint32_t even, uint32_t odd,
   return (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xffff0000u);
 }
 
+// The same for INT8 bytes given biased (b ^ 0x80, in 0..255): byte j of
+// each word goes into the low mantissa bits of 2^23, 2^23 + 128 comes off in
+// f32 (exact), and the two floats' top halves are the bf16 pair.
+__device__ __forceinline__ uint32_t pack_bf16_biased(uint32_t even,
+                                                     uint32_t odd, int j) {
+  const uint32_t sel = 0x7540u | (uint32_t)j;
+  const float lo = __fsub_rn(__uint_as_float(__byte_perm(even, 0x4B000000u,
+                                                         sel)),
+                             8388736.0f);
+  const float hi = __fsub_rn(__uint_as_float(__byte_perm(odd, 0x4B000000u,
+                                                         sel)),
+                             8388736.0f);
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632u);
+}
+
 __device__ __forceinline__ float silu_mul(float g, float u) {
   const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-g)));
   return __fmul_rn(__fmul_rn(g, sig), u);
 }
 
-// Split-K across gridDim.z blocks of one output tile. `pairs(f)` calls
-// f(v0, v1, row, col) on each pair of neighbouring accumulators a thread
-// holds, col being the pair's first column of the (M, Fw) weight product.
-// Every block writes its partial sums to its plane of ws (S, M, Fw) and
-// counts itself in; the block that arrives last sums the S planes in the
-// order s = 0 .. S-1 back into its accumulators, resets the counter for the
-// next launch and returns true. The others return false. The order of the
-// sum does not depend on which block arrives last, so two launches on the
-// same inputs agree bit for bit.
-template <typename Pairs>
-__device__ __forceinline__ bool reduce_splits(Pairs pairs, float* ws,
-                                              int* counter, int M, int Fw) {
-  __shared__ int last;
+// One BK step of the block's product: the x tile As (BM x LDA) against
+// NPAN weight tiles of BN columns at Bs, Bs + BN * KW, ... into the warp's
+// accumulators (rows warp_m * 32 + [0, 32), columns warp_n * NT * 8 +
+// [0, NT * 8) of each panel).
+template <int NT, int NPAN>
+__device__ __forceinline__ void mma_step(float (&acc)[NPAN][2][NT][4],
+                                         const __nv_bfloat16* As,
+                                         const uint32_t* Bs, int warp_m,
+                                         int warp_n, int g, int c) {
+  constexpr int BN = 16 * NT;
+#pragma unroll
+  for (int ks = 0; ks < BK / 16; ++ks) {
+    uint32_t a[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const __nv_bfloat16* base =
+          &As[(warp_m * 32 + mt * 16 + g) * LDA + ks * 16 + 2 * c];
+      a[mt][0] = *reinterpret_cast<const uint32_t*>(base);
+      a[mt][1] = *reinterpret_cast<const uint32_t*>(base + 8 * LDA);
+      a[mt][2] = *reinterpret_cast<const uint32_t*>(base + 8);
+      a[mt][3] = *reinterpret_cast<const uint32_t*>(base + 8 * LDA + 8);
+    }
+#pragma unroll
+    for (int p = 0; p < NPAN; ++p) {
+      const uint32_t* tile = Bs + p * BN * KW;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int n = warp_n * (NT * 8) + nt * 8 + g;
+        uint32_t b[2];
+        b[0] = tile[b_index(n, ks * 8 + c)];
+        b[1] = tile[b_index(n, ks * 8 + c + 4)];
+        mma_bf16(acc[p][0][nt], a[0], b);
+        mma_bf16(acc[p][1][nt], a[1], b);
+      }
+    }
+  }
+}
+
+// Returns t * scale [* row], gate-up: silu of that times u * scale_u
+// [* row]; one rounding at a time, as the plain version rounds.
+template <bool GATEUP>
+__device__ __forceinline__ float scaled(float t, float u, float sg, float su,
+                                        const float* row_scale, float rs) {
+  t = __fmul_rn(t, sg);
+  if (row_scale) t = __fmul_rn(t, rs);
+  if (GATEUP) {
+    u = __fmul_rn(u, su);
+    if (row_scale) u = __fmul_rn(u, rs);
+    t = silu_mul(t, u);
+  }
+  return t;
+}
+
+// N neighbouring outputs of one row from column col: the residual added
+// (qmm_int8), one cast, one store.
+template <int N, bool GATEUP>
+__device__ __forceinline__ void store(float (&v)[N], size_t at,
+                                      const void* __restrict__ residual,
+                                      int residual_f32, void* __restrict__ out,
+                                      int out_f32) {
+  if (!GATEUP && residual) {
+#pragma unroll
+    for (int e = 0; e < N; ++e)
+      v[e] = __fadd_rn(v[e], residual_f32
+          ? static_cast<const float*>(residual)[at + e]
+          : __bfloat162float(
+                static_cast<const __nv_bfloat16*>(residual)[at + e]));
+  }
+  if (out_f32) {
+    float* o = static_cast<float*>(out) + at;
+#pragma unroll
+    for (int e = 0; e < N; e += 2)
+      *reinterpret_cast<float2*>(o + e) = make_float2(v[e], v[e + 1]);
+  } else {
+    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out) + at;
+#pragma unroll
+    for (int e = 0; e < N; e += 2)
+      *reinterpret_cast<__nv_bfloat162*>(o + e) =
+          __floats2bfloat162_rn(v[e], v[e + 1]);
+  }
+}
+
+// The end of every body. S = 1 (gridDim.z): the epilogue on the warp's
+// accumulators, where element e of tile (mt, nt) is row g (+8 for e >= 2),
+// column 2 * c + (e & 1). S > 1, split-K across the z blocks of a tile:
+// every block writes its partial sums to its plane of ws (S, M, Fw) and
+// counts itself in; the block that arrives last resets the counter for the
+// next launch and, for each output, adds the S planes in the order
+// s = 0 .. S-1 and applies the same epilogue. The others just return. The
+// order of the sum does not depend on which block arrives last, so two
+// launches on the same inputs agree bit for bit.
+template <int NT, bool GATEUP>
+__device__ __forceinline__ void finish(
+    float (&acc)[GATEUP ? 2 : 1][2][NT][4], const float* __restrict__ scale,
+    const float* __restrict__ row_scale, const void* __restrict__ residual,
+    int residual_f32, void* __restrict__ out, int out_f32, int M, int Fo,
+    float* ws, int* counters, int m0, int n0, int warp_m, int warp_n, int g,
+    int c) {
+  constexpr int NPAN = GATEUP ? 2 : 1;
+  constexpr int BN = 16 * NT;
   const int S = gridDim.z;
+  if (S == 1) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = m0 + warp_m * 32 + mt * 16 + g + half * 8;
+        if (row >= M) continue;
+        const float rs = row_scale ? row_scale[row] : 1.0f;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int col = n0 + warp_n * (NT * 8) + nt * 8 + 2 * c;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            v[e] = scaled<GATEUP>(acc[0][mt][nt][half * 2 + e],
+                                  acc[NPAN - 1][mt][nt][half * 2 + e],
+                                  scale[col + e],
+                                  GATEUP ? scale[Fo + col + e] : 0.0f,
+                                  row_scale, rs);
+          store<2, GATEUP>(v, (size_t)row * Fo + col, residual, residual_f32,
+                           out, out_f32);
+        }
+      }
+    }
+    return;
+  }
+
+  __shared__ int last;
+  const int Fw = NPAN * Fo;
   const size_t plane = (size_t)M * Fw;
-  pairs([&](float& v0, float& v1, int row, int col) {
-    if (row < M)
-      __stcg(reinterpret_cast<float2*>(ws + blockIdx.z * plane +
-                                       (size_t)row * Fw + col),
-             make_float2(v0, v1));
-  });
+#pragma unroll
+  for (int p = 0; p < NPAN; ++p)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = m0 + warp_m * 32 + mt * 16 + g + half * 8;
+        if (row >= M) continue;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          __stcg(reinterpret_cast<float2*>(
+                     ws + blockIdx.z * plane + (size_t)row * Fw + p * Fo +
+                     n0 + warp_n * (NT * 8) + nt * 8 + 2 * c),
+                 make_float2(acc[p][mt][nt][half * 2],
+                             acc[p][mt][nt][half * 2 + 1]));
+      }
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) {
+    int* counter = counters + blockIdx.y * gridDim.x + blockIdx.x;
     last = atomicAdd(counter, 1) == S - 1;
     if (last) *counter = 0;  // every block of the tile has arrived
   }
   __syncthreads();
-  if (!last) return false;
+  if (!last) return;
   __threadfence();
-  // one pass over a thread's pairs a plane: its loads go out together
-  for (int s = 0; s < S; ++s) {
-    pairs([&](float& v0, float& v1, int row, int col) {
-      if (row >= M) return;
-      const float2 p = __ldcg(reinterpret_cast<const float2*>(
-          ws + s * plane + (size_t)row * Fw + col));
-      v0 = s == 0 ? p.x : __fadd_rn(v0, p.x);
-      v1 = s == 0 ? p.y : __fadd_rn(v1, p.y);
-    });
+  // the tile's outputs four columns a chunk, consecutive threads on
+  // consecutive chunks (PER chunks a thread in each panel); plane s + 1's
+  // loads go out before plane s is added
+  constexpr int CH = BN / 4, PER = BM * CH / THREADS;
+  float4 t[NPAN][PER], next[NPAN][PER];
+  auto load = [&](float4 (&dst)[NPAN][PER], int s) {
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int v = threadIdx.x + k * THREADS;
+      const int row = m0 + v / CH, col = n0 + (v % CH) * 4;
+#pragma unroll
+      for (int p = 0; p < NPAN; ++p)
+        dst[p][k] = row < M
+            ? __ldcg(reinterpret_cast<const float4*>(
+                  ws + s * plane + (size_t)row * Fw + p * Fo + col))
+            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  };
+  load(t, 0);
+  load(next, 1);
+  for (int s = 1; s < S; ++s) {
+    float4 cur[NPAN][PER];
+#pragma unroll
+    for (int p = 0; p < NPAN; ++p)
+#pragma unroll
+      for (int k = 0; k < PER; ++k) cur[p][k] = next[p][k];
+    if (s + 1 < S) load(next, s + 1);
+#pragma unroll
+    for (int p = 0; p < NPAN; ++p)
+#pragma unroll
+      for (int k = 0; k < PER; ++k)
+        t[p][k] = make_float4(
+            __fadd_rn(t[p][k].x, cur[p][k].x), __fadd_rn(t[p][k].y, cur[p][k].y),
+            __fadd_rn(t[p][k].z, cur[p][k].z), __fadd_rn(t[p][k].w, cur[p][k].w));
   }
-  return true;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int v = threadIdx.x + k * THREADS;
+    const int row = m0 + v / CH, col = n0 + (v % CH) * 4;
+    if (row >= M) continue;
+    const float rs = row_scale ? row_scale[row] : 1.0f;
+    const float4 a = t[0][k], b = t[NPAN - 1][k];
+    const float tv[4] = {a.x, a.y, a.z, a.w}, uv[4] = {b.x, b.y, b.z, b.w};
+    float o[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      o[e] = scaled<GATEUP>(tv[e], uv[e], scale[col + e],
+                            GATEUP ? scale[Fo + col + e] : 0.0f, row_scale,
+                            rs);
+    store<4, GATEUP>(o, (size_t)row * Fo + col, residual, residual_f32, out,
+                     out_f32);
+  }
 }
 
-// Shared memory of one block: PLANES x tiles (BM, LDA) bf16, then
-// NPAN * PLANES weight tiles of BN * KW words.
-template <int NT, bool GATEUP, bool INT4>
-constexpr int smem_bytes() {
-  return (INT4 ? 2 : 1) * BM * LDA * 2 +
-         (GATEUP ? 2 : 1) * (INT4 ? 2 : 1) * 16 * NT * KW * 4;
-}
-
-// NT: 8-column tiles per warp (4: 64-column block, 2: 32-column block).
-// GATEUP: two weight panels, columns n and n + Fo, and the silu epilogue;
-// Fo is then the output width and the weight has 2 * Fo columns.
-// INT4: the weight is (D/2, Fw) packed split-half; D is the unpacked depth.
-template <int NT, bool GATEUP, bool INT4>
-__global__ void __launch_bounds__(THREADS, INT4 ? 1 : 2)
-qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-           const float* __restrict__ scale, const float* __restrict__ row_scale,
-           const void* __restrict__ residual, int residual_f32,
-           void* __restrict__ out, int out_f32, int M, int D, int Fo,
-           float* __restrict__ ws, int* __restrict__ counters, int per) {
-  constexpr int BN = 16 * NT;
+// The INT8 bodies. GATEUP: two 64-column panels, columns n and n + Fo, and
+// the silu epilogue; Fo is then the output width and the weight has 2 * Fo
+// columns. Grid (Fo / BN, row tiles, S); block z sums steps
+// [z * per, min(D / BK, (z + 1) * per)).
+template <bool GATEUP>
+__global__ void __launch_bounds__(THREADS, 1)
+qmm8_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
+            const float* __restrict__ scale,
+            const float* __restrict__ row_scale,
+            const void* __restrict__ residual, int residual_f32,
+            void* __restrict__ out, int out_f32, int M, int D, int Fo,
+            float* __restrict__ ws, int* __restrict__ counters, int per) {
   constexpr int NPAN = GATEUP ? 2 : 1;
-  constexpr int PLANES = INT4 ? 2 : 1;  // x tiles (and weight planes) a step
-  constexpr int NG = BN / 8;            // 8-column groups per weight row
-  constexpr int B_TASKS = KW * NG;      // (k pair, 8 columns) of a tile
-  constexpr int B_EACH = (B_TASKS + THREADS - 1) / THREADS;
-  const int Fw = GATEUP ? 2 * Fo : Fo;  // columns of the weight
-  const int Dx = INT4 ? D / 2 : D;      // packed rows; x offset of plane 1
+  constexpr int BN = WCOLS / NPAN;  // output columns of a tile
+  constexpr int NT = BN / 16;       // 8-column tiles a warp, each panel
+  const int Fw = GATEUP ? 2 * Fo : Fo;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  // weight tile (panel p, plane q) at Bs + (p * PLANES + q) * BN * KW
-  uint32_t* Bs = reinterpret_cast<uint32_t*>(smem + PLANES * BM * LDA * 2);
+  uint32_t* Bs = reinterpret_cast<uint32_t*>(smem + STAGES * SLOT);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -181,12 +402,10 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
   const int warp_m = warp & 3, warp_n = warp >> 2;
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
+  const int k_begin = blockIdx.z * per;
+  const int steps = min(D / BK, k_begin + per) - k_begin;
 
-  // this thread's share of a weight tile: task v = tid + i * THREADS moves
-  // rows 2 * (v / NG) and 2 * (v / NG) + 1, eight columns from
-  // n0 + 8 * (v % NG)
-
-  float acc[NPAN][2][NT][4];  // INT4: both planes sum into one accumulator
+  float acc[NPAN][2][NT][4];
 #pragma unroll
   for (int p = 0; p < NPAN; ++p)
 #pragma unroll
@@ -196,12 +415,138 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[p][mt][nt][e] = 0.0f;
 
-  uint4 a_reg[PLANES][4];
-  uint2 b_reg[B_EACH][NPAN][2];
+  // step i's copies into ring slot i % STAGES: x, BM rows of 8 16-byte
+  // chunks (rows past M read as zeros); the weight, BK rows of 8 chunks of
+  // 16 columns (panel p's columns at p * BN of the slot)
+  auto issue = [&](int i) {
+    unsigned char* slot = smem + (i % STAGES) * SLOT;
+    const int k0 = (k_begin + i) * BK;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int v = tid + j * THREADS, r = v >> 3, ch = v & 7;
+      const int row = m0 + r;
+      cp_async16(slot + r * (LDA * 2) + ch * 16,
+                 x + (size_t)(row < M ? row : 0) * D + k0 + ch * 8,
+                 row < M ? 16 : 0);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int v = tid + j * THREADS, r = v >> 3, ch = v & 7;
+      const int col = ch * 16;  // of the slot's 128
+      cp_async16(slot + SLOT_X + r * WLD + col,
+                 w + (size_t)(k0 + r) * Fw + (col / BN) * Fo + n0 + col % BN,
+                 16);
+    }
+  };
+
+  // the raw weight of a slot into the bf16 tile Bs: task v moves k pair kp
+  // (rows 2 kp and 2 kp + 1) of 8 columns from 8 * ng; a warp's 32 tasks
+  // take 4 k pairs by 8 column groups, so the stores to Bs meet no bank
+  // twice
+  auto convert = [&](int i) {
+    const unsigned char* raw = smem + (i % STAGES) * SLOT + SLOT_X;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int v = tid + j * THREADS;
+      const int kp = (v & 3) | (((v >> 5) & 7) << 2);
+      const int ng = ((v >> 2) & 7) | (((v >> 8) & 1) << 3);
+      const uint2 even =
+          *reinterpret_cast<const uint2*>(raw + 2 * kp * WLD + ng * 8);
+      const uint2 odd =
+          *reinterpret_cast<const uint2*>(raw + (2 * kp + 1) * WLD + ng * 8);
+      const uint32_t e[2] = {even.x ^ 0x80808080u, even.y ^ 0x80808080u};
+      const uint32_t o[2] = {odd.x ^ 0x80808080u, odd.y ^ 0x80808080u};
+#pragma unroll
+      for (int b = 0; b < 8; ++b)
+        Bs[b_index(ng * 8 + b, kp)] =
+            pack_bf16_biased(e[b >> 2], o[b >> 2], b & 3);
+    }
+  };
+
+  // STAGES - 1 steps in flight before the first is used; an empty group
+  // where there is no step keeps one group a step for cp_async_wait
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < steps) issue(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < steps; ++i) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of step i landed
+    // every thread's copies of step i landed, and step i - 1's products
+    // are done: its ring slot and Bs are free
+    __syncthreads();
+    if (i + STAGES - 1 < steps) issue(i + STAGES - 1);
+    cp_async_commit();
+    convert(i);
+    __syncthreads();
+    mma_step<NT, NPAN>(
+        acc,
+        reinterpret_cast<const __nv_bfloat16*>(smem + (i % STAGES) * SLOT), Bs,
+        warp_m, warp_n, g, c);
+  }
+  finish<NT, GATEUP>(acc, scale, row_scale, residual, residual_f32, out,
+                     out_f32, M, Fo, ws, counters, m0, n0, warp_m, warp_n, g,
+                     c);
+}
+
+// Shared memory of one INT4 block: 2 x tiles (BM, LDA) bf16, then
+// NPAN * 2 weight tiles of BN * KW words.
+template <int NT, bool GATEUP>
+constexpr int smem_bytes4() {
+  return 2 * BM * LDA * 2 + (GATEUP ? 2 : 1) * 2 * 16 * NT * KW * 4;
+}
+
+// The INT4 bodies: the weight is (D/2, Fw) packed split-half; D is the
+// unpacked depth. NT: 8-column tiles per warp (4: 64-column block, 2:
+// 32-column block). GATEUP as for qmm8_kernel. Grid (Fo / BN, row tiles,
+// S), S = 1 as the wrapper launches it.
+template <int NT, bool GATEUP>
+__global__ void __launch_bounds__(THREADS)
+qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
+           const float* __restrict__ scale, const float* __restrict__ row_scale,
+           const void* __restrict__ residual, int residual_f32,
+           void* __restrict__ out, int out_f32, int M, int D, int Fo,
+           float* __restrict__ ws, int* __restrict__ counters, int per) {
+  constexpr int BN = 16 * NT;
+  constexpr int NPAN = GATEUP ? 2 : 1;
+  constexpr int NG = BN / 8;          // 8-column groups per weight row
+  constexpr int B_THREADS = KW * NG;  // threads that move weight bytes
+  const int Fw = GATEUP ? 2 * Fo : Fo;  // columns of the weight
+  const int Dx = D / 2;                 // packed rows; x offset of plane 1
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
+  // weight tile (panel p, plane q) at Bs + (q * NPAN + p) * BN * KW
+  uint32_t* Bs = reinterpret_cast<uint32_t*>(smem + 2 * BM * LDA * 2);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int warp_m = warp & 3, warp_n = warp >> 2;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+
+  // this thread's share of a weight tile: rows 2*kp and 2*kp + 1, eight
+  // columns from n0 + 8 * ng
+  const int ng = tid % NG, kp = tid / NG;
+  const bool moves_b = tid < B_THREADS;
+
+  float acc[NPAN][2][NT][4];  // both planes sum into one accumulator
+#pragma unroll
+  for (int p = 0; p < NPAN; ++p)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[p][mt][nt][e] = 0.0f;
+
+  uint4 a_reg[2][4];
+  uint2 b_reg[NPAN][2];
 
   auto load_tile = [&](int k0) {
 #pragma unroll
-    for (int q = 0; q < PLANES; ++q) {
+    for (int q = 0; q < 2; ++q) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int v = tid + i * THREADS;
@@ -212,22 +557,19 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
             : make_uint4(0u, 0u, 0u, 0u);
       }
     }
-#pragma unroll
-    for (int i = 0; i < B_EACH; ++i) {
-      const int v = tid + i * THREADS, ng = v % NG, kp = v / NG;
-      if (v >= B_TASKS) break;
+    if (moves_b) {
 #pragma unroll
       for (int p = 0; p < NPAN; ++p) {
         const int8_t* src = w + (size_t)(k0 + 2 * kp) * Fw + n0 + p * Fo + ng * 8;
-        b_reg[i][p][0] = *reinterpret_cast<const uint2*>(src);
-        b_reg[i][p][1] = *reinterpret_cast<const uint2*>(src + Fw);
+        b_reg[p][0] = *reinterpret_cast<const uint2*>(src);
+        b_reg[p][1] = *reinterpret_cast<const uint2*>(src + Fw);
       }
     }
   };
 
   auto store_tile = [&]() {
 #pragma unroll
-    for (int q = 0; q < PLANES; ++q) {
+    for (int q = 0; q < 2; ++q) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int v = tid + i * THREADS;
@@ -235,22 +577,17 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
                                       (v & 7) * 8]) = a_reg[q][i];
       }
     }
-#pragma unroll
-    for (int i = 0; i < B_EACH; ++i) {
-      const int v = tid + i * THREADS, ng = v % NG, kp = v / NG;
-      if (v >= B_TASKS) break;
+    if (moves_b) {
 #pragma unroll
       for (int p = 0; p < NPAN; ++p) {
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          const uint32_t even = j < 4 ? b_reg[i][p][0].x : b_reg[i][p][0].y;
-          const uint32_t odd = j < 4 ? b_reg[i][p][1].x : b_reg[i][p][1].y;
+          const uint32_t even = j < 4 ? b_reg[p][0].x : b_reg[p][0].y;
+          const uint32_t odd = j < 4 ? b_reg[p][1].x : b_reg[p][1].y;
           const int at = b_index(ng * 8 + j, kp);
-          Bs[(p * PLANES) * BN * KW + at] =
-              pack_bf16<INT4, 0>(even, odd, 8 * (j & 3));
-          if constexpr (INT4)
-            Bs[(p * PLANES + 1) * BN * KW + at] =
-                pack_bf16<INT4, 1>(even, odd, 8 * (j & 3));
+          Bs[p * BN * KW + at] = pack_bf16<true, 0>(even, odd, 8 * (j & 3));
+          Bs[(NPAN + p) * BN * KW + at] =
+              pack_bf16<true, 1>(even, odd, 8 * (j & 3));
         }
       }
     }
@@ -265,129 +602,26 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
   for (int kt = k_begin; kt < k_end; ++kt) {
     if (kt + 1 < k_end) load_tile((kt + 1) * BK);
 #pragma unroll
-    for (int q = 0; q < PLANES; ++q) {
-#pragma unroll
-      for (int ks = 0; ks < BK / 16; ++ks) {
-        uint32_t a[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const __nv_bfloat16* base = &As[q * BM * LDA +
-              (warp_m * 32 + mt * 16 + g) * LDA + ks * 16 + 2 * c];
-          a[mt][0] = *reinterpret_cast<const uint32_t*>(base);
-          a[mt][1] = *reinterpret_cast<const uint32_t*>(base + 8 * LDA);
-          a[mt][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-          a[mt][3] = *reinterpret_cast<const uint32_t*>(base + 8 * LDA + 8);
-        }
-#pragma unroll
-        for (int p = 0; p < NPAN; ++p) {
-          const uint32_t* tile = Bs + (p * PLANES + q) * BN * KW;
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            const int n = warp_n * (NT * 8) + nt * 8 + g;
-            uint32_t b[2];
-            b[0] = tile[b_index(n, ks * 8 + c)];
-            b[1] = tile[b_index(n, ks * 8 + c + 4)];
-            mma_bf16(acc[p][0][nt], a[0], b);
-            mma_bf16(acc[p][1][nt], a[1], b);
-          }
-        }
-      }
-    }
+    for (int q = 0; q < 2; ++q)
+      mma_step<NT, NPAN>(acc, As + q * BM * LDA, Bs + q * NPAN * BN * KW,
+                         warp_m, warp_n, g, c);
     __syncthreads();
     if (kt + 1 < k_end) store_tile();
     __syncthreads();
   }
-
-  if (gridDim.z > 1) {
-    auto pairs = [&](auto f) {
-#pragma unroll
-      for (int p = 0; p < NPAN; ++p)
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int half = 0; half < 2; ++half)
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt)
-              f(acc[p][mt][nt][half * 2], acc[p][mt][nt][half * 2 + 1],
-                m0 + warp_m * 32 + mt * 16 + g + half * 8,
-                p * Fo + n0 + warp_n * (NT * 8) + nt * 8 + 2 * c);
-    };
-    if (!reduce_splits(pairs, ws, counters + blockIdx.y * gridDim.x +
-                                      blockIdx.x, M, Fw))
-      return;
-  }
-
-  // epilogue: accumulator element e of tile (mt, nt) is row g (+8 for
-  // e >= 2), column 2 * c + (e & 1)
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + warp_m * 32 + mt * 16 + g + half * 8;
-      if (row >= M) continue;
-      const float rs = row_scale ? row_scale[row] : 1.0f;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int col = n0 + warp_n * (NT * 8) + nt * 8 + 2 * c;
-        float v[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float t = __fmul_rn(acc[0][mt][nt][half * 2 + e], scale[col + e]);
-          if (row_scale) t = __fmul_rn(t, rs);
-          if (GATEUP) {
-            float u = __fmul_rn(acc[NPAN - 1][mt][nt][half * 2 + e],
-                                scale[Fo + col + e]);
-            if (row_scale) u = __fmul_rn(u, rs);
-            t = silu_mul(t, u);
-          }
-          v[e] = t;
-        }
-        const size_t at = (size_t)row * Fo + col;
-        if (!GATEUP && residual) {
-          if (residual_f32) {
-            const float2 r = *reinterpret_cast<const float2*>(
-                static_cast<const float*>(residual) + at);
-            v[0] = __fadd_rn(v[0], r.x);
-            v[1] = __fadd_rn(v[1], r.y);
-          } else {
-            const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(
-                static_cast<const __nv_bfloat16*>(residual) + at);
-            v[0] = __fadd_rn(v[0], __bfloat162float(r.x));
-            v[1] = __fadd_rn(v[1], __bfloat162float(r.y));
-          }
-        }
-        if (out_f32) {
-          *reinterpret_cast<float2*>(static_cast<float*>(out) + at) =
-              make_float2(v[0], v[1]);
-        } else {
-          *reinterpret_cast<__nv_bfloat162*>(
-              static_cast<__nv_bfloat16*>(out) + at) =
-              __floats2bfloat162_rn(v[0], v[1]);
-        }
-      }
-    }
-  }
+  finish<NT, GATEUP>(acc, scale, row_scale, residual, residual_f32, out,
+                     out_f32, M, Fo, ws, counters, m0, n0, warp_m, warp_n, g,
+                     c);
 }
 
-template <int NT, bool GATEUP, bool INT4>
-cudaError_t launch_tile(dim3 grid, const __nv_bfloat16* x, const int8_t* w,
-                        const float* scale, const float* row_scale,
-                        const void* residual, int residual_f32, void* out,
-                        int out_f32, int M, int D, int Fo, float* ws,
-                        int* counters, int per, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<NT, GATEUP, INT4>();
-  // above 48 KB a block's shared memory must be asked for, once per
-  // instantiation
-  static const cudaError_t attr = bytes > 48 * 1024
-      ? cudaFuncSetAttribute(qmm_kernel<NT, GATEUP, INT4>,
+// Above 48 KB a block's shared memory must be asked for, once per kernel.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  return bytes > 48 * 1024
+      ? cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes)
       : cudaSuccess;
-  if (attr != cudaSuccess) return attr;
-  qmm_kernel<NT, GATEUP, INT4><<<grid, THREADS, bytes, stream>>>(
-      x, w, scale, row_scale, residual, residual_f32, out, out_f32, M, D, Fo,
-      ws, counters, per);
-  return cudaGetLastError();
 }
 
 template <bool GATEUP, bool INT4>
@@ -396,8 +630,10 @@ int launch(const void* x, const void* w, const void* scale,
            void* out, int out_f32, int64_t M, int64_t D, int64_t Fo,
            int narrow, int splits, void* ws, void* counters,
            cudaStream_t stream) {
+  // INT8: 128 weight columns a step, a 128-column tile (gate-up: two of 64)
+  const int bn = INT4 ? (narrow ? 32 : 64) : WCOLS / (GATEUP ? 2 : 1);
   if (M <= 0 || D <= 0 || Fo <= 0 || D % ((INT4 ? 2 : 1) * BK) != 0 ||
-      Fo % 64 != 0)
+      Fo % bn != 0)
     return (int)cudaErrorInvalidValue;
   // S splits of `per` steps each, the last one shorter, none empty
   const int steps = (int)(D / ((INT4 ? 2 : 1) * BK));
@@ -405,33 +641,37 @@ int launch(const void* x, const void* w, const void* scale,
   if (splits < 1 || (splits - 1) * per >= steps ||
       (splits > 1 && (ws == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
-  auto* wsp = static_cast<float*>(ws);
-  auto* cp = static_cast<int*>(counters);
-  const unsigned int row_tiles = (unsigned int)((M + BM - 1) / BM);
+  const dim3 grid((unsigned int)(Fo / bn), (unsigned int)((M + BM - 1) / BM),
+                  (unsigned int)splits);
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
   const auto* wp = static_cast<const int8_t*>(w);
   const auto* sp = static_cast<const float*>(scale);
   const auto* rp = static_cast<const float*>(row_scale);
+  auto* wsp = static_cast<float*>(ws);
+  auto* cp = static_cast<int*>(counters);
   if constexpr (!INT4) {
-    // 128 weight columns a step: one 128-column panel, or gate-up's two
-    // 64-column panels
-    constexpr int NT = GATEUP ? 4 : 8;
-    if (Fo % (16 * NT) != 0) return (int)cudaErrorInvalidValue;
-    return (int)launch_tile<NT, GATEUP, false>(
-        dim3((unsigned int)(Fo / (16 * NT)), row_tiles, (unsigned int)splits),
+    static const cudaError_t attr =
+        allow_smem(qmm8_kernel<GATEUP>, RING_BYTES);
+    if (attr != cudaSuccess) return (int)attr;
+    qmm8_kernel<GATEUP><<<grid, THREADS, RING_BYTES, stream>>>(
         xp, wp, sp, rp, residual, residual_f32, out, out_f32, (int)M, (int)D,
-        (int)Fo, wsp, cp, per, stream);
+        (int)Fo, wsp, cp, per);
+  } else if (narrow) {
+    constexpr int bytes = smem_bytes4<2, GATEUP>();
+    static const cudaError_t attr = allow_smem(qmm_kernel<2, GATEUP>, bytes);
+    if (attr != cudaSuccess) return (int)attr;
+    qmm_kernel<2, GATEUP><<<grid, THREADS, bytes, stream>>>(
+        xp, wp, sp, rp, residual, residual_f32, out, out_f32, (int)M, (int)D,
+        (int)Fo, wsp, cp, per);
   } else {
-    if (narrow)
-      return (int)launch_tile<2, GATEUP, INT4>(
-          dim3((unsigned int)(Fo / 32), row_tiles, (unsigned int)splits), xp, wp,
-          sp, rp, residual, residual_f32, out, out_f32, (int)M, (int)D, (int)Fo,
-          wsp, cp, per, stream);
-    return (int)launch_tile<4, GATEUP, INT4>(
-        dim3((unsigned int)(Fo / 64), row_tiles, (unsigned int)splits), xp, wp,
-        sp, rp, residual, residual_f32, out, out_f32, (int)M, (int)D, (int)Fo,
-        wsp, cp, per, stream);
+    constexpr int bytes = smem_bytes4<4, GATEUP>();
+    static const cudaError_t attr = allow_smem(qmm_kernel<4, GATEUP>, bytes);
+    if (attr != cudaSuccess) return (int)attr;
+    qmm_kernel<4, GATEUP><<<grid, THREADS, bytes, stream>>>(
+        xp, wp, sp, rp, residual, residual_f32, out, out_f32, (int)M, (int)D,
+        (int)Fo, wsp, cp, per);
   }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -32,8 +32,13 @@ from .loader import LAUNCHES, check, library, stream_of
 _SMS = 132
 # the kernels' tile: rows of x a block, depth a step
 _BM, _BK = 128, 64
-# split-K: aim for two blocks an SM, each split at least this many steps
+# split-K: each split at least this many steps; the cost model's time of a
+# 64-deep step of a 128 x 128 tile and of one partial tile summed by a
+# tile's last block (H100, PERF.md)
 _MIN_SPLIT_STEPS = 4
+_STEP_US, _PARTIAL_US = 0.6, 0.64
+# depth of the INT8 bodies' cp.async ring (csrc/qmm.cu STAGES)
+_STAGES = 4
 
 
 def supports(d: int, f: int, b: int = 64) -> bool:
@@ -165,43 +170,50 @@ def _narrow(f_out: int, rows: int) -> int:
     return int((f_out // 64) * -(-rows // 128) < _SMS)
 
 
-def _bn(M: int, F: int, gateup: bool) -> int:
+def _bn(gateup: bool) -> int:
     """Output columns of an INT8 body's tile, 128 weight columns a step:
     one panel of 128, or gate-up's two of 64."""
     return 64 if gateup else 128
 
 
-def _tiles(M: int, F: int, gateup: bool = False) -> int:
-    """Output tiles of an INT8 launch."""
-    return -(-M // _BM) * (F // _bn(M, F, gateup))
-
-
-def _splits(M: int, D: int, F: int, gateup: bool = False) -> int:
+def _splits(D: int, F: int, gateup: bool = False) -> int:
     """S, the blocks that share each output tile's depth in the INT8 bodies,
-    from the shape alone. 1 where the tiles alone give every SM a block;
-    else as many as make about two blocks an SM, each split at least
-    _MIN_SPLIT_STEPS steps deep, then evened out so that no split is empty.
-    F is the output width (gate-up: one panel's); the two bodies tile alike."""
-    tiles = _tiles(M, F, gateup)
-    steps = D // _BK
+    from the weight's shape alone: F is the output width (gate-up: one
+    panel's). 1 where the column tiles alone give every SM a block. Else
+    the S, each split at least _MIN_SPLIT_STEPS steps deep, that the cost
+    model says is quickest for one row tile (M <= 128, every decode step):
+    the waves of one block an SM times the steps of a split, plus the
+    partial tiles the last block sums; then evened out so that no split is
+    empty. S does not depend on the rows: a row's sum is then taken in the
+    same order whatever the batch it comes in, as the kernel took it
+    before the split (a prefix computed in one batch and reused in another
+    matches it bit for bit)."""
+    tiles, steps = F // _bn(gateup), D // _BK
     if tiles >= _SMS:
         return 1
-    s = max(1, min(-(-2 * _SMS // tiles), steps // _MIN_SPLIT_STEPS))
-    per = -(-steps // s)
-    return -(-steps // per)
+
+    def evened(s):
+        return -(-steps // -(-steps // s))
+
+    def cost(s):
+        waves = -(-tiles * s // _SMS)
+        return waves * -(-steps // s) * _STEP_US + (s > 1) * s * _PARTIAL_US
+
+    shapes = {evened(s) for s in range(1, steps // _MIN_SPLIT_STEPS + 1)}
+    return min(shapes | {1}, key=lambda s: (cost(s), s))
 
 
 def int8_launch(M: int, D: int, F: int, gateup: bool = False) -> dict:
-    """How an INT8 body launches at this shape: S, the weight columns of a
-    tile (gate-up: of each panel) and how the loads are pipelined."""
-    return dict(S=_splits(M, D, F, gateup), BN=_bn(M, F, gateup),
-                loads='registers, one step ahead')
+    """How an INT8 body launches at this shape: its grid (column tiles, row
+    tiles, S), the tile's columns (gate-up: each panel's) and the loads."""
+    return dict(grid=[F // _bn(gateup), -(-M // _BM), _splits(D, F, gateup)],
+                BN=_bn(gateup), loads=f'{_STAGES}-stage cp.async ring')
 
 
-def split_ranges(M: int, D: int, F: int, gateup: bool = False):
+def split_ranges(D: int, F: int, gateup: bool = False):
     """The depth range [k0, k1) each split of an INT8 launch sums, as the
     kernel cuts it: S ranges of ceil(steps / S) steps, the last shorter."""
-    S, steps = _splits(M, D, F, gateup), D // _BK
+    S, steps = _splits(D, F, gateup), D // _BK
     per = -(-steps // S)
     return [(s * per * _BK, min(steps, (s + 1) * per) * _BK)
             for s in range(S)]
@@ -210,7 +222,7 @@ def split_ranges(M: int, D: int, F: int, gateup: bool = False):
 def workspace_bytes(M: int, D: int, F: int, gateup: bool = False) -> int:
     """Bytes of the f32 partial sums an INT8 launch writes: S planes of the
     (M, F) product, both panels for gate-up; none when S is 1."""
-    S = _splits(M, D, F, gateup)
+    S = _splits(D, F, gateup)
     return 0 if S == 1 else S * M * F * 4 * (2 if gateup else 1)
 
 
@@ -236,13 +248,13 @@ def _workspace(device: torch.device, stream: int, floats: int, tiles: int):
 
 def _split_args(x, M, D, F, gateup):
     """(S, workspace pointer, counters pointer) of an INT8 launch."""
-    S = _splits(M, D, F, gateup)
+    S = _splits(D, F, gateup)
     if S == 1:
         return 1, None, None
     ws, counters = _workspace(x.device,
                               torch.cuda.current_stream(x.device).cuda_stream,
                               workspace_bytes(M, D, F, gateup) // 4,
-                              _tiles(M, F, gateup))
+                              -(-M // _BM) * (F // _bn(gateup)))
     return S, ws.data_ptr(), counters.data_ptr()
 
 

@@ -413,8 +413,8 @@ SPLIT_GATEUP = [(128, 2048, 5632), (1, 2048, 5632), (37, 5632, 2048),
 
 def test_splits_cover_both():
     from ppq_tpu_torch.kernels.qmm import _splits
-    int8 = {_splits(M, D, F) > 1 for M in SPLIT_M for D, F in SPLIT_DF}
-    gateup = {_splits(M, D, F, True) > 1 for M, D, F in SPLIT_GATEUP}
+    int8 = {_splits(D, F) > 1 for D, F in SPLIT_DF}
+    gateup = {_splits(D, F, True) > 1 for _, D, F in SPLIT_GATEUP}
     assert int8 == gateup == {True, False}
 
 
@@ -455,21 +455,26 @@ def test_qmm_split_calls_are_bit_equal(cuda):
     """The last block of a tile sums the partials in a fixed order and
     leaves the tile's counter at 0: two calls on the same inputs agree bit
     for bit, and so does a call after calls of other shapes (which reuse
-    the workspace and the counters)."""
+    the workspace and the counters), and a call on some of the rows."""
     from ppq_tpu_torch.kernels import qmm_gateup, qmm_int8
     from ppq_tpu_torch.kernels.qmm import _splits
     x, w, scale, row, res = _qmm_inputs(cuda, 128, 5632, 2048, seed=5)
-    assert _splits(128, 5632, 2048) > 1
+    assert _splits(5632, 2048) > 1
     first = qmm_int8(x, w, scale, torch.float32, row, res)
     assert torch.equal(qmm_int8(x, w, scale, torch.float32, row, res), first)
     xg, wg, sg, rg, _ = _qmm_inputs(cuda, 128, 5632, 2 * 2048, seed=6)
-    assert _splits(128, 5632, 2048, True) > 1
+    assert _splits(5632, 2048, True) > 1
     gate = qmm_gateup(xg, wg, sg, torch.float32, rg)
     for M, D, F in ((37, 2048, 4096), (512, 2048, 2048), (1, 256, 128)):
         xo, wo, so, ro, reso = _qmm_inputs(cuda, M, D, F, seed=M)
         qmm_int8(xo, wo, so, torch.bfloat16, ro, reso)
     assert torch.equal(qmm_int8(x, w, scale, torch.float32, row, res), first)
     assert torch.equal(qmm_gateup(xg, wg, sg, torch.float32, rg), gate)
+    # S does not depend on M: each row sums in the same order in any batch
+    assert torch.equal(qmm_int8(x[:37], w, scale, torch.float32, row[:37],
+                                res[:37]), first[:37])
+    assert torch.equal(qmm_gateup(xg[:1], wg, sg, torch.float32, rg[:1]),
+                       gate[:1])
     torch.cuda.synchronize()
 
 
@@ -480,10 +485,10 @@ def test_qmm_int4_bodies_launch_one_block_a_tile(cuda):
     from ppq_tpu_torch.kernels import qmm as tqmm
     tqmm._workspaces.clear()
     x, w, codes, scale, row, res = _int4_inputs(cuda, 128, 2048, 2048, seed=8)
-    assert tqmm._splits(128, 2048, 2048) > 1
+    assert tqmm._splits(2048, 2048) > 1
     got = qmm_int4(x, w, scale, torch.float32, row, res)
     x, wg, codes_g, sg, rg, _ = _int4_inputs(cuda, 128, 5632, 2 * 2048, seed=9)
-    assert tqmm._splits(128, 5632, 2048, True) > 1
+    assert tqmm._splits(5632, 2048, True) > 1
     gate = qmm_gateup(x, wg, sg, torch.float32, rg)
     torch.cuda.synchronize()
     assert not tqmm._workspaces

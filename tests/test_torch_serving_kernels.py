@@ -123,45 +123,47 @@ SPLIT_DF = ((256, 128), (2048, 2048), (2048, 4096), (5632, 2048),
 @pytest.mark.parametrize('M', SPLIT_M)
 def test_qmm_splits_cover_the_depth(M, D, F, gateup):
     """The splits cut [0, D) into S ranges of whole 64-deep steps, none
-    empty, every one but the last at least _MIN_SPLIT_STEPS steps deep; one
-    split where the tiles alone give every SM a block (so always where the
-    grid has two blocks an SM); and the workspace holds S planes of the
-    (M, F) product, both panels for gate-up, none without a split."""
-    S = tqmm._splits(M, D, F, gateup)
-    ranges = tqmm.split_ranges(M, D, F, gateup)
+    empty, every one but the last at least _MIN_SPLIT_STEPS steps deep, no
+    more than about two blocks an SM need for one row tile; one split where
+    the column tiles alone give every SM a block (so wherever one row
+    tile's grid has two blocks an SM); the workspace holds S planes of the
+    (M, F) product, both panels for gate-up, none without a split; and the
+    launch the smoke logs says the same."""
+    S = tqmm._splits(D, F, gateup)
+    ranges = tqmm.split_ranges(D, F, gateup)
     assert len(ranges) == S >= 1
     assert ranges[0][0] == 0 and ranges[-1][1] == D
     assert all(b == c for (_, b), (c, _) in zip(ranges, ranges[1:]))
     assert all(a % 64 == 0 and b % 64 == 0 and b > a for a, b in ranges)
     if S > 1:
         assert all(b - a >= tqmm._MIN_SPLIT_STEPS * 64 for a, b in ranges[:-1])
-    tiles = tqmm._tiles(M, F, gateup)
-    if tiles >= tqmm._SMS:
+    col_tiles = F // (64 if gateup else 128)
+    assert col_tiles * (S - 1) < 2 * tqmm._SMS
+    if col_tiles >= tqmm._SMS:
         assert S == 1
-    # no more splits than about two blocks an SM needs
-    assert tiles * (S - 1) < 2 * tqmm._SMS
     want = 0 if S == 1 else S * M * F * 4 * (2 if gateup else 1)
     assert tqmm.workspace_bytes(M, D, F, gateup) == want
     launch = tqmm.int8_launch(M, D, F, gateup)
-    assert launch['S'] == S and F % launch['BN'] == 0
+    assert launch['grid'] == [col_tiles, -(-M // 128), S]
 
 
-def test_qmm_splits_depend_on_the_shape_alone(monkeypatch):
-    """_splits reads (M, D, F) and the body, nothing of the device, the
-    environment or the call; the decode shapes of the 1B model (M = 128)
-    split: wqkv, wo, w_down and gate-up."""
+def test_qmm_splits_depend_on_the_weight_alone(monkeypatch):
+    """_splits reads the weight's (D, F) and the body, nothing of the rows,
+    the device, the environment or the call; the decode shapes of the 1B
+    model split: wqkv, wo, w_down and gate-up; the lm_head's columns fill
+    the card alone."""
     import inspect
     assert list(inspect.signature(tqmm._splits).parameters) == \
-        ['M', 'D', 'F', 'gateup']
-    shapes = [(M, D, F, g) for M in SPLIT_M for D, F in SPLIT_DF
-              for g in (False, True)]
+        ['D', 'F', 'gateup']
+    shapes = [(D, F, g) for D, F in SPLIT_DF for g in (False, True)]
     before = [tqmm._splits(*s) for s in shapes]
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
     monkeypatch.setenv('CUDA_VISIBLE_DEVICES', '3')
     assert [tqmm._splits(*s) for s in reversed(shapes)] == before[::-1]
     for D, F, gateup in ((2048, 4096, False), (2048, 2048, False),
                          (5632, 2048, False), (2048, 5632, True)):
-        assert tqmm._splits(128, D, F, gateup) > 1, (D, F, gateup)
+        assert tqmm._splits(D, F, gateup) > 1, (D, F, gateup)
+    assert tqmm._splits(2048, 32000) == tqmm._splits(2048, 32768) == 1
 
 
 def test_qmm_cpu_wrappers_take_no_workspace():
