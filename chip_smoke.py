@@ -462,7 +462,11 @@ def kernels_floating(act, weight, s_w_t, flush):
                                                       448.0), flush),
         library_ms=None,     # no single PyTorch call rounds to an E/M grid
         channelwise_ms=time_ms(lambda: floating_quant(
-            weight, s_w_t, 4, 3, -448.0, 448.0, 0), flush))
+            weight, s_w_t, 4, 3, -448.0, 448.0, 0), flush),
+        # the channelwise shape's own bound: the weight read and written
+        # once, one scale a channel
+        channelwise_bound_ms=bound_ms(8.0 * weight.numel() + 4.0 * s_w_t.numel(),
+                                      12.0 * weight.numel())[0])
     b, by = bound_ms(12.0 * n, 3.0 * n)
     results['floating_quant_bwd'] = dict(
         max_abs_err=err_bwd, bound_ms=b, bound_by=by, shape=list(act.shape),
@@ -472,7 +476,8 @@ def kernels_floating(act, weight, s_w_t, flush):
         library_ms=None)     # no single PyTorch call: a mask and a where
     log('[kernel] floating_quant: bit-equal to plain for E4M3, E5M2, E3M4, '
         'tensorwise (host and device scale) and channelwise; channelwise '
-        f'weight {results["floating_quant"]["channelwise_ms"]:.4f} ms; '
+        f'weight {results["floating_quant"]["channelwise_ms"]:.4f} ms (bound '
+        f'{results["floating_quant"]["channelwise_bound_ms"]:.4f} ms); '
         'floating_quant_bwd bit-equal')
     return results
 
@@ -697,6 +702,54 @@ def kernels_qmm(dev, flush):
     del x, w, scale, row
     torch.cuda.empty_cache()
     return results
+
+
+def qmm_sweep(dev, flush):
+    """`--qmm` only: each INT8 body at path D's decode shapes at every split
+    count the kernel takes up to 16, through its C entry point with the
+    wrapper's workspace (the port picks S from the shape; this measures
+    that choice against the others and fits _splits' cost model)."""
+    from ppq_tpu_torch.kernels import loader, qmm
+    lib = loader.library('qmm')
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B, stream = 128, loader.stream_of(dev)
+    for label, D, F, gateup in (('wqkv', 2048, 4096, False),
+                                ('wo', 2048, 2048, False),
+                                ('w_down', 5632, 2048, False),
+                                ('lm_head', 2048, 32768, False),
+                                ('gate-up', 2048, SERVE['d_ff'], True)):
+        Fw = 2 * F if gateup else F
+        x = torch.randn(B, D, device=dev, generator=gen).to(torch.bfloat16)
+        w = torch.randint(-127, 128, (D, Fw), device=dev, generator=gen,
+                          dtype=torch.int8)
+        scale = torch.rand(Fw, device=dev, generator=gen) * 0.01 + 0.001
+        out = torch.empty(B, F, dtype=torch.bfloat16, device=dev)
+        steps = D // 64
+        counts = sorted({-(-steps // -(-steps // s))
+                         for s in range(1, min(16, steps // 4) + 1)})
+        times = {}
+        for S in counts:
+            ws, counters = qmm._workspace(
+                dev, torch.cuda.current_stream(dev).cuda_stream, S * B * Fw,
+                F // (64 if gateup else 128))
+
+            def run():
+                if gateup:
+                    return lib.ppq_qmm_gateup(
+                        x.data_ptr(), w.data_ptr(), scale.data_ptr(), None,
+                        out.data_ptr(), 0, B, D, F, S, ws.data_ptr(),
+                        counters.data_ptr(), stream)
+                return lib.ppq_qmm_int8(
+                    x.data_ptr(), w.data_ptr(), scale.data_ptr(), None, None,
+                    0, out.data_ptr(), 0, B, D, F, S, ws.data_ptr(),
+                    counters.data_ptr(), stream)
+            if run() != 0:
+                raise AssertionError(f'qmm sweep {label}: S {S} refused')
+            times[S] = time_ms(run, flush)
+        log(f'[qmm sweep] {label} {[B, D, Fw]}: ' + ', '.join(
+            f'S {S} {t:.4f} ms' for S, t in times.items()) +
+            f'; _splits picks S {qmm._splits(D, F, gateup)}')
+        del x, w, scale, out
 
 
 def kernels_serving(dev, flush):
@@ -2989,6 +3042,8 @@ def main_qmm(package_root=None) -> int:
     phase_build(['qmm'])
     flush = torch.empty(512 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
     results = kernels_qmm(dev, flush)
+    if hasattr(sys.modules['ppq_tpu_torch.kernels.qmm'], '_splits'):
+        qmm_sweep(dev, flush)
     log(f'[done] {time.perf_counter() - t_start:.1f} s; {smi}')
     log(json.dumps({'qmm': results, 'card': smi}))
     return 0

@@ -33,10 +33,11 @@ _SMS = 132
 # the kernels' tile: rows of x a block, depth a step
 _BM, _BK = 128, 64
 # split-K: each split at least this many steps; the cost model's time of a
-# 64-deep step of a 128 x 128 tile and of one partial tile summed by a
-# tile's last block (H100, PERF.md)
+# 64-deep step of a 128 x 128 tile and of one partial tile written and
+# summed by a tile's last block, fitted to `chip_smoke.py --qmm`'s sweep on
+# an H100 (PERF.md)
 _MIN_SPLIT_STEPS = 4
-_STEP_US, _PARTIAL_US = 0.6, 0.64
+_STEP_US, _PARTIAL_US = 1.24, 1.78
 # depth of the INT8 bodies' cp.async ring (csrc/qmm.cu STAGES)
 _STAGES = 4
 
