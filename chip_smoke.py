@@ -705,24 +705,29 @@ def kernels_qmm(dev, flush):
 
 
 def qmm_sweep(dev, flush):
-    """`--qmm` only: each INT8 body at path D's decode shapes at every split
-    count the kernel takes up to 16, through its C entry point with the
-    wrapper's workspace (the port picks S from the shape; this measures
-    that choice against the others and fits _splits' cost model)."""
+    """`--qmm` only: each INT8 body at path D's decode shapes, with the
+    epilogue a decode step gives it, at every split count the kernel takes
+    up to 16, through its C entry point with the wrapper's workspace (the
+    port picks S from the shape; this measures that choice against the
+    others and fits _splits' cost model)."""
     from ppq_tpu_torch.kernels import loader, qmm
     lib = loader.library('qmm')
     gen = torch.Generator(device=dev).manual_seed(5)
     B, stream = 128, loader.stream_of(dev)
-    for label, D, F, gateup in (('wqkv', 2048, 4096, False),
-                                ('wo', 2048, 2048, False),
-                                ('w_down', 5632, 2048, False),
-                                ('lm_head', 2048, 32768, False),
-                                ('gate-up', 2048, SERVE['d_ff'], True)):
+    for label, D, F, gateup, has_res in (
+            ('wqkv row_scale', 2048, 4096, False, False),
+            ('wo residual', 2048, 2048, False, True),
+            ('w_down residual', 5632, 2048, False, True),
+            ('lm_head row_scale', 2048, 32768, False, False),
+            ('gate-up row_scale', 2048, SERVE['d_ff'], True, False)):
         Fw = 2 * F if gateup else F
         x = torch.randn(B, D, device=dev, generator=gen).to(torch.bfloat16)
         w = torch.randint(-127, 128, (D, Fw), device=dev, generator=gen,
                           dtype=torch.int8)
         scale = torch.rand(Fw, device=dev, generator=gen) * 0.01 + 0.001
+        row = None if has_res else torch.rand(B, device=dev, generator=gen) + 0.5
+        res = torch.randn(B, F, device=dev, generator=gen).to(torch.bfloat16) \
+            if has_res else None
         out = torch.empty(B, F, dtype=torch.bfloat16, device=dev)
         steps = D // 64
         counts = sorted({-(-steps // -(-steps // s))
@@ -734,14 +739,16 @@ def qmm_sweep(dev, flush):
                 F // (64 if gateup else 128))
 
             def run():
+                rp = None if row is None else row.data_ptr()
                 if gateup:
                     return lib.ppq_qmm_gateup(
-                        x.data_ptr(), w.data_ptr(), scale.data_ptr(), None,
+                        x.data_ptr(), w.data_ptr(), scale.data_ptr(), rp,
                         out.data_ptr(), 0, B, D, F, S, ws.data_ptr(),
                         counters.data_ptr(), stream)
                 return lib.ppq_qmm_int8(
-                    x.data_ptr(), w.data_ptr(), scale.data_ptr(), None, None,
-                    0, out.data_ptr(), 0, B, D, F, S, ws.data_ptr(),
+                    x.data_ptr(), w.data_ptr(), scale.data_ptr(), rp,
+                    None if res is None else res.data_ptr(), 0,
+                    out.data_ptr(), 0, B, D, F, S, ws.data_ptr(),
                     counters.data_ptr(), stream)
             if run() != 0:
                 raise AssertionError(f'qmm sweep {label}: S {S} refused')
@@ -749,7 +756,7 @@ def qmm_sweep(dev, flush):
         log(f'[qmm sweep] {label} {[B, D, Fw]}: ' + ', '.join(
             f'S {S} {t:.4f} ms' for S, t in times.items()) +
             f'; _splits picks S {qmm._splits(D, F, gateup)}')
-        del x, w, scale, out
+        del x, w, scale, row, res, out
 
 
 def kernels_serving(dev, flush):

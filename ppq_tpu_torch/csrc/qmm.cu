@@ -218,21 +218,11 @@ __device__ __forceinline__ float scaled(float t, float u, float sg, float su,
   return t;
 }
 
-// N neighbouring outputs of one row from column col: the residual added
-// (qmm_int8), one cast, one store.
-template <int N, bool GATEUP>
-__device__ __forceinline__ void store(float (&v)[N], size_t at,
-                                      const void* __restrict__ residual,
-                                      int residual_f32, void* __restrict__ out,
-                                      int out_f32) {
-  if (!GATEUP && residual) {
-#pragma unroll
-    for (int e = 0; e < N; ++e)
-      v[e] = __fadd_rn(v[e], residual_f32
-          ? static_cast<const float*>(residual)[at + e]
-          : __bfloat162float(
-                static_cast<const __nv_bfloat16*>(residual)[at + e]));
-  }
+// N neighbouring outputs of one row, from index `at` of the (M, Fo) output:
+// one cast, one store.
+template <int N>
+__device__ __forceinline__ void store(const float (&v)[N], size_t at,
+                                      void* __restrict__ out, int out_f32) {
   if (out_f32) {
     float* o = static_cast<float*>(out) + at;
 #pragma unroll
@@ -267,26 +257,57 @@ __device__ __forceinline__ void finish(
   constexpr int BN = 16 * NT;
   const int S = gridDim.z;
   if (S == 1) {
+    // the epilogue's inputs for every output the thread writes, loaded
+    // before any is used
+    float sc[NPAN][NT][2], rs[2][2];
+    float2 res[2][2][NT];
+#pragma unroll
+    for (int p = 0; p < NPAN; ++p)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          sc[p][nt][e] =
+              scale[p * Fo + n0 + warp_n * (NT * 8) + nt * 8 + 2 * c + e];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = m0 + warp_m * 32 + mt * 16 + g + half * 8;
+        rs[mt][half] = row_scale && row < M ? row_scale[row] : 1.0f;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const size_t at =
+              (size_t)row * Fo + n0 + warp_n * (NT * 8) + nt * 8 + 2 * c;
+          res[mt][half][nt] = make_float2(0.0f, 0.0f);
+          if (GATEUP || !residual || row >= M) continue;
+          res[mt][half][nt] = residual_f32
+              ? *reinterpret_cast<const float2*>(
+                    static_cast<const float*>(residual) + at)
+              : __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                    static_cast<const __nv_bfloat16*>(residual) + at));
+        }
+      }
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int row = m0 + warp_m * 32 + mt * 16 + g + half * 8;
         if (row >= M) continue;
-        const float rs = row_scale ? row_scale[row] : 1.0f;
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
           const int col = n0 + warp_n * (NT * 8) + nt * 8 + 2 * c;
+          const float r[2] = {res[mt][half][nt].x, res[mt][half][nt].y};
           float v[2];
 #pragma unroll
-          for (int e = 0; e < 2; ++e)
+          for (int e = 0; e < 2; ++e) {
             v[e] = scaled<GATEUP>(acc[0][mt][nt][half * 2 + e],
                                   acc[NPAN - 1][mt][nt][half * 2 + e],
-                                  scale[col + e],
-                                  GATEUP ? scale[Fo + col + e] : 0.0f,
-                                  row_scale, rs);
-          store<2, GATEUP>(v, (size_t)row * Fo + col, residual, residual_f32,
-                           out, out_f32);
+                                  sc[0][nt][e], sc[NPAN - 1][nt][e],
+                                  row_scale, rs[mt][half]);
+            if (!GATEUP && residual) v[e] = __fadd_rn(v[e], r[e]);
+          }
+          store<2>(v, (size_t)row * Fo + col, out, out_f32);
         }
       }
     }
@@ -357,22 +378,70 @@ __device__ __forceinline__ void finish(
             __fadd_rn(t[p][k].x, cur[p][k].x), __fadd_rn(t[p][k].y, cur[p][k].y),
             __fadd_rn(t[p][k].z, cur[p][k].z), __fadd_rn(t[p][k].w, cur[p][k].w));
   }
+  // the epilogue's own inputs, every chunk's loads issued before any is
+  // used (a thread's chunks share their columns): the residual's raw bits,
+  // 16 bytes of f32 or 8 of bf16 a chunk
+  const int col = n0 + (threadIdx.x % CH) * 4;
+  float sg[4], su[4], rs[PER];
+  uint4 raw[PER];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    sg[e] = scale[col + e];
+    su[e] = GATEUP ? scale[Fo + col + e] : 0.0f;
+  }
 #pragma unroll
   for (int k = 0; k < PER; ++k) {
-    const int v = threadIdx.x + k * THREADS;
-    const int row = m0 + v / CH, col = n0 + (v % CH) * 4;
+    const int row = m0 + (threadIdx.x + k * THREADS) / CH;
+    rs[k] = row_scale && row < M ? row_scale[row] : 1.0f;
+    raw[k] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  const bool has_res = !GATEUP && residual;
+  if (has_res && residual_f32) {
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int row = m0 + (threadIdx.x + k * THREADS) / CH;
+      if (row < M)
+        raw[k] = *reinterpret_cast<const uint4*>(
+            static_cast<const float*>(residual) + (size_t)row * Fo + col);
+    }
+  } else if (has_res) {
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int row = m0 + (threadIdx.x + k * THREADS) / CH;
+      if (row < M) {
+        const uint2 h = *reinterpret_cast<const uint2*>(
+            static_cast<const __nv_bfloat16*>(residual) + (size_t)row * Fo +
+            col);
+        raw[k] = make_uint4(h.x, h.y, 0u, 0u);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int row = m0 + (threadIdx.x + k * THREADS) / CH;
     if (row >= M) continue;
-    const float rs = row_scale ? row_scale[row] : 1.0f;
     const float4 a = t[0][k], b = t[NPAN - 1][k];
     const float tv[4] = {a.x, a.y, a.z, a.w}, uv[4] = {b.x, b.y, b.z, b.w};
+    float rv[4];
+    if (residual_f32) {
+      rv[0] = __uint_as_float(raw[k].x);
+      rv[1] = __uint_as_float(raw[k].y);
+      rv[2] = __uint_as_float(raw[k].z);
+      rv[3] = __uint_as_float(raw[k].w);
+    } else {
+      const float2 lo = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&raw[k].x));
+      const float2 hi = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&raw[k].y));
+      rv[0] = lo.x, rv[1] = lo.y, rv[2] = hi.x, rv[3] = hi.y;
+    }
     float o[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      o[e] = scaled<GATEUP>(tv[e], uv[e], scale[col + e],
-                            GATEUP ? scale[Fo + col + e] : 0.0f, row_scale,
-                            rs);
-    store<4, GATEUP>(o, (size_t)row * Fo + col, residual, residual_f32, out,
-                     out_f32);
+    for (int e = 0; e < 4; ++e) {
+      o[e] = scaled<GATEUP>(tv[e], uv[e], sg[e], su[e], row_scale, rs[k]);
+      if (has_res) o[e] = __fadd_rn(o[e], rv[e]);
+    }
+    store<4>(o, (size_t)row * Fo + col, out, out_f32);
   }
 }
 
