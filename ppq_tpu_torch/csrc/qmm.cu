@@ -54,7 +54,14 @@
 //     without spills; two (128 registers) spilled 48-256 bytes a thread
 //     and ran 1.5x slower (PERF.md);
 //   * int8 -> bf16 without a conversion instruction: the biased byte becomes
-//     the low mantissa bits of 2^23 and 2^23 + 128 is taken off in f32.
+//     the low mantissa bits of 2^23 and 2^23 + 128 is taken off in f32;
+//   * the epilogue issues all its loads (residual, scales, row scales)
+//     before it uses any.
+// What bounds them now (PERF.md): a 64-deep step of a 128 x 128 tile costs
+// ~1.2 us and a partial tile ~1.8 us, whatever the ring's depth: the
+// products (mma.sync, fragments through shared memory) and the loads (one
+// SM's share of L2) of a step barely overlap. wgmma and TMA are the next
+// step.
 // The INT4 bodies (qmm_kernel) keep one block a tile, 64 or 32 columns wide,
 // and prefetch the next step into registers while one is multiplied (one
 // shared buffer, two barriers a step). A step reads 64 packed rows once and
@@ -125,29 +132,28 @@ __device__ __forceinline__ int b_index(int n, int kw) {
   return n * KW + (kw ^ ((((n >> 3) ^ n) & 7) << 2));
 }
 
-// The weight value a byte holds: PLANE 0 of an INT8 weight is the byte;
-// of an INT4 weight, PLANE 0 is the low nibble sign-extended and PLANE 1 the
-// high nibble (an arithmetic shift).
-template <bool INT4, int PLANE>
-__device__ __forceinline__ int weight_value(uint32_t word, int shift) {
+// The INT4 weight value a packed byte holds: PLANE 0 is the low nibble
+// sign-extended, PLANE 1 the high nibble (an arithmetic shift).
+template <int PLANE>
+__device__ __forceinline__ int nibble_value(uint32_t word, int shift) {
   const int v = (int)(signed char)(word >> shift);
-  if (!INT4) return v;
   return PLANE == 0 ? ((v & 15) ^ 8) - 8 : v >> 4;
 }
 
-// Two weight values (k even in the low half, k odd in the high half) as a
-// pair of bf16: the top 16 bits of the float are exact for |v| <= 128.
-template <bool INT4, int PLANE>
-__device__ __forceinline__ uint32_t pack_bf16(uint32_t even, uint32_t odd,
-                                              int shift) {
-  const float lo = (float)weight_value<INT4, PLANE>(even, shift);
-  const float hi = (float)weight_value<INT4, PLANE>(odd, shift);
+// Two INT4 weight values (k even in the low half, k odd in the high half)
+// as a pair of bf16: the top 16 bits of the float are exact for |v| <= 8.
+template <int PLANE>
+__device__ __forceinline__ uint32_t pack_nibbles(uint32_t even, uint32_t odd,
+                                                 int shift) {
+  const float lo = (float)nibble_value<PLANE>(even, shift);
+  const float hi = (float)nibble_value<PLANE>(odd, shift);
   return (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xffff0000u);
 }
 
-// The same for INT8 bytes given biased (b ^ 0x80, in 0..255): byte j of
-// each word goes into the low mantissa bits of 2^23, 2^23 + 128 comes off in
-// f32 (exact), and the two floats' top halves are the bf16 pair.
+// Two INT8 weight values as a pair of bf16, given biased (b ^ 0x80, in
+// 0..255): byte j of each word goes into the low mantissa bits of 2^23,
+// 2^23 + 128 comes off in f32 (exact), and the two floats' top halves are
+// the bf16 pair (exact for |v| <= 128).
 __device__ __forceinline__ uint32_t pack_bf16_biased(uint32_t even,
                                                      uint32_t odd, int j) {
   const uint32_t sel = 0x7540u | (uint32_t)j;
@@ -654,9 +660,9 @@ qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
           const uint32_t even = j < 4 ? b_reg[p][0].x : b_reg[p][0].y;
           const uint32_t odd = j < 4 ? b_reg[p][1].x : b_reg[p][1].y;
           const int at = b_index(ng * 8 + j, kp);
-          Bs[p * BN * KW + at] = pack_bf16<true, 0>(even, odd, 8 * (j & 3));
+          Bs[p * BN * KW + at] = pack_nibbles<0>(even, odd, 8 * (j & 3));
           Bs[(NPAN + p) * BN * KW + at] =
-              pack_bf16<true, 1>(even, odd, 8 * (j & 3));
+              pack_nibbles<1>(even, odd, 8 * (j & 3));
         }
       }
     }

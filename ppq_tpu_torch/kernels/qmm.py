@@ -16,6 +16,12 @@ and how the design meets that.
                 or (D/2, 2 F) packed (the INT4 body: rows * 2 == D)
 
 The epilogue runs in f32 in that order and the result is cast once.
+
+The INT8 bodies split the contraction depth across S blocks a tile
+(`_splits`, from the weight's shape alone) and sum the f32 partials in a
+fixed order inside the one launch, in a workspace each (device, stream)
+keeps; two calls on the same inputs are bit-equal, and a row's result does
+not depend on the other rows of its batch.
 """
 
 from __future__ import annotations
@@ -27,8 +33,8 @@ import torch
 
 from .loader import LAUNCHES, check, library, stream_of
 
-# SMs of an H100. The INT4 bodies give a weight too narrow to give every SM
-# a 64-column block 32-column blocks; the INT8 bodies split the depth
+# SMs of an H100: the INT4 bodies take 32-column blocks where 64-column ones
+# would not give every SM a block; the INT8 bodies split the depth instead
 _SMS = 132
 # the kernels' tile: rows of x a block, depth a step
 _BM, _BK = 128, 64
@@ -185,10 +191,8 @@ def _splits(D: int, F: int, gateup: bool = False) -> int:
     model says is quickest for one row tile (M <= 128, every decode step):
     the waves of one block an SM times the steps of a split, plus the
     partial tiles the last block sums; then evened out so that no split is
-    empty. S does not depend on the rows: a row's sum is then taken in the
-    same order whatever the batch it comes in, as the kernel took it
-    before the split (a prefix computed in one batch and reused in another
-    matches it bit for bit)."""
+    empty. S does not depend on the rows, so a row's sum is taken in the
+    same order whatever batch it comes in, as before the split."""
     tiles, steps = F // _bn(gateup), D // _BK
     if tiles >= _SMS:
         return 1
