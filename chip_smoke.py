@@ -221,10 +221,16 @@ def phase_build(names=None):
     log(f'[build] {time.perf_counter() - t0:.2f} s wall, per library '
         f'{json.dumps({k: round(v, 2) for k, v in seconds.items()})}')
     for name, out in kbuild.BUILD_LOG.items():
-        lines = {line.strip() for line in out.splitlines()
-                 if 'registers' in line or 'spill' in line}
-        for line in sorted(lines):
-            log(f'[ptxas {name}] {line}')
+        # each kernel's registers and spills, under its (mangled) name, and
+        # any warning that ptxas serialised a wgmma
+        kernel = ''
+        for line in out.splitlines():
+            found = re.search(r"(?:Compiling entry function|Function "
+                              r"properties for) '?([\w$]+)", line)
+            if found:
+                kernel = found.group(1)
+            elif 'registers' in line or 'spill' in line or 'wgmma' in line:
+                log(f'[ptxas {name}] {kernel}: {line.strip()}')
 
 
 def phase_kernels(dev):
@@ -547,13 +553,29 @@ def _qmm_yardsticks(x, w, scale, flush):
     return mm, pack, why
 
 
-def _qmm_launch(B, d, f, gateup):
-    """S, the column tile and the load pipeline of an INT8 launch, as the
-    wrapper of this checkout picks them."""
+def _qmm_launch(B, d, f, gateup, int4=False):
+    """S, the column tile and the load pipeline of a launch (d unpacked), as
+    the wrapper of this checkout picks them."""
     from ppq_tpu_torch.kernels import qmm
-    if not hasattr(qmm, 'int8_launch'):
-        return 'one block a tile (no split-K in this checkout)'
-    return json.dumps(qmm.int8_launch(B, d, f, gateup))
+    if hasattr(qmm, 'qmm_launch'):
+        return json.dumps(qmm.qmm_launch(B, d, f, gateup))
+    if hasattr(qmm, 'int8_launch') and not int4:
+        return json.dumps(qmm.int8_launch(B, d, f, gateup))
+    return 'one block a tile (no split-K in this checkout)'
+
+
+def _int4_splits_in(loader) -> bool:
+    """Whether this checkout's INT4 entry points take split counts."""
+    return len(loader.LIBRARIES['qmm'][1]['ppq_qmm_int4']) == 15
+
+
+def _twice(fn, label):
+    """Two calls, bit-equal, or raise; returns the first."""
+    a, b = fn(), fn()
+    if not torch.equal(a, b):
+        raise AssertionError(f'{label}: two calls on the same inputs '
+                             f'differ ({int(a.ne(b).sum())} outputs)')
+    return a
 
 
 def kernels_qmm(dev, flush):
@@ -575,14 +597,6 @@ def kernels_qmm(dev, flush):
                               dtype=torch.int8),
                 torch.rand(f, device=dev, generator=gen) * 0.01 + 0.001)
 
-    def twice(fn, label):
-        """Two calls, bit-equal, or raise; returns the first."""
-        a, b = fn(), fn()
-        if not torch.equal(a, b):
-            raise AssertionError(f'{label}: two calls on the same inputs '
-                                 f'differ ({int(a.ne(b).sum())} outputs)')
-        return a
-
     variants = {}
     worst = 0.0
     first = None
@@ -600,7 +614,7 @@ def kernels_qmm(dev, flush):
         want = qmm_int8_plain(x, w, scale, torch.float32, row, res)
         tol, _ = _qmm_tolerance(x, w, scale, row)
         for out in (torch.float32, bf16):
-            got = twice(lambda: qmm_int8(x, w, scale, out, row, res),
+            got = _twice(lambda: qmm_int8(x, w, scale, out, row, res),
                         f'qmm_int8 {label} {out}')
             err = (got.float() - want).abs()
             lim = tol + (_bf16_step(want) if out == bf16 else 0.0)
@@ -664,7 +678,7 @@ def kernels_qmm(dev, flush):
         want = qmm_gateup_plain(x, w, scale, torch.float32, r)
         tol = _gateup_tolerance(x, w, scale, r)
         for out in (torch.float32, bf16):
-            got = twice(lambda: qmm_gateup(x, w, scale, out, r),
+            got = _twice(lambda: qmm_gateup(x, w, scale, out, r),
                         f'qmm_gateup {out}')
             err = (got.float() - want).abs()
             lim = tol + (_bf16_step(want) if out == bf16 else 0.0)
@@ -705,25 +719,32 @@ def kernels_qmm(dev, flush):
 
 
 def qmm_sweep(dev, flush):
-    """`--qmm` only: each INT8 body at path D's decode shapes, with the
-    epilogue a decode step gives it, at every split count the kernel takes
-    up to 16, through its C entry point with the wrapper's workspace (the
-    port picks S from the shape; this measures that choice against the
-    others and fits _splits' cost model)."""
+    """`--qmm` only: each body at the decode shapes of paths D (INT8) and F
+    (INT4), with the epilogue a decode step gives it, at every split count
+    the kernel takes up to 16, through its C entry point with the wrapper's
+    workspace (the port picks S from the shape; this measures that choice
+    against the others and fits _splits' cost model). The INT4 bodies are
+    swept where this checkout's take split counts."""
     from ppq_tpu_torch.kernels import loader, qmm
     lib = loader.library('qmm')
     gen = torch.Generator(device=dev).manual_seed(5)
     B, stream = 128, loader.stream_of(dev)
-    for label, D, F, gateup, has_res in (
-            ('wqkv row_scale', 2048, 4096, False, False),
-            ('wo residual', 2048, 2048, False, True),
-            ('w_down residual', 5632, 2048, False, True),
-            ('lm_head row_scale', 2048, 32768, False, False),
-            ('gate-up row_scale', 2048, SERVE['d_ff'], True, False)):
+    shapes = [('wqkv row_scale', 2048, 4096, False, False),
+              ('wo residual', 2048, 2048, False, True),
+              ('w_down residual', 5632, 2048, False, True),
+              ('lm_head row_scale', 2048, 32768, False, False),
+              ('gate-up row_scale', 2048, SERVE['d_ff'], True, False)]
+    cases = [(label, D, F, gateup, has_res, False)
+             for label, D, F, gateup, has_res in shapes]
+    if _int4_splits_in(loader):
+        cases += [(f'INT4 {label}', D, F, gateup, has_res, True)
+                  for label, D, F, gateup, has_res in shapes
+                  if not label.startswith('lm_head')]
+    for label, D, F, gateup, has_res, int4 in cases:
         Fw = 2 * F if gateup else F
         x = torch.randn(B, D, device=dev, generator=gen).to(torch.bfloat16)
-        w = torch.randint(-127, 128, (D, Fw), device=dev, generator=gen,
-                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (D // 2 if int4 else D, Fw),
+                          device=dev, generator=gen, dtype=torch.int8)
         scale = torch.rand(Fw, device=dev, generator=gen) * 0.01 + 0.001
         row = None if has_res else torch.rand(B, device=dev, generator=gen) + 0.5
         res = torch.randn(B, F, device=dev, generator=gen).to(torch.bfloat16) \
@@ -741,11 +762,14 @@ def qmm_sweep(dev, flush):
             def run():
                 rp = None if row is None else row.data_ptr()
                 if gateup:
-                    return lib.ppq_qmm_gateup(
+                    entry = lib.ppq_qmm_gateup_int4 if int4 \
+                        else lib.ppq_qmm_gateup
+                    return entry(
                         x.data_ptr(), w.data_ptr(), scale.data_ptr(), rp,
                         out.data_ptr(), 0, B, D, F, S, ws.data_ptr(),
                         counters.data_ptr(), stream)
-                return lib.ppq_qmm_int8(
+                entry = lib.ppq_qmm_int4 if int4 else lib.ppq_qmm_int8
+                return entry(
                     x.data_ptr(), w.data_ptr(), scale.data_ptr(), rp,
                     None if res is None else res.data_ptr(), 0,
                     out.data_ptr(), 0, B, D, F, S, ws.data_ptr(),
@@ -847,10 +871,13 @@ def kernels_serving(dev, flush):
 
 
 def kernels_int4(dev, flush):
-    """Row 9 and row 10's INT4 body at path F's shapes (128 slots): the
-    weights split-half packed, held against their plain versions (the
-    nibbles unpacked, then row 8's and row 10's arithmetic) with rows 8 and
-    10's tolerances on the unpacked weight."""
+    """Row 9 and row 10's INT4 body at path F's shapes (128 slots), each with
+    the epilogue a decode step gives it: the weights split-half packed, held
+    against their plain versions (the nibbles unpacked, then row 8's and
+    row 10's arithmetic) with rows 8 and 10's tolerances on the unpacked
+    weight in f32 and bf16, two calls on the same inputs bit-equal (also
+    after calls of other shapes), timed beside the several-call
+    composition."""
     from ppq_tpu_torch.kernels import (pack_int4_splithalf, qmm_gateup,
                                        qmm_gateup_plain, qmm_int4,
                                        qmm_int4_plain, unpack_int4_splithalf)
@@ -867,6 +894,7 @@ def kernels_int4(dev, flush):
 
     variants = {}
     worst = 0.0
+    first = None
     for label, d, f, has_row, has_res in (
             ('wqkv row_scale', D, Fq, True, False),
             ('wo residual', D, D, False, True),
@@ -878,7 +906,8 @@ def kernels_int4(dev, flush):
         want = qmm_int4_plain(x, w, scale, torch.float32, row, res)
         tol, _ = _qmm_tolerance(x, codes, scale, row)
         for out in (torch.float32, bf16):
-            got = qmm_int4(x, w, scale, out, row, res)
+            got = _twice(lambda: qmm_int4(x, w, scale, out, row, res),
+                         f'qmm_int4 {label} {out}')
             err = (got.float() - want).abs()
             lim = tol + (_bf16_step(want) if out == bf16 else 0.0)
             if not bool((err <= lim).all()):
@@ -886,6 +915,8 @@ def kernels_int4(dev, flush):
                                      f'{float((err / lim).max()):.2f} of the tolerance')
             if out == torch.float32 and float(err.max()) >= worst:
                 worst, worst_of = float(err.max()), float(want.flatten()[err.argmax()])
+            if first is None:
+                first = (x, w, scale, row, res, got)
 
         def library():
             out = torch.matmul(x, unpack_int4_splithalf(w).to(bf16)).float() * scale
@@ -904,13 +935,19 @@ def kernels_int4(dev, flush):
             plain_ms=time_ms(lambda: qmm_int4_plain(x, w, scale, bf16, row, res),
                              flush),
             # yardstick, several calls: unpack, to bf16, matmul, epilogue
-            library_ms=time_ms(library, flush))
-        log(f'[kernel] qmm_int4 {label}: {json.dumps(variants[label])}')
+            library_ms=time_ms(library, flush),
+            launch=_qmm_launch(B, d, f, False, int4=True))
+        v = variants[label]
+        log(f'[kernel] qmm_int4 {label} {[B, d, f]}: {v["ms"]:.4f} ms '
+            f'({v["launch"]}), plain {v["plain_ms"]:.4f} ms, library (unpack '
+            f'+ to bf16 + matmul + epilogue, several calls) '
+            f'{v["library_ms"]:.4f} ms, bound {b:.4f} ms ({by}), share of '
+            f'bound {b / v["ms"]:.3f}')
         del x, codes, w, scale, row, res, want, tol
     results['qmm_int4'] = dict(max_abs_err=worst, variants=variants,
                                **variants['wqkv row_scale'])
     log(f'[kernel] qmm_int4 largest f32 error {worst:.3e} on an output of '
-        f'{worst_of:.3e}')
+        f'{worst_of:.3e}; every variant bit-equal over two calls')
 
     x = torch.randn(B, D, device=dev, generator=gen).to(bf16)
     codes, w, scale = weight(D, 2 * Fh)
@@ -920,7 +957,8 @@ def kernels_int4(dev, flush):
         want = qmm_gateup_plain(x, w, scale, torch.float32, r)
         tol = _gateup_tolerance(x, codes, scale, r)
         for out in (torch.float32, bf16):
-            got = qmm_gateup(x, w, scale, out, r)
+            got = _twice(lambda: qmm_gateup(x, w, scale, out, r),
+                         f'qmm_gateup INT4 {out}')
             err = (got.float() - want).abs()
             lim = tol + (_bf16_step(want) if out == bf16 else 0.0)
             if not bool((err <= lim).all()):
@@ -929,8 +967,15 @@ def kernels_int4(dev, flush):
             if out == torch.float32 and float(err.max()) >= worst:
                 worst, worst_of = float(err.max()), float(want.flatten()[err.argmax()])
         del want, tol
+    # the first shape again, after calls of every other shape
+    x1, w1, s1, r1, res1, got1 = first
+    if not torch.equal(qmm_int4(x1, w1, s1, torch.float32, r1, res1), got1):
+        raise AssertionError('qmm_int4: a call after calls of other shapes '
+                             'differs from the first call on its inputs')
+    del first, x1, w1, s1, r1, res1, got1
     log(f'[kernel] qmm_gateup_int4 largest f32 error {worst:.3e} on an output '
-        f'of {worst_of:.3e}')
+        f'of {worst_of:.3e}; bit-equal over two calls and after calls of '
+        f'other shapes')
 
     def library_gateup():
         both = torch.matmul(x, unpack_int4_splithalf(w).to(bf16)).float() \
@@ -944,7 +989,13 @@ def kernels_int4(dev, flush):
         ms=time_ms(lambda: qmm_gateup(x, w, scale, bf16, row), flush),
         plain_ms=time_ms(lambda: qmm_gateup_plain(x, w, scale, bf16, row), flush),
         # yardstick, several calls: unpack, to bf16, matmul, scales, silu, mul
-        library_ms=time_ms(library_gateup, flush))
+        library_ms=time_ms(library_gateup, flush),
+        launch=_qmm_launch(B, D, Fh, True, int4=True))
+    r = results['qmm_gateup_int4']
+    log(f'[kernel] qmm_gateup_int4 {[B, D, 2 * Fh]}: {r["ms"]:.4f} ms '
+        f'({r["launch"]}), plain {r["plain_ms"]:.4f} ms, library (several '
+        f'calls) {r["library_ms"]:.4f} ms, bound {b:.4f} ms ({by}), share of '
+        f'bound {b / r["ms"]:.3f}')
     del x, codes, w, scale, row
     torch.cuda.empty_cache()
     return results
@@ -3033,8 +3084,10 @@ def phase_profile(executor, x_dev, n=3):
 
 
 def main_qmm(package_root=None) -> int:
-    """`--qmm`: the card, the build and rows 8 and 10's kernel phase alone
-    (kernels_qmm), the quick loop for work on those kernels. With
+    """`--qmm`: the card, the build and the dequant-matmuls' kernel phase
+    alone (rows 8 and 10 at path D's shapes, kernels_qmm; rows 9 and 10's
+    INT4 body at path F's, kernels_int4) and the split sweep, the quick loop
+    for work on those kernels. With
     `--package-root DIR` the package is imported from the checkout at DIR
     (another commit's tree), so two commits are timed in one call on one
     card, in turns."""
@@ -3049,6 +3102,7 @@ def main_qmm(package_root=None) -> int:
     phase_build(['qmm'])
     flush = torch.empty(512 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
     results = kernels_qmm(dev, flush)
+    results.update(kernels_int4(dev, flush))
     if hasattr(sys.modules['ppq_tpu_torch.kernels.qmm'], '_splits'):
         qmm_sweep(dev, flush)
     log(f'[done] {time.perf_counter() - t_start:.1f} s; {smi}')
@@ -3061,7 +3115,7 @@ def main() -> int:
         import argparse
         ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
         ap.add_argument('--qmm', action='store_true',
-                        help='rows 8 and 10 alone: build, hold, time')
+                        help='rows 8, 9 and 10 alone: build, hold, time')
         ap.add_argument('--package-root', default=None,
                         help='with --qmm: import ppq_tpu_torch from this '
                              'checkout')

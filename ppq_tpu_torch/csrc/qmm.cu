@@ -15,26 +15,13 @@
 // (`qmm_gateup`, both bodies) of ppq_tpu/kernels/qmm.py.
 // The TPU kernel keeps the whole activation in its fast memory and streams
 // (D, TF) weight panels through a sequential grid. Here blocks run in
-// parallel and nothing carries over. Common to every body:
-//   * a block owns a 128-row output tile and sums a range of the contraction
+// parallel and nothing carries over. Every body runs one kernel
+// (qmm8_kernel<GATEUP, INT4>):
+//   * a block owns a 128-row output tile of 128 weight columns (one panel of
+//     128, or gate-up's two of 64, j and j + F/2, against one x tile, with
+//     silu(g) * u applied to the accumulators, so the (M, F) projection
+//     never reaches device memory) and sums a range of the contraction
 //     depth in steps of 64;
-//   * int8 -> bf16 is exact and happens on chip; the weight tile is kept
-//     transposed (k contiguous) in shared memory, so that a tensor-core B
-//     fragment is one 32-bit load, and an XOR swizzle keeps both the
-//     transposed stores and the fragment loads off each other's banks;
-//   * x tiles (shared by every block, so they come from L2) are bf16 in
-//     shared memory, rows padded by 16 bytes;
-//   * the product is `mma.sync.m16n8k16` on bf16 fragments with f32
-//     accumulators: 8 warps as 4 (rows) x 2 (columns), each 32 rows wide;
-//   * gate-up multiplies two column panels of the same weight (j and
-//     j + F/2) against one x tile and applies silu(g) * u to the
-//     accumulators, so the (M, F) projection never reaches device memory.
-//
-// The INT8 bodies (qmm8_kernel). What bounds them on an H100 at the decode
-// shapes (M = 128) is latency: D * F weight bytes against 2 * M * D * F
-// operations are about level (2.5 us each at D = 2048, F = 4096), but a
-// block that walks the whole depth alone waits about one memory round trip
-// (~1.1 us) a step. So:
 //   * split-K: S blocks share a tile's depth (grid z); each writes its f32
 //     partial tile to a workspace, and the last to arrive adds the S
 //     partials in the fixed order s = 0 .. S-1 and runs the epilogue, in the
@@ -44,33 +31,34 @@
 //     deep; 1 where the column tiles alone fill the card. It does not
 //     depend on M, so a row's sums are taken in the same order whatever the
 //     batch;
-//   * 128 weight columns a step (one 128-column panel, or gate-up's two of
-//     64), so each x tile read from L2 serves twice to four times the weight
-//     bytes it did at 32 or 64 columns;
-//   * a 4-stage ring of `cp.async.cg` copies: x and the raw int8 weight of
-//     the next three steps are in flight while one step is converted and
-//     multiplied (24 KB of weight an SM). A 128 x 128 tile holds 64 f32
-//     accumulators a thread, so one block an SM (255 registers) runs
-//     without spills; two (128 registers) spilled 48-256 bytes a thread
-//     and ran 1.5x slower (PERF.md);
-//   * int8 -> bf16 without a conversion instruction: the biased byte becomes
-//     the low mantissa bits of 2^23 and 2^23 + 128 is taken off in f32;
+//   * a 4-stage ring of `cp.async.cg` copies: x (bf16, rows padded by 16
+//     bytes; shared by every block, so it comes from L2) and the raw weight
+//     of the next three steps are in flight while one step is converted and
+//     multiplied;
+//   * the weight becomes bf16 on chip, exactly, into a tile kept transposed
+//     (k contiguous) so that a tensor-core B fragment is one 32-bit load; an
+//     XOR swizzle keeps both the transposed stores and the fragment loads
+//     off each other's banks. INT8: the biased byte becomes the low mantissa
+//     bits of 2^23 and 2^23 + 128 is taken off in f32. INT4 (split-half
+//     packed): a step reads 32 packed rows, half the INT8 bytes, and unpacks
+//     each into two k pairs, lo = ((p & 15) ^ 8) - 8 for k in [0, 32) and
+//     hi = p >> 4 (arithmetic) for k in [32, 64); the x slot holds
+//     x[:, k0 : k0 + 32] and x[:, D/2 + k0 : D/2 + k0 + 32] beside each
+//     other, so a step multiplies like an INT8 one;
+//   * the product is `mma.sync.m16n8k16` on bf16 fragments with f32
+//     accumulators: 8 warps as 4 (rows) x 2 (columns), each 32 rows wide.
+//     A 128 x 128 tile holds 64 f32 accumulators a thread, so one block an
+//     SM (255 registers) runs without spills; two (128 registers) spilled
+//     48-256 bytes a thread and ran 1.5x slower (PERF.md);
 //   * the epilogue issues all its loads (residual, scales, row scales)
 //     before it uses any.
-// What bounds them now (PERF.md): a 64-deep step of a 128 x 128 tile costs
-// ~1.2 us and a partial tile ~1.8 us, whatever the ring's depth: the
-// products (mma.sync, fragments through shared memory) and the loads (one
-// SM's share of L2) of a step barely overlap. wgmma and TMA are the next
-// step.
-// The INT4 bodies (qmm_kernel) keep one block a tile, 64 or 32 columns wide,
-// and prefetch the next step into registers while one is multiplied (one
-// shared buffer, two barriers a step). A step reads 64 packed rows once and
-// unpacks them in registers into two bf16 planes, lo = ((p & 15) ^ 8) - 8
-// and hi = p >> 4 (arithmetic), both exact; the lo plane multiplies
-// x[:, k0 : k0 + 64] and the hi plane x[:, D/2 + k0 : D/2 + k0 + 64]. INT4
-// halves the bytes, so at the decode shapes the operations (2.2 us at
-// D = 2048, F = 4096) bound them. Neither body has wgmma or TMA yet: their
-// times stand beside the bound in PERF.md.
+// What bounds it on an H100 at the decode shapes (M = 128) is latency, not
+// bytes or operations: D * F weight bytes (half that for INT4) against
+// 2 * M * D * F operations are about 2.5 us each at D = 2048, F = 4096, but
+// a 64-deep step of a 128 x 128 tile costs ~1.2 us and a partial tile ~1.8
+// us, whatever the ring's depth: the products (mma.sync, fragments through
+// shared memory) and the loads (one SM's share of L2) of a step barely
+// overlap (PERF.md).
 //
 // The epilogue uses __fmul_rn / __fadd_rn so that no multiply-add is
 // contracted: scale, row scale and residual round one by one, as in the
@@ -88,9 +76,10 @@ constexpr int THREADS = 256;  // 8 warps: 4 along rows, 2 along columns
 constexpr int LDA = BK + 8;   // bf16 elements per x row in shared memory
 constexpr int KW = BK / 2;    // 32-bit words (bf16 pairs) per weight column
 
-// INT8 bodies: 128 weight columns a step through a STAGES-deep ring; a ring
-// slot holds the x tile (BM x LDA bf16) and the raw weight (BK rows of
-// WLD bytes, rows padded by 16 bytes), then the bf16 weight tile follows
+// 128 weight columns a step through a STAGES-deep ring; a ring slot holds
+// the x tile (BM x LDA bf16) and the raw weight (BK rows of WLD bytes, rows
+// padded by 16 bytes; INT4 fills half of them), then the bf16 weight tile
+// follows
 constexpr int STAGES = 4;
 constexpr int WCOLS = 128;
 constexpr int WLD = WCOLS + 16;
@@ -451,11 +440,14 @@ __device__ __forceinline__ void finish(
   }
 }
 
-// The INT8 bodies. GATEUP: two 64-column panels, columns n and n + Fo, and
-// the silu epilogue; Fo is then the output width and the weight has 2 * Fo
-// columns. Grid (Fo / BN, row tiles, S); block z sums steps
-// [z * per, min(D / BK, (z + 1) * per)).
-template <bool GATEUP>
+// Every body. GATEUP: two 64-column panels, columns n and n + Fo, and the
+// silu epilogue; Fo is then the output width and the weight has 2 * Fo
+// columns. INT4: the weight is (D/2, Fw) packed split-half and D is the
+// unpacked depth; step i reads packed rows [32 i, 32 i + 32), whose low
+// nibbles multiply x[:, 32 i : 32 i + 32] and high nibbles x[:, D/2 + 32 i :
+// D/2 + 32 i + 32], so a step is 64 deep in both bodies. Grid (Fo / BN, row
+// tiles, S); block z sums steps [z * per, min(D / BK, (z + 1) * per)).
+template <bool GATEUP, bool INT4>
 __global__ void __launch_bounds__(THREADS, 1)
 qmm8_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
             const float* __restrict__ scale,
@@ -466,6 +458,7 @@ qmm8_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
   constexpr int NPAN = GATEUP ? 2 : 1;
   constexpr int BN = WCOLS / NPAN;  // output columns of a tile
   constexpr int NT = BN / 16;       // 8-column tiles a warp, each panel
+  constexpr int WROWS = INT4 ? BK / 2 : BK;  // weight rows a step
   const int Fw = GATEUP ? 2 * Fo : Fo;
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -491,21 +484,23 @@ qmm8_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
         for (int e = 0; e < 4; ++e) acc[p][mt][nt][e] = 0.0f;
 
   // step i's copies into ring slot i % STAGES: x, BM rows of 8 16-byte
-  // chunks (rows past M read as zeros); the weight, BK rows of 8 chunks of
-  // 16 columns (panel p's columns at p * BN of the slot)
+  // chunks (rows past M read as zeros; INT4: chunks 0-3 from the low half
+  // of the depth, 4-7 from the high half); the weight, WROWS rows of 8
+  // chunks of 16 columns (panel p's columns at p * BN of the slot)
   auto issue = [&](int i) {
     unsigned char* slot = smem + (i % STAGES) * SLOT;
-    const int k0 = (k_begin + i) * BK;
+    const int k0 = (k_begin + i) * WROWS;  // first weight row of the step
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int v = tid + j * THREADS, r = v >> 3, ch = v & 7;
       const int row = m0 + r;
+      const int kx = INT4 ? (ch >> 2) * (D / 2) + k0 + (ch & 3) * 8
+                          : k0 + ch * 8;
       cp_async16(slot + r * (LDA * 2) + ch * 16,
-                 x + (size_t)(row < M ? row : 0) * D + k0 + ch * 8,
-                 row < M ? 16 : 0);
+                 x + (size_t)(row < M ? row : 0) * D + kx, row < M ? 16 : 0);
     }
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < WROWS * 8 / THREADS; ++j) {
       const int v = tid + j * THREADS, r = v >> 3, ch = v & 7;
       const int col = ch * 16;  // of the slot's 128
       cp_async16(slot + SLOT_X + r * WLD + col,
@@ -514,27 +509,42 @@ qmm8_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
     }
   };
 
-  // the raw weight of a slot into the bf16 tile Bs: task v moves k pair kp
-  // (rows 2 kp and 2 kp + 1) of 8 columns from 8 * ng; a warp's 32 tasks
-  // take 4 k pairs by 8 column groups, so the stores to Bs meet no bank
-  // twice
+  // the raw weight of a slot into the bf16 tile Bs. INT8: task v moves k
+  // pair kp (rows 2 kp and 2 kp + 1) of 8 columns from 8 * ng; a warp's 32
+  // tasks take 4 k pairs by 8 column groups, so the stores to Bs meet no
+  // bank twice. INT4: task v moves packed rows 2 kp and 2 kp + 1 of 8
+  // columns, the low nibbles to k pair kp and the high to kp + 16, with the
+  // same 4 by 8 shape a warp.
   auto convert = [&](int i) {
     const unsigned char* raw = smem + (i % STAGES) * SLOT + SLOT_X;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < (INT4 ? 1 : 2); ++j) {
       const int v = tid + j * THREADS;
-      const int kp = (v & 3) | (((v >> 5) & 7) << 2);
-      const int ng = ((v >> 2) & 7) | (((v >> 8) & 1) << 3);
+      const int kp = INT4 ? (v & 3) | (((v >> 5) & 3) << 2)
+                          : (v & 3) | (((v >> 5) & 7) << 2);
+      const int ng = INT4 ? ((v >> 2) & 7) | (((v >> 7) & 1) << 3)
+                          : ((v >> 2) & 7) | (((v >> 8) & 1) << 3);
       const uint2 even =
           *reinterpret_cast<const uint2*>(raw + 2 * kp * WLD + ng * 8);
       const uint2 odd =
           *reinterpret_cast<const uint2*>(raw + (2 * kp + 1) * WLD + ng * 8);
-      const uint32_t e[2] = {even.x ^ 0x80808080u, even.y ^ 0x80808080u};
-      const uint32_t o[2] = {odd.x ^ 0x80808080u, odd.y ^ 0x80808080u};
+      if constexpr (INT4) {
 #pragma unroll
-      for (int b = 0; b < 8; ++b)
-        Bs[b_index(ng * 8 + b, kp)] =
-            pack_bf16_biased(e[b >> 2], o[b >> 2], b & 3);
+        for (int b = 0; b < 8; ++b) {
+          const uint32_t ev = b < 4 ? even.x : even.y;
+          const uint32_t od = b < 4 ? odd.x : odd.y;
+          Bs[b_index(ng * 8 + b, kp)] = pack_nibbles<0>(ev, od, 8 * (b & 3));
+          Bs[b_index(ng * 8 + b, kp + KW / 2)] =
+              pack_nibbles<1>(ev, od, 8 * (b & 3));
+        }
+      } else {
+        const uint32_t e[2] = {even.x ^ 0x80808080u, even.y ^ 0x80808080u};
+        const uint32_t o[2] = {odd.x ^ 0x80808080u, odd.y ^ 0x80808080u};
+#pragma unroll
+        for (int b = 0; b < 8; ++b)
+          Bs[b_index(ng * 8 + b, kp)] =
+              pack_bf16_biased(e[b >> 2], o[b >> 2], b & 3);
+      }
     }
   };
 
@@ -564,131 +574,6 @@ qmm8_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
                      c);
 }
 
-// Shared memory of one INT4 block: 2 x tiles (BM, LDA) bf16, then
-// NPAN * 2 weight tiles of BN * KW words.
-template <int NT, bool GATEUP>
-constexpr int smem_bytes4() {
-  return 2 * BM * LDA * 2 + (GATEUP ? 2 : 1) * 2 * 16 * NT * KW * 4;
-}
-
-// The INT4 bodies: the weight is (D/2, Fw) packed split-half; D is the
-// unpacked depth. NT: 8-column tiles per warp (4: 64-column block, 2:
-// 32-column block). GATEUP as for qmm8_kernel. Grid (Fo / BN, row tiles,
-// S), S = 1 as the wrapper launches it.
-template <int NT, bool GATEUP>
-__global__ void __launch_bounds__(THREADS)
-qmm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-           const float* __restrict__ scale, const float* __restrict__ row_scale,
-           const void* __restrict__ residual, int residual_f32,
-           void* __restrict__ out, int out_f32, int M, int D, int Fo,
-           float* __restrict__ ws, int* __restrict__ counters, int per) {
-  constexpr int BN = 16 * NT;
-  constexpr int NPAN = GATEUP ? 2 : 1;
-  constexpr int NG = BN / 8;          // 8-column groups per weight row
-  constexpr int B_THREADS = KW * NG;  // threads that move weight bytes
-  const int Fw = GATEUP ? 2 * Fo : Fo;  // columns of the weight
-  const int Dx = D / 2;                 // packed rows; x offset of plane 1
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  // weight tile (panel p, plane q) at Bs + (q * NPAN + p) * BN * KW
-  uint32_t* Bs = reinterpret_cast<uint32_t*>(smem + 2 * BM * LDA * 2);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, c = lane & 3;
-  const int warp_m = warp & 3, warp_n = warp >> 2;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-
-  // this thread's share of a weight tile: rows 2*kp and 2*kp + 1, eight
-  // columns from n0 + 8 * ng
-  const int ng = tid % NG, kp = tid / NG;
-  const bool moves_b = tid < B_THREADS;
-
-  float acc[NPAN][2][NT][4];  // both planes sum into one accumulator
-#pragma unroll
-  for (int p = 0; p < NPAN; ++p)
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[p][mt][nt][e] = 0.0f;
-
-  uint4 a_reg[2][4];
-  uint2 b_reg[NPAN][2];
-
-  auto load_tile = [&](int k0) {
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int v = tid + i * THREADS;
-        const int row = m0 + (v >> 3);
-        a_reg[q][i] = row < M
-            ? *reinterpret_cast<const uint4*>(x + (size_t)row * D + q * Dx +
-                                              k0 + (v & 7) * 8)
-            : make_uint4(0u, 0u, 0u, 0u);
-      }
-    }
-    if (moves_b) {
-#pragma unroll
-      for (int p = 0; p < NPAN; ++p) {
-        const int8_t* src = w + (size_t)(k0 + 2 * kp) * Fw + n0 + p * Fo + ng * 8;
-        b_reg[p][0] = *reinterpret_cast<const uint2*>(src);
-        b_reg[p][1] = *reinterpret_cast<const uint2*>(src + Fw);
-      }
-    }
-  };
-
-  auto store_tile = [&]() {
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int v = tid + i * THREADS;
-        *reinterpret_cast<uint4*>(&As[q * BM * LDA + (v >> 3) * LDA +
-                                      (v & 7) * 8]) = a_reg[q][i];
-      }
-    }
-    if (moves_b) {
-#pragma unroll
-      for (int p = 0; p < NPAN; ++p) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const uint32_t even = j < 4 ? b_reg[p][0].x : b_reg[p][0].y;
-          const uint32_t odd = j < 4 ? b_reg[p][1].x : b_reg[p][1].y;
-          const int at = b_index(ng * 8 + j, kp);
-          Bs[p * BN * KW + at] = pack_nibbles<0>(even, odd, 8 * (j & 3));
-          Bs[(NPAN + p) * BN * KW + at] =
-              pack_nibbles<1>(even, odd, 8 * (j & 3));
-        }
-      }
-    }
-  };
-
-  // this block's share of the depth: steps [k_begin, k_end) of BK
-  const int k_begin = blockIdx.z * per;
-  const int k_end = min(Dx / BK, k_begin + per);
-  load_tile(k_begin * BK);
-  store_tile();
-  __syncthreads();
-  for (int kt = k_begin; kt < k_end; ++kt) {
-    if (kt + 1 < k_end) load_tile((kt + 1) * BK);
-#pragma unroll
-    for (int q = 0; q < 2; ++q)
-      mma_step<NT, NPAN>(acc, As + q * BM * LDA, Bs + q * NPAN * BN * KW,
-                         warp_m, warp_n, g, c);
-    __syncthreads();
-    if (kt + 1 < k_end) store_tile();
-    __syncthreads();
-  }
-  finish<NT, GATEUP>(acc, scale, row_scale, residual, residual_f32, out,
-                     out_f32, M, Fo, ws, counters, m0, n0, warp_m, warp_n, g,
-                     c);
-}
-
 // Above 48 KB a block's shared memory must be asked for, once per kernel.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
@@ -703,49 +588,27 @@ template <bool GATEUP, bool INT4>
 int launch(const void* x, const void* w, const void* scale,
            const void* row_scale, const void* residual, int residual_f32,
            void* out, int out_f32, int64_t M, int64_t D, int64_t Fo,
-           int narrow, int splits, void* ws, void* counters,
-           cudaStream_t stream) {
-  // INT8: 128 weight columns a step, a 128-column tile (gate-up: two of 64)
-  const int bn = INT4 ? (narrow ? 32 : 64) : WCOLS / (GATEUP ? 2 : 1);
-  if (M <= 0 || D <= 0 || Fo <= 0 || D % ((INT4 ? 2 : 1) * BK) != 0 ||
-      Fo % bn != 0)
+           int splits, void* ws, void* counters, cudaStream_t stream) {
+  // 128 weight columns a step: a 128-column tile, or gate-up's two of 64
+  const int bn = WCOLS / (GATEUP ? 2 : 1);
+  if (M <= 0 || D <= 0 || Fo <= 0 || D % BK != 0 || Fo % bn != 0)
     return (int)cudaErrorInvalidValue;
   // S splits of `per` steps each, the last one shorter, none empty
-  const int steps = (int)(D / ((INT4 ? 2 : 1) * BK));
+  const int steps = (int)(D / BK);
   const int per = splits > 0 ? (steps + splits - 1) / splits : 0;
   if (splits < 1 || (splits - 1) * per >= steps ||
       (splits > 1 && (ws == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned int)(Fo / bn), (unsigned int)((M + BM - 1) / BM),
                   (unsigned int)splits);
-  const auto* xp = static_cast<const __nv_bfloat16*>(x);
-  const auto* wp = static_cast<const int8_t*>(w);
-  const auto* sp = static_cast<const float*>(scale);
-  const auto* rp = static_cast<const float*>(row_scale);
-  auto* wsp = static_cast<float*>(ws);
-  auto* cp = static_cast<int*>(counters);
-  if constexpr (!INT4) {
-    static const cudaError_t attr =
-        allow_smem(qmm8_kernel<GATEUP>, RING_BYTES);
-    if (attr != cudaSuccess) return (int)attr;
-    qmm8_kernel<GATEUP><<<grid, THREADS, RING_BYTES, stream>>>(
-        xp, wp, sp, rp, residual, residual_f32, out, out_f32, (int)M, (int)D,
-        (int)Fo, wsp, cp, per);
-  } else if (narrow) {
-    constexpr int bytes = smem_bytes4<2, GATEUP>();
-    static const cudaError_t attr = allow_smem(qmm_kernel<2, GATEUP>, bytes);
-    if (attr != cudaSuccess) return (int)attr;
-    qmm_kernel<2, GATEUP><<<grid, THREADS, bytes, stream>>>(
-        xp, wp, sp, rp, residual, residual_f32, out, out_f32, (int)M, (int)D,
-        (int)Fo, wsp, cp, per);
-  } else {
-    constexpr int bytes = smem_bytes4<4, GATEUP>();
-    static const cudaError_t attr = allow_smem(qmm_kernel<4, GATEUP>, bytes);
-    if (attr != cudaSuccess) return (int)attr;
-    qmm_kernel<4, GATEUP><<<grid, THREADS, bytes, stream>>>(
-        xp, wp, sp, rp, residual, residual_f32, out, out_f32, (int)M, (int)D,
-        (int)Fo, wsp, cp, per);
-  }
+  static const cudaError_t attr =
+      allow_smem(qmm8_kernel<GATEUP, INT4>, RING_BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  qmm8_kernel<GATEUP, INT4><<<grid, THREADS, RING_BYTES, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
+      static_cast<const float*>(scale), static_cast<const float*>(row_scale),
+      residual, residual_f32, out, out_f32, (int)M, (int)D, (int)Fo,
+      static_cast<float*>(ws), static_cast<int*>(counters), per);
   return (int)cudaGetLastError();
 }
 
@@ -762,20 +625,20 @@ extern "C" int ppq_qmm_int8(const void* x, const void* w, const void* scale,
                             int64_t M, int64_t D, int64_t F, int splits,
                             void* ws, void* counters, void* stream) {
   return launch<false, false>(x, w, scale, row_scale, residual, residual_f32,
-                              out, out_f32, M, D, F, 0, splits, ws, counters,
+                              out, out_f32, M, D, F, splits, ws, counters,
                               static_cast<cudaStream_t>(stream));
 }
 
 // w: (D / 2, F) int8, split-half packed; D is the unpacked depth of x.
-// narrow != 0 takes 32-column blocks (more blocks for a narrow weight).
+// splits, ws and counters as for ppq_qmm_int8.
 extern "C" int ppq_qmm_int4(const void* x, const void* w, const void* scale,
                             const void* row_scale, const void* residual,
                             int residual_f32, void* out, int out_f32,
-                            int64_t M, int64_t D, int64_t F, int narrow,
-                            void* stream) {
+                            int64_t M, int64_t D, int64_t F, int splits,
+                            void* ws, void* counters, void* stream) {
   return launch<false, true>(x, w, scale, row_scale, residual, residual_f32,
-                             out, out_f32, M, D, F, narrow, 1, nullptr,
-                             nullptr, static_cast<cudaStream_t>(stream));
+                             out, out_f32, M, D, F, splits, ws, counters,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // w: (D, 2 * Fo) int8, [gate | up]; scale: (2 * Fo,) f32; out: (M, Fo).
@@ -785,17 +648,18 @@ extern "C" int ppq_qmm_gateup(const void* x, const void* w, const void* scale,
                               int64_t M, int64_t D, int64_t Fo, int splits,
                               void* ws, void* counters, void* stream) {
   return launch<true, false>(x, w, scale, row_scale, nullptr, 0, out,
-                             out_f32, M, D, Fo, 0, splits, ws, counters,
+                             out_f32, M, D, Fo, splits, ws, counters,
                              static_cast<cudaStream_t>(stream));
 }
 
 // w: (D / 2, 2 * Fo) int8, split-half packed [gate | up]; D unpacked.
+// splits as for ppq_qmm_gateup.
 extern "C" int ppq_qmm_gateup_int4(const void* x, const void* w,
                                    const void* scale, const void* row_scale,
                                    void* out, int out_f32, int64_t M,
-                                   int64_t D, int64_t Fo, int narrow,
-                                   void* stream) {
+                                   int64_t D, int64_t Fo, int splits, void* ws,
+                                   void* counters, void* stream) {
   return launch<true, true>(x, w, scale, row_scale, nullptr, 0, out, out_f32,
-                            M, D, Fo, narrow, 1, nullptr, nullptr,
+                            M, D, Fo, splits, ws, counters,
                             static_cast<cudaStream_t>(stream));
 }

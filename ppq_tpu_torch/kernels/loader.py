@@ -77,9 +77,10 @@ LIBRARIES: Dict[str, tuple] = {
         'ppq_qmm_gateup':
             [_P, _P, _P, _P, _P, _INT, _I64, _I64, _I64, _INT, _P, _P, _P],
         'ppq_qmm_int4':
-            [_P, _P, _P, _P, _P, _INT, _P, _INT, _I64, _I64, _I64, _INT, _P],
+            [_P, _P, _P, _P, _P, _INT, _P, _INT, _I64, _I64, _I64, _INT, _P,
+             _P, _P],
         'ppq_qmm_gateup_int4':
-            [_P, _P, _P, _P, _P, _INT, _I64, _I64, _I64, _INT, _P],
+            [_P, _P, _P, _P, _P, _INT, _I64, _I64, _I64, _INT, _P, _P, _P],
     }, []),
     'kv_write': ('kv_write.cu', {
         'ppq_bank_write':

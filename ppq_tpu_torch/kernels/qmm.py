@@ -17,11 +17,15 @@ and how the design meets that.
 
 The epilogue runs in f32 in that order and the result is cast once.
 
-The INT8 bodies split the contraction depth across S blocks a tile
-(`_splits`, from the weight's shape alone) and sum the f32 partials in a
-fixed order inside the one launch, in a workspace each (device, stream)
-keeps; two calls on the same inputs are bit-equal, and a row's result does
-not depend on the other rows of its batch.
+Every body, INT8 and INT4, launches one kernel once a call: a 128-row tile
+of 128 weight columns, 64-deep steps through a `cp.async` ring, the depth
+split across S blocks a tile (`_splits`, from the weight's shape alone and
+the same for both bodies: an INT4 step reads 32 packed rows, 64 of the
+unpacked depth), the f32 partials summed in a fixed order inside the
+launch, in a workspace each (device, stream) keeps. Two calls on the same
+inputs are bit-equal, and a row's result does not depend on the other rows
+of its batch. What bounds them at the decode shapes is the time of a step,
+not bytes or operations (csrc/qmm.cu, PERF.md).
 """
 
 from __future__ import annotations
@@ -33,8 +37,7 @@ import torch
 
 from .loader import LAUNCHES, check, library, stream_of
 
-# SMs of an H100: the INT4 bodies take 32-column blocks where 64-column ones
-# would not give every SM a block; the INT8 bodies split the depth instead
+# SMs of an H100: below this many column tiles the bodies split the depth
 _SMS = 132
 # the kernels' tile: rows of x a block, depth a step
 _BM, _BK = 128, 64
@@ -44,7 +47,7 @@ _BM, _BK = 128, 64
 # an H100 (PERF.md)
 _MIN_SPLIT_STEPS = 4
 _STEP_US, _PARTIAL_US = 1.24, 1.78
-# depth of the INT8 bodies' cp.async ring (csrc/qmm.cu STAGES)
+# depth of the kernels' cp.async ring (csrc/qmm.cu STAGES)
 _STAGES = 4
 
 
@@ -173,20 +176,16 @@ def _aligned(what, *tensors):
             raise ValueError(f'{what} takes 16-byte aligned tensors')
 
 
-def _narrow(f_out: int, rows: int) -> int:
-    return int((f_out // 64) * -(-rows // 128) < _SMS)
-
-
 def _bn(gateup: bool) -> int:
-    """Output columns of an INT8 body's tile, 128 weight columns a step:
-    one panel of 128, or gate-up's two of 64."""
+    """Output columns of a tile, 128 weight columns a step: one panel of
+    128, or gate-up's two of 64."""
     return 64 if gateup else 128
 
 
 def _splits(D: int, F: int, gateup: bool = False) -> int:
-    """S, the blocks that share each output tile's depth in the INT8 bodies,
-    from the weight's shape alone: F is the output width (gate-up: one
-    panel's). 1 where the column tiles alone give every SM a block. Else
+    """S, the blocks that share each output tile's depth, from the
+    weight's shape alone: D is the unpacked depth (an INT4 step is 64 deep
+    as an INT8 one), F the output width (gate-up: one panel's). 1 where the column tiles alone give every SM a block. Else
     the S, each split at least _MIN_SPLIT_STEPS steps deep, that the cost
     model says is quickest for one row tile (M <= 128, every decode step):
     the waves of one block an SM times the steps of a split, plus the
@@ -208,16 +207,19 @@ def _splits(D: int, F: int, gateup: bool = False) -> int:
     return min(shapes | {1}, key=lambda s: (cost(s), s))
 
 
-def int8_launch(M: int, D: int, F: int, gateup: bool = False) -> dict:
-    """How an INT8 body launches at this shape: its grid (column tiles, row
-    tiles, S), the tile's columns (gate-up: each panel's) and the loads."""
+def qmm_launch(M: int, D: int, F: int, gateup: bool = False) -> dict:
+    """How a body, INT8 or INT4, launches at this shape (D unpacked): its
+    grid (column tiles, row tiles, S), the tile's columns (gate-up: each
+    panel's) and the loads."""
     return dict(grid=[F // _bn(gateup), -(-M // _BM), _splits(D, F, gateup)],
                 BN=_bn(gateup), loads=f'{_STAGES}-stage cp.async ring')
 
 
 def split_ranges(D: int, F: int, gateup: bool = False):
-    """The depth range [k0, k1) each split of an INT8 launch sums, as the
-    kernel cuts it: S ranges of ceil(steps / S) steps, the last shorter."""
+    """The range [k0, k1) of the depth each split of a launch sums, as the
+    kernel cuts it: S ranges of ceil(steps / S) 64-deep steps, the last
+    shorter. An INT4 split takes packed rows [k0 / 2, k1 / 2), which
+    multiply x[:, k0 / 2 : k1 / 2] and x[:, D/2 + k0 / 2 : D/2 + k1 / 2]."""
     S, steps = _splits(D, F, gateup), D // _BK
     per = -(-steps // S)
     return [(s * per * _BK, min(steps, (s + 1) * per) * _BK)
@@ -225,17 +227,19 @@ def split_ranges(D: int, F: int, gateup: bool = False):
 
 
 def workspace_bytes(M: int, D: int, F: int, gateup: bool = False) -> int:
-    """Bytes of the f32 partial sums an INT8 launch writes: S planes of the
-    (M, F) product, both panels for gate-up; none when S is 1."""
+    """Bytes of the f32 partial sums a launch writes, INT8 or INT4 (D
+    unpacked): S planes of the (M, F) product, both panels for gate-up;
+    none when S is 1."""
     S = _splits(D, F, gateup)
     return 0 if S == 1 else S * M * F * 4 * (2 if gateup else 1)
 
 
 # (device, stream) -> (partial sums, tile counters): allocated at the first
-# split launch on that stream, grown when a larger shape arrives, never
-# shrunk. Launches on one stream run one after another, and each leaves its
-# counters at 0 for the next. A captured CUDA graph (ROADMAP item 12) must
-# allocate them before capture, at the largest shape it will replay.
+# split launch on that stream, INT8 or INT4, grown when a larger shape
+# arrives, never shrunk. Launches on one stream run one after another, and
+# each leaves its counters at 0 for the next. A captured CUDA graph (ROADMAP
+# item 12) must allocate them before capture, at the largest shape either
+# body will replay.
 _workspaces: Dict[Tuple[torch.device, int], Tuple[torch.Tensor,
                                                   torch.Tensor]] = {}
 
@@ -252,7 +256,7 @@ def _workspace(device: torch.device, stream: int, floats: int, tiles: int):
 
 
 def _split_args(x, M, D, F, gateup):
-    """(S, workspace pointer, counters pointer) of an INT8 launch."""
+    """(S, workspace pointer, counters pointer) of a launch; D unpacked."""
     S = _splits(D, F, gateup)
     if S == 1:
         return 1, None, None
@@ -280,9 +284,7 @@ def _launch_qmm(entry, what, x, w, scale, out_dtype, row_scale, residual):
     out = torch.empty((B, F), dtype=out_dtype, device=x.device)
     _aligned(what, x, w, scale, row, res, out)
     lib = library('qmm')
-    # the INT4 body keeps one block a tile, 32 or 64 columns wide
-    split = (_narrow(F, B),) if what == 'qmm_int4' \
-        else _split_args(x, B, D, F, False)
+    split = _split_args(x, B, D, F, False)
     with torch.cuda.device(x.device):
         rc = getattr(lib, entry)(
             x.data_ptr(), w.data_ptr(), scale.data_ptr(),
@@ -366,8 +368,7 @@ def qmm_gateup(x: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
     _aligned('qmm_gateup', x, w_int, scale, row, out)
     lib = library('qmm')
     entry = lib.ppq_qmm_gateup_int4 if int4 else lib.ppq_qmm_gateup
-    # the INT4 body keeps one block a tile, 32 or 64 columns a panel
-    split = (_narrow(F, B),) if int4 else _split_args(x, B, D, F, True)
+    split = _split_args(x, B, D, F, True)
     with torch.cuda.device(x.device):
         rc = entry(x.data_ptr(), w_int.data_ptr(), scale.data_ptr(),
                    None if row is None else row.data_ptr(), out.data_ptr(),

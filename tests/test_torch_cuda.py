@@ -409,13 +409,20 @@ SPLIT_DF = [(256, 128), (2048, 2048), (2048, 4096), (5632, 2048),
             (2048, 32768)]
 SPLIT_GATEUP = [(128, 2048, 5632), (1, 2048, 5632), (37, 5632, 2048),
                 (512, 2048, 5632), (200, 256, 128)]
+# the INT4 bodies: D (unpacked) a multiple of 512
+SPLIT_DF_INT4 = [(512, 128), (2048, 2048), (2048, 4096), (5632, 2048),
+                 (2048, 32768)]
+SPLIT_GATEUP_INT4 = [(128, 2048, 5632), (1, 2048, 5632), (37, 5632, 2048),
+                     (512, 2048, 5632), (200, 512, 128), (3, 512, 8448)]
 
 
 def test_splits_cover_both():
     from ppq_tpu_torch.kernels.qmm import _splits
     int8 = {_splits(D, F) > 1 for D, F in SPLIT_DF}
     gateup = {_splits(D, F, True) > 1 for _, D, F in SPLIT_GATEUP}
-    assert int8 == gateup == {True, False}
+    int4 = {_splits(D, F) > 1 for D, F in SPLIT_DF_INT4}
+    gateup4 = {_splits(D, F, True) > 1 for _, D, F in SPLIT_GATEUP_INT4}
+    assert int8 == gateup == int4 == gateup4 == {True, False}
 
 
 @pytest.mark.parametrize('out', [torch.float32, torch.bfloat16],
@@ -451,12 +458,48 @@ def test_qmm_gateup_kernel_split_shapes(cuda, M, D, F, out):
     _assert_gateup_close(got, want, x, w, scale, row)
 
 
+@pytest.mark.parametrize('out', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('D,F', SPLIT_DF_INT4)
+@pytest.mark.parametrize('M', SPLIT_M)
+def test_qmm_int4_kernel_split_shapes(cuda, M, D, F, out):
+    """Row 9 with the full epilogue at split and unsplit shapes, one launch
+    each, held to the plain version with the unpacked weight's mass."""
+    from ppq_tpu_torch.kernels import qmm_int4, qmm_int4_plain
+    x, w, codes, scale, row, res = _int4_inputs(cuda, M, D, F,
+                                                seed=M * 7 + D + F)
+    reset_launches()
+    got = qmm_int4(x, w, scale, out_dtype=out, row_scale=row, residual=res)
+    assert LAUNCHES['qmm_int4'] == 1 and sum(LAUNCHES.values()) == 1
+    want = qmm_int4_plain(x, w, scale, torch.float32, row, res)
+    torch.cuda.synchronize()
+    assert got.dtype == out and tuple(got.shape) == (M, F)
+    _assert_sum_close(got, want, x, codes, scale, row)
+
+
+@pytest.mark.parametrize('out', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('M,D,F', SPLIT_GATEUP_INT4)
+def test_qmm_gateup_int4_kernel_split_shapes(cuda, M, D, F, out):
+    from ppq_tpu_torch.kernels import qmm_gateup, qmm_gateup_plain
+    x, w, codes, scale, row, _ = _int4_inputs(cuda, M, D, 2 * F,
+                                              seed=M * 7 + D + F)
+    reset_launches()
+    got = qmm_gateup(x, w, scale, out_dtype=out, row_scale=row)
+    assert LAUNCHES['qmm_gateup_int4'] == 1 and sum(LAUNCHES.values()) == 1
+    want = qmm_gateup_plain(x, w, scale, torch.float32, row_scale=row)
+    torch.cuda.synchronize()
+    assert got.dtype == out and tuple(got.shape) == (M, F)
+    _assert_gateup_close(got, want, x, codes, scale, row)
+
+
 def test_qmm_split_calls_are_bit_equal(cuda):
     """The last block of a tile sums the partials in a fixed order and
     leaves the tile's counter at 0: two calls on the same inputs agree bit
     for bit, and so does a call after calls of other shapes (which reuse
-    the workspace and the counters), and a call on some of the rows."""
-    from ppq_tpu_torch.kernels import qmm_gateup, qmm_int8
+    the workspace and the counters), and a call on some of the rows; for
+    every body, INT8 and INT4."""
+    from ppq_tpu_torch.kernels import qmm_gateup, qmm_int4, qmm_int8
     from ppq_tpu_torch.kernels.qmm import _splits
     x, w, scale, row, res = _qmm_inputs(cuda, 128, 5632, 2048, seed=5)
     assert _splits(5632, 2048) > 1
@@ -465,35 +508,67 @@ def test_qmm_split_calls_are_bit_equal(cuda):
     xg, wg, sg, rg, _ = _qmm_inputs(cuda, 128, 5632, 2 * 2048, seed=6)
     assert _splits(5632, 2048, True) > 1
     gate = qmm_gateup(xg, wg, sg, torch.float32, rg)
-    for M, D, F in ((37, 2048, 4096), (512, 2048, 2048), (1, 256, 128)):
+    x4, w4, _, s4, r4, res4 = _int4_inputs(cuda, 128, 5632, 2048, seed=10)
+    first4 = qmm_int4(x4, w4, s4, torch.float32, r4, res4)
+    assert torch.equal(qmm_int4(x4, w4, s4, torch.float32, r4, res4), first4)
+    xg4, wg4, _, sg4, rg4, _ = _int4_inputs(cuda, 128, 5632, 2 * 2048,
+                                            seed=11)
+    gate4 = qmm_gateup(xg4, wg4, sg4, torch.float32, rg4)
+    assert torch.equal(qmm_gateup(xg4, wg4, sg4, torch.float32, rg4), gate4)
+    for M, D, F in ((37, 2048, 4096), (512, 2048, 2048), (1, 512, 128)):
         xo, wo, so, ro, reso = _qmm_inputs(cuda, M, D, F, seed=M)
         qmm_int8(xo, wo, so, torch.bfloat16, ro, reso)
+        xo, wo, _, so, ro, reso = _int4_inputs(cuda, M, D, F, seed=M + 1)
+        qmm_int4(xo, wo, so, torch.bfloat16, ro, reso)
     assert torch.equal(qmm_int8(x, w, scale, torch.float32, row, res), first)
     assert torch.equal(qmm_gateup(xg, wg, sg, torch.float32, rg), gate)
+    assert torch.equal(qmm_int4(x4, w4, s4, torch.float32, r4, res4), first4)
+    assert torch.equal(qmm_gateup(xg4, wg4, sg4, torch.float32, rg4), gate4)
     # S does not depend on M: each row sums in the same order in any batch
     assert torch.equal(qmm_int8(x[:37], w, scale, torch.float32, row[:37],
                                 res[:37]), first[:37])
     assert torch.equal(qmm_gateup(xg[:1], wg, sg, torch.float32, rg[:1]),
                        gate[:1])
+    assert torch.equal(qmm_int4(x4[:37], w4, s4, torch.float32, r4[:37],
+                                res4[:37]), first4[:37])
+    assert torch.equal(qmm_gateup(xg4[:1], wg4, sg4, torch.float32, rg4[:1]),
+                       gate4[:1])
     torch.cuda.synchronize()
 
 
-def test_qmm_int4_bodies_launch_one_block_a_tile(cuda):
-    """The INT4 bodies keep their launch: at shapes where the INT8 bodies
-    split, they take no workspace and no counters."""
-    from ppq_tpu_torch.kernels import qmm_gateup, qmm_int4
+def test_qmm_int4_bodies_split_like_the_int8_bodies(cuda):
+    """The INT4 bodies split the depth where the INT8 ones do, with the same
+    S on the unpacked shape, one launch a call, and take the same
+    per-(device, stream) workspace and counters: an INT8 call after an INT4
+    call of the same shape grows neither."""
+    from ppq_tpu_torch.kernels import qmm_gateup, qmm_int4, qmm_int8
     from ppq_tpu_torch.kernels import qmm as tqmm
     tqmm._workspaces.clear()
     x, w, codes, scale, row, res = _int4_inputs(cuda, 128, 2048, 2048, seed=8)
     assert tqmm._splits(2048, 2048) > 1
+    reset_launches()
     got = qmm_int4(x, w, scale, torch.float32, row, res)
+    assert LAUNCHES['qmm_int4'] == 1 and sum(LAUNCHES.values()) == 1
+    assert list(tqmm._workspaces) == [
+        (x.device, torch.cuda.current_stream(x.device).cuda_stream)]
+    (ws, counters), = tqmm._workspaces.values()
+    assert ws.numel() * 4 == tqmm.workspace_bytes(128, 2048, 2048)
+    qmm_int8(x, codes, scale, torch.float32, row, res)
+    (ws_8, counters_8), = tqmm._workspaces.values()
+    assert ws_8 is ws and counters_8 is counters
     x, wg, codes_g, sg, rg, _ = _int4_inputs(cuda, 128, 5632, 2 * 2048, seed=9)
     assert tqmm._splits(5632, 2048, True) > 1
+    reset_launches()
     gate = qmm_gateup(x, wg, sg, torch.float32, rg)
+    assert LAUNCHES['qmm_gateup_int4'] == 1 and sum(LAUNCHES.values()) == 1
+    (ws_g, counters_g), = tqmm._workspaces.values()
+    assert ws_g.numel() * 4 >= tqmm.workspace_bytes(128, 5632, 2048, True)
+    qmm_gateup(x, codes_g, sg, torch.float32, rg)
+    (ws_8, counters_8), = tqmm._workspaces.values()
+    assert ws_8 is ws_g and counters_8 is counters_g
     torch.cuda.synchronize()
-    assert not tqmm._workspaces
-    assert got.shape == (128, 2048) and gate.shape == (128, 2048)
     assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(gate).all())
+    assert not bool(counters_g.any())
 
 
 @pytest.mark.parametrize('dtype', [torch.int8, torch.bfloat16],

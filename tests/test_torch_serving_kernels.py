@@ -111,24 +111,39 @@ def test_qmm_routing_rules_match():
         jqmm.supports_gateup(512, 512, 4, 4) is True
 
 
-# split-K of the INT8 bodies: decode shapes (M = 128) of the 1B model,
-# prefill shapes up to the 2 MiB cap on x, and small ones
+# split-K of every body: decode shapes (M = 128) of the 1B model, prefill
+# shapes up to the 2 MiB cap on x, and small ones; D is the unpacked depth,
+# and the INT4 bodies take D a multiple of 512 (the JAX package's rule)
 SPLIT_M = (1, 37, 128, 129, 200, 512)
 SPLIT_DF = ((256, 128), (2048, 2048), (2048, 4096), (5632, 2048),
             (2048, 32768), (2048, 5632))
+SPLIT_DF_INT4 = ((512, 128), (1024, 384), (2048, 2048), (2048, 4096),
+                 (5632, 2048), (2048, 5632))
+SPLIT_BODIES = [(D, F, gateup, int4)
+                for int4, shapes in ((False, SPLIT_DF), (True, SPLIT_DF_INT4))
+                for D, F in shapes for gateup in (False, True)]
 
 
-@pytest.mark.parametrize('gateup', [False, True], ids=['int8', 'gateup'])
-@pytest.mark.parametrize('D,F', SPLIT_DF)
+def _split_id(case):
+    D, F, gateup, int4 = case
+    return f'{"int4" if int4 else "int8"}{"-gateup" if gateup else ""}-{D}x{F}'
+
+
+@pytest.mark.parametrize('body', SPLIT_BODIES, ids=_split_id)
 @pytest.mark.parametrize('M', SPLIT_M)
-def test_qmm_splits_cover_the_depth(M, D, F, gateup):
+def test_qmm_splits_cover_the_depth(M, body):
     """The splits cut [0, D) into S ranges of whole 64-deep steps, none
     empty, every one but the last at least _MIN_SPLIT_STEPS steps deep, no
     more than about two blocks an SM need for one row tile; one split where
     the column tiles alone give every SM a block (so wherever one row
     tile's grid has two blocks an SM); the workspace holds S planes of the
     (M, F) product, both panels for gate-up, none without a split; and the
-    launch the smoke logs says the same."""
+    launch the smoke logs says the same. An INT4 split's packed rows are
+    whole 32-row steps of the (D/2, F) weight and cover it once."""
+    D, F, gateup, int4 = body
+    if int4:
+        assert tqmm.supports_int4(D // 2, F) and \
+            tqmm.supports_gateup(D, 2 * F, M, 4)
     S = tqmm._splits(D, F, gateup)
     ranges = tqmm.split_ranges(D, F, gateup)
     assert len(ranges) == S >= 1
@@ -137,13 +152,17 @@ def test_qmm_splits_cover_the_depth(M, D, F, gateup):
     assert all(a % 64 == 0 and b % 64 == 0 and b > a for a, b in ranges)
     if S > 1:
         assert all(b - a >= tqmm._MIN_SPLIT_STEPS * 64 for a, b in ranges[:-1])
+    if int4:
+        packed = [(a // 2, b // 2) for a, b in ranges]
+        assert all(a % 32 == 0 and b % 32 == 0 for a, b in packed)
+        assert packed[-1][1] == D // 2
     col_tiles = F // (64 if gateup else 128)
     assert col_tiles * (S - 1) < 2 * tqmm._SMS
     if col_tiles >= tqmm._SMS:
         assert S == 1
     want = 0 if S == 1 else S * M * F * 4 * (2 if gateup else 1)
     assert tqmm.workspace_bytes(M, D, F, gateup) == want
-    launch = tqmm.int8_launch(M, D, F, gateup)
+    launch = tqmm.qmm_launch(M, D, F, gateup)
     assert launch['grid'] == [col_tiles, -(-M // 128), S]
 
 
@@ -155,7 +174,7 @@ def test_qmm_splits_depend_on_the_weight_alone(monkeypatch):
     import inspect
     assert list(inspect.signature(tqmm._splits).parameters) == \
         ['D', 'F', 'gateup']
-    shapes = [(D, F, g) for D, F in SPLIT_DF for g in (False, True)]
+    shapes = [(D, F, g) for D, F, g, _ in SPLIT_BODIES]
     before = [tqmm._splits(*s) for s in shapes]
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
     monkeypatch.setenv('CUDA_VISIBLE_DEVICES', '3')
@@ -167,14 +186,21 @@ def test_qmm_splits_depend_on_the_weight_alone(monkeypatch):
 
 
 def test_qmm_cpu_wrappers_take_no_workspace():
-    """On CPU tensors the wrappers run the plain versions: no split, no
-    workspace, no launch."""
+    """On CPU tensors the wrappers run the plain versions, both bodies: no
+    split, no workspace, no launch."""
     tqmm._workspaces.clear()
     x, w, scale, row, res = (torch.from_numpy(a)
                              for a in _qmm_case(128, 2048, 2048, seed=3))
-    LAUNCHES['qmm_int8'] = 0
+    packed = tqmm.pack_int4_splithalf(w.clamp(-8, 7))
+    for name in ('qmm_int8', 'qmm_int4', 'qmm_gateup', 'qmm_gateup_int4'):
+        LAUNCHES[name] = 0
     qmm_int8(x, w, scale, torch.float32, row, res)
-    assert not tqmm._workspaces and LAUNCHES['qmm_int8'] == 0
+    tqmm.qmm_int4(x, packed, scale, torch.float32, row, res)
+    qmm_gateup(x, w, scale, torch.float32, row)
+    qmm_gateup(x, packed, scale, torch.float32, row)
+    assert not tqmm._workspaces
+    assert all(LAUNCHES[name] == 0 for name in (
+        'qmm_int8', 'qmm_int4', 'qmm_gateup', 'qmm_gateup_int4'))
 
 
 def _codes(rng, shape, dtype):
