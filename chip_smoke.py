@@ -558,7 +558,7 @@ def _qmm_launch(B, d, f, gateup, int4=False):
     the wrapper of this checkout picks them."""
     from ppq_tpu_torch.kernels import qmm
     if hasattr(qmm, 'qmm_launch'):
-        return json.dumps(qmm.qmm_launch(B, d, f, gateup))
+        return json.dumps(qmm.qmm_launch(B, d, f, gateup, int4))
     if hasattr(qmm, 'int8_launch') and not int4:
         return json.dumps(qmm.int8_launch(B, d, f, gateup))
     return 'one block a tile (no split-K in this checkout)'
@@ -779,7 +779,8 @@ def qmm_sweep(dev, flush):
             times[S] = time_ms(run, flush)
         log(f'[qmm sweep] {label} {[B, D, Fw]}: ' + ', '.join(
             f'S {S} {t:.4f} ms' for S, t in times.items()) +
-            f'; _splits picks S {qmm._splits(D, F, gateup)}')
+            f'; _splits picks S '
+            f'{qmm._splits(D, F, gateup, int4) if int4 else qmm._splits(D, F, gateup)}')
         del x, w, scale, row, res, out
 
 

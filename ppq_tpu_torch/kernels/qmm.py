@@ -17,15 +17,16 @@ and how the design meets that.
 
 The epilogue runs in f32 in that order and the result is cast once.
 
-Every body, INT8 and INT4, launches one kernel once a call: a 128-row tile
-of 128 weight columns, 64-deep steps through a `cp.async` ring, the depth
-split across S blocks a tile (`_splits`, from the weight's shape alone and
-the same for both bodies: an INT4 step reads 32 packed rows, 64 of the
-unpacked depth), the f32 partials summed in a fixed order inside the
-launch, in a workspace each (device, stream) keeps. Two calls on the same
-inputs are bit-equal, and a row's result does not depend on the other rows
-of its batch. What bounds them at the decode shapes is the time of a step,
-not bytes or operations (csrc/qmm.cu, PERF.md).
+Every body launches once a call: a 128-row tile of 128 weight columns,
+64-deep steps through a `cp.async` ring, the depth split across S blocks a
+tile (`_splits`, from the weight's shape alone and the same for both bodies:
+an INT4 step reads 32 packed rows, 64 of the unpacked depth), the f32
+partials summed in a fixed order inside the launch, in a workspace each
+(device, stream) keeps. The INT8 bodies multiply with `mma.sync`, the INT4
+bodies with `wgmma`. Two calls on the same inputs are bit-equal, and a
+row's result does not depend on the other rows of its batch. What bounds
+them at the decode shapes is the time of a step, not bytes or operations
+(csrc/qmm.cu, PERF.md).
 """
 
 from __future__ import annotations
@@ -41,14 +42,17 @@ from .loader import LAUNCHES, check, library, stream_of
 _SMS = 132
 # the kernels' tile: rows of x a block, depth a step
 _BM, _BK = 128, 64
-# split-K: each split at least this many steps; the cost model's time of a
-# 64-deep step of a 128 x 128 tile and of one partial tile written and
-# summed by a tile's last block, fitted to `chip_smoke.py --qmm`'s sweep on
-# an H100 (PERF.md)
+# split-K: each split at least this many steps; the cost model's terms for
+# each body (int4: False, True), in us: a 64-deep step of a 128 x 128 tile,
+# one partial tile written and summed by a tile's last block, and what a
+# wave of blocks costs beside its steps. Fitted to `chip_smoke.py --qmm`'s
+# sweep on an H100 (PERF.md): the INT8 bodies on mma.sync (no wave term),
+# the INT4 bodies on wgmma, whose cheaper step leaves each block's fixed
+# cost (the ring's first loads, the epilogue) to decide a second wave
 _MIN_SPLIT_STEPS = 4
-_STEP_US, _PARTIAL_US = 1.24, 1.78
-# depth of the kernels' cp.async ring (csrc/qmm.cu STAGES)
-_STAGES = 4
+_COST_US = {False: (1.24, 1.78, 0.0), True: (0.82, 1.47, 6.5)}
+# depth of the kernels' cp.async rings (csrc/qmm.cu STAGES, STAGES4)
+_STAGES, _STAGES4 = 4, 5
 
 
 def supports(d: int, f: int, b: int = 64) -> bool:
@@ -182,55 +186,64 @@ def _bn(gateup: bool) -> int:
     return 64 if gateup else 128
 
 
-def _splits(D: int, F: int, gateup: bool = False) -> int:
+def _splits(D: int, F: int, gateup: bool = False, int4: bool = False) -> int:
     """S, the blocks that share each output tile's depth, from the
-    weight's shape alone: D is the unpacked depth (an INT4 step is 64 deep
-    as an INT8 one), F the output width (gate-up: one panel's). 1 where the column tiles alone give every SM a block. Else
-    the S, each split at least _MIN_SPLIT_STEPS steps deep, that the cost
-    model says is quickest for one row tile (M <= 128, every decode step):
-    the waves of one block an SM times the steps of a split, plus the
-    partial tiles the last block sums; then evened out so that no split is
-    empty. S does not depend on the rows, so a row's sum is taken in the
-    same order whatever batch it comes in, as before the split."""
+    weight's shape and the body alone: D is the unpacked depth (an INT4
+    step is 64 deep as an INT8 one), F the output width (gate-up: one
+    panel's). 1 where the column tiles alone give every SM a block. Else
+    the S, each split at least _MIN_SPLIT_STEPS steps deep, that the body's
+    cost model says is quickest for one row tile (M <= 128, every decode
+    step): the waves of one block an SM times the steps of a split and the
+    wave's own cost, plus the partial tiles the last block sums; then
+    evened out so that no split is empty. S does not depend on the rows,
+    so a row's sum is taken in the same order whatever batch it comes in,
+    as before the split."""
     tiles, steps = F // _bn(gateup), D // _BK
     if tiles >= _SMS:
         return 1
+    step_us, partial_us, wave_us = _COST_US[int4]
 
     def evened(s):
         return -(-steps // -(-steps // s))
 
     def cost(s):
         waves = -(-tiles * s // _SMS)
-        return waves * -(-steps // s) * _STEP_US + (s > 1) * s * _PARTIAL_US
+        return waves * (-(-steps // s) * step_us + wave_us) \
+            + (s > 1) * s * partial_us
 
     shapes = {evened(s) for s in range(1, steps // _MIN_SPLIT_STEPS + 1)}
     return min(shapes | {1}, key=lambda s: (cost(s), s))
 
 
-def qmm_launch(M: int, D: int, F: int, gateup: bool = False) -> dict:
-    """How a body, INT8 or INT4, launches at this shape (D unpacked): its
-    grid (column tiles, row tiles, S), the tile's columns (gate-up: each
-    panel's) and the loads."""
-    return dict(grid=[F // _bn(gateup), -(-M // _BM), _splits(D, F, gateup)],
-                BN=_bn(gateup), loads=f'{_STAGES}-stage cp.async ring')
+def qmm_launch(M: int, D: int, F: int, gateup: bool = False,
+               int4: bool = False) -> dict:
+    """How a body launches at this shape (D unpacked): its grid (column
+    tiles, row tiles, S), the tile's columns (gate-up: each panel's), the
+    loads and the product."""
+    return dict(grid=[F // _bn(gateup), -(-M // _BM),
+                      _splits(D, F, gateup, int4)],
+                BN=_bn(gateup),
+                loads=f'{_STAGES4 if int4 else _STAGES}-stage cp.async ring',
+                product='wgmma m64n128k16' if int4 else 'mma.sync m16n8k16')
 
 
-def split_ranges(D: int, F: int, gateup: bool = False):
+def split_ranges(D: int, F: int, gateup: bool = False, int4: bool = False):
     """The range [k0, k1) of the depth each split of a launch sums, as the
     kernel cuts it: S ranges of ceil(steps / S) 64-deep steps, the last
     shorter. An INT4 split takes packed rows [k0 / 2, k1 / 2), which
     multiply x[:, k0 / 2 : k1 / 2] and x[:, D/2 + k0 / 2 : D/2 + k1 / 2]."""
-    S, steps = _splits(D, F, gateup), D // _BK
+    S, steps = _splits(D, F, gateup, int4), D // _BK
     per = -(-steps // S)
     return [(s * per * _BK, min(steps, (s + 1) * per) * _BK)
             for s in range(S)]
 
 
-def workspace_bytes(M: int, D: int, F: int, gateup: bool = False) -> int:
+def workspace_bytes(M: int, D: int, F: int, gateup: bool = False,
+                    int4: bool = False) -> int:
     """Bytes of the f32 partial sums a launch writes, INT8 or INT4 (D
     unpacked): S planes of the (M, F) product, both panels for gate-up;
     none when S is 1."""
-    S = _splits(D, F, gateup)
+    S = _splits(D, F, gateup, int4)
     return 0 if S == 1 else S * M * F * 4 * (2 if gateup else 1)
 
 
@@ -255,14 +268,14 @@ def _workspace(device: torch.device, stream: int, floats: int, tiles: int):
     return ws, counters
 
 
-def _split_args(x, M, D, F, gateup):
+def _split_args(x, M, D, F, gateup, int4):
     """(S, workspace pointer, counters pointer) of a launch; D unpacked."""
-    S = _splits(D, F, gateup)
+    S = _splits(D, F, gateup, int4)
     if S == 1:
         return 1, None, None
     ws, counters = _workspace(x.device,
                               torch.cuda.current_stream(x.device).cuda_stream,
-                              workspace_bytes(M, D, F, gateup) // 4,
+                              workspace_bytes(M, D, F, gateup, int4) // 4,
                               -(-M // _BM) * (F // _bn(gateup)))
     return S, ws.data_ptr(), counters.data_ptr()
 
@@ -284,7 +297,7 @@ def _launch_qmm(entry, what, x, w, scale, out_dtype, row_scale, residual):
     out = torch.empty((B, F), dtype=out_dtype, device=x.device)
     _aligned(what, x, w, scale, row, res, out)
     lib = library('qmm')
-    split = _split_args(x, B, D, F, False)
+    split = _split_args(x, B, D, F, False, what == 'qmm_int4')
     with torch.cuda.device(x.device):
         rc = getattr(lib, entry)(
             x.data_ptr(), w.data_ptr(), scale.data_ptr(),
@@ -368,7 +381,7 @@ def qmm_gateup(x: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
     _aligned('qmm_gateup', x, w_int, scale, row, out)
     lib = library('qmm')
     entry = lib.ppq_qmm_gateup_int4 if int4 else lib.ppq_qmm_gateup
-    split = _split_args(x, B, D, F, True)
+    split = _split_args(x, B, D, F, True, int4)
     with torch.cuda.device(x.device):
         rc = entry(x.data_ptr(), w_int.data_ptr(), scale.data_ptr(),
                    None if row is None else row.data_ptr(), out.data_ptr(),

@@ -420,8 +420,8 @@ def test_splits_cover_both():
     from ppq_tpu_torch.kernels.qmm import _splits
     int8 = {_splits(D, F) > 1 for D, F in SPLIT_DF}
     gateup = {_splits(D, F, True) > 1 for _, D, F in SPLIT_GATEUP}
-    int4 = {_splits(D, F) > 1 for D, F in SPLIT_DF_INT4}
-    gateup4 = {_splits(D, F, True) > 1 for _, D, F in SPLIT_GATEUP_INT4}
+    int4 = {_splits(D, F, False, True) > 1 for D, F in SPLIT_DF_INT4}
+    gateup4 = {_splits(D, F, True, True) > 1 for _, D, F in SPLIT_GATEUP_INT4}
     assert int8 == gateup == int4 == gateup4 == {True, False}
 
 
@@ -509,10 +509,12 @@ def test_qmm_split_calls_are_bit_equal(cuda):
     assert _splits(5632, 2048, True) > 1
     gate = qmm_gateup(xg, wg, sg, torch.float32, rg)
     x4, w4, _, s4, r4, res4 = _int4_inputs(cuda, 128, 5632, 2048, seed=10)
+    assert _splits(5632, 2048, False, True) > 1
     first4 = qmm_int4(x4, w4, s4, torch.float32, r4, res4)
     assert torch.equal(qmm_int4(x4, w4, s4, torch.float32, r4, res4), first4)
     xg4, wg4, _, sg4, rg4, _ = _int4_inputs(cuda, 128, 5632, 2 * 2048,
                                             seed=11)
+    assert _splits(5632, 2048, True, True) > 1
     gate4 = qmm_gateup(xg4, wg4, sg4, torch.float32, rg4)
     assert torch.equal(qmm_gateup(xg4, wg4, sg4, torch.float32, rg4), gate4)
     for M, D, F in ((37, 2048, 4096), (512, 2048, 2048), (1, 512, 128)):
@@ -536,33 +538,36 @@ def test_qmm_split_calls_are_bit_equal(cuda):
     torch.cuda.synchronize()
 
 
-def test_qmm_int4_bodies_split_like_the_int8_bodies(cuda):
-    """The INT4 bodies split the depth where the INT8 ones do, with the same
-    S on the unpacked shape, one launch a call, and take the same
-    per-(device, stream) workspace and counters: an INT8 call after an INT4
-    call of the same shape grows neither."""
+def test_qmm_int4_bodies_split_and_share_the_workspace(cuda):
+    """The INT4 bodies split the depth at the decode shapes where the INT8
+    ones do (wqkv, wo, w_down; the INT4 gate-up at 2048 -> 2 x 5632 takes
+    one split, by its body's cost model), one launch a call, and take the
+    same per-(device, stream) workspace and counters: an INT8 call after an
+    INT4 call of the same split shape grows neither."""
     from ppq_tpu_torch.kernels import qmm_gateup, qmm_int4, qmm_int8
     from ppq_tpu_torch.kernels import qmm as tqmm
+    for D, F in ((2048, 4096), (2048, 2048), (5632, 2048)):
+        assert tqmm._splits(D, F, False, True) > 1 and tqmm._splits(D, F) > 1
+    assert tqmm._splits(2048, 5632, True, True) == 1
     tqmm._workspaces.clear()
     x, w, codes, scale, row, res = _int4_inputs(cuda, 128, 2048, 2048, seed=8)
-    assert tqmm._splits(2048, 2048) > 1
     reset_launches()
     got = qmm_int4(x, w, scale, torch.float32, row, res)
     assert LAUNCHES['qmm_int4'] == 1 and sum(LAUNCHES.values()) == 1
     assert list(tqmm._workspaces) == [
         (x.device, torch.cuda.current_stream(x.device).cuda_stream)]
     (ws, counters), = tqmm._workspaces.values()
-    assert ws.numel() * 4 == tqmm.workspace_bytes(128, 2048, 2048)
+    assert ws.numel() * 4 == tqmm.workspace_bytes(128, 2048, 2048, False, True)
     qmm_int8(x, codes, scale, torch.float32, row, res)
     (ws_8, counters_8), = tqmm._workspaces.values()
     assert ws_8 is ws and counters_8 is counters
     x, wg, codes_g, sg, rg, _ = _int4_inputs(cuda, 128, 5632, 2 * 2048, seed=9)
-    assert tqmm._splits(5632, 2048, True) > 1
+    assert tqmm._splits(5632, 2048, True, True) > 1
     reset_launches()
     gate = qmm_gateup(x, wg, sg, torch.float32, rg)
     assert LAUNCHES['qmm_gateup_int4'] == 1 and sum(LAUNCHES.values()) == 1
     (ws_g, counters_g), = tqmm._workspaces.values()
-    assert ws_g.numel() * 4 >= tqmm.workspace_bytes(128, 5632, 2048, True)
+    assert ws_g.numel() * 4 >= tqmm.workspace_bytes(128, 5632, 2048, True, True)
     qmm_gateup(x, codes_g, sg, torch.float32, rg)
     (ws_8, counters_8), = tqmm._workspaces.values()
     assert ws_8 is ws_g and counters_8 is counters_g

@@ -144,8 +144,8 @@ def test_qmm_splits_cover_the_depth(M, body):
     if int4:
         assert tqmm.supports_int4(D // 2, F) and \
             tqmm.supports_gateup(D, 2 * F, M, 4)
-    S = tqmm._splits(D, F, gateup)
-    ranges = tqmm.split_ranges(D, F, gateup)
+    S = tqmm._splits(D, F, gateup, int4)
+    ranges = tqmm.split_ranges(D, F, gateup, int4)
     assert len(ranges) == S >= 1
     assert ranges[0][0] == 0 and ranges[-1][1] == D
     assert all(b == c for (_, b), (c, _) in zip(ranges, ranges[1:]))
@@ -161,27 +161,31 @@ def test_qmm_splits_cover_the_depth(M, body):
     if col_tiles >= tqmm._SMS:
         assert S == 1
     want = 0 if S == 1 else S * M * F * 4 * (2 if gateup else 1)
-    assert tqmm.workspace_bytes(M, D, F, gateup) == want
-    launch = tqmm.qmm_launch(M, D, F, gateup)
+    assert tqmm.workspace_bytes(M, D, F, gateup, int4) == want
+    launch = tqmm.qmm_launch(M, D, F, gateup, int4)
     assert launch['grid'] == [col_tiles, -(-M // 128), S]
+    assert launch['product'].startswith('wgmma' if int4 else 'mma.sync')
 
 
 def test_qmm_splits_depend_on_the_weight_alone(monkeypatch):
     """_splits reads the weight's (D, F) and the body, nothing of the rows,
-    the device, the environment or the call; the decode shapes of the 1B
-    model split: wqkv, wo, w_down and gate-up; the lm_head's columns fill
-    the card alone."""
+    the device, the environment or the call. The decode shapes of the 1B
+    model split: wqkv, wo, w_down and the INT8 gate-up; the INT4 gate-up's
+    88 column tiles take the depth alone (one wave beats two on the INT4
+    body's cost model); the lm_head's columns fill the card alone."""
     import inspect
     assert list(inspect.signature(tqmm._splits).parameters) == \
-        ['D', 'F', 'gateup']
-    shapes = [(D, F, g) for D, F, g, _ in SPLIT_BODIES]
+        ['D', 'F', 'gateup', 'int4']
+    shapes = list(SPLIT_BODIES)
     before = [tqmm._splits(*s) for s in shapes]
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
     monkeypatch.setenv('CUDA_VISIBLE_DEVICES', '3')
     assert [tqmm._splits(*s) for s in reversed(shapes)] == before[::-1]
-    for D, F, gateup in ((2048, 4096, False), (2048, 2048, False),
-                         (5632, 2048, False), (2048, 5632, True)):
-        assert tqmm._splits(D, F, gateup) > 1, (D, F, gateup)
+    for int4 in (False, True):
+        for D, F in ((2048, 4096), (2048, 2048), (5632, 2048)):
+            assert tqmm._splits(D, F, False, int4) > 1, (D, F, int4)
+    assert tqmm._splits(2048, 5632, True) > 1
+    assert tqmm._splits(2048, 5632, True, True) == 1
     assert tqmm._splits(2048, 32000) == tqmm._splits(2048, 32768) == 1
 
 
