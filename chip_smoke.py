@@ -615,7 +615,7 @@ def kernels_qmm(dev, flush):
         tol, _ = _qmm_tolerance(x, w, scale, row)
         for out in (torch.float32, bf16):
             got = _twice(lambda: qmm_int8(x, w, scale, out, row, res),
-                        f'qmm_int8 {label} {out}')
+                         f'qmm_int8 {label} {out}')
             err = (got.float() - want).abs()
             lim = tol + (_bf16_step(want) if out == bf16 else 0.0)
             if not bool((err <= lim).all()):
@@ -679,7 +679,7 @@ def kernels_qmm(dev, flush):
         tol = _gateup_tolerance(x, w, scale, r)
         for out in (torch.float32, bf16):
             got = _twice(lambda: qmm_gateup(x, w, scale, out, r),
-                        f'qmm_gateup {out}')
+                         f'qmm_gateup {out}')
             err = (got.float() - want).abs()
             lim = tol + (_bf16_step(want) if out == bf16 else 0.0)
             if not bool((err <= lim).all()):
@@ -777,10 +777,12 @@ def qmm_sweep(dev, flush):
             if run() != 0:
                 raise AssertionError(f'qmm sweep {label}: S {S} refused')
             times[S] = time_ms(run, flush)
+        # the parent's _splits has no body argument and sweeps no INT4 body
+        picked = qmm._splits(D, F, gateup, True) if int4 \
+            else qmm._splits(D, F, gateup)
         log(f'[qmm sweep] {label} {[B, D, Fw]}: ' + ', '.join(
             f'S {S} {t:.4f} ms' for S, t in times.items()) +
-            f'; _splits picks S '
-            f'{qmm._splits(D, F, gateup, int4) if int4 else qmm._splits(D, F, gateup)}')
+            f'; _splits picks S {picked}')
         del x, w, scale, row, res, out
 
 

@@ -24,12 +24,12 @@
 //   * split-K: S blocks share a tile's depth (grid z); each writes its f32
 //     partial tile to a workspace, and the last to arrive adds the S
 //     partials in the fixed order s = 0 .. S-1 and runs the epilogue, in the
-//     same launch (finish). S comes from the weight's shape alone
-//     (kernels/qmm.py `_splits`, the same for both bodies): the quickest by
-//     a cost model of waves, steps and partial tiles for one row tile, each
-//     split at least 4 steps deep; 1 where the column tiles alone fill the
-//     card. It does not depend on M, so a row's sums are taken in the same
-//     order whatever the batch;
+//     same launch (finish). S comes from the weight's shape and the body
+//     alone (kernels/qmm.py `_splits`): the quickest by the body's cost
+//     model of waves, steps and partial tiles for one row tile, each split
+//     at least 4 steps deep; 1 where the column tiles alone fill the card.
+//     It does not depend on M, so a row's sums are taken in the same order
+//     whatever the batch;
 //   * a ring of `cp.async.cg` copies keeps x (bf16; shared by every block,
 //     so it comes from L2) and the raw weight of the next three steps in
 //     flight while one step is converted and multiplied;
@@ -57,10 +57,10 @@
 // What bounds them on an H100 at the decode shapes (M = 128) is latency,
 // not bytes or operations: D * F weight bytes (half that for INT4) against
 // 2 * M * D * F operations are about 2.5 us each at D = 2048, F = 4096, but
-// a 64-deep step of a 128 x 128 tile costs ~1.2 us on mma.sync and a
-// partial tile ~1.8 us, whatever the ring's depth: there the products
-// (fragments through shared memory) and the loads (one SM's share of L2)
-// barely overlap (PERF.md).
+// a 64-deep step of a 128 x 128 tile costs ~1.2 us on mma.sync, whatever
+// the ring's depth (the products, fragments through shared memory, and the
+// loads barely overlap), and ~0.8 us on wgmma, three times the tensor
+// cores' time: the warps that multiply also convert and load (PERF.md).
 //
 // The epilogue uses __fmul_rn / __fadd_rn so that no multiply-add is
 // contracted: scale, row scale and residual round one by one, as in the
@@ -78,10 +78,9 @@ constexpr int THREADS = 256;  // 8 warps: 4 along rows, 2 along columns
 constexpr int LDA = BK + 8;   // bf16 elements per x row in shared memory
 constexpr int KW = BK / 2;    // 32-bit words (bf16 pairs) per weight column
 
-// 128 weight columns a step through a STAGES-deep ring; a ring slot holds
-// the x tile (BM x LDA bf16) and the raw weight (BK rows of WLD bytes, rows
-// padded by 16 bytes; INT4 fills half of them), then the bf16 weight tile
-// follows
+// INT8 bodies: 128 weight columns a step through a STAGES-deep ring; a ring
+// slot holds the x tile (BM x LDA bf16) and the raw weight (BK rows of
+// WLD bytes, rows padded by 16 bytes), then the bf16 weight tile follows
 constexpr int STAGES = 4;
 constexpr int WCOLS = 128;
 constexpr int WLD = WCOLS + 16;

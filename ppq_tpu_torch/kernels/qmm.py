@@ -18,11 +18,11 @@ and how the design meets that.
 The epilogue runs in f32 in that order and the result is cast once.
 
 Every body launches once a call: a 128-row tile of 128 weight columns,
-64-deep steps through a `cp.async` ring, the depth split across S blocks a
-tile (`_splits`, from the weight's shape alone and the same for both bodies:
-an INT4 step reads 32 packed rows, 64 of the unpacked depth), the f32
-partials summed in a fixed order inside the launch, in a workspace each
-(device, stream) keeps. The INT8 bodies multiply with `mma.sync`, the INT4
+64-deep steps through a `cp.async` ring (an INT4 step reads 32 packed rows,
+64 of the unpacked depth), the depth split across S blocks a tile
+(`_splits`, from the weight's shape and the body alone), the f32 partials
+summed in a fixed order inside the launch, in a workspace each (device,
+stream) keeps. The INT8 bodies multiply with `mma.sync`, the INT4
 bodies with `wgmma`. Two calls on the same inputs are bit-equal, and a
 row's result does not depend on the other rows of its batch. What bounds
 them at the decode shapes is the time of a step, not bytes or operations

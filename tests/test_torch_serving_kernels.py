@@ -119,31 +119,16 @@ SPLIT_DF = ((256, 128), (2048, 2048), (2048, 4096), (5632, 2048),
             (2048, 32768), (2048, 5632))
 SPLIT_DF_INT4 = ((512, 128), (1024, 384), (2048, 2048), (2048, 4096),
                  (5632, 2048), (2048, 5632))
-SPLIT_BODIES = [(D, F, gateup, int4)
-                for int4, shapes in ((False, SPLIT_DF), (True, SPLIT_DF_INT4))
-                for D, F in shapes for gateup in (False, True)]
 
 
-def _split_id(case):
-    D, F, gateup, int4 = case
-    return f'{"int4" if int4 else "int8"}{"-gateup" if gateup else ""}-{D}x{F}'
-
-
-@pytest.mark.parametrize('body', SPLIT_BODIES, ids=_split_id)
-@pytest.mark.parametrize('M', SPLIT_M)
-def test_qmm_splits_cover_the_depth(M, body):
+def _check_splits(M, D, F, gateup, int4):
     """The splits cut [0, D) into S ranges of whole 64-deep steps, none
     empty, every one but the last at least _MIN_SPLIT_STEPS steps deep, no
     more than about two blocks an SM need for one row tile; one split where
     the column tiles alone give every SM a block (so wherever one row
     tile's grid has two blocks an SM); the workspace holds S planes of the
     (M, F) product, both panels for gate-up, none without a split; and the
-    launch the smoke logs says the same. An INT4 split's packed rows are
-    whole 32-row steps of the (D/2, F) weight and cover it once."""
-    D, F, gateup, int4 = body
-    if int4:
-        assert tqmm.supports_int4(D // 2, F) and \
-            tqmm.supports_gateup(D, 2 * F, M, 4)
+    launch the smoke logs says the same."""
     S = tqmm._splits(D, F, gateup, int4)
     ranges = tqmm.split_ranges(D, F, gateup, int4)
     assert len(ranges) == S >= 1
@@ -152,10 +137,6 @@ def test_qmm_splits_cover_the_depth(M, body):
     assert all(a % 64 == 0 and b % 64 == 0 and b > a for a, b in ranges)
     if S > 1:
         assert all(b - a >= tqmm._MIN_SPLIT_STEPS * 64 for a, b in ranges[:-1])
-    if int4:
-        packed = [(a // 2, b // 2) for a, b in ranges]
-        assert all(a % 32 == 0 and b % 32 == 0 for a, b in packed)
-        assert packed[-1][1] == D // 2
     col_tiles = F // (64 if gateup else 128)
     assert col_tiles * (S - 1) < 2 * tqmm._SMS
     if col_tiles >= tqmm._SMS:
@@ -165,6 +146,30 @@ def test_qmm_splits_cover_the_depth(M, body):
     launch = tqmm.qmm_launch(M, D, F, gateup, int4)
     assert launch['grid'] == [col_tiles, -(-M // 128), S]
     assert launch['product'].startswith('wgmma' if int4 else 'mma.sync')
+    return ranges
+
+
+@pytest.mark.parametrize('gateup', [False, True], ids=['int8', 'gateup'])
+@pytest.mark.parametrize('D,F', SPLIT_DF)
+@pytest.mark.parametrize('M', SPLIT_M)
+def test_qmm_splits_cover_the_depth(M, D, F, gateup):
+    """The INT8 bodies' splits (_check_splits)."""
+    _check_splits(M, D, F, gateup, False)
+
+
+@pytest.mark.parametrize('gateup', [False, True], ids=['int4', 'gateup4'])
+@pytest.mark.parametrize('D,F', SPLIT_DF_INT4)
+@pytest.mark.parametrize('M', SPLIT_M)
+def test_qmm_int4_splits_cover_the_depth(M, D, F, gateup):
+    """The INT4 bodies' splits (_check_splits) at shapes they take; a
+    split's packed rows are whole 32-row steps of the (D/2, F) weight and
+    cover it once."""
+    assert tqmm.supports_int4(D // 2, F) and \
+        tqmm.supports_gateup(D, 2 * F, M, 4)
+    ranges = _check_splits(M, D, F, gateup, True)
+    packed = [(a // 2, b // 2) for a, b in ranges]
+    assert all(a % 32 == 0 and b % 32 == 0 for a, b in packed)
+    assert packed[-1][1] == D // 2
 
 
 def test_qmm_splits_depend_on_the_weight_alone(monkeypatch):
@@ -176,7 +181,9 @@ def test_qmm_splits_depend_on_the_weight_alone(monkeypatch):
     import inspect
     assert list(inspect.signature(tqmm._splits).parameters) == \
         ['D', 'F', 'gateup', 'int4']
-    shapes = list(SPLIT_BODIES)
+    shapes = [(D, F, g, int4)
+              for int4, df in ((False, SPLIT_DF), (True, SPLIT_DF_INT4))
+              for D, F in df for g in (False, True)]
     before = [tqmm._splits(*s) for s in shapes]
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
     monkeypatch.setenv('CUDA_VISIBLE_DEVICES', '3')
