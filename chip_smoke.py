@@ -1147,14 +1147,17 @@ def kernels_ragged(dev, flush):
     worst = 0.0
     dense = _dense_slots(pool, sc, layer, B, tables)
     for lens in (path_lens, mixed):
-        got = paged_attention_decode_fused(q, pool, sc, tables, lens, layer,
-                                           block_size=blk)
-        want = paged_attention_decode_fused_plain(q, pool, sc, tables, lens,
-                                                  layer, block_size=blk)
-        share, err = _attention_tolerance(got, want, q, *dense, lens)
+        share, err = _hold_triple(
+            'paged_attention_fused',
+            lambda l: paged_attention_decode_fused(q, pool, sc, tables, l,
+                                                   layer, block_size=blk),
+            lambda l: paged_attention_decode_fused_plain(
+                q, pool, sc, tables, l, layer, block_size=blk),
+            q, dense, lens)
         worst = max(worst, err)
         log(f'[kernel] paged_attention_fused: worst share of the tolerance '
-            f'{share:.3f}, largest |acc| difference {err:.3e}')
+            f'{share:.3f}, largest |acc| difference {err:.3e}; two calls '
+            f'bit-equal')
     b, by = _attention_bound(path_lens, q, pool, tables.shape[1])
     results['paged_attention_fused'] = dict(
         max_abs_err=worst, shape=[B, KV, rep, Dh, L, B * cap // blk, blk],
@@ -1181,15 +1184,17 @@ def kernels_ragged(dev, flush):
     worst = 0.0
     dense = _dense_slots(kv_bm, sc_bm, layer, B)
     for lens in (path_lens, mixed):
-        got = paged_attention_decode_grouped(q, kv_bm, sc_bm, lens, layer,
-                                             block_size=blk, group=G)
-        want = paged_attention_decode_grouped_plain(q, kv_bm, sc_bm, lens,
-                                                    layer, block_size=blk,
-                                                    group=G)
-        share, err = _attention_tolerance(got, want, q, *dense, lens)
+        share, err = _hold_triple(
+            'paged_attention_grouped',
+            lambda l: paged_attention_decode_grouped(
+                q, kv_bm, sc_bm, l, layer, block_size=blk, group=G),
+            lambda l: paged_attention_decode_grouped_plain(
+                q, kv_bm, sc_bm, l, layer, block_size=blk, group=G),
+            q, dense, lens)
         worst = max(worst, err)
         log(f'[kernel] paged_attention_grouped: worst share of the tolerance '
-            f'{share:.3f}, largest |acc| difference {err:.3e}')
+            f'{share:.3f}, largest |acc| difference {err:.3e}; two calls '
+            f'bit-equal')
     b, by = _attention_bound(path_lens, q, kv_bm)
     results['paged_attention_grouped'] = dict(
         max_abs_err=worst, shape=[B, KV, rep, Dh, L, B * cap // blk, blk],
@@ -1210,6 +1215,153 @@ def kernels_ragged(dev, flush):
         'the unpacked weight; rows 11 and 12 within the attention tolerance '
         '(2e-5 of the logits\' mass; one bf16 step of p v_scale)')
     del cache, kv_bm, sc_bm, dense, q
+    torch.cuda.empty_cache()
+    return results
+
+
+def _edge_fills(B, cap, dev):
+    """Fills that end inside a pass, on one, inside and on a stage of 64
+    positions and on the window, an empty slot among them, over B slots."""
+    edges = [0, 1, 3, 15, 16, 17, 33, 63, 64, 65, 127, 128, 200, 255, 256,
+             257, 511, 512]
+    fills = [f for f in edges if f <= cap] + [cap]
+    return torch.tensor([fills[i % len(fills)] for i in range(B)],
+                        dtype=torch.int32, device=dev)
+
+
+def _hold_triple(label, run, plain, q, dense, lens):
+    """One of rows 11, 12 against its plain version, two calls bit-equal;
+    returns the worst share of the tolerance and the largest |acc|
+    difference."""
+    got, again = run(lens), run(lens)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f'{label}: two calls on the same inputs differ')
+    return _attention_tolerance(got, plain(lens), q, *dense, lens)
+
+
+def kernels_attention(dev, flush):
+    """`--attention` only: rows 11 and 12 at the four shapes the paths give
+    them (128 slots, 8 KV heads of 128, rep 2, the int8 cache of 16 layers
+    of max_seq_len 1024): row 11 at fill 512, one 512-position block a slot
+    (paths E, F); row 12 at fill 16 over blocks of 32 in groups of 32
+    (paths E, F, and G's benchmark at fill 16); row 12 over path G's blocks
+    of 256 at fill 512 (two blocks a slot) and at fill 16 (one partial
+    block: a shallow slot of `run` beside deep ones). Each against its plain
+    version at the path's fill, at mixed fills with empty slots and at
+    fills that end inside and on a pass and a stage, two calls bit-equal;
+    timed (its own flush before each call) beside its bound. Also the
+    launch floor (an empty kernel, timed the same way) and what an SM holds
+    of the kernel, where this checkout has the entry points."""
+    from ppq_tpu_torch.kernels import (blockmajor_window, grouped_group_size,
+                                       identity_block_tables, loader,
+                                       paged_attention_decode_fused,
+                                       paged_attention_decode_fused_plain,
+                                       paged_attention_decode_grouped,
+                                       paged_attention_decode_grouped_plain,
+                                       read_faults, slotmajor_window)
+    B, L, KV, S = SERVE['max_batch'], SERVE['n_layers'], SERVE['n_kv_heads'], SERVE['max_seq_len']
+    rep, Dh = SERVE['n_heads'] // KV, SERVE['d_model'] // SERVE['n_heads']
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cache = {key: torch.randint(-128, 128, (L, B, S, KV, Dh), device=dev,
+                                generator=gen, dtype=torch.int8)
+             for key in ('k', 'v')}
+    for key in ('k_scale', 'v_scale'):
+        cache[key] = torch.rand(L, B, S, KV, device=dev, generator=gen) * 0.02 + 0.001
+    q = torch.randn(B, KV, rep, Dh, device=dev, generator=gen).bfloat16()
+    layer = L // 2
+    read_faults(dev)
+    results = {}
+    cases = (('row 11 fill 512, blocks of 512', False, 512, 512, 512),
+             ('row 12 fill 16, blocks of 32', True, 32, 32, 16),
+             ('row 12 path G fill 512, blocks of 256', True, 512, 256, 512),
+             ('row 12 path G fill 16, blocks of 256', True, 512, 256, 16))
+    for label, grouped, cap, blk, fill in cases:
+        window = blockmajor_window if grouped else slotmajor_window
+        pool, sc = window(cache['k'], cache['v'], cache['k_scale'],
+                          cache['v_scale'], cap, blk)
+        if grouped:
+            G = grouped_group_size(B, blk, kv_dh=KV * Dh, itemsize=1)
+            tables = None
+            run = lambda lens: paged_attention_decode_grouped(  # noqa: E731
+                q, pool, sc, lens, layer, block_size=blk, group=G)
+            plain = lambda lens: paged_attention_decode_grouped_plain(  # noqa: E731
+                q, pool, sc, lens, layer, block_size=blk, group=G)
+        else:
+            G = 1
+            tables = identity_block_tables(B, cap, blk, dev)
+            run = lambda lens: paged_attention_decode_fused(  # noqa: E731
+                q, pool, sc, tables, lens, layer, block_size=blk)
+            plain = lambda lens: paged_attention_decode_fused_plain(  # noqa: E731
+                q, pool, sc, tables, lens, layer, block_size=blk)
+        dense = _dense_slots(pool, sc, layer, B, tables)
+        path_lens = torch.full((B,), fill, dtype=torch.int32, device=dev)
+        mixed = torch.randint(0, cap + 1, (B,), device=dev, generator=gen,
+                              dtype=torch.int32)
+        mixed[::9] = 0
+        shares, worst = [], 0.0
+        for lens in (path_lens, mixed, _edge_fills(B, cap, dev)):
+            share, err = _hold_triple(label, run, plain, q, dense, lens)
+            shares.append(share)
+            worst = max(worst, err)
+        faults = read_faults(dev)
+        if faults:
+            raise AssertionError(f'{label}: the kernel reported faults: {faults}')
+        b, by = _attention_bound(path_lens, q, pool,
+                                 0 if tables is None else tables.shape[1])
+        ms = time_ms(lambda: run(path_lens), flush)
+        if fill == cap:
+            # a read of the same bytes by one PyTorch call: a float32 sum
+            # over the layer's window codes (every position filled: the K
+            # and V codes the kernel reads; their values as floats do not
+            # matter, an integer sum is slower)
+            codes = pool[layer].view(torch.float32)
+            read_ms = time_ms(lambda: codes.sum(), flush)
+            results[f'{label} read yardstick'] = dict(
+                ms=read_ms, bytes=codes.numel() * 4)
+            log(f'[attention] {label}: torch.sum over the same '
+                f'{codes.numel() * 4} code bytes {read_ms:.4f} ms '
+                f'({codes.numel() * 4 / read_ms / 1e9:.2f} TB/s); the kernel '
+                f'{codes.numel() * 4 / ms / 1e9:.2f} TB/s of codes')
+        results[label] = dict(
+            ms=ms, bound_ms=b, bound_by=by, share_of_bound=b / ms,
+            plain_ms=time_ms(lambda: plain(path_lens), flush),
+            mixed_ms=time_ms(lambda: run(mixed), flush),
+            max_abs_err=worst, worst_share_of_tolerance=max(shares),
+            shape=[B, KV, rep, Dh, L, pool.shape[1], blk], fill=fill,
+            group=G)
+        log(f'[attention] {label}: {ms:.4f} ms (mixed fills '
+            f'{results[label]["mixed_ms"]:.4f}), bound {b:.4f} ms ({by}), '
+            f'share of bound {b / ms:.3f}, plain '
+            f'{results[label]["plain_ms"]:.4f} ms; worst share of the '
+            f'tolerance (path, mixed, edge fills) '
+            f'{", ".join(f"{x:.3f}" for x in shares)}; two calls bit-equal')
+        del pool, sc, dense, tables
+    entries = loader.LIBRARIES['paged_attention'][1]
+    lib = loader.library('paged_attention')
+    if 'ppq_empty_launch' in entries:
+        stream = loader.stream_of(dev)
+        floor = time_ms(lambda: lib.ppq_empty_launch(stream), flush)
+        results['launch floor'] = dict(ms=floor)
+        log(f'[attention] launch floor (an empty kernel, event to event, '
+            f'after the flush): {floor:.4f} ms')
+    if 'ppq_paged_attention_occupancy' in entries:
+        import ctypes
+        for bf16, shallow, name in ((0, 0, 'int8'), (0, 1, 'int8 shallow'),
+                                    (1, 0, 'bf16')):
+            out = (ctypes.c_int * 5)()
+            if lib.ppq_paged_attention_occupancy(bf16, rep, KV, shallow, out):
+                raise AssertionError('paged attention: occupancy query failed')
+            blocks, smem, stage, stages, warps = list(out)
+            flight = blocks * warps * (stages - 1) * stage
+            results[f'occupancy {name}'] = dict(
+                blocks_per_sm=blocks, smem_per_block=smem,
+                stage_bytes_per_warp=stage, stages=stages, warps=warps,
+                bytes_in_flight_per_sm=flight)
+            log(f'[attention] {name} pool, rep {rep}: {blocks} blocks an SM '
+                f'(occupancy API), {smem} shared bytes a block, {warps} '
+                f'warps each with {stages} stages of {stage} code bytes: up '
+                f'to {flight} bytes of K and V in flight an SM')
+    del cache, q
     torch.cuda.empty_cache()
     return results
 
@@ -2528,7 +2680,8 @@ def _profile_burst(engine, fill, n=8, tag='D'):
     busy_us = sum(t for _, t, _ in rows)
     ours = {name: sum(t for k, t, _ in rows if pattern in k)
             for name, pattern in (('qmm (int8, int4 and gate-up)', 'qmm'),
-                                  ('paged_attention', 'paged_attention_kernel'),
+                                  ('paged_attention (rows 11, 12)',
+                                   'paged_decode_kernel'),
                                   ('bank_write', 'bank_write_kernel'),
                                   ('window_write', 'window_write_kernel'),
                                   ('pool_write', 'pool_write_kernel'))}
@@ -3113,18 +3266,50 @@ def main_qmm(package_root=None) -> int:
     return 0
 
 
+def main_attention(package_root=None) -> int:
+    """`--attention`: the card, the build of the paged-attention kernels and
+    rows 11 and 12 alone at the paths' four shapes (kernels_attention), with
+    row 13 (and row 16, which shares its pool) at path G's
+    (kernels_paged): the quick loop for work on those kernels. With
+    `--package-root DIR` the package is imported from the checkout at DIR,
+    so two commits are timed in one call on one card, in turns."""
+    t_start = time.perf_counter()
+    _, smi = phase_card()
+    if package_root:
+        sys.path.insert(0, package_root)
+    import ppq_tpu_torch
+    log(f'[attention] package {ppq_tpu_torch.__file__}')
+    dev = torch.device('cuda', 0)
+    torch.cuda.set_device(dev)
+    phase_build(['paged_attention', 'kv_write'])
+    flush = torch.empty(512 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
+    results = kernels_attention(dev, flush)
+    row13 = kernels_paged(dev, flush)['paged_attention_buffered']
+    results['row 13 fill 512 + 32 buffer columns'] = {
+        k: row13[k] for k in ('ms', 'plain_ms', 'bound_ms', 'bound_by',
+                              'max_abs_err', 'worst_share_of_tolerance')}
+    log(f'[attention] row 13: {row13["ms"]:.4f} ms, bound '
+        f'{row13["bound_ms"]:.4f} ms, worst share of the tolerance '
+        f'{row13["worst_share_of_tolerance"]:.3f}')
+    log(f'[done] {time.perf_counter() - t_start:.1f} s; {smi}')
+    log(json.dumps({'attention': results, 'card': smi}))
+    return 0
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         import argparse
         ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-        ap.add_argument('--qmm', action='store_true',
-                        help='rows 8, 9 and 10 alone: build, hold, time')
+        mode = ap.add_mutually_exclusive_group(required=True)
+        mode.add_argument('--qmm', action='store_true',
+                          help='rows 8, 9 and 10 alone: build, hold, time')
+        mode.add_argument('--attention', action='store_true',
+                          help='rows 11, 12 and 13 alone: build, hold, time')
         ap.add_argument('--package-root', default=None,
-                        help='with --qmm: import ppq_tpu_torch from this '
-                             'checkout')
+                        help='import ppq_tpu_torch from this checkout')
         args = ap.parse_args()
-        if not args.qmm:
-            ap.error('the only option is --qmm')
+        if args.attention:
+            return main_attention(args.package_root)
         return main_qmm(args.package_root)
     t_start = time.perf_counter()
     name, smi = phase_card()

@@ -18,9 +18,9 @@
 //            tables (B, MB): slot b's block j is pool row tables[b, j];
 //   grouped: a block-major window (MB*B, 2, BLK, KV*Dh) whose row j*B + b
 //            is slot b's block j, scales (MB*B, 2, KV, SCP), SCP =
-//            max(BLK, 128) with the first BLK columns used. The loop runs
-//            through the deepest fill of the slot's group of `group` slots,
-//            and each slot masks its own surplus, as the TPU kernel does.
+//            max(BLK, 128) with the first BLK columns used. The TPU
+//            kernel loops through the deepest fill of the slot's group of
+//            `group` slots, and each slot masks its own surplus.
 // The caller passes one layer's slab (the layer's offset is taken on the
 // host).
 //
@@ -29,23 +29,48 @@
 // and build a block-diagonal query so that all heads' logits come out of one
 // 128-wide matrix product; the grouped kernel exists to spread that fixed
 // cost over G slots. On the card blocks run in parallel and a step has no
-// such cost: one thread block per (slot, KV head) holds the rep query rows
-// in registers and loops over the slot's filled blocks itself, so neither
-// the block-diagonal query nor the grouping changes the work. What bounds
-// the kernel is bytes: the filled K and V codes, read once (a position past
-// the slot's fill is never loaded), plus the scales; the operations (4 rep
-// flops a code byte) are far below the card's rate. The layout of a thread
-// block: 4 warps, each lane one 16-element chunk of a token's head row
-// (one 16-byte load of codes), 8 lanes to a row, 16 tokens a pass:
-//   * logits: each lane multiplies its chunk against the query rows kept in
-//     registers, and 8 lanes sum by shuffles; the row's logits of a block go
-//     to shared memory;
-//   * the block's max and sum of p are reductions over the block; p times
-//     the v scale is rounded to bf16, as the TPU kernel's product operand;
-//   * the readout accumulates p * v for the lane's chunk and tokens in
-//     registers across all blocks (rescaled by corr at each block); the
-//     partial sums of the 16 token lanes are added once at the end.
-// A simple kernel first: no cp.async or TMA pipeline yet.
+// such cost: warps hold the rep query rows of a (slot, KV head) in
+// registers and walk the slot's filled positions themselves, so neither the
+// block-diagonal query nor the grouping changes the work. A slot's blocks
+// past its own fill are all masked, so the grouped layout's loop bound (the
+// group's deepest fill) is not read at all: `group` is only checked.
+//
+// What bounds rows 11 and 12: bytes, the filled K and V codes read once (a
+// position past the slot's fill is not loaded, but among the first 16, see
+// below) plus their scales; the operations are about 4 a code byte. The
+// design (`paged_decode_kernel`; the first design of rows 11 and 12 stays
+// with row 13):
+//   * a thread block holds one slot's KV heads (up to 16 warps), so that
+//     the warps of all heads stream the same token rows side by side; each
+//     head has NW warps, 2, or 1 where the window is SHALLOW, each warp
+//     with its own online softmax (m, l, acc) and its own ring of stages
+//     in shared memory. No barrier but one at the end, where a head's two
+//     warps merge (a named barrier a head); a one-warp head's state is its
+//     result. A pass covers 4 * NW positions, 4 a warp;
+//   * a stage is PASSES passes (16 tokens a warp): the K and V head rows
+//     and both scale rows of those tokens, copied with 16-byte `cp.async`
+//     (a lane copies exactly the 16-byte chunks that it reads later, and
+//     lanes 0 and 1 the 4 tokens' scales); one stage in flight while one is
+//     multiplied, every stage of a shallow window at once;
+//   * a lane (g, c) holds token g of the warp's 4 and the 16-element chunk
+//     c of its head row: logits are 16 products a query row and 3 shuffles,
+//     and the same lane multiplies p by its chunk of the V row, so p never
+//     leaves the lane; the 4 token lanes' partial sums of acc are added
+//     once at the end. A stage whose passes are all filled takes a path
+//     with no branch between them, so their loads and products interleave;
+//   * int8 codes become floats exactly at full rate: the code's byte, xor
+//     0x80, goes into the low mantissa of 2^23 (`__byte_perm`) and 2^23 +
+//     128 comes off (one integer op and one FADD a code; a conversion
+//     instruction runs at an eighth of the FMA rate);
+//   * positions 0..15 are copied before the fill is known, beside the loads
+//     of the fill, q and the first table row, so a slot whose window is one
+//     stage pays one round trip to device memory.
+// The online softmax is updated once a stage: the running max moves by the
+// stage's max, and p * v_scale rounds to bf16 against it, so the kernel and
+// the plain version (which updates once a pool block) differ in where p
+// rounds and in the order of f32 sums, within the attention tolerance.
+// On the H100 the copies set the pace: a build without the arithmetic (a
+// diagnostic, not kept) took most of the kernel's time (PERF.md).
 //
 // A slot with seq_lens == 0 returns m = -1e30, l = 0 and acc = 0 (the TPU
 // kernel leaves acc undefined there; here it is defined). Inputs the caller
@@ -61,16 +86,16 @@
 
 namespace {
 
-constexpr int DH = 128;           // head dim the kernel takes
+constexpr int DH = 128;           // head dim the kernels take
 constexpr int THREADS = 128;      // 4 warps
 constexpr int WARPS = THREADS / 32;
 constexpr int CHUNK = 16;         // elements of a head row per lane
 constexpr int LANES_PER_ROW = DH / CHUNK;                 // 8
-constexpr int TOKENS_PER_PASS = THREADS / LANES_PER_ROW;  // 16
 constexpr float NEG_INF = -1e30f;
 constexpr int MAX_BLK = 2048;
 
-// 16 consecutive values of a row as floats (both conversions exact).
+// 16 consecutive values of a row as floats (both conversions exact; the
+// int8 one is a conversion instruction a code, row 13's).
 __device__ __forceinline__ void load_chunk(const int8_t* p, float (&v)[CHUNK]) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);
   const uint32_t w[4] = {u.x, u.y, u.z, u.w};
@@ -104,12 +129,494 @@ struct Args {
   float* l;                // (B, KV, REP)
   int* fault;
   int B, KV, MB, NB, BLK, SCP, group;
+  int heads;               // KV heads a thread block (rows 11 and 12)
   float inv_sqrt;
 };
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
+
+// 16 bytes from global to shared memory, asynchronously (L2 only); bytes
+// < 16 fills the rest with zeros (0: all zeros, src is not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Rows 11 and 12: `paged_decode_kernel` (the design is at the top of the file).
+
+constexpr int PER_WARP = 32 / LANES_PER_ROW;   // 4: a warp's tokens a pass
+constexpr int PASSES = 4;        // passes a stage: 16 tokens a warp
+constexpr int HEAD = 16;         // positions copied before the fill is known
+constexpr int SHALLOW = 64;      // windows up to this many positions take
+                                 // one warp a (slot, KV head)
+// warps a thread block at most: the heads of a slot stream the same token
+// rows side by side (128 registers a thread, or 255 at rep 4)
+constexpr int MAX_WARPS(int rep) { return rep <= 2 ? 16 : 8; }
+
+// The layout of an NW-warp (slot, KV head). A pass covers PASS positions,
+// PER_WARP a warp; each warp's ring has STAGES stages, each holding the K
+// rows, then the V rows of its ROWS tokens (token i * PER_WARP + g of pass
+// i), then their k scales and v scales. After the loop a warp's ring holds
+// its (acc, m, l) for the merge.
+template <typename T, int NW>
+struct Ring {
+  static constexpr int THREADS = 32 * NW;
+  static constexpr int PASS = PER_WARP * NW;
+  static constexpr int HEAD_PASSES = HEAD / PASS;
+  // a shallow window's stages all in flight at once; two stages a warp
+  // otherwise (deeper rings measured slower on the card)
+  static constexpr int STAGES = NW == 1 ? SHALLOW / (PASSES * PASS) : 2;
+  static constexpr int ROWS = PASSES * PER_WARP;
+  static constexpr int CODES = ROWS * DH * (int)sizeof(T);
+  static constexpr int STAGE = 2 * CODES + 2 * ROWS * (int)sizeof(float);
+  static constexpr int WARP = STAGES * STAGE;
+  static constexpr int BLOCK = NW * WARP;
+  static_assert(HEAD % PASS == 0 && HEAD_PASSES <= PASSES, "head in stage 0");
+  static_assert(STAGES >= 2 && STAGES * PASSES <= 32, "live bits");
+};
+
+// 16 codes of a row in shared memory as floats, exactly: each biased byte
+// (code ^ 0x80, in 0..255) goes into the low mantissa bits of 2^23 and
+// 2^23 + 128 comes off. bf16 values widen by a shift.
+__device__ __forceinline__ void smem_chunk(const int8_t* p, float (&v)[CHUNK]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u,
+                         u.z ^ 0x80808080u, u.w ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      v[4 * i + k] = __fsub_rn(
+          __uint_as_float(__byte_perm(w[i], 0x4B000000u, 0x7540u | k)),
+          8388736.0f);
+}
+
+__device__ __forceinline__ void smem_chunk(const __nv_bfloat16* p,
+                                           float (&v)[CHUNK]) {
+  load_chunk(p, v);
+}
+
+// The rep query rows of (slot b, KV head h), this lane's chunk, as floats.
+template <int REP>
+__device__ __forceinline__ void load_q(const __nv_bfloat16* q, int b, int h,
+                                       int KV, float (&qv)[REP][CHUNK]) {
+  const int c = (threadIdx.x & 31) % LANES_PER_ROW;
+  const __nv_bfloat16* qp = q + ((int64_t)(b * KV + h) * REP) * DH + c * CHUNK;
+#pragma unroll
+  for (int r = 0; r < REP; ++r) load_chunk(qp + r * DH, qv[r]);
+}
+
+// One pass's copies of one warp into `stage` (pass i of the stage): lane
+// (g, c) copies chunk c of token g's K and V rows (`bytes` 16, or 0 for a
+// position past the fill: zeros, nothing read), lanes 0 and 1 the warp's 4
+// k and v scales. `row` is the pool row, `off` the warp's first position
+// in it.
+template <typename T, int NW>
+__device__ __forceinline__ void copy_pass(unsigned char* stage, int i,
+                                          const Args& a, int64_t row, int off,
+                                          int h, int lane, int bytes) {
+  constexpr int PER16 = 16 / (int)sizeof(T);   // elements a 16-byte copy
+  using R = Ring<T, NW>;
+  const int g = lane / LANES_PER_ROW, c = lane % LANES_PER_ROW;
+  const int64_t KVDh = (int64_t)a.KV * DH;
+  const T* kp = static_cast<const T*>(a.pool) +
+                (row * 2 * a.BLK + off + g) * KVDh + h * DH + c * CHUNK;
+  const T* vp = kp + (int64_t)a.BLK * KVDh;
+  unsigned char* kd =
+      stage + ((i * PER_WARP + g) * DH + c * CHUNK) * (int)sizeof(T);
+#pragma unroll
+  for (int e = 0; e < CHUNK / PER16; ++e) {
+    cp_async16(kd + 16 * e, kp + e * PER16, bytes);
+    cp_async16(kd + R::CODES + 16 * e, vp + e * PER16, bytes);
+  }
+  if (a.scale != nullptr && lane < 2)
+    cp_async16(reinterpret_cast<float*>(stage + 2 * R::CODES) +
+                   lane * R::ROWS + i * PER_WARP,
+               a.scale + (row * 2 * a.KV + lane * a.KV + h) * a.SCP + off, 16);
+}
+
+// One stage of a warp's online softmax: the logits of its tokens, the
+// stage's max over the warp, p and its sum, then p (bf16) times the lane's
+// chunk of each v row. FULL: every pass was copied and every position is
+// filled, so no branch stands between the passes and their loads and
+// products interleave; else bit i of `bits` says whether pass i was copied
+// and t0 + i * PASS < len whether the lane's position counts (t0: its
+// position in the stage's first pass). A stage with no filled position of
+// this warp leaves (m, l, acc) as they are.
+template <typename T, int REP, int NW, bool FULL>
+__device__ __forceinline__ void stage_update(
+    const unsigned char* stage, uint32_t bits, int t0, int len,
+    const Args& a, const float (&qv)[REP][CHUNK], float (&acc)[REP][CHUNK],
+    float (&m_run)[REP], float (&l_run)[REP]) {
+  using R = Ring<T, NW>;
+  const int lane = threadIdx.x & 31;
+  const int g = lane / LANES_PER_ROW, c = lane % LANES_PER_ROW;
+  const T* kst = reinterpret_cast<const T*>(stage) + g * DH + c * CHUNK;
+  const T* vst = kst + R::CODES / (int)sizeof(T);
+  const float* ksc = reinterpret_cast<const float*>(stage + 2 * R::CODES) + g;
+  const float* vsc = ksc + R::ROWS;
+  bool copied[PASSES], valid[PASSES];
+#pragma unroll
+  for (int i = 0; i < PASSES; ++i) {
+    copied[i] = FULL || ((bits >> i) & 1u);
+    valid[i] = FULL || (copied[i] && t0 + i * R::PASS < len);
+  }
+
+  // logits: each lane's 16 products a query row, then 8 lanes a token
+  float s[PASSES][REP];
+#pragma unroll
+  for (int i = 0; i < PASSES; ++i) {
+#pragma unroll
+    for (int r = 0; r < REP; ++r) s[i][r] = 0.0f;
+    if (!copied[i]) continue;      // uniform over the warp
+    float kv[CHUNK];
+    smem_chunk(kst + i * PER_WARP * DH, kv);
+#pragma unroll
+    for (int r = 0; r < REP; ++r)
+#pragma unroll
+      for (int e = 0; e < CHUNK; ++e) s[i][r] = fmaf(qv[r][e], kv[e], s[i][r]);
+  }
+#pragma unroll
+  for (int off = 1; off < LANES_PER_ROW; off <<= 1)
+#pragma unroll
+    for (int i = 0; i < PASSES; ++i)
+#pragma unroll
+      for (int r = 0; r < REP; ++r)
+        s[i][r] += __shfl_xor_sync(0xffffffffu, s[i][r], off);
+#pragma unroll
+  for (int i = 0; i < PASSES; ++i)
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+      const float x = a.scale ? __fmul_rn(s[i][r], ksc[i * PER_WARP])
+                              : s[i][r];
+      s[i][r] = valid[i] ? __fmul_rn(x, a.inv_sqrt) : NEG_INF;
+    }
+
+  // the stage's max over the warp, p and its sum
+  float pv[PASSES][REP];
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+    float mx = s[0][r];
+#pragma unroll
+    for (int i = 1; i < PASSES; ++i) mx = fmaxf(mx, s[i][r]);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+    const float m_new = fmaxf(m_run[r], mx);
+    const float corr = expf(m_run[r] - m_new);
+    float sum = 0.0f;
+#pragma unroll
+    for (int i = 0; i < PASSES; ++i) {
+      const float p = valid[i] ? expf(s[i][r] - m_new) : 0.0f;
+      sum += p;
+      pv[i][r] = bf16_round(a.scale ? __fmul_rn(p, vsc[i * PER_WARP]) : p);
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 8);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 16);
+    l_run[r] = __fadd_rn(__fmul_rn(l_run[r], corr), sum);
+    m_run[r] = m_new;
+    if (corr != 1.0f) {            // uniform over the warp
+#pragma unroll
+      for (int e = 0; e < CHUNK; ++e) acc[r][e] = __fmul_rn(acc[r][e], corr);
+    }
+  }
+
+  // readout: p (bf16) times the lane's chunk of its token's v row
+#pragma unroll
+  for (int i = 0; i < PASSES; ++i) {
+    if (!valid[i]) continue;
+    float vv[CHUNK];
+    smem_chunk(vst + i * PER_WARP * DH, vv);
+#pragma unroll
+    for (int r = 0; r < REP; ++r)
+#pragma unroll
+      for (int e = 0; e < CHUNK; ++e)
+        acc[r][e] = fmaf(pv[i][r], vv[e], acc[r][e]);
+  }
+}
+
+// Thread block (b, y): slot b's KV heads y * a.heads .. + a.heads - 1, NW
+// warps each. NW = 1 for shallow windows (the warp's state is the result:
+// no merge), 2 otherwise.
+template <typename T, int REP, bool GROUPED, int NW>
+__global__ void __launch_bounds__(32 * MAX_WARPS(REP), 1)
+paged_decode_kernel(Args a) {
+  using R = Ring<T, NW>;
+  constexpr int PASS = R::PASS, STAGES = R::STAGES;
+  constexpr uint32_t ALL = (1u << PASSES) - 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // warp (hw, warp): head hw of the block's a.heads, warp of its NW
+  const int hw = threadIdx.x / (32 * NW);
+  const int b = blockIdx.x, h = blockIdx.y * a.heads + hw;
+  const int tid = threadIdx.x % (32 * NW);
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane / LANES_PER_ROW, c = lane % LANES_PER_ROW;
+  unsigned char* const ring = smem_raw + (hw * NW + warp) * R::WARP;
+  const int limit = a.MB * a.BLK;
+
+  // Every load that needs nothing before it: the fill, the first block's
+  // pool row, q, and this warp's positions among the first HEAD (copied
+  // whatever the fill; a position past it is masked below).
+  const int raw = a.seq_lens[b];
+  const int64_t head = GROUPED ? b : a.tables[(int64_t)b * a.MB];
+  const bool head_ok = GROUPED || (head >= 0 && head < a.NB);
+  if (head_ok) {
+#pragma unroll
+    for (int i = 0; i < R::HEAD_PASSES; ++i)
+      copy_pass<T, NW>(ring, i, a, head, i * PASS + PER_WARP * warp, h, lane,
+                       16);
+  }
+  float qv[REP][CHUNK];
+  load_q<REP>(a.q, b, h, a.KV, qv);
+
+  const int len = min(max(raw, 0), limit);
+  if (raw != len && h == 0 && tid == 0) atomicOr(a.fault, 1);
+  const int nstages = (len + PASSES * PASS - 1) / (PASSES * PASS);
+  if (len > 0 && !head_ok && tid == 0) atomicOr(a.fault, 2);
+  // bit slot * PASSES + i: pass i of the ring's stage `slot` holds at least
+  // one of this warp's filled positions
+  uint32_t live = 0;
+#pragma unroll
+  for (int i = 0; i < R::HEAD_PASSES; ++i)
+    if (head_ok && i * PASS + PER_WARP * warp < len) live |= 1u << i;
+
+  // Copy stage k into its slot (the head of stage 0 is in already) and
+  // commit one group, empty past the fill. One division a stage; the table
+  // is read when a pass enters another block (a pass never crosses one).
+  auto copy_stage = [&](int k) {
+    const int slot = k % STAGES;
+    unsigned char* stage = ring + slot * R::STAGE;
+    if (k > 0) live &= ~(ALL << (slot * PASSES));
+    const int i0 = k == 0 ? R::HEAD_PASSES : 0;
+    int p0 = (k * PASSES + i0) * PASS;        // the pass's first position
+    int j = p0 / a.BLK, off = p0 - j * a.BLK; // its block, and in the block
+    int64_t row = -1;
+    for (int i = i0; i < PASSES && p0 < len; ++i, p0 += PASS, off += PASS) {
+      if (off == a.BLK) {
+        ++j;
+        off = 0;
+        row = -1;
+      }
+      if (row < 0)
+        row = GROUPED ? (int64_t)j * a.B + b : a.tables[(int64_t)b * a.MB + j];
+      if (!GROUPED && (row < 0 || row >= a.NB)) {
+        if (lane == 0) atomicOr(a.fault, 2);
+        row = -1;
+        continue;
+      }
+      const int first = p0 + PER_WARP * warp;   // the warp's first position
+      if (first >= len) continue;
+      copy_pass<T, NW>(stage, i, a, row, off + PER_WARP * warp, h, lane,
+                       first + g < len ? 16 : 0);
+      live |= 1u << (slot * PASSES + i);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int k = 0; k < STAGES - 1; ++k) copy_stage(k);
+
+  float acc[REP][CHUNK], m_run[REP], l_run[REP];
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+    m_run[r] = NEG_INF;
+    l_run[r] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < CHUNK; ++e) acc[r][e] = 0.0f;
+  }
+
+  for (int k = 0; k < nstages; ++k) {
+    cp_async_wait<STAGES - 2>();   // this lane's copies of stage k landed
+    __syncwarp();                  // and every lane's; stage k - 1 is read
+    copy_stage(k + STAGES - 1);
+    const int slot = k % STAGES;
+    const uint32_t bits = (live >> (slot * PASSES)) & ALL;
+    const int t0 = k * PASSES * PASS + PER_WARP * warp + g;
+    if (bits == ALL && (k + 1) * PASSES * PASS <= len)
+      stage_update<T, REP, NW, true>(ring + slot * R::STAGE, bits, t0, len, a,
+                                     qv, acc, m_run, l_run);
+    else
+      stage_update<T, REP, NW, false>(ring + slot * R::STAGE, bits, t0, len,
+                                      a, qv, acc, m_run, l_run);
+  }
+  cp_async_wait<0>();
+
+  // the 4 token lanes of each chunk
+#pragma unroll
+  for (int r = 0; r < REP; ++r)
+#pragma unroll
+    for (int e = 0; e < CHUNK; ++e) {
+      acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], 8);
+      acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], 16);
+    }
+  const int64_t out0 = (int64_t)(b * a.KV + h) * REP;
+  if (NW == 1) {                   // the warp's state is the result
+    if (g == 0) {
+#pragma unroll
+      for (int r = 0; r < REP; ++r)
+#pragma unroll
+        for (int e = 0; e < CHUNK; e += 4)
+          *reinterpret_cast<float4*>(a.acc + (out0 + r) * DH + c * CHUNK + e) =
+              make_float4(acc[r][e], acc[r][e + 1], acc[r][e + 2],
+                          acc[r][e + 3]);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int r = 0; r < REP; ++r) {
+        a.m[out0 + r] = m_run[r];
+        a.l[out0 + r] = l_run[r];
+      }
+    }
+    return;
+  }
+
+  // the warps' states in a fixed order: each warp's acc and l rescaled to
+  // the largest m. The ring is read (every copy waited for): it takes them.
+  __syncwarp();
+  float* mine = reinterpret_cast<float*>(ring);
+  if (g == 0) {
+#pragma unroll
+    for (int r = 0; r < REP; ++r)
+#pragma unroll
+      for (int e = 0; e < CHUNK; e += 4)
+        *reinterpret_cast<float4*>(mine + r * DH + c * CHUNK + e) =
+            make_float4(acc[r][e], acc[r][e + 1], acc[r][e + 2], acc[r][e + 3]);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+      mine[REP * DH + r] = m_run[r];
+      mine[REP * DH + REP + r] = l_run[r];
+    }
+  }
+  // the head's NW warps meet at barrier 1 + hw (0 is __syncthreads')
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + hw), "n"(32 * NW) : "memory");
+  const float* part =
+      reinterpret_cast<const float*>(smem_raw + hw * NW * R::WARP);
+  constexpr int WF = R::WARP / (int)sizeof(float);   // floats a warp
+  for (int idx = tid; idx < REP * (DH + 1); idx += R::THREADS) {
+    const int r = idx < REP * DH ? idx / DH : idx - REP * DH;
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) M = fmaxf(M, part[w * WF + REP * DH + r]);
+    // idx < REP * DH: an acc element; then one l a query row
+    const int at = idx < REP * DH ? idx : REP * DH + REP + r;
+    float v = 0.0f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+      v = fmaf(part[w * WF + at], expf(part[w * WF + REP * DH + r] - M), v);
+    if (idx < REP * DH) {
+      a.acc[out0 * DH + idx] = v;
+    } else {
+      a.m[out0 + r] = M;
+      a.l[out0 + r] = v;
+    }
+  }
+}
+
+__global__ void empty_kernel() {}
+
+// Above 48 KB a block's shared memory must be asked for, once per kernel.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  return bytes > 48 * 1024
+      ? cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes)
+      : cudaSuccess;
+}
+
+// The KV heads a thread block of NW-warp heads takes: the most that divide
+// KV within MAX_WARPS(rep) warps and a block's shared memory.
+constexpr int SMEM_MAX = 227 * 1024;
+template <typename T, int NW>
+int heads_per_block(int KV, int rep) {
+  const int warps = MAX_WARPS(rep) < SMEM_MAX / Ring<T, NW>::WARP
+                        ? MAX_WARPS(rep) : SMEM_MAX / Ring<T, NW>::WARP;
+  int heads = warps / NW;
+  while (heads > 1 && KV % heads) --heads;
+  return heads < 1 ? 1 : heads;
+}
+
+template <typename T, int REP, bool GROUPED, int NW>
+cudaError_t launch_decode(Args a, cudaStream_t stream) {
+  using R = Ring<T, NW>;
+  a.heads = heads_per_block<T, NW>(a.KV, REP);
+  const auto kernel = paged_decode_kernel<T, REP, GROUPED, NW>;
+  const cudaError_t rc = allow_smem(kernel, a.heads * R::BLOCK);
+  if (rc != cudaSuccess) return rc;
+  kernel<<<dim3((unsigned int)a.B, (unsigned int)(a.KV / a.heads)),
+           a.heads * R::THREADS, a.heads * R::BLOCK, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int REP, bool GROUPED>
+cudaError_t launch_width(const Args& a, cudaStream_t stream) {
+  return (int64_t)a.MB * a.BLK <= SHALLOW
+      ? launch_decode<T, REP, GROUPED, 1>(a, stream)
+      : launch_decode<T, REP, GROUPED, 2>(a, stream);
+}
+
+template <typename T, bool GROUPED>
+cudaError_t launch_rep(const Args& a, int rep, cudaStream_t stream) {
+  switch (rep) {
+    case 1: return launch_width<T, 1, GROUPED>(a, stream);
+    case 2: return launch_width<T, 2, GROUPED>(a, stream);
+    case 4: return launch_width<T, 4, GROUPED>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// What one SM holds of paged_decode_kernel<T, REP, false, NW>: out[0]
+// blocks (the occupancy API), out[1] shared bytes a block, out[2] bytes of
+// K and V codes a warp's stage, out[3] stages in a warp's ring, out[4]
+// warps a block.
+template <typename T, int REP, int NW>
+int resident(int KV, int* out) {
+  using R = Ring<T, NW>;
+  const int heads = heads_per_block<T, NW>(KV, REP);
+  const auto kernel = paged_decode_kernel<T, REP, false, NW>;
+  const cudaError_t rc = allow_smem(kernel, heads * R::BLOCK);
+  if (rc != cudaSuccess) return (int)rc;
+  out[1] = heads * R::BLOCK;
+  out[2] = 2 * R::CODES;
+  out[3] = R::STAGES;
+  out[4] = heads * NW;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, kernel, heads * R::THREADS, heads * R::BLOCK);
+}
+
+template <typename T, int NW>
+int resident_rep(int64_t rep, int KV, int* out) {
+  switch (rep) {
+    case 1: return resident<T, 1, NW>(KV, out);
+    case 2: return resident<T, 2, NW>(KV, out);
+    case 4: return resident<T, 4, NW>(KV, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Row 13's helpers: the first design of rows 11 and 12, which row 13 keeps.
+// 4 warps, each lane one 16-element chunk of a token's head row, 8 lanes
+// to a row, 16 tokens a pass; a pool block's logits (then p) in shared
+// memory, three block-wide barriers a block, plain loads.
+
+constexpr int TOKENS_PER_PASS = THREADS / LANES_PER_ROW;  // 16
 
 // The shared memory of a thread block: a block's logits (then p) for each
 // query row, the warps' partial maxima and sums, and the final per-warp
@@ -135,16 +642,6 @@ template <int REP>
 size_t smem_bytes(int width) {
   return sizeof(float) * ((size_t)REP * width + 2 * WARPS * REP +
                           WARPS * REP * DH);
-}
-
-// The rep query rows of (slot b, KV head h), this lane's chunk, as floats.
-template <int REP>
-__device__ __forceinline__ void load_q(const __nv_bfloat16* q, int b, int h,
-                                       int KV, float (&qv)[REP][CHUNK]) {
-  const int c = (threadIdx.x & 31) % LANES_PER_ROW;
-  const __nv_bfloat16* qp = q + ((int64_t)(b * KV + h) * REP) * DH + c * CHUNK;
-#pragma unroll
-  for (int r = 0; r < REP; ++r) load_chunk(qp + r * DH, qv[r]);
 }
 
 // One block of nv positions into the running (m, l, acc). kb, vb point at
@@ -302,64 +799,6 @@ __device__ __forceinline__ void reset(float (&acc)[REP][CHUNK],
   }
 }
 
-template <typename T, int REP, bool GROUPED>
-__global__ void __launch_bounds__(THREADS)
-paged_attention_kernel(Args a) {
-  extern __shared__ float smem[];
-  const Smem sm = carve<REP>(smem, a.BLK);
-  const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
-  const int c = (tid & 31) % LANES_PER_ROW;
-  const int64_t KVDh = (int64_t)a.KV * DH;
-  const int limit = a.MB * a.BLK;
-
-  const int raw = a.seq_lens[b];
-  const int len = min(max(raw, 0), limit);
-  if (raw != len && h == 0 && tid == 0) atomicOr(a.fault, 1);
-  int reach = len;                 // the fill the loop runs through
-  if (GROUPED) {
-    const int g0 = (b / a.group) * a.group;
-    for (int i = g0; i < g0 + a.group; ++i)
-      reach = max(reach, min(max(a.seq_lens[i], 0), limit));
-  }
-  const int nblk = (reach + a.BLK - 1) / a.BLK;
-
-  float qv[REP][CHUNK], acc[REP][CHUNK], m_run[REP], l_run[REP];
-  load_q<REP>(a.q, b, h, a.KV, qv);
-  reset<REP>(acc, m_run, l_run);
-  for (int j = 0; j < nblk; ++j) {
-    const int nv = min(len - j * a.BLK, a.BLK);
-    if (nv <= 0) continue;         // the group's surplus: all masked, a no-op
-    int64_t row;
-    if (GROUPED) {
-      row = (int64_t)j * a.B + b;
-    } else {
-      row = a.tables[(int64_t)b * a.MB + j];
-      if (row < 0 || row >= a.NB) {
-        if (h == 0 && tid == 0) atomicOr(a.fault, 2);
-        continue;
-      }
-    }
-    const T* kb = static_cast<const T*>(a.pool) + row * 2 * a.BLK * KVDh +
-                  h * DH + c * CHUNK;
-    const float* ksc = a.scale ? a.scale + (row * 2 * a.KV + h) * a.SCP
-                               : nullptr;
-    online_block<T, REP, false>(kb, kb + (int64_t)a.BLK * KVDh, KVDh, ksc,
-                                ksc ? ksc + (int64_t)a.KV * a.SCP : nullptr,
-                                nv, qv, acc, m_run, l_run, sm, a.BLK,
-                                a.inv_sqrt);
-  }
-
-  park_acc<REP>(acc, sm);
-  const int64_t out0 = (int64_t)(b * a.KV + h) * REP;
-  for (int idx = tid; idx < REP * DH; idx += THREADS)
-    a.acc[out0 * DH + idx] = warp_sum<REP>(sm, idx);
-  if (tid < REP) {
-    a.m[out0 + tid] = m_run[tid];
-    a.l[out0 + tid] = l_run[tid];
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Row 13, `paged_attention_decode_buffered` (`_make_buffered_kernel`): the
 // frozen pool and the in-burst buffer in one online softmax, the context
 // normalised. Separate K and V pools (NB, BLK, KV*DH), given as views with a
@@ -369,9 +808,10 @@ paged_attention_kernel(Args a) {
 // which columns [0, step] count. Its numerics are the TPU kernel's, which
 // differ from rows 11 and 12 in one place: the v scale is rounded to bf16
 // and folded into the values (v_eff = bf16(code * bf16(v_scale))), and p is
-// rounded to bf16 alone. The design is row 11's (one thread block per slot
-// and KV head, a block's logits in shared memory), with the buffer taken as
-// one more block after the slot's last filled one; the TPU kernel carried
+// rounded to bf16 alone. The design is the first one of rows 11 and 12
+// (one thread block per slot and KV head, a block's logits in shared
+// memory), with the buffer taken as one more block after the slot's last
+// filled one; the TPU kernel carried
 // (m, l, acc) in scratch across its sequential grid instead. What bounds it:
 // bytes, the filled K and V codes and scales and the buffer's valid columns
 // read once (147 MB at 128 slots of fill 512 with 8 KV heads, 0.044 ms at
@@ -464,31 +904,15 @@ cudaError_t launch_buffered_rep(const BufArgs& a, int rep, cudaStream_t stream) 
   }
 }
 
-template <typename T, int REP, bool GROUPED>
-cudaError_t launch_one(const Args& a, cudaStream_t stream) {
-  paged_attention_kernel<T, REP, GROUPED>
-      <<<dim3((unsigned int)a.B, (unsigned int)a.KV), THREADS,
-         smem_bytes<REP>(a.BLK), stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <typename T, bool GROUPED>
-cudaError_t launch_rep(const Args& a, int rep, cudaStream_t stream) {
-  switch (rep) {
-    case 1: return launch_one<T, 1, GROUPED>(a, stream);
-    case 2: return launch_one<T, 2, GROUPED>(a, stream);
-    case 4: return launch_one<T, 4, GROUPED>(a, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // q: (B, KV, rep, dh) bf16; pool: one layer's (NB, 2, BLK, KV*dh) int8 or
 // bf16 (pool_bf16 != 0); scale: (NB, 2, KV, SCP) f32 or null; tables:
 // (B, MB) int32 for the fused layout, null for the grouped one (group > 0,
 // NB = MB * B); seq_lens: (B,) int32; acc (B, KV, rep, dh), m and l
-// (B, KV, rep) f32; fault: one int32, or'ed with the bits above.
+// (B, KV, rep) f32; fault: one int32, or'ed with the bits above. BLK a
+// multiple of 16 (a pass never crosses a block) up to MAX_BLK; q, pool and
+// scale 16-byte aligned (the copies are 16 bytes).
 extern "C" int ppq_paged_attention(const void* q, const void* pool,
                                    const void* scale, const void* tables,
                                    const void* seq_lens, void* acc, void* m,
@@ -499,10 +923,12 @@ extern "C" int ppq_paged_attention(const void* q, const void* pool,
                                    float inv_sqrt, void* stream) {
   const bool grouped = group > 0;
   if (B <= 0 || B > 2147483647 || KV <= 0 || KV > 65535 || dh != DH ||
-      MB <= 0 || NB <= 0 || BLK <= 0 || BLK % TOKENS_PER_PASS != 0 ||
-      BLK > MAX_BLK || SCP < BLK || (int64_t)MB * BLK > 2147483647 ||
+      MB <= 0 || NB <= 0 || BLK <= 0 || BLK % HEAD != 0 ||
+      BLK > MAX_BLK || SCP < BLK || SCP % 4 != 0 ||
+      (int64_t)MB * BLK > 2147483647 ||
       (grouped && (B % group != 0 || NB != MB * B)) ||
-      (!grouped && tables == nullptr))
+      (!grouped && tables == nullptr) ||
+      ((uintptr_t)q | (uintptr_t)pool | (uintptr_t)scale) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = static_cast<const __nv_bfloat16*>(q);
@@ -588,4 +1014,28 @@ extern "C" int ppq_paged_attention_buffered(
   const auto s = static_cast<cudaStream_t>(stream);
   return (int)(pool_bf16 ? launch_buffered_rep<__nv_bfloat16>(a, (int)rep, s)
                          : launch_buffered_rep<int8_t>(a, (int)rep, s));
+}
+
+// One launch of an empty kernel on `stream`: the launch floor that rows 11
+// and 12 at shallow fills are read against (chip_smoke.py --attention).
+extern "C" int ppq_empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+
+// What one SM holds of rows 11 and 12's kernel for an int8 (pool_bf16 0)
+// or bf16 pool, `rep` query rows and KV heads, and a shallow window (one
+// warp a (slot, KV head)) or not (two): out[0] blocks (the occupancy API),
+// out[1] shared bytes a block, out[2] bytes of K and V codes a warp's
+// stage, out[3] stages in a warp's ring, out[4] warps a block.
+extern "C" int ppq_paged_attention_occupancy(int pool_bf16, int64_t rep,
+                                             int64_t KV, int shallow,
+                                             void* out) {
+  int* o = static_cast<int*>(out);
+  if (KV <= 0 || KV > 65535) return (int)cudaErrorInvalidValue;
+  if (pool_bf16)
+    return shallow ? resident_rep<__nv_bfloat16, 1>(rep, (int)KV, o)
+                   : resident_rep<__nv_bfloat16, 2>(rep, (int)KV, o);
+  return shallow ? resident_rep<int8_t, 1>(rep, (int)KV, o)
+                 : resident_rep<int8_t, 2>(rep, (int)KV, o);
 }

@@ -94,6 +94,8 @@ LIBRARIES: Dict[str, tuple] = {
             [_P] * 9 + [_INT] + [_I64] * 9 + [_F, _P],
         'ppq_paged_attention_buffered':
             [_P] * 13 + [_INT] + [_I64] * 17 + [_F, _P],
+        'ppq_paged_attention_occupancy': [_INT, _I64, _I64, _INT, _P],
+        'ppq_empty_launch': [_P],
     }, []),
 }
 

@@ -23,9 +23,12 @@ positions t < seq_lens[b], block by block:
 `acc / l` is the attention output when there is nothing to merge
 (`merge_attention`). A slot with seq_lens == 0 returns m = -1e30, l = 0 and
 acc = 0; the JAX kernel leaves acc undefined there, the port defines it. The
-plain versions repeat this arithmetic block by block, so the kernel and its
-plain version differ only in the order of f32 sums and in the last bit of
-exp (and, through those, where p * v_scale rounds to bf16).
+plain versions repeat this arithmetic block by block; the kernel updates
+the running max once a stage of 16 positions in each of the one or two
+warps of a (slot, KV head) and merges the warps at the end, so the two
+differ in the order of f32 sums, in the last bit of exp and in where
+p * v_scale rounds to bf16 (against another running max), within the
+attention tolerance.
 
 A seq_lens entry outside [0, MB * BLK] is clamped there; a block-table row
 outside the pool is read as an empty block. On the card the kernel also sets
@@ -338,8 +341,8 @@ def _check_common(what, q, pool, scale, seq_lens, layer):
 
 def _launch(what, q, pool, scale, tables, seq_lens, layer, MB, NB, SCP,
             group):
-    """Checks what only the kernel needs, allocates the outputs and
-    launches. Raises on whatever the kernel does not take."""
+    """Checks what only the kernel needs, then launches (`_run`). Raises on
+    whatever the kernel does not take, before anything reaches the card."""
     B, KV, rep, Dh = q.shape
     BLK = pool.shape[-2]
     if Dh != KERNEL_HEAD_DIM or rep not in KERNEL_REPS:
@@ -360,8 +363,14 @@ def _launch(what, q, pool, scale, tables, seq_lens, layer, MB, NB, SCP,
         pool = pool[int(layer)]
         scale = None if scale is None else scale[int(layer)]
     q = q.to(BF16).contiguous()
-    if any(t.data_ptr() % 16 for t in (q, pool)):
-        raise ValueError(f'{what} takes 16-byte aligned q and pool')
+    if any(t.data_ptr() % 16 for t in (q, pool, scale) if t is not None):
+        raise ValueError(f'{what} takes 16-byte aligned q, pool and scales')
+    return _run(what, q, pool, scale, tables, seq_lens, MB, NB, SCP, group)
+
+
+def _run(what, q, pool, scale, tables, seq_lens, MB, NB, SCP, group):
+    """Allocates the outputs and launches the kernel on checked inputs."""
+    B, KV, rep, Dh = q.shape
     acc = torch.empty((B, KV, rep, Dh), dtype=F32, device=q.device)
     m = torch.empty((B, KV, rep), dtype=F32, device=q.device)
     l = torch.empty((B, KV, rep), dtype=F32, device=q.device)
@@ -373,7 +382,7 @@ def _launch(what, q, pool, scale, tables, seq_lens, layer, MB, NB, SCP,
             None if tables is None else tables.data_ptr(),
             seq_lens.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
             fault_word(q.device).data_ptr(), int(pool.dtype == BF16), B, KV,
-            rep, Dh, MB, NB, BLK, SCP, group, _inv_sqrt(Dh),
+            rep, Dh, MB, NB, pool.shape[-2], SCP, group, _inv_sqrt(Dh),
             stream_of(q.device))
     check(rc, what)
     LAUNCHES[what] += 1

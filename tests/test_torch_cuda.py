@@ -899,6 +899,110 @@ def test_paged_attention_grouped_kernel_vs_plain(cuda, blk, group, rep, dtype):
     assert read_faults(cuda) == []
 
 
+def _edge_lens(B, cap, device):
+    """Fills that end inside a pass of 16 positions and on one, inside a
+    stage of 64 and on one, and on the window, with empty slots, over B
+    slots."""
+    edges = [f for f in (0, 1, 5, 15, 16, 17, 31, 47, 63, 64, 65, 100, 127,
+                         128, 129, 255, 256, 257, 511, 512) if f <= cap]
+    return torch.tensor([(edges + [cap])[i % (len(edges) + 1)]
+                         for i in range(B)], dtype=torch.int32, device=device)
+
+
+def _both_calls(run, lens):
+    """Two calls on the same inputs, bit-equal; returns the first."""
+    got, again = run(lens), run(lens)
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+    return got
+
+
+@pytest.mark.parametrize('grouped,cap,blk,fill', [
+    (False, 512, 512, 512), (True, 32, 32, 16), (True, 512, 256, 16),
+    (True, 512, 256, 512)], ids=['fused-512', 'grouped-32-fill16',
+                                 'grouped-256-fill16', 'grouped-256-fill512'])
+def test_paged_attention_kernels_at_path_shapes(cuda, grouped, cap, blk,
+                                                fill):
+    """Rows 11 and 12 at the paths' shapes (128 slots, 8 KV heads of 128,
+    rep 2, int8 codes): path E's and F's fill 512 over one 512-block a slot
+    and fill 16 over blocks of 32 in groups of 32, path G's blocks of 256 at
+    fills 16 and 512; then the same windows at fills that end inside and on
+    a pass and a stage. Two calls bit-equal, no fault."""
+    from ppq_tpu_torch.kernels import (blockmajor_window, grouped_group_size,
+                                       identity_block_tables,
+                                       paged_attention_decode_fused,
+                                       paged_attention_decode_fused_plain,
+                                       paged_attention_decode_grouped,
+                                       paged_attention_decode_grouped_plain,
+                                       read_faults, slotmajor_window)
+    B, KV, rep = 128, 8, 2
+    q, k, v, ks, vs = _attention_case(cuda, B, KV, rep, cap, torch.int8,
+                                      cap + blk + fill)
+    if grouped:
+        kv, sc = blockmajor_window(k, v, ks, vs, cap, blk)
+        G = grouped_group_size(B, blk, kv_dh=KV * 128, itemsize=1)
+        run = lambda lens: paged_attention_decode_grouped(  # noqa: E731
+            q, kv, sc, lens, 1, block_size=blk, group=G)
+        plain = lambda lens: paged_attention_decode_grouped_plain(  # noqa: E731
+            q, kv, sc, lens, 1, block_size=blk, group=G)
+    else:
+        kv, sc = slotmajor_window(k, v, ks, vs, cap, blk)
+        tables = identity_block_tables(B, cap, blk, cuda)
+        run = lambda lens: paged_attention_decode_fused(  # noqa: E731
+            q, kv, sc, tables, lens, 1, block_size=blk)
+        plain = lambda lens: paged_attention_decode_fused_plain(  # noqa: E731
+            q, kv, sc, tables, lens, 1, block_size=blk)
+    read_faults(cuda)
+    for lens in (torch.full((B,), fill, dtype=torch.int32, device=cuda),
+                 _edge_lens(B, cap, cuda)):
+        got = _both_calls(run, lens)
+        _assert_attention_close(got, plain(lens), q, k[1], v[1], ks[1],
+                                vs[1], lens)
+    assert read_faults(cuda) == []
+
+
+@pytest.mark.parametrize('dtype', [torch.int8, torch.bfloat16],
+                         ids=['int8', 'bf16'])
+@pytest.mark.parametrize('rep', [1, 2, 4])
+@pytest.mark.parametrize('grouped', [False, True], ids=['fused', 'grouped'])
+def test_paged_attention_fills_inside_and_on_stages(cuda, grouped, rep,
+                                                    dtype):
+    """Rows 11 and 12 over shallow windows (one warp a head: blocks of 16
+    and 32) and deep ones (blocks of 48 and 64; a stage straddles blocks of
+    48), 3 KV heads (a thread block holds a slot's heads), at fills that end
+    inside and on a pass and a stage, for each rep the kernel takes and both
+    pool types; two calls bit-equal."""
+    from ppq_tpu_torch.kernels import (blockmajor_window,
+                                       identity_block_tables,
+                                       paged_attention_decode_fused,
+                                       paged_attention_decode_fused_plain,
+                                       paged_attention_decode_grouped,
+                                       paged_attention_decode_grouped_plain,
+                                       slotmajor_window)
+    B, KV = 40, 3
+    for blk, cap in ((16, 48), (32, 64), (48, 288), (64, 512)):
+        q, k, v, ks, vs = _attention_case(cuda, B, KV, rep, cap, dtype,
+                                          blk + rep)
+        lens = _edge_lens(B, cap, cuda)
+        if grouped:
+            kv, sc = blockmajor_window(k, v, ks, vs, cap, blk)
+            run = lambda lens: paged_attention_decode_grouped(  # noqa: E731
+                q, kv, sc, lens, 1, block_size=blk, group=4)
+            want = paged_attention_decode_grouped_plain(
+                q, kv, sc, lens, 1, block_size=blk, group=4)
+        else:
+            kv, sc = slotmajor_window(k, v, ks, vs, cap, blk)
+            tables = identity_block_tables(B, cap, blk, cuda)
+            run = lambda lens: paged_attention_decode_fused(  # noqa: E731
+                q, kv, sc, tables, lens, 1, block_size=blk)
+            want = paged_attention_decode_fused_plain(
+                q, kv, sc, tables, lens, 1, block_size=blk)
+        got = _both_calls(run, lens)
+        _assert_attention_close(got, want, q, k[1], v[1],
+                                None if ks is None else ks[1],
+                                None if vs is None else vs[1], lens)
+
+
 def test_kernels_flag_inputs_out_of_range(cuda):
     """What only the card can check sets the fault word: a bank_write column
     past the buffers (nothing written), a window past the slab, a fill past
