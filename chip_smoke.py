@@ -235,11 +235,40 @@ def phase_build(names=None):
 
 def phase_kernels(dev):
     """Each kernel against its plain version at the main path's shapes."""
+    flush = torch.empty(512 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
+    results = kernels_quant(dev, flush)
+    torch.cuda.empty_cache()
+    results.update(kernels_serving(dev, flush))
+    results.update(kernels_int4(dev, flush))
+    results.update(kernels_ragged(dev, flush))
+    results.update(kernels_paged(dev, flush))
+    _log_kernels(results)
+    del flush
+    torch.cuda.empty_cache()
+    return results
+
+
+def _log_kernels(results):
+    for name, r in results.items():
+        lib = ('none' if r['library_ms'] is None
+               else f'{r["library_ms"]:.4f} ms')
+        log(f'[kernel] {name} {r["shape"]}: {r["ms"]:.4f} ms, plain '
+            f'{r["plain_ms"]:.4f} ms, library {lib}, bound '
+            f'{r["bound_ms"]:.4f} ms ({r["bound_by"]}), share of bound '
+            f'{r["bound_ms"] / r["ms"]:.3f}')
+    if 'histogram' in results:
+        log(f'[kernel] histogram 2048 bins: '
+            f'{json.dumps(results["histogram"]["bins_2048"])}')
+
+
+def kernels_quant(dev, flush):
+    """Rows 1-7 against their plain versions at the headline shapes: the
+    largest activation of the paths (the first ReLU's output) and the
+    largest conv weight, quantized along axis 0."""
     from ppq_tpu_torch.core import RoundingPolicy
     from ppq_tpu_torch.kernels import (histogram, histogram_plain,
                                        linear_quant, linear_quant_plain)
     gen = torch.Generator(device=dev).manual_seed(0)
-    flush = torch.empty(512 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
     act = torch.randn(*ACT_SHAPE, device=dev, generator=gen) * 2.0
     weight = torch.randn(*WEIGHT_SHAPE, device=dev, generator=gen) * 0.05
     n_act, n_w = act.numel(), weight.numel()
@@ -274,8 +303,8 @@ def phase_kernels(dev):
         if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
             raise AssertionError(f'fake_quant_channelwise != plain ({policy.name})')
         err = max(err, float((got - want).abs().max()))
-    # timed with the scales and offsets already on the card (the wrapper
-    # still rounds the offsets: one more small launch in the window)
+    # timed with the scales and offsets already on the card (the kernel
+    # rounds the offsets)
     s_w_t = torch.as_tensor(s_w, device=dev)
     o_w_t = torch.as_tensor(z_w, device=dev)
     z_w_t = torch.zeros(channels, dtype=torch.int32, device=dev)
@@ -321,21 +350,6 @@ def phase_kernels(dev):
     results.update(kernels_backward(act, weight, s_act, s_w_t, o_w_t, flush))
     results.update(kernels_floating(act, weight, s_w_t, flush))
     del act, weight
-    torch.cuda.empty_cache()
-    results.update(kernels_serving(dev, flush))
-    results.update(kernels_int4(dev, flush))
-    results.update(kernels_ragged(dev, flush))
-    results.update(kernels_paged(dev, flush))
-    for name, r in results.items():
-        lib = ('none' if r['library_ms'] is None
-               else f'{r["library_ms"]:.4f} ms')
-        log(f'[kernel] {name} {r["shape"]}: {r["ms"]:.4f} ms, plain '
-            f'{r["plain_ms"]:.4f} ms, library {lib}, bound '
-            f'{r["bound_ms"]:.4f} ms ({r["bound_by"]}), share of bound '
-            f'{r["bound_ms"] / r["ms"]:.3f}')
-    log(f'[kernel] histogram 2048 bins: {json.dumps(results["histogram"]["bins_2048"])}')
-    del flush
-    torch.cuda.empty_cache()
     return results
 
 
@@ -2922,6 +2936,7 @@ def phase_path_c(dev):
     from ppq_tpu_torch import TargetPlatform, TorchExecutor, manop, quantize_graph
     from ppq_tpu_torch.api import QuantizationSettingFactory
     from ppq_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ppq_tpu_torch.quantization import qfunction
     from ppq_tpu_torch.quantization.optim import LearnedStepSizePass
     from ppq_tpu_torch.zoo import resnet18
     shape, loader, x_eval = _data()
@@ -2932,6 +2947,18 @@ def phase_path_c(dev):
     y_fp32_train = _fp32_forward(shape, x_train)
     torch.cuda.reset_peak_memory_stats()
 
+    # row 6's launches by body, counted where qfunction calls the wrapper
+    # (one LAUNCHES key holds both)
+    bodies = dict(channelwise=0, tensorwise=0)
+    floating_quant = qfunction.floating_quant
+
+    def by_body(x, scale, e_bits, m_bits, qmin, qmax, channel_axis=None):
+        if x.is_cuda and x.numel():
+            bodies['tensorwise' if channel_axis is None else 'channelwise'] += 1
+        return floating_quant(x, scale, e_bits, m_bits, qmin, qmax,
+                              channel_axis)
+
+    qfunction.floating_quant = by_body
     reset_launches()
     graph = resnet18(input_shape=shape)
     torch.cuda.synchronize()
@@ -2945,7 +2972,7 @@ def phase_path_c(dev):
     executor = TorchExecutor(graph)
     y = executor.forward(x_dev)[0]
     torch.cuda.synchronize()
-    before_fwd = dict(LAUNCHES)
+    before_fwd, bodies_before = dict(LAUNCHES), dict(bodies)
     n_fwd = 10
     t0 = time.perf_counter()
     for _ in range(n_fwd):
@@ -2954,6 +2981,8 @@ def phase_path_c(dev):
     fwd_s = (time.perf_counter() - t0) / n_fwd
     per_forward = {k: (LAUNCHES[k] - v) / n_fwd for k, v in before_fwd.items()
                    if LAUNCHES[k] != v}
+    bodies_per_forward = {k: (bodies[k] - v) / n_fwd
+                          for k, v in bodies_before.items()}
     _, snr, top1 = _forward_vs(graph, x_dev, y_fp32)
     snr_train = _forward_vs(graph, x_train, y_fp32_train)[1]
     lsq = LearnedStepSizePass(is_scale_trainable=False, steps=LSQ_STEPS,
@@ -2965,6 +2994,10 @@ def phase_path_c(dev):
     y_tuned, snr_tuned, top1_tuned = _forward_vs(graph, x_dev, y_fp32)
     snr_train_tuned = _forward_vs(graph, x_train, y_fp32_train)[1]
     launches = dict(LAUNCHES)
+    qfunction.floating_quant = floating_quant
+    if sum(bodies.values()) != launches['floating_quant']:
+        raise AssertionError(f'path C: row 6 launched {launches["floating_quant"]} '
+                             f'times, its bodies were called {bodies}')
 
     # comparisons: these launches are not the path's
     plain = resnet18(input_shape=shape)
@@ -2996,6 +3029,8 @@ def phase_path_c(dev):
     summary = dict(
         quantize_s=quant_s, forward_ms=fwd_s * 1e3,
         forward_img_per_s=CALIB_BATCH / fwd_s, launches_per_forward=per_forward,
+        floating_quant_by_body=bodies,
+        floating_quant_by_body_per_forward=bodies_per_forward,
         snr_fp8=snr, top1_agree_fp8=top1, floating_scales=scales,
         lsq_pass_s=lsq_s, lsq_blocks=blocks, lsq_steps=blocks * LSQ_STEPS,
         lsq_blocks_accepted=sum(h['accepted'] for h in lsq.history),
@@ -3239,6 +3274,204 @@ def phase_profile(executor, x_dev, n=3):
             f'{key[:90]}')
 
 
+def _path_inputs(dev):
+    """What rows 2 and 3 are given on path A, recorded from quantize_graph
+    (KL, one batch of _data()) on the zoo ResNet-18 at full width: the 21
+    weights that a calibration batch fake-quantizes channelwise, each on its
+    own axis with its scales, and the 41 activations that a KL phase-2
+    batch histograms, each with its scale (4096 bins)."""
+    from ppq_tpu_torch import TargetPlatform, quantize_graph
+    from ppq_tpu_torch.api import QuantizationSettingFactory
+    from ppq_tpu_torch.quantization import observers, qfunction
+    from ppq_tpu_torch.zoo import resnet18
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    weights, acts, calls = [], [], [0]
+    linear_quant, histogram = qfunction.linear_quant, observers.histogram
+
+    def record_quant(x, scale, offset, qmin, qmax, rounding, channel_axis=None,
+                     codes=False):
+        # each sweep of the calibration batch quantizes the 21 weights once
+        calls[0] += channel_axis is not None
+        if channel_axis is not None and len(weights) < 21:
+            weights.append(dict(
+                x=x.clone(), scale=torch.as_tensor(scale, device=dev).clone(),
+                offset=torch.as_tensor(offset, device=dev).clone(),
+                qmin=qmin, qmax=qmax, rounding=rounding, axis=channel_axis))
+        return linear_quant(x, scale, offset, qmin, qmax, rounding,
+                            channel_axis, codes)
+
+    def record_histogram(x, scale, bins, absolute=True, out=None):
+        acts.append(dict(x=x.clone(), scale=scale, bins=bins,
+                         absolute=absolute))
+        return histogram(x, scale, bins, absolute, out)
+
+    shape, loader, _ = _data()
+    setting = QuantizationSettingFactory.default_setting()
+    setting.quantize_activation_setting.calib_algorithm = 'kl'
+    qfunction.linear_quant, observers.histogram = record_quant, record_histogram
+    try:
+        quantize_graph(resnet18(input_shape=shape), loader[:1], calib_steps=1,
+                       platform=TargetPlatform.TPU_INT8, setting=setting,
+                       verbose=False)
+    finally:
+        qfunction.linear_quant, observers.histogram = linear_quant, histogram
+    torch.cuda.synchronize()
+    if calls[0] != 42 or len(acts) != 41:
+        raise AssertionError(f'path A gave {calls[0]} channelwise fake-quants '
+                             f'and {len(acts)} histograms, not 2 x 21 and 41')
+    return weights, acts
+
+
+def quant_paths(dev, flush):
+    """`--quant` only: rows 2 and 3 at every input path A gives them (each
+    held against its plain version, then timed), with the sums a
+    calibration batch spends; row 3 also at 2048 bins (the MSE observers),
+    and its launch's choices measured on the headline activation and on
+    the real first-ReLU activation where this checkout has the variant
+    entry point."""
+    from ppq_tpu_torch.core import RoundingPolicy
+    from ppq_tpu_torch.kernels import (histogram, histogram_plain, linear_quant,
+                                       linear_quant_plain, loader)
+    weights, acts = _path_inputs(dev)
+    results = {}
+    rows = []
+    for w in weights:
+        x, axis = w['x'], w['axis']
+        args = (w['scale'], w['offset'], w['qmin'], w['qmax'])
+        for policy in (w['rounding'], RoundingPolicy.ROUND_HALF_UP):
+            for codes in (False, True):
+                got = linear_quant(x, *args, policy, axis, codes)
+                want = linear_quant_plain(x, *args, policy, axis, codes)
+                if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                    raise AssertionError(f'fake_quant_channelwise != plain at '
+                                         f'{tuple(x.shape)} axis {axis}')
+        first = linear_quant(x, *args, w['rounding'], axis)
+        again = linear_quant(x, *args, w['rounding'], axis)
+        if not torch.equal(first.view(torch.int32), again.view(torch.int32)):
+            raise AssertionError('fake_quant_channelwise: two calls differ')
+        ms = time_ms(lambda: linear_quant(x, *args, w['rounding'], axis), flush)
+        n = x.numel()
+        b, _ = bound_ms(8.0 * n + 8.0 * x.shape[axis], 7.0 * n)
+        rows.append(dict(shape=list(x.shape), axis=axis, ms=ms, bound_ms=b))
+    results['row 2 path A weights'] = dict(
+        per_shape=rows, sum_ms=sum(r['ms'] for r in rows),
+        sum_bound_ms=sum(r['bound_ms'] for r in rows))
+    log(f'[quant] row 2 at the 21 weights of a calibration batch, bit-equal '
+        f'(2 policies x codes on and off): sum '
+        f'{results["row 2 path A weights"]["sum_ms"]:.4f} ms (bounds '
+        f'{results["row 2 path A weights"]["sum_bound_ms"]:.4f}); '
+        + ', '.join(f'{r["shape"]}@{r["axis"]} {r["ms"]:.4f}' for r in rows))
+
+    first_relu = None
+    for bins in (4096, 2048):
+        rows = []
+        for a in acts:
+            x = a['x']
+            scale = float(np.float32(a['scale']) * np.float32(a['bins'] / bins))
+            got = histogram(x, scale, bins, a['absolute'])
+            want = histogram_plain(x, scale, bins, a['absolute'])
+            again = histogram(x, scale, bins, a['absolute'])
+            if not (torch.equal(got, want) and torch.equal(again, want)):
+                raise AssertionError(f'histogram != plain at {tuple(x.shape)}, '
+                                     f'{bins} bins')
+            ms = time_ms(lambda: histogram(x, scale, bins, a['absolute']), flush)
+            n = x.numel()
+            b, _ = bound_ms(4.0 * n + 8.0 * bins, 3.0 * n)
+            rows.append(dict(shape=list(x.shape), ms=ms, bound_ms=b,
+                             bin0_share=float(want[0]) / n))
+            if tuple(x.shape) == ACT_SHAPE and bins == 4096:
+                first_relu = (x, scale)
+        key = f'row 3 path A activations, {bins} bins'
+        results[key] = dict(per_shape=rows, sum_ms=sum(r['ms'] for r in rows),
+                            sum_bound_ms=sum(r['bound_ms'] for r in rows))
+        log(f'[quant] {key}, count-exact, two calls equal: sum '
+            f'{results[key]["sum_ms"]:.4f} ms (bounds '
+            f'{results[key]["sum_bound_ms"]:.4f}); '
+            + ', '.join(f'{r["shape"]} {r["ms"]:.4f} (bin 0 '
+                        f'{r["bin0_share"]:.2f})' for r in rows))
+    del weights, acts
+
+    # the launch's choices, where this checkout can make them
+    entries = loader.LIBRARIES['histogram'][1]
+    if 'ppq_histogram_variant' in entries and first_relu is not None:
+        lib = loader.library('histogram')
+        stream = loader.stream_of(dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        headline = torch.relu(torch.randn(*ACT_SHAPE, device=dev, generator=gen) * 2.0)
+        inputs = (('headline post-ReLU randn', headline,
+                   float(headline.max()) / 4096),
+                  ('real first-ReLU activation',) + first_relu)
+        out = torch.zeros(4096, dtype=torch.int64, device=dev)
+        variants = (('default: 8 copies by lane, 1 block an SM, 4 loads', 8, 1, 1, 4, 1),
+                    ('1 copy', 1, 1, 1, 4, 1),
+                    ('8 copies by warp', 8, 0, 1, 4, 1),
+                    ('14 copies by lane', 14, 1, 1, 4, 1),
+                    ('2 blocks an SM, 6 copies', 6, 1, 2, 4, 1),
+                    ('1 load ahead', 8, 1, 1, 1, 1),
+                    ('no counting (bins computed, no atomic)', 8, 1, 1, 4, 0))
+        for label, x, scale in inputs:
+            timed = {}
+            for name, copies, by_lane, per_sm, loads, count in variants:
+                def run():
+                    rc = lib.ppq_histogram_variant(
+                        x.data_ptr(), x.numel(), scale, 4096, out.data_ptr(),
+                        copies, by_lane, per_sm, loads, count, stream)
+                    if rc:
+                        raise AssertionError(f'histogram variant {name}: {rc}')
+                if count:
+                    out.zero_()
+                    run()
+                    if not torch.equal(out, histogram_plain(x, scale, 4096)):
+                        raise AssertionError(f'histogram variant {name} != plain')
+                timed[name] = time_ms(run, flush)
+            results[f'row 3 variants, {label}'] = timed
+            log(f'[quant] row 3 variants on the {label} (4096 bins): '
+                + '; '.join(f'{k} {v:.4f}' for k, v in timed.items()))
+        del headline, first_relu
+    torch.cuda.empty_cache()
+    return results
+
+
+def main_quant(package_root=None) -> int:
+    """`--quant`: the card, the build of the fake-quant and histogram
+    kernels, rows 1-7 held and timed at their headline shapes
+    (kernels_quant), and rows 2 and 3 at every input path A gives them
+    (quant_paths); with yardsticks over the same bytes (a float32 clone of
+    the weight for row 2, a float32 sum of the activation for row 3) and
+    the launch floor (`ppq_empty_launch`, the one reason the paged-attention
+    library is built). With `--package-root DIR` the package is imported
+    from the checkout at DIR, so two commits are timed in one call on one
+    card, in turns."""
+    t_start = time.perf_counter()
+    _, smi = phase_card()
+    if package_root:
+        sys.path.insert(0, package_root)
+    import ppq_tpu_torch
+    log(f'[quant] package {ppq_tpu_torch.__file__}')
+    from ppq_tpu_torch.kernels import loader
+    dev = torch.device('cuda', 0)
+    torch.cuda.set_device(dev)
+    phase_build(['fake_quant', 'fake_quant_bwd', 'floating', 'histogram',
+                 'paged_attention'])
+    flush = torch.empty(512 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
+    results = kernels_quant(dev, flush)
+    _log_kernels(results)
+    results.update(quant_paths(dev, flush))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    weight = torch.randn(*WEIGHT_SHAPE, device=dev, generator=gen)
+    act = torch.randn(*ACT_SHAPE, device=dev, generator=gen)
+    results['yardsticks'] = dict(
+        weight_clone_ms=time_ms(lambda: weight.clone(), flush),
+        activation_sum_ms=time_ms(lambda: act.sum(), flush),
+        launch_floor_ms=time_ms(lambda: loader.library(
+            'paged_attention').ppq_empty_launch(loader.stream_of(dev)), flush))
+    log(f'[quant] yardsticks: {json.dumps(results["yardsticks"])}')
+    log(f'[done] {time.perf_counter() - t_start:.1f} s; {smi}')
+    log(json.dumps({'quant': results, 'card': smi}))
+    return 0
+
+
 def main_qmm(package_root=None) -> int:
     """`--qmm`: the card, the build and the dequant-matmuls' kernel phase
     alone (rows 8 and 10 at path D's shapes, kernels_qmm; rows 9 and 10's
@@ -3305,11 +3538,16 @@ def main() -> int:
                           help='rows 8, 9 and 10 alone: build, hold, time')
         mode.add_argument('--attention', action='store_true',
                           help='rows 11, 12 and 13 alone: build, hold, time')
+        mode.add_argument('--quant', action='store_true',
+                          help='rows 1-7 alone, rows 2 and 3 at every path '
+                               'shape: build, hold, time')
         ap.add_argument('--package-root', default=None,
                         help='import ppq_tpu_torch from this checkout')
         args = ap.parse_args()
         if args.attention:
             return main_attention(args.package_root)
+        if args.quant:
+            return main_quant(args.package_root)
         return main_qmm(args.package_root)
     t_start = time.perf_counter()
     name, smi = phase_card()

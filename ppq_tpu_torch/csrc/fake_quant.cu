@@ -8,14 +8,24 @@
 //
 // What bounds it on an H100: device memory. Each element is read once and
 // written once (8 bytes) for a handful of flops, far below the ~20 flop/byte
-// ridge of fp32 at 3.35 TB/s. So the design is one pass: 16-byte (float4)
-// loads and stores, a grid-stride loop over enough blocks to fill the card,
-// and the scale and offset as kernel arguments or one device scalar each
-// (tensorwise) or read from a small device vector that stays in L1/L2
-// (channelwise).
+// ridge of fp32 at 3.35 TB/s. So the design is one pass of 16-byte (float4)
+// loads and stores, with several loads in flight a thread before any is
+// converted. Tensorwise: a grid-stride loop, the scale and offset kernel
+// arguments or one device scalar each.
 //
-// Channelwise keeps the tensor's own layout: the channel of flat index i is
-// (i / inner) % C, so the JAX wrapper's transpose and padding are not needed.
+// Channelwise keeps the tensor's own layout, outer * C runs of `inner`
+// contiguous floats, run r of channel r % C (channel_index.cuh), so the JAX
+// wrapper's transpose and padding are not needed. The instruction stream,
+// not the bytes, used to set its pace: two integer divisions and two scale
+// loads an element. Now:
+//   * where a run fills a block (inner a multiple of 4, at least
+//     4 * RUN_THREADS floats: the 3x3 conv weights on axis 0), block (r, j)
+//     walks slice j of run r with the scale and offset in registers;
+//   * elsewhere (conv1's inner of 147, the 1x1 convs, a bias or a Gemm
+//     weight on its last axis with inner 1) a grid-stride loop finds the
+//     channel once a float4 by multiply-high and shift, and element by
+//     element only where a float4 crosses a run's end.
+// Both are one launch with no host work beyond the launch.
 //
 // Numerics match the JAX reference `x / s` path bit for bit:
 //   * division is IEEE round-to-nearest (__fdiv_rn), never a reciprocal;
@@ -23,18 +33,24 @@
 //   * the clip uses comparisons, so a NaN stays a NaN as in jnp.clip;
 //   * built without --use_fast_math and with -fmad=false, so no fused
 //     multiply-add changes a rounding.
-// A host offset arrives already rounded (the wrapper rounds it, as
-// quantization/qfunction.py does); an offset read from the card is rounded
-// here with rintf, which is torch.round's and jnp.round's half-to-even.
+// A tensorwise host offset arrives already rounded (the wrapper rounds it,
+// as quantization/qfunction.py does); an offset read from the card, every
+// channelwise one included, is rounded here with rintf, which is
+// torch.round's and jnp.round's half-to-even.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "channel_index.cuh"
 #include "rounding.cuh"
 
 using namespace ppq;
 
 namespace {
+
+constexpr int RUN_THREADS = 128;   // a block of the run kernel
+constexpr int FLAT_THREADS = 256;  // a block of the grid-stride kernels
+constexpr int LOADS = 4;           // float4 loads a thread has in flight
 
 template <int R, bool CODES>
 __device__ __forceinline__ float quant_one(float x, float s, float o,
@@ -73,30 +89,101 @@ __global__ void fake_quant_tensor_kernel(const float* __restrict__ x,
     y[i] = quant_one<R, CODES>(x[i], s, o, qmin, qmax);
 }
 
-template <int R, bool CODES, typename Index>
-__global__ void fake_quant_channel_kernel(const float* __restrict__ x,
-                                          float* __restrict__ y, Index n,
-                                          Index n_vec,
-                                          const float* __restrict__ scale,
-                                          const float* __restrict__ offset,
-                                          Index channels, Index inner,
-                                          float qmin, float qmax) {
-  const Index stride = (Index)gridDim.x * blockDim.x;
-  const Index start = (Index)blockIdx.x * blockDim.x + threadIdx.x;
+// Four elements of one channel: the scale and the rounded offset are the
+// caller's registers.
+template <int R, bool CODES>
+__device__ __forceinline__ void quant_four(float4& v, float s, float o,
+                                           float qmin, float qmax) {
+  v.x = quant_one<R, CODES>(v.x, s, o, qmin, qmax);
+  v.y = quant_one<R, CODES>(v.y, s, o, qmin, qmax);
+  v.z = quant_one<R, CODES>(v.z, s, o, qmin, qmax);
+  v.w = quant_one<R, CODES>(v.w, s, o, qmin, qmax);
+}
+
+// Channelwise, where a run fills a block: block (r, j) walks slice j of run
+// r, `chunk4` float4s, whose channel r % C it finds once. Each thread loads
+// its LOADS float4s of the slice before it converts any.
+template <int R, bool CODES>
+__global__ void __launch_bounds__(RUN_THREADS)
+fake_quant_run_kernel(const float* __restrict__ x, float* __restrict__ y,
+                      int64_t inner4, int64_t chunk4,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ offset, int64_t channels,
+                      float qmin, float qmax) {
+  const int64_t run = blockIdx.x;
+  const int64_t c = run % channels;
+  const float s = scale[c];
+  const float o = rintf(offset[c]);
+  const float4* src = reinterpret_cast<const float4*>(x) + run * inner4;
+  float4* dst = reinterpret_cast<float4*>(y) + run * inner4;
+  for (int64_t start = blockIdx.y * chunk4; start < inner4;
+       start += (int64_t)gridDim.y * chunk4) {
+    const int64_t end = start + chunk4 < inner4 ? start + chunk4 : inner4;
+    float4 v[LOADS];
+#pragma unroll
+    for (int k = 0; k < LOADS; ++k) {
+      const int64_t j = start + k * RUN_THREADS + threadIdx.x;
+      if (j < end) v[k] = src[j];
+    }
+#pragma unroll
+    for (int k = 0; k < LOADS; ++k) {
+      const int64_t j = start + k * RUN_THREADS + threadIdx.x;
+      if (j < end) {
+        quant_four<R, CODES>(v[k], s, o, qmin, qmax);
+        dst[j] = v[k];
+      }
+    }
+  }
+}
+
+// Channelwise, any layout: a grid-stride loop over float4s, LOADS of them a
+// thread in flight. The channel is found once a float4 (two multiply-highs,
+// channel_index.cuh); only a float4 that crosses a run's end (inner not a
+// multiple of 4, or below 4) steps element by element.
+template <int R, bool CODES, typename Div>
+__global__ void __launch_bounds__(FLAT_THREADS)
+fake_quant_flat_kernel(const float* __restrict__ x, float* __restrict__ y,
+                       typename IndexOf<Div>::type n,
+                       typename IndexOf<Div>::type n_vec,
+                       const float* __restrict__ scale,
+                       const float* __restrict__ offset, ChannelIndex<Div> at,
+                       float qmin, float qmax) {
+  using Index = typename IndexOf<Div>::type;
   const float4* x4 = reinterpret_cast<const float4*>(x);
   float4* y4 = reinterpret_cast<float4*>(y);
-  for (Index i = start; i < n_vec; i += stride) {
-    float4 v = x4[i];
-    float* e = reinterpret_cast<float*>(&v);
+  const Index chunk = (Index)FLAT_THREADS * LOADS;
+  for (Index base = (Index)blockIdx.x * chunk + threadIdx.x; base < n_vec;
+       base += (Index)gridDim.x * chunk) {
+    float4 v[LOADS];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      Index c = ((i * 4 + k) / inner) % channels;
-      e[k] = quant_one<R, CODES>(e[k], scale[c], rintf(offset[c]), qmin, qmax);
+    for (int k = 0; k < LOADS; ++k) {
+      const Index j = base + k * FLAT_THREADS;
+      if (j < n_vec) v[k] = x4[j];
     }
-    y4[i] = v;
+#pragma unroll
+    for (int k = 0; k < LOADS; ++k) {
+      const Index j = base + k * FLAT_THREADS;
+      if (j >= n_vec) continue;
+      Index c, w;
+      at.locate(j * 4, c, w);
+      if (w + 3 < at.inner.d) {
+        quant_four<R, CODES>(v[k], scale[c], rintf(offset[c]), qmin, qmax);
+      } else {
+        float* e = reinterpret_cast<float*>(&v[k]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (q > 0) at.step(c, w);
+          e[q] = quant_one<R, CODES>(e[q], scale[c], rintf(offset[c]), qmin,
+                                     qmax);
+        }
+      }
+      y4[j] = v[k];
+    }
   }
-  for (Index i = n_vec * 4 + start; i < n; i += stride) {
-    Index c = (i / inner) % channels;
+  // the tail, or every element when x or y is not 16-byte aligned
+  for (Index i = n_vec * 4 + (Index)blockIdx.x * FLAT_THREADS + threadIdx.x;
+       i < n; i += (Index)gridDim.x * FLAT_THREADS) {
+    const Index c = at.channel(i);
     y[i] = quant_one<R, CODES>(x[i], scale[c], rintf(offset[c]), qmin, qmax);
   }
 }
@@ -116,18 +203,39 @@ template <int R, bool CODES>
 void launch_channel(const float* x, float* y, int64_t n, const float* s,
                     const float* o, int64_t channels, int64_t inner,
                     float qmin, float qmax, cudaStream_t stream) {
-  const int threads = 256;
-  int64_t n_vec = (aligned16(x) && aligned16(y)) ? n / 4 : 0;
-  int blocks = grid_for(n_vec > 0 ? n_vec : n, threads);
-  // 32-bit index arithmetic when it fits: 64-bit division is slow
-  if (n < (int64_t)UINT32_MAX - (int64_t)blocks * threads * 4) {
-    fake_quant_channel_kernel<R, CODES, uint32_t><<<blocks, threads, 0, stream>>>(
-        x, y, (uint32_t)n, (uint32_t)n_vec, s, o, (uint32_t)channels,
-        (uint32_t)inner, qmin, qmax);
+  const bool aligned = aligned16(x) && aligned16(y);
+  const int64_t runs = n / inner;
+  if (aligned && inner % 4 == 0 && inner / 4 >= RUN_THREADS &&
+      runs < INT32_MAX) {
+    // a slice of at most LOADS float4s a thread, the run cut evenly
+    const int64_t inner4 = inner / 4;
+    const int64_t per_block = (int64_t)RUN_THREADS * LOADS;
+    int64_t slices = (inner4 + per_block - 1) / per_block;
+    if (slices > 65535) slices = 65535;
+    int64_t chunk4 = (inner4 + slices - 1) / slices;
+    if (chunk4 > per_block) chunk4 = per_block;  // the loop takes the rest
+    const dim3 grid((unsigned)runs, (unsigned)slices);
+    fake_quant_run_kernel<R, CODES><<<grid, RUN_THREADS, 0, stream>>>(
+        x, y, inner4, chunk4, s, o, channels, qmin, qmax);
+    return;
+  }
+  const int64_t n_vec = aligned ? n / 4 : 0;
+  const int64_t items = n_vec > 0 ? (n_vec + LOADS - 1) / LOADS : n;
+  const int blocks = grid_for(items, FLAT_THREADS);
+  if (n < INT32_MAX) {
+    ChannelIndex<FastDiv32> at{FastDiv32::make((uint32_t)inner),
+                               FastDiv32::make((uint32_t)channels)};
+    fake_quant_flat_kernel<R, CODES, FastDiv32>
+        <<<blocks, FLAT_THREADS, 0, stream>>>(x, y, (uint32_t)n,
+                                              (uint32_t)n_vec, s, o, at, qmin,
+                                              qmax);
   } else {
-    fake_quant_channel_kernel<R, CODES, uint64_t><<<blocks, threads, 0, stream>>>(
-        x, y, (uint64_t)n, (uint64_t)n_vec, s, o, (uint64_t)channels,
-        (uint64_t)inner, qmin, qmax);
+    ChannelIndex<PlainDiv64> at{PlainDiv64::make((uint64_t)inner),
+                                PlainDiv64::make((uint64_t)channels)};
+    fake_quant_flat_kernel<R, CODES, PlainDiv64>
+        <<<blocks, FLAT_THREADS, 0, stream>>>(x, y, (uint64_t)n,
+                                              (uint64_t)n_vec, s, o, at, qmin,
+                                              qmax);
   }
 }
 

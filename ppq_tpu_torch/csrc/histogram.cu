@@ -5,18 +5,26 @@
 // Replaces the TPU kernel `_hist_kernel` of ppq_tpu/kernels/histogram.py
 // (`pallas_histogram`). The TPU has no fast scatter, so that kernel turns the
 // histogram into a one-hot contraction on the matrix unit. Hopper has fast
-// shared-memory atomics, so this is a histogram again:
-//   * each block keeps a sub-histogram of `bins` 32-bit counters in shared
-//     memory (16 KB at 4096 bins);
-//   * lanes of a warp that fall in the same bin are merged with
-//     __match_any_sync first, so the post-ReLU spike at bin 0 costs one
-//     shared atomic per warp and not 32;
-//   * at the end each block adds its non-zero bins to the 64-bit global
-//     counts with one atomic per bin;
-//   * the ragged tail is handled by the grid-stride loop, so there is no pad
-//     count to take out of bin 0.
+// shared-memory atomics, so this is a histogram again.
+//
 // What bounds it on an H100: device memory, 4 bytes read per element and no
-// write but the bins. Loads are 16-byte (float4).
+// write but the bins; the instruction stream comes close (an IEEE division,
+// a conversion and a shared atomic an element). The distribution sets the
+// contention: after a ReLU half the values or more fall in bin 0, and
+// because the scale is absmax / bins most of the rest pile into the lowest
+// bins. So:
+//   * bin 0 is counted in a register by each thread, summed by warp shuffles
+//     and added once a block: no atomic for it;
+//   * the other bins take plain shared atomics (no warp match) on `copies`
+//     sub-histograms, each padded by one word so that lanes on one bin of
+//     different copies fall in different banks; lane l (or warp w, as the
+//     launch says) counts into copy l % copies (w % copies). The copies are
+//     folded in shared memory before the flush;
+//   * each thread has LOADS float4 loads in flight before it bins any;
+//   * one block of 1024 threads an SM walks the tensor in a grid-stride
+//     loop, so the flush is one 64-bit global atomic per non-zero bin and SM,
+//     not per 1024 elements; the ragged tail is taken by the same loop, so
+//     there is no pad count to take out of bin 0.
 //
 // Counts are exact 64-bit integers and the kernel adds into the caller's
 // running counts, so a calibration folds its batches on the card in int64.
@@ -29,6 +37,9 @@
 
 namespace {
 
+constexpr int THREADS = 1024;
+constexpr int WARPS = THREADS / 32;
+
 __device__ __forceinline__ int bin_of(float v, float scale, int bins,
                                       bool absolute) {
   if (absolute) v = fabsf(v);
@@ -37,76 +48,155 @@ __device__ __forceinline__ int bin_of(float v, float scale, int bins,
   return idx > bins - 1 ? bins - 1 : idx;
 }
 
-// All 32 lanes call this together (the loops below are warp-uniform), so
-// the full mask is exact. idx < 0 marks a lane with no element.
-__device__ __forceinline__ void count(unsigned int* hist, int idx) {
-  unsigned int peers = __match_any_sync(0xffffffffu, idx);
-  if (idx >= 0 && (int)(threadIdx.x & 31) == __ffs(peers) - 1)
-    atomicAdd(&hist[idx], (unsigned int)__popc(peers));
+// COUNT false is a measurement variant: the bins are computed and summed,
+// nothing is counted (the result is not a histogram).
+template <bool COUNT>
+__device__ __forceinline__ void put(unsigned int* hist, int idx,
+                                    unsigned int& zeros) {
+  if (!COUNT) {
+    zeros += (unsigned int)idx;
+  } else if (idx == 0) {
+    ++zeros;
+  } else {
+    atomicAdd(&hist[idx], 1u);
+  }
 }
 
-template <bool ABS_VALUE>
-__global__ void histogram_kernel(const float* __restrict__ x, int64_t n,
-                                 int64_t n_vec, float scale, int bins,
-                                 unsigned long long* __restrict__ out) {
-  extern __shared__ unsigned int hist[];
-  for (int b = threadIdx.x; b < bins; b += blockDim.x) hist[b] = 0;
+template <bool ABS_VALUE, bool COUNT, int LOADS>
+__global__ void __launch_bounds__(THREADS, 1)
+histogram_kernel(const float* __restrict__ x, int64_t n, int64_t n_vec,
+                 float scale, int bins, int copies, int by_lane,
+                 unsigned long long* __restrict__ out) {
+  extern __shared__ unsigned int hist[];  // copies x (bins + 1)
+  __shared__ unsigned long long warp_zeros[WARPS];
+  const int stride_c = bins + 1;
+  for (int b = threadIdx.x; b < copies * stride_c; b += THREADS) hist[b] = 0;
   __syncthreads();
 
-  // blockDim.x is a multiple of 32: every lane of a warp runs the same
-  // number of iterations, from the warp's first index
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   const int lane = threadIdx.x & 31;
-  const int64_t warp_start =
-      (int64_t)blockIdx.x * blockDim.x + (threadIdx.x - lane);
+  const int warp = threadIdx.x >> 5;
+  unsigned int* mine = hist + ((by_lane ? lane : warp) % copies) * stride_c;
+  unsigned int zeros = 0;
   const float4* x4 = reinterpret_cast<const float4*>(x);
-  for (int64_t base = warp_start; base < n_vec; base += stride) {
-    const int64_t i = base + lane;
-    const bool ok = i < n_vec;
-    float4 v = ok ? x4[i] : make_float4(0.f, 0.f, 0.f, 0.f);
-    count(hist, ok ? bin_of(v.x, scale, bins, ABS_VALUE) : -1);
-    count(hist, ok ? bin_of(v.y, scale, bins, ABS_VALUE) : -1);
-    count(hist, ok ? bin_of(v.z, scale, bins, ABS_VALUE) : -1);
-    count(hist, ok ? bin_of(v.w, scale, bins, ABS_VALUE) : -1);
+  const int64_t chunk = (int64_t)THREADS * LOADS;
+  for (int64_t base = blockIdx.x * chunk + threadIdx.x; base < n_vec;
+       base += gridDim.x * chunk) {
+    float4 v[LOADS];
+#pragma unroll
+    for (int k = 0; k < LOADS; ++k) {
+      const int64_t j = base + k * THREADS;
+      if (j < n_vec) v[k] = x4[j];
+    }
+#pragma unroll
+    for (int k = 0; k < LOADS; ++k) {
+      if (base + k * THREADS >= n_vec) break;
+      put<COUNT>(mine, bin_of(v[k].x, scale, bins, ABS_VALUE), zeros);
+      put<COUNT>(mine, bin_of(v[k].y, scale, bins, ABS_VALUE), zeros);
+      put<COUNT>(mine, bin_of(v[k].z, scale, bins, ABS_VALUE), zeros);
+      put<COUNT>(mine, bin_of(v[k].w, scale, bins, ABS_VALUE), zeros);
+    }
   }
-  for (int64_t base = n_vec * 4 + warp_start; base < n; base += stride) {
-    const int64_t i = base + lane;
-    count(hist, i < n ? bin_of(x[i], scale, bins, ABS_VALUE) : -1);
-  }
+  // the tail, or every element when x is not 16-byte aligned
+  for (int64_t i = n_vec * 4 + blockIdx.x * THREADS + threadIdx.x; i < n;
+       i += gridDim.x * THREADS)
+    put<COUNT>(mine, bin_of(x[i], scale, bins, ABS_VALUE), zeros);
+
+  unsigned long long z = zeros;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    z += __shfl_down_sync(0xffffffffu, z, off);
+  if (lane == 0) warp_zeros[warp] = z;
   __syncthreads();
 
-  for (int b = threadIdx.x; b < bins; b += blockDim.x) {
-    unsigned int c = hist[b];
-    if (c) atomicAdd(&out[b], (unsigned long long)c);
+  for (int b = threadIdx.x; b < bins; b += THREADS) {
+    unsigned long long c = 0;
+    for (int k = 0; k < copies; ++k) c += hist[k * stride_c + b];
+    if (b == 0)
+      for (int w = 0; w < WARPS; ++w) c += warp_zeros[w];
+    if (c) atomicAdd(&out[b], c);
   }
 }
+
+template <bool ABS_VALUE, bool COUNT, int LOADS>
+int launch(const float* x, int64_t n, float scale, int bins, int copies,
+           int by_lane, int blocks_per_sm, unsigned long long* out,
+           cudaStream_t stream) {
+  static int sms = 0, optin = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+    if (sms <= 0) sms = 132;
+  }
+  // as many copies as asked and as the block's shared memory holds (the
+  // static warp sums and 1 KB a block that the SM keeps aside come off)
+  const int64_t copy_bytes = (int64_t)(bins + 1) * sizeof(unsigned int);
+  const int64_t budget = (int64_t)optin / blocks_per_sm - 1024 -
+                         (int64_t)WARPS * sizeof(unsigned long long);
+  int64_t fit = budget / copy_bytes;
+  if (fit < 1) return (int)cudaErrorInvalidValue;
+  if (copies > fit) copies = (int)fit;
+  if (copies > WARPS) copies = WARPS;
+  if (copies < 1) copies = 1;
+  const size_t shared = (size_t)copies * copy_bytes;
+  static size_t opted = 48 * 1024;
+  if (shared > opted) {
+    cudaError_t e = cudaFuncSetAttribute(
+        histogram_kernel<ABS_VALUE, COUNT, LOADS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
+    if (e != cudaSuccess) return (int)e;
+    opted = shared;
+  }
+  const int64_t n_vec = (((uintptr_t)x & 15u) == 0) ? n / 4 : 0;
+  const int64_t work = n_vec > 0 ? (n_vec + LOADS - 1) / LOADS : n;
+  int64_t blocks = (work + THREADS - 1) / THREADS;
+  if (blocks > (int64_t)blocks_per_sm * sms) blocks = (int64_t)blocks_per_sm * sms;
+  if (blocks < 1) blocks = 1;
+  histogram_kernel<ABS_VALUE, COUNT, LOADS>
+      <<<(int)blocks, THREADS, shared, stream>>>(x, n, n_vec, scale, bins,
+                                                 copies, by_lane, out);
+  return (int)cudaGetLastError();
+}
+
+// Sub-histograms a block keeps, and whether lanes (1) or warps (0) pick
+// their copy: measured on the card (chip_smoke.py --quant).
+constexpr int COPIES = 8;
+constexpr int BY_LANE = 1;
 
 }  // namespace
 
 extern "C" int ppq_histogram(const float* x, int64_t n, float scale, int bins,
                              int absolute, long long* out, void* stream) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 132;
-  }
-  const int threads = 1024;
-  const size_t shared = (size_t)bins * sizeof(unsigned int);
-  int64_t n_vec = (((uintptr_t)x & 15u) == 0) ? n / 4 : 0;
-  int64_t work = n_vec > 0 ? n_vec : n;
-  int64_t blocks = (work + threads - 1) / threads;
-  // two blocks per SM: enough loads in flight, and few bin flushes
-  if (blocks > 2 * (int64_t)sms) blocks = 2 * (int64_t)sms;
-  if (blocks < 1) blocks = 1;
-  cudaStream_t st = (cudaStream_t)stream;
   unsigned long long* o = reinterpret_cast<unsigned long long*>(out);
-  if (absolute)
-    histogram_kernel<true><<<(int)blocks, threads, shared, st>>>(
-        x, n, n_vec, scale, bins, o);
-  else
-    histogram_kernel<false><<<(int)blocks, threads, shared, st>>>(
-        x, n, n_vec, scale, bins, o);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  return absolute ? launch<true, true, 4>(x, n, scale, bins, COPIES, BY_LANE,
+                                          1, o, st)
+                  : launch<false, true, 4>(x, n, scale, bins, COPIES, BY_LANE,
+                                           1, o, st);
+}
+
+// The same kernel with its launch's choices given (absolute values): the
+// sub-histograms, how lanes pick one, blocks an SM (1 or 2), float4 loads a
+// thread ahead (1 or 4), and count 0 for the variant that bins and counts
+// nothing. For the measurements of chip_smoke.py --quant.
+extern "C" int ppq_histogram_variant(const float* x, int64_t n, float scale,
+                                     int bins, long long* out, int copies,
+                                     int by_lane, int blocks_per_sm, int loads,
+                                     int count, void* stream) {
+  unsigned long long* o = reinterpret_cast<unsigned long long*>(out);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (blocks_per_sm < 1 || blocks_per_sm > 2) return (int)cudaErrorInvalidValue;
+  if (loads == 4)
+    return count ? launch<true, true, 4>(x, n, scale, bins, copies, by_lane,
+                                         blocks_per_sm, o, st)
+                 : launch<true, false, 4>(x, n, scale, bins, copies, by_lane,
+                                          blocks_per_sm, o, st);
+  if (loads == 1)
+    return count ? launch<true, true, 1>(x, n, scale, bins, copies, by_lane,
+                                         blocks_per_sm, o, st)
+                 : launch<true, false, 1>(x, n, scale, bins, copies, by_lane,
+                                          blocks_per_sm, o, st);
+  return (int)cudaErrorInvalidValue;
 }

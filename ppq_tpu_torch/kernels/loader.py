@@ -40,7 +40,7 @@ _F = ctypes.c_float
 _INT = ctypes.c_int
 
 # headers that every source includes: a library is stale when one is newer
-HEADERS = ('rounding.cuh',)
+HEADERS = ('rounding.cuh', 'channel_index.cuh')
 
 # library name -> (source file, {C entry point: argtypes}, extra nvcc flags)
 LIBRARIES: Dict[str, tuple] = {
@@ -69,6 +69,8 @@ LIBRARIES: Dict[str, tuple] = {
     }, EXACT_FLAGS),
     'histogram': ('histogram.cu', {
         'ppq_histogram': [_P, _I64, _F, _INT, _INT, _P, _P],
+        'ppq_histogram_variant':
+            [_P, _I64, _F, _INT, _P, _INT, _INT, _INT, _INT, _INT, _P],
     }, EXACT_FLAGS),
     'qmm': ('qmm.cu', {
         'ppq_qmm_int8':

@@ -115,6 +115,146 @@ def test_histogram_kernel_accumulates_in_int64(cuda):
     assert int(counts[1]) == 2 ** 40
 
 
+# The channelwise forward's routes (csrc/fake_quant.cu): the run kernel
+# where a run of `inner` floats fills a block, the grid-stride kernel with
+# the channel found once a float4 elsewhere, element by element where a
+# float4 crosses a run's end.
+CHANNEL_ROUTES = [
+    ((64, 3, 7, 7), 0),        # conv1: inner 147, float4s cross runs
+    ((1000,), 0),              # a bias: inner 1
+    ((512, 1000), 1),          # the Gemm weight without transB: inner 1
+    ((1, 4608), 0),            # one channel
+    ((4096, 3, 3), 0),         # many channels, inner 9
+    ((512, 512, 3, 3), 0),     # the largest weight: the run kernel
+    ((128, 64, 1, 1), 0),      # a 1x1 conv: inner 64
+    ((3, 16, 40, 40), 1),      # an activation on axis 1: runs of 1600
+    ((5, 7, 3), 1),            # inner 3
+    ((5, 7, 2), 1),            # inner 2
+    ((2, 3, 1030), 1),         # inner 1030: a run of the run kernel's size,
+]                              # not a multiple of 4
+
+
+@pytest.mark.parametrize('shape,axis', CHANNEL_ROUTES,
+                         ids=lambda v: str(v).replace(' ', ''))
+def test_fake_quant_channel_routes_bitwise_vs_plain(cuda, shape, axis):
+    """Every rounding policy, codes on and off, asymmetric offsets that the
+    kernel rounds, ties and NaNs, on each route; two calls bit-equal."""
+    x, s, o, (qmin, qmax) = _case(shape, axis, True, seed=len(shape))
+    xc = torch.from_numpy(x).to(cuda)
+    st, ot = torch.from_numpy(s).to(cuda), torch.from_numpy(o).to(cuda)
+    for policy in RoundingPolicy:
+        for codes in (False, True):
+            reset_launches()
+            got = linear_quant(xc, st, ot, qmin, qmax, policy, axis, codes)
+            assert LAUNCHES['fake_quant_channelwise'] == 1
+            want = linear_quant_plain(xc, s, o, qmin, qmax, policy, axis,
+                                      codes)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    again = linear_quant(xc, st, ot, qmin, qmax, policy, axis, codes)
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.parametrize('shape,axis', [((512, 512, 3, 3), 0),
+                                        ((64, 3, 7, 7), 0), ((512, 1000), 1)],
+                         ids=['run', 'crossing', 'inner1'])
+def test_fake_quant_channel_unaligned_view(cuda, shape, axis):
+    """A view that starts off a 16-byte boundary takes the element loop."""
+    n = int(np.prod(shape))
+    rng = np.random.RandomState(3)
+    base = torch.from_numpy(rng.randn(n + 1).astype(np.float32)).to(cuda)
+    x = base[1:].view(shape)
+    s = (rng.rand(shape[axis]) * 0.05 + 0.01).astype(np.float32)
+    o = (rng.rand(shape[axis]) * 9 - 4).astype(np.float32)
+    for codes in (False, True):
+        got = linear_quant(x, s, o, 0, 255, RoundingPolicy.ROUND_HALF_EVEN,
+                           axis, codes)
+        want = linear_quant_plain(x, s, o, 0, 255,
+                                  RoundingPolicy.ROUND_HALF_EVEN, axis, codes)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _hist_cases(cuda):
+    rng = np.random.RandomState(11)
+    low = (np.abs(rng.randn(1 << 20)) ** 3).astype(np.float32)
+    low[rng.rand(low.size) < 0.6] = 0.0        # post-ReLU, piled low
+    special = (rng.randn(40_003) * 3).astype(np.float32)
+    special[::97] = np.nan
+    special[1::89] = np.inf
+    special[2::83] = -np.inf
+    return {
+        'zeros': (np.zeros(1 << 20, np.float32), 0.01),
+        'one nonzero bin': (np.full(1 << 20, 0.125, np.float32), 0.01),
+        'low bins': (low, float(low.max()) / 4096),
+        'n % 4 == 3': (rng.randn(1_000_003).astype(np.float32), 4.0 / 4096),
+        'nan and inf': (special, 10.0 / 4096),
+    }
+
+
+@pytest.mark.parametrize('case', ['zeros', 'one nonzero bin', 'low bins',
+                                  'n % 4 == 3', 'nan and inf'])
+@pytest.mark.parametrize('absolute', [True, False], ids=['abs', 'signed'])
+def test_histogram_kernel_distributions(cuda, case, absolute):
+    """The bin-0 register, the shared copies and the flush on inputs that
+    load them differently; two calls give the same counts."""
+    x, scale = _hist_cases(cuda)[case]
+    xc = torch.from_numpy(x).to(cuda)
+    for bins in (2048, 4096):
+        got = histogram(xc, scale, bins, absolute=absolute)
+        want = histogram_plain(xc, scale, bins, absolute=absolute)
+        assert torch.equal(got, want)
+        assert torch.equal(histogram(xc, scale, bins, absolute=absolute), got)
+        assert int(got.sum()) == x.size
+
+
+def test_histogram_kernel_unaligned_view_and_max_bins(cuda):
+    from ppq_tpu_torch.kernels.histogram import MAX_BINS
+    rng = np.random.RandomState(12)
+    base = torch.from_numpy(np.abs(rng.randn(300_001)).astype(np.float32)).to(cuda)
+    x = base[1:]
+    for bins in (4096, MAX_BINS):
+        scale = float(x.max()) / bins
+        got = histogram(x, scale, bins)
+        assert torch.equal(got, histogram_plain(x, scale, bins))
+        assert int(got[bins - 1]) >= 1
+
+
+def test_histogram_kernel_counts_past_32_bits(cuda):
+    """Running counts above 2^32 in bin 0 (the register route) and in the
+    other bins (the shared copies) grow by exactly this batch's counts."""
+    x = torch.zeros(3 << 20, device=cuda)
+    x[::3] = 0.5
+    counts = torch.full((2048,), 3 * 2 ** 32 + 5, dtype=torch.int64,
+                        device=cuda)
+    for _ in range(2):
+        histogram(x, 0.01, 2048, out=counts)
+    assert int(counts[0]) == 3 * 2 ** 32 + 5 + 2 * (2 << 20)
+    assert int(counts[50]) == 3 * 2 ** 32 + 5 + 2 * (1 << 20)
+    assert int(counts[1]) == 3 * 2 ** 32 + 5
+
+
+def test_histogram_kernel_launch_choices_count_alike(cuda):
+    """Every choice of sub-histograms, blocks an SM and loads ahead that
+    the variant entry point takes gives the plain version's counts."""
+    from ppq_tpu_torch.kernels import loader
+    rng = np.random.RandomState(13)
+    v = np.abs(rng.randn(2_000_001)).astype(np.float32)
+    v[rng.rand(v.size) < 0.5] = 0.0
+    x = torch.from_numpy(v).to(cuda)
+    scale = float(x.max()) / 4096
+    want = histogram_plain(x, scale, 4096)
+    lib = loader.library('histogram')
+    out = torch.zeros(4096, dtype=torch.int64, device=cuda)
+    for copies, by_lane, per_sm, loads in ((1, 1, 1, 4), (8, 0, 1, 4),
+                                           (14, 1, 1, 4), (6, 1, 2, 4),
+                                           (8, 1, 1, 1), (32, 0, 2, 1)):
+        out.zero_()
+        rc = lib.ppq_histogram_variant(x.data_ptr(), x.numel(), scale, 4096,
+                                       out.data_ptr(), copies, by_lane, per_sm,
+                                       loads, 1, loader.stream_of(x.device))
+        assert rc == 0
+        assert torch.equal(out, want), (copies, by_lane, per_sm, loads)
+
+
 def _sums_close(got, terms, dims):
     """A kernel's ds or do against the float64 sum of the plain per-element
     terms: rtol 1e-5 of the sum plus 1e-6 of the terms' absolute mass."""

@@ -114,6 +114,35 @@ def test_plain_vs_pallas_channelwise(mode, asym):
         np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
+# the channelwise layouts of the path's weights that the kernel walks
+# another way: conv1 on axis 0 (inner 147), a bias (inner 1) and the Gemm
+# weight without transB on axis 1 (inner 1)
+CHANNEL_LAYOUTS = [((16, 3, 7, 7), 0), ((24,), 0), ((12, 40), 1)]
+
+
+@pytest.mark.parametrize('shape,axis', CHANNEL_LAYOUTS,
+                         ids=['inner147', 'bias', 'gemm_axis1'])
+def test_plain_channelwise_layouts_bitwise_vs_jnp(shape, axis):
+    rng = np.random.RandomState(6)
+    c = shape[axis]
+    scale = (rng.rand(c) * 0.05 + 0.003).astype(np.float32)
+    offset = (rng.rand(c) * 60 - 30).astype(np.float32)
+    s_b = scale.reshape([-1 if i == axis else 1 for i in range(len(shape))])
+    x = ((rng.randn(*shape) * 60).astype(np.float32) * s_b).astype(np.float32)
+    ties = (rng.randint(-150, 150, size=shape) + 0.5).astype(np.float32) * s_b
+    x = np.where(rng.rand(*shape) < 0.3, ties, x).astype(np.float32)
+    x.reshape(-1)[::13] = np.nan
+    for policy in (RoundingPolicy.ROUND_HALF_EVEN, RoundingPolicy.ROUND_UP):
+        for codes in (False, True):
+            fn = (jax_qfunction.linear_quant_codes if codes
+                  else jax_qfunction.linear_fake_quant)
+            want = fn(x, scale, offset, 0, 255, JaxRounding(policy.value),
+                      channel_axis=axis)
+            got = linear_quant(torch.from_numpy(x), scale, offset, 0, 255,
+                               policy, axis, codes=codes)
+            np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
 def _hist_input(n=40_000, seed=4):
     rng = np.random.RandomState(seed)
     x = (rng.randn(n) * 2).astype(np.float32)
