@@ -3403,20 +3403,24 @@ def quant_paths(dev, flush):
                    float(headline.max()) / 4096),
                   ('real first-ReLU activation',) + first_relu)
         out = torch.zeros(4096, dtype=torch.int64, device=dev)
-        variants = (('default: 8 copies by lane, 1 block an SM, 4 loads', 8, 1, 1, 4, 1),
-                    ('1 copy', 1, 1, 1, 4, 1),
-                    ('8 copies by warp', 8, 0, 1, 4, 1),
-                    ('14 copies by lane', 14, 1, 1, 4, 1),
-                    ('2 blocks an SM, 6 copies', 6, 1, 2, 4, 1),
-                    ('1 load ahead', 8, 1, 1, 1, 1),
-                    ('no counting (bins computed, no atomic)', 8, 1, 1, 4, 0))
+        variants = (
+            ('default: 8 copies by lane, 1 block an SM, 4 loads a step, '
+             'product bin', 8, 1, 1, 4, 1, 1),
+            ('1 copy', 1, 1, 1, 4, 1, 1),
+            ('8 copies by warp', 8, 0, 1, 4, 1, 1),
+            ('14 copies by lane', 14, 1, 1, 4, 1, 1),
+            ('2 blocks an SM, 6 copies', 6, 1, 2, 4, 1, 1),
+            ('1 load a step', 8, 1, 1, 1, 1, 1),
+            ('IEEE quotient bin', 8, 1, 1, 4, 0, 1),
+            ('no counting (bins computed, no atomic)', 8, 1, 1, 4, 1, 0),
+            ('no counting, IEEE quotient bin', 8, 1, 1, 4, 0, 0))
         for label, x, scale in inputs:
             timed = {}
-            for name, copies, by_lane, per_sm, loads, count in variants:
+            for name, copies, by_lane, per_sm, loads, fast, count in variants:
                 def run():
                     rc = lib.ppq_histogram_variant(
                         x.data_ptr(), x.numel(), scale, 4096, out.data_ptr(),
-                        copies, by_lane, per_sm, loads, count, stream)
+                        copies, by_lane, per_sm, loads, fast, count, stream)
                     if rc:
                         raise AssertionError(f'histogram variant {name}: {rc}')
                 if count:

@@ -108,14 +108,14 @@ __global__ void __launch_bounds__(RUN_THREADS)
 fake_quant_run_kernel(const float* __restrict__ x, float* __restrict__ y,
                       int64_t inner4, int64_t chunk4,
                       const float* __restrict__ scale,
-                      const float* __restrict__ offset, int64_t channels,
+                      const float* __restrict__ offset, FastDiv32 channels,
                       float qmin, float qmax) {
-  const int64_t run = blockIdx.x;
-  const int64_t c = run % channels;
+  const uint32_t run = blockIdx.x;
+  const uint32_t c = channels.mod(run);
   const float s = scale[c];
   const float o = rintf(offset[c]);
-  const float4* src = reinterpret_cast<const float4*>(x) + run * inner4;
-  float4* dst = reinterpret_cast<float4*>(y) + run * inner4;
+  const float4* src = reinterpret_cast<const float4*>(x) + (int64_t)run * inner4;
+  float4* dst = reinterpret_cast<float4*>(y) + (int64_t)run * inner4;
   for (int64_t start = blockIdx.y * chunk4; start < inner4;
        start += (int64_t)gridDim.y * chunk4) {
     const int64_t end = start + chunk4 < inner4 ? start + chunk4 : inner4;
@@ -136,10 +136,12 @@ fake_quant_run_kernel(const float* __restrict__ x, float* __restrict__ y,
   }
 }
 
-// Channelwise, any layout: a grid-stride loop over float4s, LOADS of them a
-// thread in flight. The channel is found once a float4 (two multiply-highs,
-// channel_index.cuh); only a float4 that crosses a run's end (inner not a
-// multiple of 4, or below 4) steps element by element.
+// Channelwise, any layout: a grid-stride loop over float4s, a thread's LOADS
+// of them a grid apart and in flight together (a tensor smaller than the
+// grid gives each thread one, over as many SMs as it fills). The channel is
+// found once a float4 (two multiply-highs, channel_index.cuh); only a float4
+// that crosses a run's end (inner not a multiple of 4, or below 4) steps
+// element by element.
 template <int R, bool CODES, typename Div>
 __global__ void __launch_bounds__(FLAT_THREADS)
 fake_quant_flat_kernel(const float* __restrict__ x, float* __restrict__ y,
@@ -151,18 +153,18 @@ fake_quant_flat_kernel(const float* __restrict__ x, float* __restrict__ y,
   using Index = typename IndexOf<Div>::type;
   const float4* x4 = reinterpret_cast<const float4*>(x);
   float4* y4 = reinterpret_cast<float4*>(y);
-  const Index chunk = (Index)FLAT_THREADS * LOADS;
-  for (Index base = (Index)blockIdx.x * chunk + threadIdx.x; base < n_vec;
-       base += (Index)gridDim.x * chunk) {
+  const Index grid = (Index)gridDim.x * FLAT_THREADS;
+  for (Index base = (Index)blockIdx.x * FLAT_THREADS + threadIdx.x;
+       base < n_vec; base += grid * LOADS) {
     float4 v[LOADS];
 #pragma unroll
     for (int k = 0; k < LOADS; ++k) {
-      const Index j = base + k * FLAT_THREADS;
+      const Index j = base + k * grid;
       if (j < n_vec) v[k] = x4[j];
     }
 #pragma unroll
     for (int k = 0; k < LOADS; ++k) {
-      const Index j = base + k * FLAT_THREADS;
+      const Index j = base + k * grid;
       if (j >= n_vec) continue;
       Index c, w;
       at.locate(j * 4, c, w);
@@ -182,7 +184,7 @@ fake_quant_flat_kernel(const float* __restrict__ x, float* __restrict__ y,
   }
   // the tail, or every element when x or y is not 16-byte aligned
   for (Index i = n_vec * 4 + (Index)blockIdx.x * FLAT_THREADS + threadIdx.x;
-       i < n; i += (Index)gridDim.x * FLAT_THREADS) {
+       i < n; i += grid) {
     const Index c = at.channel(i);
     y[i] = quant_one<R, CODES>(x[i], scale[c], rintf(offset[c]), qmin, qmax);
   }
@@ -216,24 +218,27 @@ void launch_channel(const float* x, float* y, int64_t n, const float* s,
     if (chunk4 > per_block) chunk4 = per_block;  // the loop takes the rest
     const dim3 grid((unsigned)runs, (unsigned)slices);
     fake_quant_run_kernel<R, CODES><<<grid, RUN_THREADS, 0, stream>>>(
-        x, y, inner4, chunk4, s, o, channels, qmin, qmax);
+        x, y, inner4, chunk4, s, o, FastDiv32::make((uint32_t)channels),
+        qmin, qmax);
     return;
   }
   const int64_t n_vec = aligned ? n / 4 : 0;
-  const int64_t items = n_vec > 0 ? (n_vec + LOADS - 1) / LOADS : n;
-  const int blocks = grid_for(items, FLAT_THREADS);
+  // one float4 a thread up to one wave of the card (8 blocks an SM), then
+  // up to LOADS
+  int64_t blocks = ((n_vec > 0 ? n_vec : n) + FLAT_THREADS - 1) / FLAT_THREADS;
+  if (blocks > 8 * (int64_t)sm_count()) blocks = 8 * (int64_t)sm_count();
   if (n < INT32_MAX) {
     ChannelIndex<FastDiv32> at{FastDiv32::make((uint32_t)inner),
                                FastDiv32::make((uint32_t)channels)};
     fake_quant_flat_kernel<R, CODES, FastDiv32>
-        <<<blocks, FLAT_THREADS, 0, stream>>>(x, y, (uint32_t)n,
+        <<<(int)blocks, FLAT_THREADS, 0, stream>>>(x, y, (uint32_t)n,
                                               (uint32_t)n_vec, s, o, at, qmin,
                                               qmax);
   } else {
     ChannelIndex<PlainDiv64> at{PlainDiv64::make((uint64_t)inner),
                                 PlainDiv64::make((uint64_t)channels)};
     fake_quant_flat_kernel<R, CODES, PlainDiv64>
-        <<<blocks, FLAT_THREADS, 0, stream>>>(x, y, (uint64_t)n,
+        <<<(int)blocks, FLAT_THREADS, 0, stream>>>(x, y, (uint64_t)n,
                                               (uint64_t)n_vec, s, o, at, qmin,
                                               qmax);
   }

@@ -35,6 +35,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cmath>
+
 namespace {
 
 constexpr int THREADS = 1024;
@@ -45,6 +47,28 @@ __device__ __forceinline__ int bin_of(float v, float scale, int bins,
   if (absolute) v = fabsf(v);
   int idx = __float2int_rz(__fdiv_rn(v, scale));
   idx = idx < 0 ? 0 : idx;
+  return idx > bins - 1 ? bins - 1 : idx;
+}
+
+// The same bin from the product with r = 1/scale, where that is safe: no
+// division, no conversion instruction. With P = fl(v * r), D = fl(v / s) and
+// Q = v / s exactly, |P - D| < 2^-21 P (r and the product each round by at
+// most 2^-24, the quotient by 2^-24). So where P lies further than 2^-21 P
+// from the nearest integer n >= 1, no integer lies between P and D, and
+// trunc(P) == trunc(D); below 1/2 both are 0 (D < 1), and from bins - 1/2
+// up both clip to bins - 1. Elsewhere the IEEE quotient decides. P's integer part comes from adding 1.5 * 2^23, exact for
+// 0 <= P <= 2^22 (the host checks bins and r). A NaN goes to 0 (fmaxf), a
+// negative value to 0, +inf to bins - 1, as bin_of sends them.
+__device__ __forceinline__ int bin_fast(float v, float scale, float r,
+                                        int bins, bool absolute) {
+  float w = absolute ? fabsf(v) : v;
+  float p = fminf(fmaxf(w * r, 0.f), (float)bins);
+  const float t = p + 12582912.f;         // 1.5 * 2^23: rounds p to n
+  const float n = t - 12582912.f;
+  int idx = __float_as_int(t) - 0x4B400000;
+  idx -= n > p ? 1 : 0;                    // trunc(p)
+  if (n >= 1.f && n < (float)bins && fabsf(p - n) <= p * 0x1p-21f)
+    return bin_of(v, scale, bins, absolute);
   return idx > bins - 1 ? bins - 1 : idx;
 }
 
@@ -62,10 +86,16 @@ __device__ __forceinline__ void put(unsigned int* hist, int idx,
   }
 }
 
-template <bool ABS_VALUE, bool COUNT, int LOADS>
-__global__ void __launch_bounds__(THREADS, 1)
+template <bool ABS_VALUE, bool FAST>
+__device__ __forceinline__ int bin(float v, float scale, float r, int bins) {
+  return FAST ? bin_fast(v, scale, r, bins, ABS_VALUE)
+              : bin_of(v, scale, bins, ABS_VALUE);
+}
+
+template <bool ABS_VALUE, bool COUNT, int LOADS, bool FAST>
+__global__ void __launch_bounds__(THREADS)
 histogram_kernel(const float* __restrict__ x, int64_t n, int64_t n_vec,
-                 float scale, int bins, int copies, int by_lane,
+                 float scale, float r, int bins, int copies, int by_lane,
                  unsigned long long* __restrict__ out) {
   extern __shared__ unsigned int hist[];  // copies x (bins + 1)
   __shared__ unsigned long long warp_zeros[WARPS];
@@ -79,27 +109,33 @@ histogram_kernel(const float* __restrict__ x, int64_t n, int64_t n_vec,
   unsigned int zeros = 0;
   const float4* x4 = reinterpret_cast<const float4*>(x);
   const int64_t chunk = (int64_t)THREADS * LOADS;
-  for (int64_t base = blockIdx.x * chunk + threadIdx.x; base < n_vec;
-       base += gridDim.x * chunk) {
-    float4 v[LOADS];
+  const int64_t stride = (int64_t)gridDim.x * chunk;
+  // the next step's LOADS float4s are in flight while this step's are binned
+  float4 cur[LOADS], nxt[LOADS];
+  int64_t base = blockIdx.x * chunk + threadIdx.x;
 #pragma unroll
-    for (int k = 0; k < LOADS; ++k) {
-      const int64_t j = base + k * THREADS;
-      if (j < n_vec) v[k] = x4[j];
-    }
+  for (int k = 0; k < LOADS; ++k)
+    if (base + k * THREADS < n_vec) cur[k] = x4[base + k * THREADS];
+  for (; base < n_vec; base += stride) {
+#pragma unroll
+    for (int k = 0; k < LOADS; ++k)
+      if (base + stride + k * THREADS < n_vec)
+        nxt[k] = x4[base + stride + k * THREADS];
 #pragma unroll
     for (int k = 0; k < LOADS; ++k) {
       if (base + k * THREADS >= n_vec) break;
-      put<COUNT>(mine, bin_of(v[k].x, scale, bins, ABS_VALUE), zeros);
-      put<COUNT>(mine, bin_of(v[k].y, scale, bins, ABS_VALUE), zeros);
-      put<COUNT>(mine, bin_of(v[k].z, scale, bins, ABS_VALUE), zeros);
-      put<COUNT>(mine, bin_of(v[k].w, scale, bins, ABS_VALUE), zeros);
+      put<COUNT>(mine, bin<ABS_VALUE, FAST>(cur[k].x, scale, r, bins), zeros);
+      put<COUNT>(mine, bin<ABS_VALUE, FAST>(cur[k].y, scale, r, bins), zeros);
+      put<COUNT>(mine, bin<ABS_VALUE, FAST>(cur[k].z, scale, r, bins), zeros);
+      put<COUNT>(mine, bin<ABS_VALUE, FAST>(cur[k].w, scale, r, bins), zeros);
     }
+#pragma unroll
+    for (int k = 0; k < LOADS; ++k) cur[k] = nxt[k];
   }
   // the tail, or every element when x is not 16-byte aligned
   for (int64_t i = n_vec * 4 + blockIdx.x * THREADS + threadIdx.x; i < n;
        i += gridDim.x * THREADS)
-    put<COUNT>(mine, bin_of(x[i], scale, bins, ABS_VALUE), zeros);
+    put<COUNT>(mine, bin<ABS_VALUE, FAST>(x[i], scale, r, bins), zeros);
 
   unsigned long long z = zeros;
 #pragma unroll
@@ -117,7 +153,15 @@ histogram_kernel(const float* __restrict__ x, int64_t n, int64_t n_vec,
   }
 }
 
-template <bool ABS_VALUE, bool COUNT, int LOADS>
+// Whether bin_fast holds for this scale: r = 1/scale a normal float, and
+// every clipped product below 2^22.
+inline bool fast_bin_ok(float scale, int bins) {
+  const float r = 1.f / scale;
+  return std::isnormal(scale) && std::isnormal(r) && scale > 0.f &&
+         bins <= (1 << 22);
+}
+
+template <bool ABS_VALUE, bool COUNT, int LOADS, bool FAST>
 int launch(const float* x, int64_t n, float scale, int bins, int copies,
            int by_lane, int blocks_per_sm, unsigned long long* out,
            cudaStream_t stream) {
@@ -144,7 +188,7 @@ int launch(const float* x, int64_t n, float scale, int bins, int copies,
   static size_t opted = 48 * 1024;
   if (shared > opted) {
     cudaError_t e = cudaFuncSetAttribute(
-        histogram_kernel<ABS_VALUE, COUNT, LOADS>,
+        histogram_kernel<ABS_VALUE, COUNT, LOADS, FAST>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
     if (e != cudaSuccess) return (int)e;
     opted = shared;
@@ -154,9 +198,10 @@ int launch(const float* x, int64_t n, float scale, int bins, int copies,
   int64_t blocks = (work + THREADS - 1) / THREADS;
   if (blocks > (int64_t)blocks_per_sm * sms) blocks = (int64_t)blocks_per_sm * sms;
   if (blocks < 1) blocks = 1;
-  histogram_kernel<ABS_VALUE, COUNT, LOADS>
-      <<<(int)blocks, THREADS, shared, stream>>>(x, n, n_vec, scale, bins,
-                                                 copies, by_lane, out);
+  histogram_kernel<ABS_VALUE, COUNT, LOADS, FAST>
+      <<<(int)blocks, THREADS, shared, stream>>>(x, n, n_vec, scale,
+                                                 1.f / scale, bins, copies,
+                                                 by_lane, out);
   return (int)cudaGetLastError();
 }
 
@@ -165,38 +210,51 @@ int launch(const float* x, int64_t n, float scale, int bins, int copies,
 constexpr int COPIES = 8;
 constexpr int BY_LANE = 1;
 
+template <bool ABS_VALUE>
+int launch_default(const float* x, int64_t n, float scale, int bins,
+                   unsigned long long* out, cudaStream_t st) {
+  return fast_bin_ok(scale, bins)
+             ? launch<ABS_VALUE, true, 4, true>(x, n, scale, bins, COPIES,
+                                                BY_LANE, 1, out, st)
+             : launch<ABS_VALUE, true, 4, false>(x, n, scale, bins, COPIES,
+                                                 BY_LANE, 1, out, st);
+}
+
 }  // namespace
 
 extern "C" int ppq_histogram(const float* x, int64_t n, float scale, int bins,
                              int absolute, long long* out, void* stream) {
   unsigned long long* o = reinterpret_cast<unsigned long long*>(out);
   cudaStream_t st = (cudaStream_t)stream;
-  return absolute ? launch<true, true, 4>(x, n, scale, bins, COPIES, BY_LANE,
-                                          1, o, st)
-                  : launch<false, true, 4>(x, n, scale, bins, COPIES, BY_LANE,
-                                           1, o, st);
+  return absolute ? launch_default<true>(x, n, scale, bins, o, st)
+                  : launch_default<false>(x, n, scale, bins, o, st);
 }
 
 // The same kernel with its launch's choices given (absolute values): the
 // sub-histograms, how lanes pick one, blocks an SM (1 or 2), float4 loads a
-// thread ahead (1 or 4), and count 0 for the variant that bins and counts
-// nothing. For the measurements of chip_smoke.py --quant.
+// thread a step (1 or 4), the bin by the product with 1/scale (fast 1,
+// where the scale allows it) or by the IEEE quotient (0), and count 0 for
+// the variant that bins and counts nothing. For the measurements of
+// chip_smoke.py --quant and the card tests.
 extern "C" int ppq_histogram_variant(const float* x, int64_t n, float scale,
                                      int bins, long long* out, int copies,
                                      int by_lane, int blocks_per_sm, int loads,
-                                     int count, void* stream) {
+                                     int fast, int count, void* stream) {
   unsigned long long* o = reinterpret_cast<unsigned long long*>(out);
   cudaStream_t st = (cudaStream_t)stream;
-  if (blocks_per_sm < 1 || blocks_per_sm > 2) return (int)cudaErrorInvalidValue;
-  if (loads == 4)
-    return count ? launch<true, true, 4>(x, n, scale, bins, copies, by_lane,
-                                         blocks_per_sm, o, st)
-                 : launch<true, false, 4>(x, n, scale, bins, copies, by_lane,
-                                          blocks_per_sm, o, st);
-  if (loads == 1)
-    return count ? launch<true, true, 1>(x, n, scale, bins, copies, by_lane,
-                                         blocks_per_sm, o, st)
-                 : launch<true, false, 1>(x, n, scale, bins, copies, by_lane,
-                                          blocks_per_sm, o, st);
-  return (int)cudaErrorInvalidValue;
+  if (blocks_per_sm < 1 || blocks_per_sm > 2 || (loads != 1 && loads != 4) ||
+      (fast && !fast_bin_ok(scale, bins)))
+    return (int)cudaErrorInvalidValue;
+#define PPQ_HIST_VARIANT(L, F)                                              \
+  return count ? launch<true, true, L, F>(x, n, scale, bins, copies, by_lane, \
+                                          blocks_per_sm, o, st)             \
+               : launch<true, false, L, F>(x, n, scale, bins, copies,       \
+                                           by_lane, blocks_per_sm, o, st)
+  if (loads == 4) {
+    if (fast) PPQ_HIST_VARIANT(4, true);
+    PPQ_HIST_VARIANT(4, false);
+  }
+  if (fast) PPQ_HIST_VARIANT(1, true);
+  PPQ_HIST_VARIANT(1, false);
+#undef PPQ_HIST_VARIANT
 }

@@ -244,15 +244,56 @@ def test_histogram_kernel_launch_choices_count_alike(cuda):
     want = histogram_plain(x, scale, 4096)
     lib = loader.library('histogram')
     out = torch.zeros(4096, dtype=torch.int64, device=cuda)
-    for copies, by_lane, per_sm, loads in ((1, 1, 1, 4), (8, 0, 1, 4),
-                                           (14, 1, 1, 4), (6, 1, 2, 4),
-                                           (8, 1, 1, 1), (32, 0, 2, 1)):
+    for copies, by_lane, per_sm, loads, fast in (
+            (1, 1, 1, 4, 1), (8, 0, 1, 4, 1), (14, 1, 1, 4, 1),
+            (6, 1, 2, 4, 1), (8, 1, 1, 1, 1), (32, 0, 2, 1, 0),
+            (8, 1, 1, 4, 0)):
         out.zero_()
         rc = lib.ppq_histogram_variant(x.data_ptr(), x.numel(), scale, 4096,
                                        out.data_ptr(), copies, by_lane, per_sm,
-                                       loads, 1, loader.stream_of(x.device))
+                                       loads, fast, 1,
+                                       loader.stream_of(x.device))
         assert rc == 0
-        assert torch.equal(out, want), (copies, by_lane, per_sm, loads)
+        assert torch.equal(out, want), (copies, by_lane, per_sm, loads, fast)
+
+
+def _next_to_every_edge(scale, bins, width):
+    """The `width` floats below and above k * scale (rounded to float32
+    from float32 and from float64) for every bin edge k, and the edges."""
+    k = np.arange(1, bins + 1)
+    centers = np.concatenate([(k.astype(np.float32) * np.float32(scale)),
+                              (k * np.float64(scale)).astype(np.float32)])
+    out = [centers]
+    up, down = centers.copy(), centers.copy()
+    for _ in range(width):
+        up = np.nextafter(up, np.float32(np.inf))
+        down = np.nextafter(down, np.float32(0))
+        out += [up, down]
+    return np.concatenate(out).astype(np.float32)
+
+
+@pytest.mark.parametrize('bins', [2048, 4096])
+def test_histogram_product_bin_equals_the_quotient_next_to_every_edge(cuda,
+                                                                      bins):
+    """The kernel bins by the product with 1/scale where that is safe
+    (csrc/histogram.cu `bin_fast`): for every float within 8 steps of every
+    bin edge, at several scales, it gives the bin of the IEEE quotient.
+    Both bin maps are monotone in the value, so equal counts over all the
+    floats next to the edges mean the same bin for each of them (a value
+    that moved across edge k would change the count of bin k - 1 or k, and
+    bin 0 has no lower edge to make up for it). Signed inputs too."""
+    rng = np.random.RandomState(14)
+    scales = [11.2 / bins, 0.0371, 2.0 ** -7, 3.0, 0.1234567, 1e-30, 7e29,
+              *(10.0 ** rng.uniform(-6, 6, 6))]
+    for scale in scales:
+        scale = float(np.float32(scale))
+        v = _next_to_every_edge(scale, bins, 8)
+        for x in (v, -v, np.concatenate([v, -v])):
+            xc = torch.from_numpy(x).to(cuda)
+            for absolute in (True, False):
+                got = histogram(xc, scale, bins, absolute=absolute)
+                want = histogram_plain(xc, scale, bins, absolute=absolute)
+                assert torch.equal(got, want), (scale, absolute)
 
 
 def _sums_close(got, terms, dims):
