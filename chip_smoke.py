@@ -3327,9 +3327,9 @@ def quant_paths(dev, flush):
     """`--quant` only: rows 2 and 3 at every input path A gives them (each
     held against its plain version, then timed), with the sums a
     calibration batch spends; row 3 also at 2048 bins (the MSE observers),
-    and its launch's choices measured on the headline activation and on
-    the real first-ReLU activation where this checkout has the variant
-    entry point."""
+    and its bin's variants (product or IEEE quotient, counting or not) on
+    the headline activation and on the real first-ReLU activation where
+    this checkout has the variant entry point."""
     from ppq_tpu_torch.core import RoundingPolicy
     from ppq_tpu_torch.kernels import (histogram, histogram_plain, linear_quant,
                                        linear_quant_plain, loader)
@@ -3392,7 +3392,7 @@ def quant_paths(dev, flush):
                         f'{r["bin0_share"]:.2f})' for r in rows))
     del weights, acts
 
-    # the launch's choices, where this checkout can make them
+    # the bin's variants, where this checkout has them
     entries = loader.LIBRARIES['histogram'][1]
     if 'ppq_histogram_variant' in entries and first_relu is not None:
         lib = loader.library('histogram')
@@ -3403,24 +3403,17 @@ def quant_paths(dev, flush):
                    float(headline.max()) / 4096),
                   ('real first-ReLU activation',) + first_relu)
         out = torch.zeros(4096, dtype=torch.int64, device=dev)
-        variants = (
-            ('default: 8 copies by lane, 1 block an SM, 4 loads a step, '
-             'product bin', 8, 1, 1, 4, 1, 1),
-            ('1 copy', 1, 1, 1, 4, 1, 1),
-            ('8 copies by warp', 8, 0, 1, 4, 1, 1),
-            ('14 copies by lane', 14, 1, 1, 4, 1, 1),
-            ('2 blocks an SM, 6 copies', 6, 1, 2, 4, 1, 1),
-            ('1 load a step', 8, 1, 1, 1, 1, 1),
-            ('IEEE quotient bin', 8, 1, 1, 4, 0, 1),
-            ('no counting (bins computed, no atomic)', 8, 1, 1, 4, 1, 0),
-            ('no counting, IEEE quotient bin', 8, 1, 1, 4, 0, 0))
+        variants = (('kernel (product bin)', 1, 1),
+                    ('IEEE quotient bin', 0, 1),
+                    ('no counting (bins computed, no atomic)', 1, 0),
+                    ('no counting, IEEE quotient bin', 0, 0))
         for label, x, scale in inputs:
             timed = {}
-            for name, copies, by_lane, per_sm, loads, fast, count in variants:
+            for name, fast, count in variants:
                 def run():
                     rc = lib.ppq_histogram_variant(
                         x.data_ptr(), x.numel(), scale, 4096, out.data_ptr(),
-                        copies, by_lane, per_sm, loads, fast, count, stream)
+                        fast, count, stream)
                     if rc:
                         raise AssertionError(f'histogram variant {name}: {rc}')
                 if count:
@@ -3442,9 +3435,10 @@ def main_quant(package_root=None) -> int:
     kernels, rows 1-7 held and timed at their headline shapes
     (kernels_quant), and rows 2 and 3 at every input path A gives them
     (quant_paths); with yardsticks over the same bytes (a float32 clone of
-    the weight for row 2, a float32 sum of the activation for row 3) and
-    the launch floor (`ppq_empty_launch`, the one reason the paged-attention
-    library is built). With `--package-root DIR` the package is imported
+    the weight for row 2, a float32 sum of the activation for row 3, row
+    2's run kernel copying without its arithmetic where this checkout has
+    it) and the launch floor (`ppq_empty_launch`, the one reason the
+    paged-attention library is built). With `--package-root DIR` the package is imported
     from the checkout at DIR, so two commits are timed in one call on one
     card, in turns."""
     t_start = time.perf_counter()
@@ -3465,11 +3459,28 @@ def main_quant(package_root=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     weight = torch.randn(*WEIGHT_SHAPE, device=dev, generator=gen)
     act = torch.randn(*ACT_SHAPE, device=dev, generator=gen)
+    stream = loader.stream_of(dev)
     results['yardsticks'] = dict(
         weight_clone_ms=time_ms(lambda: weight.clone(), flush),
         activation_sum_ms=time_ms(lambda: act.sum(), flush),
         launch_floor_ms=time_ms(lambda: loader.library(
-            'paged_attention').ppq_empty_launch(loader.stream_of(dev)), flush))
+            'paged_attention').ppq_empty_launch(stream), flush))
+    if 'ppq_fake_quant_channelwise_copy' in loader.LIBRARIES['fake_quant'][1]:
+        # row 2's run kernel with its loads and stores alone, at the headline
+        y = torch.empty_like(weight)
+        channels = WEIGHT_SHAPE[0]
+        ones = torch.ones(channels, device=dev)
+        inner = weight.numel() // channels
+
+        def copy():
+            if loader.library('fake_quant').ppq_fake_quant_channelwise_copy(
+                    weight.data_ptr(), y.data_ptr(), weight.numel(),
+                    ones.data_ptr(), ones.data_ptr(), channels, inner, stream):
+                raise AssertionError('row 2 copy variant refused')
+        copy()
+        if not torch.equal(y, weight):
+            raise AssertionError('row 2 copy variant != its input')
+        results['yardsticks']['row_2_run_kernel_copy_only_ms'] = time_ms(copy, flush)
     log(f'[quant] yardsticks: {json.dumps(results["yardsticks"])}')
     log(f'[done] {time.perf_counter() - t_start:.1f} s; {smi}')
     log(json.dumps({'quant': results, 'card': smi}))

@@ -20,7 +20,8 @@
 // loads an element. Now:
 //   * where a run fills a block (inner a multiple of 4, at least
 //     4 * RUN_THREADS floats: the 3x3 conv weights on axis 0), block (r, j)
-//     walks slice j of run r with the scale and offset in registers;
+//     walks slice j of run r with the scale and offset in registers, one
+//     float4 a thread up to a wave of the card and up to LOADS beyond;
 //   * elsewhere (conv1's inner of 147, the 1x1 convs, a bias or a Gemm
 //     weight on its last axis with inner 1) a grid-stride loop finds the
 //     channel once a float4 by multiply-high and shift, and element by
@@ -103,7 +104,7 @@ __device__ __forceinline__ void quant_four(float4& v, float s, float o,
 // Channelwise, where a run fills a block: block (r, j) walks slice j of run
 // r, `chunk4` float4s, whose channel r % C it finds once. Each thread loads
 // its LOADS float4s of the slice before it converts any.
-template <int R, bool CODES>
+template <int R, bool CODES, bool QUANT = true>
 __global__ void __launch_bounds__(RUN_THREADS)
 fake_quant_run_kernel(const float* __restrict__ x, float* __restrict__ y,
                       int64_t inner4, int64_t chunk4,
@@ -129,7 +130,7 @@ fake_quant_run_kernel(const float* __restrict__ x, float* __restrict__ y,
     for (int k = 0; k < LOADS; ++k) {
       const int64_t j = start + k * RUN_THREADS + threadIdx.x;
       if (j < end) {
-        quant_four<R, CODES>(v[k], s, o, qmin, qmax);
+        if (QUANT) quant_four<R, CODES>(v[k], s, o, qmin, qmax);
         dst[j] = v[k];
       }
     }
@@ -201,23 +202,35 @@ void launch_tensor(const float* x, float* y, int64_t n, float s, float o,
       x, y, n, n_vec, s, o, s_dev, o_dev, qmin, qmax);
 }
 
-template <int R, bool CODES>
+// Whether the run kernel takes this tensor.
+inline bool by_runs(const float* x, const float* y, int64_t n, int64_t inner) {
+  return aligned16(x) && aligned16(y) && inner % 4 == 0 &&
+         inner / 4 >= RUN_THREADS && n / inner < INT32_MAX;
+}
+
+// QUANT false is a measurement variant: the run kernel's loads and stores
+// alone (y = x).
+template <int R, bool CODES, bool QUANT = true>
 void launch_channel(const float* x, float* y, int64_t n, const float* s,
                     const float* o, int64_t channels, int64_t inner,
                     float qmin, float qmax, cudaStream_t stream) {
   const bool aligned = aligned16(x) && aligned16(y);
   const int64_t runs = n / inner;
-  if (aligned && inner % 4 == 0 && inner / 4 >= RUN_THREADS &&
-      runs < INT32_MAX) {
-    // a slice of at most LOADS float4s a thread, the run cut evenly
+  if (by_runs(x, y, n, inner)) {
+    // the run cut evenly into slices of one float4 a thread while the
+    // tensor fits one wave of the card (16 blocks an SM), up to LOADS a
+    // thread beyond: a small weight is a latency, spread over more warps
     const int64_t inner4 = inner / 4;
-    const int64_t per_block = (int64_t)RUN_THREADS * LOADS;
+    const int64_t wave = 16LL * sm_count() * RUN_THREADS;
+    int64_t loads = (n / 4 + wave - 1) / wave;
+    loads = loads < 1 ? 1 : (loads > LOADS ? LOADS : loads);
+    const int64_t per_block = RUN_THREADS * loads;
     int64_t slices = (inner4 + per_block - 1) / per_block;
     if (slices > 65535) slices = 65535;
     int64_t chunk4 = (inner4 + slices - 1) / slices;
     if (chunk4 > per_block) chunk4 = per_block;  // the loop takes the rest
     const dim3 grid((unsigned)runs, (unsigned)slices);
-    fake_quant_run_kernel<R, CODES><<<grid, RUN_THREADS, 0, stream>>>(
+    fake_quant_run_kernel<R, CODES, QUANT><<<grid, RUN_THREADS, 0, stream>>>(
         x, y, inner4, chunk4, s, o, FastDiv32::make((uint32_t)channels),
         qmin, qmax);
     return;
@@ -311,5 +324,19 @@ extern "C" int ppq_fake_quant_channelwise(const float* x, float* y, int64_t n,
   cudaStream_t st = (cudaStream_t)stream;
   DISPATCH_ROUNDING(rounding, codes, launch_channel, x, y, n, s, o, channels,
                     inner, qmin, qmax, st);
+  return (int)cudaGetLastError();
+}
+
+// The run kernel's loads and stores without the arithmetic (y = x), for the
+// measurements of chip_smoke.py --quant: refused where the run kernel does
+// not take the tensor.
+extern "C" int ppq_fake_quant_channelwise_copy(const float* x, float* y,
+                                               int64_t n, const float* s,
+                                               const float* o,
+                                               int64_t channels, int64_t inner,
+                                               void* stream) {
+  if (n <= 0 || !by_runs(x, y, n, inner)) return (int)cudaErrorInvalidValue;
+  launch_channel<HALF_EVEN, false, false>(x, y, n, s, o, channels, inner, 0.f,
+                                          0.f, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

@@ -8,19 +8,20 @@
 // shared-memory atomics, so this is a histogram again.
 //
 // What bounds it on an H100: device memory, 4 bytes read per element and no
-// write but the bins; the instruction stream comes close (an IEEE division,
-// a conversion and a shared atomic an element). The distribution sets the
+// write but the bins. The instruction stream came close: an IEEE division,
+// a conversion and a warp match an element. The distribution sets the
 // contention: after a ReLU half the values or more fall in bin 0, and
 // because the scale is absmax / bins most of the rest pile into the lowest
 // bins. So:
 //   * bin 0 is counted in a register by each thread, summed by warp shuffles
-//     and added once a block: no atomic for it;
-//   * the other bins take plain shared atomics (no warp match) on `copies`
-//     sub-histograms, each padded by one word so that lanes on one bin of
-//     different copies fall in different banks; lane l (or warp w, as the
-//     launch says) counts into copy l % copies (w % copies). The copies are
-//     folded in shared memory before the flush;
-//   * each thread has LOADS float4 loads in flight before it bins any;
+//     and added once a warp;
+//   * the other bins take plain shared atomics on one sub-histogram, with no
+//     warp match (sub-histograms copied for each lane or warp were measured
+//     and made it slower: chip_smoke.py --quant);
+//   * the bin is the product with 1/scale wherever that equals the bin of
+//     the IEEE quotient, the quotient elsewhere (bin_fast);
+//   * each thread loads the next step's LOADS float4s while it bins this
+//     step's;
 //   * one block of 1024 threads an SM walks the tensor in a grid-stride
 //     loop, so the flush is one 64-bit global atomic per non-zero bin and SM,
 //     not per 1024 elements; the ragged tail is taken by the same loop, so
@@ -40,7 +41,7 @@
 namespace {
 
 constexpr int THREADS = 1024;
-constexpr int WARPS = THREADS / 32;
+constexpr int LOADS = 4;  // float4s a thread a step
 
 __device__ __forceinline__ int bin_of(float v, float scale, int bins,
                                       bool absolute) {
@@ -92,20 +93,16 @@ __device__ __forceinline__ int bin(float v, float scale, float r, int bins) {
               : bin_of(v, scale, bins, ABS_VALUE);
 }
 
-template <bool ABS_VALUE, bool COUNT, int LOADS, bool FAST>
+template <bool ABS_VALUE, bool COUNT, bool FAST>
 __global__ void __launch_bounds__(THREADS)
 histogram_kernel(const float* __restrict__ x, int64_t n, int64_t n_vec,
-                 float scale, float r, int bins, int copies, int by_lane,
+                 float scale, float r, int bins,
                  unsigned long long* __restrict__ out) {
-  extern __shared__ unsigned int hist[];  // copies x (bins + 1)
-  __shared__ unsigned long long warp_zeros[WARPS];
-  const int stride_c = bins + 1;
-  for (int b = threadIdx.x; b < copies * stride_c; b += THREADS) hist[b] = 0;
+  extern __shared__ unsigned int hist[];
+  for (int b = threadIdx.x; b < bins; b += THREADS) hist[b] = 0;
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  unsigned int* mine = hist + ((by_lane ? lane : warp) % copies) * stride_c;
   unsigned int zeros = 0;
   const float4* x4 = reinterpret_cast<const float4*>(x);
   const int64_t chunk = (int64_t)THREADS * LOADS;
@@ -124,10 +121,10 @@ histogram_kernel(const float* __restrict__ x, int64_t n, int64_t n_vec,
 #pragma unroll
     for (int k = 0; k < LOADS; ++k) {
       if (base + k * THREADS >= n_vec) break;
-      put<COUNT>(mine, bin<ABS_VALUE, FAST>(cur[k].x, scale, r, bins), zeros);
-      put<COUNT>(mine, bin<ABS_VALUE, FAST>(cur[k].y, scale, r, bins), zeros);
-      put<COUNT>(mine, bin<ABS_VALUE, FAST>(cur[k].z, scale, r, bins), zeros);
-      put<COUNT>(mine, bin<ABS_VALUE, FAST>(cur[k].w, scale, r, bins), zeros);
+      put<COUNT>(hist, bin<ABS_VALUE, FAST>(cur[k].x, scale, r, bins), zeros);
+      put<COUNT>(hist, bin<ABS_VALUE, FAST>(cur[k].y, scale, r, bins), zeros);
+      put<COUNT>(hist, bin<ABS_VALUE, FAST>(cur[k].z, scale, r, bins), zeros);
+      put<COUNT>(hist, bin<ABS_VALUE, FAST>(cur[k].w, scale, r, bins), zeros);
     }
 #pragma unroll
     for (int k = 0; k < LOADS; ++k) cur[k] = nxt[k];
@@ -135,21 +132,20 @@ histogram_kernel(const float* __restrict__ x, int64_t n, int64_t n_vec,
   // the tail, or every element when x is not 16-byte aligned
   for (int64_t i = n_vec * 4 + blockIdx.x * THREADS + threadIdx.x; i < n;
        i += gridDim.x * THREADS)
-    put<COUNT>(mine, bin<ABS_VALUE, FAST>(x[i], scale, r, bins), zeros);
+    put<COUNT>(hist, bin<ABS_VALUE, FAST>(x[i], scale, r, bins), zeros);
 
-  unsigned long long z = zeros;
+  // bin 0 had no atomic so far: one a warp now. A block counts fewer than
+  // 2^32 elements (the card holds no larger tensor), so no bin of hist
+  // overflows.
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    z += __shfl_down_sync(0xffffffffu, z, off);
-  if (lane == 0) warp_zeros[warp] = z;
+    zeros += __shfl_down_sync(0xffffffffu, zeros, off);
+  if (lane == 0 && zeros) atomicAdd(&hist[0], zeros);
   __syncthreads();
 
   for (int b = threadIdx.x; b < bins; b += THREADS) {
-    unsigned long long c = 0;
-    for (int k = 0; k < copies; ++k) c += hist[k * stride_c + b];
-    if (b == 0)
-      for (int w = 0; w < WARPS; ++w) c += warp_zeros[w];
-    if (c) atomicAdd(&out[b], c);
+    const unsigned int c = hist[b];
+    if (c) atomicAdd(&out[b], (unsigned long long)c);
   }
 }
 
@@ -161,63 +157,34 @@ inline bool fast_bin_ok(float scale, int bins) {
          bins <= (1 << 22);
 }
 
-template <bool ABS_VALUE, bool COUNT, int LOADS, bool FAST>
-int launch(const float* x, int64_t n, float scale, int bins, int copies,
-           int by_lane, int blocks_per_sm, unsigned long long* out,
-           cudaStream_t stream) {
-  static int sms = 0, optin = 0;
+template <bool ABS_VALUE, bool COUNT, bool FAST>
+int launch(const float* x, int64_t n, float scale, int bins,
+           unsigned long long* out, cudaStream_t stream) {
+  static int sms = 0;
   if (sms == 0) {
     int dev = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                           dev);
     if (sms <= 0) sms = 132;
   }
-  // as many copies as asked and as the block's shared memory holds (the
-  // static warp sums and 1 KB a block that the SM keeps aside come off)
-  const int64_t copy_bytes = (int64_t)(bins + 1) * sizeof(unsigned int);
-  const int64_t budget = (int64_t)optin / blocks_per_sm - 1024 -
-                         (int64_t)WARPS * sizeof(unsigned long long);
-  int64_t fit = budget / copy_bytes;
-  if (fit < 1) return (int)cudaErrorInvalidValue;
-  if (copies > fit) copies = (int)fit;
-  if (copies > WARPS) copies = WARPS;
-  if (copies < 1) copies = 1;
-  const size_t shared = (size_t)copies * copy_bytes;
-  static size_t opted = 48 * 1024;
-  if (shared > opted) {
-    cudaError_t e = cudaFuncSetAttribute(
-        histogram_kernel<ABS_VALUE, COUNT, LOADS, FAST>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
-    if (e != cudaSuccess) return (int)e;
-    opted = shared;
-  }
+  const size_t shared = (size_t)bins * sizeof(unsigned int);
   const int64_t n_vec = (((uintptr_t)x & 15u) == 0) ? n / 4 : 0;
   const int64_t work = n_vec > 0 ? (n_vec + LOADS - 1) / LOADS : n;
   int64_t blocks = (work + THREADS - 1) / THREADS;
-  if (blocks > (int64_t)blocks_per_sm * sms) blocks = (int64_t)blocks_per_sm * sms;
+  if (blocks > sms) blocks = sms;
   if (blocks < 1) blocks = 1;
-  histogram_kernel<ABS_VALUE, COUNT, LOADS, FAST>
+  histogram_kernel<ABS_VALUE, COUNT, FAST>
       <<<(int)blocks, THREADS, shared, stream>>>(x, n, n_vec, scale,
-                                                 1.f / scale, bins, copies,
-                                                 by_lane, out);
+                                                 1.f / scale, bins, out);
   return (int)cudaGetLastError();
 }
-
-// Sub-histograms a block keeps, and whether lanes (1) or warps (0) pick
-// their copy: measured on the card (chip_smoke.py --quant).
-constexpr int COPIES = 8;
-constexpr int BY_LANE = 1;
 
 template <bool ABS_VALUE>
 int launch_default(const float* x, int64_t n, float scale, int bins,
                    unsigned long long* out, cudaStream_t st) {
   return fast_bin_ok(scale, bins)
-             ? launch<ABS_VALUE, true, 4, true>(x, n, scale, bins, COPIES,
-                                                BY_LANE, 1, out, st)
-             : launch<ABS_VALUE, true, 4, false>(x, n, scale, bins, COPIES,
-                                                 BY_LANE, 1, out, st);
+             ? launch<ABS_VALUE, true, true>(x, n, scale, bins, out, st)
+             : launch<ABS_VALUE, true, false>(x, n, scale, bins, out, st);
 }
 
 }  // namespace
@@ -230,31 +197,19 @@ extern "C" int ppq_histogram(const float* x, int64_t n, float scale, int bins,
                   : launch_default<false>(x, n, scale, bins, o, st);
 }
 
-// The same kernel with its launch's choices given (absolute values): the
-// sub-histograms, how lanes pick one, blocks an SM (1 or 2), float4 loads a
-// thread a step (1 or 4), the bin by the product with 1/scale (fast 1,
-// where the scale allows it) or by the IEEE quotient (0), and count 0 for
-// the variant that bins and counts nothing. For the measurements of
-// chip_smoke.py --quant and the card tests.
+// The same kernel on absolute values with the bin by the product with
+// 1/scale (fast 1, where the scale allows it) or by the IEEE quotient (0),
+// and count 0 for the variant that bins and counts nothing. For the
+// measurements of chip_smoke.py --quant and the card tests.
 extern "C" int ppq_histogram_variant(const float* x, int64_t n, float scale,
-                                     int bins, long long* out, int copies,
-                                     int by_lane, int blocks_per_sm, int loads,
-                                     int fast, int count, void* stream) {
+                                     int bins, long long* out, int fast,
+                                     int count, void* stream) {
   unsigned long long* o = reinterpret_cast<unsigned long long*>(out);
   cudaStream_t st = (cudaStream_t)stream;
-  if (blocks_per_sm < 1 || blocks_per_sm > 2 || (loads != 1 && loads != 4) ||
-      (fast && !fast_bin_ok(scale, bins)))
-    return (int)cudaErrorInvalidValue;
-#define PPQ_HIST_VARIANT(L, F)                                              \
-  return count ? launch<true, true, L, F>(x, n, scale, bins, copies, by_lane, \
-                                          blocks_per_sm, o, st)             \
-               : launch<true, false, L, F>(x, n, scale, bins, copies,       \
-                                           by_lane, blocks_per_sm, o, st)
-  if (loads == 4) {
-    if (fast) PPQ_HIST_VARIANT(4, true);
-    PPQ_HIST_VARIANT(4, false);
-  }
-  if (fast) PPQ_HIST_VARIANT(1, true);
-  PPQ_HIST_VARIANT(1, false);
-#undef PPQ_HIST_VARIANT
+  if (fast && !fast_bin_ok(scale, bins)) return (int)cudaErrorInvalidValue;
+  if (fast)
+    return count ? launch<true, true, true>(x, n, scale, bins, o, st)
+                 : launch<true, false, true>(x, n, scale, bins, o, st);
+  return count ? launch<true, true, false>(x, n, scale, bins, o, st)
+               : launch<true, false, false>(x, n, scale, bins, o, st);
 }
