@@ -335,9 +335,14 @@ def kernels_quant(dev, flush):
             if int(got.sum()) != x.numel():
                 raise AssertionError('histogram lost counts')
         idx = torch.clamp(post_relu / scale, 0, bins - 1).to(torch.int64).reshape(-1)
+        # added into running counts, as the observers call it (a fresh
+        # output would put its zeroing, a launch of its own, in the window)
+        counts = torch.zeros(bins, dtype=torch.int64, device=dev)
         timed[bins] = dict(
-            ms=time_ms(lambda: histogram(post_relu, scale, bins), flush),
-            plain_ms=time_ms(lambda: histogram_plain(post_relu, scale, bins), flush),
+            ms=time_ms(lambda: histogram(post_relu, scale, bins, out=counts),
+                       flush),
+            plain_ms=time_ms(lambda: histogram_plain(post_relu, scale, bins,
+                                                     out=counts), flush),
             # yardstick, two calls: the clipped bin indices, then bincount
             library_ms=(time_ms(lambda: torch.clamp(post_relu / scale, 0, bins - 1)
                                 .to(torch.int64).reshape(-1), flush)
@@ -3364,8 +3369,12 @@ def quant_paths(dev, flush):
         + ', '.join(f'{r["shape"]}@{r["axis"]} {r["ms"]:.4f}' for r in rows))
 
     first_relu = None
+    seen = {}      # one real activation of each shape, for the sweep
+    for a in acts:
+        seen.setdefault(tuple(a['x'].shape), a)
     for bins in (4096, 2048):
         rows = []
+        counts = torch.zeros(bins, dtype=torch.int64, device=dev)
         for a in acts:
             x = a['x']
             scale = float(np.float32(a['scale']) * np.float32(a['bins'] / bins))
@@ -3375,7 +3384,8 @@ def quant_paths(dev, flush):
             if not (torch.equal(got, want) and torch.equal(again, want)):
                 raise AssertionError(f'histogram != plain at {tuple(x.shape)}, '
                                      f'{bins} bins')
-            ms = time_ms(lambda: histogram(x, scale, bins, a['absolute']), flush)
+            ms = time_ms(lambda: histogram(x, scale, bins, a['absolute'], counts),
+                         flush)
             n = x.numel()
             b, _ = bound_ms(4.0 * n + 8.0 * bins, 3.0 * n)
             rows.append(dict(shape=list(x.shape), ms=ms, bound_ms=b,
@@ -3390,7 +3400,7 @@ def quant_paths(dev, flush):
             f'{results[key]["sum_bound_ms"]:.4f}); '
             + ', '.join(f'{r["shape"]} {r["ms"]:.4f} (bin 0 '
                         f'{r["bin0_share"]:.2f})' for r in rows))
-    del weights, acts
+    del weights
 
     # the bin's variants, where this checkout has them
     entries = loader.LIBRARIES['histogram'][1]
@@ -3413,7 +3423,7 @@ def quant_paths(dev, flush):
                 def run():
                     rc = lib.ppq_histogram_variant(
                         x.data_ptr(), x.numel(), scale, 4096, out.data_ptr(),
-                        fast, count, stream)
+                        fast, count, 0, stream)
                     if rc:
                         raise AssertionError(f'histogram variant {name}: {rc}')
                 if count:
@@ -3425,7 +3435,25 @@ def quant_paths(dev, flush):
             results[f'row 3 variants, {label}'] = timed
             log(f'[quant] row 3 variants on the {label} (4096 bins): '
                 + '; '.join(f'{k} {v:.4f}' for k, v in timed.items()))
-        del headline, first_relu
+        # blocks against the flush: each block adds its non-zero bins to
+        # the global counts, so fewer blocks flush less and stream slower
+        sweep = {}
+        for a in seen.values():
+            x = a['x']
+            row = {}
+            for grid in (0, 132, 96, 64, 48, 32, 24, 16, 8):
+                def run():
+                    if lib.ppq_histogram_variant(
+                            x.data_ptr(), x.numel(), a['scale'], 4096,
+                            out.data_ptr(), 1, 1, grid, stream):
+                        raise AssertionError('histogram variant refused')
+                row['kernel' if grid == 0 else grid] = time_ms(run, flush)
+            sweep[str(list(x.shape))] = row
+            log(f'[quant] row 3 blocks sweep at {list(x.shape)}: '
+                + ', '.join(f'{k} {v:.4f}' for k, v in row.items()))
+        results['row 3 blocks sweep, real activations, 4096 bins'] = sweep
+        del headline, first_relu, seen
+    del acts
     torch.cuda.empty_cache()
     return results
 
@@ -3438,9 +3466,9 @@ def main_quant(package_root=None) -> int:
     the weight for row 2, a float32 sum of the activation for row 3, row
     2's run kernel copying without its arithmetic where this checkout has
     it) and the launch floor (`ppq_empty_launch`, the one reason the
-    paged-attention library is built). With `--package-root DIR` the package is imported
-    from the checkout at DIR, so two commits are timed in one call on one
-    card, in turns."""
+    paged-attention library is built). With `--package-root DIR` the
+    package is imported from the checkout at DIR, so two commits are timed
+    in one call on one card, in turns."""
     t_start = time.perf_counter()
     _, smi = phase_card()
     if package_root:

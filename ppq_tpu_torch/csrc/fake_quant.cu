@@ -15,9 +15,9 @@
 //
 // Channelwise keeps the tensor's own layout, outer * C runs of `inner`
 // contiguous floats, run r of channel r % C (channel_index.cuh), so the JAX
-// wrapper's transpose and padding are not needed. The instruction stream,
-// not the bytes, used to set its pace: two integer divisions and two scale
-// loads an element. Now:
+// wrapper's transpose and padding are not needed. Two integer divisions
+// and two scale loads an element would make the instructions, not the
+// bytes, set the pace, so:
 //   * where a run fills a block (inner a multiple of 4, at least
 //     4 * RUN_THREADS floats: the 3x3 conv weights on axis 0), block (r, j)
 //     walks slice j of run r with the scale and offset in registers, one
@@ -103,7 +103,7 @@ __device__ __forceinline__ void quant_four(float4& v, float s, float o,
 
 // Channelwise, where a run fills a block: block (r, j) walks slice j of run
 // r, `chunk4` float4s, whose channel r % C it finds once. Each thread loads
-// its LOADS float4s of the slice before it converts any.
+// its float4s of the slice (up to LOADS) before it converts any.
 template <int R, bool CODES, bool QUANT = true>
 __global__ void __launch_bounds__(RUN_THREADS)
 fake_quant_run_kernel(const float* __restrict__ x, float* __restrict__ y,

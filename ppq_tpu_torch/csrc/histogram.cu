@@ -8,16 +8,16 @@
 // shared-memory atomics, so this is a histogram again.
 //
 // What bounds it on an H100: device memory, 4 bytes read per element and no
-// write but the bins. The instruction stream came close: an IEEE division,
-// a conversion and a warp match an element. The distribution sets the
-// contention: after a ReLU half the values or more fall in bin 0, and
-// because the scale is absmax / bins most of the rest pile into the lowest
-// bins. So:
+// write but the bins, as long as an element costs a few instructions (an
+// IEEE division, a conversion and a warp match an element cost more than
+// the bytes). The distribution sets the contention: after a ReLU half the
+// values or more fall in bin 0, and because the scale is absmax / bins most
+// of the rest pile into the lowest bins. So:
 //   * bin 0 is counted in a register by each thread, summed by warp shuffles
 //     and added once a warp;
 //   * the other bins take plain shared atomics on one sub-histogram, with no
-//     warp match (sub-histograms copied for each lane or warp were measured
-//     and made it slower: chip_smoke.py --quant);
+//     warp match (copies of it for each lane or warp measured slower on the
+//     card, PERF.md);
 //   * the bin is the product with 1/scale wherever that equals the bin of
 //     the IEEE quotient, the quotient elsewhere (bin_fast);
 //   * each thread loads the next step's LOADS float4s while it bins this
@@ -30,8 +30,9 @@
 // Counts are exact 64-bit integers and the kernel adds into the caller's
 // running counts, so a calibration folds its batches on the card in int64.
 // Index semantics equal the JAX reference `(v / scale).astype(int32)` then
-// clip: IEEE division, and __float2int_rz truncates toward zero and
-// saturates (a NaN gives 0), as XLA's convert does.
+// clip: the IEEE quotient truncated toward zero and saturated (a NaN gives
+// 0), as XLA's convert does; bin_fast reaches the same bin without the
+// division wherever it can (a card test holds it next to every bin edge).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -159,7 +160,7 @@ inline bool fast_bin_ok(float scale, int bins) {
 
 template <bool ABS_VALUE, bool COUNT, bool FAST>
 int launch(const float* x, int64_t n, float scale, int bins,
-           unsigned long long* out, cudaStream_t stream) {
+           unsigned long long* out, cudaStream_t stream, int grid = 0) {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -172,6 +173,7 @@ int launch(const float* x, int64_t n, float scale, int bins,
   const int64_t work = n_vec > 0 ? (n_vec + LOADS - 1) / LOADS : n;
   int64_t blocks = (work + THREADS - 1) / THREADS;
   if (blocks > sms) blocks = sms;
+  if (grid > 0) blocks = grid;
   if (blocks < 1) blocks = 1;
   histogram_kernel<ABS_VALUE, COUNT, FAST>
       <<<(int)blocks, THREADS, shared, stream>>>(x, n, n_vec, scale,
@@ -199,17 +201,18 @@ extern "C" int ppq_histogram(const float* x, int64_t n, float scale, int bins,
 
 // The same kernel on absolute values with the bin by the product with
 // 1/scale (fast 1, where the scale allows it) or by the IEEE quotient (0),
-// and count 0 for the variant that bins and counts nothing. For the
-// measurements of chip_smoke.py --quant and the card tests.
+// count 0 for the variant that bins and counts nothing, and `grid` blocks
+// (0: the kernel's own choice). For the measurements of chip_smoke.py
+// --quant and the card tests.
 extern "C" int ppq_histogram_variant(const float* x, int64_t n, float scale,
                                      int bins, long long* out, int fast,
-                                     int count, void* stream) {
+                                     int count, int grid, void* stream) {
   unsigned long long* o = reinterpret_cast<unsigned long long*>(out);
   cudaStream_t st = (cudaStream_t)stream;
   if (fast && !fast_bin_ok(scale, bins)) return (int)cudaErrorInvalidValue;
   if (fast)
-    return count ? launch<true, true, true>(x, n, scale, bins, o, st)
-                 : launch<true, false, true>(x, n, scale, bins, o, st);
-  return count ? launch<true, true, false>(x, n, scale, bins, o, st)
-               : launch<true, false, false>(x, n, scale, bins, o, st);
+    return count ? launch<true, true, true>(x, n, scale, bins, o, st, grid)
+                 : launch<true, false, true>(x, n, scale, bins, o, st, grid);
+  return count ? launch<true, true, false>(x, n, scale, bins, o, st, grid)
+               : launch<true, false, false>(x, n, scale, bins, o, st, grid);
 }

@@ -72,7 +72,7 @@ LIBRARIES: Dict[str, tuple] = {
     'histogram': ('histogram.cu', {
         'ppq_histogram': [_P, _I64, _F, _INT, _INT, _P, _P],
         'ppq_histogram_variant':
-            [_P, _I64, _F, _INT, _P, _INT, _INT, _P],
+            [_P, _I64, _F, _INT, _P, _INT, _INT, _INT, _P],
     }, EXACT_FLAGS),
     'qmm': ('qmm.cu', {
         'ppq_qmm_int8':

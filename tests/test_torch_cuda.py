@@ -234,7 +234,8 @@ def test_histogram_kernel_counts_past_32_bits(cuda):
 
 def test_histogram_kernel_variant_counts_alike(cuda):
     """The variant entry point (absolute values, the bin by the product or
-    by the IEEE quotient) gives the plain version's counts both ways."""
+    by the IEEE quotient, the kernel's grid or one given) gives the plain
+    version's counts every way."""
     from ppq_tpu_torch.kernels import loader
     rng = np.random.RandomState(13)
     v = np.abs(rng.randn(2_000_001)).astype(np.float32)
@@ -244,13 +245,13 @@ def test_histogram_kernel_variant_counts_alike(cuda):
     want = histogram_plain(x, scale, 4096)
     lib = loader.library('histogram')
     out = torch.zeros(4096, dtype=torch.int64, device=cuda)
-    for fast in (1, 0):
+    for fast, grid in ((1, 0), (0, 0), (1, 1), (1, 7), (1, 500)):
         out.zero_()
         rc = lib.ppq_histogram_variant(x.data_ptr(), x.numel(), scale, 4096,
-                                       out.data_ptr(), fast, 1,
+                                       out.data_ptr(), fast, 1, grid,
                                        loader.stream_of(x.device))
         assert rc == 0
-        assert torch.equal(out, want), fast
+        assert torch.equal(out, want), (fast, grid)
 
 
 def _next_to_every_edge(scale, bins, width):
