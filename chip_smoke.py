@@ -177,15 +177,20 @@ def log(*args):
     print(*args, flush=True)
 
 
-def time_ms(fn, flush) -> float:
+def time_ms(fn, flush, clean=False) -> float:
     """Median of REPEATS launches timed with CUDA events, the L2 cache
     flushed before each, as the main path finds these tensors cold. The
     flush (512 MB written, ~0.2 ms) keeps the card busy while the host
-    enqueues the call, so the host's own overhead stays out of the window."""
+    enqueues the call, so the host's own overhead stays out of the window.
+    It leaves L2 full of dirty lines, which the timed call writes back as
+    it evicts them; `clean` flushes by a read instead (L2 left clean)."""
     fn()
     times = []
     for _ in range(REPEATS):
-        flush.zero_()
+        if clean:
+            flush.sum()
+        else:
+            flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -3509,6 +3514,25 @@ def main_quant(package_root=None) -> int:
         if not torch.equal(y, weight):
             raise AssertionError('row 2 copy variant != its input')
         results['yardsticks']['row_2_run_kernel_copy_only_ms'] = time_ms(copy, flush)
+        # the same with L2 left clean by the flush: what its write-back costs
+        results['yardsticks']['clean_l2'] = dict(
+            row_2_run_kernel_copy_only_ms=time_ms(copy, flush, clean=True),
+            weight_clone_ms=time_ms(lambda: weight.clone(), flush, clean=True))
+    if 'clean_l2' in results['yardsticks']:
+        from ppq_tpu_torch.core import RoundingPolicy
+        from ppq_tpu_torch.kernels import histogram, linear_quant
+        s_w = torch.rand(WEIGHT_SHAPE[0], device=dev) * 0.002 + 0.0005
+        z_w = torch.zeros_like(s_w)
+        post_relu = torch.relu(act)
+        scale = float(post_relu.max()) / 4096
+        counts = torch.zeros(4096, dtype=torch.int64, device=dev)
+        results['yardsticks']['clean_l2'].update(
+            row_2_ms=time_ms(lambda: linear_quant(
+                weight, s_w, z_w, -128, 127, RoundingPolicy.ROUND_HALF_EVEN, 0),
+                flush, clean=True),
+            row_3_ms=time_ms(lambda: histogram(post_relu, scale, 4096,
+                                               out=counts), flush, clean=True),
+            activation_sum_ms=time_ms(lambda: act.sum(), flush, clean=True))
     log(f'[quant] yardsticks: {json.dumps(results["yardsticks"])}')
     log(f'[done] {time.perf_counter() - t_start:.1f} s; {smi}')
     log(json.dumps({'quant': results, 'card': smi}))
