@@ -261,9 +261,8 @@ def _log_kernels(results):
             f'{r["plain_ms"]:.4f} ms, library {lib}, bound '
             f'{r["bound_ms"]:.4f} ms ({r["bound_by"]}), share of bound '
             f'{r["bound_ms"] / r["ms"]:.3f}')
-    if 'histogram' in results:
-        log(f'[kernel] histogram 2048 bins: '
-            f'{json.dumps(results["histogram"]["bins_2048"])}')
+    log(f'[kernel] histogram 2048 bins: '
+        f'{json.dumps(results["histogram"]["bins_2048"])}')
 
 
 def kernels_quant(dev, flush):
