@@ -66,6 +66,7 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 import re
 import statistics
 import subprocess
@@ -177,20 +178,15 @@ def log(*args):
     print(*args, flush=True)
 
 
-def time_ms(fn, flush, clean=False) -> float:
+def time_ms(fn, flush) -> float:
     """Median of REPEATS launches timed with CUDA events, the L2 cache
     flushed before each, as the main path finds these tensors cold. The
     flush (512 MB written, ~0.2 ms) keeps the card busy while the host
-    enqueues the call, so the host's own overhead stays out of the window.
-    It leaves L2 full of dirty lines, which the timed call writes back as
-    it evicts them; `clean` flushes by a read instead (L2 left clean)."""
+    enqueues the call, so the host's own overhead stays out of the window."""
     fn()
     times = []
     for _ in range(REPEATS):
-        if clean:
-            flush.sum()
-        else:
-            flush.zero_()
+        flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -339,14 +335,9 @@ def kernels_quant(dev, flush):
             if int(got.sum()) != x.numel():
                 raise AssertionError('histogram lost counts')
         idx = torch.clamp(post_relu / scale, 0, bins - 1).to(torch.int64).reshape(-1)
-        # added into running counts, as the observers call it (a fresh
-        # output would put its zeroing, a launch of its own, in the window)
-        counts = torch.zeros(bins, dtype=torch.int64, device=dev)
         timed[bins] = dict(
-            ms=time_ms(lambda: histogram(post_relu, scale, bins, out=counts),
-                       flush),
-            plain_ms=time_ms(lambda: histogram_plain(post_relu, scale, bins,
-                                                     out=counts), flush),
+            ms=time_ms(lambda: histogram(post_relu, scale, bins), flush),
+            plain_ms=time_ms(lambda: histogram_plain(post_relu, scale, bins), flush),
             # yardstick, two calls: the clipped bin indices, then bincount
             library_ms=(time_ms(lambda: torch.clamp(post_relu / scale, 0, bins - 1)
                                 .to(torch.int64).reshape(-1), flush)
@@ -2979,9 +2970,15 @@ def phase_path_c(dev):
     torch.cuda.synchronize()
     quant_s = time.perf_counter() - t0
     executor = TorchExecutor(graph)
+    bodies_before = dict(bodies)
     y = executor.forward(x_dev)[0]
     torch.cuda.synchronize()
-    before_fwd, bodies_before = dict(LAUNCHES), dict(bodies)
+    # the bodies of one forward, counted on this untimed one: the timed
+    # loop runs without the counting wrapper, and its row 6 launches must
+    # be n_fwd times these
+    bodies_per_forward = {k: bodies[k] - v for k, v in bodies_before.items()}
+    qfunction.floating_quant = floating_quant
+    before_fwd = dict(LAUNCHES)
     n_fwd = 10
     t0 = time.perf_counter()
     for _ in range(n_fwd):
@@ -2990,8 +2987,14 @@ def phase_path_c(dev):
     fwd_s = (time.perf_counter() - t0) / n_fwd
     per_forward = {k: (LAUNCHES[k] - v) / n_fwd for k, v in before_fwd.items()
                    if LAUNCHES[k] != v}
-    bodies_per_forward = {k: (bodies[k] - v) / n_fwd
-                          for k, v in bodies_before.items()}
+    timed_row6 = LAUNCHES['floating_quant'] - before_fwd['floating_quant']
+    if timed_row6 != n_fwd * sum(bodies_per_forward.values()):
+        raise AssertionError(f'path C: row 6 launched {timed_row6} times in '
+                             f'{n_fwd} forwards, one forward called its '
+                             f'bodies {bodies_per_forward}')
+    for k, v in bodies_per_forward.items():
+        bodies[k] += n_fwd * v
+    qfunction.floating_quant = by_body
     _, snr, top1 = _forward_vs(graph, x_dev, y_fp32)
     snr_train = _forward_vs(graph, x_train, y_fp32_train)[1]
     lsq = LearnedStepSizePass(is_scale_trainable=False, steps=LSQ_STEPS,
@@ -3332,13 +3335,14 @@ def _path_inputs(dev):
     return weights, acts
 
 
-def quant_paths(dev, flush):
+def quant_paths(dev, flush, measure):
     """`--quant` only: rows 2 and 3 at every input path A gives them (each
-    held against its plain version, then timed), with the sums a
-    calibration batch spends; row 3 also at 2048 bins (the MSE observers),
-    and its bin's variants (product or IEEE quotient, counting or not) on
-    the headline activation and on the real first-ReLU activation where
-    this checkout has the variant entry point."""
+    held against its plain version, then timed, row 3 into running counts
+    as the observers call it), with the sums a calibration batch spends;
+    row 3 also at 2048 bins (the MSE observers). With the measurement
+    build (`measure`), row 3's bin variants (product or IEEE quotient,
+    counting or not) on the headline activation and on the real first-ReLU
+    activation."""
     from ppq_tpu_torch.core import RoundingPolicy
     from ppq_tpu_torch.kernels import (histogram, histogram_plain, linear_quant,
                                        linear_quant_plain, loader)
@@ -3373,9 +3377,6 @@ def quant_paths(dev, flush):
         + ', '.join(f'{r["shape"]}@{r["axis"]} {r["ms"]:.4f}' for r in rows))
 
     first_relu = None
-    seen = {}      # one real activation of each shape, for the sweep
-    for a in acts:
-        seen.setdefault(tuple(a['x'].shape), a)
     for bins in (4096, 2048):
         rows = []
         counts = torch.zeros(bins, dtype=torch.int64, device=dev)
@@ -3406,10 +3407,8 @@ def quant_paths(dev, flush):
                         f'{r["bin0_share"]:.2f})' for r in rows))
     del weights
 
-    # the bin's variants, where this checkout has them
-    entries = loader.LIBRARIES['histogram'][1]
-    if 'ppq_histogram_variant' in entries and first_relu is not None:
-        lib = loader.library('histogram')
+    if measure and first_relu is not None:
+        lib = loader.library('histogram_measure')
         stream = loader.stream_of(dev)
         gen = torch.Generator(device=dev).manual_seed(0)
         headline = torch.relu(torch.randn(*ACT_SHAPE, device=dev, generator=gen) * 2.0)
@@ -3427,7 +3426,7 @@ def quant_paths(dev, flush):
                 def run():
                     rc = lib.ppq_histogram_variant(
                         x.data_ptr(), x.numel(), scale, 4096, out.data_ptr(),
-                        fast, count, 0, stream)
+                        fast, count, stream)
                     if rc:
                         raise AssertionError(f'histogram variant {name}: {rc}')
                 if count:
@@ -3437,101 +3436,102 @@ def quant_paths(dev, flush):
                         raise AssertionError(f'histogram variant {name} != plain')
                 timed[name] = time_ms(run, flush)
             results[f'row 3 variants, {label}'] = timed
-            log(f'[quant] row 3 variants on the {label} (4096 bins): '
+            log(f'[quant] row 3 variants on the {label} (4096 bins, into '
+                f'running counts): '
                 + '; '.join(f'{k} {v:.4f}' for k, v in timed.items()))
-        # blocks against the flush: each block adds its non-zero bins to
-        # the global counts, so fewer blocks flush less and stream slower
-        sweep = {}
-        for a in seen.values():
-            x = a['x']
-            row = {}
-            for grid in (0, 132, 96, 64, 48, 32, 24, 16, 8):
-                def run():
-                    if lib.ppq_histogram_variant(
-                            x.data_ptr(), x.numel(), a['scale'], 4096,
-                            out.data_ptr(), 1, 1, grid, stream):
-                        raise AssertionError('histogram variant refused')
-                row['kernel' if grid == 0 else grid] = time_ms(run, flush)
-            sweep[str(list(x.shape))] = row
-            log(f'[quant] row 3 blocks sweep at {list(x.shape)}: '
-                + ', '.join(f'{k} {v:.4f}' for k, v in row.items()))
-        results['row 3 blocks sweep, real activations, 4096 bins'] = sweep
-        del headline, first_relu, seen
+        del headline, first_relu
     del acts
     torch.cuda.empty_cache()
     return results
 
 
+def _measure_libraries() -> bool:
+    """Register the measurement builds of the fake-quant and histogram
+    sources (nvcc -DPPQ_MEASURE) beside the package's own libraries, under
+    their own names: variants that explain a time (row 2's loads and
+    stores alone, row 3's bin and counting variants) and an empty launch.
+    The package's libraries stay as the paths run them. False where the
+    checkout's sources have no such build (an older commit)."""
+    import ctypes
+    from ppq_tpu_torch.kernels import loader
+    for source in ('fake_quant.cu', 'histogram.cu'):
+        with open(os.path.join(loader.SRC_DIR, source)) as f:
+            if 'PPQ_MEASURE' not in f.read():
+                return False
+    P, I64, F, INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_int
+    flags = [*loader.EXACT_FLAGS, '-DPPQ_MEASURE']
+    loader.LIBRARIES['fake_quant_measure'] = ('fake_quant.cu', {
+        'ppq_fake_quant_channelwise_copy': [P, P, I64, I64, I64, P]}, flags)
+    loader.LIBRARIES['histogram_measure'] = ('histogram.cu', {
+        'ppq_histogram_variant': [P, I64, F, INT, P, INT, INT, P],
+        'ppq_empty_launch': [P]}, flags)
+    return True
+
+
 def main_quant(package_root=None) -> int:
     """`--quant`: the card, the build of the fake-quant and histogram
-    kernels, rows 1-7 held and timed at their headline shapes
-    (kernels_quant), and rows 2 and 3 at every input path A gives them
-    (quant_paths); with yardsticks over the same bytes (a float32 clone of
-    the weight for row 2, a float32 sum of the activation for row 3, row
-    2's run kernel copying without its arithmetic where this checkout has
-    it) and the launch floor (`ppq_empty_launch`, the one reason the
-    paged-attention library is built). With `--package-root DIR` the
-    package is imported from the checkout at DIR, so two commits are timed
-    in one call on one card, in turns."""
+    kernels, rows 1-7 held and timed at their headline shapes as the full
+    smoke times them (kernels_quant: row 3 into a fresh output), row 3 at
+    its headline into running counts, and rows 2 and 3 at every input path
+    A gives them (quant_paths); with yardsticks over the same bytes (a
+    float32 clone of the weight for row 2, a float32 sum of the activation
+    for row 3) and, where the checkout has the measurement build, row 2's
+    loads and stores alone and the launch floor (`ppq_empty_launch`). With
+    `--package-root DIR` the package is imported from the checkout at DIR,
+    so two commits are timed in one call on one card, in turns."""
     t_start = time.perf_counter()
     _, smi = phase_card()
     if package_root:
         sys.path.insert(0, package_root)
     import ppq_tpu_torch
     log(f'[quant] package {ppq_tpu_torch.__file__}')
-    from ppq_tpu_torch.kernels import loader
+    from ppq_tpu_torch.kernels import histogram, loader
     dev = torch.device('cuda', 0)
     torch.cuda.set_device(dev)
-    phase_build(['fake_quant', 'fake_quant_bwd', 'floating', 'histogram',
-                 'paged_attention'])
+    measure = _measure_libraries()
+    phase_build(['fake_quant', 'fake_quant_bwd', 'floating', 'histogram']
+                + (['fake_quant_measure', 'histogram_measure'] if measure else []))
     flush = torch.empty(512 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
     results = kernels_quant(dev, flush)
     _log_kernels(results)
-    results.update(quant_paths(dev, flush))
+    # the same inputs as kernels_quant's
     gen = torch.Generator(device=dev).manual_seed(0)
-    weight = torch.randn(*WEIGHT_SHAPE, device=dev, generator=gen)
-    act = torch.randn(*ACT_SHAPE, device=dev, generator=gen)
+    act = torch.randn(*ACT_SHAPE, device=dev, generator=gen) * 2.0
+    weight = torch.randn(*WEIGHT_SHAPE, device=dev, generator=gen) * 0.05
+    post_relu = torch.relu(act)
+    running = {}
+    for bins in (4096, 2048):
+        scale = float(post_relu.max()) / bins
+        counts = torch.zeros(bins, dtype=torch.int64, device=dev)
+        running[bins] = time_ms(lambda: histogram(post_relu, scale, bins,
+                                                  out=counts), flush)
+    results['row 3 headline into running counts'] = running
+    log(f'[quant] row 3 at {list(ACT_SHAPE)} into running counts: '
+        f'4096 bins {running[4096]:.4f} ms, 2048 bins {running[2048]:.4f} ms')
+    del post_relu
+    results.update(quant_paths(dev, flush, measure))
     stream = loader.stream_of(dev)
     results['yardsticks'] = dict(
         weight_clone_ms=time_ms(lambda: weight.clone(), flush),
-        activation_sum_ms=time_ms(lambda: act.sum(), flush),
-        launch_floor_ms=time_ms(lambda: loader.library(
-            'paged_attention').ppq_empty_launch(stream), flush))
-    if 'ppq_fake_quant_channelwise_copy' in loader.LIBRARIES['fake_quant'][1]:
-        # row 2's run kernel with its loads and stores alone, at the headline
+        activation_sum_ms=time_ms(lambda: act.sum(), flush))
+    if measure:
+        results['yardsticks']['launch_floor_ms'] = time_ms(
+            lambda: loader.library('histogram_measure').ppq_empty_launch(stream),
+            flush)
+        # row 2's kernel with its loads and stores alone, at the headline
         y = torch.empty_like(weight)
         channels = WEIGHT_SHAPE[0]
-        ones = torch.ones(channels, device=dev)
         inner = weight.numel() // channels
 
         def copy():
-            if loader.library('fake_quant').ppq_fake_quant_channelwise_copy(
-                    weight.data_ptr(), y.data_ptr(), weight.numel(),
-                    ones.data_ptr(), ones.data_ptr(), channels, inner, stream):
+            if loader.library('fake_quant_measure').ppq_fake_quant_channelwise_copy(
+                    weight.data_ptr(), y.data_ptr(), weight.numel(), channels,
+                    inner, stream):
                 raise AssertionError('row 2 copy variant refused')
         copy()
         if not torch.equal(y, weight):
             raise AssertionError('row 2 copy variant != its input')
-        results['yardsticks']['row_2_run_kernel_copy_only_ms'] = time_ms(copy, flush)
-        # the same with L2 left clean by the flush: what its write-back costs
-        results['yardsticks']['clean_l2'] = dict(
-            row_2_run_kernel_copy_only_ms=time_ms(copy, flush, clean=True),
-            weight_clone_ms=time_ms(lambda: weight.clone(), flush, clean=True))
-    if 'clean_l2' in results['yardsticks']:
-        from ppq_tpu_torch.core import RoundingPolicy
-        from ppq_tpu_torch.kernels import histogram, linear_quant
-        s_w = torch.rand(WEIGHT_SHAPE[0], device=dev) * 0.002 + 0.0005
-        z_w = torch.zeros_like(s_w)
-        post_relu = torch.relu(act)
-        scale = float(post_relu.max()) / 4096
-        counts = torch.zeros(4096, dtype=torch.int64, device=dev)
-        results['yardsticks']['clean_l2'].update(
-            row_2_ms=time_ms(lambda: linear_quant(
-                weight, s_w, z_w, -128, 127, RoundingPolicy.ROUND_HALF_EVEN, 0),
-                flush, clean=True),
-            row_3_ms=time_ms(lambda: histogram(post_relu, scale, 4096,
-                                               out=counts), flush, clean=True),
-            activation_sum_ms=time_ms(lambda: act.sum(), flush, clean=True))
+        results['yardsticks']['row_2_copy_only_ms'] = time_ms(copy, flush)
     log(f'[quant] yardsticks: {json.dumps(results["yardsticks"])}')
     log(f'[done] {time.perf_counter() - t_start:.1f} s; {smi}')
     log(json.dumps({'quant': results, 'card': smi}))

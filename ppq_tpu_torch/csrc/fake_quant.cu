@@ -17,16 +17,11 @@
 // contiguous floats, run r of channel r % C (channel_index.cuh), so the JAX
 // wrapper's transpose and padding are not needed. Two integer divisions
 // and two scale loads an element would make the instructions, not the
-// bytes, set the pace, so:
-//   * where a run fills a block (inner a multiple of 4, at least
-//     4 * RUN_THREADS floats: the 3x3 conv weights on axis 0), block (r, j)
-//     walks slice j of run r with the scale and offset in registers, one
-//     float4 a thread up to a wave of the card and up to LOADS beyond;
-//   * elsewhere (conv1's inner of 147, the 1x1 convs, a bias or a Gemm
-//     weight on its last axis with inner 1) a grid-stride loop finds the
-//     channel once a float4 by multiply-high and shift, and element by
-//     element only where a float4 crosses a run's end.
-// Both are one launch with no host work beyond the launch.
+// bytes, set the pace, so a grid-stride loop finds the channel once a
+// float4 by multiply-high and shift, and element by element only where a
+// float4 crosses a run's end (conv1's inner of 147, a bias or a Gemm
+// weight on its last axis with inner 1). One launch, no host work beyond
+// it, whatever the layout.
 //
 // Numerics match the JAX reference `x / s` path bit for bit:
 //   * division is IEEE round-to-nearest (__fdiv_rn), never a reciprocal;
@@ -49,9 +44,8 @@ using namespace ppq;
 
 namespace {
 
-constexpr int RUN_THREADS = 128;   // a block of the run kernel
-constexpr int FLAT_THREADS = 256;  // a block of the grid-stride kernels
-constexpr int LOADS = 4;           // float4 loads a thread has in flight
+constexpr int CHANNEL_THREADS = 256;  // a block of the channelwise kernel
+constexpr int LOADS = 4;  // float4 loads a thread has in flight
 
 template <int R, bool CODES>
 __device__ __forceinline__ float quant_one(float x, float s, float o,
@@ -101,51 +95,16 @@ __device__ __forceinline__ void quant_four(float4& v, float s, float o,
   v.w = quant_one<R, CODES>(v.w, s, o, qmin, qmax);
 }
 
-// Channelwise, where a run fills a block: block (r, j) walks slice j of run
-// r, `chunk4` float4s, whose channel r % C it finds once. Each thread loads
-// its float4s of the slice (up to LOADS) before it converts any.
-template <int R, bool CODES, bool QUANT = true>
-__global__ void __launch_bounds__(RUN_THREADS)
-fake_quant_run_kernel(const float* __restrict__ x, float* __restrict__ y,
-                      int64_t inner4, int64_t chunk4,
-                      const float* __restrict__ scale,
-                      const float* __restrict__ offset, FastDiv32 channels,
-                      float qmin, float qmax) {
-  const uint32_t run = blockIdx.x;
-  const uint32_t c = channels.mod(run);
-  const float s = scale[c];
-  const float o = rintf(offset[c]);
-  const float4* src = reinterpret_cast<const float4*>(x) + (int64_t)run * inner4;
-  float4* dst = reinterpret_cast<float4*>(y) + (int64_t)run * inner4;
-  for (int64_t start = blockIdx.y * chunk4; start < inner4;
-       start += (int64_t)gridDim.y * chunk4) {
-    const int64_t end = start + chunk4 < inner4 ? start + chunk4 : inner4;
-    float4 v[LOADS];
-#pragma unroll
-    for (int k = 0; k < LOADS; ++k) {
-      const int64_t j = start + k * RUN_THREADS + threadIdx.x;
-      if (j < end) v[k] = src[j];
-    }
-#pragma unroll
-    for (int k = 0; k < LOADS; ++k) {
-      const int64_t j = start + k * RUN_THREADS + threadIdx.x;
-      if (j < end) {
-        if (QUANT) quant_four<R, CODES>(v[k], s, o, qmin, qmax);
-        dst[j] = v[k];
-      }
-    }
-  }
-}
-
 // Channelwise, any layout: a grid-stride loop over float4s, a thread's LOADS
 // of them a grid apart and in flight together (a tensor smaller than the
 // grid gives each thread one, over as many SMs as it fills). The channel is
 // found once a float4 (two multiply-highs, channel_index.cuh); only a float4
 // that crosses a run's end (inner not a multiple of 4, or below 4) steps
-// element by element.
-template <int R, bool CODES, typename Div>
-__global__ void __launch_bounds__(FLAT_THREADS)
-fake_quant_flat_kernel(const float* __restrict__ x, float* __restrict__ y,
+// element by element. QUANT false is a measurement build's variant: the
+// loads and stores alone (y = x).
+template <int R, bool CODES, typename Div, bool QUANT = true>
+__global__ void __launch_bounds__(CHANNEL_THREADS)
+fake_quant_channel_kernel(const float* __restrict__ x, float* __restrict__ y,
                        typename IndexOf<Div>::type n,
                        typename IndexOf<Div>::type n_vec,
                        const float* __restrict__ scale,
@@ -154,8 +113,8 @@ fake_quant_flat_kernel(const float* __restrict__ x, float* __restrict__ y,
   using Index = typename IndexOf<Div>::type;
   const float4* x4 = reinterpret_cast<const float4*>(x);
   float4* y4 = reinterpret_cast<float4*>(y);
-  const Index grid = (Index)gridDim.x * FLAT_THREADS;
-  for (Index base = (Index)blockIdx.x * FLAT_THREADS + threadIdx.x;
+  const Index grid = (Index)gridDim.x * CHANNEL_THREADS;
+  for (Index base = (Index)blockIdx.x * CHANNEL_THREADS + threadIdx.x;
        base < n_vec; base += grid * LOADS) {
     float4 v[LOADS];
 #pragma unroll
@@ -167,6 +126,10 @@ fake_quant_flat_kernel(const float* __restrict__ x, float* __restrict__ y,
     for (int k = 0; k < LOADS; ++k) {
       const Index j = base + k * grid;
       if (j >= n_vec) continue;
+      if (!QUANT) {
+        y4[j] = v[k];
+        continue;
+      }
       Index c, w;
       at.locate(j * 4, c, w);
       if (w + 3 < at.inner.d) {
@@ -184,8 +147,12 @@ fake_quant_flat_kernel(const float* __restrict__ x, float* __restrict__ y,
     }
   }
   // the tail, or every element when x or y is not 16-byte aligned
-  for (Index i = n_vec * 4 + (Index)blockIdx.x * FLAT_THREADS + threadIdx.x;
+  for (Index i = n_vec * 4 + (Index)blockIdx.x * CHANNEL_THREADS + threadIdx.x;
        i < n; i += grid) {
+    if (!QUANT) {
+      y[i] = x[i];
+      continue;
+    }
     const Index c = at.channel(i);
     y[i] = quant_one<R, CODES>(x[i], scale[c], rintf(offset[c]), qmin, qmax);
   }
@@ -202,56 +169,30 @@ void launch_tensor(const float* x, float* y, int64_t n, float s, float o,
       x, y, n, n_vec, s, o, s_dev, o_dev, qmin, qmax);
 }
 
-// Whether the run kernel takes this tensor.
-inline bool by_runs(const float* x, const float* y, int64_t n, int64_t inner) {
-  return aligned16(x) && aligned16(y) && inner % 4 == 0 &&
-         inner / 4 >= RUN_THREADS && n / inner < INT32_MAX;
-}
-
-// QUANT false is a measurement variant: the run kernel's loads and stores
-// alone (y = x).
+// QUANT false: the measurement build's copy variant.
 template <int R, bool CODES, bool QUANT = true>
 void launch_channel(const float* x, float* y, int64_t n, const float* s,
                     const float* o, int64_t channels, int64_t inner,
                     float qmin, float qmax, cudaStream_t stream) {
   const bool aligned = aligned16(x) && aligned16(y);
-  const int64_t runs = n / inner;
-  if (by_runs(x, y, n, inner)) {
-    // the run cut evenly into slices of one float4 a thread while the
-    // tensor fits one wave of the card (16 blocks an SM), up to LOADS a
-    // thread beyond: a small weight is a latency, spread over more warps
-    const int64_t inner4 = inner / 4;
-    const int64_t wave = 16LL * sm_count() * RUN_THREADS;
-    int64_t loads = (n / 4 + wave - 1) / wave;
-    loads = loads < 1 ? 1 : (loads > LOADS ? LOADS : loads);
-    const int64_t per_block = RUN_THREADS * loads;
-    int64_t slices = (inner4 + per_block - 1) / per_block;
-    if (slices > 65535) slices = 65535;
-    int64_t chunk4 = (inner4 + slices - 1) / slices;
-    if (chunk4 > per_block) chunk4 = per_block;  // the loop takes the rest
-    const dim3 grid((unsigned)runs, (unsigned)slices);
-    fake_quant_run_kernel<R, CODES, QUANT><<<grid, RUN_THREADS, 0, stream>>>(
-        x, y, inner4, chunk4, s, o, FastDiv32::make((uint32_t)channels),
-        qmin, qmax);
-    return;
-  }
   const int64_t n_vec = aligned ? n / 4 : 0;
   // one float4 a thread up to one wave of the card (8 blocks an SM), then
   // up to LOADS
-  int64_t blocks = ((n_vec > 0 ? n_vec : n) + FLAT_THREADS - 1) / FLAT_THREADS;
+  int64_t blocks =
+      ((n_vec > 0 ? n_vec : n) + CHANNEL_THREADS - 1) / CHANNEL_THREADS;
   if (blocks > 8 * (int64_t)sm_count()) blocks = 8 * (int64_t)sm_count();
   if (n < INT32_MAX) {
     ChannelIndex<FastDiv32> at{FastDiv32::make((uint32_t)inner),
                                FastDiv32::make((uint32_t)channels)};
-    fake_quant_flat_kernel<R, CODES, FastDiv32>
-        <<<(int)blocks, FLAT_THREADS, 0, stream>>>(x, y, (uint32_t)n,
+    fake_quant_channel_kernel<R, CODES, FastDiv32, QUANT>
+        <<<(int)blocks, CHANNEL_THREADS, 0, stream>>>(x, y, (uint32_t)n,
                                               (uint32_t)n_vec, s, o, at, qmin,
                                               qmax);
   } else {
     ChannelIndex<PlainDiv64> at{PlainDiv64::make((uint64_t)inner),
                                 PlainDiv64::make((uint64_t)channels)};
-    fake_quant_flat_kernel<R, CODES, PlainDiv64>
-        <<<(int)blocks, FLAT_THREADS, 0, stream>>>(x, y, (uint64_t)n,
+    fake_quant_channel_kernel<R, CODES, PlainDiv64, QUANT>
+        <<<(int)blocks, CHANNEL_THREADS, 0, stream>>>(x, y, (uint64_t)n,
                                               (uint64_t)n_vec, s, o, at, qmin,
                                               qmax);
   }
@@ -327,16 +268,16 @@ extern "C" int ppq_fake_quant_channelwise(const float* x, float* y, int64_t n,
   return (int)cudaGetLastError();
 }
 
-// The run kernel's loads and stores without the arithmetic (y = x), for the
-// measurements of chip_smoke.py --quant: refused where the run kernel does
-// not take the tensor.
+#ifdef PPQ_MEASURE
+// A measurement build only (nvcc -DPPQ_MEASURE, chip_smoke.py --quant): the
+// channelwise kernel's loads and stores without its arithmetic (y = x).
 extern "C" int ppq_fake_quant_channelwise_copy(const float* x, float* y,
-                                               int64_t n, const float* s,
-                                               const float* o,
-                                               int64_t channels, int64_t inner,
-                                               void* stream) {
-  if (n <= 0 || !by_runs(x, y, n, inner)) return (int)cudaErrorInvalidValue;
-  launch_channel<HALF_EVEN, false, false>(x, y, n, s, o, channels, inner, 0.f,
-                                          0.f, (cudaStream_t)stream);
+                                               int64_t n, int64_t channels,
+                                               int64_t inner, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  launch_channel<HALF_EVEN, false, false>(x, y, n, nullptr, nullptr, channels,
+                                          inner, 0.f, 0.f,
+                                          (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
+#endif

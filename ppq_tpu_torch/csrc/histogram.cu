@@ -58,9 +58,11 @@ __device__ __forceinline__ int bin_of(float v, float scale, int bins,
 // most 2^-24, the quotient by 2^-24). So where P lies further than 2^-21 P
 // from the nearest integer n >= 1, no integer lies between P and D, and
 // trunc(P) == trunc(D); below 1/2 both are 0 (D < 1), and from bins - 1/2
-// up both clip to bins - 1. Elsewhere the IEEE quotient decides. P's integer part comes from adding 1.5 * 2^23, exact for
-// 0 <= P <= 2^22 (the host checks bins and r). A NaN goes to 0 (fmaxf), a
-// negative value to 0, +inf to bins - 1, as bin_of sends them.
+// up both clip to bins - 1. Elsewhere the IEEE quotient decides. P's
+// integer part comes from adding 1.5 * 2^23, exact for 0 <= P <= 2^22 (the
+// host checks bins and r). A NaN goes to 0 (fmaxf), a negative value to 0,
+// +inf to bins - 1, as bin_of sends them. tests/test_torch_kernels.py holds
+// a numpy copy of this arithmetic against the quotient value by value.
 __device__ __forceinline__ int bin_fast(float v, float scale, float r,
                                         int bins, bool absolute) {
   float w = absolute ? fabsf(v) : v;
@@ -74,8 +76,8 @@ __device__ __forceinline__ int bin_fast(float v, float scale, float r,
   return idx > bins - 1 ? bins - 1 : idx;
 }
 
-// COUNT false is a measurement variant: the bins are computed and summed,
-// nothing is counted (the result is not a histogram).
+// COUNT false is a measurement build's variant: the bins are computed and
+// summed, nothing is counted (the result is not a histogram).
 template <bool COUNT>
 __device__ __forceinline__ void put(unsigned int* hist, int idx,
                                     unsigned int& zeros) {
@@ -160,7 +162,7 @@ inline bool fast_bin_ok(float scale, int bins) {
 
 template <bool ABS_VALUE, bool COUNT, bool FAST>
 int launch(const float* x, int64_t n, float scale, int bins,
-           unsigned long long* out, cudaStream_t stream, int grid = 0) {
+           unsigned long long* out, cudaStream_t stream) {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -173,7 +175,6 @@ int launch(const float* x, int64_t n, float scale, int bins,
   const int64_t work = n_vec > 0 ? (n_vec + LOADS - 1) / LOADS : n;
   int64_t blocks = (work + THREADS - 1) / THREADS;
   if (blocks > sms) blocks = sms;
-  if (grid > 0) blocks = grid;
   if (blocks < 1) blocks = 1;
   histogram_kernel<ABS_VALUE, COUNT, FAST>
       <<<(int)blocks, THREADS, shared, stream>>>(x, n, n_vec, scale,
@@ -199,20 +200,30 @@ extern "C" int ppq_histogram(const float* x, int64_t n, float scale, int bins,
                   : launch_default<false>(x, n, scale, bins, o, st);
 }
 
-// The same kernel on absolute values with the bin by the product with
-// 1/scale (fast 1, where the scale allows it) or by the IEEE quotient (0),
-// count 0 for the variant that bins and counts nothing, and `grid` blocks
-// (0: the kernel's own choice). For the measurements of chip_smoke.py
-// --quant and the card tests.
+#ifdef PPQ_MEASURE
+// A measurement build only (nvcc -DPPQ_MEASURE, chip_smoke.py --quant): the
+// kernel on absolute values with the bin by the product with 1/scale (fast
+// 1, where the scale allows it) or by the IEEE quotient (0), and count 0
+// for the variant that bins and counts nothing.
 extern "C" int ppq_histogram_variant(const float* x, int64_t n, float scale,
                                      int bins, long long* out, int fast,
-                                     int count, int grid, void* stream) {
+                                     int count, void* stream) {
   unsigned long long* o = reinterpret_cast<unsigned long long*>(out);
   cudaStream_t st = (cudaStream_t)stream;
   if (fast && !fast_bin_ok(scale, bins)) return (int)cudaErrorInvalidValue;
   if (fast)
-    return count ? launch<true, true, true>(x, n, scale, bins, o, st, grid)
-                 : launch<true, false, true>(x, n, scale, bins, o, st, grid);
-  return count ? launch<true, true, false>(x, n, scale, bins, o, st, grid)
-               : launch<true, false, false>(x, n, scale, bins, o, st, grid);
+    return count ? launch<true, true, true>(x, n, scale, bins, o, st)
+                 : launch<true, false, true>(x, n, scale, bins, o, st);
+  return count ? launch<true, true, false>(x, n, scale, bins, o, st)
+               : launch<true, false, false>(x, n, scale, bins, o, st);
 }
+
+__global__ void empty_kernel() {}
+
+// One launch of an empty kernel: the launch floor that rows 2 and 3 at
+// small shapes are read against.
+extern "C" int ppq_empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+#endif

@@ -51,8 +51,6 @@ LIBRARIES: Dict[str, tuple] = {
             [_P, _P, _I64, _P, _P, _F, _F, _INT, _INT, _P],
         'ppq_fake_quant_channelwise':
             [_P, _P, _I64, _P, _P, _I64, _I64, _F, _F, _INT, _INT, _P],
-        'ppq_fake_quant_channelwise_copy':
-            [_P, _P, _I64, _P, _P, _I64, _I64, _P],
     }, EXACT_FLAGS),
     'fake_quant_bwd': ('fake_quant_bwd.cu', {
         'ppq_fake_quant_bwd_tensorwise':
@@ -71,8 +69,6 @@ LIBRARIES: Dict[str, tuple] = {
     }, EXACT_FLAGS),
     'histogram': ('histogram.cu', {
         'ppq_histogram': [_P, _I64, _F, _INT, _INT, _P, _P],
-        'ppq_histogram_variant':
-            [_P, _I64, _F, _INT, _P, _INT, _INT, _INT, _P],
     }, EXACT_FLAGS),
     'qmm': ('qmm.cu', {
         'ppq_qmm_int8':

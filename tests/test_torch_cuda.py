@@ -115,23 +115,22 @@ def test_histogram_kernel_accumulates_in_int64(cuda):
     assert int(counts[1]) == 2 ** 40
 
 
-# The channelwise forward's routes (csrc/fake_quant.cu): the run kernel
-# where a run of `inner` floats fills a block, the grid-stride kernel with
-# the channel found once a float4 elsewhere, element by element where a
-# float4 crosses a run's end.
+# The channelwise forward's routes (csrc/fake_quant.cu): the channel found
+# once a float4, element by element where a float4 crosses a run's end, the
+# element loop for an unaligned view.
 CHANNEL_ROUTES = [
     ((64, 3, 7, 7), 0),        # conv1: inner 147, float4s cross runs
     ((1000,), 0),              # a bias: inner 1
     ((512, 1000), 1),          # the Gemm weight without transB: inner 1
     ((1, 4608), 0),            # one channel
     ((4096, 3, 3), 0),         # many channels, inner 9
-    ((512, 512, 3, 3), 0),     # the largest weight: the run kernel
+    ((512, 512, 3, 3), 0),     # the largest weight: several loads a thread
     ((128, 64, 1, 1), 0),      # a 1x1 conv: inner 64
     ((3, 16, 40, 40), 1),      # an activation on axis 1: runs of 1600
     ((5, 7, 3), 1),            # inner 3
     ((5, 7, 2), 1),            # inner 2
-    ((2, 3, 1030), 1),         # inner 1030: a run of the run kernel's size,
-]                              # not a multiple of 4
+    ((2, 3, 1030), 1),         # inner 1030: a long run, not a multiple of 4
+]
 
 
 @pytest.mark.parametrize('shape,axis', CHANNEL_ROUTES,
@@ -156,7 +155,7 @@ def test_fake_quant_channel_routes_bitwise_vs_plain(cuda, shape, axis):
 
 @pytest.mark.parametrize('shape,axis', [((512, 512, 3, 3), 0),
                                         ((64, 3, 7, 7), 0), ((512, 1000), 1)],
-                         ids=['run', 'crossing', 'inner1'])
+                         ids=['largest', 'crossing', 'inner1'])
 def test_fake_quant_channel_unaligned_view(cuda, shape, axis):
     """A view that starts off a 16-byte boundary takes the element loop."""
     n = int(np.prod(shape))
@@ -232,41 +231,39 @@ def test_histogram_kernel_counts_past_32_bits(cuda):
     assert int(counts[1]) == 3 * 2 ** 32 + 5
 
 
-def test_histogram_kernel_variant_counts_alike(cuda):
-    """The variant entry point (absolute values, the bin by the product or
-    by the IEEE quotient, the kernel's grid or one given) gives the plain
-    version's counts every way."""
-    from ppq_tpu_torch.kernels import loader
+@pytest.mark.parametrize('scale', [1e-40, 3e38], ids=['subnormal', 'huge'])
+def test_histogram_kernel_takes_the_quotient_where_the_product_is_unsafe(
+        cuda, scale):
+    """Where 1/scale or the scale is not a normal float (`fast_bin_ok`
+    false), every bin is the IEEE quotient's, and still the plain
+    version's."""
     rng = np.random.RandomState(13)
-    v = np.abs(rng.randn(2_000_001)).astype(np.float32)
+    v = (np.abs(rng.randn(100_003)) * min(scale * 3000, 1e37)).astype(
+        np.float32)
     v[rng.rand(v.size) < 0.5] = 0.0
+    v[::101] = np.nan
     x = torch.from_numpy(v).to(cuda)
-    scale = float(x.max()) / 4096
-    want = histogram_plain(x, scale, 4096)
-    lib = loader.library('histogram')
-    out = torch.zeros(4096, dtype=torch.int64, device=cuda)
-    for fast, grid in ((1, 0), (0, 0), (1, 1), (1, 7), (1, 500)):
-        out.zero_()
-        rc = lib.ppq_histogram_variant(x.data_ptr(), x.numel(), scale, 4096,
-                                       out.data_ptr(), fast, 1, grid,
-                                       loader.stream_of(x.device))
-        assert rc == 0
-        assert torch.equal(out, want), (fast, grid)
+    for absolute in (True, False):
+        got = histogram(x, scale, 4096, absolute=absolute)
+        assert torch.equal(got, histogram_plain(x, scale, 4096,
+                                                absolute=absolute))
+        assert int(got.sum()) == v.size
 
 
 def _next_to_every_edge(scale, bins, width):
-    """The `width` floats below and above k * scale (rounded to float32
-    from float32 and from float64) for every bin edge k, and the edges."""
+    """Groups of `bins` floats, one next to each bin edge k * scale: the
+    edge rounded to float32 from float32 and from float64, and each of the
+    `width` floats below and above it."""
     k = np.arange(1, bins + 1)
-    centers = np.concatenate([(k.astype(np.float32) * np.float32(scale)),
-                              (k * np.float64(scale)).astype(np.float32)])
-    out = [centers]
-    up, down = centers.copy(), centers.copy()
-    for _ in range(width):
-        up = np.nextafter(up, np.float32(np.inf))
-        down = np.nextafter(down, np.float32(0))
-        out += [up, down]
-    return np.concatenate(out).astype(np.float32)
+    for center in ((k.astype(np.float32) * np.float32(scale)),
+                   (k * np.float64(scale)).astype(np.float32)):
+        yield center
+        up, down = center.copy(), center.copy()
+        for _ in range(width):
+            up = np.nextafter(up, np.float32(np.inf))
+            down = np.nextafter(down, np.float32(0))
+            yield up
+            yield down
 
 
 @pytest.mark.parametrize('bins', [2048, 4096])
@@ -275,22 +272,21 @@ def test_histogram_product_bin_equals_the_quotient_next_to_every_edge(cuda,
     """The kernel bins by the product with 1/scale where that is safe
     (csrc/histogram.cu `bin_fast`): for every float within 8 steps of every
     bin edge, at several scales, it gives the bin of the IEEE quotient.
-    Both bin maps are monotone in the value, so equal counts over all the
-    floats next to the edges mean the same bin for each of them (a value
-    that moved across edge k would change the count of bin k - 1 or k, and
-    bin 0 has no lower edge to make up for it). Signed inputs too."""
+    Each launch holds one float next to each edge, so every bin's count is
+    known and no float sent to a wrong bin can hide behind another sent
+    the other way. Negated floats too (bin 0 when signed)."""
     rng = np.random.RandomState(14)
     scales = [11.2 / bins, 0.0371, 2.0 ** -7, 3.0, 0.1234567, 1e-30, 7e29,
               *(10.0 ** rng.uniform(-6, 6, 6))]
     for scale in scales:
         scale = float(np.float32(scale))
-        v = _next_to_every_edge(scale, bins, 8)
-        for x in (v, -v, np.concatenate([v, -v])):
-            xc = torch.from_numpy(x).to(cuda)
-            for absolute in (True, False):
-                got = histogram(xc, scale, bins, absolute=absolute)
-                want = histogram_plain(xc, scale, bins, absolute=absolute)
-                assert torch.equal(got, want), (scale, absolute)
+        for v in _next_to_every_edge(scale, bins, 8):
+            for x in (v, -v):
+                xc = torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+                for absolute in (True, False):
+                    got = histogram(xc, scale, bins, absolute=absolute)
+                    want = histogram_plain(xc, scale, bins, absolute=absolute)
+                    assert torch.equal(got, want), (scale, absolute)
 
 
 def _sums_close(got, terms, dims):

@@ -162,6 +162,69 @@ def test_plain_histogram_vs_pallas(bins, absolute):
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
 
 
+# csrc/histogram.cu `bin_fast`, step by step in float32: the kernel is
+# built with -fmad=false, so each of its operations rounds once, as numpy's
+# float32 operations do. Keep it in step with the kernel.
+def _product_bin(v, scale, bins, absolute, fallback=True):
+    """The kernel's bin of each value: the integer part of fl(v * fl(1 /
+    scale)), and the IEEE quotient's where the product lies within 2^-21 of
+    itself from an integer (`fallback`)."""
+    f = np.float32
+    w = np.abs(v) if absolute else v
+    with np.errstate(invalid='ignore', over='ignore'):
+        p = np.minimum(np.fmax(w * (f(1) / f(scale)), f(0)), f(bins))
+        t = p + f(12582912)                    # 1.5 * 2^23
+        n = t - f(12582912)
+        idx = t.view(np.int32).astype(np.int64) - 0x4B400000 - (n > p)
+        near = (n >= 1) & (n < bins) & (np.abs(p - n) <= p * f(2.0 ** -21))
+        quotient = np.nan_to_num(np.trunc(w / f(scale)), nan=0.0)
+        ieee = np.clip(quotient, 0, bins - 1).astype(np.int64)
+    return np.where(near & fallback, ieee, np.minimum(idx, bins - 1))
+
+
+def _next_to_every_edge(scale, bins, width):
+    """Every bin edge k * scale (rounded to float32 from float32 and from
+    float64) and the `width` floats below and above each."""
+    k = np.arange(1, bins + 1)
+    centers = np.concatenate([k.astype(np.float32) * np.float32(scale),
+                              (k * np.float64(scale)).astype(np.float32)])
+    out, up, down = [centers], centers.copy(), centers.copy()
+    for _ in range(width):
+        up = np.nextafter(up, np.float32(np.inf))
+        down = np.nextafter(down, np.float32(0))
+        out += [up, down]
+    return np.concatenate(out)
+
+
+@pytest.mark.parametrize('bins', [2048, 4096])
+def test_product_bin_equals_the_jax_bin_value_by_value(bins):
+    """The kernel's product bin against the JAX kernel's index,
+    `clip((v / scale).astype(int32), 0, bins - 1)`, one value at a time:
+    every float within 8 steps of every bin edge at 13 scales, and random
+    values with NaN, infinities and negatives. Without the fallback to the
+    quotient the same floats do disagree, so they reach the hard cases."""
+    rng = np.random.RandomState(14)
+    scales = [11.2 / bins, 0.0371, 2.0 ** -7, 3.0, 0.1234567, 1e-30, 7e29,
+              *(10.0 ** rng.uniform(-6, 6, 6))]
+    without_fallback = 0
+    for scale in scales:
+        scale = float(np.float32(scale))
+        v = _next_to_every_edge(scale, bins, 8)
+        spread = (rng.randn(20_000) * scale * bins / 3).astype(np.float32)
+        spread[::97], spread[1::89], spread[2::83] = np.nan, np.inf, -np.inf
+        for x in (v, -v, spread):
+            for absolute in (True, False):
+                xj = jnp.asarray(x)
+                xj = jnp.abs(xj) if absolute else xj
+                want = np.asarray(jnp.clip((xj / scale).astype(jnp.int32),
+                                           0, bins - 1))
+                got = _product_bin(x, scale, bins, absolute)
+                np.testing.assert_array_equal(got, want)
+                without_fallback += int(np.sum(
+                    _product_bin(x, scale, bins, absolute, False) != want))
+    assert without_fallback > 0
+
+
 def test_plain_histogram_vs_observer_bincount_and_accumulates():
     """The KL observers' formula (quantization/observers.py:167-169), and
     counts added into a running int64 histogram."""
