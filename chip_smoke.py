@@ -80,6 +80,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 on the tensor cores
 REPEATS = 30
+SPIN_CYCLES_PER_S = 1.98e9     # H100 SXM's highest SM clock: a spin of
+                               # torch.cuda._sleep lasts at least its time
 CALIB_BATCH, CALIB_STEPS, KL_STEPS, IMAGE = 32, 16, 4, 224
 TRAIN_BATCHES, LSQ_STEPS, ROUND_STEPS = 4, 16, 8
 # smoke bounds on the output's noise-to-signal ratio against the fp32
@@ -178,15 +180,27 @@ def log(*args):
     print(*args, flush=True)
 
 
-def time_ms(fn, flush) -> float:
-    """Median of REPEATS launches timed with CUDA events, the L2 cache
-    flushed before each, as the main path finds these tensors cold. The
-    flush (512 MB written, ~0.2 ms) keeps the card busy while the host
-    enqueues the call, so the host's own overhead stays out of the window."""
-    fn()
+def _host_ms(fn, calls=5) -> float:
+    """The host's median time to enqueue fn, the card idle before each
+    call."""
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def _event_times(fn, flush, pad_ms):
+    """REPEATS timings of fn with CUDA events, the L2 cache flushed before
+    each, and after the flush the card held busy by a spin of pad_ms."""
     times = []
     for _ in range(REPEATS):
         flush.zero_()
+        if pad_ms:
+            torch.cuda._sleep(int(pad_ms * 1e-3 * SPIN_CYCLES_PER_S))
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -194,7 +208,47 @@ def time_ms(fn, flush) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def time_ms(fn, flush) -> float:
+    """Median of REPEATS launches timed with CUDA events, the L2 cache
+    flushed before each, as the main path finds these tensors cold. After
+    the flush (512 MB written, ~0.17 ms) the card spins for twice the
+    host's time to enqueue fn, so every launch of fn is queued before the
+    start event is reached and the window holds the card's time alone. (A
+    flush alone left it to chance: row 5's wrapper takes 0.08-0.11 ms of
+    host time, up to 0.16, and some of the 30 windows held an idle card
+    waiting for the launch: medians of 0.026-0.062 ms for a kernel of
+    0.0255.)"""
+    fn()
+    pad = 2 * _host_ms(fn)
+    return statistics.median(_event_times(fn, flush, pad))
+
+
+def _clocks() -> str:
+    """The card's SM and memory clocks and power draw, as nvidia-smi reads
+    them."""
+    return subprocess.run(
+        ['nvidia-smi', '--query-gpu=clocks.sm,clocks.mem,power.draw',
+         '--format=csv,noheader'],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+
+
+def _timing_probe(label, fn, flush):
+    """What time_ms's median of `fn` is made of, logged beside it: the
+    card's clocks and power before and after, the host's time to enqueue
+    one call, and the timings with and without the spin after the flush."""
+    before = _clocks()
+    host = _host_ms(fn, REPEATS)
+    timed = {'no spin': _event_times(fn, flush, 0),
+             'spin (time_ms)': _event_times(fn, flush, 2 * host)}
+    out = dict(clocks_before=before, clocks_after=_clocks(),
+               host_enqueue_ms=host,
+               **{f'{k} median_ms': statistics.median(v) for k, v in timed.items()},
+               **{f'{k} min_max_ms': [min(v), max(v)] for k, v in timed.items()})
+    log(f'[timing] {label}: {json.dumps(out)}')
+    return out
 
 
 def bound_ms(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
@@ -403,6 +457,10 @@ def kernels_backward(act, weight, s_act, s_w_t, o_w_t, flush):
         ms = time_ms(lambda: linear_quant_bwd(x, g, s, o, -128, 127,
                                               RoundingPolicy.ROUND_HALF_EVEN, axis),
                      flush)
+        if axis is not None:
+            _timing_probe(name, lambda: linear_quant_bwd(
+                x, g, s, o, -128, 127, RoundingPolicy.ROUND_HALF_EVEN, axis),
+                flush)
         plain = time_ms(lambda: linear_quant_bwd_plain(
             x, g, s, o, -128, 127, RoundingPolicy.ROUND_HALF_EVEN, axis), flush)
         # yardstick: PyTorch's learnable fake-quant, forward and backward
@@ -800,23 +858,18 @@ def qmm_sweep(dev, flush):
         del x, w, scale, row, res, out
 
 
-def kernels_serving(dev, flush):
-    """Rows 8, 10, 14, 15 at path D's shapes (128 slots): the dequant-matmul
-    variants and the gate-up kernel (kernels_qmm), the one-column bank write
-    over 32 buffers and the 32-row window write into the full KV cache."""
-    from ppq_tpu_torch.kernels import (Bank, bank_write_inplace,
-                                       bank_write_plain, window_write_inplace,
-                                       window_write_plain)
-    B = 128
-    L, KV, Dh, S = SERVE['n_layers'], SERVE['n_kv_heads'], 128, SERVE['max_seq_len']
-    gen = torch.Generator(device=dev).manual_seed(4)
-    results = kernels_qmm(dev, flush)
+def kernels_bank(dev, flush):
+    """Row 14 at path D's shape: one column of 2L buffers (B, CH, KV, Dh)
+    int8, the column on the card, bit-equal to the indexed assignment at
+    three columns, then timed."""
+    from ppq_tpu_torch.kernels import Bank, bank_write_inplace, bank_write_plain
+    B, L, KV, Dh = 128, SERVE['n_layers'], SERVE['n_kv_heads'], 128
+    gen = torch.Generator(device=dev).manual_seed(14)
 
     def codes(shape):
         return torch.randint(-128, 128, shape, device=dev, generator=gen,
                              dtype=torch.int8)
 
-    # row 14: one column of 2L buffers (B, CH, KV, Dh), the column on the card
     bufs = [codes((B, BURST, KV, Dh)) for _ in range(2 * L)]
     want = [t.clone() for t in bufs]
     news = [codes((B, 1, KV, Dh)) for _ in range(2 * L)]
@@ -838,7 +891,7 @@ def kernels_serving(dev, flush):
 
     moved = 2.0 * 2 * L * B * KV * Dh
     b, by = bound_ms(moved, 0.0)
-    results['bank_write'] = dict(
+    result = dict(
         max_abs_err=worst, shape=[2 * L, B, BURST, KV, Dh], bound_ms=b,
         bound_by=by,
         ms=time_ms(lambda: bank_write_inplace(bank, news, col_dev), flush),
@@ -846,7 +899,27 @@ def kernels_serving(dev, flush):
                          flush),
         # yardstick, 2L calls with the column known on the host
         library_ms=time_ms(library_bank, flush))
-    del bufs, want, news, bank, bank_want
+    _timing_probe('bank_write', lambda: bank_write_inplace(bank, news, col_dev),
+                  flush)
+    return {'bank_write': result}
+
+
+def kernels_serving(dev, flush):
+    """Rows 8, 10, 14, 15 at path D's shapes (128 slots): the dequant-matmul
+    variants and the gate-up kernel (kernels_qmm), the one-column bank write
+    over 32 buffers (kernels_bank) and the 32-row window write into the full
+    KV cache."""
+    from ppq_tpu_torch.kernels import window_write_inplace, window_write_plain
+    B = 128
+    L, KV, Dh, S = SERVE['n_layers'], SERVE['n_kv_heads'], 128, SERVE['max_seq_len']
+    gen = torch.Generator(device=dev).manual_seed(4)
+    results = kernels_qmm(dev, flush)
+
+    def codes(shape):
+        return torch.randint(-128, 128, shape, device=dev, generator=gen,
+                             dtype=torch.int8)
+
+    results.update(kernels_bank(dev, flush))
 
     # row 15: a 32-row window per slot into the k and v slabs of the cache
     slabs = [torch.zeros((L, B, S, KV, Dh), dtype=torch.int8, device=dev)
@@ -3147,12 +3220,16 @@ def _profile_steps(tag, block, step, n):
     ours = sum(t for k, t, _ in rows if 'anonymous namespace' in k and (
         'fake_quant' in k or 'bwd_' in k or 'sum_partials' in k
         or 'floating' in k))
+    # row 5's launches, either layout
+    row5 = sum(c for k, _, c in rows if 'bwd_channel_kernel' in k
+               or 'bwd_columns_kernel' in k)
     log(f'[profile lsq {tag}] {block}: {n} steps: wall '
         f'{wall_us / n / 1e3:.3f} ms/step, device busy '
         f'{busy_us / n / 1e3:.3f} ms/step, busy share '
         f'{busy_us / wall_us:.3f}; the fake-quant kernels (forward, backward, '
         f'partial sums) {ours / n / 1e3:.3f} ms/step, {ours / busy_us:.3f} of '
-        f'device time')
+        f'device time; device events per step '
+        f'{sum(c for _, _, c in rows) / n:.1f}, of them row 5 {row5 / n:.1f}')
     for key, t, count in sorted(rows, key=lambda r: -r[1])[:14]:
         log(f'[profile lsq {tag}]   {t / n / 1e3:8.3f} ms/step  '
             f'{count / n:6.1f} calls  {key[:90]}')
@@ -3335,6 +3412,48 @@ def _path_inputs(dev):
     return weights, acts
 
 
+def _row5_at_weights(weights, flush):
+    """Row 5 at each weight path B's LSQ trains channelwise (the 21 that
+    path A's calibration quantizes, with their scales), with a seeded
+    gradient: dx bit-equal to the plain version, ds and do within the
+    float64 sums' tolerance, two calls bit-equal, then timed."""
+    from ppq_tpu_torch.core import RoundingPolicy
+    from ppq_tpu_torch.kernels import linear_quant_bwd
+    from ppq_tpu_torch.kernels.quant import linear_quant_bwd_terms
+    gen = torch.Generator(device=flush.device).manual_seed(5)
+    rows = []
+    for w in weights:
+        x, axis = w['x'], w['axis']
+        g = torch.randn(x.shape, device=x.device, generator=gen)
+        dims = [i for i in range(x.ndim) if i != axis]
+        args = (w['scale'], w['offset'], w['qmin'], w['qmax'])
+        for policy in (w['rounding'], RoundingPolicy.ROUND_HALF_UP):
+            got = linear_quant_bwd(x, g, *args, policy, axis)
+            again = linear_quant_bwd(x, g, *args, policy, axis)
+            want, ds_e, do_e = linear_quant_bwd_terms(x, g, *args, policy, axis)
+            if not torch.equal(got[0].view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f'fake_quant_bwd_channelwise: dx != plain '
+                                     f'at {tuple(x.shape)} axis {axis}')
+            for a, b in zip(got, again):
+                if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                    raise AssertionError('fake_quant_bwd_channelwise: two calls '
+                                         'differ')
+            _check_sums('fake_quant_bwd_channelwise', got[1], ds_e, dims)
+            _check_sums('fake_quant_bwd_channelwise', got[2], do_e, dims)
+        ms = time_ms(lambda: linear_quant_bwd(x, g, *args, w['rounding'], axis),
+                     flush)
+        n = x.numel()
+        b, _ = bound_ms(12.0 * n + 16.0 * x.shape[axis], 14.0 * n)
+        rows.append(dict(shape=list(x.shape), axis=axis, ms=ms, bound_ms=b))
+    out = dict(per_shape=rows, sum_ms=sum(r['ms'] for r in rows),
+               sum_bound_ms=sum(r['bound_ms'] for r in rows))
+    log(f'[quant] row 5 at the 21 weights path B trains, dx bit-equal, sums '
+        f'within tolerance, two calls bit-equal (2 policies): sum '
+        f'{out["sum_ms"]:.4f} ms (bounds {out["sum_bound_ms"]:.4f}); '
+        + ', '.join(f'{r["shape"]}@{r["axis"]} {r["ms"]:.4f}' for r in rows))
+    return out
+
+
 def quant_paths(dev, flush, measure):
     """`--quant` only: rows 2 and 3 at every input path A gives them (each
     held against its plain version, then timed, row 3 into running counts
@@ -3375,6 +3494,7 @@ def quant_paths(dev, flush, measure):
         f'{results["row 2 path A weights"]["sum_ms"]:.4f} ms (bounds '
         f'{results["row 2 path A weights"]["sum_bound_ms"]:.4f}); '
         + ', '.join(f'{r["shape"]}@{r["axis"]} {r["ms"]:.4f}' for r in rows))
+    results['row 5 path B weights'] = _row5_at_weights(weights, flush)
 
     first_relu = None
     for bins in (4096, 2048):
@@ -3445,27 +3565,41 @@ def quant_paths(dev, flush, measure):
     return results
 
 
-def _measure_libraries() -> bool:
-    """Register the measurement builds of the fake-quant and histogram
-    sources (nvcc -DPPQ_MEASURE) beside the package's own libraries, under
-    their own names: variants that explain a time (row 2's loads and
-    stores alone, row 3's bin and counting variants) and an empty launch.
-    The package's libraries stay as the paths run them. False where the
-    checkout's sources have no such build (an older commit)."""
+def _measure_libraries(sources):
+    """Register the measurement builds of `sources` (nvcc -DPPQ_MEASURE)
+    beside the package's own libraries, under their own names and with
+    their flags: variants that explain a time (row 2's loads and stores
+    alone, row 3's bin and counting variants, row 5's traffic without its
+    arithmetic), an empty launch and a pair of empty launches that differ
+    in the size of their arguments. The package's libraries stay as the
+    paths run them. Returns the names registered: a source without such a
+    build (an older commit) is left out."""
     import ctypes
     from ppq_tpu_torch.kernels import loader
-    for source in ('fake_quant.cu', 'histogram.cu'):
+    P, I64, F, INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_int
+    entries = {
+        'fake_quant.cu': ('fake_quant_measure', {
+            'ppq_fake_quant_channelwise_copy': [P, P, I64, I64, I64, P]}),
+        'histogram.cu': ('histogram_measure', {
+            'ppq_histogram_variant': [P, I64, F, INT, P, INT, INT, P],
+            'ppq_empty_launch': [P]}),
+        'fake_quant_bwd.cu': ('fake_quant_bwd_measure', {
+            'ppq_fake_quant_bwd_channelwise_copy':
+                [P, P, P, I64, I64, I64, INT, INT, P, P, P, P, P]}),
+        'kv_write.cu': ('kv_write_measure', {
+            'ppq_empty_launch_args': [INT, P]}),
+    }
+    names = []
+    for source in sources:
         with open(os.path.join(loader.SRC_DIR, source)) as f:
             if 'PPQ_MEASURE' not in f.read():
-                return False
-    P, I64, F, INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_int
-    flags = [*loader.EXACT_FLAGS, '-DPPQ_MEASURE']
-    loader.LIBRARIES['fake_quant_measure'] = ('fake_quant.cu', {
-        'ppq_fake_quant_channelwise_copy': [P, P, I64, I64, I64, P]}, flags)
-    loader.LIBRARIES['histogram_measure'] = ('histogram.cu', {
-        'ppq_histogram_variant': [P, I64, F, INT, P, INT, INT, P],
-        'ppq_empty_launch': [P]}, flags)
-    return True
+                continue
+        flags, = [lib[2] for lib in loader.LIBRARIES.values()
+                  if lib[0] == source]
+        name, fns = entries[source]
+        loader.LIBRARIES[name] = (source, fns, [*flags, '-DPPQ_MEASURE'])
+        names.append(name)
+    return names
 
 
 def main_quant(package_root=None) -> int:
@@ -3475,8 +3609,10 @@ def main_quant(package_root=None) -> int:
     its headline into running counts, and rows 2 and 3 at every input path
     A gives them (quant_paths); with yardsticks over the same bytes (a
     float32 clone of the weight for row 2, a float32 sum of the activation
-    for row 3) and, where the checkout has the measurement build, row 2's
-    loads and stores alone and the launch floor (`ppq_empty_launch`). With
+    for row 3, a `torch.mul` into a given output for row 5), row 5 at the
+    21 weights path B trains and, where the checkout has the measurement
+    build, row 2's loads and stores alone, row 5's without its arithmetic,
+    and the launch floor (`ppq_empty_launch`). With
     `--package-root DIR` the package is imported from the checkout at DIR,
     so two commits are timed in one call on one card, in turns."""
     t_start = time.perf_counter()
@@ -3488,9 +3624,10 @@ def main_quant(package_root=None) -> int:
     from ppq_tpu_torch.kernels import histogram, loader
     dev = torch.device('cuda', 0)
     torch.cuda.set_device(dev)
-    measure = _measure_libraries()
+    measure = _measure_libraries(('fake_quant.cu', 'histogram.cu',
+                                  'fake_quant_bwd.cu'))
     phase_build(['fake_quant', 'fake_quant_bwd', 'floating', 'histogram']
-                + (['fake_quant_measure', 'histogram_measure'] if measure else []))
+                + measure)
     flush = torch.empty(512 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
     results = kernels_quant(dev, flush)
     _log_kernels(results)
@@ -3509,19 +3646,24 @@ def main_quant(package_root=None) -> int:
     log(f'[quant] row 3 at {list(ACT_SHAPE)} into running counts: '
         f'4096 bins {running[4096]:.4f} ms, 2048 bins {running[2048]:.4f} ms')
     del post_relu
-    results.update(quant_paths(dev, flush, measure))
+    results.update(quant_paths(dev, flush, 'histogram_measure' in measure))
     stream = loader.stream_of(dev)
+    g = torch.randn(weight.shape, device=dev, generator=gen)
+    dx = torch.empty_like(weight)
     results['yardsticks'] = dict(
         weight_clone_ms=time_ms(lambda: weight.clone(), flush),
-        activation_sum_ms=time_ms(lambda: act.sum(), flush))
-    if measure:
+        activation_sum_ms=time_ms(lambda: act.sum(), flush),
+        # the same 12 bytes an element as row 5, in one launch
+        weight_mul_ms=time_ms(lambda: torch.mul(weight, g, out=dx), flush))
+    if 'histogram_measure' in measure:
         results['yardsticks']['launch_floor_ms'] = time_ms(
             lambda: loader.library('histogram_measure').ppq_empty_launch(stream),
             flush)
+    channels = WEIGHT_SHAPE[0]
+    inner = weight.numel() // channels
+    if 'fake_quant_measure' in measure:
         # row 2's kernel with its loads and stores alone, at the headline
         y = torch.empty_like(weight)
-        channels = WEIGHT_SHAPE[0]
-        inner = weight.numel() // channels
 
         def copy():
             if loader.library('fake_quant_measure').ppq_fake_quant_channelwise_copy(
@@ -3532,6 +3674,35 @@ def main_quant(package_root=None) -> int:
         if not torch.equal(y, weight):
             raise AssertionError('row 2 copy variant != its input')
         results['yardsticks']['row_2_copy_only_ms'] = time_ms(copy, flush)
+    if 'fake_quant_bwd_measure' in measure:
+        # row 5's kernel on its own plan, dx = g and the sums of x and g:
+        # its loads, stores and reductions without the arithmetic, at the
+        # headline weight and at the classifier's layout (channels last)
+        from ppq_tpu_torch.kernels.quant import channelwise_bwd_plan, _bwd_workspace
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        lib = loader.library('fake_quant_bwd_measure')
+        fc = torch.randn(512, 1000, device=dev, generator=gen)
+        for key, x, channels, outer, inner in (
+                ('row_5_traffic_only_ms', weight, channels, 1, inner),
+                ('row_5_traffic_only_512x1000_axis1_ms', fc, 1000, 512, 1)):
+            grad = torch.randn(x.shape, device=dev, generator=gen)
+            out = torch.empty_like(x)
+            plan = channelwise_bwd_plan(channels, outer, inner, True, sms)
+            work = _bwd_workspace(dev, plan) if plan.splits > 1 else (None, None)
+            sums = torch.empty(2, channels, device=dev)
+
+            def bwd_copy():
+                if lib.ppq_fake_quant_bwd_channelwise_copy(
+                        x.data_ptr(), grad.data_ptr(), out.data_ptr(),
+                        x.numel(), channels, inner, plan.vec, plan.splits,
+                        *work, sums.data_ptr(), sums.data_ptr() + 4 * channels,
+                        stream):
+                    raise AssertionError('row 5 copy variant refused')
+            bwd_copy()
+            if not torch.equal(out, grad):
+                raise AssertionError('row 5 copy variant: dx != g')
+            results['yardsticks'][key] = time_ms(bwd_copy, flush)
+        del fc
     log(f'[quant] yardsticks: {json.dumps(results["yardsticks"])}')
     log(f'[done] {time.perf_counter() - t_start:.1f} s; {smi}')
     log(json.dumps({'quant': results, 'card': smi}))
@@ -3566,10 +3737,14 @@ def main_qmm(package_root=None) -> int:
 
 
 def main_attention(package_root=None) -> int:
-    """`--attention`: the card, the build of the paged-attention kernels and
-    rows 11 and 12 alone at the paths' four shapes (kernels_attention), with
-    row 13 (and row 16, which shares its pool) at path G's
-    (kernels_paged): the quick loop for work on those kernels. With
+    """`--attention`: the card, the build of the paged-attention and KV
+    write kernels, rows 11 and 12 alone at the paths' four shapes
+    (kernels_attention), row 14 at path D's (kernels_bank) beside a
+    contiguous copy of the same bytes and the launch floor (and, where the
+    checkout has the measurement build, empty launches with a 2 KiB and a
+    16-byte argument block), with row 13 (and row 16, which shares its
+    pool) at path G's (kernels_paged): the quick loop for work on those
+    kernels. With
     `--package-root DIR` the package is imported from the checkout at DIR,
     so two commits are timed in one call on one card, in turns."""
     t_start = time.perf_counter()
@@ -3580,9 +3755,29 @@ def main_attention(package_root=None) -> int:
     log(f'[attention] package {ppq_tpu_torch.__file__}')
     dev = torch.device('cuda', 0)
     torch.cuda.set_device(dev)
-    phase_build(['paged_attention', 'kv_write'])
+    measure = _measure_libraries(('kv_write.cu',))
+    phase_build(['paged_attention', 'kv_write'] + measure)
     flush = torch.empty(512 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
     results = kernels_attention(dev, flush)
+    results['row 14 at path D'] = row14 = kernels_bank(dev, flush)['bank_write']
+    from ppq_tpu_torch.kernels import loader
+    stream = loader.stream_of(dev)
+    src = torch.randint(-128, 128, (4 * 2 ** 20,), dtype=torch.int8, device=dev)
+    dst = torch.empty_like(src)
+    row14['yardsticks'] = dict(
+        # the same 4 MiB read and written, in one launch
+        contiguous_copy_ms=time_ms(lambda: dst.copy_(src), flush),
+        launch_floor_ms=time_ms(
+            lambda: loader.library('paged_attention').ppq_empty_launch(stream),
+            flush))
+    if measure:
+        lib = loader.library('kv_write_measure')
+        for table, key in ((1, 'empty_2KiB_args_ms'), (0, 'empty_16B_args_ms')):
+            row14['yardsticks'][key] = time_ms(
+                lambda: lib.ppq_empty_launch_args(table, stream), flush)
+    log(f'[attention] row 14: {row14["ms"]:.4f} ms, bound '
+        f'{row14["bound_ms"]:.4f} ms, yardsticks {json.dumps(row14["yardsticks"])}')
+    del src, dst
     row13 = kernels_paged(dev, flush)['paged_attention_buffered']
     results['row 13 fill 512 + 32 buffer columns'] = {
         k: row13[k] for k in ('ms', 'plain_ms', 'bound_ms', 'bound_by',
@@ -3603,10 +3798,10 @@ def main() -> int:
         mode.add_argument('--qmm', action='store_true',
                           help='rows 8, 9 and 10 alone: build, hold, time')
         mode.add_argument('--attention', action='store_true',
-                          help='rows 11, 12 and 13 alone: build, hold, time')
+                          help='rows 11-14 alone: build, hold, time')
         mode.add_argument('--quant', action='store_true',
-                          help='rows 1-7 alone, rows 2 and 3 at every path '
-                               'shape: build, hold, time')
+                          help='rows 1-7 alone, rows 2, 3 and 5 at every '
+                               'path shape: build, hold, time')
         ap.add_argument('--package-root', default=None,
                         help='import ppq_tpu_torch from this checkout')
         args = ap.parse_args()

@@ -10,9 +10,10 @@
 // one multiply-high, one add and one shift (the method of Granlund and
 // Montgomery, as PyTorch's IntDivider does it).
 //
-// Shared by the channelwise kernels: fake_quant.cu uses it; floating.cu's
-// channelwise body and fake_quant_bwd.cu's channel kernel divide per element
-// still and can take it.
+// Shared by the kernels that split a flat index: fake_quant.cu and
+// fake_quant_bwd.cu (a channel's element of its runs), kv_write.cu's
+// bank_write (a 16-byte vector's buffer, slot and place in its row).
+// floating.cu's channelwise body divides per element still and can take it.
 
 #pragma once
 
@@ -42,6 +43,26 @@ struct FastDiv32 {
   }
 };
 
+// The same interface for a divisor that is a power of two: a shift and a
+// mask.
+struct ShiftDiv32 {
+  uint32_t d, shift;
+
+  static ShiftDiv32 make(uint32_t divisor) {
+    ShiftDiv32 f{divisor, 0};
+    while ((1u << f.shift) < divisor) ++f.shift;
+    return f;
+  }
+  __device__ __forceinline__ uint32_t div(uint32_t n) const {
+    return n >> shift;
+  }
+  __device__ __forceinline__ uint32_t mod(uint32_t n) const {
+    return n & (d - 1);
+  }
+};
+
+inline bool power_of_two(uint64_t v) { return v != 0 && (v & (v - 1)) == 0; }
+
 // The same interface in 64 bits, by plain division: for tensors of 2^31
 // elements or more, where the multiplier above no longer holds.
 struct PlainDiv64 {
@@ -55,6 +76,7 @@ struct PlainDiv64 {
 // Index types that go with each divider.
 template <typename Div> struct IndexOf;
 template <> struct IndexOf<FastDiv32> { using type = uint32_t; };
+template <> struct IndexOf<ShiftDiv32> { using type = uint32_t; };
 template <> struct IndexOf<PlainDiv64> { using type = uint64_t; };
 
 // Position of flat index i: its channel and its place in its run.

@@ -21,11 +21,19 @@
 // sequential program with a few copies in flight. On the card an indexed
 // assignment is already in place, so what the kernel buys is one launch
 // where PyTorch would take one per array (32 a decode step at 16 layers) and
-// no host-side index: a grid of (slot, array) or (slot, layer, array)
-// blocks, each copying its contiguous piece. What bounds them: bytes, each
-// read once and written once; at 4 MB (bank) they are launch-bound, at
-// 134 MB (window, 32 steps of a 16-layer, 128-slot burst) memory-bound.
+// no host-side index. What bounds them: bytes, each read once and written
+// once; at 4 MB (bank) they are launch-bound, at 134 MB (window, 32 steps
+// of a 16-layer, 128-slot burst) memory-bound.
 //
+// bank_write covers (array, slot, vector) as one flat range of 16-byte
+// vectors (262,144 at 32 arrays of 128 slots of 1 KiB rows), grid-stride,
+// a few blocks an SM, each thread loading BANK_LOADS vectors before it
+// stores any. A vector's array and place in its source come from the flat
+// index by a shift (or a multiply-high); the source address does not depend
+// on the column, so the loads are issued before the column, read once a
+// thread, is known. window_write keeps a grid of (slot, layer, array)
+// blocks, each copying its contiguous piece.
+
 // pool_write, the paged KV cache's write (a burst's 32 columns or a prefill
 // window into the block pool, all layers in one launch). The TPU kernel
 // reads, merges and writes back whole destination blocks (two 256-row
@@ -54,6 +62,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "channel_index.cuh"
+#include "rounding.cuh"
+
+using namespace ppq;
+
 namespace {
 
 constexpr int MAX_BANK = 128;
@@ -69,22 +82,60 @@ struct WindowArgs {
   const void* src[MAX_WINDOW];
 };
 
-// grid (B, arrays); row_vecs 16-byte vectors per (slot, column);
-// dst_slot_vecs vectors between two slots of a destination.
-__global__ void bank_write_kernel(BankArgs args, const int* __restrict__ col,
-                                  int CH, int64_t row_vecs,
-                                  int64_t dst_slot_vecs, int* fault) {
-  const int c = *col;
-  if (c < 0 || c >= CH) {
-    if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0)
-      atomicOr(fault, 4);
-    return;
+constexpr int BANK_THREADS = 256;
+constexpr int BANK_LOADS = 4;  // vectors a thread loads before it stores any
+
+// A flat range of `total` 16-byte vectors: vector f is vector `rem` =
+// f % per_array.d of array j = f / per_array.d's (B, 1, row) source, and in
+// its destination slot b = rem / row.d, vector rem % row.d of column *col.
+template <typename Div>
+__global__ void __launch_bounds__(BANK_THREADS)
+bank_write_kernel(BankArgs args, const int* __restrict__ col, int CH,
+                  Div per_array, Div row, typename IndexOf<Div>::type total,
+                  int64_t dst_slot_vecs, int* fault) {
+  using Index = typename IndexOf<Div>::type;
+  const int c = __ldg(col);  // its round trip overlaps the loads below
+  const Index grid = (Index)gridDim.x * BANK_THREADS;
+  for (Index base = (Index)blockIdx.x * BANK_THREADS + threadIdx.x;
+       base < total; base += grid * BANK_LOADS) {
+    int4 v[BANK_LOADS];
+    Index j[BANK_LOADS], rem[BANK_LOADS];
+#pragma unroll
+    for (int k = 0; k < BANK_LOADS; ++k) {
+      const Index f = base + k * grid;
+      if (f < total) {
+        j[k] = per_array.div(f);
+        rem[k] = f - j[k] * per_array.d;
+        v[k] = static_cast<const int4*>(args.src[j[k]])[rem[k]];
+      }
+    }
+    if (c < 0 || c >= CH) {
+      if (blockIdx.x == 0 && threadIdx.x == 0) atomicOr(fault, 4);
+      return;
+    }
+#pragma unroll
+    for (int k = 0; k < BANK_LOADS; ++k) {
+      if (base + k * grid < total) {
+        const Index b = row.div(rem[k]);
+        static_cast<int4*>(args.dst[j[k]])[(int64_t)b * dst_slot_vecs +
+                                           (int64_t)c * row.d +
+                                           (rem[k] - b * row.d)] = v[k];
+      }
+    }
   }
-  const int64_t b = blockIdx.x;
-  const int4* src = static_cast<const int4*>(args.src[blockIdx.y]) + b * row_vecs;
-  int4* dst = static_cast<int4*>(args.dst[blockIdx.y]) + b * dst_slot_vecs +
-              (int64_t)c * row_vecs;
-  for (int64_t i = threadIdx.x; i < row_vecs; i += blockDim.x) dst[i] = src[i];
+}
+
+template <typename Div>
+void launch_bank(const BankArgs& args, const int* col, int CH, uint64_t B,
+                 uint64_t row_vecs, uint64_t total, int64_t dst_slot_vecs,
+                 int* fault, cudaStream_t stream) {
+  using Index = typename IndexOf<Div>::type;
+  int64_t blocks = (int64_t)((total + BANK_THREADS * BANK_LOADS - 1) /
+                             (BANK_THREADS * BANK_LOADS));
+  if (blocks > 4 * (int64_t)sm_count()) blocks = 4 * (int64_t)sm_count();
+  bank_write_kernel<Div><<<(unsigned)blocks, BANK_THREADS, 0, stream>>>(
+      args, col, CH, Div::make((Index)(B * row_vecs)), Div::make((Index)row_vecs),
+      (Index)total, dst_slot_vecs, fault);
 }
 
 // grid (B, L, arrays); row_vecs 16-byte vectors per cache row.
@@ -172,7 +223,7 @@ extern "C" int ppq_bank_write(const void* const* dsts, const void* const* srcs,
                               int64_t row_bytes, int64_t dst_slot_bytes,
                               const void* col, void* fault, void* stream) {
   if (n_arrays <= 0 || n_arrays > MAX_BANK || B <= 0 || B > 2147483647 ||
-      CH <= 0 || row_bytes <= 0 || row_bytes % 16 != 0 ||
+      CH <= 0 || CH > 2147483647 || row_bytes <= 0 || row_bytes % 16 != 0 ||
       dst_slot_bytes % 16 != 0)
     return (int)cudaErrorInvalidValue;
   BankArgs args;
@@ -180,12 +231,20 @@ extern "C" int ppq_bank_write(const void* const* dsts, const void* const* srcs,
     args.dst[j] = const_cast<void*>(dsts[j]);
     args.src[j] = srcs[j];
   }
-  const int64_t row_vecs = row_bytes / 16;
-  const int threads = row_vecs >= 256 ? 256 : (row_vecs > 32 ? 64 : 32);
-  const dim3 grid((unsigned int)B, (unsigned int)n_arrays);
-  bank_write_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      args, static_cast<const int*>(col), (int)CH, row_vecs,
-      dst_slot_bytes / 16, static_cast<int*>(fault));
+  const uint64_t row_vecs = (uint64_t)row_bytes / 16;
+  const uint64_t total = (uint64_t)n_arrays * B * row_vecs;
+  const int* c = static_cast<const int*>(col);
+  int* f = static_cast<int*>(fault);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (total >= (uint64_t)INT32_MAX)
+    launch_bank<PlainDiv64>(args, c, (int)CH, B, row_vecs, total,
+                            dst_slot_bytes / 16, f, st);
+  else if (power_of_two(B) && power_of_two(row_vecs))
+    launch_bank<ShiftDiv32>(args, c, (int)CH, B, row_vecs, total,
+                            dst_slot_bytes / 16, f, st);
+  else
+    launch_bank<FastDiv32>(args, c, (int)CH, B, row_vecs, total,
+                           dst_slot_bytes / 16, f, st);
   return (int)cudaGetLastError();
 }
 
@@ -256,3 +315,27 @@ extern "C" int ppq_pool_write(void* pool, void* scale, const void* k,
   pool_write_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
+
+#ifdef PPQ_MEASURE
+// A measurement build only (nvcc -DPPQ_MEASURE, chip_smoke.py --attention):
+// what a launch costs for the size of its arguments, an empty kernel that
+// takes bank_write's 2 KiB pointer table against one that takes 16 bytes.
+struct SmallArgs {
+  const void* a;
+  const void* b;
+};
+
+__global__ void empty_bank_args_kernel(BankArgs) {}
+__global__ void empty_small_args_kernel(SmallArgs) {}
+
+extern "C" int ppq_empty_launch_args(int table, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (table) {
+    BankArgs args = {};
+    empty_bank_args_kernel<<<1, 32, 0, st>>>(args);
+  } else {
+    empty_small_args_kernel<<<1, 32, 0, st>>>(SmallArgs{nullptr, nullptr});
+  }
+  return (int)cudaGetLastError();
+}
+#endif

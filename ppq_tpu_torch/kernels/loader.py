@@ -56,8 +56,8 @@ LIBRARIES: Dict[str, tuple] = {
         'ppq_fake_quant_bwd_tensorwise':
             [_P, _P, _P, _I64, _P, _P, _F, _F, _INT, _P, _INT, _P, _P, _P],
         'ppq_fake_quant_bwd_channelwise':
-            [_P, _P, _P, _I64, _P, _P, _I64, _I64, _F, _F, _INT, _P, _INT,
-             _P, _P, _P],
+            [_P, _P, _P, _I64, _P, _P, _I64, _I64, _F, _F, _INT, _INT, _INT,
+             _P, _P, _P, _P, _P],
     }, EXACT_FLAGS),
     'floating': ('floating.cu', {
         'ppq_floating_quant_tensorwise':

@@ -29,7 +29,7 @@ trainable scale: the kernel reads them there, nothing crosses to the host).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -205,6 +205,72 @@ def _blocks_for(work: int, device, per_sm: int) -> int:
     return max(1, min(-(-work // 256), sms * per_sm))
 
 
+# csrc/fake_quant_bwd.cu: threads of a channelwise block, and the units
+# (float4s, or floats) each thread loads before it converts any
+_BWD_THREADS, _BWD_LOADS = 256, 4
+
+
+class ChannelwiseBwdPlan(NamedTuple):
+    """The channelwise backward's one launch: its layout (`vec` 4: runs of
+    float4s, 1: runs of floats, 0: inner 1, a warp's lanes on 32 channels
+    of a row), its grid (blocks of channels or of 32-channel tiles, by
+    splits), and the workspace it needs (floats of partials, counters;
+    none with one split)."""
+    vec: int
+    splits: int
+    grid: Tuple[int, int]
+    partial_floats: int
+    counters: int
+
+
+def channelwise_bwd_plan(channels: int, outer: int, inner: int,
+                         aligned: bool, sms: int) -> ChannelwiseBwdPlan:
+    """The launch of `ppq_fake_quant_bwd_channelwise` for x of shape
+    (outer, channels, inner) in memory. Where inner is 1 a block takes 32
+    channels, else one. A block's channels take every element, unless the
+    blocks leave the card short of two an SM and have more than one pass
+    of their threads' loads: then the rows or runs are split across as
+    many blocks as fill the card, no more than there are passes. Runs are
+    walked in float4s where inner is a multiple of 4 and x, g, dx are
+    16-byte aligned (`aligned`)."""
+    if channels < 1 or channels > 2 ** 31 - 1:
+        raise ValueError(f'channelwise backward over {channels} channels: the '
+                         f'grid takes 1 to 2^31 - 1')
+    if inner == 1:
+        vec, blocks = 0, -(-channels // 32)
+        per_pass = (_BWD_THREADS // 32) * _BWD_LOADS      # rows of a pass
+        passes = -(-outer // per_pass)
+    else:
+        vec, blocks = (4 if aligned and inner % 4 == 0 else 1), channels
+        passes = -(-(outer * inner // vec) // (_BWD_THREADS * _BWD_LOADS))
+    splits = max(1, min(-(-2 * sms // blocks), passes, 65535))
+    if splits == 1:
+        return ChannelwiseBwdPlan(vec, 1, (blocks, 1), 0, 0)
+    return ChannelwiseBwdPlan(vec, splits, (blocks, splits),
+                              2 * channels * splits, blocks)
+
+
+# (device, stream) -> (partials, counters) of the channelwise backward's
+# split launches: allocated at the first such launch on the stream, grown
+# when a larger one arrives, never shrunk. Launches on one stream run one
+# after another, and each leaves its counters at 0.
+_bwd_workspaces: Dict[Tuple[torch.device, int],
+                      Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _bwd_workspace(device, plan: ChannelwiseBwdPlan):
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    partial, counters = _bwd_workspaces.get(key, (None, None))
+    if partial is None or partial.numel() < plan.partial_floats:
+        partial = torch.empty(plan.partial_floats, dtype=torch.float32,
+                              device=device)
+    if counters is None or counters.numel() < plan.counters:
+        counters = torch.zeros(plan.counters, dtype=torch.int32,
+                               device=device)
+    _bwd_workspaces[key] = (partial, counters)
+    return partial.data_ptr(), counters.data_ptr()
+
+
 def linear_quant_bwd(x: torch.Tensor, g: torch.Tensor, scale, offset,
                      qmin: float, qmax: float,
                      rounding: RoundingPolicy = RoundingPolicy.ROUND_HALF_EVEN,
@@ -249,19 +315,19 @@ def linear_quant_bwd(x: torch.Tensor, g: torch.Tensor, scale, offset,
     if n == 0:
         zero = torch.zeros(channels, dtype=torch.float32, device=x.device)
         return dx, zero, zero.clone()
-    per_channel = n // channels
-    # enough blocks to fill the card, no more than a channel has work for
-    want = -(-_blocks_for(n, x.device, per_sm=8) // channels)
-    splits = max(1, min(want, -(-per_channel // 256), 65535))
-    partial = torch.empty(2 * channels * splits, dtype=torch.float32,
-                          device=x.device)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, g, dx))
+    plan = channelwise_bwd_plan(
+        channels, n // (channels * inner), inner, aligned,
+        torch.cuda.get_device_properties(x.device).multi_processor_count)
     out = torch.empty(2, channels, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
+        partial, counters = (_bwd_workspace(x.device, plan)
+                             if plan.splits > 1 else (None, None))
         rc = library('fake_quant_bwd').ppq_fake_quant_bwd_channelwise(
             x.data_ptr(), g.data_ptr(), dx.data_ptr(), n, s.data_ptr(),
             o.data_ptr(), channels, inner, float(qmin), float(qmax), code,
-            partial.data_ptr(), splits, out[0].data_ptr(), out[1].data_ptr(),
-            stream_of(x.device))
+            plan.vec, plan.splits, partial, counters, out.data_ptr(),
+            out.data_ptr() + 4 * channels, stream_of(x.device))
     check(rc, 'fake_quant_bwd_channelwise')
     LAUNCHES['fake_quant_bwd_channelwise'] += 1
     return dx, out[0], out[1]

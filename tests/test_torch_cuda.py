@@ -339,6 +339,104 @@ def test_fake_quant_bwd_kernel_vs_plain(cuda, policy, shape):
                 assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
+def _device_launches(fn):
+    """The kernels the card ran for fn(), by name, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count}
+
+
+def _channel_bwd_case(cuda, shape, axis, misalign, seed):
+    x, s, o, (qmin, qmax) = _case(shape, axis, True, seed)
+    x = np.nan_to_num(x, nan=0.25)
+    g = np.random.RandomState(seed + 1).randn(*shape).astype(np.float32)
+    n = x.size
+    xb = torch.zeros(n + misalign, device=cuda)
+    gb = torch.zeros(n + misalign, device=cuda)
+    xb[misalign:] = torch.from_numpy(x.reshape(-1)).to(cuda)
+    gb[misalign:] = torch.from_numpy(g.reshape(-1)).to(cuda)
+    return (xb[misalign:].view(shape), gb[misalign:].view(shape), s, o, qmin,
+            qmax)
+
+
+@pytest.mark.parametrize('shape,axis,misalign,splits', [
+    ((512, 512, 3, 3), 0, 0, 1),       # one block a channel, float4s
+    ((1000, 512), 0, 0, 1),
+    ((64, 3, 7, 7), 0, 0, 1),          # inner 147: floats
+    ((512, 512, 3, 3), 0, 1, 1),       # a view misaligned by one float
+    ((32, 8, 56, 56), 1, 0, 25),       # few channels: splits, last-block fold
+    ((32, 8, 56, 56), 1, 1, 33),
+    ((512, 1000), 1, 0, 9),            # channels on the last axis: lanes
+    ((512, 1000), 1, 1, 9),
+    ((7, 3, 1000), 2, 0, 1),
+], ids=['512x512x3x3', '1000x512', '64x3x7x7', 'misaligned', 'act-axis1',
+        'act-axis1-misaligned', 'last-axis', 'last-axis-misaligned',
+        'last-axis-3d'])
+def test_fake_quant_bwd_channel_one_launch(cuda, shape, axis, misalign,
+                                           splits):
+    """Both branches of the channelwise backward: dx bit for bit, ds and do
+    against the float64 sum of the plain terms, two calls bit-equal, one
+    device launch a call."""
+    from ppq_tpu_torch.kernels.quant import channelwise_bwd_plan
+    x, g, s, o, qmin, qmax = _channel_bwd_case(cuda, shape, axis, misalign,
+                                               seed=len(shape) + misalign)
+    inner = int(np.prod(shape[axis + 1:]))
+    plan = channelwise_bwd_plan(
+        shape[axis], x.numel() // (shape[axis] * inner), inner, not misalign,
+        torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert plan.splits == splits and plan.vec == (
+        0 if inner == 1 else 4 if not misalign and inner % 4 == 0 else 1)
+    dims = [i for i in range(len(shape)) if i != axis]
+    for policy in (RoundingPolicy.ROUND_HALF_EVEN, RoundingPolicy.ROUND_HALF_UP,
+                   RoundingPolicy.ROUND_DOWN):
+        dx, ds, do = linear_quant_bwd(x, g, s, o, qmin, qmax, policy, axis)
+        want, ds_e, do_e = linear_quant_bwd_terms(x, g, s, o, qmin, qmax,
+                                                  policy, axis)
+        assert torch.equal(dx.view(torch.int32), want.view(torch.int32))
+        assert _sums_close(ds, ds_e, dims) and _sums_close(do, do_e, dims)
+        again = linear_quant_bwd(x, g, s, o, qmin, qmax, policy, axis)
+        for a, b in zip((dx, ds, do), again):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    # scales and offsets on the card, as LSQ trains them: nothing to copy
+    s_dev, o_dev = torch.as_tensor(s, device=cuda), torch.as_tensor(o, device=cuda)
+    launched = _device_launches(lambda: linear_quant_bwd(
+        x, g, s_dev, o_dev, qmin, qmax, RoundingPolicy.ROUND_HALF_EVEN, axis))
+    assert sum(launched.values()) == 1, launched
+
+
+def test_fake_quant_bwd_channel_split_counts_change_between_calls(cuda):
+    """Calls in a row whose split counts differ share the stream's
+    workspace: each leaves the per-channel counters at 0, and every call
+    agrees with the plain version."""
+    from ppq_tpu_torch.kernels import quant
+    shapes = ((32, 8, 56, 56), (4, 3, 64, 64), (4096, 40), (32, 8, 56, 56),
+              (64, 40, 32, 32), (4096, 40))
+    cases = [_channel_bwd_case(cuda, shape, 1, 0, seed)
+             for seed, shape in enumerate(shapes)]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits = [quant.channelwise_bwd_plan(x.shape[1], x.shape[0],
+                                         x[0, 0].numel(), True, sms).splits
+              for x, *_ in cases]
+    assert splits == [25, 4, 128, 25, 7, 128]
+    for x, g, s, o, qmin, qmax in cases:
+        dx, ds, do = linear_quant_bwd(x, g, s, o, qmin, qmax, channel_axis=1)
+        want, ds_e, do_e = linear_quant_bwd_terms(
+            x, g, s, o, qmin, qmax, RoundingPolicy.ROUND_HALF_EVEN, 1)
+        dims = [i for i in range(x.ndim) if i != 1]
+        assert torch.equal(dx, want)
+        assert _sums_close(ds, ds_e, dims)
+        assert _sums_close(do, do_e, dims)
+        torch.cuda.synchronize()
+        for _, counters in quant._bwd_workspaces.values():
+            assert not bool(counters.any())
+
+
 def test_fake_quant_bwd_kernel_nan_and_empty(cuda):
     x = torch.tensor([0.3, float('nan'), 900.0, -900.0], device=cuda)
     g = torch.tensor([1.0, 2.0, 3.0, 4.0], device=cuda)
@@ -754,7 +852,8 @@ def test_qmm_int4_bodies_split_and_share_the_workspace(cuda):
                          ids=['int8', 'bf16'])
 @pytest.mark.parametrize('n_arrays,B,CH,KV,Dh', [(32, 128, 32, 8, 128),
                                                  (3, 5, 7, 1, 128),
-                                                 (130, 2, 3, 1, 128)])
+                                                 (130, 2, 3, 1, 128),
+                                                 (5, 37, 4, 2, 128)])
 def test_bank_write_kernel_bit_equal(cuda, n_arrays, B, CH, KV, Dh, dtype):
     from ppq_tpu_torch.kernels import (Bank, bank_write_inplace,
                                        bank_write_plain)
@@ -783,6 +882,29 @@ def test_bank_write_kernel_bit_equal(cuda, n_arrays, B, CH, KV, Dh, dtype):
     host_col = bank_write_inplace(Bank([t[:, :CH] for t in whole]), news, 1)
     bank_write_plain(Bank([t[:, :CH] for t in want]), news, 1)
     assert all(torch.equal(a, b) for a, b in zip(whole, want)) and host_col
+
+
+@pytest.mark.parametrize('dtype', [torch.int8, torch.bfloat16],
+                         ids=['int8', 'bf16'])
+@pytest.mark.parametrize('col', [-1, 3, 1 << 20])
+def test_bank_write_kernel_column_outside_writes_nothing(cuda, col, dtype):
+    """A column outside the buffers, over two launches of 130 buffers:
+    nothing is written and the fault word has bank_write's bit."""
+    from ppq_tpu_torch.kernels import (Bank, bank_write_inplace, read_faults,
+                                       reset_launches)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    bufs = [torch.randint(-128, 128, (2, 3, 1, 128), device=cuda,
+                          generator=gen).to(dtype) for _ in range(130)]
+    want = [t.clone() for t in bufs]
+    news = [torch.ones(2, 1, 1, 128, dtype=dtype, device=cuda)
+            for _ in range(130)]
+    read_faults(cuda)
+    reset_launches()
+    bank_write_inplace(Bank(bufs), news,
+                       torch.tensor([col], dtype=torch.int32, device=cuda))
+    assert LAUNCHES['bank_write'] == 2
+    assert read_faults(cuda) == ['bank_write: a column outside the buffers']
+    assert all(torch.equal(a, b) for a, b in zip(bufs, want))
 
 
 @pytest.mark.parametrize('dtype', [torch.int8, torch.bfloat16],

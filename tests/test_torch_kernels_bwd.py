@@ -22,7 +22,9 @@ from ppq_tpu.quantization import qfunction as jax_qfunction
 from ppq_tpu_torch.core import RoundingPolicy
 from ppq_tpu_torch.kernels import (floating_quant, floating_quant_bwd,
                                    linear_quant_bwd)
-from ppq_tpu_torch.kernels.quant import linear_quant_bwd_terms
+from ppq_tpu_torch.kernels.quant import (_BWD_LOADS, _BWD_THREADS,
+                                         channelwise_bwd_plan,
+                                         linear_quant_bwd_terms)
 
 POLICIES = list(RoundingPolicy)
 MODES = {'tensor': None, 'axis0': 0, 'axis1': 1}
@@ -33,22 +35,22 @@ def _bits(a):
     return np.ascontiguousarray(np.asarray(a, np.float32)).view(np.int32)
 
 
-def _case(mode, asym, seed=0):
+def _case(mode, asym, seed=0, shape=SHAPE):
     """Values inside the range, beyond it on both sides and on exact
     half-way ties (power-of-two scales make (k + 0.5) * s exact), with a
     random output gradient; asymmetric cases carry fractional offsets."""
     rng = np.random.RandomState(seed)
     axis = MODES[mode]
-    n_scales = 1 if axis is None else SHAPE[axis]
+    n_scales = 1 if axis is None else shape[axis]
     scale = (2.0 ** -rng.randint(2, 8, size=n_scales)).astype(np.float32)
     offset = (rng.rand(n_scales) * 60 - 30 if asym
               else np.zeros(n_scales)).astype(np.float32)
     s_b = scale if axis is None else scale.reshape(
-        [-1 if i == axis else 1 for i in range(len(SHAPE))])
-    x = (rng.randn(*SHAPE) * 90).astype(np.float32) * s_b
-    ties = (rng.randint(-150, 150, size=SHAPE) + 0.5).astype(np.float32) * s_b
-    x = np.where(rng.rand(*SHAPE) < 0.3, ties, x).astype(np.float32)
-    g = rng.randn(*SHAPE).astype(np.float32)
+        [-1 if i == axis else 1 for i in range(len(shape))])
+    x = (rng.randn(*shape) * 90).astype(np.float32) * s_b
+    ties = (rng.randint(-150, 150, size=shape) + 0.5).astype(np.float32) * s_b
+    x = np.where(rng.rand(*shape) < 0.3, ties, x).astype(np.float32)
+    g = rng.randn(*shape).astype(np.float32)
     if axis is None:
         scale, offset = scale[0], offset[0]
     qmin, qmax = (0, 255) if asym else (-128, 127)
@@ -108,6 +110,106 @@ def test_plain_bwd_vs_pallas(policy, mode, asym):
                            qmin, qmax, policy, axis)
     np.testing.assert_array_equal(_bits(got[0]), _bits(want[0]))
     _assert_sums_close(got[1:], want[1:], x, g, s, o, qmin, qmax, policy, axis)
+
+
+@pytest.mark.parametrize('asym', [False, True], ids=['sym', 'asym'])
+@pytest.mark.parametrize('shape', [(64, 64, 3, 3), (1000, 512)],
+                         ids=['64x64x3x3', '1000x512'])
+def test_plain_bwd_vs_pallas_at_weight_shapes(shape, asym):
+    """Against `pallas_linear_quant_bwd` in interpret mode at two of path
+    B's weights on axis 0: a 3x3 conv and the classifier."""
+    x, g, s, o, qmin, qmax, axis = _case('axis0', asym, seed=2, shape=shape)
+    policy = RoundingPolicy.ROUND_HALF_EVEN
+    want = pallas_linear_quant_bwd(x, g, s, o, qmin, qmax,
+                                   JaxRounding(policy.value), axis)
+    got = linear_quant_bwd(torch.from_numpy(x), torch.from_numpy(g), s, o,
+                           qmin, qmax, policy, axis)
+    np.testing.assert_array_equal(_bits(got[0]), _bits(want[0]))
+    assert tuple(got[1].shape) == (shape[0],) == tuple(got[2].shape)
+    _assert_sums_close(got[1:], want[1:], x, g, s, o, qmin, qmax, policy, axis)
+
+
+# the 21 weights of the zoo ResNet-18 that path B's LSQ trains channelwise,
+# as (outer, channels, inner) in memory: conv1, the 16 3x3 convs and the 3
+# downsample 1x1 convs on axis 0, and the classifier, stored (512, 1000)
+# with its channels on axis 1
+RESNET18_WEIGHTS = ([(1, 64, 3 * 49)] + [(1, 64, 64 * 9)] * 4
+                    + [(1, 128, 64 * 9), (1, 128, 128 * 9), (1, 128, 64),
+                       (1, 128, 128 * 9), (1, 128, 128 * 9)]
+                    + [(1, 256, 128 * 9), (1, 256, 256 * 9), (1, 256, 128),
+                       (1, 256, 256 * 9), (1, 256, 256 * 9)]
+                    + [(1, 512, 256 * 9), (1, 512, 512 * 9), (1, 512, 256),
+                       (1, 512, 512 * 9), (1, 512, 512 * 9)]
+                    + [(512, 1000, 1)])
+H100_SMS = 132
+
+
+def _plan_invariants(plan, channels, outer, inner, aligned):
+    if inner == 1:
+        assert plan.vec == 0
+        blocks, rows_a_pass = -(-channels // 32), 8 * _BWD_LOADS
+        passes = -(-outer // rows_a_pass)
+    else:
+        assert plan.vec == (4 if aligned and inner % 4 == 0 else 1)
+        blocks = channels
+        passes = -(-(outer * inner // plan.vec) // (_BWD_THREADS * _BWD_LOADS))
+    assert 1 <= plan.splits <= 65535
+    assert plan.grid == (blocks, plan.splits)
+    assert plan.splits <= max(1, passes)
+    if blocks * plan.splits < 2 * H100_SMS:
+        # short of the card only where the blocks have no more passes
+        assert plan.splits in (max(1, passes), 65535)
+    if plan.splits == 1:
+        assert plan.partial_floats == 0 and plan.counters == 0
+    else:
+        assert plan.partial_floats == 2 * channels * plan.splits
+        assert plan.counters == blocks
+
+
+def test_channelwise_bwd_plan_at_path_b_weights():
+    """Every path-B conv weight takes one block a channel (no workspace, no
+    fold), in float4s but conv1 (inner 147); the classifier, channels on
+    its last axis, takes 32-channel tiles over 9 splits of its rows."""
+    assert len(RESNET18_WEIGHTS) == 21
+    for outer, channels, inner in RESNET18_WEIGHTS:
+        plan = channelwise_bwd_plan(channels, outer, inner, True, H100_SMS)
+        _plan_invariants(plan, channels, outer, inner, True)
+        if inner == 1:
+            assert plan == (0, 9, (32, 9), 2 * 1000 * 9, 32)
+        else:
+            assert plan.splits == 1
+            assert plan.vec == (1 if inner == 147 else 4)
+
+
+@pytest.mark.parametrize('channels,outer,inner,aligned', [
+    (8, 32, 56 * 56, True),        # axis 1 of a 32x8x56x56 activation
+    (64, 32, 112 * 112, True),     # axis 1 of the first ReLU's output
+    (3, 6, 7 * 9, True),           # inner not a multiple of 4
+    (512, 1, 4608, False),         # a view misaligned by one float
+    (1, 1, 2 ** 30, True),         # one channel, a billion elements
+    (1, 1, 4, True),
+    (1000, 512, 1, True),          # channels on the last axis
+    (33, 1, 1, False),             # a vector along its own axis
+    (5, 2 ** 26, 1, True),         # one tile, many rows
+    (2 ** 31 - 1, 1, 1, True),     # the grid's x at its limit
+    (2 ** 31 - 1, 1, 2, True),
+])
+def test_channelwise_bwd_plan_edges(channels, outer, inner, aligned):
+    plan = channelwise_bwd_plan(channels, outer, inner, aligned, H100_SMS)
+    _plan_invariants(plan, channels, outer, inner, aligned)
+
+
+def test_channelwise_bwd_plan_splits_and_refuses_grids():
+    plan = channelwise_bwd_plan(8, 32, 56 * 56, True, H100_SMS)
+    assert plan.vec == 4 and plan.splits == 25 and plan.counters == 8
+    assert plan.partial_floats == 2 * 8 * 25
+    assert channelwise_bwd_plan(1, 1, 2 ** 30, True, H100_SMS).splits == 264
+    # splits capped by the grid's y
+    assert channelwise_bwd_plan(1, 2 ** 30, 2, True, 10 ** 6).splits == 65535
+    with pytest.raises(ValueError):
+        channelwise_bwd_plan(2 ** 31, 1, 1, True, H100_SMS)
+    with pytest.raises(ValueError):
+        channelwise_bwd_plan(0, 1, 1, True, H100_SMS)
 
 
 def test_plain_bwd_nan_is_inside_and_vector_on_its_own_axis():
