@@ -238,11 +238,15 @@ def _clocks() -> str:
 def _timing_probe(label, fn, flush):
     """What time_ms's median of `fn` is made of, logged beside it: the
     card's clocks and power before and after, the host's time to enqueue
-    one call, and the timings with and without the spin after the flush."""
+    one call, and the timings without the spin after the flush, with
+    time_ms's spin (twice the host's time) and with spins of 0.5 and 2 ms
+    (does the card's idle time after the flush change the kernel's?)."""
     before = _clocks()
     host = _host_ms(fn, REPEATS)
     timed = {'no spin': _event_times(fn, flush, 0),
-             'spin (time_ms)': _event_times(fn, flush, 2 * host)}
+             'spin (time_ms)': _event_times(fn, flush, 2 * host),
+             'spin 0.5 ms': _event_times(fn, flush, 0.5),
+             'spin 2 ms': _event_times(fn, flush, 2.0)}
     out = dict(clocks_before=before, clocks_after=_clocks(),
                host_enqueue_ms=host,
                **{f'{k} median_ms': statistics.median(v) for k, v in timed.items()},
@@ -3565,6 +3569,33 @@ def quant_paths(dev, flush, measure):
     return results
 
 
+def _row5_device_events(weight, g):
+    """The device events (kernels, copies) of one row-5 call at the
+    headline weight, scales and offsets already on the card as LSQ trains
+    them, by torch.profiler: what a call adds to an LSQ step's count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from ppq_tpu_torch.core import RoundingPolicy
+    from ppq_tpu_torch.kernels import linear_quant_bwd
+    channels = weight.shape[0]
+    s = torch.full((channels,), 1e-3, device=weight.device)
+    o = torch.zeros(channels, device=weight.device)
+
+    def call():
+        linear_quant_bwd(weight, g, s, o, -128, 127,
+                         RoundingPolicy.ROUND_HALF_EVEN, 0)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    events = {e.key: e.count for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.count}
+    log(f'[quant] row 5, device events of one call: {sum(events.values())} '
+        f'{json.dumps(events)[:300]}')
+    return sum(events.values())
+
+
 def _measure_libraries(sources):
     """Register the measurement builds of `sources` (nvcc -DPPQ_MEASURE)
     beside the package's own libraries, under their own names and with
@@ -3655,6 +3686,7 @@ def main_quant(package_root=None) -> int:
         activation_sum_ms=time_ms(lambda: act.sum(), flush),
         # the same 12 bytes an element as row 5, in one launch
         weight_mul_ms=time_ms(lambda: torch.mul(weight, g, out=dx), flush))
+    results['row 5 device events per call'] = _row5_device_events(weight, g)
     if 'histogram_measure' in measure:
         results['yardsticks']['launch_floor_ms'] = time_ms(
             lambda: loader.library('histogram_measure').ppq_empty_launch(stream),
