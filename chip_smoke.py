@@ -545,6 +545,8 @@ def kernels_floating(act, weight, s_w_t, flush):
         library_ms=None,     # no single PyTorch call rounds to an E/M grid
         channelwise_ms=time_ms(lambda: floating_quant(
             weight, s_w_t, 4, 3, -448.0, 448.0, 0), flush),
+        channelwise_plain_ms=time_ms(lambda: floating_quant_plain(
+            weight, s_w_t, 4, 3, -448.0, 448.0, 0), flush),
         # the channelwise shape's own bound: the weight read and written
         # once, one scale a channel
         channelwise_bound_ms=bound_ms(8.0 * weight.numel() + 4.0 * s_w_t.numel(),
@@ -558,7 +560,8 @@ def kernels_floating(act, weight, s_w_t, flush):
         library_ms=None)     # no single PyTorch call: a mask and a where
     log('[kernel] floating_quant: bit-equal to plain for E4M3, E5M2, E3M4, '
         'tensorwise (host and device scale) and channelwise; channelwise '
-        f'weight {results["floating_quant"]["channelwise_ms"]:.4f} ms (bound '
+        f'weight {results["floating_quant"]["channelwise_ms"]:.4f} ms (plain '
+        f'{results["floating_quant"]["channelwise_plain_ms"]:.4f} ms, bound '
         f'{results["floating_quant"]["channelwise_bound_ms"]:.4f} ms); '
         'floating_quant_bwd bit-equal')
     return results
@@ -1529,7 +1532,7 @@ def _hold_buffered(got, want, tol, what, factor=1.0):
     return share
 
 
-def kernels_paged(dev, flush):
+def kernels_paged(dev, flush, detail=False, measure=False):
     """Rows 16 and 13 at path G's shapes: the pool (16, 513, 2, 256, 1024)
     int8 and its f32 scales, 128 slots of 3 blocks (fill 512 and a burst of
     32). Row 16 writes a burst's 32 columns at position 512 (its timed
@@ -1537,11 +1540,15 @@ def kernels_paged(dev, flush):
     version bit for bit on the whole pool; the library column is index_put_
     of codes and scales (two calls, indices and values prepared outside the
     window). Row 13 reads one layer's strided planes of that pool and a
-    32-column buffer at step 31 (fill 512, its timed case; also mixed fills
-    and step 0) against its plain version, and against the engine's
-    composition on the same inputs; the library column is that composition
-    (row 12 over the repacked window, the buffer's products and
-    merge_attention: several calls, the repack not included)."""
+    32-column buffer through the engine's table width, at fills 512 and 16
+    (and mixed fills), steps 31 and 0, against its plain version and the
+    engine's composition on the same inputs, two calls bit-equal; timed at
+    fill 512, step 31. The library column is that composition (row 12 over
+    the repacked window, the buffer's products and merge_attention: several
+    calls, the repack not included). `detail` (--attention): row 13 and the
+    composition timed at both fills and steps, the composition also with
+    its share of the burst's repack; with `measure`, row 13's measurement
+    variants (`_row13_variants`)."""
     from ppq_tpu_torch.kernels import (paged_attention_decode_buffered,
                                        paged_attention_decode_buffered_plain,
                                        pool_write_inplace, pool_write_plain,
@@ -1622,63 +1629,181 @@ def kernels_paged(dev, flush):
     kb, vb = kbuf[layer], vbuf[layer]                  # (B, T, KV, Dh)
     kb3, vb3 = kb.reshape(B, T, -1), vb.reshape(B, T, -1)
     ks1, vs1 = ksb[layer], vsb[layer]
-    path_lens = torch.full((B,), fill, dtype=torch.int32, device=dev)
-    mixed = torch.randint(0, fill + 1, (B,), device=dev, generator=gen,
-                          dtype=torch.int32)
-    mixed[::9] = 0
-    dense = _dense_slots(pool, scale, layer, B, tables)
-    kv_bm, sc_bm, rblk = gather_window({'kv': pool, 'kv_scale': scale},
-                                       tables, read_limit=fill)
-    group = grouped_group_size(B, rblk, KV * Dh, 1, SERVE['n_heads'])
     worst = worst_plain = worst_comp = 0.0
-    for lens, step in ((path_lens, T - 1), (mixed, T - 1), (path_lens, 0)):
-        args = (q, *planes, tables, lens, kb3, vb3, ks1, vs1, step)
-        got = paged_attention_decode_buffered(*args, block_size=BLK)
-        want = paged_attention_decode_buffered_plain(*args, block_size=BLK)
-        tol = _buffered_tolerance(q, *dense, lens, kb, vb, ks1, vs1, step)
-        worst_plain = max(worst_plain, _hold_buffered(
-            got, want, tol, 'paged_attention_buffered against its plain version'))
-        # the composition folds the v scale into p, row 13 into the values:
-        # two more bf16 roundings of each term
-        comp = _composition(q, kv_bm, sc_bm, lens, layer, rblk, group, kb, vb,
-                            ks1, vs1, step)
-        worst_comp = max(worst_comp, _hold_buffered(
-            got, comp, tol, 'paged_attention_buffered against the composition',
-            factor=2.0))
-        worst = max(worst, float((got - want).abs().max()))
+    inputs = {}
+    for f in (fill, 16):
+        # the engine's table width for the burst's positions and its frozen
+        # read bucket (ServingEngine._table_width, _decode_bucket)
+        width = 1
+        while width * BLK < f + T:
+            width *= 2
+        bucket = 32
+        while bucket < min(f, S):
+            bucket *= 2
+        tbl = tables[:, :min(width, MB)].contiguous()
+        path_lens = torch.full((B,), f, dtype=torch.int32, device=dev)
+        mixed = torch.randint(0, f + 1, (B,), device=dev, generator=gen,
+                              dtype=torch.int32)
+        mixed[::9] = 0
+        dense = _dense_slots(pool, scale, layer, B, tbl)
+        kv_bm, sc_bm, rblk = gather_window({'kv': pool, 'kv_scale': scale},
+                                           tbl, read_limit=bucket)
+        group = grouped_group_size(B, rblk, KV * Dh, 1, SERVE['n_heads'])
+        for lens, step in ((path_lens, T - 1), (mixed, T - 1), (path_lens, 0)):
+            args = (q, *planes, tbl, lens, kb3, vb3, ks1, vs1, step)
+            got = paged_attention_decode_buffered(*args, block_size=BLK)
+            if not torch.equal(got, paged_attention_decode_buffered(
+                    *args, block_size=BLK)):
+                raise AssertionError('paged_attention_buffered: two calls on '
+                                     'the same inputs differ')
+            want = paged_attention_decode_buffered_plain(*args, block_size=BLK)
+            tol = _buffered_tolerance(q, *dense, lens, kb, vb, ks1, vs1, step)
+            worst_plain = max(worst_plain, _hold_buffered(
+                got, want, tol, f'paged_attention_buffered at fill {f} '
+                f'against its plain version'))
+            # the composition folds the v scale into p, row 13 into the
+            # values: two more bf16 roundings of each term
+            comp = _composition(q, kv_bm, sc_bm, lens, layer, rblk, group, kb,
+                                vb, ks1, vs1, step)
+            worst_comp = max(worst_comp, _hold_buffered(
+                got, comp, tol, f'paged_attention_buffered at fill {f} against '
+                f'the composition', factor=2.0))
+            worst = max(worst, float((got - want).abs().max()))
+        inputs[f] = dict(tbl=tbl, lens=path_lens, kv_bm=kv_bm, sc_bm=sc_bm,
+                         rblk=rblk, group=group, bucket=bucket)
+        del dense
     faults = read_faults(dev)
     if faults:
         raise AssertionError(f'the kernels reported faults: {faults}')
-    log(f'[kernel] paged_attention_buffered: worst share of the tolerance '
-        f'{worst_plain:.3f} against its plain version, {worst_comp:.3f} of '
-        f'twice it against the engine\'s composition')
+    log(f'[kernel] paged_attention_buffered at fills {fill} and 16, steps 0 '
+        f'and {T - 1}: worst share of the tolerance {worst_plain:.3f} against '
+        f'its plain version, {worst_comp:.3f} of twice it against the '
+        f'engine\'s composition; two calls bit-equal')
+
+    def bound13(lens, step, width):
+        tokens = float(lens.long().sum()) + B * (step + 1)
+        moved = tokens * 2 * (KV * Dh + KV * 4) + B * KV * rep * Dh * (2 + 4) \
+            + 4 * B * (width + 1)
+        return bound_ms(moved, tokens * KV * rep * Dh * 4.0, BF16_OPS_PER_S)
+
+    def row13(f, step):
+        at = inputs[f]
+        return lambda: paged_attention_decode_buffered(
+            q, *planes, at['tbl'], at['lens'], kb3, vb3, ks1, vs1, step,
+            block_size=BLK)
+
+    def composition(f, step):
+        at = inputs[f]
+        return lambda: _composition(q, at['kv_bm'], at['sc_bm'], at['lens'],
+                                    layer, at['rblk'], at['group'], kb, vb,
+                                    ks1, vs1, step)
+
     step = T - 1
-    args = (q, *planes, tables, path_lens, kb3, vb3, ks1, vs1, step)
-    tokens = float(path_lens.long().sum()) + B * (step + 1)
-    moved = tokens * 2 * (KV * Dh + KV * 4) + B * KV * rep * Dh * (2 + 4) \
-        + 4 * B * (MB + 1)
-    b, by = bound_ms(moved, tokens * KV * rep * Dh * 4.0, BF16_OPS_PER_S)
+    at = inputs[fill]
+    b, by = bound13(at['lens'], step, at['tbl'].shape[1])
     results['paged_attention_buffered'] = dict(
         max_abs_err=worst, shape=[B, KV, rep, Dh, NB, BLK, T], fill=fill,
         step=step, bound_ms=b, bound_by=by,
         worst_share_of_tolerance=worst_plain,
         worst_share_against_composition=worst_comp,
-        ms=time_ms(lambda: paged_attention_decode_buffered(*args, block_size=BLK),
-                   flush),
+        ms=time_ms(row13(fill, step), flush),
         plain_ms=time_ms(lambda: paged_attention_decode_buffered_plain(
-            *args, block_size=BLK), flush),
+            q, *planes, at['tbl'], at['lens'], kb3, vb3, ks1, vs1, step,
+            block_size=BLK), flush),
         # yardstick, several calls: the composition the engine runs instead
-        library_ms=time_ms(lambda: _composition(
-            q, kv_bm, sc_bm, path_lens, layer, rblk, group, kb, vb, ks1, vs1,
-            step), flush))
+        library_ms=time_ms(composition(fill, step), flush))
+    if detail:
+        # --attention: both fills at steps 0 and 31, beside the engine's
+        # composition with its share of the burst's repack (one
+        # gather_window serves 32 steps of 16 layers)
+        cells = {}
+        for f in (fill, 16):
+            at = inputs[f]
+            repack = time_ms(lambda: gather_window(
+                {'kv': pool, 'kv_scale': scale}, at['tbl'],
+                read_limit=at['bucket']), flush)
+            for s in (0, T - 1):
+                b, by = bound13(at['lens'], s, at['tbl'].shape[1])
+                comp = time_ms(composition(f, s), flush)
+                cells[f'fill {f} step {s}'] = c = dict(
+                    ms=time_ms(row13(f, s), flush), bound_ms=b,
+                    composition_ms=comp, repack_ms_per_burst=repack,
+                    composition_with_repack_ms=comp + repack / (T * L),
+                    table_width=int(at['tbl'].shape[1]),
+                    read_bucket=at['bucket'],
+                    device_events=_device_events(
+                        f'[attention] row 13 fill {f} step {s}', row13(f, s)),
+                    composition_device_events=_device_events(
+                        f'[attention] the composition fill {f} step {s}',
+                        composition(f, s)))
+                log(f'[attention] row 13 fill {f} + {s + 1} buffer columns: '
+                    f'{c["ms"]:.4f} ms, bound {b:.4f} ms, share of bound '
+                    f'{b / c["ms"]:.3f}; the composition {comp:.4f} ms, with '
+                    f'its share of the repack ({repack:.4f} ms a burst over '
+                    f'{T} steps x {L} layers) '
+                    f'{c["composition_with_repack_ms"]:.4f} ms')
+        results['row 13 cells'] = cells
+        if measure:
+            results['row 13 variants'] = _row13_variants(
+                q, planes, inputs, fill, kb3, vb3, ks1, vs1, T, flush)
     log(f'[kernel] pool_write bit-equal to its plain version on the whole '
         f'pool; a 128-column prefill window '
         f'{results["pool_write"]["prefill_window_128_ms"]:.4f} ms; '
         f'paged_attention_buffered within its tolerance (row 11\'s delta, '
         f'one bf16 step of p, divided by l)')
-    del pool, scale, kv_bm, sc_bm, dense, kbuf, vbuf, ksb, vsb, q
+    del pool, scale, inputs, kbuf, vbuf, ksb, vsb, q
     torch.cuda.empty_cache()
     return results
+
+
+def _row13_variants(q, planes, inputs, fill, kb3, vb3, ks1, vs1, T, flush):
+    """The measurement build's row 13 (`paged_attention_measure`) at path
+    G's fills, step 31: v_eff rounded by a conversion an element, a packed
+    conversion, on the bit pattern or by a bf16 multiply (each bit-equal to
+    the package's kernel), and the copies and waits alone."""
+    from ppq_tpu_torch.kernels import (loader,
+                                       paged_attention_decode_buffered)
+    from ppq_tpu_torch.kernels.paged_attention import _inv_sqrt
+    lib = loader.library('paged_attention_measure')
+    dev = q.device
+    stream = loader.stream_of(dev)
+    B, KV, rep, Dh = q.shape
+    qb = q.contiguous()
+    ctx = torch.empty((B, KV, rep, Dh), dtype=torch.float32, device=dev)
+    fault = loader.fault_word(dev)
+    names = ('conversion a value', 'packed conversion', 'bit pattern',
+             'bf16 multiply', 'copies only')
+    out = {}
+    for f in (fill, 16):
+        at = inputs[f]
+        step = T - 1
+        want = paged_attention_decode_buffered(
+            q, *planes, at['tbl'], at['lens'], kb3, vb3, ks1, vs1, step,
+            block_size=planes[0].shape[1])
+        timed = {}
+        for variant, name in enumerate(names):
+            def run():
+                rc = lib.ppq_paged_attention_buffered_variant(
+                    qb.data_ptr(), *[t.data_ptr() for t in planes],
+                    at['tbl'].data_ptr(), at['lens'].data_ptr(),
+                    kb3.data_ptr(), vb3.data_ptr(), ks1.data_ptr(),
+                    vs1.data_ptr(), ctx.data_ptr(), fault.data_ptr(), B, KV,
+                    at['tbl'].shape[1], planes[0].shape[0],
+                    planes[0].shape[1], T, step, planes[0].stride(0),
+                    planes[1].stride(0), planes[2].stride(0),
+                    planes[3].stride(0), kb3.stride(0), vb3.stride(0),
+                    ks1.stride(0), vs1.stride(0), _inv_sqrt(Dh), variant,
+                    stream)
+                if rc:
+                    raise AssertionError(f'row 13 variant {name}: {rc}')
+            run()
+            if variant < 4 and not torch.equal(ctx, want):
+                raise AssertionError(f'row 13 variant {name} != the kernel')
+            timed[name] = time_ms(run, flush)
+        out[f'fill {f} step {step}'] = timed
+        log(f'[attention] row 13 variants at fill {f}, step {step}: '
+            + '; '.join(f'{k} {v:.4f}' for k, v in timed.items()))
+    return out
 
 
 class _PlainKernels:
@@ -3416,6 +3541,46 @@ def _path_inputs(dev):
     return weights, acts
 
 
+def _row6c_at_weights(weights, row2, flush):
+    """Row 6c, the channelwise floating fake-quant, at the 21 weights path B
+    trains (each on its own axis), with per-channel scales from each
+    channel's absmax / qmax: bit-equal to the plain version for E4M3, E5M2
+    and E3M4, two calls bit-equal, then timed in E4M3 beside row 2's time
+    at the same weight (`row2`: quant_paths' rows)."""
+    from ppq_tpu_torch.kernels import floating_quant, floating_quant_plain
+    rows = []
+    for w, r2 in zip(weights, row2):
+        x, axis = w['x'], w['axis']
+        dims = [i for i in range(x.ndim) if i != axis]
+        absmax = x.abs().amax(dim=dims)
+        for e, m, qmax in ((4, 3, 448.0), (5, 2, 57344.0), (3, 4, 15.5)):
+            s = absmax / qmax
+            got = floating_quant(x, s, e, m, -qmax, qmax, axis)
+            want = floating_quant_plain(x, s, e, m, -qmax, qmax, axis)
+            again = floating_quant(x, s, e, m, -qmax, qmax, axis)
+            if not (torch.equal(got.view(torch.int32), want.view(torch.int32))
+                    and torch.equal(again.view(torch.int32),
+                                    got.view(torch.int32))):
+                raise AssertionError(f'floating_quant channelwise != plain at '
+                                     f'{tuple(x.shape)} axis {axis}, E{e}M{m}')
+        s = absmax / 448.0
+        ms = time_ms(lambda: floating_quant(x, s, 4, 3, -448.0, 448.0, axis),
+                     flush)
+        n = x.numel()
+        b, _ = bound_ms(8.0 * n + 4.0 * x.shape[axis], 12.0 * n)
+        rows.append(dict(shape=list(x.shape), axis=axis, ms=ms, bound_ms=b,
+                         row_2_ms=r2['ms']))
+    out = dict(per_shape=rows, sum_ms=sum(r['ms'] for r in rows),
+               row_2_sum_ms=sum(r['row_2_ms'] for r in rows),
+               sum_bound_ms=sum(r['bound_ms'] for r in rows))
+    log(f'[quant] row 6c at the 21 weights path B trains, bit-equal (E4M3, '
+        f'E5M2, E3M4), two calls bit-equal: sum {out["sum_ms"]:.4f} ms, row 2 '
+        f'{out["row_2_sum_ms"]:.4f} ms (bounds {out["sum_bound_ms"]:.4f}); '
+        + ', '.join(f'{r["shape"]}@{r["axis"]} {r["ms"]:.4f} (row 2 '
+                    f'{r["row_2_ms"]:.4f})' for r in rows))
+    return out
+
+
 def _row5_at_weights(weights, flush):
     """Row 5 at each weight path B's LSQ trains channelwise (the 21 that
     path A's calibration quantizes, with their scales), with a seeded
@@ -3462,6 +3627,8 @@ def quant_paths(dev, flush, measure):
     """`--quant` only: rows 2 and 3 at every input path A gives them (each
     held against its plain version, then timed, row 3 into running counts
     as the observers call it), with the sums a calibration batch spends;
+    rows 6c and 5 at the same 21 weights (`_row6c_at_weights`,
+    `_row5_at_weights`);
     row 3 also at 2048 bins (the MSE observers). With the measurement
     build (`measure`), row 3's bin variants (product or IEEE quotient,
     counting or not) on the headline activation and on the real first-ReLU
@@ -3498,6 +3665,7 @@ def quant_paths(dev, flush, measure):
         f'{results["row 2 path A weights"]["sum_ms"]:.4f} ms (bounds '
         f'{results["row 2 path A weights"]["sum_bound_ms"]:.4f}); '
         + ', '.join(f'{r["shape"]}@{r["axis"]} {r["ms"]:.4f}' for r in rows))
+    results['row 6c path B weights'] = _row6c_at_weights(weights, rows, flush)
     results['row 5 path B weights'] = _row5_at_weights(weights, flush)
 
     first_relu = None
@@ -3569,21 +3737,11 @@ def quant_paths(dev, flush, measure):
     return results
 
 
-def _row5_device_events(weight, g):
-    """The device events (kernels, copies) of one row-5 call at the
-    headline weight, scales and offsets already on the card as LSQ trains
-    them, by torch.profiler: what a call adds to an LSQ step's count."""
+def _device_events(label, call):
+    """The device events (kernels, copies) of one call of `call`, by
+    torch.profiler, logged under `label`; returns their number."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from ppq_tpu_torch.core import RoundingPolicy
-    from ppq_tpu_torch.kernels import linear_quant_bwd
-    channels = weight.shape[0]
-    s = torch.full((channels,), 1e-3, device=weight.device)
-    o = torch.zeros(channels, device=weight.device)
-
-    def call():
-        linear_quant_bwd(weight, g, s, o, -128, 127,
-                         RoundingPolicy.ROUND_HALF_EVEN, 0)
     call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3591,9 +3749,22 @@ def _row5_device_events(weight, g):
         torch.cuda.synchronize()
     events = {e.key: e.count for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.count}
-    log(f'[quant] row 5, device events of one call: {sum(events.values())} '
+    log(f'{label}, device events of one call: {sum(events.values())} '
         f'{json.dumps(events)[:300]}')
     return sum(events.values())
+
+
+def _row5_device_events(weight, g):
+    """The device events of one row-5 call at the headline weight, scales
+    and offsets already on the card as LSQ trains them: what a call adds to
+    an LSQ step's count."""
+    from ppq_tpu_torch.core import RoundingPolicy
+    from ppq_tpu_torch.kernels import linear_quant_bwd
+    channels = weight.shape[0]
+    s = torch.full((channels,), 1e-3, device=weight.device)
+    o = torch.zeros(channels, device=weight.device)
+    return _device_events('[quant] row 5', lambda: linear_quant_bwd(
+        weight, g, s, o, -128, 127, RoundingPolicy.ROUND_HALF_EVEN, 0))
 
 
 def _measure_libraries(sources):
@@ -3619,6 +3790,9 @@ def _measure_libraries(sources):
                 [P, P, P, I64, I64, I64, INT, INT, P, P, P, P, P]}),
         'kv_write.cu': ('kv_write_measure', {
             'ppq_empty_launch_args': [INT, P]}),
+        'paged_attention.cu': ('paged_attention_measure', {
+            'ppq_paged_attention_buffered_variant':
+                [P] * 13 + [I64] * 15 + [F, INT, P]}),
     }
     names = []
     for source in sources:
@@ -3640,8 +3814,8 @@ def main_quant(package_root=None) -> int:
     its headline into running counts, and rows 2 and 3 at every input path
     A gives them (quant_paths); with yardsticks over the same bytes (a
     float32 clone of the weight for row 2, a float32 sum of the activation
-    for row 3, a `torch.mul` into a given output for row 5), row 5 at the
-    21 weights path B trains and, where the checkout has the measurement
+    for row 3, a `torch.mul` into a given output for row 5), rows 6c and 5
+    at the 21 weights path B trains and, where the checkout has the measurement
     build, row 2's loads and stores alone, row 5's without its arithmetic,
     and the launch floor (`ppq_empty_launch`). With
     `--package-root DIR` the package is imported from the checkout at DIR,
@@ -3775,8 +3949,10 @@ def main_attention(package_root=None) -> int:
     contiguous copy of the same bytes and the launch floor (and, where the
     checkout has the measurement build, empty launches with a 2 KiB and a
     16-byte argument block), with row 13 (and row 16, which shares its
-    pool) at path G's (kernels_paged): the quick loop for work on those
-    kernels. With
+    pool) at path G's (kernels_paged: fills 512 and 16, steps 0 and 31,
+    beside the engine's composition with and without its share of the
+    burst's repack, and, where the checkout has the measurement build,
+    row 13's variants): the quick loop for work on those kernels. With
     `--package-root DIR` the package is imported from the checkout at DIR,
     so two commits are timed in one call on one card, in turns."""
     t_start = time.perf_counter()
@@ -3787,7 +3963,7 @@ def main_attention(package_root=None) -> int:
     log(f'[attention] package {ppq_tpu_torch.__file__}')
     dev = torch.device('cuda', 0)
     torch.cuda.set_device(dev)
-    measure = _measure_libraries(('kv_write.cu',))
+    measure = _measure_libraries(('kv_write.cu', 'paged_attention.cu'))
     phase_build(['paged_attention', 'kv_write'] + measure)
     flush = torch.empty(512 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
     results = kernels_attention(dev, flush)
@@ -3802,7 +3978,7 @@ def main_attention(package_root=None) -> int:
         launch_floor_ms=time_ms(
             lambda: loader.library('paged_attention').ppq_empty_launch(stream),
             flush))
-    if measure:
+    if 'kv_write_measure' in measure:
         lib = loader.library('kv_write_measure')
         for table, key in ((1, 'empty_2KiB_args_ms'), (0, 'empty_16B_args_ms')):
             row14['yardsticks'][key] = time_ms(
@@ -3810,13 +3986,22 @@ def main_attention(package_root=None) -> int:
     log(f'[attention] row 14: {row14["ms"]:.4f} ms, bound '
         f'{row14["bound_ms"]:.4f} ms, yardsticks {json.dumps(row14["yardsticks"])}')
     del src, dst
-    row13 = kernels_paged(dev, flush)['paged_attention_buffered']
+    paged = kernels_paged(dev, flush, detail=True,
+                          measure='paged_attention_measure' in measure)
+    row13 = paged['paged_attention_buffered']
     results['row 13 fill 512 + 32 buffer columns'] = {
-        k: row13[k] for k in ('ms', 'plain_ms', 'bound_ms', 'bound_by',
-                              'max_abs_err', 'worst_share_of_tolerance')}
+        k: row13[k] for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms',
+                              'bound_by', 'max_abs_err',
+                              'worst_share_of_tolerance',
+                              'worst_share_against_composition')}
+    for key in ('row 13 cells', 'row 13 variants'):
+        if key in paged:
+            results[key] = paged[key]
     log(f'[attention] row 13: {row13["ms"]:.4f} ms, bound '
-        f'{row13["bound_ms"]:.4f} ms, worst share of the tolerance '
-        f'{row13["worst_share_of_tolerance"]:.3f}')
+        f'{row13["bound_ms"]:.4f} ms, plain {row13["plain_ms"]:.4f} ms, worst '
+        f'share of the tolerance {row13["worst_share_of_tolerance"]:.3f} '
+        f'(plain), {row13["worst_share_against_composition"]:.3f} (twice it, '
+        f'composition)')
     log(f'[done] {time.perf_counter() - t_start:.1f} s; {smi}')
     log(json.dumps({'attention': results, 'card': smi}))
     return 0

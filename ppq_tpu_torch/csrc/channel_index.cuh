@@ -10,10 +10,10 @@
 // one multiply-high, one add and one shift (the method of Granlund and
 // Montgomery, as PyTorch's IntDivider does it).
 //
-// Shared by the kernels that split a flat index: fake_quant.cu and
+// Shared by the kernels that split a flat index: fake_quant.cu's and
+// floating.cu's channelwise bodies (the channel of a float4) and
 // fake_quant_bwd.cu (a channel's element of its runs), kv_write.cu's
 // bank_write (a 16-byte vector's buffer, slot and place in its row).
-// floating.cu's channelwise body divides per element still and can take it.
 
 #pragma once
 

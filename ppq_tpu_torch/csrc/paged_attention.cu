@@ -38,8 +38,8 @@
 // What bounds rows 11 and 12: bytes, the filled K and V codes read once (a
 // position past the slot's fill is not loaded, but among the first 16, see
 // below) plus their scales; the operations are about 4 a code byte. The
-// design (`paged_decode_kernel`; the first design of rows 11 and 12 stays
-// with row 13):
+// design (`paged_decode_kernel`; row 13's `buffered_decode_kernel`, at the
+// end of the file, walks the same rings):
 //   * a thread block holds one slot's KV heads (up to 16 warps), so that
 //     the warps of all heads stream the same token rows side by side; each
 //     head has NW warps, 2, or 1 where the window is SHALLOW, each warp
@@ -87,25 +87,12 @@
 namespace {
 
 constexpr int DH = 128;           // head dim the kernels take
-constexpr int THREADS = 128;      // 4 warps
-constexpr int WARPS = THREADS / 32;
 constexpr int CHUNK = 16;         // elements of a head row per lane
 constexpr int LANES_PER_ROW = DH / CHUNK;                 // 8
 constexpr float NEG_INF = -1e30f;
 constexpr int MAX_BLK = 2048;
 
-// 16 consecutive values of a row as floats (both conversions exact; the
-// int8 one is a conversion instruction a code, row 13's).
-__device__ __forceinline__ void load_chunk(const int8_t* p, float (&v)[CHUNK]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      v[4 * i + k] = (float)(signed char)(w[i] >> (8 * k));
-}
-
+// 16 consecutive bf16 values of a row as floats (exact: a shift).
 __device__ __forceinline__ void load_chunk(const __nv_bfloat16* p,
                                            float (&v)[CHUNK]) {
   const uint4 a = *reinterpret_cast<const uint4*>(p);
@@ -132,6 +119,11 @@ struct Args {
   int heads;               // KV heads a thread block (rows 11 and 12)
   float inv_sqrt;
 };
+
+// the k scales of a kernel's arguments, or null (stage_update)
+__device__ __forceinline__ const float* scales_of(const Args& a) {
+  return a.scale;
+}
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -251,6 +243,83 @@ __device__ __forceinline__ void copy_pass(unsigned char* stage, int i,
                a.scale + (row * 2 * a.KV + lane * a.KV + h) * a.SCP + off, 16);
 }
 
+// Row 13's copies of one pass (pass i of `stage`), from pointers that the
+// caller moved to the pass's first position: k, v at this lane's chunk of
+// its token's K and V rows (`bytes` as in copy_pass); s, for lanes 0 and 1,
+// at the 4 positions' k scales (lane 0) or v scales (lane 1), 16-byte
+// aligned, or null where the pool has no scales.
+template <typename T, int NW>
+__device__ __forceinline__ void copy_lane(unsigned char* stage, int i,
+                                          int lane, const T* k, const T* v,
+                                          const float* s, int bytes) {
+  constexpr int PER16 = 16 / (int)sizeof(T);
+  using R = Ring<T, NW>;
+  const int g = lane / LANES_PER_ROW, c = lane % LANES_PER_ROW;
+  unsigned char* kd =
+      stage + ((i * PER_WARP + g) * DH + c * CHUNK) * (int)sizeof(T);
+#pragma unroll
+  for (int e = 0; e < CHUNK / PER16; ++e) {
+    cp_async16(kd + 16 * e, k + e * PER16, bytes);
+    cp_async16(kd + R::CODES + 16 * e, v + e * PER16, bytes);
+  }
+  if (s != nullptr && lane < 2)
+    cp_async16(reinterpret_cast<float*>(stage + 2 * R::CODES) +
+                   lane * R::ROWS + i * PER_WARP,
+               s, 16);
+}
+
+// How row 13 rounds v_eff = bf16(code * bf16(v_scale)). The product is
+// exact in f32 (8-bit times 8-bit significands) and finite, so every way
+// gives the same bits: a conversion an element (__float2bfloat16_rn), a
+// packed conversion of two products (cvt.rn.bf16x2.f32), round-to-nearest-
+// even on the bit pattern, or the two codes packed to bf16 (exact) and
+// multiplied by the scale in bf16 (mul.rn.bf16x2: one rounding of the
+// exact product). NONE is a measurement build's variant: the copies and
+// waits without the arithmetic. The default build takes V_ROUND.
+enum VRound { VROUND_CVT = 0, VROUND_PACKED = 1, VROUND_INT = 2,
+              VROUND_BF16X2 = 3, VROUND_NONE = 4 };
+constexpr int V_ROUND = VROUND_BF16X2;
+
+template <int VR>
+__device__ __forceinline__ void fold_chunk(float (&v)[CHUNK], float vs) {
+  if (VR == VROUND_BF16X2) {
+    const __nv_bfloat162 s2 = __float2bfloat162_rn(vs);   // vs is bf16
+#pragma unroll
+    for (int e = 0; e < CHUNK; e += 2) {
+      uint32_t two;
+      asm("cvt.rn.bf16x2.f32 %0, %1, %2;"
+          : "=r"(two)
+          : "f"(v[e + 1]), "f"(v[e]));
+      const __nv_bfloat162 prod =
+          __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&two), s2);
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(&prod);
+      v[e] = __uint_as_float(w << 16);
+      v[e + 1] = __uint_as_float(w & 0xffff0000u);
+    }
+  } else if (VR == VROUND_PACKED) {
+#pragma unroll
+    for (int e = 0; e < CHUNK; e += 2) {
+      uint32_t two;
+      asm("cvt.rn.bf16x2.f32 %0, %1, %2;"
+          : "=r"(two)
+          : "f"(__fmul_rn(v[e + 1], vs)), "f"(__fmul_rn(v[e], vs)));
+      v[e] = __uint_as_float(two << 16);
+      v[e + 1] = __uint_as_float(two & 0xffff0000u);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < CHUNK; ++e) {
+      const float x = __fmul_rn(v[e], vs);
+      if (VR == VROUND_INT) {
+        const uint32_t u = __float_as_uint(x);
+        v[e] = __uint_as_float((u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u);
+      } else {
+        v[e] = bf16_round(x);
+      }
+    }
+  }
+}
+
 // One stage of a warp's online softmax: the logits of its tokens, the
 // stage's max over the warp, p and its sum, then p (bf16) times the lane's
 // chunk of each v row. FULL: every pass was copied and every position is
@@ -258,11 +327,15 @@ __device__ __forceinline__ void copy_pass(unsigned char* stage, int i,
 // products interleave; else bit i of `bits` says whether pass i was copied
 // and t0 + i * PASS < len whether the lane's position counts (t0: its
 // position in the stage's first pass). A stage with no filled position of
-// this warp leaves (m, l, acc) as they are.
-template <typename T, int REP, int NW, bool FULL>
+// this warp leaves (m, l, acc) as they are. The stage holds k and v scales
+// where `a` has them (scales_of). FOLD: row 13's numerics (p rounded to
+// bf16 alone, the v scale rounded to bf16 and folded into the values,
+// rounded as VR says); else rows 11 and 12's, bf16(p * v_scale).
+template <typename T, int REP, int NW, bool FULL, bool FOLD = false,
+          int VR = V_ROUND, typename A>
 __device__ __forceinline__ void stage_update(
-    const unsigned char* stage, uint32_t bits, int t0, int len,
-    const Args& a, const float (&qv)[REP][CHUNK], float (&acc)[REP][CHUNK],
+    const unsigned char* stage, uint32_t bits, int t0, int len, const A& a,
+    const float (&qv)[REP][CHUNK], float (&acc)[REP][CHUNK],
     float (&m_run)[REP], float (&l_run)[REP]) {
   using R = Ring<T, NW>;
   const int lane = threadIdx.x & 31;
@@ -303,8 +376,8 @@ __device__ __forceinline__ void stage_update(
   for (int i = 0; i < PASSES; ++i)
 #pragma unroll
     for (int r = 0; r < REP; ++r) {
-      const float x = a.scale ? __fmul_rn(s[i][r], ksc[i * PER_WARP])
-                              : s[i][r];
+      const float x = scales_of(a) ? __fmul_rn(s[i][r], ksc[i * PER_WARP])
+                                   : s[i][r];
       s[i][r] = valid[i] ? __fmul_rn(x, a.inv_sqrt) : NEG_INF;
     }
 
@@ -324,7 +397,8 @@ __device__ __forceinline__ void stage_update(
     for (int i = 0; i < PASSES; ++i) {
       const float p = valid[i] ? expf(s[i][r] - m_new) : 0.0f;
       sum += p;
-      pv[i][r] = bf16_round(a.scale ? __fmul_rn(p, vsc[i * PER_WARP]) : p);
+      pv[i][r] = bf16_round(!FOLD && scales_of(a)
+                                ? __fmul_rn(p, vsc[i * PER_WARP]) : p);
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 8);
     sum += __shfl_xor_sync(0xffffffffu, sum, 16);
@@ -342,6 +416,8 @@ __device__ __forceinline__ void stage_update(
     if (!valid[i]) continue;
     float vv[CHUNK];
     smem_chunk(vst + i * PER_WARP * DH, vv);
+    if (FOLD && scales_of(a))
+      fold_chunk<VR>(vv, bf16_round(vsc[i * PER_WARP]));
 #pragma unroll
     for (int r = 0; r < REP; ++r)
 #pragma unroll
@@ -543,13 +619,17 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 // The KV heads a thread block of NW-warp heads takes: the most that divide
 // KV within MAX_WARPS(rep) warps and a block's shared memory.
 constexpr int SMEM_MAX = 227 * 1024;
-template <typename T, int NW>
-int heads_per_block(int KV, int rep) {
-  const int warps = MAX_WARPS(rep) < SMEM_MAX / Ring<T, NW>::WARP
-                        ? MAX_WARPS(rep) : SMEM_MAX / Ring<T, NW>::WARP;
-  int heads = warps / NW;
+int heads_for(int KV, int rep, int nw, int warp_bytes) {
+  const int warps = MAX_WARPS(rep) < SMEM_MAX / warp_bytes
+                        ? MAX_WARPS(rep) : SMEM_MAX / warp_bytes;
+  int heads = warps / nw;
   while (heads > 1 && KV % heads) --heads;
   return heads < 1 ? 1 : heads;
+}
+
+template <typename T, int NW>
+int heads_per_block(int KV, int rep) {
+  return heads_for(KV, rep, NW, Ring<T, NW>::WARP);
 }
 
 template <typename T, int REP, bool GROUPED, int NW>
@@ -611,194 +691,6 @@ int resident_rep(int64_t rep, int KV, int* out) {
 }
 
 // ---------------------------------------------------------------------------
-// Row 13's helpers: the first design of rows 11 and 12, which row 13 keeps.
-// 4 warps, each lane one 16-element chunk of a token's head row, 8 lanes
-// to a row, 16 tokens a pass; a pool block's logits (then p) in shared
-// memory, three block-wide barriers a block, plain loads.
-
-constexpr int TOKENS_PER_PASS = THREADS / LANES_PER_ROW;  // 16
-
-// The shared memory of a thread block: a block's logits (then p) for each
-// query row, the warps' partial maxima and sums, and the final per-warp
-// sums of acc.
-struct Smem {
-  float* s_buf;    // REP * width
-  float* red_max;  // WARPS * REP
-  float* red_sum;  // WARPS * REP
-  float* fin;      // WARPS * REP * DH
-};
-
-template <int REP>
-__device__ __forceinline__ Smem carve(float* smem, int width) {
-  Smem m;
-  m.s_buf = smem;
-  m.red_max = m.s_buf + REP * width;
-  m.red_sum = m.red_max + WARPS * REP;
-  m.fin = m.red_sum + WARPS * REP;
-  return m;
-}
-
-template <int REP>
-size_t smem_bytes(int width) {
-  return sizeof(float) * ((size_t)REP * width + 2 * WARPS * REP +
-                          WARPS * REP * DH);
-}
-
-// One block of nv positions into the running (m, l, acc). kb, vb point at
-// this lane's chunk of the block's first row (rows KVDh apart); ksc, vsc at
-// the block's scales of this head, or null. FOLD_V: row 13's numerics, the v
-// scale rounded to bf16 and folded into the values, p rounded alone; else
-// rows 11 and 12's, bf16(p * v_scale). Every branch is uniform over the
-// thread block.
-template <typename T, int REP, bool FOLD_V>
-__device__ __forceinline__ void online_block(
-    const T* kb, const T* vb, int64_t KVDh, const float* ksc,
-    const float* vsc, int nv, const float (&qv)[REP][CHUNK],
-    float (&acc)[REP][CHUNK], float (&m_run)[REP], float (&l_run)[REP],
-    const Smem& sm, int width, float inv_sqrt) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int sub = lane / LANES_PER_ROW, c = lane % LANES_PER_ROW;
-  // logits of the block's filled positions
-  for (int t0 = 0; t0 < nv; t0 += TOKENS_PER_PASS) {
-    const int t = t0 + warp * (32 / LANES_PER_ROW) + sub;
-    float part[REP];
-#pragma unroll
-    for (int r = 0; r < REP; ++r) part[r] = 0.0f;
-    if (t < nv) {
-      float kv[CHUNK];
-      load_chunk(kb + t * KVDh, kv);
-#pragma unroll
-      for (int r = 0; r < REP; ++r)
-#pragma unroll
-        for (int i = 0; i < CHUNK; ++i) part[r] += qv[r][i] * kv[i];
-    }
-#pragma unroll
-    for (int r = 0; r < REP; ++r) {
-      part[r] += __shfl_xor_sync(0xffffffffu, part[r], 1);
-      part[r] += __shfl_xor_sync(0xffffffffu, part[r], 2);
-      part[r] += __shfl_xor_sync(0xffffffffu, part[r], 4);
-    }
-    if (c == 0 && t < nv) {
-#pragma unroll
-      for (int r = 0; r < REP; ++r) {
-        float s = part[r];
-        if (ksc) s = __fmul_rn(s, ksc[t]);
-        sm.s_buf[r * width + t] = __fmul_rn(s, inv_sqrt);
-      }
-    }
-  }
-  __syncthreads();
-
-  // the block's max, then p and its sum
-  float m_new[REP], corr[REP];
-#pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    float v = NEG_INF;
-    for (int t = tid; t < nv; t += THREADS) v = fmaxf(v, sm.s_buf[r * width + t]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-    if (lane == 0) sm.red_max[warp * REP + r] = v;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    float v = sm.red_max[r];
-#pragma unroll
-    for (int w = 1; w < WARPS; ++w) v = fmaxf(v, sm.red_max[w * REP + r]);
-    m_new[r] = fmaxf(m_run[r], v);
-    corr[r] = expf(m_run[r] - m_new[r]);
-    float sum = 0.0f;
-    for (int t = tid; t < nv; t += THREADS) {
-      const float p = expf(sm.s_buf[r * width + t] - m_new[r]);
-      sum += p;
-      const float pv = (!FOLD_V && vsc) ? __fmul_rn(p, vsc[t]) : p;
-      sm.s_buf[r * width + t] = bf16_round(pv);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0) sm.red_sum[warp * REP + r] = sum;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    float sum = sm.red_sum[r];
-#pragma unroll
-    for (int w = 1; w < WARPS; ++w) sum += sm.red_sum[w * REP + r];
-    l_run[r] = __fadd_rn(__fmul_rn(l_run[r], corr[r]), sum);
-    m_run[r] = m_new[r];
-#pragma unroll
-    for (int i = 0; i < CHUNK; ++i) acc[r][i] = __fmul_rn(acc[r][i], corr[r]);
-  }
-
-  // readout: p (bf16) times the lane's chunk of each filled v row
-  for (int t0 = 0; t0 < nv; t0 += TOKENS_PER_PASS) {
-    const int t = t0 + warp * (32 / LANES_PER_ROW) + sub;
-    if (t < nv) {
-      float vv[CHUNK];
-      load_chunk(vb + t * KVDh, vv);
-      if (FOLD_V && vsc) {
-        const float vsc_t = bf16_round(vsc[t]);
-#pragma unroll
-        for (int i = 0; i < CHUNK; ++i) vv[i] = bf16_round(vv[i] * vsc_t);
-      }
-#pragma unroll
-      for (int r = 0; r < REP; ++r) {
-        const float p = sm.s_buf[r * width + t];
-#pragma unroll
-        for (int i = 0; i < CHUNK; ++i) acc[r][i] += p * vv[i];
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// The token lanes' partial sums of acc: across the 4 row groups of a warp
-// into sm.fin, one (REP, DH) slice per warp; the caller adds the warps'
-// slices in a fixed order.
-template <int REP>
-__device__ __forceinline__ void park_acc(float (&acc)[REP][CHUNK],
-                                         const Smem& sm) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int sub = lane / LANES_PER_ROW, c = lane % LANES_PER_ROW;
-#pragma unroll
-  for (int r = 0; r < REP; ++r)
-#pragma unroll
-    for (int i = 0; i < CHUNK; ++i) {
-      acc[r][i] += __shfl_xor_sync(0xffffffffu, acc[r][i], 8);
-      acc[r][i] += __shfl_xor_sync(0xffffffffu, acc[r][i], 16);
-    }
-  if (sub == 0) {
-#pragma unroll
-    for (int r = 0; r < REP; ++r)
-#pragma unroll
-      for (int i = 0; i < CHUNK; ++i)
-        sm.fin[(warp * REP + r) * DH + c * CHUNK + i] = acc[r][i];
-  }
-  __syncthreads();
-}
-
-template <int REP>
-__device__ __forceinline__ float warp_sum(const Smem& sm, int idx) {
-  float v = sm.fin[idx];
-#pragma unroll
-  for (int w = 1; w < WARPS; ++w) v += sm.fin[w * REP * DH + idx];
-  return v;
-}
-
-template <int REP>
-__device__ __forceinline__ void reset(float (&acc)[REP][CHUNK],
-                                      float (&m_run)[REP], float (&l_run)[REP]) {
-#pragma unroll
-  for (int r = 0; r < REP; ++r) {
-    m_run[r] = NEG_INF;
-    l_run[r] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < CHUNK; ++i) acc[r][i] = 0.0f;
-  }
-}
-
 // Row 13, `paged_attention_decode_buffered` (`_make_buffered_kernel`): the
 // frozen pool and the in-burst buffer in one online softmax, the context
 // normalised. Separate K and V pools (NB, BLK, KV*DH), given as views with a
@@ -808,14 +700,46 @@ __device__ __forceinline__ void reset(float (&acc)[REP][CHUNK],
 // which columns [0, step] count. Its numerics are the TPU kernel's, which
 // differ from rows 11 and 12 in one place: the v scale is rounded to bf16
 // and folded into the values (v_eff = bf16(code * bf16(v_scale))), and p is
-// rounded to bf16 alone. The design is the first one of rows 11 and 12
-// (one thread block per slot and KV head, a block's logits in shared
-// memory), with the buffer taken as one more block after the slot's last
-// filled one; the TPU kernel carried
-// (m, l, acc) in scratch across its sequential grid instead. What bounds it:
-// bytes, the filled K and V codes and scales and the buffer's valid columns
-// read once (147 MB at 128 slots of fill 512 with 8 KV heads, 0.044 ms at
-// 3.35 TB/s).
+// rounded to bf16 alone. The TPU kernel carried (m, l, acc) in scratch
+// across its sequential grid of (slot, block) steps and took the buffer at
+// the last step.
+//
+// What bounds it: bytes, the filled K and V codes and scales and the
+// buffer's valid columns read once (147 MB at 128 slots of fill 512 with 8
+// KV heads, 0.044 ms at 3.35 TB/s). The design is rows 11 and 12's
+// (`paged_decode_kernel`, at the top of the file): a thread block holds a
+// slot's KV heads, one or two warps a head, each warp with its own online
+// softmax and its own ring of `cp.async` stages, no barrier in the loop, a
+// head's warps merged in a fixed order at the end, int8 codes widened by
+// the biased-exponent trick. What row 13 adds:
+//   * one walk over two segments: the pool positions [0, len) through the
+//     block table, then the buffer columns [0, step] as a segment with its
+//     own pass grid from column 0 (len is not a multiple of 4, and the
+//     buffer's 4-column scale copies must stay aligned);
+//   * the pool's first 16 positions and the buffer's first stage are both
+//     copied before the fill is known: the buffer's address does not depend
+//     on it, and its first stage has a slot of its own beside the ring, so
+//     a slot whose pool part is one stage deep pays one round trip;
+//   * separate K and V planes with block strides, scales with block
+//     strides, the buffer with slot strides (`copy_lane`, from pointers
+//     each lane sets once);
+//   * the fold: a V element takes a multiply by bf16(v_scale), exact in
+//     f32, and a round to bf16 (V_ROUND); p is rounded alone;
+//   * the merge divides by max(l, 1e-30) and writes the context.
+// The softmax is updated once a stage (16 positions a warp), as in rows 11
+// and 12: p rounds to bf16 against a running max that differs from the
+// plain version's once-a-block one, within the same tolerance.
+
+// Row 13's shared memory a warp: the walk's STAGES stages of Ring<T, NW>,
+// then one stage for the buffer's first, copied before the fill is known.
+template <typename T, int NW>
+struct BufRing {
+  using R = Ring<T, NW>;
+  static constexpr int SLOTS = R::STAGES + 1;
+  static constexpr int WARP = SLOTS * R::STAGE;
+  static constexpr int BLOCK = NW * WARP;
+  static_assert(SLOTS * PASSES <= 32, "live bits");
+};
 
 struct BufArgs {
   const __nv_bfloat16* q;  // (B, KV, REP, DH)
@@ -833,75 +757,325 @@ struct BufArgs {
   int* fault;
   int64_t kp_blk, vp_blk, ks_blk, vs_blk, kb_slot, vb_slot, ksb_slot,
       vsb_slot;
-  int B, KV, MB, NB, BLK, NBUF, step, s_width;
+  int B, KV, MB, NB, BLK, NBUF;
+  int ncols;               // buffer columns that count: min(step + 1, NBUF)
+  int heads;               // KV heads a thread block
   float inv_sqrt;
 };
 
-template <typename T, int REP>
-__global__ void __launch_bounds__(THREADS)
-buffered_attention_kernel(BufArgs a) {
-  extern __shared__ float smem[];
-  const Smem sm = carve<REP>(smem, a.s_width);
-  const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
-  const int c = (tid & 31) % LANES_PER_ROW;
-  const int64_t KVDh = (int64_t)a.KV * DH;
-  const int64_t lane_off = h * DH + c * CHUNK;
-  const int limit = a.MB * a.BLK;
-
-  const int raw = a.seq_lens[b];
-  const int len = min(max(raw, 0), limit);
-  if (raw != len && h == 0 && tid == 0) atomicOr(a.fault, 1);
-
-  float qv[REP][CHUNK], acc[REP][CHUNK], m_run[REP], l_run[REP];
-  load_q<REP>(a.q, b, h, a.KV, qv);
-  reset<REP>(acc, m_run, l_run);
-  const int nblk = (len + a.BLK - 1) / a.BLK;
-  for (int j = 0; j < nblk; ++j) {
-    const int64_t row = a.tables[(int64_t)b * a.MB + j];
-    if (row < 0 || row >= a.NB) {
-      if (h == 0 && tid == 0) atomicOr(a.fault, 2);
-      continue;
-    }
-    online_block<T, REP, true>(
-        static_cast<const T*>(a.kp) + row * a.kp_blk + lane_off,
-        static_cast<const T*>(a.vp) + row * a.vp_blk + lane_off, KVDh,
-        a.ks ? a.ks + row * a.ks_blk + (int64_t)h * a.BLK : nullptr,
-        a.vs ? a.vs + row * a.vs_blk + (int64_t)h * a.BLK : nullptr,
-        min(len - j * a.BLK, a.BLK), qv, acc, m_run, l_run, sm, a.s_width,
-        a.inv_sqrt);
-  }
-  // the in-burst buffer: columns [0, step]
-  online_block<T, REP, true>(
-      static_cast<const T*>(a.kb) + b * a.kb_slot + lane_off,
-      static_cast<const T*>(a.vb) + b * a.vb_slot + lane_off, KVDh,
-      a.ksb ? a.ksb + b * a.ksb_slot + (int64_t)h * a.NBUF : nullptr,
-      a.vsb ? a.vsb + b * a.vsb_slot + (int64_t)h * a.NBUF : nullptr,
-      min(a.step + 1, a.NBUF), qv, acc, m_run, l_run, sm, a.s_width,
-      a.inv_sqrt);
-
-  park_acc<REP>(acc, sm);
-  const int64_t out0 = (int64_t)(b * a.KV + h) * REP;
-  for (int idx = tid; idx < REP * DH; idx += THREADS)
-    a.ctx[out0 * DH + idx] = warp_sum<REP>(sm, idx) /
-                             fmaxf(l_run[idx / DH], 1e-30f);
+__device__ __forceinline__ const float* scales_of(const BufArgs& a) {
+  return a.ks;
 }
 
-template <typename T, int REP>
-cudaError_t launch_buffered(const BufArgs& a, cudaStream_t stream) {
-  buffered_attention_kernel<T, REP>
-      <<<dim3((unsigned int)a.B, (unsigned int)a.KV), THREADS,
-         smem_bytes<REP>(a.s_width), stream>>>(a);
+// Thread block (b, y): slot b's KV heads y * a.heads .. + a.heads - 1, NW
+// warps each. Stage k of a warp's walk is pool stage k for k < npool, then
+// buffer stage k - npool; the buffer's first stage lives in slot STAGES,
+// every other stage k in ring slot k % STAGES.
+template <typename T, int REP, int NW, int VR>
+__global__ void __launch_bounds__(32 * MAX_WARPS(REP), 1)
+buffered_decode_kernel(BufArgs a) {
+  using R = Ring<T, NW>;
+  constexpr int PASS = R::PASS, STAGES = R::STAGES, SPAN = PASSES * PASS;
+  constexpr uint32_t ALL = (1u << PASSES) - 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int hw = threadIdx.x / (32 * NW);
+  const int b = blockIdx.x, h = blockIdx.y * a.heads + hw;
+  const int tid = threadIdx.x % (32 * NW);
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane / LANES_PER_ROW, c = lane % LANES_PER_ROW;
+  const int mine = PER_WARP * warp;   // the warp's first position in a pass
+  unsigned char* const ring =
+      smem_raw + (hw * NW + warp) * BufRing<T, NW>::WARP;
+  const int64_t KVDh = (int64_t)a.KV * DH;
+  const bool scaled = a.ks != nullptr;
+
+  // This lane's chunk of its token's K and V head rows in pool block 0 and
+  // in the slot's buffer, and the scale row that lanes 0 (k) and 1 (v)
+  // copy from (a position p of block `row` or column p adds row * stride
+  // and p rows); pass i of `stage` takes the warp's 4 positions from `off`
+  // in pool row `row`, or from buffer column `col`.
+  const int64_t lane_off = g * KVDh + h * DH + c * CHUNK;
+  const T* const k_pool = static_cast<const T*>(a.kp) + lane_off;
+  const T* const v_pool = static_cast<const T*>(a.vp) + lane_off;
+  const T* const k_buf = static_cast<const T*>(a.kb) + b * a.kb_slot + lane_off;
+  const T* const v_buf = static_cast<const T*>(a.vb) + b * a.vb_slot + lane_off;
+  const float* const s_pool =
+      !scaled ? nullptr : (lane ? a.vs : a.ks) + (int64_t)h * a.BLK;
+  const int64_t s_blk = lane ? a.vs_blk : a.ks_blk;
+  const float* const s_buf = !scaled ? nullptr
+      : (lane ? a.vsb + b * a.vsb_slot : a.ksb + b * a.ksb_slot) +
+        (int64_t)h * a.NBUF;
+  auto pool_pass = [&](unsigned char* stage, int i, int64_t row, int off,
+                       int bytes) {
+    const int64_t at = off * KVDh;
+    copy_lane<T, NW>(stage, i, lane, k_pool + row * a.kp_blk + at,
+                     v_pool + row * a.vp_blk + at,
+                     scaled ? s_pool + row * s_blk + off : nullptr, bytes);
+  };
+  auto buffer_pass = [&](unsigned char* stage, int i, int col) {
+    const int64_t at = col * KVDh;
+    copy_lane<T, NW>(stage, i, lane, k_buf + at, v_buf + at,
+                     scaled ? s_buf + col : nullptr,
+                     col + g < a.ncols ? 16 : 0);
+  };
+
+  // Every copy that needs nothing before it: the fill, the first block's
+  // pool row, q, the warp's positions among the pool's first HEAD (copied
+  // whatever the fill; a position past it is masked below) and its columns
+  // of the buffer's first stage, into the slot beside the ring.
+  const int raw = a.seq_lens[b];
+  const int64_t head = a.tables[(int64_t)b * a.MB];
+  const bool head_ok = head >= 0 && head < a.NB;
+  if (head_ok) {
+#pragma unroll
+    for (int i = 0; i < R::HEAD_PASSES; ++i)
+      pool_pass(ring, i, head, i * PASS + mine, 16);
+  }
+  // bit slot * PASSES + i: pass i of slot `slot` holds at least one of this
+  // warp's counted positions
+  uint32_t live = 0;
+#pragma unroll
+  for (int i = 0; i < PASSES; ++i) {
+    if (i * PASS + mine < a.ncols) {
+      buffer_pass(ring + STAGES * R::STAGE, i, i * PASS + mine);
+      live |= 1u << (STAGES * PASSES + i);
+    }
+  }
+  float qv[REP][CHUNK];
+  load_q<REP>(a.q, b, h, a.KV, qv);
+
+  const int len = min(max(raw, 0), a.MB * a.BLK);
+  if (raw != len && h == 0 && tid == 0) atomicOr(a.fault, 1);
+  if (len > 0 && !head_ok && tid == 0) atomicOr(a.fault, 2);
+#pragma unroll
+  for (int i = 0; i < R::HEAD_PASSES; ++i)
+    if (head_ok && i * PASS + mine < len) live |= 1u << i;
+  const int npool = (len + SPAN - 1) / SPAN;
+  const int total = npool + (a.ncols + SPAN - 1) / SPAN;
+
+  // Copy stage k into its slot and commit one group (empty for the
+  // buffer's first stage, which is in already, and past the walk's end).
+  auto copy_stage = [&](int k) {
+    const int slot = k % STAGES;
+    unsigned char* stage = ring + slot * R::STAGE;
+    if (k < npool) {
+      if (k > 0) live &= ~(ALL << (slot * PASSES));
+      const int i0 = k == 0 ? R::HEAD_PASSES : 0;
+      int p0 = (k * PASSES + i0) * PASS;        // the pass's first position
+      int j = p0 / a.BLK, off = p0 - j * a.BLK; // its block, and in the block
+      int64_t row = -1;
+      for (int i = i0; i < PASSES && p0 < len; ++i, p0 += PASS, off += PASS) {
+        if (off == a.BLK) {
+          ++j;
+          off = 0;
+          row = -1;
+        }
+        if (row < 0) row = a.tables[(int64_t)b * a.MB + j];
+        if (row < 0 || row >= a.NB) {
+          if (lane == 0) atomicOr(a.fault, 2);
+          row = -1;
+          continue;
+        }
+        const int first = p0 + mine;
+        if (first >= len) continue;
+        pool_pass(stage, i, row, off + mine, first + g < len ? 16 : 0);
+        live |= 1u << (slot * PASSES + i);
+      }
+    } else if (k > npool && k < total) {
+      live &= ~(ALL << (slot * PASSES));
+      const int c0 = (k - npool) * SPAN + mine;
+      for (int i = 0; i < PASSES && c0 + i * PASS < a.ncols; ++i) {
+        buffer_pass(stage, i, c0 + i * PASS);
+        live |= 1u << (slot * PASSES + i);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int k = 0; k < STAGES - 1; ++k) copy_stage(k);
+
+  float acc[REP][CHUNK], m_run[REP], l_run[REP];
+#pragma unroll
+  for (int r = 0; r < REP; ++r) {
+    m_run[r] = NEG_INF;
+    l_run[r] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < CHUNK; ++e) acc[r][e] = 0.0f;
+  }
+
+  for (int k = 0; k < total; ++k) {
+    cp_async_wait<STAGES - 2>();   // this lane's copies of stage k landed
+    __syncwarp();                  // and every lane's; stage k - 1 is read
+    copy_stage(k + STAGES - 1);
+    if (VR == VROUND_NONE) continue;
+    const bool buffer = k >= npool;
+    const int slot = k == npool ? STAGES : k % STAGES;
+    const int seg = buffer ? k - npool : k;   // the stage in its segment
+    const int n = buffer ? a.ncols : len;
+    const uint32_t bits = (live >> (slot * PASSES)) & ALL;
+    const int t0 = seg * SPAN + mine + g;
+    if (bits == ALL && (seg + 1) * SPAN <= n)
+      stage_update<T, REP, NW, true, true, VR>(
+          ring + slot * R::STAGE, bits, t0, n, a, qv, acc, m_run, l_run);
+    else
+      stage_update<T, REP, NW, false, true, VR>(
+          ring + slot * R::STAGE, bits, t0, n, a, qv, acc, m_run, l_run);
+  }
+  cp_async_wait<0>();
+
+  // the 4 token lanes of each chunk
+#pragma unroll
+  for (int r = 0; r < REP; ++r)
+#pragma unroll
+    for (int e = 0; e < CHUNK; ++e) {
+      acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], 8);
+      acc[r][e] += __shfl_xor_sync(0xffffffffu, acc[r][e], 16);
+    }
+  const int64_t out0 = (int64_t)(b * a.KV + h) * REP;
+  if (NW == 1) {                   // the warp's state is the result
+    if (g == 0) {
+#pragma unroll
+      for (int r = 0; r < REP; ++r) {
+        const float l = fmaxf(l_run[r], 1e-30f);
+#pragma unroll
+        for (int e = 0; e < CHUNK; e += 4)
+          *reinterpret_cast<float4*>(a.ctx + (out0 + r) * DH + c * CHUNK + e) =
+              make_float4(acc[r][e] / l, acc[r][e + 1] / l, acc[r][e + 2] / l,
+                          acc[r][e + 3] / l);
+      }
+    }
+    return;
+  }
+
+  // the warps' states in a fixed order: each warp's acc and l rescaled to
+  // the largest m, then the context. The ring is read (every copy waited
+  // for): it takes them.
+  __syncwarp();
+  float* part_mine = reinterpret_cast<float*>(ring);
+  if (g == 0) {
+#pragma unroll
+    for (int r = 0; r < REP; ++r)
+#pragma unroll
+      for (int e = 0; e < CHUNK; e += 4)
+        *reinterpret_cast<float4*>(part_mine + r * DH + c * CHUNK + e) =
+            make_float4(acc[r][e], acc[r][e + 1], acc[r][e + 2], acc[r][e + 3]);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+      part_mine[REP * DH + r] = m_run[r];
+      part_mine[REP * DH + REP + r] = l_run[r];
+    }
+  }
+  // the head's NW warps meet at barrier 1 + hw (0 is __syncthreads')
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + hw), "n"(32 * NW) : "memory");
+  const float* part = reinterpret_cast<const float*>(
+      smem_raw + hw * NW * BufRing<T, NW>::WARP);
+  constexpr int WF = BufRing<T, NW>::WARP / (int)sizeof(float);
+  for (int idx = tid; idx < REP * DH; idx += 32 * NW) {
+    const int r = idx / DH;
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) M = fmaxf(M, part[w * WF + REP * DH + r]);
+    float v = 0.0f, l = 0.0f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float scale = expf(part[w * WF + REP * DH + r] - M);
+      v = fmaf(part[w * WF + idx], scale, v);
+      l = fmaf(part[w * WF + REP * DH + REP + r], scale, l);
+    }
+    a.ctx[out0 * DH + idx] = v / fmaxf(l, 1e-30f);
+  }
+}
+
+template <typename T, int REP, int NW, int VR>
+cudaError_t launch_buffered(BufArgs a, cudaStream_t stream) {
+  using Q = BufRing<T, NW>;
+  a.heads = heads_for(a.KV, REP, NW, Q::WARP);
+  const auto kernel = buffered_decode_kernel<T, REP, NW, VR>;
+  const cudaError_t rc = allow_smem(kernel, a.heads * Q::BLOCK);
+  if (rc != cudaSuccess) return rc;
+  kernel<<<dim3((unsigned int)a.B, (unsigned int)(a.KV / a.heads)),
+           a.heads * 32 * NW, a.heads * Q::BLOCK, stream>>>(a);
   return cudaGetLastError();
 }
 
+// One warp a head where the pool's window and the counted buffer columns
+// together are SHALLOW positions or fewer, two otherwise.
+template <typename T, int REP, int VR>
+cudaError_t launch_buffered_width(const BufArgs& a, cudaStream_t stream) {
+  return (int64_t)a.MB * a.BLK + a.ncols <= SHALLOW
+      ? launch_buffered<T, REP, 1, VR>(a, stream)
+      : launch_buffered<T, REP, 2, VR>(a, stream);
+}
+
 template <typename T>
-cudaError_t launch_buffered_rep(const BufArgs& a, int rep, cudaStream_t stream) {
+cudaError_t launch_buffered_rep(const BufArgs& a, int rep,
+                                cudaStream_t stream) {
   switch (rep) {
-    case 1: return launch_buffered<T, 1>(a, stream);
-    case 2: return launch_buffered<T, 2>(a, stream);
-    case 4: return launch_buffered<T, 4>(a, stream);
+    case 1: return launch_buffered_width<T, 1, V_ROUND>(a, stream);
+    case 2: return launch_buffered_width<T, 2, V_ROUND>(a, stream);
+    case 4: return launch_buffered_width<T, 4, V_ROUND>(a, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// Row 13's arguments, checked: false for what the kernel does not take.
+bool buffered_args(
+    const void* q, const void* kp, const void* vp, const void* ks,
+    const void* vs, const void* tables, const void* seq_lens, const void* kb,
+    const void* vb, const void* ksb, const void* vsb, void* ctx, void* fault,
+    int pool_bf16, int64_t B, int64_t KV, int64_t dh, int64_t MB, int64_t NB,
+    int64_t BLK, int64_t nbuf, int64_t step, int64_t kp_blk, int64_t vp_blk,
+    int64_t ks_blk, int64_t vs_blk, int64_t kb_slot, int64_t vb_slot,
+    int64_t ksb_slot, int64_t vsb_slot, float inv_sqrt, BufArgs* a) {
+  const int64_t per16 = pool_bf16 ? 8 : 16;     // codes a 16-byte copy
+  const bool scaled = ks != nullptr;
+  if (B <= 0 || B > 2147483647 || KV <= 0 || KV > 65535 || dh != DH ||
+      MB <= 0 || NB <= 0 || BLK <= 0 || BLK % HEAD != 0 || BLK > MAX_BLK ||
+      nbuf <= 0 || nbuf > MAX_BLK || step < 0 ||
+      (int64_t)MB * BLK > 2147483647 || (vs == nullptr) == scaled ||
+      (ksb == nullptr) == scaled || (vsb == nullptr) == scaled ||
+      ((uintptr_t)q | (uintptr_t)kp | (uintptr_t)vp | (uintptr_t)kb |
+       (uintptr_t)vb) % 16 != 0 ||
+      (kp_blk | vp_blk | kb_slot | vb_slot) % per16 != 0)
+    return false;
+  // the scales' 4-position copies: rows and their starts 16-byte aligned
+  if (scaled && (((uintptr_t)ks | (uintptr_t)vs | (uintptr_t)ksb |
+                  (uintptr_t)vsb) % 16 != 0 || nbuf % 4 != 0 ||
+                 (ks_blk | vs_blk | ksb_slot | vsb_slot) % 4 != 0))
+    return false;
+  a->q = static_cast<const __nv_bfloat16*>(q);
+  a->kp = kp;
+  a->vp = vp;
+  a->ks = static_cast<const float*>(ks);
+  a->vs = static_cast<const float*>(vs);
+  a->tables = static_cast<const int*>(tables);
+  a->seq_lens = static_cast<const int*>(seq_lens);
+  a->kb = kb;
+  a->vb = vb;
+  a->ksb = static_cast<const float*>(ksb);
+  a->vsb = static_cast<const float*>(vsb);
+  a->ctx = static_cast<float*>(ctx);
+  a->fault = static_cast<int*>(fault);
+  a->kp_blk = kp_blk;
+  a->vp_blk = vp_blk;
+  a->ks_blk = ks_blk;
+  a->vs_blk = vs_blk;
+  a->kb_slot = kb_slot;
+  a->vb_slot = vb_slot;
+  a->ksb_slot = ksb_slot;
+  a->vsb_slot = vsb_slot;
+  a->B = (int)B;
+  a->KV = (int)KV;
+  a->MB = (int)MB;
+  a->NB = (int)NB;
+  a->BLK = (int)BLK;
+  a->NBUF = (int)nbuf;
+  a->ncols = (int)(step < nbuf ? step + 1 : nbuf);
+  a->heads = 1;
+  a->inv_sqrt = inv_sqrt;
+  return true;
 }
 
 }  // namespace
@@ -964,7 +1138,10 @@ extern "C" int ppq_paged_attention(const void* q, const void* pool,
 // (NB, KV, BLK) f32 views with block strides, or null; tables (B, MB) and
 // seq_lens (B,) int32; kb, vb: (B, nbuf, KV*dh) with slot strides; ksb, vsb:
 // (B, KV, nbuf) f32 with slot strides, or null; step: buffer columns
-// [0, step] count; ctx: (B, KV, rep, dh) f32; fault: one int32.
+// [0, step] count (clamped to nbuf - 1); ctx: (B, KV, rep, dh) f32; fault:
+// one int32. BLK a multiple of 16 up to MAX_BLK, nbuf up to MAX_BLK; q,
+// codes and their strides 16-byte aligned; scales, their strides and nbuf
+// aligned to 4 floats (the copies are 16 bytes).
 extern "C" int ppq_paged_attention_buffered(
     const void* q, const void* kp, const void* vp, const void* ks,
     const void* vs, const void* tables, const void* seq_lens, const void* kb,
@@ -974,47 +1151,54 @@ extern "C" int ppq_paged_attention_buffered(
     int64_t vp_blk, int64_t ks_blk, int64_t vs_blk, int64_t kb_slot,
     int64_t vb_slot, int64_t ksb_slot, int64_t vsb_slot, float inv_sqrt,
     void* stream) {
-  if (B <= 0 || B > 2147483647 || KV <= 0 || KV > 65535 || dh != DH ||
-      MB <= 0 || NB <= 0 || BLK <= 0 || BLK > MAX_BLK || nbuf <= 0 ||
-      nbuf > MAX_BLK || step < 0 || (int64_t)MB * BLK > 2147483647 ||
-      (ks == nullptr) != (vs == nullptr) ||
-      (ksb == nullptr) != (ks == nullptr))
-    return (int)cudaErrorInvalidValue;
   BufArgs a;
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.kp = kp;
-  a.vp = vp;
-  a.ks = static_cast<const float*>(ks);
-  a.vs = static_cast<const float*>(vs);
-  a.tables = static_cast<const int*>(tables);
-  a.seq_lens = static_cast<const int*>(seq_lens);
-  a.kb = kb;
-  a.vb = vb;
-  a.ksb = static_cast<const float*>(ksb);
-  a.vsb = static_cast<const float*>(vsb);
-  a.ctx = static_cast<float*>(ctx);
-  a.fault = static_cast<int*>(fault);
-  a.kp_blk = kp_blk;
-  a.vp_blk = vp_blk;
-  a.ks_blk = ks_blk;
-  a.vs_blk = vs_blk;
-  a.kb_slot = kb_slot;
-  a.vb_slot = vb_slot;
-  a.ksb_slot = ksb_slot;
-  a.vsb_slot = vsb_slot;
-  a.B = (int)B;
-  a.KV = (int)KV;
-  a.MB = (int)MB;
-  a.NB = (int)NB;
-  a.BLK = (int)BLK;
-  a.NBUF = (int)nbuf;
-  a.step = (int)(step < nbuf ? step : nbuf - 1);
-  a.s_width = (int)(BLK > nbuf ? BLK : nbuf);
-  a.inv_sqrt = inv_sqrt;
+  if (!buffered_args(q, kp, vp, ks, vs, tables, seq_lens, kb, vb, ksb, vsb,
+                     ctx, fault, pool_bf16, B, KV, dh, MB, NB, BLK, nbuf,
+                     step, kp_blk, vp_blk, ks_blk, vs_blk, kb_slot, vb_slot,
+                     ksb_slot, vsb_slot, inv_sqrt, &a))
+    return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   return (int)(pool_bf16 ? launch_buffered_rep<__nv_bfloat16>(a, (int)rep, s)
                          : launch_buffered_rep<int8_t>(a, (int)rep, s));
 }
+
+#ifdef PPQ_MEASURE
+// A measurement build only (nvcc -DPPQ_MEASURE, chip_smoke.py --attention):
+// row 13 on an int8 pool at rep 2 (path G's) with v_eff rounded as
+// `variant` says (VRound: 0 a conversion an element, 1 packed, 2 on the bit
+// pattern, 3 a bf16 multiply), or 4: the copies and waits without the
+// arithmetic (ctx is the empty merge's).
+extern "C" int ppq_paged_attention_buffered_variant(
+    const void* q, const void* kp, const void* vp, const void* ks,
+    const void* vs, const void* tables, const void* seq_lens, const void* kb,
+    const void* vb, const void* ksb, const void* vsb, void* ctx, void* fault,
+    int64_t B, int64_t KV, int64_t MB, int64_t NB, int64_t BLK, int64_t nbuf,
+    int64_t step, int64_t kp_blk, int64_t vp_blk, int64_t ks_blk,
+    int64_t vs_blk, int64_t kb_slot, int64_t vb_slot, int64_t ksb_slot,
+    int64_t vsb_slot, float inv_sqrt, int variant, void* stream) {
+  BufArgs a;
+  if (!buffered_args(q, kp, vp, ks, vs, tables, seq_lens, kb, vb, ksb, vsb,
+                     ctx, fault, 0, B, KV, DH, MB, NB, BLK, nbuf, step,
+                     kp_blk, vp_blk, ks_blk, vs_blk, kb_slot, vb_slot,
+                     ksb_slot, vsb_slot, inv_sqrt, &a))
+    return (int)cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (variant) {
+    case VROUND_CVT:
+      return (int)launch_buffered_width<int8_t, 2, VROUND_CVT>(a, s);
+    case VROUND_PACKED:
+      return (int)launch_buffered_width<int8_t, 2, VROUND_PACKED>(a, s);
+    case VROUND_INT:
+      return (int)launch_buffered_width<int8_t, 2, VROUND_INT>(a, s);
+    case VROUND_BF16X2:
+      return (int)launch_buffered_width<int8_t, 2, VROUND_BF16X2>(a, s);
+    case VROUND_NONE:
+      return (int)launch_buffered_width<int8_t, 2, VROUND_NONE>(a, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+#endif
 
 // One launch of an empty kernel on `stream`: the launch floor that rows 11
 // and 12 at shallow fills are read against (chip_smoke.py --attention).

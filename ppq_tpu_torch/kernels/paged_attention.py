@@ -38,7 +38,10 @@ The buffered read (row 13) runs the same online softmax over the slot's
 filled pool blocks and then over the in-burst buffer's columns [0, step] as
 one more block, and returns acc / max(l, 1e-30). Its values take the TPU
 kernel's numerics: v_eff = bf16(v_code * bf16(v_scale)), and p rounds to
-bf16 alone (rows 11 and 12 round bf16(p * v_scale) instead).
+bf16 alone (rows 11 and 12 round bf16(p * v_scale) instead). The plain
+version updates once a pool block and once for the buffer; the kernel walks
+the pool's positions, then the buffer's columns, in stages of 16 positions
+a warp as rows 11 and 12 do, so the two differ in the same ways.
 """
 
 from __future__ import annotations
@@ -494,8 +497,8 @@ def paged_attention_decode_buffered_plain(q, k_pool, v_pool, k_scale,
 
 
 def _rows_view(t, what, rank, device):
-    """t's element strides, after checking that it is a view whose last
-    `rank` dimensions are dense, 16-byte aligned where it holds codes."""
+    """t's element stride along its leading axis, after checking that it is
+    a view whose last `rank` dimensions are dense."""
     if t.device != device:
         raise ValueError(f'{what} lies on {t.device}, not {device}')
     dense = t[(0,) * (t.dim() - rank)]
@@ -528,7 +531,13 @@ def paged_attention_decode_buffered(q: torch.Tensor, k_pool: torch.Tensor,
     step: buffer columns [0, step] are valid (0 <= step)
 
     Returns ctx (B, KV, rep, Dh) f32. CPU tensors take the plain version;
-    CUDA tensors the kernel, or a ValueError for what it does not take."""
+    CUDA tensors the kernel, or a ValueError for what it does not take:
+    besides head dim, rep and types, blocks a multiple of 16 up to
+    KERNEL_MAX_BLOCK (a pass never crosses a block), buffers of at most
+    KERNEL_MAX_BLOCK columns, codes and their strides 16-byte aligned, and
+    with scales: scales and their strides 16-byte aligned and a buffer
+    width that is a multiple of 4 (4 positions' scales are one 16-byte
+    copy)."""
     what = 'paged_attention_buffered'
     B, KV, rep, Dh = q.shape
     NB, BLK, KVDh = k_pool.shape
@@ -557,12 +566,17 @@ def paged_attention_decode_buffered(q: torch.Tensor, k_pool: torch.Tensor,
             kbuf, vbuf, ks_buf, vs_buf, step, block_size=block_size)
     if q.device.type != 'cuda':
         raise ValueError(f'{what} runs on cpu or cuda, not {q.device}')
-    if Dh != KERNEL_HEAD_DIM or rep not in KERNEL_REPS \
-            or BLK > KERNEL_MAX_BLOCK or nbuf > KERNEL_MAX_BLOCK:
+    if Dh != KERNEL_HEAD_DIM or rep not in KERNEL_REPS:
         raise ValueError(f'{what}: the kernel takes head dim '
-                         f'{KERNEL_HEAD_DIM}, {KERNEL_REPS} query heads per KV '
-                         f'head and blocks and buffers of at most '
-                         f'{KERNEL_MAX_BLOCK}')
+                         f'{KERNEL_HEAD_DIM} and {KERNEL_REPS} query heads '
+                         f'per KV head, not {Dh} and {rep}')
+    if BLK % 16 or BLK > KERNEL_MAX_BLOCK:
+        raise ValueError(f'{what}: block size {BLK} (the kernel takes a '
+                         f'multiple of 16 up to {KERNEL_MAX_BLOCK})')
+    if nbuf > KERNEL_MAX_BLOCK or (int8 and nbuf % 4):
+        raise ValueError(f'{what}: buffer width {nbuf} (the kernel takes up '
+                         f'to {KERNEL_MAX_BLOCK} columns, with scales a '
+                         f'multiple of 4)')
     if k_pool.dtype not in (torch.int8, BF16) or v_pool.dtype != k_pool.dtype \
             or kbuf.dtype != k_pool.dtype or vbuf.dtype != k_pool.dtype:
         raise TypeError(f'{what} reads int8 or bfloat16 pools and buffers of '
@@ -578,23 +592,40 @@ def paged_attention_decode_buffered(q: torch.Tensor, k_pool: torch.Tensor,
         raise TypeError(f'{what} takes float32 scales')
     strides += [_rows_view(t, what, 2, dev) for t in scales] \
         or [0, 0, 0, 0]
+    if any(t.data_ptr() % 16 or t.stride(0) % 4 for t in scales):
+        raise ValueError(f'{what} takes 16-byte aligned scales and scale '
+                         f'strides')
     for t in (block_tables, seq_lens):
         if t.dtype != torch.int32 or t.device != dev or not t.is_contiguous():
             raise ValueError(f'{what} takes contiguous int32 tables and '
                              f'seq_lens on {dev}')
-    q = q.to(BF16).contiguous()
+    return _run_buffered(what, q.to(BF16).contiguous(), codes,
+                         scales or (None,) * 4, block_tables, seq_lens, step,
+                         strides)
+
+
+def _run_buffered(what, q, codes, scales, block_tables, seq_lens, step,
+                  strides):
+    """Allocates the context and launches row 13 on checked inputs: codes
+    (k_pool, v_pool, kbuf, vbuf), scales (k_scale, v_scale, ks_buf, vs_buf)
+    or Nones, strides their leading ones in the same order."""
+    B, KV, rep, Dh = q.shape
+    k_pool, v_pool, kbuf, vbuf = codes
+    NB, BLK, _ = k_pool.shape
+    dev = q.device
     ctx = torch.empty((B, KV, rep, Dh), dtype=F32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = library('paged_attention')
     with torch.cuda.device(dev):
         rc = lib.ppq_paged_attention_buffered(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ptr(k_scale),
-            ptr(v_scale), block_tables.data_ptr(), seq_lens.data_ptr(),
-            kbuf.data_ptr(), vbuf.data_ptr(), ptr(ks_buf), ptr(vs_buf),
-            ctx.data_ptr(), fault_word(dev).data_ptr(),
-            int(k_pool.dtype == BF16), B, KV, rep, Dh, MB, NB, BLK, nbuf,
-            step, strides[0], strides[1], strides[4], strides[5],
-            strides[2], strides[3], strides[6], strides[7], _inv_sqrt(Dh),
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            ptr(scales[0]), ptr(scales[1]), block_tables.data_ptr(),
+            seq_lens.data_ptr(), kbuf.data_ptr(), vbuf.data_ptr(),
+            ptr(scales[2]), ptr(scales[3]), ctx.data_ptr(),
+            fault_word(dev).data_ptr(), int(k_pool.dtype == BF16), B, KV,
+            rep, Dh, block_tables.shape[1], NB, BLK, kbuf.shape[1], step,
+            strides[0], strides[1], strides[4], strides[5], strides[2],
+            strides[3], strides[6], strides[7], _inv_sqrt(Dh),
             stream_of(dev))
     check(rc, what)
     LAUNCHES[what] += 1

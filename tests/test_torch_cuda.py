@@ -17,6 +17,7 @@ from ppq_tpu_torch.kernels import (LAUNCHES, floating_quant,
                                    histogram_plain, linear_quant,
                                    linear_quant_bwd, linear_quant_bwd_plain,
                                    linear_quant_plain, reset_launches)
+from ppq_tpu_torch.kernels.paged_attention import slotmajor_window
 from ppq_tpu_torch.kernels.quant import linear_quant_bwd_terms
 from ppq_tpu_torch.quantization import qfunction
 
@@ -524,6 +525,54 @@ def test_floating_quant_kernel_bitwise_vs_plain(cuda, layout, shape):
         assert LAUNCHES['floating_quant_bwd'] == 1
         want = floating_quant_bwd_plain(xc, g, scale, -qmax, qmax)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# The 21 weights of the zoo ResNet-18 that path B trains channelwise, each
+# on its own axis (conv weights on 0, the Gemm weight without transB on 1).
+RESNET18_WEIGHTS = (
+    [((64, 3, 7, 7), 0)] + [((64, 64, 3, 3), 0)] * 4
+    + [((128, 64, 3, 3), 0)] + [((128, 128, 3, 3), 0)] * 3
+    + [((128, 64, 1, 1), 0), ((256, 128, 3, 3), 0)]
+    + [((256, 256, 3, 3), 0)] * 3
+    + [((256, 128, 1, 1), 0), ((512, 256, 3, 3), 0)]
+    + [((512, 512, 3, 3), 0)] * 3 + [((512, 256, 1, 1), 0), ((512, 1000), 1)])
+
+
+@pytest.mark.parametrize('layout', [(4, 3, 448.0), (5, 2, 57344.0)],
+                         ids=['e4m3', 'e5m2'])
+@pytest.mark.parametrize('shape,axis', sorted(set(RESNET18_WEIGHTS))
+                         + [((6, 5, 7), 1), ((5, 7, 3), 1)],
+                         ids=lambda v: str(v).replace(' ', ''))
+def test_floating_channel_kernel_at_path_weights(cuda, layout, shape, axis):
+    """The channelwise body (row 6c) at every weight shape of path B, and at
+    runs of 7 and 3 (float4s that cross a run's end, stepped element by
+    element): bit-equal to the plain version with per-channel scales from
+    each channel's absmax / qmax, and with scales that clip; two calls
+    equal; one launch."""
+    e, m, qmax = layout
+    assert len(RESNET18_WEIGHTS) == 21
+    x = torch.from_numpy(_float_case(shape, seed=sum(shape))).to(cuda)
+    dims = [i for i in range(x.ndim) if i != axis]
+    absmax = torch.nan_to_num(x.abs(), nan=0.0).amax(dim=dims)
+    for scale in (absmax / qmax + 1e-12, absmax / qmax / 4 + 1e-12):
+        reset_launches()
+        got = floating_quant(x, scale, e, m, -qmax, qmax, axis)
+        assert LAUNCHES['floating_quant'] == 1
+        want = floating_quant_plain(x, scale, e, m, -qmax, qmax, axis)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        again = floating_quant(x, scale, e, m, -qmax, qmax, axis)
+        assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+
+
+def test_floating_channel_kernel_unaligned_view(cuda):
+    """A view off a 16-byte boundary takes the element loop."""
+    shape = (64, 3, 7, 7)
+    base = torch.from_numpy(_float_case((int(np.prod(shape)) + 1,), 3)).to(cuda)
+    x = base[1:].view(shape)
+    scale = torch.rand(64, device=cuda) + 0.2
+    got = floating_quant(x, scale, 4, 3, -448.0, 448.0, 0)
+    want = floating_quant_plain(x, scale, 4, 3, -448.0, 448.0, 0)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_floating_autograd_on_card(cuda):
@@ -1525,6 +1574,99 @@ def test_paged_attention_buffered_kernel_vs_plain(cuda, blk, rep, step, dtype):
                           None if ks is None else ks[0],
                           None if vs is None else vs[0], lens,
                           k[1, :, :n], v[1, :, :n], ksb, vsb, step)
+    assert read_faults(cuda) == []
+
+
+def _buffered_inputs(cuda, B, KV, rep, cap, blk, nbuf, dtype, seed):
+    """Row 13's inputs: layer 0 of a case as a fused pool of `blk`-blocks
+    through a permuted table, passed as its strided planes, and the first
+    nbuf positions of layer 1 as the buffer, its scale rows a view with a
+    slot stride of KV * (nbuf + 4). Returns (args without step, dense)."""
+    q, k, v, ks, vs = _attention_case(cuda, B, KV, rep, max(cap, nbuf), dtype,
+                                      seed)
+    fused, sc = slotmajor_window(k[0], v[0], None if ks is None else ks[0],
+                                 None if vs is None else vs[0], cap, blk)
+    nb = cap // blk
+    perm = torch.randperm(B * nb, generator=torch.Generator().manual_seed(seed))
+    fused = fused[torch.argsort(perm).to(cuda)].contiguous()
+    sc = None if sc is None else sc[torch.argsort(perm).to(cuda)].contiguous()
+    tables = perm.reshape(B, nb).to(torch.int32).to(cuda)
+    kb, vb = k[1, :, :nbuf].reshape(B, nbuf, -1), v[1, :, :nbuf].reshape(B, nbuf, -1)
+    ksb = vsb = None
+    if ks is not None:
+        wide = torch.zeros(2, B, KV * nbuf + 4, device=cuda)
+        ksb = wide[0, :, :KV * nbuf].view(B, KV, nbuf)
+        vsb = wide[1, :, :KV * nbuf].view(B, KV, nbuf)
+        ksb.copy_(ks[1, :, :nbuf].transpose(1, 2))
+        vsb.copy_(vs[1, :, :nbuf].transpose(1, 2))
+    planes = (fused[:, 0], fused[:, 1], None if sc is None else sc[:, 0],
+              None if sc is None else sc[:, 1])
+    dense = (k[0, :, :cap], v[0, :, :cap],
+             None if ks is None else ks[0, :, :cap],
+             None if vs is None else vs[0, :, :cap])
+    return (q, *planes, tables), (kb, vb, ksb, vsb), dense, \
+        (k[1, :, :nbuf], v[1, :, :nbuf])
+
+
+@pytest.mark.parametrize('dtype', [torch.int8, torch.bfloat16],
+                         ids=['int8', 'bf16'])
+@pytest.mark.parametrize('rep', [1, 2, 4])
+@pytest.mark.parametrize('blk,cap,nbuf', [(16, 32, 8), (16, 48, 16),
+                                          (32, 128, 32), (64, 512, 48),
+                                          (256, 512, 32)])
+def test_paged_attention_buffered_stage_and_pass_ends(cuda, blk, cap, nbuf,
+                                                      rep, dtype):
+    """Row 13 at fills that end inside and on a pass and a stage of the
+    pool (empty slots among them: a fill of 0 with step > 0) and at steps
+    that do the same in the buffer's own pass grid, past its end (clamped)
+    included, over a fused pool's strided planes with 3 KV heads (a thread
+    block holds a slot's heads): one warp a head where the pool's window
+    and the counted columns are 64 positions or fewer, two otherwise; buffer
+    scales with a slot stride other than KV * nbuf. Two calls bit-equal,
+    one launch, no fault."""
+    from ppq_tpu_torch.kernels import (paged_attention_decode_buffered,
+                                       paged_attention_decode_buffered_plain,
+                                       read_faults)
+    B, KV = 40, 3
+    head, buf, dense, codes = _buffered_inputs(cuda, B, KV, rep, cap, blk,
+                                               nbuf, dtype, blk + nbuf + rep)
+    lens = _edge_lens(B, cap, cuda)
+    read_faults(cuda)
+    for step in sorted({0, 3, 4, 7, 8, 15, 16, 31, nbuf - 1, nbuf + 2}):
+        reset_launches()
+        args = (*head, lens, *buf[:2], *buf[2:], step)
+        got = paged_attention_decode_buffered(*args, block_size=blk)
+        again = paged_attention_decode_buffered(*args, block_size=blk)
+        assert LAUNCHES['paged_attention_buffered'] == 2
+        assert torch.equal(got, again)
+        want = paged_attention_decode_buffered_plain(*args, block_size=blk)
+        torch.cuda.synchronize()
+        _assert_ctx_close(got, want, head[0], *dense, lens, *codes, buf[2],
+                          buf[3], step)
+    assert read_faults(cuda) == []
+
+
+def test_paged_attention_buffered_at_path_g(cuda):
+    """Row 13 at path G's shape (128 slots, 8 KV heads of 128, rep 2, blocks
+    of 256, 32 buffer columns) at fills 512 and 16, steps 0 and 31: within
+    the tolerance of its plain version, two calls bit-equal, no fault."""
+    from ppq_tpu_torch.kernels import (paged_attention_decode_buffered,
+                                       paged_attention_decode_buffered_plain,
+                                       read_faults)
+    B, KV, rep, cap, blk, nbuf = 128, 8, 2, 1024, 256, 32
+    head, buf, dense, codes = _buffered_inputs(cuda, B, KV, rep, cap, blk,
+                                               nbuf, torch.int8, 12)
+    read_faults(cuda)
+    for fill in (512, 16):
+        lens = torch.full((B,), fill, dtype=torch.int32, device=cuda)
+        for step in (0, 31):
+            args = (*head, lens, *buf, step)
+            got = paged_attention_decode_buffered(*args, block_size=blk)
+            assert torch.equal(got, paged_attention_decode_buffered(
+                *args, block_size=blk))
+            want = paged_attention_decode_buffered_plain(*args, block_size=blk)
+            _assert_ctx_close(got, want, head[0], *dense, lens, *codes,
+                              buf[2], buf[3], step)
     assert read_faults(cuda) == []
 
 

@@ -265,14 +265,25 @@ def _float_case(e, m, qmax, shape=(6, 5, 40), seed=0):
     return x
 
 
-@pytest.mark.parametrize('mode', list(MODES))
+# weights whose runs (inner) are not a multiple of 4: conv1 on axis 0
+# (147) and the Gemm weight without transB on axis 1 (1), the runs that the
+# channelwise kernel steps element by element
+FLOAT_WEIGHTS = {'conv1_axis0': ((64, 3, 7, 7), 0),
+                 'gemm_axis1': ((512, 1000), 1)}
+
+
+@pytest.mark.parametrize('mode', list(MODES) + list(FLOAT_WEIGHTS))
 @pytest.mark.parametrize('layout', list(LAYOUTS))
 def test_plain_floating_bitwise_vs_pallas(layout, mode):
     """Against `pallas_floating_quant` in interpret mode (both bodies), and
     against the jnp path's generic bit arithmetic: bit for bit."""
     e, m, qmax = LAYOUTS[layout]
-    axis = MODES[mode]
-    x = _float_case(e, m, qmax)
+    if mode in FLOAT_WEIGHTS:
+        shape, axis = FLOAT_WEIGHTS[mode]
+        x = _float_case(e, m, qmax, shape)
+    else:
+        axis = MODES[mode]
+        x = _float_case(e, m, qmax)
     rng = np.random.RandomState(7)
     scale = (np.float32(0.37) if axis is None
              else (rng.rand(x.shape[axis]) + 0.2).astype(np.float32))

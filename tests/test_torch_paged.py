@@ -300,14 +300,35 @@ def _dense_slots(kp, vp, ks, vs, tbl):
             vs[tbl].transpose(0, 1, 3, 2).reshape(B, MB * BLK, KV))
 
 
-@pytest.mark.parametrize('int8', [True, False], ids=['int8', 'bf16'])
-def test_buffered_attention_plain_vs_pallas(int8):
+# the cases the CUDA kernel walks apart: fills on a block's end, the
+# buffer's last column, step 0 beside an empty slot, and buffer scale rows
+# with a slot stride other than KV * n (a view into a wider array)
+BUFFERED_CASES = {
+    'block-end': dict(lens=[128, 256, 127]),
+    'last-column': dict(step=31),
+    'step0-empty': dict(lens=[0, 0, 5], step=0),
+    'slot-stride': dict(slot_pad=4),
+}
+
+
+@pytest.mark.parametrize(
+    'int8,variant',
+    [(True, None), (False, None)]
+    + [(int8, v) for v in BUFFERED_CASES for int8 in (True, False)
+       if int8 or v != 'slot-stride'],
+    ids=['int8', 'bf16'] + [f'{"int8" if int8 else "bf16"}-{v}'
+                            for v in BUFFERED_CASES for int8 in (True, False)
+                            if int8 or v != 'slot-stride'])
+def test_buffered_attention_plain_vs_pallas(int8, variant):
     """Row 13's plain version against the Pallas kernel in interpret mode,
     in f32 within _ctx_tolerance; the wrapper on CPU tensors is the plain
     version, and separate-pool views of a fused pool give the same
     context."""
     case = _buffered_case(int8)
     q, kp, vp, ks, vs, tbl, lens, kb, vb, ksb, vsb, step = case
+    change = BUFFERED_CASES.get(variant, {})
+    lens = np.asarray(change.get('lens', lens), np.int32)
+    step = change.get('step', step)
     jd = jnp.int8 if int8 else jnp.bfloat16
     want = np.asarray(jpa.paged_attention_decode_buffered(
         jnp.asarray(q), jnp.asarray(kp, jd), jnp.asarray(vp, jd),
@@ -321,6 +342,15 @@ def test_buffered_attention_plain_vs_pallas(int8):
         np.ascontiguousarray(a)).to(d or torch.from_numpy(a).dtype)
     args = (t(q).bfloat16(), t(kp, td), t(vp, td), t(ks), t(vs), t(tbl),
             t(lens), t(kb, td), t(vb, td), t(ksb), t(vsb), step)
+    pad = change.get('slot_pad')
+    if pad:
+        # the same scales as rows of (B, KV * n + pad): slot stride KV*n+pad
+        B, KV, n = ksb.shape
+        wide = torch.zeros(2, B, KV * n + pad)
+        wide[:, :, :KV * n] = torch.stack([args[9], args[10]]).reshape(2, B, -1)
+        views = wide[:, :, :KV * n].reshape(2, B, KV, n)
+        assert views[0].stride(0) == KV * n + pad
+        args = args[:9] + (views[0], views[1], step)
     got = paged_attention_decode_buffered(*args).numpy()
     plain = paged_attention_decode_buffered_plain(*args).numpy()
     np.testing.assert_array_equal(got, plain)
