@@ -1547,8 +1547,8 @@ def kernels_paged(dev, flush, detail=False, measure=False):
     the repacked window, the buffer's products and merge_attention: several
     calls, the repack not included). `detail` (--attention): row 13 and the
     composition timed at both fills and steps, the composition also with
-    its share of the burst's repack; with `measure`, row 13's measurement
-    variants (`_row13_variants`)."""
+    its share of the burst's repack; with `measure`, the measurement
+    build's row 13 beside it (`_row13_variants`)."""
     from ppq_tpu_torch.kernels import (paged_attention_decode_buffered,
                                        paged_attention_decode_buffered_plain,
                                        pool_write_inplace, pool_write_plain,
@@ -1658,6 +1658,8 @@ def kernels_paged(dev, flush, detail=False, measure=False):
                                      'the same inputs differ')
             want = paged_attention_decode_buffered_plain(*args, block_size=BLK)
             tol = _buffered_tolerance(q, *dense, lens, kb, vb, ks1, vs1, step)
+            if lens is path_lens and step == T - 1:
+                path_tol = tol
             worst_plain = max(worst_plain, _hold_buffered(
                 got, want, tol, f'paged_attention_buffered at fill {f} '
                 f'against its plain version'))
@@ -1670,7 +1672,7 @@ def kernels_paged(dev, flush, detail=False, measure=False):
                 f'the composition', factor=2.0))
             worst = max(worst, float((got - want).abs().max()))
         inputs[f] = dict(tbl=tbl, lens=path_lens, kv_bm=kv_bm, sc_bm=sc_bm,
-                         rblk=rblk, group=group, bucket=bucket)
+                         rblk=rblk, group=group, bucket=bucket, tol=path_tol)
         del dense
     faults = read_faults(dev)
     if faults:
@@ -1758,50 +1760,54 @@ def kernels_paged(dev, flush, detail=False, measure=False):
 
 def _row13_variants(q, planes, inputs, fill, kb3, vb3, ks1, vs1, T, flush):
     """The measurement build's row 13 (`paged_attention_measure`) at path
-    G's fills, step 31: v_eff rounded by a conversion an element, a packed
-    conversion, on the bit pattern or by a bf16 multiply (each bit-equal to
-    the package's kernel), and the copies and waits alone."""
+    G's fills, step 31, beside the package's kernel: the copies and waits
+    alone, and at fill 16 (a one-block table, so two warps a KV head) the
+    one-warp-a-head layout, held against the plain version within its
+    tolerance."""
     from ppq_tpu_torch.kernels import (loader,
-                                       paged_attention_decode_buffered)
+                                       paged_attention_decode_buffered,
+                                       paged_attention_decode_buffered_plain)
     from ppq_tpu_torch.kernels.paged_attention import _inv_sqrt
     lib = loader.library('paged_attention_measure')
     dev = q.device
     stream = loader.stream_of(dev)
     B, KV, rep, Dh = q.shape
+    BLK = planes[0].shape[1]
     qb = q.contiguous()
     ctx = torch.empty((B, KV, rep, Dh), dtype=torch.float32, device=dev)
     fault = loader.fault_word(dev)
-    names = ('conversion a value', 'packed conversion', 'bit pattern',
-             'bf16 multiply', 'copies only')
     out = {}
     for f in (fill, 16):
         at = inputs[f]
         step = T - 1
-        want = paged_attention_decode_buffered(
-            q, *planes, at['tbl'], at['lens'], kb3, vb3, ks1, vs1, step,
-            block_size=planes[0].shape[1])
-        timed = {}
-        for variant, name in enumerate(names):
-            def run():
-                rc = lib.ppq_paged_attention_buffered_variant(
-                    qb.data_ptr(), *[t.data_ptr() for t in planes],
-                    at['tbl'].data_ptr(), at['lens'].data_ptr(),
-                    kb3.data_ptr(), vb3.data_ptr(), ks1.data_ptr(),
-                    vs1.data_ptr(), ctx.data_ptr(), fault.data_ptr(), B, KV,
-                    at['tbl'].shape[1], planes[0].shape[0],
-                    planes[0].shape[1], T, step, planes[0].stride(0),
-                    planes[1].stride(0), planes[2].stride(0),
-                    planes[3].stride(0), kb3.stride(0), vb3.stride(0),
-                    ks1.stride(0), vs1.stride(0), _inv_sqrt(Dh), variant,
-                    stream)
-                if rc:
-                    raise AssertionError(f'row 13 variant {name}: {rc}')
-            run()
-            if variant < 4 and not torch.equal(ctx, want):
-                raise AssertionError(f'row 13 variant {name} != the kernel')
-            timed[name] = time_ms(run, flush)
+        args = (q, *planes, at['tbl'], at['lens'], kb3, vb3, ks1, vs1, step)
+
+        def run(warps, copies):
+            rc = lib.ppq_paged_attention_buffered_measure(
+                qb.data_ptr(), *[t.data_ptr() for t in planes],
+                at['tbl'].data_ptr(), at['lens'].data_ptr(), kb3.data_ptr(),
+                vb3.data_ptr(), ks1.data_ptr(), vs1.data_ptr(),
+                ctx.data_ptr(), fault.data_ptr(), B, KV, at['tbl'].shape[1],
+                planes[0].shape[0], BLK, T, step, planes[0].stride(0),
+                planes[1].stride(0), planes[2].stride(0), planes[3].stride(0),
+                kb3.stride(0), vb3.stride(0), ks1.stride(0), vs1.stride(0),
+                _inv_sqrt(Dh), warps, copies, stream)
+            if rc:
+                raise AssertionError(f'row 13 measurement build: {rc}')
+
+        timed = {'kernel': time_ms(lambda: paged_attention_decode_buffered(
+            *args, block_size=BLK), flush)}
+        if f == 16:
+            run(1, 0)
+            share = _hold_buffered(
+                ctx, paged_attention_decode_buffered_plain(*args,
+                                                           block_size=BLK),
+                at['tol'], 'row 13 one warp a head against its plain version')
+            timed['one warp a head'] = time_ms(lambda: run(1, 0), flush)
+            timed['one warp a head, share of the tolerance'] = share
+        timed['copies only'] = time_ms(lambda: run(2, 1), flush)
         out[f'fill {f} step {step}'] = timed
-        log(f'[attention] row 13 variants at fill {f}, step {step}: '
+        log(f'[attention] row 13 measurement build at fill {f}, step {step}: '
             + '; '.join(f'{k} {v:.4f}' for k, v in timed.items()))
     return out
 
@@ -3775,7 +3781,7 @@ def _measure_libraries(sources):
     arithmetic), an empty launch and a pair of empty launches that differ
     in the size of their arguments. The package's libraries stay as the
     paths run them. Returns the names registered: a source without such a
-    build (an older commit) is left out."""
+    build, or with other entry points (an older commit), is left out."""
     import ctypes
     from ppq_tpu_torch.kernels import loader
     P, I64, F, INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_int
@@ -3791,17 +3797,18 @@ def _measure_libraries(sources):
         'kv_write.cu': ('kv_write_measure', {
             'ppq_empty_launch_args': [INT, P]}),
         'paged_attention.cu': ('paged_attention_measure', {
-            'ppq_paged_attention_buffered_variant':
-                [P] * 13 + [I64] * 15 + [F, INT, P]}),
+            'ppq_paged_attention_buffered_measure':
+                [P] * 13 + [I64] * 15 + [F, INT, INT, P]}),
     }
     names = []
     for source in sources:
+        name, fns = entries[source]
         with open(os.path.join(loader.SRC_DIR, source)) as f:
-            if 'PPQ_MEASURE' not in f.read():
-                continue
+            text = f.read()
+        if 'PPQ_MEASURE' not in text or not all(fn in text for fn in fns):
+            continue
         flags, = [lib[2] for lib in loader.LIBRARIES.values()
                   if lib[0] == source]
-        name, fns = entries[source]
         loader.LIBRARIES[name] = (source, fns, [*flags, '-DPPQ_MEASURE'])
         names.append(name)
     return names
@@ -3952,7 +3959,8 @@ def main_attention(package_root=None) -> int:
     pool) at path G's (kernels_paged: fills 512 and 16, steps 0 and 31,
     beside the engine's composition with and without its share of the
     burst's repack, and, where the checkout has the measurement build,
-    row 13's variants): the quick loop for work on those kernels. With
+    row 13's copies alone and its one-warp-a-head layout at fill 16): the
+    quick loop for work on those kernels. With
     `--package-root DIR` the package is imported from the checkout at DIR,
     so two commits are timed in one call on one card, in turns."""
     t_start = time.perf_counter()

@@ -10,15 +10,18 @@
 // one multiply-high, one add and one shift (the method of Granlund and
 // Montgomery, as PyTorch's IntDivider does it).
 //
-// Shared by the kernels that split a flat index: fake_quant.cu's and
-// floating.cu's channelwise bodies (the channel of a float4) and
-// fake_quant_bwd.cu (a channel's element of its runs), kv_write.cu's
-// bank_write (a 16-byte vector's buffer, slot and place in its row).
+// Shared by the kernels that split a flat index: the channelwise walk at
+// the end of this file (fake_quant.cu's and floating.cu's channelwise
+// bodies: the channel of a float4), fake_quant_bwd.cu (a channel's element
+// of its runs), kv_write.cu's bank_write (a 16-byte vector's buffer, slot
+// and place in its row).
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "rounding.cuh"
 
 namespace ppq {
 
@@ -102,5 +105,91 @@ struct ChannelIndex {
     }
   }
 };
+
+// ---------------------------------------------------------------------------
+// The channelwise walk: y[i] = op(x[i], op.param(c)) for the channel c of
+// flat index i, in the tensor's own layout. What bounds it on an H100 is
+// device memory (8 bytes an element), so a grid-stride loop over float4s,
+// a thread's WALK_LOADS of them a grid apart and in flight together, at
+// most one wave of 8 blocks an SM (a tensor smaller than that gives each
+// thread one float4, over as many SMs as it fills). The channel is found
+// once a float4 (two multiply-highs) and op.param read once for its four
+// elements; only a float4 that crosses a run's end (inner not a multiple
+// of 4, or below 4) steps element by element. The tail, or every element
+// when x or y is not 16-byte aligned, goes element by element.
+//
+// Op: `template <typename Index> P param(Index c) const` (what an element
+// of channel c needs, read from the card) and `float operator()(float x,
+// P p) const`, both __device__.
+
+constexpr int WALK_THREADS = 256;  // a block
+constexpr int WALK_LOADS = 4;      // float4 loads a thread has in flight
+
+template <typename Div, typename Op>
+__global__ void __launch_bounds__(WALK_THREADS)
+channel_walk_kernel(const float* __restrict__ x, float* __restrict__ y,
+                    typename IndexOf<Div>::type n,
+                    typename IndexOf<Div>::type n_vec, ChannelIndex<Div> at,
+                    Op op) {
+  using Index = typename IndexOf<Div>::type;
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float4* y4 = reinterpret_cast<float4*>(y);
+  const Index grid = (Index)gridDim.x * WALK_THREADS;
+  for (Index base = (Index)blockIdx.x * WALK_THREADS + threadIdx.x;
+       base < n_vec; base += grid * WALK_LOADS) {
+    float4 v[WALK_LOADS];
+#pragma unroll
+    for (int k = 0; k < WALK_LOADS; ++k) {
+      const Index j = base + k * grid;
+      if (j < n_vec) v[k] = x4[j];
+    }
+#pragma unroll
+    for (int k = 0; k < WALK_LOADS; ++k) {
+      const Index j = base + k * grid;
+      if (j >= n_vec) continue;
+      Index c, w;
+      at.locate(j * 4, c, w);
+      float* e = reinterpret_cast<float*>(&v[k]);
+      if (w + 3 < at.inner.d) {
+        const auto p = op.param(c);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) e[q] = op(e[q], p);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (q > 0) at.step(c, w);
+          e[q] = op(e[q], op.param(c));
+        }
+      }
+      y4[j] = v[k];
+    }
+  }
+  for (Index i = n_vec * 4 + (Index)blockIdx.x * WALK_THREADS + threadIdx.x;
+       i < n; i += grid)
+    y[i] = op(x[i], op.param(at.channel(i)));
+}
+
+// The walk over n elements of `channels` runs of `inner`, on `stream`:
+// 32-bit indices by multiply-high below 2^31 elements, plain 64-bit
+// division from there.
+template <typename Op>
+void launch_channel_walk(const float* x, float* y, int64_t n,
+                         int64_t channels, int64_t inner, const Op& op,
+                         cudaStream_t stream) {
+  const int64_t n_vec = (aligned16(x) && aligned16(y)) ? n / 4 : 0;
+  int64_t blocks = ((n_vec > 0 ? n_vec : n) + WALK_THREADS - 1) / WALK_THREADS;
+  if (blocks > 8 * (int64_t)sm_count()) blocks = 8 * (int64_t)sm_count();
+  if (n < INT32_MAX) {
+    ChannelIndex<FastDiv32> at{FastDiv32::make((uint32_t)inner),
+                               FastDiv32::make((uint32_t)channels)};
+    channel_walk_kernel<FastDiv32, Op><<<(int)blocks, WALK_THREADS, 0, stream>>>(
+        x, y, (uint32_t)n, (uint32_t)n_vec, at, op);
+  } else {
+    ChannelIndex<PlainDiv64> at{PlainDiv64::make((uint64_t)inner),
+                                PlainDiv64::make((uint64_t)channels)};
+    channel_walk_kernel<PlainDiv64, Op><<<(int)blocks, WALK_THREADS, 0, stream>>>(
+        x, y, (uint64_t)n, (uint64_t)n_vec, at, op);
+  }
+}
 
 }  // namespace ppq

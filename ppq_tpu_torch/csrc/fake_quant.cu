@@ -14,14 +14,14 @@
 // arguments or one device scalar each.
 //
 // Channelwise keeps the tensor's own layout, outer * C runs of `inner`
-// contiguous floats, run r of channel r % C (channel_index.cuh), so the JAX
-// wrapper's transpose and padding are not needed. Two integer divisions
-// and two scale loads an element would make the instructions, not the
-// bytes, set the pace, so a grid-stride loop finds the channel once a
-// float4 by multiply-high and shift, and element by element only where a
-// float4 crosses a run's end (conv1's inner of 147, a bias or a Gemm
-// weight on its last axis with inner 1). One launch, no host work beyond
-// it, whatever the layout.
+// contiguous floats, run r of channel r % C, so the JAX wrapper's
+// transpose and padding are not needed. Two integer divisions and two
+// scale loads an element would make the instructions, not the bytes, set
+// the pace, so channel_index.cuh's walk (shared with floating.cu) finds the
+// channel once a float4 by multiply-high and shift, and element by element
+// only where a float4 crosses a run's end (conv1's inner of 147, a bias or
+// a Gemm weight on its last axis with inner 1). One launch, no host work
+// beyond it, whatever the layout.
 //
 // Numerics match the JAX reference `x / s` path bit for bit:
 //   * division is IEEE round-to-nearest (__fdiv_rn), never a reciprocal;
@@ -43,9 +43,6 @@
 using namespace ppq;
 
 namespace {
-
-constexpr int CHANNEL_THREADS = 256;  // a block of the channelwise kernel
-constexpr int LOADS = 4;  // float4 loads a thread has in flight
 
 template <int R, bool CODES>
 __device__ __forceinline__ float quant_one(float x, float s, float o,
@@ -84,79 +81,23 @@ __global__ void fake_quant_tensor_kernel(const float* __restrict__ x,
     y[i] = quant_one<R, CODES>(x[i], s, o, qmin, qmax);
 }
 
-// Four elements of one channel: the scale and the rounded offset are the
-// caller's registers.
+// Channelwise, any layout: channel_index.cuh's walk with this op. An
+// element of channel c takes scale[c] and rintf(offset[c]), read once a
+// float4 that stays in one run.
 template <int R, bool CODES>
-__device__ __forceinline__ void quant_four(float4& v, float s, float o,
-                                           float qmin, float qmax) {
-  v.x = quant_one<R, CODES>(v.x, s, o, qmin, qmax);
-  v.y = quant_one<R, CODES>(v.y, s, o, qmin, qmax);
-  v.z = quant_one<R, CODES>(v.z, s, o, qmin, qmax);
-  v.w = quant_one<R, CODES>(v.w, s, o, qmin, qmax);
-}
+struct ChannelQuant {
+  const float* scale;
+  const float* offset;
+  float qmin, qmax;
 
-// Channelwise, any layout: a grid-stride loop over float4s, a thread's LOADS
-// of them a grid apart and in flight together (a tensor smaller than the
-// grid gives each thread one, over as many SMs as it fills). The channel is
-// found once a float4 (two multiply-highs, channel_index.cuh); only a float4
-// that crosses a run's end (inner not a multiple of 4, or below 4) steps
-// element by element. QUANT false is a measurement build's variant: the
-// loads and stores alone (y = x).
-template <int R, bool CODES, typename Div, bool QUANT = true>
-__global__ void __launch_bounds__(CHANNEL_THREADS)
-fake_quant_channel_kernel(const float* __restrict__ x, float* __restrict__ y,
-                       typename IndexOf<Div>::type n,
-                       typename IndexOf<Div>::type n_vec,
-                       const float* __restrict__ scale,
-                       const float* __restrict__ offset, ChannelIndex<Div> at,
-                       float qmin, float qmax) {
-  using Index = typename IndexOf<Div>::type;
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-  float4* y4 = reinterpret_cast<float4*>(y);
-  const Index grid = (Index)gridDim.x * CHANNEL_THREADS;
-  for (Index base = (Index)blockIdx.x * CHANNEL_THREADS + threadIdx.x;
-       base < n_vec; base += grid * LOADS) {
-    float4 v[LOADS];
-#pragma unroll
-    for (int k = 0; k < LOADS; ++k) {
-      const Index j = base + k * grid;
-      if (j < n_vec) v[k] = x4[j];
-    }
-#pragma unroll
-    for (int k = 0; k < LOADS; ++k) {
-      const Index j = base + k * grid;
-      if (j >= n_vec) continue;
-      if (!QUANT) {
-        y4[j] = v[k];
-        continue;
-      }
-      Index c, w;
-      at.locate(j * 4, c, w);
-      if (w + 3 < at.inner.d) {
-        quant_four<R, CODES>(v[k], scale[c], rintf(offset[c]), qmin, qmax);
-      } else {
-        float* e = reinterpret_cast<float*>(&v[k]);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          if (q > 0) at.step(c, w);
-          e[q] = quant_one<R, CODES>(e[q], scale[c], rintf(offset[c]), qmin,
-                                     qmax);
-        }
-      }
-      y4[j] = v[k];
-    }
+  template <typename Index>
+  __device__ __forceinline__ float2 param(Index c) const {
+    return make_float2(scale[c], rintf(offset[c]));
   }
-  // the tail, or every element when x or y is not 16-byte aligned
-  for (Index i = n_vec * 4 + (Index)blockIdx.x * CHANNEL_THREADS + threadIdx.x;
-       i < n; i += grid) {
-    if (!QUANT) {
-      y[i] = x[i];
-      continue;
-    }
-    const Index c = at.channel(i);
-    y[i] = quant_one<R, CODES>(x[i], scale[c], rintf(offset[c]), qmin, qmax);
+  __device__ __forceinline__ float operator()(float x, float2 so) const {
+    return quant_one<R, CODES>(x, so.x, so.y, qmin, qmax);
   }
-}
+};
 
 template <int R, bool CODES>
 void launch_tensor(const float* x, float* y, int64_t n, float s, float o,
@@ -169,33 +110,12 @@ void launch_tensor(const float* x, float* y, int64_t n, float s, float o,
       x, y, n, n_vec, s, o, s_dev, o_dev, qmin, qmax);
 }
 
-// QUANT false: the measurement build's copy variant.
-template <int R, bool CODES, bool QUANT = true>
+template <int R, bool CODES>
 void launch_channel(const float* x, float* y, int64_t n, const float* s,
                     const float* o, int64_t channels, int64_t inner,
                     float qmin, float qmax, cudaStream_t stream) {
-  const bool aligned = aligned16(x) && aligned16(y);
-  const int64_t n_vec = aligned ? n / 4 : 0;
-  // one float4 a thread up to one wave of the card (8 blocks an SM), then
-  // up to LOADS
-  int64_t blocks =
-      ((n_vec > 0 ? n_vec : n) + CHANNEL_THREADS - 1) / CHANNEL_THREADS;
-  if (blocks > 8 * (int64_t)sm_count()) blocks = 8 * (int64_t)sm_count();
-  if (n < INT32_MAX) {
-    ChannelIndex<FastDiv32> at{FastDiv32::make((uint32_t)inner),
-                               FastDiv32::make((uint32_t)channels)};
-    fake_quant_channel_kernel<R, CODES, FastDiv32, QUANT>
-        <<<(int)blocks, CHANNEL_THREADS, 0, stream>>>(x, y, (uint32_t)n,
-                                              (uint32_t)n_vec, s, o, at, qmin,
-                                              qmax);
-  } else {
-    ChannelIndex<PlainDiv64> at{PlainDiv64::make((uint64_t)inner),
-                                PlainDiv64::make((uint64_t)channels)};
-    fake_quant_channel_kernel<R, CODES, PlainDiv64, QUANT>
-        <<<(int)blocks, CHANNEL_THREADS, 0, stream>>>(x, y, (uint64_t)n,
-                                              (uint64_t)n_vec, s, o, at, qmin,
-                                              qmax);
-  }
+  launch_channel_walk(x, y, n, channels, inner,
+                      ChannelQuant<R, CODES>{s, o, qmin, qmax}, stream);
 }
 
 #define DISPATCH_ROUNDING(rounding, codes, FN, ...)                \
@@ -270,14 +190,20 @@ extern "C" int ppq_fake_quant_channelwise(const float* x, float* y, int64_t n,
 
 #ifdef PPQ_MEASURE
 // A measurement build only (nvcc -DPPQ_MEASURE, chip_smoke.py --quant): the
-// channelwise kernel's loads and stores without its arithmetic (y = x).
+// channelwise walk's loads and stores without its arithmetic (y = x; the
+// channel it finds goes unused).
+struct ChannelCopy {
+  template <typename Index>
+  __device__ __forceinline__ int param(Index) const { return 0; }
+  __device__ __forceinline__ float operator()(float x, int) const { return x; }
+};
+
 extern "C" int ppq_fake_quant_channelwise_copy(const float* x, float* y,
                                                int64_t n, int64_t channels,
                                                int64_t inner, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  launch_channel<HALF_EVEN, false, false>(x, y, n, nullptr, nullptr, channels,
-                                          inner, 0.f, 0.f,
-                                          (cudaStream_t)stream);
+  launch_channel_walk(x, y, n, channels, inner, ChannelCopy{},
+                      (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 #endif

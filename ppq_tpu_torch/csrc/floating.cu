@@ -22,13 +22,12 @@
 // kernel argument, or one float read from the card when it is a tensor there.
 //
 // The channelwise body keeps the tensor's own layout, outer * C runs of
-// `inner` contiguous floats, run r of channel r % C, and walks it as the
-// linear fake-quant's channelwise kernel does (fake_quant.cu): a grid-stride
-// loop over float4s, a thread's LOADS of them a grid apart and in flight
-// together, at most one wave of 8 blocks an SM; the channel found once a
-// float4 by multiply-high and shift (channel_index.cuh) and its scale read
-// once a float4; element by element only where a float4 crosses a run's end;
-// the unaligned tail (or a view off a 16-byte boundary) element by element.
+// `inner` contiguous floats, run r of channel r % C, and walks it with the
+// linear fake-quant's channelwise walk (channel_index.cuh): a grid-stride
+// loop over float4s, several in flight a thread, at most one wave of 8
+// blocks an SM; the channel found once a float4 by multiply-high and shift
+// and its scale read once a float4; element by element only where a float4
+// crosses a run's end; the unaligned tail element by element.
 //
 // Numerics match the plain version bit for bit: IEEE division (__fdiv_rn),
 // clips by comparison (a NaN stays a NaN), rintf for half-to-even,
@@ -95,56 +94,20 @@ __global__ void floating_tensor_kernel(const float* __restrict__ x,
     y[i] = quant_one(x[i], s, qmin, qmax, f);
 }
 
-constexpr int CHANNEL_THREADS = 256;  // a block of the channelwise body
-constexpr int LOADS = 4;              // float4 loads a thread has in flight
+// Channelwise, any layout: channel_index.cuh's walk with this op. An
+// element of channel c takes scale[c], read once a float4 that stays in one
+// run.
+struct ChannelFloating {
+  const float* scale;
+  float qmin, qmax;
+  Layout f;
 
-// Channelwise, any layout (see the top of the file). The scale of a float4
-// that stays inside one run is the caller's register for its four elements.
-template <typename Div>
-__global__ void __launch_bounds__(CHANNEL_THREADS)
-floating_channel_kernel(const float* __restrict__ x, float* __restrict__ y,
-                        typename IndexOf<Div>::type n,
-                        typename IndexOf<Div>::type n_vec,
-                        const float* __restrict__ scale, ChannelIndex<Div> at,
-                        float qmin, float qmax, Layout f) {
-  using Index = typename IndexOf<Div>::type;
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-  float4* y4 = reinterpret_cast<float4*>(y);
-  const Index grid = (Index)gridDim.x * CHANNEL_THREADS;
-  for (Index base = (Index)blockIdx.x * CHANNEL_THREADS + threadIdx.x;
-       base < n_vec; base += grid * LOADS) {
-    float4 v[LOADS];
-#pragma unroll
-    for (int k = 0; k < LOADS; ++k) {
-      const Index j = base + k * grid;
-      if (j < n_vec) v[k] = x4[j];
-    }
-#pragma unroll
-    for (int k = 0; k < LOADS; ++k) {
-      const Index j = base + k * grid;
-      if (j >= n_vec) continue;
-      Index c, w;
-      at.locate(j * 4, c, w);
-      float* e = reinterpret_cast<float*>(&v[k]);
-      if (w + 3 < at.inner.d) {
-        const float s = scale[c];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) e[q] = quant_one(e[q], s, qmin, qmax, f);
-      } else {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          if (q > 0) at.step(c, w);
-          e[q] = quant_one(e[q], scale[c], qmin, qmax, f);
-        }
-      }
-      y4[j] = v[k];
-    }
+  template <typename Index>
+  __device__ __forceinline__ float param(Index c) const { return scale[c]; }
+  __device__ __forceinline__ float operator()(float x, float s) const {
+    return quant_one(x, s, qmin, qmax, f);
   }
-  // the tail, or every element when x or y is not 16-byte aligned
-  for (Index i = n_vec * 4 + (Index)blockIdx.x * CHANNEL_THREADS + threadIdx.x;
-       i < n; i += grid)
-    y[i] = quant_one(x[i], scale[at.channel(i)], qmin, qmax, f);
-}
+};
 
 __device__ __forceinline__ float bwd_one(float x, float g, float s,
                                          float qmin, float qmax) {
@@ -217,24 +180,9 @@ extern "C" int ppq_floating_quant_channelwise(
   if (!make_layout(mantissa_bits, max_val, min_normal, min_sub, &f) ||
       n <= 0 || channels <= 0 || inner <= 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int64_t n_vec = (aligned16(x) && aligned16(y)) ? n / 4 : 0;
-  // one float4 a thread up to one wave of the card (8 blocks an SM), then
-  // up to LOADS
-  int64_t blocks =
-      ((n_vec > 0 ? n_vec : n) + CHANNEL_THREADS - 1) / CHANNEL_THREADS;
-  if (blocks > 8 * (int64_t)sm_count()) blocks = 8 * (int64_t)sm_count();
-  if (n < INT32_MAX) {
-    ChannelIndex<FastDiv32> at{FastDiv32::make((uint32_t)inner),
-                               FastDiv32::make((uint32_t)channels)};
-    floating_channel_kernel<FastDiv32><<<(int)blocks, CHANNEL_THREADS, 0, st>>>(
-        x, y, (uint32_t)n, (uint32_t)n_vec, s, at, qmin, qmax, f);
-  } else {
-    ChannelIndex<PlainDiv64> at{PlainDiv64::make((uint64_t)inner),
-                                PlainDiv64::make((uint64_t)channels)};
-    floating_channel_kernel<PlainDiv64><<<(int)blocks, CHANNEL_THREADS, 0, st>>>(
-        x, y, (uint64_t)n, (uint64_t)n_vec, s, at, qmin, qmax, f);
-  }
+  launch_channel_walk(x, y, n, channels, inner,
+                      ChannelFloating{s, qmin, qmax, f},
+                      (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

@@ -268,55 +268,24 @@ __device__ __forceinline__ void copy_lane(unsigned char* stage, int i,
                s, 16);
 }
 
-// How row 13 rounds v_eff = bf16(code * bf16(v_scale)). The product is
-// exact in f32 (8-bit times 8-bit significands) and finite, so every way
-// gives the same bits: a conversion an element (__float2bfloat16_rn), a
-// packed conversion of two products (cvt.rn.bf16x2.f32), round-to-nearest-
-// even on the bit pattern, or the two codes packed to bf16 (exact) and
-// multiplied by the scale in bf16 (mul.rn.bf16x2: one rounding of the
-// exact product). NONE is a measurement build's variant: the copies and
-// waits without the arithmetic. The default build takes V_ROUND.
-enum VRound { VROUND_CVT = 0, VROUND_PACKED = 1, VROUND_INT = 2,
-              VROUND_BF16X2 = 3, VROUND_NONE = 4 };
-constexpr int V_ROUND = VROUND_BF16X2;
-
-template <int VR>
+// Row 13's v_eff = bf16(code * bf16(v_scale)) for a lane's chunk: two codes
+// packed to bf16 (exact: 8-bit significands) and multiplied by the scale in
+// bf16 (mul.rn.bf16x2, one rounding of the exact product). A conversion an
+// element, a packed conversion of the f32 products and a round on the bit
+// pattern give the same bits and measured no faster (PERF.md).
 __device__ __forceinline__ void fold_chunk(float (&v)[CHUNK], float vs) {
-  if (VR == VROUND_BF16X2) {
-    const __nv_bfloat162 s2 = __float2bfloat162_rn(vs);   // vs is bf16
+  const __nv_bfloat162 s2 = __float2bfloat162_rn(vs);   // vs is bf16
 #pragma unroll
-    for (int e = 0; e < CHUNK; e += 2) {
-      uint32_t two;
-      asm("cvt.rn.bf16x2.f32 %0, %1, %2;"
-          : "=r"(two)
-          : "f"(v[e + 1]), "f"(v[e]));
-      const __nv_bfloat162 prod =
-          __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&two), s2);
-      const uint32_t w = *reinterpret_cast<const uint32_t*>(&prod);
-      v[e] = __uint_as_float(w << 16);
-      v[e + 1] = __uint_as_float(w & 0xffff0000u);
-    }
-  } else if (VR == VROUND_PACKED) {
-#pragma unroll
-    for (int e = 0; e < CHUNK; e += 2) {
-      uint32_t two;
-      asm("cvt.rn.bf16x2.f32 %0, %1, %2;"
-          : "=r"(two)
-          : "f"(__fmul_rn(v[e + 1], vs)), "f"(__fmul_rn(v[e], vs)));
-      v[e] = __uint_as_float(two << 16);
-      v[e + 1] = __uint_as_float(two & 0xffff0000u);
-    }
-  } else {
-#pragma unroll
-    for (int e = 0; e < CHUNK; ++e) {
-      const float x = __fmul_rn(v[e], vs);
-      if (VR == VROUND_INT) {
-        const uint32_t u = __float_as_uint(x);
-        v[e] = __uint_as_float((u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u);
-      } else {
-        v[e] = bf16_round(x);
-      }
-    }
+  for (int e = 0; e < CHUNK; e += 2) {
+    uint32_t two;
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;"
+        : "=r"(two)
+        : "f"(v[e + 1]), "f"(v[e]));
+    const __nv_bfloat162 prod =
+        __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&two), s2);
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(&prod);
+    v[e] = __uint_as_float(w << 16);
+    v[e + 1] = __uint_as_float(w & 0xffff0000u);
   }
 }
 
@@ -329,10 +298,10 @@ __device__ __forceinline__ void fold_chunk(float (&v)[CHUNK], float vs) {
 // position in the stage's first pass). A stage with no filled position of
 // this warp leaves (m, l, acc) as they are. The stage holds k and v scales
 // where `a` has them (scales_of). FOLD: row 13's numerics (p rounded to
-// bf16 alone, the v scale rounded to bf16 and folded into the values,
-// rounded as VR says); else rows 11 and 12's, bf16(p * v_scale).
+// bf16 alone, the v scale rounded to bf16 and folded into the values);
+// else rows 11 and 12's, bf16(p * v_scale).
 template <typename T, int REP, int NW, bool FULL, bool FOLD = false,
-          int VR = V_ROUND, typename A>
+          typename A>
 __device__ __forceinline__ void stage_update(
     const unsigned char* stage, uint32_t bits, int t0, int len, const A& a,
     const float (&qv)[REP][CHUNK], float (&acc)[REP][CHUNK],
@@ -417,7 +386,7 @@ __device__ __forceinline__ void stage_update(
     float vv[CHUNK];
     smem_chunk(vst + i * PER_WARP * DH, vv);
     if (FOLD && scales_of(a))
-      fold_chunk<VR>(vv, bf16_round(vsc[i * PER_WARP]));
+      fold_chunk(vv, bf16_round(vsc[i * PER_WARP]));
 #pragma unroll
     for (int r = 0; r < REP; ++r)
 #pragma unroll
@@ -724,7 +693,7 @@ int resident_rep(int64_t rep, int KV, int* out) {
 //     strides, the buffer with slot strides (`copy_lane`, from pointers
 //     each lane sets once);
 //   * the fold: a V element takes a multiply by bf16(v_scale), exact in
-//     f32, and a round to bf16 (V_ROUND); p is rounded alone;
+//     f32, and a round to bf16 (fold_chunk); p is rounded alone;
 //   * the merge divides by max(l, 1e-30) and writes the context.
 // The softmax is updated once a stage (16 positions a warp), as in rows 11
 // and 12: p rounds to bf16 against a running max that differs from the
@@ -770,8 +739,9 @@ __device__ __forceinline__ const float* scales_of(const BufArgs& a) {
 // Thread block (b, y): slot b's KV heads y * a.heads .. + a.heads - 1, NW
 // warps each. Stage k of a warp's walk is pool stage k for k < npool, then
 // buffer stage k - npool; the buffer's first stage lives in slot STAGES,
-// every other stage k in ring slot k % STAGES.
-template <typename T, int REP, int NW, int VR>
+// every other stage k in ring slot k % STAGES. ARITH false is a measurement
+// build's variant: the copies and waits alone (ctx is the empty merge's).
+template <typename T, int REP, int NW, bool ARITH = true>
 __global__ void __launch_bounds__(32 * MAX_WARPS(REP), 1)
 buffered_decode_kernel(BufArgs a) {
   using R = Ring<T, NW>;
@@ -907,7 +877,7 @@ buffered_decode_kernel(BufArgs a) {
     cp_async_wait<STAGES - 2>();   // this lane's copies of stage k landed
     __syncwarp();                  // and every lane's; stage k - 1 is read
     copy_stage(k + STAGES - 1);
-    if (VR == VROUND_NONE) continue;
+    if (!ARITH) continue;
     const bool buffer = k >= npool;
     const int slot = k == npool ? STAGES : k % STAGES;
     const int seg = buffer ? k - npool : k;   // the stage in its segment
@@ -915,10 +885,10 @@ buffered_decode_kernel(BufArgs a) {
     const uint32_t bits = (live >> (slot * PASSES)) & ALL;
     const int t0 = seg * SPAN + mine + g;
     if (bits == ALL && (seg + 1) * SPAN <= n)
-      stage_update<T, REP, NW, true, true, VR>(
+      stage_update<T, REP, NW, true, true>(
           ring + slot * R::STAGE, bits, t0, n, a, qv, acc, m_run, l_run);
     else
-      stage_update<T, REP, NW, false, true, VR>(
+      stage_update<T, REP, NW, false, true>(
           ring + slot * R::STAGE, bits, t0, n, a, qv, acc, m_run, l_run);
   }
   cp_async_wait<0>();
@@ -988,11 +958,11 @@ buffered_decode_kernel(BufArgs a) {
   }
 }
 
-template <typename T, int REP, int NW, int VR>
+template <typename T, int REP, int NW, bool ARITH = true>
 cudaError_t launch_buffered(BufArgs a, cudaStream_t stream) {
   using Q = BufRing<T, NW>;
   a.heads = heads_for(a.KV, REP, NW, Q::WARP);
-  const auto kernel = buffered_decode_kernel<T, REP, NW, VR>;
+  const auto kernel = buffered_decode_kernel<T, REP, NW, ARITH>;
   const cudaError_t rc = allow_smem(kernel, a.heads * Q::BLOCK);
   if (rc != cudaSuccess) return rc;
   kernel<<<dim3((unsigned int)a.B, (unsigned int)(a.KV / a.heads)),
@@ -1002,20 +972,20 @@ cudaError_t launch_buffered(BufArgs a, cudaStream_t stream) {
 
 // One warp a head where the pool's window and the counted buffer columns
 // together are SHALLOW positions or fewer, two otherwise.
-template <typename T, int REP, int VR>
+template <typename T, int REP>
 cudaError_t launch_buffered_width(const BufArgs& a, cudaStream_t stream) {
   return (int64_t)a.MB * a.BLK + a.ncols <= SHALLOW
-      ? launch_buffered<T, REP, 1, VR>(a, stream)
-      : launch_buffered<T, REP, 2, VR>(a, stream);
+      ? launch_buffered<T, REP, 1>(a, stream)
+      : launch_buffered<T, REP, 2>(a, stream);
 }
 
 template <typename T>
 cudaError_t launch_buffered_rep(const BufArgs& a, int rep,
                                 cudaStream_t stream) {
   switch (rep) {
-    case 1: return launch_buffered_width<T, 1, V_ROUND>(a, stream);
-    case 2: return launch_buffered_width<T, 2, V_ROUND>(a, stream);
-    case 4: return launch_buffered_width<T, 4, V_ROUND>(a, stream);
+    case 1: return launch_buffered_width<T, 1>(a, stream);
+    case 2: return launch_buffered_width<T, 2>(a, stream);
+    case 4: return launch_buffered_width<T, 4>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1164,39 +1134,28 @@ extern "C" int ppq_paged_attention_buffered(
 
 #ifdef PPQ_MEASURE
 // A measurement build only (nvcc -DPPQ_MEASURE, chip_smoke.py --attention):
-// row 13 on an int8 pool at rep 2 (path G's) with v_eff rounded as
-// `variant` says (VRound: 0 a conversion an element, 1 packed, 2 on the bit
-// pattern, 3 a bf16 multiply), or 4: the copies and waits without the
-// arithmetic (ctx is the empty merge's).
-extern "C" int ppq_paged_attention_buffered_variant(
+// row 13 on an int8 pool at rep 2 (path G's) with `warps` (1 or 2) warps a
+// KV head whatever the window, or (copies != 0, two warps) the copies and
+// waits without the arithmetic (ctx is the empty merge's).
+extern "C" int ppq_paged_attention_buffered_measure(
     const void* q, const void* kp, const void* vp, const void* ks,
     const void* vs, const void* tables, const void* seq_lens, const void* kb,
     const void* vb, const void* ksb, const void* vsb, void* ctx, void* fault,
     int64_t B, int64_t KV, int64_t MB, int64_t NB, int64_t BLK, int64_t nbuf,
     int64_t step, int64_t kp_blk, int64_t vp_blk, int64_t ks_blk,
     int64_t vs_blk, int64_t kb_slot, int64_t vb_slot, int64_t ksb_slot,
-    int64_t vsb_slot, float inv_sqrt, int variant, void* stream) {
+    int64_t vsb_slot, float inv_sqrt, int warps, int copies, void* stream) {
   BufArgs a;
-  if (!buffered_args(q, kp, vp, ks, vs, tables, seq_lens, kb, vb, ksb, vsb,
+  if ((warps != 1 && warps != 2) ||
+      !buffered_args(q, kp, vp, ks, vs, tables, seq_lens, kb, vb, ksb, vsb,
                      ctx, fault, 0, B, KV, DH, MB, NB, BLK, nbuf, step,
                      kp_blk, vp_blk, ks_blk, vs_blk, kb_slot, vb_slot,
                      ksb_slot, vsb_slot, inv_sqrt, &a))
     return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (variant) {
-    case VROUND_CVT:
-      return (int)launch_buffered_width<int8_t, 2, VROUND_CVT>(a, s);
-    case VROUND_PACKED:
-      return (int)launch_buffered_width<int8_t, 2, VROUND_PACKED>(a, s);
-    case VROUND_INT:
-      return (int)launch_buffered_width<int8_t, 2, VROUND_INT>(a, s);
-    case VROUND_BF16X2:
-      return (int)launch_buffered_width<int8_t, 2, VROUND_BF16X2>(a, s);
-    case VROUND_NONE:
-      return (int)launch_buffered_width<int8_t, 2, VROUND_NONE>(a, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (copies) return (int)launch_buffered<int8_t, 2, 2, false>(a, s);
+  return (int)(warps == 1 ? launch_buffered<int8_t, 2, 1>(a, s)
+                          : launch_buffered<int8_t, 2, 2>(a, s));
 }
 #endif
 
