@@ -15,9 +15,19 @@ Phases (each raises on failure, and the script then exits non-zero):
      times and the bound;
   4. path A: zoo ResNet-18 at full width, `quantize_graph` with TPU_INT8
      over 16 seeded batches of 32 (percentile), a second quantization with
-     KL over 4 batches, and the simulated forward at batch 32; the forward
-     equals one whose fake-quant runs the plain versions, and its SNR
-     against the fp32 forward is reported;
+     KL over 4 batches, both through the observer path, and the simulated
+     forward at batch 32; the forward equals one whose fake-quant runs the
+     plain versions, and its SNR against the fp32 forward is reported;
+ 4b. path H: the same quantizations through the default, compiled
+     calibration (one CUDA graph a batch; the KL searches in the native
+     library), then `stem_space_to_depth` and `compile_graph(precision=
+     'int' | 'highest' | 'bf16').make_runner(chain=4)` at batch 256, one
+     CUDA graph a chain: img/s, busy share, device events and launches of
+     a replay, peak memory; then the scales against path A's, the 'int'
+     sums against int64, the card's 'int' logits against the CPU's, replays
+     against the uncaptured walk and chain-1 replays, rows 1-3 inside
+     captures against their plain versions, 'int' against 'highest' and
+     the fp32 model (`--compiled` runs this path alone);
   5. path B: the same model, `quantize_graph` with `lsq_optimization` (LSQ
      over every block, weights and scales trained, 4 cached batches), the
      forward and its SNR against the fp32 model before and after LSQ; then
@@ -3384,18 +3394,23 @@ def phase_main_path(dev):
     shape, loader, x_eval = _data()
     torch.cuda.reset_peak_memory_stats()     # not the kernels phase's peak
 
+    # path A is the observer path (path H the compiled calibration)
     reset_launches()
     graph = resnet18(input_shape=shape)
+    setting = QuantizationSettingFactory.default_setting()
+    setting.calibration.prefer_compiled = False
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     quantize_graph(graph, loader, calib_steps=CALIB_STEPS,
-                   platform=TargetPlatform.TPU_INT8, verbose=False)
+                   platform=TargetPlatform.TPU_INT8, setting=setting,
+                   verbose=False)
     torch.cuda.synchronize()
     cal_s = time.perf_counter() - t0
     after_pct = dict(LAUNCHES)
 
     kl_graph = resnet18(input_shape=shape)
     setting = QuantizationSettingFactory.default_setting()
+    setting.calibration.prefer_compiled = False
     setting.quantize_activation_setting.calib_algorithm = 'kl'
     t0 = time.perf_counter()
     quantize_graph(kl_graph, loader[:KL_STEPS], calib_steps=KL_STEPS,
@@ -3464,7 +3479,449 @@ def phase_main_path(dev):
         launches_per_kl_calib_batch_both_sweeps=per_kl_batch,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     log(f'[path A] {json.dumps(summary)}')
-    return launches, summary, kl_graph
+    return launches, summary, graph, kl_graph
+
+
+# ------------------------------------------------------------------ path H
+# the compiled executor's runners: bench.py's headline (batch 256, chains
+# of 4 after stem_space_to_depth) and its 'highest' and 'bf16' runners
+SIM_BATCH, SIM_CHAIN, SIM_REPEATS, SIM_CPU_IMAGES = 256, 4, 5, 8
+# the compiled percentile sums 16 per-batch quantiles in float32 where the
+# observer sums them in float64: at most 15 float32 roundings of the running
+# sum, and one of the scale each way (15 * 2^-24 + 2^-23 relative)
+PCT_SUM_BOUND = 15 * 2.0 ** -24 + 2.0 ** -23
+
+
+class _GraphShadow:
+    """Rows 1-3 inside a captured graph, each launch held against its plain
+    version on that launch's own inputs (in the style of _ShadowKernels).
+    While a capture is recorded, every call of the fake-quant and histogram
+    wrappers also records clones of its input and output, which the capture
+    holds: after a replay they are what the kernel read and wrote in it.
+    `check()` runs the plain versions on them."""
+
+    def __init__(self):
+        self.records = []
+
+    def __enter__(self):
+        from ppq_tpu_torch.executor import compile as compiled
+        from ppq_tpu_torch.quantization import qfunction
+        self._saved = (qfunction.linear_quant, compiled.histogram)
+        linear_quant, histogram = self._saved
+
+        def shadow_quant(x, scale, offset, qmin, qmax, rounding,
+                         channel_axis=None, codes=False):
+            y = linear_quant(x, scale, offset, qmin, qmax, rounding,
+                             channel_axis, codes)
+            if torch.cuda.is_current_stream_capturing():
+                self.records.append((
+                    'fake_quant_tensorwise' if channel_axis is None
+                    else 'fake_quant_channelwise', x.clone(), y.clone(),
+                    (scale, offset, qmin, qmax, rounding, channel_axis,
+                     codes)))
+            return y
+
+        def shadow_histogram(x, scale, bins, absolute=True, out=None):
+            y = histogram(x, scale, bins, absolute, out)
+            if torch.cuda.is_current_stream_capturing():
+                self.records.append(('histogram', x.clone(), y.clone(),
+                                     (scale, bins, absolute)))
+            return y
+
+        qfunction.linear_quant, compiled.histogram = (shadow_quant,
+                                                      shadow_histogram)
+        return self
+
+    def __exit__(self, *exc):
+        from ppq_tpu_torch.executor import compile as compiled
+        from ppq_tpu_torch.quantization import qfunction
+        qfunction.linear_quant, compiled.histogram = self._saved
+
+    def check(self, tag):
+        from ppq_tpu_torch.kernels import histogram_plain, linear_quant_plain
+        torch.cuda.synchronize()
+        held = {}
+        for name, x, y, args in self.records:
+            if name == 'histogram':
+                want = histogram_plain(x, *args)
+                same = torch.equal(y, want)
+            else:
+                want = linear_quant_plain(x, *args)
+                same = torch.equal(y.view(torch.int32),
+                                   want.view(torch.int32))
+            if not same:
+                raise AssertionError(f'{tag}: a {name} launch inside the '
+                                     f'captured graph differs from its '
+                                     f'plain version')
+            held[name] = held.get(name, 0) + 1
+        self.records.clear()
+        return held
+
+
+def _int64_conv(x_codes, w_codes, op):
+    """A convolution of integer codes in int64 (unfold, then the product)."""
+    x, w = x_codes.to(torch.int64), w_codes.to(torch.int64)
+    p = [int(v) for v in op.attributes.get('pads', [0, 0, 0, 0])]
+    s = [int(v) for v in op.attributes.get('strides', [1, 1])]
+    x = torch.nn.functional.pad(x, (p[1], p[3], p[0], p[2]))
+    oc, ic, kh, kw = w.shape
+    cols = x.unfold(2, kh, s[0]).unfold(3, kw, s[1])
+    n, _, ho, wo = cols.shape[:4]
+    cols = cols.permute(0, 2, 3, 1, 4, 5).reshape(n, ho, wo, ic * kh * kw)
+    return (cols @ w.reshape(oc, -1).T).permute(0, 3, 1, 2)
+
+
+def _device_profile(call):
+    """One call under torch.profiler: (wall ms, device busy ms, device
+    events, the 8 kernels of most device time as (ms, calls, name)), or
+    None where the profiler recorded no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    if not rows:
+        return None
+    top = [(t / 1e3, c, k[:80]) for t, c, k in sorted(rows)[::-1][:8]]
+    return (wall, sum(t for t, _, _ in rows) / 1e3,
+            sum(c for _, c, _ in rows), top)
+
+
+def _runner_metrics(tag, run, xs):
+    """Capture (the first call), then SIM_REPEATS chains on the host clock,
+    one chain under the profiler, peak memory since the runner was made."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run(xs)[0]
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(SIM_REPEATS):
+        out = run(xs)[0]
+    torch.cuda.synchronize()
+    chain_ms = (time.perf_counter() - t0) / SIM_REPEATS * 1e3
+    prof = _device_profile(lambda: run(xs))
+    m = dict(capture_s=capture_s, ms_per_chain=chain_ms,
+             img_per_s=SIM_BATCH * SIM_CHAIN / chain_ms * 1e3,
+             launches_per_replay=dict(run.launches_per_replay),
+             peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if prof is None:
+        m.update(busy_share='not measured', device_events_per_replay=
+                 'not measured')
+    else:
+        wall, busy, events, top = prof
+        m.update(profiled_wall_ms=wall, device_busy_ms=busy,
+                 busy_share=busy / wall, device_events_per_replay=events,
+                 top_kernels_ms_calls=top)
+    if tuple(out.shape) != (SIM_CHAIN, SIM_BATCH, 1000) or \
+            not torch.isfinite(out).all():
+        raise AssertionError(f'{tag} runner: shape {tuple(out.shape)}, '
+                             f'finite {bool(torch.isfinite(out).all())}')
+    log(f'[path H] runner {tag}: {json.dumps(m)}')
+    return m, out
+
+
+def _activation_scales(graph):
+    """Scale of every calibrated activation root TQC, by site."""
+    out = {}
+    for name, op in graph.operations.items():
+        if not hasattr(op, 'config'):
+            continue
+        for idx, (var, cfg) in enumerate(op.config_pairs()):
+            if not var.is_parameter and cfg.is_root and \
+                    cfg.state.name == 'ACTIVATED':
+                out[(name, idx)] = np.asarray(cfg.scale, np.float64)
+    return out
+
+
+def _scale_spread(a, b):
+    sa, sb = _activation_scales(a), _activation_scales(b)
+    if sorted(sa) != sorted(sb) or len(sa) != 41:
+        raise AssertionError(f'calibrated sites differ: {len(sa)}, {len(sb)}')
+    return max(float(np.max(np.abs(sa[k] - sb[k]) / sb[k])) for k in sa)
+
+
+def _observer_graphs(dev):
+    """Path A's two observer calibrations alone (percentile over
+    CALIB_STEPS batches, KL over KL_STEPS), for `--compiled`."""
+    from ppq_tpu_torch import TargetPlatform, quantize_graph
+    from ppq_tpu_torch.api import QuantizationSettingFactory
+    from ppq_tpu_torch.zoo import resnet18
+    shape, loader, _ = _data()
+    graphs = []
+    for algo, steps in (('percentile', CALIB_STEPS), ('kl', KL_STEPS)):
+        setting = QuantizationSettingFactory.default_setting()
+        setting.calibration.prefer_compiled = False
+        if algo == 'kl':
+            setting.quantize_activation_setting.calib_algorithm = 'kl'
+        graph = resnet18(input_shape=shape)
+        quantize_graph(graph, loader[:steps], calib_steps=steps,
+                       platform=TargetPlatform.TPU_INT8, setting=setting,
+                       verbose=False)
+        graphs.append(graph)
+    return graphs
+
+
+def _quantile_kinds(dev, loader):
+    """The 'percentile' kind (top-k, the port's choice on every device)
+    against 'quantile_bisect' (the JAX package's on the TPU), each a
+    captured calibration walk over all 41 sites at batch 32: ms a replay
+    (CUDA events, median of 10) and how far the bisection's thresholds lie
+    from the quantiles."""
+    from ppq_tpu_torch import TargetPlatform, quantize_graph
+    from ppq_tpu_torch.api import QuantizationSettingFactory
+    from ppq_tpu_torch.executor import compile_graph
+    from ppq_tpu_torch.quantization.optim.fcalibration import \
+        _activation_targets
+    from ppq_tpu_torch.zoo import resnet18
+    setting = QuantizationSettingFactory.default_setting()
+    setting.quantize_activation = False
+    graph = resnet18(input_shape=list(loader[0].shape))
+    # without activation scales the bias scales stay underived, which the
+    # package reports per conv; nothing here reads them. (The logger is
+    # made first: it sets its level once, when it is made.)
+    from ppq_tpu_torch.core import PPQLogger
+    logger = PPQLogger()
+    level = logging.getLogger('ppq_tpu_torch').level
+    logger.set_level(logging.ERROR)
+    try:
+        quantize_graph(graph, loader[:1], calib_steps=1, setting=setting,
+                       platform=TargetPlatform.TPU_INT8, verbose=False)
+    finally:
+        logger.set_level(level)
+    targets = _activation_targets(graph)
+    cg = compile_graph(graph)
+    params = cg.init_params()
+    x = torch.as_tensor(loader[0], device=dev)
+    out = {}
+    stats = {}
+    for kind in ('percentile', 'quantile_bisect'):
+        fn = cg.build_calibration_forward(
+            {n: {'kind': kind, 'percentile': 0.9999} for n in targets})
+        fn(params, x)
+        times = []
+        for _ in range(10):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            got = fn(params, x)[1]
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        stats[kind] = {n: (float(v[0]), float(v[1])) for n, v in got.items()}
+        out[f'{kind}_ms_per_batch'] = statistics.median(times)
+        del fn
+    # the distance in units of the site's range (a quantile may be 0)
+    out['bisect_vs_percentile_max_of_range'] = max(
+        max(abs(b - p) for b, p in zip(stats['quantile_bisect'][n],
+                                       stats['percentile'][n]))
+        / max(max(abs(v) for v in stats['percentile'][n]), 1e-12)
+        for n in targets)
+    return out
+
+
+def phase_path_h(dev, pct_observer, kl_observer):
+    """The compiled executor and the compiled calibration: quantize_graph's
+    default calibration (percentile over CALIB_STEPS batches of 32, KL over
+    KL_STEPS), then stem_space_to_depth and bench.py's runners at batch
+    SIM_BATCH in chains of SIM_CHAIN ('int', 'highest', 'bf16'), each one
+    CUDA graph a chain. Then, outside the counts: calibration against path
+    A's observer graphs, exactness of 'int' against int64 sums and against
+    the CPU, replays against the uncaptured walk and chain-1 replays, rows
+    1-3 inside captured graphs against their plain versions, and 'int'
+    against 'highest' and the fp32 model."""
+    from ppq_tpu_torch import TargetPlatform, TorchExecutor, quantize_graph
+    from ppq_tpu_torch.api import QuantizationSettingFactory
+    from ppq_tpu_torch.executor import compile_graph
+    from ppq_tpu_torch.ir.morph import stem_space_to_depth
+    from ppq_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ppq_tpu_torch.quantization import solvers
+    from ppq_tpu_torch.quantization.measure import torch_snr_error
+    from ppq_tpu_torch.quantization.optim.fcalibration import \
+        LAST_CALIBRATION_PROFILE
+    from ppq_tpu_torch.zoo import resnet18
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    if solvers._native() is None:
+        raise AssertionError('path H: the native solver library did not build')
+    shape, loader, _ = _data()
+    torch.cuda.empty_cache()
+
+    def cal_rates(prof):
+        sweep = prof['run_s'] + prof.get('run2_s', 0) + prof.get('search_s', 0)
+        return dict(prof, cold_img_per_s=prof['images'] / (prof['compile_s']
+                                                           + sweep),
+                    warm_img_per_s=prof['images'] / sweep)
+
+    # ---------------- the main path (the counts are read at its end)
+    reset_launches()
+    graph = resnet18(input_shape=shape)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quantize_graph(graph, loader, calib_steps=CALIB_STEPS,
+                   platform=TargetPlatform.TPU_INT8, verbose=False)
+    torch.cuda.synchronize()
+    cal_pct = cal_rates(LAST_CALIBRATION_PROFILE)
+    cal_pct['quantize_graph_s'] = time.perf_counter() - t0
+    kl_graph = resnet18(input_shape=shape)
+    setting = QuantizationSettingFactory.default_setting()
+    setting.quantize_activation_setting.calib_algorithm = 'kl'
+    searches = dict(solvers.SEARCHES)
+    t0 = time.perf_counter()
+    quantize_graph(kl_graph, loader[:KL_STEPS], calib_steps=KL_STEPS,
+                   platform=TargetPlatform.TPU_INT8, setting=setting,
+                   verbose=False)
+    torch.cuda.synchronize()
+    cal_kl = cal_rates(LAST_CALIBRATION_PROFILE)
+    cal_kl['quantize_graph_s'] = time.perf_counter() - t0
+    searched = {k: solvers.SEARCHES[k] - searches[k] for k in searches}
+    if searched != {'native': 41, 'numpy': 0}:
+        raise AssertionError(f'path H: the KL searches were {searched}, not '
+                             f'41 in the native library')
+    log(f'[path H] calibration percentile {json.dumps(cal_pct)}')
+    log(f'[path H] calibration kl {json.dumps(cal_kl)}; searches {searched}')
+
+    sim_graph = graph.copy(copy_value=True)
+    if stem_space_to_depth(sim_graph) != 1:
+        raise AssertionError('path H: the stem was not rewritten')
+    gen = torch.Generator(device=dev).manual_seed(2)
+    xs = torch.randn(SIM_CHAIN, SIM_BATCH, 3, IMAGE, IMAGE, device=dev,
+                     generator=gen)
+    runners, outs, metrics = {}, {}, {}
+    for precision in ('int', 'highest', 'bf16'):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cg = compile_graph(sim_graph, precision=precision)
+        run = cg.make_runner(chain=SIM_CHAIN)
+        metrics[precision], outs[precision] = _runner_metrics(precision, run,
+                                                              xs)
+        runners[precision] = run
+        del run
+    launches = dict(LAUNCHES)
+
+    # ---------------- checks: these launches are not the main path's
+    spread_pct = _scale_spread(graph, pct_observer)
+    spread_kl = _scale_spread(kl_graph, kl_observer)
+    if spread_pct > PCT_SUM_BOUND:
+        raise AssertionError(f'compiled percentile scales {spread_pct} from '
+                             f'path A\'s, above {PCT_SUM_BOUND}')
+    for precision in ('highest', 'bf16', 'int'):
+        if not torch.equal(runners[precision].walk(xs)[0], outs[precision]):
+            raise AssertionError(f'the {precision!r} replay differs from '
+                                 f'its uncaptured walk')
+        if precision != 'int':
+            del runners[precision]
+    torch.cuda.empty_cache()
+    run = runners.pop('int')
+    cg = run.cg
+    one = cg.make_runner()
+    for i in range(SIM_CHAIN):
+        if not torch.equal(one(xs[i])[0], outs['int'][i]):
+            raise AssertionError(f'chain element {i} differs from a chain-1 '
+                                 f'replay')
+    del one
+    # exactness: the stem, the first 3x3 conv under 2^24 and the first one
+    # whose worst case passes it, against int64 sums on two images
+    convs = [op for op in cg._order if op.type == 'Conv']
+    stem = convs[0]
+    safe = next(op for op in convs[1:] if op.name not in cg.int_accum_risk
+                and np.asarray(op.inputs[1].value).shape[2:] == (3, 3))
+    risky = next(op for op in convs if op.name in cg.int_accum_risk)
+    taken = {}
+
+    def probe(op, qx, qw, y):
+        if op in (stem, safe, risky):
+            taken[op.name] = (op, qx[:2].cpu(), qw.cpu(), y[:2].cpu())
+
+    cg.int_probe = probe
+    cg._walk(run.params, {'input': xs[0]})
+    cg.int_probe = None
+    for name, (op, qx, qw, y) in taken.items():
+        gold = _int64_conv(qx, qw, op)
+        if not torch.equal(y.to(torch.float64), gold.to(torch.float64)):
+            raise AssertionError(f'{name}: the card\'s integer sums differ '
+                                 f'from int64')
+    if len(taken) != 3:
+        raise AssertionError(f'exactness: probed {sorted(taken)}')
+    cpu_cg = compile_graph(sim_graph, precision='int', device='cpu')
+    cpu_out = cpu_cg.make_runner()(xs[0][:SIM_CPU_IMAGES].cpu())[0]
+    if not torch.equal(cpu_out, outs['int'][0][:SIM_CPU_IMAGES].cpu()):
+        raise AssertionError("the card's 'int' logits differ from the CPU's")
+    if cpu_cg.int_accum_risk != cg.int_accum_risk or \
+            cpu_cg.int_lowered != cg.int_lowered:
+        raise AssertionError('the CPU lowered other ops')
+    del run, cpu_cg
+    torch.cuda.empty_cache()
+    # rows 1-3 inside captured graphs against their plain versions: an
+    # 'int' runner at batch 32 and a one-batch KL calibration
+    with _GraphShadow() as shadow:
+        shadow_run = compile_graph(sim_graph, precision='int').make_runner()
+        shadow_run(xs[0][:CALIB_BATCH])
+        held = shadow.check("'int' runner")
+        shadow_kl = resnet18(input_shape=shape)
+        quantize_graph(shadow_kl, loader[:1], calib_steps=1,
+                       platform=TargetPlatform.TPU_INT8, setting=setting,
+                       verbose=False)
+        for k, v in shadow.check('KL calibration').items():
+            held[k] = held.get(k, 0) + v
+    del shadow_run
+    if any(held.get(k, 0) <= 0 for k in
+           ('fake_quant_tensorwise', 'fake_quant_channelwise', 'histogram')):
+        raise AssertionError(f'rows 1-3 not all held inside a capture: {held}')
+    # against 'highest' and the fp32 model
+    snr_highest = float(torch_snr_error(outs['int'][0], outs['highest'][0]))
+    fp32 = TorchExecutor(resnet18(input_shape=[SIM_BATCH, 3, IMAGE, IMAGE]))
+    y_fp32 = fp32.forward(xs[0])[0]
+    snr_fp32 = float(torch_snr_error(outs['int'][0], y_fp32))
+    snr_bf16 = float(torch_snr_error(outs['bf16'][0], outs['highest'][0]))
+    if not (snr_highest < SNR_INT8_BOUND and snr_fp32 < SNR_INT8_BOUND):
+        raise AssertionError(f"'int' SNR too large: {snr_highest} against "
+                             f"'highest', {snr_fp32} against fp32")
+    del fp32, y_fp32
+    summary = dict(
+        calibration_percentile=cal_pct, calibration_kl=cal_kl,
+        runners=metrics,
+        percentile_scales_max_rel_vs_path_a=spread_pct,
+        percentile_bound=PCT_SUM_BOUND,
+        kl_scales_max_rel_vs_path_a=spread_kl,
+        int_lowered=len(cg.int_lowered), int_coded=len(cg.int_coded),
+        int_accum_risk=cg.int_accum_risk,
+        exact_convs=sorted(taken), card_equals_cpu_images=SIM_CPU_IMAGES,
+        replay_equals_walk=True, chain_equals_chain1=True,
+        rows_held_inside_captures=held,
+        snr_int_vs_highest=snr_highest,
+        top1_int_vs_highest=float((outs['int'][0].argmax(-1) ==
+                                   outs['highest'][0].argmax(-1))
+                                  .float().mean()),
+        snr_int_vs_fp32=snr_fp32, snr_bf16_vs_highest=snr_bf16,
+        quantile_kinds=_quantile_kinds(dev, loader))
+    log(f'[path H] {json.dumps(summary)}')
+    return launches, summary
+
+
+def main_compiled() -> int:
+    """Path H alone (with path A's two observer calibrations to hold it
+    against): the quick loop for the compiled executor."""
+    name, smi = phase_card()
+    import ppq_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+    dev = torch.device('cuda', 0)
+    torch.cuda.set_device(dev)
+    phase_build(['fake_quant', 'histogram'])
+    pct_observer, kl_observer = _observer_graphs(dev)
+    launches, _ = phase_path_h(dev, pct_observer, kl_observer)
+    log(f'[launches] path H {json.dumps(launches)}')
+    log(smi)
+    log(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': name, 'count': torch.cuda.device_count()}}))
+    return 0
 
 
 def phase_profile(executor, x_dev, n=3):
@@ -3532,6 +3989,7 @@ def _path_inputs(dev):
 
     shape, loader, _ = _data()
     setting = QuantizationSettingFactory.default_setting()
+    setting.calibration.prefer_compiled = False     # path A's observer path
     setting.quantize_activation_setting.calib_algorithm = 'kl'
     qfunction.linear_quant, observers.histogram = record_quant, record_histogram
     try:
@@ -4027,6 +4485,9 @@ def main() -> int:
         mode.add_argument('--quant', action='store_true',
                           help='rows 1-7 alone, rows 2, 3 and 5 at every '
                                'path shape: build, hold, time')
+        mode.add_argument('--compiled', action='store_true',
+                          help='path H alone: the compiled calibration and '
+                               'runners, held against the observer path')
         ap.add_argument('--package-root', default=None,
                         help='import ppq_tpu_torch from this checkout')
         args = ap.parse_args()
@@ -4034,6 +4495,8 @@ def main() -> int:
             return main_attention(args.package_root)
         if args.quant:
             return main_quant(args.package_root)
+        if args.compiled:
+            return main_compiled()
         return main_qmm(args.package_root)
     t_start = time.perf_counter()
     name, smi = phase_card()
@@ -4042,7 +4505,9 @@ def main() -> int:
     torch.cuda.set_device(dev)
     phase_build()
     kernel_results = phase_kernels(dev)
-    launches_a, _, kl_graph = phase_main_path(dev)
+    launches_a, _, pct_graph, kl_graph = phase_main_path(dev)
+    launches_h, _ = phase_path_h(dev, pct_graph, kl_graph)
+    del pct_graph
     launches_b, _, lsq_graph, train_loader = phase_path_b(dev, kl_graph)
     launches_c, _, fp8_graph, _ = phase_path_c(dev)
     launches_d, _, serve_params = phase_path_d(dev)
@@ -4050,8 +4515,8 @@ def main() -> int:
     launches_g, _ = phase_path_g(dev, serve_params)
     del serve_params
     launches_f, _ = phase_path_f(dev)
-    paths = dict(A=launches_a, B=launches_b, C=launches_c, D=launches_d,
-                 E=launches_e, F=launches_f, G=launches_g)
+    paths = dict(A=launches_a, H=launches_h, B=launches_b, C=launches_c,
+                 D=launches_d, E=launches_e, F=launches_f, G=launches_g)
     # each path's counts were set to 0 before it and read just after it
     launches = {k: sum(p[k] for p in paths.values()) for k in launches_a}
     for tag, counts in paths.items():

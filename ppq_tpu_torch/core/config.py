@@ -14,6 +14,11 @@ class _GlobalConfig:
         self.DUMP_VALUE_WHEN_EXPORT = False
         self.EXPORT_INTERNAL_INFO = False
         self.DEBUG = False
+        # the native C++ clip searches (csrc/solvers.cc) when they build
+        self.USING_NATIVE_SOLVER = True
+        # RuntimeCalibrationPass takes the compiled calibration
+        # (optim/fcalibration.py) where the graph and the algorithm allow it
+        self.PREFER_COMPILED_EXECUTOR = True
 
 
 PPQ_TPU_CONFIG = _GlobalConfig()

@@ -65,6 +65,15 @@ class TensorQuantizationConfig:
         self._state = state
         self._dominator: 'TensorQuantizationConfig' = self   # union-find parent
         self._uid = next(_tqc_counter)
+        # this config's scale and offset as tensors on a device, kept by
+        # quantization/qfunction.py `device_qparams` so that a forward reads
+        # them from the device instead of uploading the host arrays at every
+        # call; dropped whenever the scale, the offset, the state or the
+        # domination changes
+        self._device_qparams: dict = {}
+
+    def _drop_device_qparams(self):
+        self._device_qparams.clear()
 
     # ------------------------------------------------------------------ state
     @property
@@ -73,6 +82,7 @@ class TensorQuantizationConfig:
 
     @state.setter
     def state(self, value: QuantizationStates):
+        self._drop_device_qparams()
         self._state = value
 
     @property
@@ -105,6 +115,7 @@ class TensorQuantizationConfig:
             raise PermissionError(
                 'This TQC is dominated by another config; set the scale on '
                 'its dominator instead (see ppq/core/quant.py:807-826).')
+        self._drop_device_qparams()
         self._scale = _as_f32(value)
 
     @property
@@ -125,6 +136,7 @@ class TensorQuantizationConfig:
             raise PermissionError(
                 'This TQC is dominated by another config; set the offset on '
                 'its dominator instead.')
+        self._drop_device_qparams()
         self._offset = _as_f32(value)
 
     @property
@@ -155,6 +167,8 @@ class TensorQuantizationConfig:
         if master is self:
             raise ValueError('A config cannot dominate itself explicitly.')
         root = self.dominated_by
+        self._drop_device_qparams()
+        root._drop_device_qparams()
         root._dominator = master
         if root is not self:
             self._dominator = master
@@ -169,6 +183,7 @@ class TensorQuantizationConfig:
 
     @master_by.setter
     def master_by(self, master: 'TensorQuantizationConfig'):
+        self._drop_device_qparams()
         if master is self:
             # detach: become own master again
             self._dominator = self
@@ -195,6 +210,7 @@ class TensorQuantizationConfig:
 
     def detach(self):
         """Break the sharing link, restoring independent quantization."""
+        self._drop_device_qparams()
         self._dominator = self
         if self._state in {QuantizationStates.OVERLAPPED, QuantizationStates.PASSIVE}:
             self._state = QuantizationStates.ACTIVATED

@@ -24,8 +24,9 @@ redesign of ppq/executor/torch.py:76-682:
     own while the IR keeps its values.
 
 Eager per-op execution keeps data-dependent (SOI) ops trivially correct —
-they run host-side numpy. The JAX package's whole-graph compiled path
-(executor/compile.py) is a later slice of the port (ROADMAP.md).
+they run host-side numpy. The whole-graph path, the same walk captured once
+per input shape into a CUDA graph, is executor/compile.py (`compile_graph`);
+compiled calibration runs on it (quantization/optim/fcalibration.py).
 """
 
 from __future__ import annotations

@@ -3,8 +3,10 @@
 Port of ppq_tpu/executor/ops/default.py for the ops the ResNet-family main
 path meets: after `format_graph` folds BatchNormalization into Conv
 (ir/morph.py) these are Conv, Gemm, Relu, MaxPool, Add, GlobalAveragePool
-and Flatten; BatchNormalization is kept for the unformatted graph. The other
-ops of the JAX table are a later slice (ROADMAP.md queue 1, item 3). Every
+and Flatten; BatchNormalization is kept for the unformatted graph; Reshape
+and Transpose are what `stem_space_to_depth` (ir/morph.py) inserts before
+the compiled executor runs the graph. The other ops of the JAX table are a
+later slice (ROADMAP.md queue 1, item 3). Every
 function has the signature
 
     f(op: Operation, values: List[Tensor | ndarray], ctx: ExecContext) -> Tensor
@@ -18,7 +20,11 @@ Simulation fidelity: the executor runs every forward inside
 `simulation_precision`, which sets `torch.backends.cudnn.allow_tf32 = False`
 and `torch.backends.cuda.matmul.allow_tf32 = False`. cuDNN otherwise runs
 fp32 convolutions in TF32, which would put TF32 rounding into every
-quantization error the tool reports.
+quantization error the tool reports. The compiled executor's 'default' and
+'bf16' modes turn TF32 on: the card's default-precision math, where the JAX
+package takes the TPU's bf16 passes. `accumulation_dtype` scopes the type
+convolutions and matrix products accumulate in and return, as the JAX
+package's `preferred_element_type` does.
 """
 
 from __future__ import annotations
@@ -30,21 +36,58 @@ import torch
 import torch.nn.functional as F
 
 class simulation_precision:
-    """fp32-faithful simulation for the span of one forward: cuDNN
-    convolutions and cuBLAS matmuls in full float32, no TF32. The counterpart
-    of the JAX package's `simulation_precision('highest')`; the previous
-    flags are restored on exit."""
+    """The precision of convolutions and matmuls for the span of a forward.
+    'highest' (the default) and 'int': cuDNN and cuBLAS in full float32, no
+    TF32 ('int' keeps the ops it does not lower at fp32 fidelity; the
+    compiled executor scopes 'default' around each contraction over integer
+    codes, which TF32 holds exactly). 'default' and 'bf16': TF32 allowed. The
+    previous flags are restored on exit."""
+
+    def __init__(self, mode: str = 'highest'):
+        if mode not in ('highest', 'int', 'default', 'bf16'):
+            raise ValueError(f'unknown simulation precision {mode!r}')
+        self._tf32 = mode in ('default', 'bf16')
 
     def __enter__(self):
         self._old = (torch.backends.cudnn.allow_tf32,
                      torch.backends.cuda.matmul.allow_tf32)
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = self._tf32
+        torch.backends.cuda.matmul.allow_tf32 = self._tf32
         return self
 
     def __exit__(self, *exc):
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = self._old
+
+
+# Accumulation type of convolutions and matmuls (the JAX package's
+# preferred_element_type). None follows the operands.
+_ACCUM_DTYPE = [None]
+
+
+class accumulation_dtype:
+    """Scopes the type the op library's convolutions and matmuls accumulate
+    in and return: operands of another type are converted to it first (bf16
+    to float32 is exact), so that the sum comes back un-rounded."""
+
+    def __init__(self, dtype: Optional[torch.dtype] = None):
+        self._new = dtype
+
+    def __enter__(self):
+        self._old = _ACCUM_DTYPE[0]
+        _ACCUM_DTYPE[0] = self._new
+        return self
+
+    def __exit__(self, *exc):
+        _ACCUM_DTYPE[0] = self._old
+
+
+def _accum(*operands):
+    """The operands in the scoped accumulation type, where one is set."""
+    dtype = _ACCUM_DTYPE[0]
+    if dtype is None:
+        return operands
+    return tuple(v.to(dtype) for v in operands)
 
 
 class ExecContext:
@@ -126,7 +169,7 @@ _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 def Conv_forward(op, values, ctx=None):
     ASSERT_NUM_OF_INPUT(op, values, 2, 3)
     x = _t(values[0])
-    w = _t(values[1], x)
+    x, w = _accum(x, _t(values[1], x))
     spatial = x.ndim - 2
     group = int(attr(op, 'group', 1))
     strides = [int(s) for s in attr(op, 'strides', [1] * spatial)]
@@ -137,7 +180,7 @@ def Conv_forward(op, values, ctx=None):
     else:
         x = F.pad(x, _pad_spec(pads))
         padding = 0
-    bias = _t(values[2], x) if _present(values, 2) else None
+    bias = _accum(_t(values[2], x))[0] if _present(values, 2) else None
     return _CONV[spatial](x, w, bias, stride=strides, padding=padding,
                           dilation=dilations, groups=group)
 
@@ -174,7 +217,7 @@ def GlobalAveragePool_forward(op, values, ctx=None):
 def Gemm_forward(op, values, ctx=None):
     ASSERT_NUM_OF_INPUT(op, values, 2, 3)
     a = _t(values[0])
-    b = _t(values[1], a)
+    a, b = _accum(a, _t(values[1], a))
     if int(attr(op, 'transA', 0)):
         a = a.T
     if int(attr(op, 'transB', 0)):
@@ -222,6 +265,22 @@ def Flatten_forward(op, values, ctx=None):
     return x.reshape(lead, -1)
 
 
+def Reshape_forward(op, values, ctx=None):
+    """The target shape is a host operand (an SOI input); 0 copies the
+    input's dimension unless `allowzero`."""
+    x = _t(values[0])
+    shape = [int(v) for v in np.asarray(values[1]).reshape(-1)]
+    if not int(attr(op, 'allowzero', 0)):
+        shape = [x.shape[i] if s == 0 else s for i, s in enumerate(shape)]
+    return x.reshape(shape)
+
+
+def Transpose_forward(op, values, ctx=None):
+    x = _t(values[0])
+    perm = attr(op, 'perm', list(reversed(range(x.ndim))))
+    return x.permute([int(p) for p in perm])
+
+
 DEFAULT_BACKEND_TABLE = {
     'Conv': Conv_forward,
     'MaxPool': MaxPool_forward,
@@ -231,4 +290,6 @@ DEFAULT_BACKEND_TABLE = {
     'Relu': Relu_forward,
     'BatchNormalization': BatchNormalization_forward,
     'Flatten': Flatten_forward,
+    'Reshape': Reshape_forward,
+    'Transpose': Transpose_forward,
 }

@@ -71,9 +71,11 @@ def _order_statistics(rows: torch.Tensor, lo: int, hi: int):
     return low[:, lo], low[:, hi]
 
 
-def quantile_rows(rows: torch.Tensor, q: float) -> np.ndarray:
-    """`jnp.quantile(rows, q, axis=1)` (method 'linear') of a (R, n) tensor,
-    with the position and weights computed in float32 exactly as jnp does."""
+def quantile_rows_tensor(rows: torch.Tensor, q: float) -> torch.Tensor:
+    """`jnp.quantile(rows, q, axis=1)` (method 'linear') of a (R, n) float32
+    tensor, as a tensor on its device: the position and weights are computed
+    in float32 on the host exactly as jnp does, the interpolation in float32
+    on the device. Nothing is read back, so a CUDA graph can hold it."""
     n = rows.shape[1]
     pos = np.float32(q) * (np.float32(n) - np.float32(1))
     low, high = np.floor(pos), np.ceil(pos)
@@ -82,9 +84,12 @@ def quantile_rows(rows: torch.Tensor, q: float) -> np.ndarray:
     lo = int(np.clip(low, 0, n - 1))
     hi = int(np.clip(high, 0, n - 1))
     v_lo, v_hi = _order_statistics(rows, lo, hi)
-    v_lo = v_lo.cpu().numpy().astype(np.float32)
-    v_hi = v_hi.cpu().numpy().astype(np.float32)
-    return v_lo * low_w + v_hi * high_w
+    return v_lo * float(low_w) + v_hi * float(high_w)
+
+
+def quantile_rows(rows: torch.Tensor, q: float) -> np.ndarray:
+    """quantile_rows_tensor, read back to the host."""
+    return quantile_rows_tensor(rows, q).cpu().numpy()
 
 
 class BaseTensorObserver:

@@ -6,6 +6,8 @@ from .base import (QuantizationOptimizationPass,
 from .baking import ParameterBakingPass
 from .calibration import (CalibrationHook, IsotoneCalibrationPass,
                           OperationObserver, RuntimeCalibrationPass)
+from .fcalibration import (CompiledCalibrationPass,
+                           compiled_calibration_supported)
 from .parameters import ParameterQuantizePass, PassiveParameterQuantizePass
 from .refine import (MishFusionPass, QuantAlignmentPass, QuantizeFusionPass,
                      QuantizeSimplifyPass, SwishFusionPass)
@@ -16,7 +18,8 @@ from .training import (AdaroundPass, BiasCorrectionPass, BlockRuntime,
 __all__ = [
     'QuantizationOptimizationPass', 'QuantizationOptimizationPipeline',
     'ParameterBakingPass', 'CalibrationHook', 'IsotoneCalibrationPass',
-    'OperationObserver', 'RuntimeCalibrationPass', 'ParameterQuantizePass',
+    'OperationObserver', 'RuntimeCalibrationPass', 'CompiledCalibrationPass',
+    'compiled_calibration_supported', 'ParameterQuantizePass',
     'PassiveParameterQuantizePass', 'MishFusionPass', 'QuantAlignmentPass',
     'QuantizeFusionPass', 'QuantizeSimplifyPass', 'SwishFusionPass',
     'AdaroundPass', 'BiasCorrectionPass', 'LearnedStepSizePass',

@@ -5,9 +5,10 @@ phase over the calibration dataloader, feeding every INITIAL activation TQC's
 observer with the *pre-quant* tensor values, then rendering scale/offset.
 
 The hooks run in the TorchExecutor, and the observers reduce on the
-executor's device. The JAX package's compiled calibration
-(optim/fcalibration.py) is not ported yet (ROADMAP.md queue 1, item 4), so
-this pass always takes the observer path.
+executor's device. With `prefer_compiled` (the default, as in the JAX
+package) the pass hands graphs and algorithms that the compiled calibration
+supports to CompiledCalibrationPass (optim/fcalibration.py): the walk and
+its statistics captured as one CUDA graph a batch.
 """
 
 from __future__ import annotations
@@ -91,11 +92,12 @@ class RuntimeCalibrationPass(QuantizationOptimizationPass):
     """
 
     def __init__(self, method: Optional[str] = None, override: bool = False,
-                 calib_steps: int = 32):
+                 calib_steps: int = 32, prefer_compiled: bool = True):
         super().__init__('Runtime Calibration Pass')
         self.method = method
         self.override = override
         self.calib_steps = calib_steps
+        self.prefer_compiled = prefer_compiled
 
     def calibrate(self, executor, dataloader, hooks, collate_fn=None):
         steps = 0
@@ -113,6 +115,16 @@ class RuntimeCalibrationPass(QuantizationOptimizationPass):
                  collate_fn=None, **kwargs):
         assert executor is not None and dataloader is not None, \
             'RuntimeCalibrationPass requires an executor and a dataloader'
+
+        if self.prefer_compiled:
+            from .fcalibration import (CompiledCalibrationPass,
+                                       compiled_calibration_supported)
+            if compiled_calibration_supported(graph, self.method):
+                return CompiledCalibrationPass(
+                    method=self.method,
+                    calib_steps=self.calib_steps).optimize(
+                        graph, dataloader=dataloader, executor=executor,
+                        collate_fn=collate_fn, **kwargs)
 
         observers: List[OperationObserver] = []
         hooks: Dict[str, CalibrationHook] = {}

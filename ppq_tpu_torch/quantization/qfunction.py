@@ -13,7 +13,10 @@ Port of ppq_tpu/quantization/qfunction.py to PyTorch:
   * `dynamic_linear_fake_quant` — scale taken from the tensor at run time.
   * `floating_fake_quant` — FP8-style exponent/mantissa quantization through
     the kernels of kernels/floating.py; the gradient is the kernel's STE.
-  * `ppq_fake_quant(x, cfg)` — TQC-driven dispatch (qfunction/__init__.py:10)
+  * `ppq_fake_quant(x, cfg)` — TQC-driven dispatch (qfunction/__init__.py:10),
+    reading the scale and offset from `device_qparams`: uploaded once per
+    root TQC and device, not at every call. A copy from pageable host memory
+    could not be captured into a CUDA graph (executor/compile.py).
   * `ppq_quant_toint(value, cfg)` — real integer output for exporters
     (qfunction/linear.py:218), host-side numpy.
   * `fake_quant_np` — host-side fake quant used by ParameterBakingPass.
@@ -105,6 +108,13 @@ def linear_recover_codes(x_fq: torch.Tensor, scale, offset, quant_min: float,
                          quant_max - o_r)
 
 
+def filled_scalar(value, device) -> torch.Tensor:
+    """A float32 scalar made on `device` by a fill kernel: an upload from
+    the host could not be captured into a CUDA graph."""
+    return torch.full((), float(np.float32(value)), dtype=torch.float32,
+                      device=device)
+
+
 def dynamic_linear_fake_quant(x: torch.Tensor, quant_min: float,
                               quant_max: float, symmetric: bool = True,
                               rounding: RoundingPolicy = RoundingPolicy.ROUND_HALF_EVEN,
@@ -119,17 +129,16 @@ def dynamic_linear_fake_quant(x: torch.Tensor, quant_min: float,
         dims = list(range(x.ndim))
     # divisors are tensors: CUDA PyTorch would turn a division by a host
     # number into a multiplication by its reciprocal
-    floor = torch.as_tensor(np.float32(1e-8), device=x.device)
+    floor = filled_scalar(1e-8, x.device)
     if symmetric:
         amax = torch.amax(torch.abs(x), dim=dims)
-        span = torch.as_tensor(np.float32(quant_max), device=x.device)
+        span = filled_scalar(quant_max, x.device)
         scale = torch.maximum(amax / span, floor)
         offset = torch.zeros_like(scale)
     else:
         hi = torch.amax(x, dim=dims)
         lo = torch.amin(x, dim=dims)
-        span = torch.as_tensor(np.float32(quant_max - quant_min),
-                               device=x.device)
+        span = filled_scalar(quant_max - quant_min, x.device)
         scale = torch.maximum((hi - lo) / span, floor)
         offset = torch.round(float(quant_min) - lo / scale)
     return linear_fake_quant(x, scale, offset, quant_min, quant_max, rounding,
@@ -200,6 +209,28 @@ def floating_fake_quant(x: torch.Tensor, scale, exponent_bits: int,
 # ======================================================= TQC-driven APIs ===
 
 
+def device_qparams(cfg: TensorQuantizationConfig, device):
+    """(scale, offset) of cfg as float32 tensors on `device`, from its root
+    TQC (the config that `dominated_by` resolves to). The pair is kept on the
+    root and dropped there when its scale, offset, state or domination
+    changes; cfg's symmetric policy reads a zero offset, as ppq_fake_quant
+    always did. Upload happens here, at the first call for a device: a
+    caller that captures a CUDA graph calls once before the capture."""
+    asymmetric = cfg.policy.asymmetric
+    root = cfg.dominated_by
+    device = torch.device(device)
+    key = (device, bool(asymmetric))
+    hit = root._device_qparams.get(key)
+    if hit is None:
+        scale = np.asarray(root.scale, np.float32)
+        offset = (np.asarray(root.offset, np.float32) if asymmetric
+                  else np.zeros_like(scale))
+        hit = (torch.as_tensor(scale, device=device),
+               torch.as_tensor(offset, device=device))
+        root._device_qparams[key] = hit
+    return hit
+
+
 def ppq_fake_quant(x: torch.Tensor, cfg: TensorQuantizationConfig) -> torch.Tensor:
     """Master dispatch (qfunction/__init__.py:10): apply cfg to x, honoring
     state, policy (linear/floating/dynamic) and granularity."""
@@ -211,10 +242,8 @@ def ppq_fake_quant(x: torch.Tensor, cfg: TensorQuantizationConfig) -> torch.Tens
         return dynamic_linear_fake_quant(
             x, cfg.quant_min, cfg.quant_max, symmetric=pol.symmetric,
             rounding=cfg.rounding, channel_axis=axis)
-    scale = np.asarray(cfg.scale, np.float32)
+    scale, offset = device_qparams(cfg, x.device)
     if pol.linear:
-        offset = (np.asarray(cfg.offset, np.float32) if pol.asymmetric
-                  else np.zeros_like(scale))
         return linear_fake_quant(x, scale, offset, cfg.quant_min,
                                  cfg.quant_max, cfg.rounding,
                                  channel_axis=axis)

@@ -269,7 +269,8 @@ class BaseQuantizer:
                 pipeline.append(RuntimeCalibrationPass(
                     method=(setting.quantize_activation_setting.calib_algorithm
                             or calib.calib_algorithm),
-                    calib_steps=calib.calib_steps))
+                    calib_steps=calib.calib_steps,
+                    prefer_compiled=calib.prefer_compiled))
 
         if setting.fusion and fusion.align_quantization:
             pipeline.append(QuantAlignmentPass(

@@ -2,17 +2,29 @@
 
 Host-side equivalents of the reference's native solvers
 (csrc/cpu/hist_mse.cc `compute_mse_loss`, observer/range.py:191-283 KL
-search), in vectorized numpy. The JAX package runs the same searches through
-its native `csrc/solvers.cc` when that is built; the port keeps the numpy
-searches only, and tests/test_torch_observers.py shows that they pick the
-same bin as the native library on the test histograms.
+search). As in the JAX package (ppq_tpu/quantization/solvers.py), the KL and
+MSE searches run in the native library `csrc/solvers.cc` (utils/native.py)
+when PPQ_TPU_CONFIG.USING_NATIVE_SOLVER is on and the library builds; the
+vectorized numpy searches below are its twins and take over where it does
+not build. SEARCHES counts the searches each side ran, so that a run can
+show which one calibrated it.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..core import OBSERVER_MSE_COMPUTE_INTERVAL
+from ..core import OBSERVER_MSE_COMPUTE_INTERVAL, PPQ_TPU_CONFIG
+
+# clip searches run, by the side that ran them
+SEARCHES = {'native': 0, 'numpy': 0}
+
+
+def _native():
+    if not PPQ_TPU_CONFIG.USING_NATIVE_SOLVER:
+        return None
+    from ..utils.native import native_solvers
+    return native_solvers()
 
 
 def kl_threshold_search(hist: np.ndarray, levels: int = 128,
@@ -35,6 +47,11 @@ def kl_threshold_search(hist: np.ndarray, levels: int = 128,
     if zcut > 0:
         hist[:zcut] = 0
         hist[zcut] = 1.0          # exactly the reference's sentinel
+    lib = _native()
+    if lib is not None:
+        SEARCHES['native'] += 1
+        return int(lib.kl_search(hist, levels, search_interval))
+    SEARCHES['numpy'] += 1
     n = len(hist)
     best_bin, best_kl = n - 1, np.inf
     eps = 1e-12
@@ -77,6 +94,12 @@ def mse_threshold_search(hist: np.ndarray, hist_scale: float,
     Inside the clip range, quantization error of a uniformly-distributed bin
     is ~ step^2/12; outside, values clamp to the clip point.
     """
+    lib = _native()
+    if lib is not None:
+        SEARCHES['native'] += 1
+        return int(lib.mse_search(hist.astype(np.float64), float(hist_scale),
+                                  levels, search_interval))
+    SEARCHES['numpy'] += 1
     n = len(hist)
     hist = hist.astype(np.float64)
     centers = (np.arange(n) + 0.5) * hist_scale

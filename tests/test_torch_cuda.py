@@ -1702,3 +1702,162 @@ def test_paged_serving_engine_on_the_card(cuda):
     assert engine._alloc.free_blocks == engine._alloc.num_blocks - 1
     out = engine.benchmark_decode(steps=8, burst=8, repeats=1, fill=200)
     assert out['tokens_per_sec'] > 0 and read_faults(cuda) == []
+
+
+# ---------------------------------------------------- the compiled executor
+
+def _quantized_small(dev, algo='percentile', prefer_compiled=True):
+    """ResNet-18 (10 classes) at 4x3x32x32, quantized on the card with
+    TPU_INT8 over 2 seeded batches: the compiled calibration by default."""
+    from ppq_tpu_torch import TargetPlatform, quantize_graph
+    from ppq_tpu_torch.api import QuantizationSettingFactory
+    from ppq_tpu_torch.zoo import resnet18
+    rng = np.random.RandomState(0)
+    loader = [rng.randn(4, 3, 32, 32).astype(np.float32) for _ in range(2)]
+    setting = QuantizationSettingFactory.default_setting()
+    setting.calibration.prefer_compiled = prefer_compiled
+    if algo != 'percentile':
+        setting.quantize_activation_setting.calib_algorithm = algo
+    graph = resnet18(num_classes=10, input_shape=[4, 3, 32, 32])
+    quantize_graph(graph, loader, calib_steps=2, setting=setting,
+                   platform=TargetPlatform.TPU_INT8, verbose=False,
+                   device=dev)
+    return graph, loader
+
+
+@pytest.mark.parametrize('precision', ['int', 'highest', 'bf16'])
+def test_captured_runner_equals_the_uncaptured_walk(cuda, precision):
+    """A replay equals the same walk run uncaptured, bit for bit, call after
+    call; a chain-2 capture equals two chain-1 replays; the capture holds
+    row 1's launches."""
+    from ppq_tpu_torch.executor import compile_graph
+    from ppq_tpu_torch.ir.morph import stem_space_to_depth
+    torch.backends.cudnn.deterministic = True
+    graph, loader = _quantized_small(cuda)
+    stem_space_to_depth(graph)
+    cg = compile_graph(graph, precision=precision)
+    run, chained = cg.make_runner(), cg.make_runner(chain=2)
+    for x in loader:
+        got = run(x)[0]
+        assert got.is_cuda and got.dtype == torch.float32
+        assert torch.equal(got, run.walk(x)[0])
+        assert torch.equal(got, run(x)[0])
+    assert run.launches_per_replay['fake_quant_tensorwise'] > 0
+    stacked = chained(np.stack(loader))[0]
+    for i, x in enumerate(loader):
+        assert torch.equal(stacked[i], run(x)[0])
+
+
+def test_int_is_exact_on_the_card(cuda):
+    """Every lowered convolution's sums on the card equal an int64 product
+    of the same codes, and the card's 'int' logits equal the CPU's bit for
+    bit (integer sums exact in any order, the rest IEEE float32)."""
+    from ppq_tpu_torch.executor import compile_graph
+    graph, loader = _quantized_small(cuda)
+    cg = compile_graph(graph, precision='int')
+    checked = []
+
+    def probe(op, qx, qw, y):
+        if op.type != 'Conv':
+            return
+        xs, ws = qx.double(), qw.double()
+        p = [int(v) for v in op.attributes.get('pads', [0, 0, 0, 0])]
+        s = [int(v) for v in op.attributes.get('strides', [1, 1])]
+        # float64 holds these integer sums exactly (|sum| < 2^53)
+        gold = torch.nn.functional.conv2d(
+            torch.nn.functional.pad(xs, (p[1], p[3], p[0], p[2])), ws,
+            stride=s)
+        assert torch.equal(y.double(), gold), op.name
+        checked.append(op.name)
+
+    cg.int_probe = probe
+    card = cg._walk(cg.init_params(), cg._feed(loader[0]))[0]
+    assert len(checked) == 20
+    cpu = compile_graph(graph, precision='int', device='cpu')
+    want = cpu.make_runner()(loader[0])[0]
+    assert torch.equal(card.cpu(), want)
+    assert cg.int_accum_risk == cpu.int_accum_risk
+
+
+def test_absmax_hist_two_sweeps_equal_the_observer_histogram(cuda):
+    """The compiled absmax_hist spec, sweep 1 (abs-max, placeholder scale)
+    then sweep 2 captured anew at the real scale, folds the same int64
+    counts over two batches as the eager KL observer's histogram."""
+    from ppq_tpu_torch import TargetPlatform, TorchExecutor, quantize_graph
+    from ppq_tpu_torch.api import QuantizationSettingFactory
+    from ppq_tpu_torch.core import OBSERVER_KL_HIST_BINS, OBSERVER_MIN_SCALE
+    from ppq_tpu_torch.executor import compile_graph
+    from ppq_tpu_torch.quantization.observers import KLObserver
+    from ppq_tpu_torch.quantization.optim.fcalibration import (
+        _activation_targets, _make_fold)
+    from ppq_tpu_torch.zoo import resnet18
+    torch.backends.cudnn.deterministic = True
+    rng = np.random.RandomState(1)
+    loader = [rng.randn(4, 3, 32, 32).astype(np.float32) for _ in range(2)]
+    setting = QuantizationSettingFactory.default_setting()
+    setting.quantize_activation = False
+    graph = resnet18(num_classes=10, input_shape=[4, 3, 32, 32])
+    quantize_graph(graph, loader, calib_steps=2, setting=setting,
+                   platform=TargetPlatform.TPU_INT8, verbose=False,
+                   device=cuda)
+    targets = _activation_targets(graph)
+    assert len(targets) == 41
+    bins = OBSERVER_KL_HIST_BINS
+    spec = {n: {'kind': 'absmax_hist', 'bins': bins} for n in targets}
+    cg = compile_graph(graph)
+    fn, params = cg.build_calibration_forward(spec), cg.init_params()
+    fold = _make_fold({n: 'absmax_hist' for n in targets})
+    ones = {n: np.float32(1.0) for n in targets}
+    acc = None
+    for x in loader:
+        acc = fold(acc, fn(params, x, ones)[1])
+    scales = {n: np.float32(max(float(acc[n][0]), OBSERVER_MIN_SCALE) / bins)
+              for n in targets}
+    acc2 = None
+    for x in loader:
+        acc2 = fold(acc2, fn(params, x, scales)[1])
+    assert len(fn.captures) == (2 if cuda.type == 'cuda' else 0)
+    observers = {n: KLObserver(cfg) for n, cfg in targets.items()}
+    executor = TorchExecutor(graph)
+    names = sorted(targets)
+    for phase in (1, 2):
+        if phase == 2:
+            for obs in observers.values():
+                obs.start_phase2()
+        for x in loader:
+            for n, v in zip(names, executor.forward(x, output_names=names)):
+                observers[n].observe(v)
+    for n in names:
+        assert observers[n]._hist_scale == float(scales[n]), n
+        assert torch.equal(acc2[n][1], observers[n]._counts), n
+
+
+@pytest.mark.parametrize('algo', ['percentile', 'kl'])
+def test_compiled_calibration_equals_the_observer_path_on_the_card(cuda, algo):
+    """The compiled calibration on the card against the observer path on
+    the card: KL scales bit for bit, percentile within 2.5e-7 relative (two
+    batches' quantiles summed in float32 on the card, in float64 on the
+    host); KL's searches took the native library."""
+    from ppq_tpu_torch.quantization import solvers
+    before = dict(solvers.SEARCHES)
+    compiled, _ = _quantized_small(cuda, algo)
+    if algo == 'kl':
+        assert solvers.SEARCHES['numpy'] == before['numpy']
+        assert solvers.SEARCHES['native'] == before['native'] + 41
+    observer, _ = _quantized_small(cuda, algo, prefer_compiled=False)
+    n = 0
+    for name, op in compiled.operations.items():
+        if not hasattr(op, 'config'):
+            continue
+        for (var, a), (_, b) in zip(op.config_pairs(),
+                                    observer.operations[name].config_pairs()):
+            if var.is_parameter or not a.is_root or \
+                    a.state.name != 'ACTIVATED':
+                continue
+            got, want = np.asarray(a.scale), np.asarray(b.scale)
+            if algo == 'kl':
+                np.testing.assert_array_equal(got, want)
+            else:
+                np.testing.assert_allclose(got, want, rtol=2.5e-7)
+            n += 1
+    assert n == 41

@@ -10,6 +10,7 @@ from ppq_tpu.core import QuantizationPolicy as JaxPolicy
 from ppq_tpu.core import TensorQuantizationConfig as JaxTQC
 from ppq_tpu.quantization import observers as jax_observers
 from ppq_tpu.quantization import solvers as jax_solvers
+from ppq_tpu_torch.core import PPQ_TPU_CONFIG as TORCH_CONFIG
 from ppq_tpu_torch.core import QP, QuantizationPolicy, TensorQuantizationConfig
 from ppq_tpu_torch.quantization import observers, solvers
 
@@ -129,12 +130,19 @@ def _test_histograms():
 
 
 def test_numpy_searches_pick_the_reference_default_bin():
-    """The port keeps only the numpy KL/MSE searches. The JAX package's
-    default is its native library when that builds (USING_NATIVE_SOLVER),
-    else the same numpy code: on these histograms both pick the same bin."""
+    """The port's numpy KL/MSE searches (its native library switched off
+    here; tests/test_torch_solvers.py holds the library itself). The JAX
+    package's default is its native library when that builds
+    (USING_NATIVE_SOLVER), else the same numpy code: on these histograms
+    both pick the same bin."""
     assert PPQ_TPU_CONFIG.USING_NATIVE_SOLVER
-    for hist in _test_histograms():
-        assert solvers.kl_threshold_search(hist, 128) == \
-            jax_solvers.kl_threshold_search(hist, 128)
-        assert solvers.mse_threshold_search(hist, 0.01, 128) == \
-            jax_solvers.mse_threshold_search(hist, 0.01, 128)
+    saved = TORCH_CONFIG.USING_NATIVE_SOLVER
+    TORCH_CONFIG.USING_NATIVE_SOLVER = False
+    try:
+        for hist in _test_histograms():
+            assert solvers.kl_threshold_search(hist, 128) == \
+                jax_solvers.kl_threshold_search(hist, 128)
+            assert solvers.mse_threshold_search(hist, 0.01, 128) == \
+                jax_solvers.mse_threshold_search(hist, 0.01, 128)
+    finally:
+        TORCH_CONFIG.USING_NATIVE_SOLVER = saved
