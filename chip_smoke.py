@@ -74,6 +74,7 @@ The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -3380,6 +3381,19 @@ def _profile_steps(tag, block, step, n):
             f'{count / n:6.1f} calls  {key[:90]}')
 
 
+@contextlib.contextmanager
+def _observer_path():
+    """quantize_graph's calibration through the observers (path A's),
+    not the compiled pass that is the package's default (path H's)."""
+    from ppq_tpu_torch.core import PPQ_TPU_CONFIG
+    saved = PPQ_TPU_CONFIG.PREFER_COMPILED_EXECUTOR
+    PPQ_TPU_CONFIG.PREFER_COMPILED_EXECUTOR = False
+    try:
+        yield
+    finally:
+        PPQ_TPU_CONFIG.PREFER_COMPILED_EXECUTOR = saved
+
+
 def phase_main_path(dev):
     from ppq_tpu_torch import (DEQUANTIZE_GRAPH, TargetPlatform, TorchExecutor,
                                quantize_graph)
@@ -3397,25 +3411,23 @@ def phase_main_path(dev):
     # path A is the observer path (path H the compiled calibration)
     reset_launches()
     graph = resnet18(input_shape=shape)
-    setting = QuantizationSettingFactory.default_setting()
-    setting.calibration.prefer_compiled = False
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    quantize_graph(graph, loader, calib_steps=CALIB_STEPS,
-                   platform=TargetPlatform.TPU_INT8, setting=setting,
-                   verbose=False)
+    with _observer_path():
+        quantize_graph(graph, loader, calib_steps=CALIB_STEPS,
+                       platform=TargetPlatform.TPU_INT8, verbose=False)
     torch.cuda.synchronize()
     cal_s = time.perf_counter() - t0
     after_pct = dict(LAUNCHES)
 
     kl_graph = resnet18(input_shape=shape)
     setting = QuantizationSettingFactory.default_setting()
-    setting.calibration.prefer_compiled = False
     setting.quantize_activation_setting.calib_algorithm = 'kl'
     t0 = time.perf_counter()
-    quantize_graph(kl_graph, loader[:KL_STEPS], calib_steps=KL_STEPS,
-                   platform=TargetPlatform.TPU_INT8, setting=setting,
-                   verbose=False)
+    with _observer_path():
+        quantize_graph(kl_graph, loader[:KL_STEPS], calib_steps=KL_STEPS,
+                       platform=TargetPlatform.TPU_INT8, setting=setting,
+                       verbose=False)
     torch.cuda.synchronize()
     kl_s = time.perf_counter() - t0
     after_kl = dict(LAUNCHES)
@@ -3659,13 +3671,13 @@ def _observer_graphs(dev):
     graphs = []
     for algo, steps in (('percentile', CALIB_STEPS), ('kl', KL_STEPS)):
         setting = QuantizationSettingFactory.default_setting()
-        setting.calibration.prefer_compiled = False
         if algo == 'kl':
             setting.quantize_activation_setting.calib_algorithm = 'kl'
         graph = resnet18(input_shape=shape)
-        quantize_graph(graph, loader[:steps], calib_steps=steps,
-                       platform=TargetPlatform.TPU_INT8, setting=setting,
-                       verbose=False)
+        with _observer_path():
+            quantize_graph(graph, loader[:steps], calib_steps=steps,
+                           platform=TargetPlatform.TPU_INT8, setting=setting,
+                           verbose=False)
         graphs.append(graph)
     return graphs
 
@@ -3796,6 +3808,10 @@ def phase_path_h(dev, pct_observer, kl_observer):
     xs = torch.randn(SIM_CHAIN, SIM_BATCH, 3, IMAGE, IMAGE, device=dev,
                      generator=gen)
     runners, outs, metrics = {}, {}, {}
+    # the runners and their checks under cuDNN's timed algorithm choice, a
+    # common setting of users: the 'int' contractions pin their own
+    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.deterministic = False
     for precision in ('int', 'highest', 'bf16'):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -3827,7 +3843,20 @@ def phase_path_h(dev, pct_observer, kl_observer):
         if not torch.equal(one(xs[i])[0], outs['int'][i]):
             raise AssertionError(f'chain element {i} differs from a chain-1 '
                                  f'replay')
-    del one
+    # a runner replays the scales it was captured with: doubled scales
+    # written back drop the TQCs' device copies, which its graph still reads
+    # while fresh allocations take the freed memory; a new runner reads them
+    qparams = cg.init_qparams()
+    cg.write_back_qparams({k: {'scale': v['scale'] * 2, 'offset': v['offset']}
+                           for k, v in qparams.items()})
+    junk = [torch.full((64,), float('nan'), device=dev) for _ in range(4096)]
+    stale = torch.equal(one(xs[0])[0], outs['int'][0])
+    fresh = torch.equal(cg.make_runner()(xs[0])[0], outs['int'][0])
+    cg.write_back_qparams(qparams)
+    del one, junk
+    if not stale or fresh:
+        raise AssertionError(f'after new scales: the old runner replays its '
+                             f'own logits {stale}, a new runner too {fresh}')
     # exactness: the stem, the first 3x3 conv under 2^24 and the first one
     # whose worst case passes it, against int64 sums on two images
     convs = [op for op in cg._order if op.type == 'Conv']
@@ -3886,6 +3915,8 @@ def phase_path_h(dev, pct_observer, kl_observer):
         raise AssertionError(f"'int' SNR too large: {snr_highest} against "
                              f"'highest', {snr_fp32} against fp32")
     del fp32, y_fp32
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
     summary = dict(
         calibration_percentile=cal_pct, calibration_kl=cal_kl,
         runners=metrics,
@@ -3896,6 +3927,7 @@ def phase_path_h(dev, pct_observer, kl_observer):
         int_accum_risk=cg.int_accum_risk,
         exact_convs=sorted(taken), card_equals_cpu_images=SIM_CPU_IMAGES,
         replay_equals_walk=True, chain_equals_chain1=True,
+        old_runner_keeps_its_scales=True,
         rows_held_inside_captures=held,
         snr_int_vs_highest=snr_highest,
         top1_int_vs_highest=float((outs['int'][0].argmax(-1) ==
@@ -3989,13 +4021,13 @@ def _path_inputs(dev):
 
     shape, loader, _ = _data()
     setting = QuantizationSettingFactory.default_setting()
-    setting.calibration.prefer_compiled = False     # path A's observer path
     setting.quantize_activation_setting.calib_algorithm = 'kl'
     qfunction.linear_quant, observers.histogram = record_quant, record_histogram
     try:
-        quantize_graph(resnet18(input_shape=shape), loader[:1], calib_steps=1,
-                       platform=TargetPlatform.TPU_INT8, setting=setting,
-                       verbose=False)
+        with _observer_path():
+            quantize_graph(resnet18(input_shape=shape), loader[:1],
+                           calib_steps=1, platform=TargetPlatform.TPU_INT8,
+                           setting=setting, verbose=False)
     finally:
         qfunction.linear_quant, observers.histogram = linear_quant, histogram
     torch.cuda.synchronize()

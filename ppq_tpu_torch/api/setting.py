@@ -11,8 +11,6 @@ from __future__ import annotations
 import json
 from typing import Dict, Optional
 
-from ..core import PPQ_TPU_CONFIG
-
 
 class _SubSetting:
     """JSON-serializable plain attribute bag."""
@@ -82,9 +80,6 @@ class CalibrationSetting(_SubSetting):
     def __init__(self):
         self.calib_algorithm: Optional[str] = None   # None → per-TQC default
         self.calib_steps = 32
-        # the compiled calibration (optim/fcalibration.py) where the graph
-        # and the algorithm allow it; False keeps the observer path
-        self.prefer_compiled = PPQ_TPU_CONFIG.PREFER_COMPILED_EXECUTOR
         self.isotone = False
         self.isotone_axis = -1
 

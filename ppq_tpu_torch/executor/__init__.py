@@ -4,4 +4,4 @@ from .base import (OPERATION_FORWARD_TABLE, BaseGraphExecutor,
 from .compile import CompiledGraph, compilable, compile_graph
 from .executor import QuantizeDelegator, TorchExecutor, resolve_device
 from .ops.default import (DEFAULT_BACKEND_TABLE, ExecContext,
-                          accumulation_dtype, simulation_precision)
+                          simulation_precision)

@@ -21,9 +21,11 @@ What a capture freezes. A CUDA graph replays the kernels with the arguments
 they had at capture: a host number passed to a kernel (the histogram's scale,
 a quant grid's offsets checked on the host) is a constant of the graph, and
 so is the address of every device tensor read, among them the scales and
-offsets that `device_qparams` keeps per root TQC. A runner therefore closes
-over its qparams, as the JAX package's runner closes over them as trace
-constants: after `write_back_qparams` or a calibration, build a new one.
+offsets that `device_qparams` keeps per root TQC. A capture holds those
+pairs, so that a TQC dropping its own (a new scale, offset, state or
+dominator) frees nothing the graph reads. A runner therefore closes over its
+qparams, as the JAX package's runner closes over them as trace constants:
+after `write_back_qparams` or a calibration, build a new one.
 Nothing in the walk may synchronise with the host; shape-chain (SOI) ops are
 evaluated in numpy on host values at trace time (`_soi_eval`), and one that
 meets a tensor on the card raises instead of reading it back.
@@ -44,7 +46,11 @@ precision:
             exceeds 2^24 are recorded in `int_accum_risk` (rejected under
             `int_accum_guard`). The JAX package stores the codes in bf16 and
             asks XLA for an f32 result; PyTorch's bf16 convolution returns
-            bf16, which would round the sums, so the port keeps float32;
+            bf16, which would round the sums, so the port keeps float32.
+            cuDNN takes the algorithm of these contractions from its
+            heuristics whatever `cudnn.benchmark` says
+            (`_integer_contraction`): a timed choice may take a Winograd or
+            FFT algorithm, whose transforms round integer sums;
   'default' float32 storage, TF32 convolutions and products (the card's
             default-precision math; the TPU's is bf16 passes);
   'bf16'    every float tensor stored in bf16, TF32 products; quantization
@@ -53,6 +59,7 @@ precision:
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -73,8 +80,7 @@ from ..quantization.qfunction import (device_qparams,
 from ..kernels.histogram import histogram
 from ..kernels.loader import LAUNCHES
 from .base import resolve_forward
-from .ops.default import (ExecContext, accumulation_dtype,
-                          simulation_precision)
+from .ops.default import ExecContext, simulation_precision
 
 # op types whose outputs depend on input *data* in shape-affecting ways: a
 # captured graph has static shapes
@@ -247,6 +253,23 @@ def _is_trainable_cfg(cfg: TensorQuantizationConfig) -> bool:
                           QuantizationStates.PASSIVE} and root.has_scale
 
 
+@contextlib.contextmanager
+def _integer_contraction():
+    """The flags of a contraction over integer codes, restored on exit: TF32
+    allowed (it holds the codes exactly), and `cudnn.benchmark` off, so that
+    cuDNN takes its algorithm from its heuristics (implicit GEMM for
+    ResNet-18's convolutions on the H100) and not from timing, which may
+    pick a Winograd or FFT algorithm whose transforms round integer sums."""
+    cudnn = torch.backends.cudnn
+    benchmark = cudnn.benchmark
+    cudnn.benchmark = False
+    try:
+        with simulation_precision('default'):
+            yield
+    finally:
+        cudnn.benchmark = benchmark
+
+
 def _mean_of_codes(op, codes: torch.Tensor) -> torch.Tensor:
     """GlobalAveragePool / ReduceMean / AveragePool over integer codes as
     the sum (exact) divided by the count, an IEEE quotient on every device
@@ -271,11 +294,15 @@ class _Capture:
 
     `body(inputs)` runs once uncaptured on a side stream (it loads and
     builds the kernels, builds cuDNN's plans and uploads the qparams, none
-    of which a capture may do), then inside `torch.cuda.graph`. A call copies the inputs into the static buffers and
-    replays the graph; the outputs are the capture's static tensors, which
-    the next replay overwrites."""
+    of which a capture may do), then inside `torch.cuda.graph`. A call
+    copies the inputs into the static buffers and replays the graph; the
+    outputs are the capture's static tensors, which the next replay
+    overwrites. `held()` returns, after the capture, the device tensors made
+    before it that the graph reads and that nothing else may keep alive (the
+    roots' `device_qparams`): the capture holds them."""
 
-    def __init__(self, body: Callable, inputs: Dict[str, torch.Tensor]):
+    def __init__(self, body: Callable, inputs: Dict[str, torch.Tensor],
+                 held: Callable[[], list]):
         device = next(iter(inputs.values())).device
         self.static_in = {k: v.detach().clone().contiguous()
                           for k, v in inputs.items()}
@@ -288,6 +315,7 @@ class _Capture:
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             self.static_out = body(self.static_in)
+        self.held = held()
         self.launches = {k: LAUNCHES[k] - before.get(k, 0) for k in LAUNCHES
                          if LAUNCHES[k] != before.get(k, 0)}
 
@@ -414,7 +442,8 @@ class CompiledGraph:
 
     def write_back_qparams(self, qparams: Dict[str, Dict[str, torch.Tensor]]):
         """Push scales / offsets back onto the IR's TQCs. A runner built
-        before keeps the values it was captured with: build a new one."""
+        before keeps the values it was captured with (its captures hold the
+        device scales they read): build a new one."""
         seen = {}
         for op in self._order:
             if not isinstance(op, QuantableOperation):
@@ -667,8 +696,7 @@ class CompiledGraph:
             if self._int_accum_guard:
                 return None
         fn = resolve_forward(op.platform, op.type)
-        with simulation_precision('default'), \
-                accumulation_dtype(torch.float32):
+        with _integer_contraction():
             y = fn(op, [qx, qw], self._ctx)
         if isinstance(y, (tuple, list)):
             y = y[0]
@@ -1050,8 +1078,19 @@ class CompiledGraph:
             return None
         call = cache.get(key)
         if call is None:
-            call = cache[key] = _Capture(body, inputs)
+            call = cache[key] = _Capture(body, inputs, self._device_qparams)
         return call
+
+    def _device_qparams(self) -> list:
+        """The (scale, offset) pairs that the roots of this graph's TQCs keep
+        on the device now (`device_qparams`)."""
+        roots = {}
+        for op in self._order:
+            if isinstance(op, QuantableOperation):
+                for cfg in op.config:
+                    roots[id(cfg.dominated_by)] = cfg.dominated_by
+        return [pair for root in roots.values()
+                for pair in root._device_qparams.values()]
 
     @staticmethod
     def _shape_key(inputs: Dict[str, torch.Tensor]):

@@ -22,9 +22,10 @@ and `torch.backends.cuda.matmul.allow_tf32 = False`. cuDNN otherwise runs
 fp32 convolutions in TF32, which would put TF32 rounding into every
 quantization error the tool reports. The compiled executor's 'default' and
 'bf16' modes turn TF32 on: the card's default-precision math, where the JAX
-package takes the TPU's bf16 passes. `accumulation_dtype` scopes the type
-convolutions and matrix products accumulate in and return, as the JAX
-package's `preferred_element_type` does.
+package takes the TPU's bf16 passes. The JAX package's
+`accumulation_dtype` (an f32 result from bf16 operands) has no counterpart:
+the compiled executor's integer codes are float32 already, so a float32
+convolution or product accumulates and returns float32.
 """
 
 from __future__ import annotations
@@ -58,36 +59,6 @@ class simulation_precision:
     def __exit__(self, *exc):
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = self._old
-
-
-# Accumulation type of convolutions and matmuls (the JAX package's
-# preferred_element_type). None follows the operands.
-_ACCUM_DTYPE = [None]
-
-
-class accumulation_dtype:
-    """Scopes the type the op library's convolutions and matmuls accumulate
-    in and return: operands of another type are converted to it first (bf16
-    to float32 is exact), so that the sum comes back un-rounded."""
-
-    def __init__(self, dtype: Optional[torch.dtype] = None):
-        self._new = dtype
-
-    def __enter__(self):
-        self._old = _ACCUM_DTYPE[0]
-        _ACCUM_DTYPE[0] = self._new
-        return self
-
-    def __exit__(self, *exc):
-        _ACCUM_DTYPE[0] = self._old
-
-
-def _accum(*operands):
-    """The operands in the scoped accumulation type, where one is set."""
-    dtype = _ACCUM_DTYPE[0]
-    if dtype is None:
-        return operands
-    return tuple(v.to(dtype) for v in operands)
 
 
 class ExecContext:
@@ -169,7 +140,7 @@ _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 def Conv_forward(op, values, ctx=None):
     ASSERT_NUM_OF_INPUT(op, values, 2, 3)
     x = _t(values[0])
-    x, w = _accum(x, _t(values[1], x))
+    w = _t(values[1], x)
     spatial = x.ndim - 2
     group = int(attr(op, 'group', 1))
     strides = [int(s) for s in attr(op, 'strides', [1] * spatial)]
@@ -180,7 +151,7 @@ def Conv_forward(op, values, ctx=None):
     else:
         x = F.pad(x, _pad_spec(pads))
         padding = 0
-    bias = _accum(_t(values[2], x))[0] if _present(values, 2) else None
+    bias = _t(values[2], x) if _present(values, 2) else None
     return _CONV[spatial](x, w, bias, stride=strides, padding=padding,
                           dilation=dilations, groups=group)
 
@@ -217,7 +188,7 @@ def GlobalAveragePool_forward(op, values, ctx=None):
 def Gemm_forward(op, values, ctx=None):
     ASSERT_NUM_OF_INPUT(op, values, 2, 3)
     a = _t(values[0])
-    a, b = _accum(a, _t(values[1], a))
+    b = _t(values[1], a)
     if int(attr(op, 'transA', 0)):
         a = a.T
     if int(attr(op, 'transB', 0)):

@@ -17,7 +17,7 @@ from __future__ import annotations
 from typing import Iterable, Optional, Sequence, Set
 
 from ...core import (COMPUTING_OP, LINEAR_ACTIVATIONS, PASSIVE_OPERATIONS,
-                     QP, DataType, OperationQuantizationConfig,
+                     PPQ_TPU_CONFIG, QP, DataType, OperationQuantizationConfig,
                      QuantizationPolicy, QuantizationStates,
                      QuantizationVisibility, RoundingPolicy, TargetPlatform,
                      TensorQuantizationConfig, ppq_info, ppq_warning)
@@ -270,7 +270,7 @@ class BaseQuantizer:
                     method=(setting.quantize_activation_setting.calib_algorithm
                             or calib.calib_algorithm),
                     calib_steps=calib.calib_steps,
-                    prefer_compiled=calib.prefer_compiled))
+                    prefer_compiled=PPQ_TPU_CONFIG.PREFER_COMPILED_EXECUTOR))
 
         if setting.fusion and fusion.align_quantization:
             pipeline.append(QuantAlignmentPass(

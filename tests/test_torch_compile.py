@@ -31,10 +31,12 @@ from ppq_tpu.zoo.vision import resnet18 as jax_resnet18
 from ppq_tpu.zoo.vision import tiny_cnn as jax_tiny_cnn
 from ppq_tpu_torch.core import QuantizationStates
 from ppq_tpu_torch.executor import CompiledGraph, compilable, compile_graph
+from ppq_tpu_torch.executor import DEFAULT_BACKEND_TABLE
 from ppq_tpu_torch.executor.compile import INT_EXACT_TYPES
 from ppq_tpu_torch.interop import (load_parameters, load_quantization_configs,
                                    parameters_of, quantization_configs_of)
 from ppq_tpu_torch.ir.morph import stem_space_to_depth
+from ppq_tpu_torch.quantization import qfunction
 from ppq_tpu_torch.zoo import resnet18 as torch_resnet18
 from ppq_tpu_torch.zoo import tiny_cnn as torch_tiny_cnn
 
@@ -228,6 +230,56 @@ def test_qparam_writeback(tiny):
     before = compile_graph(tg, device='cpu').make_runner()(x)[0]
     after = compile_graph(graph, device='cpu').make_runner()(x)[0]
     assert not torch.equal(before, after)
+
+
+@pytest.mark.parametrize('precision', ['int', 'highest'])
+def test_device_qparams_that_a_capture_holds(tiny, precision):
+    """What a capture holds after it is recorded (`_device_qparams`): every
+    device scale and offset that the walk read, the very tensors the TQCs'
+    roots keep; write-back drops the roots' own."""
+    _, tg, loader = tiny
+    graph = tg.copy(copy_value=True)
+    cg = compile_graph(graph, device='cpu', precision=precision)
+    cg.make_runner()(loader[0])
+    held = {id(t) for pair in cg._device_qparams() for t in pair}
+    read = [cfg for op in graph.operations.values() if hasattr(op, 'config')
+            for var, cfg in op.config_pairs()
+            if cfg.is_active and not var.is_parameter]
+    assert read
+    for cfg in read:
+        pair = qfunction.device_qparams(cfg, 'cpu')
+        assert {id(pair[0]), id(pair[1])} <= held, cfg
+    cg.write_back_qparams(cg.init_qparams())
+    assert not any(cfg.dominated_by._device_qparams for cfg in read)
+
+
+def test_integer_contractions_pin_cudnn(tiny, monkeypatch):
+    """Each contraction over integer codes runs with cuDNN's timed
+    algorithm choice off and TF32 on, whatever the caller set, and the
+    caller's flags are back after it; the other ops keep the caller's."""
+    _, tg, loader = tiny
+    seen = []
+    conv = DEFAULT_BACKEND_TABLE['Conv']
+
+    def recording_conv(op, values, ctx=None):
+        seen.append((torch.backends.cudnn.benchmark,
+                     torch.backends.cudnn.allow_tf32))
+        return conv(op, values, ctx)
+
+    monkeypatch.setitem(DEFAULT_BACKEND_TABLE, 'Conv', recording_conv)
+    monkeypatch.setattr(torch.backends.cudnn, 'benchmark', True)
+    cg = compile_graph(tg, device='cpu', precision='int')
+    cg.make_runner()(loader[0])
+    lowered = [op for op in cg._order
+               if op.type == 'Conv' and op.name in cg.int_lowered]
+    assert lowered and len(seen) == len(
+        [op for op in cg._order if op.type == 'Conv'])
+    assert seen.count((False, True)) == len(lowered)
+    assert torch.backends.cudnn.benchmark
+    seen.clear()
+    compile_graph(tg, device='cpu', precision='highest').make_runner()(
+        loader[0])
+    assert seen and all(s == (True, False) for s in seen)
 
 
 def _reset_sites(graph, states, n=3):

@@ -1711,17 +1711,22 @@ def _quantized_small(dev, algo='percentile', prefer_compiled=True):
     TPU_INT8 over 2 seeded batches: the compiled calibration by default."""
     from ppq_tpu_torch import TargetPlatform, quantize_graph
     from ppq_tpu_torch.api import QuantizationSettingFactory
+    from ppq_tpu_torch.core import PPQ_TPU_CONFIG
     from ppq_tpu_torch.zoo import resnet18
     rng = np.random.RandomState(0)
     loader = [rng.randn(4, 3, 32, 32).astype(np.float32) for _ in range(2)]
     setting = QuantizationSettingFactory.default_setting()
-    setting.calibration.prefer_compiled = prefer_compiled
     if algo != 'percentile':
         setting.quantize_activation_setting.calib_algorithm = algo
     graph = resnet18(num_classes=10, input_shape=[4, 3, 32, 32])
-    quantize_graph(graph, loader, calib_steps=2, setting=setting,
-                   platform=TargetPlatform.TPU_INT8, verbose=False,
-                   device=dev)
+    saved = PPQ_TPU_CONFIG.PREFER_COMPILED_EXECUTOR
+    PPQ_TPU_CONFIG.PREFER_COMPILED_EXECUTOR = prefer_compiled
+    try:
+        quantize_graph(graph, loader, calib_steps=2, setting=setting,
+                       platform=TargetPlatform.TPU_INT8, verbose=False,
+                       device=dev)
+    finally:
+        PPQ_TPU_CONFIG.PREFER_COMPILED_EXECUTOR = saved
     return graph, loader
 
 
@@ -1748,12 +1753,15 @@ def test_captured_runner_equals_the_uncaptured_walk(cuda, precision):
         assert torch.equal(stacked[i], run(x)[0])
 
 
-def test_int_is_exact_on_the_card(cuda):
+def test_int_is_exact_on_the_card(cuda, monkeypatch):
     """Every lowered convolution's sums on the card equal an int64 product
     of the same codes, and the card's 'int' logits equal the CPU's bit for
-    bit (integer sums exact in any order, the rest IEEE float32)."""
+    bit (integer sums exact in any order, the rest IEEE float32), with
+    cuDNN's timed algorithm choice on: the contraction pins its own."""
     from ppq_tpu_torch.executor import compile_graph
     graph, loader = _quantized_small(cuda)
+    monkeypatch.setattr(torch.backends.cudnn, 'benchmark', True)
+    monkeypatch.setattr(torch.backends.cudnn, 'deterministic', False)
     cg = compile_graph(graph, precision='int')
     checked = []
 
@@ -1777,6 +1785,36 @@ def test_int_is_exact_on_the_card(cuda):
     want = cpu.make_runner()(loader[0])[0]
     assert torch.equal(card.cpu(), want)
     assert cg.int_accum_risk == cpu.int_accum_risk
+
+
+@pytest.mark.parametrize('precision', ['int', 'highest', 'bf16'])
+def test_a_runner_keeps_the_qparams_it_was_captured_with(cuda, precision):
+    """New scales written back drop the device scales the TQCs kept; a
+    runner captured before holds them (nothing it reads is freed), replays
+    its old output bit for bit after the allocator has handed out fresh
+    memory, and a runner built after reads the new scales."""
+    import gc
+    import weakref
+    from ppq_tpu_torch.executor import compile_graph
+    graph, loader = _quantized_small(cuda)
+    cg = compile_graph(graph, precision=precision)
+    run = cg.make_runner()
+    before = run(loader[0])[0]
+    held = [t for pair in cg._device_qparams() for t in pair]
+    ids, refs = {id(t) for t in held}, [weakref.ref(t) for t in held]
+    del held
+    qparams = cg.init_qparams()
+    for q in qparams.values():
+        q['scale'] = q['scale'] * 2
+    cg.write_back_qparams(qparams)
+    assert ids - {id(t) for pair in cg._device_qparams() for t in pair}
+    gc.collect()
+    assert all(ref() is not None for ref in refs)
+    junk = [torch.full((64,), float('nan'), device=cuda) for _ in range(4096)]
+    torch.cuda.synchronize()
+    assert torch.equal(run(loader[0])[0], before)
+    del junk
+    assert not torch.equal(cg.make_runner()(loader[0])[0], before)
 
 
 def test_absmax_hist_two_sweeps_equal_the_observer_histogram(cuda):

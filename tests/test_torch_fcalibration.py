@@ -28,6 +28,7 @@ from ppq_tpu.api import QuantizationSettingFactory as JaxSettings
 from ppq_tpu.quantization.optim import fcalibration as jax_fcal
 from ppq_tpu.zoo import resnet18 as jax_resnet18
 from ppq_tpu_torch.api import QuantizationSettingFactory as TorchSettings
+from ppq_tpu_torch.core import PPQ_TPU_CONFIG
 from ppq_tpu_torch.executor import TorchExecutor
 from ppq_tpu_torch.quantization import solvers
 from ppq_tpu_torch.quantization.optim import (CompiledCalibrationPass,
@@ -79,13 +80,17 @@ def _jax(algo, compiled):
 
 def _torch(algo, compiled):
     graph = torch_resnet18(num_classes=10, input_shape=SHAPE)
-    setting = _setting(TorchSettings, algo)
-    setting.calibration.prefer_compiled = compiled
     fcalibration.LAST_CALIBRATION_PROFILE.clear()
-    ppq_tpu_torch.quantize_graph(
-        graph, _loader(), calib_steps=2,
-        platform=ppq_tpu_torch.TargetPlatform.TPU_INT8, setting=setting,
-        verbose=False, device='cpu')
+    saved = PPQ_TPU_CONFIG.PREFER_COMPILED_EXECUTOR
+    PPQ_TPU_CONFIG.PREFER_COMPILED_EXECUTOR = compiled
+    try:
+        ppq_tpu_torch.quantize_graph(
+            graph, _loader(), calib_steps=2,
+            platform=ppq_tpu_torch.TargetPlatform.TPU_INT8,
+            setting=_setting(TorchSettings, algo), verbose=False,
+            device='cpu')
+    finally:
+        PPQ_TPU_CONFIG.PREFER_COMPILED_EXECUTOR = saved
     return graph, dict(fcalibration.LAST_CALIBRATION_PROFILE)
 
 
@@ -208,3 +213,18 @@ def test_prefer_compiled_dispatch(monkeypatch, prefer, method, compiled):
     assert any(cfg.state.name == 'ACTIVATED' and not var.is_parameter
                for op in graph.operations.values() if hasattr(op, 'config')
                for var, cfg in op.config_pairs())
+
+
+@pytest.mark.parametrize('prefer', [True, False])
+def test_quantize_graph_follows_the_global_switch(monkeypatch, prefer):
+    """quantize_graph's calibration takes the compiled pass exactly where
+    PPQ_TPU_CONFIG.PREFER_COMPILED_EXECUTOR asks for it: the one switch
+    between the two paths."""
+    monkeypatch.setattr(fcalibration, 'CompiledCalibrationPass', _Recorder)
+    monkeypatch.setattr(PPQ_TPU_CONFIG, 'PREFER_COMPILED_EXECUTOR', prefer)
+    runs = _Recorder.runs
+    graph = torch_resnet18(num_classes=10, input_shape=SHAPE)
+    ppq_tpu_torch.quantize_graph(
+        graph, _loader(), calib_steps=2, verbose=False,
+        platform=ppq_tpu_torch.TargetPlatform.TPU_INT8, device='cpu')
+    assert (_Recorder.runs - runs == 1) == prefer

@@ -9,7 +9,7 @@ Both packages default to the compiled calibration (optim/fcalibration.py),
 and the JAX package's compiled path departs from its own observer path
 (ROADMAP.md queue 3 item 3). So these tests hold the two observer paths
 against each other: the JAX side by making `compiled_calibration_supported`
-answer False, the port's by `setting.calibration.prefer_compiled = False`.
+answer False, the port's by `PPQ_TPU_CONFIG.PREFER_COMPILED_EXECUTOR = False`.
 One test holds the two compiled (default) paths against each other;
 tests/test_torch_fcalibration.py holds the port's compiled path itself.
 """
@@ -32,6 +32,7 @@ from ppq_tpu.api import QuantizationSettingFactory as JaxSettings
 from ppq_tpu.quantization.optim import fcalibration
 from ppq_tpu.zoo import resnet18 as jax_resnet18
 from ppq_tpu_torch.api import QuantizationSettingFactory as TorchSettings
+from ppq_tpu_torch.core import PPQ_TPU_CONFIG
 from ppq_tpu_torch.interop import (load_parameters, load_quantization_configs,
                                    parameters_of, quantization_configs_of)
 from ppq_tpu_torch.zoo import resnet18 as torch_resnet18
@@ -57,12 +58,10 @@ def _loader():
     return [rng.randn(*SHAPE).astype(np.float32) for _ in range(2)]
 
 
-def _setting(factory, algo, observer_path=False):
+def _setting(factory, algo):
     s = factory.default_setting()
     if algo != 'percentile':
         s.quantize_activation_setting.calib_algorithm = algo
-    if observer_path:
-        s.calibration.prefer_compiled = False
     return s
 
 
@@ -89,11 +88,16 @@ def _jax_quantized(algo, observer_path=True):
 
 def _torch_quantized(algo, observer_path=True):
     graph = torch_resnet18(num_classes=10, input_shape=SHAPE)
-    ppq_tpu_torch.quantize_graph(
-        graph, _loader(), calib_steps=2,
-        platform=ppq_tpu_torch.TargetPlatform.TPU_INT8,
-        setting=_setting(TorchSettings, algo, observer_path), verbose=False,
-        device='cpu')
+    saved = PPQ_TPU_CONFIG.PREFER_COMPILED_EXECUTOR
+    PPQ_TPU_CONFIG.PREFER_COMPILED_EXECUTOR = not observer_path
+    try:
+        ppq_tpu_torch.quantize_graph(
+            graph, _loader(), calib_steps=2,
+            platform=ppq_tpu_torch.TargetPlatform.TPU_INT8,
+            setting=_setting(TorchSettings, algo), verbose=False,
+            device='cpu')
+    finally:
+        PPQ_TPU_CONFIG.PREFER_COMPILED_EXECUTOR = saved
     executor = ppq_tpu_torch.TorchExecutor(graph, device='cpu')
     return graph, executor.forward(_loader()[0])[0].numpy()
 
