@@ -28,6 +28,17 @@ Phases (each raises on failure, and the script then exits non-zero):
      against the uncaptured walk and chain-1 replays, rows 1-3 inside
      captures against their plain versions, 'int' against 'highest' and
      the fp32 model (`--compiled` runs this path alone);
+ 4c. path I: ingest and export at the same width: the seeded zoo graph
+     written to ONNX and parsed back (parameters bit for bit),
+     `quantize_onnx_model` on the file (its TQCs and 'int' logits at batch
+     256 bit for bit those of `quantize_graph` on the zoo graph),
+     `export_ppq_graph` to TPU_INT8 and TRT_INT8 QDQ, TensorRT's JSON
+     ranges, NCNN_INT8's table and a native checkpoint, the QDQ file
+     parsed and run on the card (eager at batch 32, a 'highest' runner at
+     256) against the simulation, the checkpoint's 'int' logits bit for
+     bit, QuantizeLinear's kernel against its plain twin, and a
+     ResNet-18-shaped torch.nn.Module through `load_torch_model` against
+     its own forward (`--frontends` runs this path alone);
   5. path B: the same model, `quantize_graph` with `lsq_optimization` (LSQ
      over every block, weights and scales trained, 4 cached batches), the
      forward and its SNR against the fp32 model before and after LSQ; then
@@ -3956,6 +3967,378 @@ def main_compiled() -> int:
     return 0
 
 
+# ------------------------------------------------------------------ path I
+# ingest and export. The deployed QDQ graph against the simulation under the
+# JAX package's exporter bounds (tests/test_exporters.py:44-47: SNR;
+# tests/test_qdq_hygiene.py:72-75: max |diff| over max |simulated|)
+QDQ_SNR_BOUND, QDQ_REL_BOUND = 1e-3, 5e-2
+# load_torch_model: the module and its parsed graph in float32 with TF32
+# off. The exporter folds each BatchNormalization into its convolution, so
+# the two sum in another order and round the folded weights once more:
+# held within this share of the largest |logit| (the CPU measured 2.4e-7
+# at 2 x 3 x 224 x 224)
+TORCH_IMPORT_TOL = 1e-5
+# QuantizeLinear's kernel against its plain twin: this many of the deployed
+# graph's activation sites, taken from one eager forward
+QDQ_HELD_SITES = 8
+# the deployed TPU_INT8 ResNet-18's QuantizeLinears, each an activation's
+DEPLOYED_Q_SITES = 49
+
+
+def _resnet18_module(seed=0):
+    """A ResNet-18-shaped torch.nn.Module (BasicBlocks [2, 2, 2, 2], widths
+    64-512, 1000 classes; torchvision's layout, written out here) with
+    seeded weights and BatchNorm statistics, in eval mode on the host."""
+    import torch.nn as nn
+
+    class Block(nn.Module):
+        def __init__(self, cin, cout, stride):
+            super().__init__()
+            self.conv1 = nn.Conv2d(cin, cout, 3, stride, 1, bias=False)
+            self.bn1 = nn.BatchNorm2d(cout)
+            self.conv2 = nn.Conv2d(cout, cout, 3, 1, 1, bias=False)
+            self.bn2 = nn.BatchNorm2d(cout)
+            self.down = None
+            if stride != 1 or cin != cout:
+                self.down = nn.Sequential(
+                    nn.Conv2d(cin, cout, 1, stride, bias=False),
+                    nn.BatchNorm2d(cout))
+
+        def forward(self, x):
+            y = torch.relu(self.bn1(self.conv1(x)))
+            y = self.bn2(self.conv2(y))
+            return torch.relu(y + (x if self.down is None else self.down(x)))
+
+    class ResNet18(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.stem = nn.Sequential(
+                nn.Conv2d(3, 64, 7, 2, 3, bias=False), nn.BatchNorm2d(64),
+                nn.ReLU(), nn.MaxPool2d(3, 2, 1))
+            blocks, cin = [], 64
+            for cout, stride in ((64, 1), (128, 2), (256, 2), (512, 2)):
+                blocks += [Block(cin, cout, stride), Block(cout, cout, 1)]
+                cin = cout
+            self.blocks = nn.Sequential(*blocks)
+            self.pool = nn.AdaptiveAvgPool2d(1)
+            self.fc = nn.Linear(512, 1000)
+
+        def forward(self, x):
+            x = self.pool(self.blocks(self.stem(x)))
+            return self.fc(torch.flatten(x, 1))
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = ResNet18()
+        for m in model.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                n = m.num_features
+                m.weight.data.uniform_(0.5, 1.5)
+                m.bias.data.normal_(0.0, 0.1)
+                m.running_mean.normal_(0.0, 0.1)
+                m.running_var.uniform_(0.5, 1.5)
+    return model.eval()
+
+
+def _same_parameters(a, b) -> int:
+    """Raise unless graphs a and b hold the same parameter variables, bit
+    for bit; return their count."""
+    pa = {k: v for k, v in a.variables.items() if v.is_parameter and v.has_value}
+    pb = {k: v for k, v in b.variables.items() if v.is_parameter and v.has_value}
+    if set(pa) != set(pb):
+        raise AssertionError(f'parameters differ by name: '
+                             f'{sorted(set(pa) ^ set(pb))[:8]}')
+    for k in pa:
+        x, y = np.asarray(pa[k].value), np.asarray(pb[k].value)
+        if x.dtype != y.dtype or x.shape != y.shape or \
+                x.tobytes() != y.tobytes():
+            raise AssertionError(f'parameter {k} differs after the round trip')
+    return len(pa)
+
+
+def _same_qparams(a, b) -> int:
+    """Raise unless every TQC of graph a has its counterpart in b (the op of
+    the same name, the same position) with the same state, scale and offset,
+    bit for bit; return the number compared with a scale."""
+    from ppq_tpu_torch.ir import QuantableOperation
+    n = 0
+    for name, op in a.operations.items():
+        if not isinstance(op, QuantableOperation):
+            continue
+        other = b.operations.get(name)
+        if not isinstance(other, QuantableOperation):
+            raise AssertionError(f'{name} is not quantized in both graphs')
+        for ca, cb in zip(op.config, other.config):
+            if ca.state != cb.state or ca.has_scale != cb.has_scale:
+                raise AssertionError(f'{name}: TQC state {ca.state} / '
+                                     f'{cb.state}')
+            if ca.has_scale:
+                for fa, fb in ((ca.scale, cb.scale), (ca.offset, cb.offset)):
+                    if np.asarray(fa, np.float32).tobytes() != \
+                            np.asarray(fb, np.float32).tobytes():
+                        raise AssertionError(f'{name}: scale or offset differ')
+                n += 1
+    return n
+
+
+def _deployed_vs_sim(dep, sim):
+    from ppq_tpu_torch.quantization.measure import torch_snr_error
+    snr = float(torch_snr_error(dep, sim))
+    rel = float((dep - sim).abs().max() / (sim.abs().max() + 1e-9))
+    top1 = float((dep.argmax(-1) == sim.argmax(-1)).float().mean())
+    return dict(snr=snr, max_rel_err=rel, top1_agree=top1)
+
+
+class _QuantizeLinearInputs:
+    """RuntimeHooks that keep the inputs of the deployed graph's first
+    `n` QuantizeLinear ops of one forward."""
+
+    def __init__(self, graph, n):
+        from ppq_tpu_torch.executor import RuntimeHook
+        self.taken = []
+        taken = self.taken
+
+        class Take(RuntimeHook):
+            def pre_forward_hook(self, inputs, **kwargs):
+                taken.append((self._hook_to, list(inputs)))
+                return inputs
+
+        ops = [op for op in graph.topological_sort()
+               if op.type == 'QuantizeLinear'][:n]
+        self.hooks = {op.name: Take(op) for op in ops}
+
+
+def phase_path_i(dev):
+    """Ingest and export at the zoo ResNet-18's full width: the seeded graph
+    written to ONNX and parsed back, `quantize_onnx_model` on the file
+    (TPU_INT8, percentile over path H's batches, the compiled calibration)
+    and its 'int' runner at batch SIM_BATCH, `export_ppq_graph` to
+    TPU_INT8 QDQ, TRT_INT8 QDQ and TensorRT's JSON ranges, NCNN_INT8's
+    table and a native checkpoint, the QDQ file parsed and run on the card
+    (eager at batch 32, a 'highest' runner at SIM_BATCH), the checkpoint
+    loaded and run, and a torch.nn.Module through `load_torch_model`. Then,
+    outside the counts: the parameters after the round trip, the TQCs and
+    'int' logits against `quantize_graph` on the zoo graph, the deployed
+    graph against the simulation, the native graph's logits, QuantizeLinear's
+    kernel against its plain twin (activations of the deployed graph, and
+    every conv and Gemm weight against the int8 initializer the exporter wrote), and the
+    torch module against its parsed graph."""
+    import tempfile
+    from ppq_tpu_torch import (TargetPlatform, TorchExecutor,
+                               export_ppq_graph, load_native_graph,
+                               load_onnx_graph, quantize_graph,
+                               quantize_onnx_model)
+    from ppq_tpu_torch.api import load_torch_model
+    from ppq_tpu_torch.executor import compile_graph
+    from ppq_tpu_torch.executor.ops.default import (quantize_linear,
+                                                    quantize_linear_plain,
+                                                    simulation_precision)
+    from ppq_tpu_torch.frontends.native import NativeExporter
+    from ppq_tpu_torch.frontends.onnx import OnnxExporter
+    from ppq_tpu_torch.frontends.tensorrt import TensorRTExporter_JSON
+    from ppq_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ppq_tpu_torch.zoo import resnet18
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    shape, loader, x_eval = _data()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    xs = torch.randn(SIM_BATCH, 3, IMAGE, IMAGE, device=dev, generator=gen)
+    x32 = torch.as_tensor(x_eval, device=dev)
+    seconds, sizes = {}, {}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[key] = time.perf_counter() - t0
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        files = {k: os.path.join(tmp, v) for k, v in dict(
+            fp32='resnet18.onnx', qdq='resnet18_qdq.onnx',
+            qdq_json='resnet18_qdq.json', trt='resnet18_trt.onnx',
+            trt_json='resnet18_trt.json', trt_ranges='resnet18_trt_fp32.onnx',
+            trt_ranges_json='resnet18_trt_ranges.json',
+            ncnn='resnet18_ncnn.onnx', ncnn_table='resnet18_ncnn.table',
+            native='resnet18.native').items()}
+
+        # ---------------- the main path (the counts are read at its end)
+        reset_launches()
+        zoo = resnet18(input_shape=shape)
+        timed('write_onnx', lambda: OnnxExporter().export(files['fp32'], zoo))
+        parsed = timed('parse_onnx', lambda: load_onnx_graph(files['fp32']))
+        quantized = timed('quantize_onnx_model', lambda: quantize_onnx_model(
+            files['fp32'], loader, calib_steps=CALIB_STEPS,
+            platform=TargetPlatform.TPU_INT8, verbose=False))
+        run_int = compile_graph(quantized, precision='int').make_runner()
+        logits_int = timed('int_runner_capture', lambda: run_int(xs)[0])
+        del run_int
+        timed('export_tpu_int8_qdq', lambda: export_ppq_graph(
+            quantized, TargetPlatform.TPU_INT8, files['qdq'],
+            files['qdq_json']))
+        timed('export_trt_int8_qdq', lambda: export_ppq_graph(
+            quantized, TargetPlatform.TRT_INT8, files['trt'],
+            files['trt_json']))
+        timed('export_trt_json', lambda: TensorRTExporter_JSON().export(
+            files['trt_ranges'], quantized,
+            config_path=files['trt_ranges_json']))
+        timed('export_ncnn_int8', lambda: export_ppq_graph(
+            quantized, TargetPlatform.NCNN_INT8, files['ncnn'],
+            files['ncnn_table']))
+        timed('export_native', lambda: NativeExporter().export(
+            files['native'], quantized))
+        for k, path in files.items():
+            sizes[k] = os.path.getsize(path)
+        deployed = timed('parse_qdq', lambda: load_onnx_graph(files['qdq']))
+        before = dict(LAUNCHES)
+        dep32 = timed('deployed_eager_b32', lambda: TorchExecutor(
+            deployed).forward(x32)[0])
+        run_dep = compile_graph(deployed, precision='highest').make_runner()
+        dep256 = timed('deployed_runner_capture', lambda: run_dep(xs)[0])
+        t0 = time.perf_counter()
+        for _ in range(SIM_REPEATS):
+            dep256 = run_dep(xs)[0]
+        torch.cuda.synchronize()
+        dep_img_s = SIM_BATCH * SIM_REPEATS / (time.perf_counter() - t0)
+        dep_launches = {k: LAUNCHES[k] - before.get(k, 0) for k in LAUNCHES
+                        if LAUNCHES[k] != before.get(k, 0)}
+        dep_per_replay = dict(run_dep.launches_per_replay)
+        del run_dep
+        reloaded = timed('load_native', lambda: load_native_graph(
+            files['native']))
+        run_native = compile_graph(reloaded, precision='int').make_runner()
+        logits_native = timed('native_int_runner_capture',
+                              lambda: run_native(xs)[0])
+        del run_native
+        module = _resnet18_module()
+        imported = timed('load_torch_model', lambda: load_torch_model(
+            module, torch.zeros(1, 3, IMAGE, IMAGE)))
+        y_imported = timed('imported_eager_b32', lambda: TorchExecutor(
+            imported).forward(x32)[0])
+        launches = dict(LAUNCHES)
+
+        # ---------------- checks: these launches are not the main path's
+        n_params = _same_parameters(zoo, parsed)
+        reference = resnet18(input_shape=shape)
+        quantize_graph(reference, loader, calib_steps=CALIB_STEPS,
+                       platform=TargetPlatform.TPU_INT8, verbose=False)
+        n_tqcs = _same_qparams(reference, quantized)
+        run_ref = compile_graph(reference, precision='int').make_runner()
+        if not torch.equal(run_ref(xs)[0], logits_int):
+            raise AssertionError("path I: quantize_onnx_model's 'int' logits "
+                                 "differ from quantize_graph's on the zoo "
+                                 "graph")
+        del run_ref
+        if not torch.equal(logits_native, logits_int):
+            raise AssertionError("path I: the native checkpoint's 'int' "
+                                 "logits differ")
+        sim32 = TorchExecutor(quantized).forward(x32)[0]
+        run_sim = compile_graph(quantized, precision='highest').make_runner()
+        sim256 = run_sim(xs)[0]
+        del run_sim
+        held = dict(b32=_deployed_vs_sim(dep32, sim32),
+                    b256=_deployed_vs_sim(dep256, sim256))
+        for key, m in held.items():
+            if not (m['snr'] < QDQ_SNR_BOUND and
+                    m['max_rel_err'] < QDQ_REL_BOUND):
+                raise AssertionError(f'path I: deployed graph vs simulation '
+                                     f'at {key}: {m}')
+        for key, out in (('b32', dep32), ('b256', dep256)):
+            if out.shape[-1] != 1000 or not torch.isfinite(out).all():
+                raise AssertionError(f'path I: deployed output at {key}')
+        # TPU_INT8 ships the weights as int8 initializers: every
+        # QuantizeLinear is an activation's, per-tensor (row 1), once in the
+        # eager forward, at the runner's walk and at its capture
+        q_sites = sum(op.type == 'QuantizeLinear'
+                      for op in deployed.operations.values())
+        if q_sites != DEPLOYED_Q_SITES or \
+                dep_per_replay != {'fake_quant_tensorwise': q_sites} or \
+                dep_launches != {'fake_quant_tensorwise': 3 * q_sites}:
+            raise AssertionError(f'path I: the deployed graph has {q_sites} '
+                                 f'QuantizeLinears and launched '
+                                 f'{dep_launches} ({dep_per_replay} a '
+                                 f'replay), not {DEPLOYED_Q_SITES} of row 1')
+        # QuantizeLinear: kernel against twin on the deployed graph's own
+        # activation inputs, then every weight quantized on the card against
+        # its int8 initializer (written by the exporter on the host)
+        take = _QuantizeLinearInputs(deployed, QDQ_HELD_SITES)
+        TorchExecutor(deployed).forward(x32, hooks=take.hooks)
+        sites = 0
+        for op, (x, scale, zp) in take.taken:
+            zp_t = torch.as_tensor(np.asarray(zp, np.float32), device=dev)
+            dtype = torch.from_numpy(np.asarray(zp)).dtype
+            got = quantize_linear(x, scale, zp_t, None, dtype)
+            want = quantize_linear_plain(x, scale, zp_t, None, dtype)
+            if got.dtype != dtype or not torch.equal(got, want):
+                raise AssertionError(f'path I: QuantizeLinear {op.name}: '
+                                     f'kernel != twin')
+            sites += 1
+        weights = 0
+        for op in deployed.operations.values():
+            w = op.inputs[0]
+            if op.type != 'DequantizeLinear' or not w.is_parameter or \
+                    np.asarray(w.value).ndim < 2:
+                continue
+            src = quantized.variables[w.name]
+            owner = src.dest_ops[0]
+            fp32 = getattr(owner, '_fp32_params', {}).get(w.name, src.value)
+            x = torch.as_tensor(np.asarray(fp32, np.float32), device=dev)
+            scale = torch.as_tensor(np.asarray(op.inputs[1].value),
+                                    device=dev)
+            zp = np.asarray(op.inputs[2].value)
+            zp_t = torch.as_tensor(zp.astype(np.float32), device=dev)
+            axis = int(op.attributes.get('axis', 1))
+            dtype = torch.from_numpy(zp).dtype
+            got = quantize_linear(x, scale, zp_t, axis, dtype)
+            want = quantize_linear_plain(x, scale, zp_t, axis, dtype)
+            init = torch.as_tensor(np.asarray(w.value), device=dev)
+            if not (torch.equal(got, want) and torch.equal(got, init)):
+                raise AssertionError(f'path I: per-axis QuantizeLinear of '
+                                     f'{w.name} != twin or initializer')
+            weights += 1
+        if sites != QDQ_HELD_SITES or weights != 21:
+            raise AssertionError(f'path I: held {sites} activation sites and '
+                                 f'{weights} weights')
+        with torch.no_grad(), simulation_precision('highest'):
+            y_module = module.to(dev)(x32)
+        torch.cuda.synchronize()
+        imported_err = float((y_imported - y_module).abs().max() /
+                             y_module.abs().max())
+        if not imported_err < TORCH_IMPORT_TOL:
+            raise AssertionError(f'path I: load_torch_model forward off by '
+                                 f'{imported_err} of the largest logit')
+    summary = dict(
+        seconds=seconds, bytes=sizes, parameters_bit_equal=n_params,
+        tqcs_bit_equal=n_tqcs, int_logits_equal_zoo=True,
+        native_int_logits_equal=True,
+        deployed_vs_simulation=held, deployed_runner_img_per_s=dep_img_s,
+        deployed_launches=dep_launches,
+        deployed_launches_per_replay=dep_per_replay,
+        quantize_linear_held=dict(activation_sites=sites, weights=weights),
+        torch_import_max_err_share=imported_err,
+        torch_import_bound=TORCH_IMPORT_TOL,
+        deployed_ops=sorted({op.type for op in deployed.operations.values()}))
+    log(f'[path I] {json.dumps(summary)}')
+    return launches, summary
+
+
+def main_frontends() -> int:
+    """Path I alone: the quick loop for ingest and export."""
+    name, smi = phase_card()
+    import ppq_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+    dev = torch.device('cuda', 0)
+    torch.cuda.set_device(dev)
+    phase_build(['fake_quant', 'histogram'])
+    launches, _ = phase_path_i(dev)
+    log(f'[launches] path I {json.dumps(launches)}')
+    log(smi)
+    log(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': name, 'count': torch.cuda.device_count()}}))
+    return 0
+
+
 def phase_profile(executor, x_dev, n=3):
     """Where the simulated forward's device time goes: torch.profiler over
     n forwards, device time by kernel name and the device's busy share of
@@ -4520,6 +4903,9 @@ def main() -> int:
         mode.add_argument('--compiled', action='store_true',
                           help='path H alone: the compiled calibration and '
                                'runners, held against the observer path')
+        mode.add_argument('--frontends', action='store_true',
+                          help='path I alone: ONNX in, quantize, export, '
+                               'the exported files run again')
         ap.add_argument('--package-root', default=None,
                         help='import ppq_tpu_torch from this checkout')
         args = ap.parse_args()
@@ -4529,6 +4915,8 @@ def main() -> int:
             return main_quant(args.package_root)
         if args.compiled:
             return main_compiled()
+        if args.frontends:
+            return main_frontends()
         return main_qmm(args.package_root)
     t_start = time.perf_counter()
     name, smi = phase_card()
@@ -4540,6 +4928,7 @@ def main() -> int:
     launches_a, _, pct_graph, kl_graph = phase_main_path(dev)
     launches_h, _ = phase_path_h(dev, pct_graph, kl_graph)
     del pct_graph
+    launches_i, _ = phase_path_i(dev)
     launches_b, _, lsq_graph, train_loader = phase_path_b(dev, kl_graph)
     launches_c, _, fp8_graph, _ = phase_path_c(dev)
     launches_d, _, serve_params = phase_path_d(dev)
@@ -4547,7 +4936,8 @@ def main() -> int:
     launches_g, _ = phase_path_g(dev, serve_params)
     del serve_params
     launches_f, _ = phase_path_f(dev)
-    paths = dict(A=launches_a, H=launches_h, B=launches_b, C=launches_c,
+    paths = dict(A=launches_a, H=launches_h, I=launches_i, B=launches_b,
+                 C=launches_c,
                  D=launches_d, E=launches_e, F=launches_f, G=launches_g)
     # each path's counts were set to 0 before it and read just after it
     launches = {k: sum(p[k] for p in paths.values()) for k in launches_a}

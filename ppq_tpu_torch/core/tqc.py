@@ -75,6 +75,14 @@ class TensorQuantizationConfig:
     def _drop_device_qparams(self):
         self._device_qparams.clear()
 
+    def __getstate__(self):
+        # a checkpoint (core/storage.py) holds the host scale and offset
+        # only: the device copies are remade at the first use on a device,
+        # so a file written on the card loads where there is none
+        state = self.__dict__.copy()
+        state['_device_qparams'] = {}
+        return state
+
     # ------------------------------------------------------------------ state
     @property
     def state(self) -> QuantizationStates:

@@ -352,7 +352,7 @@ class CompiledGraph:
                 f'with static shapes: {bad}. Use the eager TorchExecutor.')
         self.graph = graph
         self._order = span if span is not None else graph.topological_sort()
-        self._ctx = ExecContext(graph, self._order)
+        self._ctx = ExecContext(graph, self._order, self.device)
         if span is not None:
             produced = {v.name for op in span for v in op.outputs}
             if input_names is None:

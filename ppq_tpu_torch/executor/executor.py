@@ -69,7 +69,7 @@ class TorchExecutor(BaseGraphExecutor):
         self._device = resolve_device(device)
         super().__init__(graph)
         self._delegates: Dict[TensorQuantizationConfig, QuantizeDelegator] = {}
-        self._ctx = ExecContext(graph, self._executing_order)
+        self._ctx = ExecContext(graph, self._executing_order, self._device)
         # variable name -> (host array it was made from, device value)
         self._params: Dict[str, Any] = {}
 

@@ -5,9 +5,11 @@ path meets: after `format_graph` folds BatchNormalization into Conv
 (ir/morph.py) these are Conv, Gemm, Relu, MaxPool, Add, GlobalAveragePool
 and Flatten; BatchNormalization is kept for the unformatted graph; Reshape
 and Transpose are what `stem_space_to_depth` (ir/morph.py) inserts before
-the compiled executor runs the graph. The other ops of the JAX table are a
-later slice (ROADMAP.md queue 1, item 3). Every
-function has the signature
+the compiled executor runs the graph. QuantizeLinear, DequantizeLinear,
+QuantizeFloating, DequantizeFloating and PPQDeviceSwitch are what an
+exported QDQ graph (frontends/onnxruntime.py) and a switched graph
+(ir/deploy.py) add. The other ops of the JAX table are a later slice
+(ROADMAP.md queue 1, item 3). Every function has the signature
 
     f(op: Operation, values: List[Tensor | ndarray], ctx: ExecContext) -> Tensor
 
@@ -63,12 +65,16 @@ class simulation_precision:
 
 class ExecContext:
     """Per-forward context handed to every op fn (reference:
-    op/torch/base.py TorchBackendContext)."""
+    op/torch/base.py TorchBackendContext): the graph, the order of its ops,
+    the device the executor runs on, and `detail`, a store that lives as
+    long as the executor (the device copies of host operands,
+    `_device_operand`)."""
 
-    def __init__(self, graph=None, executing_order=None):
+    def __init__(self, graph=None, executing_order=None, device=None):
         self.graph = graph
         self.executing_order = executing_order
-        self.detail: Dict[str, Any] = {}
+        self.device = device
+        self.detail: Dict[Any, Any] = {}
 
 
 def ASSERT_NUM_OF_INPUT(op, values, min_num: int, max_num: Optional[int] = None):
@@ -252,6 +258,165 @@ def Transpose_forward(op, values, ctx=None):
     return x.permute([int(p) for p in perm])
 
 
+# ============================================================ QDQ dialect ===
+
+
+def _device_operand(op, idx: int, value, device, ctx) -> torch.Tensor:
+    """Input `idx` of `op` as a float32 tensor on `device`. A host operand
+    (an integer parameter: a zero point, a weight's integer codes; the
+    executors keep these on the host) is uploaded once per host array and
+    kept in `ctx.detail`: an upload from pageable memory could not be
+    captured into a CUDA graph, and the uncaptured walk that precedes every
+    capture (executor/compile.py `_Capture`) fills the store."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=torch.float32)
+    key = ('operand', op.name, idx)
+    hit = ctx.detail.get(key) if ctx is not None else None
+    if hit is not None and hit[0] is value:
+        return hit[1]
+    t = torch.as_tensor(np.asarray(value, np.float32), device=device)
+    if ctx is not None:
+        ctx.detail[key] = (value, t)
+    return t
+
+
+def _zero_point_dtype(values) -> torch.dtype:
+    """The output type of QuantizeLinear: its zero point's, int8 without
+    one."""
+    if not _present(values, 2):
+        return torch.int8
+    zp = values[2]
+    if isinstance(zp, torch.Tensor):
+        return zp.dtype
+    return torch.from_numpy(np.zeros(0, np.asarray(zp).dtype)).dtype
+
+
+def _qdq_axis(op, x: torch.Tensor, scale: torch.Tensor) -> Optional[int]:
+    """The axis of a per-axis QDQ op (ONNX default 1), None per-tensor."""
+    if scale.numel() <= 1:
+        return None
+    return int(attr(op, 'axis', 1)) % x.ndim
+
+
+def quantize_linear_plain(x: torch.Tensor, scale: torch.Tensor,
+                          zero_point: torch.Tensor, axis: Optional[int],
+                          dtype: torch.dtype) -> torch.Tensor:
+    """ONNX QuantizeLinear in plain PyTorch, the JAX op's formula
+    (ppq_tpu/executor/ops/default.py `QuantizeLinear_forward`):
+    saturate(round_half_even(x / scale) + zero_point). The scale is a tensor
+    on x's device, so that `x / scale` is the IEEE quotient. The kernel's
+    independent twin, for tests."""
+    from ...kernels.quant import _broadcast
+    info = torch.iinfo(dtype)
+    q = torch.round(x / _broadcast(scale, x.ndim, axis)) + \
+        _broadcast(zero_point, x.ndim, axis)
+    return torch.clamp(q, info.min, info.max).to(dtype)
+
+
+def quantize_linear(x: torch.Tensor, scale: torch.Tensor,
+                    zero_point: torch.Tensor, axis: Optional[int],
+                    dtype: torch.dtype) -> torch.Tensor:
+    """ONNX QuantizeLinear through the linear fake-quant in its codes mode
+    (kernels/quant.py `linear_quant`: the kernel, tensorwise per-tensor and
+    channelwise per-axis, on a CUDA tensor; its plain version on a CPU one)
+    with the zero point as the offset and the type's range as the clip: it
+    returns clip(round(x / s) + zp, lo, hi) - zp, and adding zp back gives
+    the ONNX result exactly (integers below 2^24)."""
+    from ...core import RoundingPolicy
+    from ...kernels.quant import _broadcast, linear_quant
+    info = torch.iinfo(dtype)
+    scale = scale.reshape(-1) if axis is not None else scale.reshape(())
+    zero_point = (zero_point.reshape(-1) if axis is not None
+                  else zero_point.reshape(()))
+    codes = linear_quant(x.contiguous(), scale, zero_point, float(info.min),
+                         float(info.max), RoundingPolicy.ROUND_HALF_EVEN,
+                         axis, codes=True)
+    return (codes + _broadcast(zero_point, x.ndim, axis)).to(dtype)
+
+
+def QuantizeLinear_forward(op, values, ctx=None):
+    """ONNX QuantizeLinear: y = saturate(round(x / scale) + zero_point),
+    needed to run an exported QDQ graph again (reference guarantee:
+    tests/test_onnxruntime.py)."""
+    ASSERT_NUM_OF_INPUT(op, values, 2, 3)
+    x = _t(values[0]).to(torch.float32)
+    scale = _device_operand(op, 1, values[1], x.device, ctx)
+    zp = (_device_operand(op, 2, values[2], x.device, ctx)
+          if _present(values, 2) else torch.zeros_like(scale))
+    return quantize_linear(x, scale, zp, _qdq_axis(op, x, scale),
+                           _zero_point_dtype(values))
+
+
+def _dequantize_params(op, x, values, ctx, axis):
+    from ...kernels.quant import _broadcast
+    scale = _device_operand(op, 1, values[1], x.device, ctx)
+    zp = (_device_operand(op, 2, values[2], x.device, ctx)
+          if _present(values, 2) else torch.zeros_like(scale))
+    if axis is None or scale.numel() <= 1:
+        return scale, zp
+    axis = int(axis) % x.ndim
+    return _broadcast(scale, x.ndim, axis), _broadcast(zp, x.ndim, axis)
+
+
+def _qdq_input(op, values, ctx) -> torch.Tensor:
+    """Input 0 of a dequantizing op as float32: a tensor where it lies, a
+    host operand (a weight's integer codes) on the executor's device."""
+    if isinstance(values[0], torch.Tensor):
+        device = values[0].device
+    elif ctx is not None and ctx.device is not None:
+        device = ctx.device
+    else:
+        raise ValueError(f'{op.type} op {op.name}: a host input needs an '
+                         f'ExecContext that names the device')
+    return _device_operand(op, 0, values[0], device, ctx)
+
+
+def DequantizeLinear_forward(op, values, ctx=None):
+    """ONNX DequantizeLinear: y = (x - zero_point) * scale, in float32."""
+    ASSERT_NUM_OF_INPUT(op, values, 2, 3)
+    x = _qdq_input(op, values, ctx)
+    scale, zp = _dequantize_params(op, x, values, ctx, attr(op, 'axis', 1))
+    return (x - zp) * scale
+
+
+def QuantizeFloating_forward(op, values, ctx=None):
+    """ppq floating QDQ dialect (reference onnxruntime_exporter.py:113):
+    y = clip(fp8_round(x / scale + offset), min, max) kept in float32 —
+    there is no guaranteed fp8 initializer type at the exported opset. Plain
+    PyTorch, as the JAX op is plain jnp: the fp8 kernel (kernels/floating.py)
+    clips before it rounds and returns the value times the scale."""
+    from ...kernels.floating import float_round_plain
+    ASSERT_NUM_OF_INPUT(op, values, 2, 3)
+    x = _t(values[0]).to(torch.float32)
+    scale, zp = _dequantize_params(op, x, values, ctx, attr(op, 'axis'))
+    q = float_round_plain(x / scale + zp, int(attr(op, 'exponent', 4)),
+                          int(attr(op, 'mantissa', 3)))
+    return torch.clamp(q, float(attr(op, 'min', -448.0)),
+                       float(attr(op, 'max', 448.0)))
+
+
+def DequantizeFloating_forward(op, values, ctx=None):
+    """Inverse of QuantizeFloating: y = (x - offset) * scale."""
+    ASSERT_NUM_OF_INPUT(op, values, 2, 3)
+    x = _qdq_input(op, values, ctx)
+    scale, zp = _dequantize_params(op, x, values, ctx, attr(op, 'axis'))
+    return (x - zp) * scale
+
+
+def PPQDeviceSwitch_forward(op, values, ctx=None):
+    """Host<->device boundary (reference default.py:3301): 'to_host' hands
+    the value on as a host numpy array, 'to_device' as a tensor on the
+    executor's device."""
+    v = values[0]
+    if attr(op, 'direction', 'to_host') == 'to_host':
+        return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
+            else np.asarray(v)
+    if ctx is None or ctx.device is None:
+        raise ValueError(f'{op.type} op {op.name}: to_device needs an '
+                         f'ExecContext that names the device')
+    return _t(v).to(ctx.device)
+
+
 DEFAULT_BACKEND_TABLE = {
     'Conv': Conv_forward,
     'MaxPool': MaxPool_forward,
@@ -263,4 +428,9 @@ DEFAULT_BACKEND_TABLE = {
     'Flatten': Flatten_forward,
     'Reshape': Reshape_forward,
     'Transpose': Transpose_forward,
+    'QuantizeLinear': QuantizeLinear_forward,
+    'DequantizeLinear': DequantizeLinear_forward,
+    'QuantizeFloating': QuantizeFloating_forward,
+    'DequantizeFloating': DequantizeFloating_forward,
+    'PPQDeviceSwitch': PPQDeviceSwitch_forward,
 }

@@ -1,6 +1,7 @@
 from .command import (DefaultGraphProcessor, GraphCommand, GraphCommandProcessor,
                       GraphCommandType, QuantableGraphProcessor,
                       QuantizeOperationCommand, default_command_chain)
+from .deploy import GraphDeviceSwitcher, RunnableGraph, TrainableGraph
 from .graph import (BaseGraph, GraphBuilder, GraphExporter, Operation, Opset,
                     Variable)
 from .morph import (GraphDecomposer, GraphFormatter, GraphMerger,

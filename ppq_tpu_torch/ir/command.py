@@ -19,7 +19,7 @@ from .graph import BaseGraph
 
 class GraphCommandType(enum.Enum):
     """(reference IR/base/command.py:8-112 — the subset with runtime effect
-    in this framework; device-movement commands are no-ops under JAX.)"""
+    in this framework.)"""
 
     FORMAT_CONSTANT_INPUT = 'format_constant_input'
     FORMAT_PARAMETER = 'format_parameter'
@@ -41,7 +41,7 @@ class GraphCommandType(enum.Enum):
     FUSE_SCALE = 'fuse_scale'
     DECOMPOSE_GEMM = 'decompose_gemm'
     DECOMPOSE_GRU = 'decompose_gru'
-    # device commands — placement is the executor/compiler's concern on TPU
+    # device commands (ir/deploy.py)
     DEPLOY_TO_CPU = 'deploy_to_cpu'
     DEPLOY_TO_DEVICE = 'deploy_to_device'
     INSERT_SWITCHER = 'insert_switcher'
@@ -110,12 +110,15 @@ class DefaultGraphProcessor(GraphCommandProcessor):
                 if t not in (GraphCommandType.QUANTIZE_OPERATION,)]
 
     def process(self, command: GraphCommand) -> Any:
-        from . import morph
+        from . import deploy, morph
         name = command.command_type.value
-        if name in ('deploy_to_cpu', 'deploy_to_device',
-                    'insert_switcher', 'remove_switcher'):
-            raise NotImplementedError(f'{name}: ir/deploy.py is not ported '
-                                      f'yet (ROADMAP.md queue 1, item 1)')
+        if name in ('deploy_to_cpu', 'deploy_to_device'):
+            rg = deploy.RunnableGraph(self._graph)
+            return (rg.retrieve() if name == 'deploy_to_cpu'
+                    else rg.deploy(command.kwargs.get('device')))
+        if name in ('insert_switcher', 'remove_switcher'):
+            sw = deploy.GraphDeviceSwitcher(self._graph)
+            return getattr(sw, name)()
         fn = getattr(morph, name, None)
         if fn is None:
             raise NotImplementedError(name)

@@ -1899,3 +1899,112 @@ def test_compiled_calibration_equals_the_observer_path_on_the_card(cuda, algo):
                 np.testing.assert_allclose(got, want, rtol=2.5e-7)
             n += 1
     assert n == 41
+
+
+# ------------------------------------------------ ingest and export (I) --
+
+def _qdq_case(dtype, per_axis, seed=0):
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(4, 16, 7, 9) * 3).astype(np.float32)
+    x.reshape(-1)[:6] = [0.5, 1.5, -2.5, 1e3, -1e3, 0.0]
+    if per_axis:
+        scale = rng.uniform(0.01, 0.05, 16).astype(np.float32)
+        zp = (rng.randint(0, 40, 16) if dtype == np.uint8
+              else rng.randint(-20, 20, 16)).astype(dtype)
+    else:
+        scale = np.asarray(0.03, np.float32)
+        zp = np.asarray(7 if dtype == np.uint8 else -3, dtype)
+    return x, scale, zp
+
+
+@pytest.mark.parametrize('per_axis', [False, True])
+@pytest.mark.parametrize('dtype', [np.uint8, np.int8])
+def test_quantize_linear_on_the_card_equals_its_twin(cuda, dtype, per_axis):
+    """QuantizeLinear on a CUDA tensor launches row 1 (per-tensor) or row 2
+    (per-axis) in their codes mode and gives the plain twin's integers."""
+    from ppq_tpu_torch.executor.ops.default import (QuantizeLinear_forward,
+                                                    quantize_linear_plain)
+    import types
+    x, scale, zp = _qdq_case(dtype, per_axis)
+    op = types.SimpleNamespace(name='q', type='QuantizeLinear',
+                               attributes={'axis': 1})
+    xc = torch.from_numpy(x).to(cuda)
+    reset_launches()
+    got = QuantizeLinear_forward(op, [xc, torch.from_numpy(scale).to(cuda),
+                                      zp])
+    row = 'fake_quant_channelwise' if per_axis else 'fake_quant_tensorwise'
+    assert LAUNCHES[row] == 1 and sum(LAUNCHES.values()) == 1
+    want = quantize_linear_plain(
+        xc, torch.from_numpy(scale).to(cuda),
+        torch.from_numpy(zp.astype(np.float32)).to(cuda),
+        1 if per_axis else None, got.dtype)
+    torch.cuda.synchronize()
+    assert got.is_cuda and got.dtype == torch.from_numpy(zp).dtype
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), quantize_linear_plain(
+        torch.from_numpy(x), torch.from_numpy(scale),
+        torch.from_numpy(zp.astype(np.float32)), 1 if per_axis else None,
+        got.dtype))
+
+
+def _exported(graph, tmp, tag):
+    from ppq_tpu_torch import TargetPlatform, export_ppq_graph
+    out = {}
+    for platform, name in ((TargetPlatform.TPU_INT8, 'qdq.onnx'),
+                           (TargetPlatform.NCNN_INT8, 'ncnn.onnx')):
+        path = str(tmp / f'{tag}_{name}')
+        export_ppq_graph(graph, platform, path, path + '.cfg')
+        out[name] = (open(path, 'rb').read(), open(path + '.cfg', 'rb').read())
+    return out
+
+
+def test_export_after_card_quantization_equals_cpu(cuda, tmp_path):
+    """A graph quantized on the card exports the same files as the same
+    graph quantized on the CPU and given the card's parameters and TQCs
+    (the exporters read the host scales)."""
+    from ppq_tpu_torch import TargetPlatform, quantize_graph
+    from ppq_tpu_torch.interop import (load_parameters,
+                                       load_quantization_configs,
+                                       parameters_of, quantization_configs_of)
+    from ppq_tpu_torch.zoo import tiny_cnn
+    rng = np.random.RandomState(0)
+    loader = [rng.randn(2, 3, 16, 16).astype(np.float32) for _ in range(2)]
+    on_card = tiny_cnn(input_shape=(2, 3, 16, 16))
+    quantize_graph(on_card, loader, calib_steps=2,
+                   platform=TargetPlatform.TPU_INT8, verbose=False)
+    on_cpu = tiny_cnn(input_shape=(2, 3, 16, 16))
+    quantize_graph(on_cpu, loader, calib_steps=2,
+                   platform=TargetPlatform.TPU_INT8, verbose=False,
+                   device='cpu')
+    load_parameters(on_cpu, parameters_of(on_card))
+    load_quantization_configs(on_cpu, quantization_configs_of(on_card))
+    for name, op in on_card.operations.items():
+        if hasattr(op, '_fp32_params'):
+            on_cpu.operations[name]._fp32_params = dict(op._fp32_params)
+    assert _exported(on_card, tmp_path, 'card') == \
+        _exported(on_cpu, tmp_path, 'cpu')
+
+
+def test_reloaded_qdq_graph_on_the_card_matches_the_simulation(cuda,
+                                                               tmp_path):
+    """The exported QDQ file parsed and run on the card (eager and a
+    'highest' runner) against the card's simulation of the source graph,
+    under the JAX package's bounds (SNR < 1e-3, relative error < 5e-2);
+    its QuantizeLinears launch row 1."""
+    from ppq_tpu_torch import (TargetPlatform, TorchExecutor,
+                               export_ppq_graph, load_onnx_graph)
+    from ppq_tpu_torch.executor import compile_graph
+    from ppq_tpu_torch.quantization.measure import torch_snr_error
+    graph, loader = _quantized_small(cuda)
+    path = str(tmp_path / 'qdq.onnx')
+    export_ppq_graph(graph, TargetPlatform.TPU_INT8, path)
+    deployed = load_onnx_graph(path)
+    reset_launches()
+    dep = TorchExecutor(deployed).forward(loader[0])[0]
+    assert LAUNCHES['fake_quant_tensorwise'] > 0
+    sim = TorchExecutor(graph).forward(loader[0])[0]
+    run = compile_graph(deployed, precision='highest').make_runner()
+    for got in (dep, run(loader[0])[0]):
+        assert got.is_cuda
+        assert float(torch_snr_error(got, sim)) < 1e-3
+        assert float((got - sim).abs().max() / sim.abs().max()) < 5e-2
