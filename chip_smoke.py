@@ -39,7 +39,20 @@ Phases (each raises on failure, and the script then exits non-zero):
      bit, QuantizeLinear's kernel against its plain twin, and a
      ResNet-18-shaped torch.nn.Module through `load_torch_model` against
      its own forward (`--frontends` runs this path alone);
-  5. path B: the same model, `quantize_graph` with `lsq_optimization` (LSQ
+  4d. path J: the op library and the zoo beyond ResNet: every case of
+     tests/torch_op_cases.py (every op type and the NXP Resize) on the card
+     against the CPU; BERT-base at full width (12 layers, d_model 768, 12
+     heads, FFN 3072, 128 tokens, batch 32) through `quantize_graph` with
+     TPU_INT8 (percentile over 16 batches, compiled calibration; KL over
+     4), the eager forward, the 'int' / 'highest' / 'bf16' runners in
+     chains of 4, TPU_FP8 (E4M3); the other twelve zoo graphs quantized,
+     run eagerly and as 'highest' runners; then SNRs against fp32, int64
+     sums, the card's 'int' against the CPU's, replays against the walk,
+     the launches of a forward and of a replay site by site
+     (`--ops` runs this path alone; `--fp8-sample` runs path C's and
+     BERT-base's FP8 calibration under the port's DirectMSE sample and
+     the JAX package's);
+ 5. path B: the same model, `quantize_graph` with `lsq_optimization` (LSQ
      over every block, weights and scales trained, 4 cached batches), the
      forward and its SNR against the fp32 model before and after LSQ; then
      BiasCorrectionPass and RoundTuningPass through `manop` on quantized
@@ -108,9 +121,11 @@ CALIB_BATCH, CALIB_STEPS, KL_STEPS, IMAGE = 32, 16, 4, 224
 TRAIN_BATCHES, LSQ_STEPS, ROUND_STEPS = 4, 16, 8
 # smoke bounds on the output's noise-to-signal ratio against the fp32
 # model: int8 fake-quant of a 21-layer net measured 5.3e-4 at full width;
-# E4M3 keeps 3 mantissa bits at each of 42 quant sites and measured 0.150.
+# E4M3 keeps 3 mantissa bits at each of 42 quant sites and measured 4.5e-3
+# (0.150 where DirectMSE sampled at the JAX package's stride, which reads
+# one column of most activations: ROADMAP.md queue 3 item 36).
 # Finetuning must not worsen either (5 % for blocks tuned one by one).
-SNR_INT8_BOUND, SNR_FP8_BOUND = 1e-2, 0.2
+SNR_INT8_BOUND, SNR_FP8_BOUND = 1e-2, 2e-2
 # the kernels' shapes: the largest activation of the paths (the first ReLU's
 # output) and the largest conv weight, quantized along axis 0
 ACT_SHAPE, WEIGHT_SHAPE = (32, 64, 112, 112), (512, 512, 3, 3)
@@ -3618,9 +3633,14 @@ def _device_profile(call):
             sum(c for _, c, _ in rows), top)
 
 
-def _runner_metrics(tag, run, xs):
+def _runner_metrics(tag, run, xs, batch=None, out_shape=None, path='H'):
     """Capture (the first call), then SIM_REPEATS chains on the host clock,
-    one chain under the profiler, peak memory since the runner was made."""
+    one chain under the profiler, peak memory since the runner was made.
+    `batch` images (sequences) a forward, `out_shape` one forward's output
+    (path H's by default)."""
+    batch = SIM_BATCH if batch is None else batch
+    out_shape = (SIM_BATCH, 1000) if out_shape is None else tuple(out_shape)
+    chain = xs.shape[0]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = run(xs)[0]
@@ -3633,7 +3653,7 @@ def _runner_metrics(tag, run, xs):
     chain_ms = (time.perf_counter() - t0) / SIM_REPEATS * 1e3
     prof = _device_profile(lambda: run(xs))
     m = dict(capture_s=capture_s, ms_per_chain=chain_ms,
-             img_per_s=SIM_BATCH * SIM_CHAIN / chain_ms * 1e3,
+             img_per_s=batch * chain / chain_ms * 1e3,
              launches_per_replay=dict(run.launches_per_replay),
              peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     if prof is None:
@@ -3644,11 +3664,11 @@ def _runner_metrics(tag, run, xs):
         m.update(profiled_wall_ms=wall, device_busy_ms=busy,
                  busy_share=busy / wall, device_events_per_replay=events,
                  top_kernels_ms_calls=top)
-    if tuple(out.shape) != (SIM_CHAIN, SIM_BATCH, 1000) or \
+    if tuple(out.shape) != (chain,) + out_shape or \
             not torch.isfinite(out).all():
         raise AssertionError(f'{tag} runner: shape {tuple(out.shape)}, '
                              f'finite {bool(torch.isfinite(out).all())}')
-    log(f'[path H] runner {tag}: {json.dumps(m)}')
+    log(f'[path {path}] runner {tag}: {json.dumps(m)}')
     return m, out
 
 
@@ -3778,12 +3798,6 @@ def phase_path_h(dev, pct_observer, kl_observer):
     shape, loader, _ = _data()
     torch.cuda.empty_cache()
 
-    def cal_rates(prof):
-        sweep = prof['run_s'] + prof.get('run2_s', 0) + prof.get('search_s', 0)
-        return dict(prof, cold_img_per_s=prof['images'] / (prof['compile_s']
-                                                           + sweep),
-                    warm_img_per_s=prof['images'] / sweep)
-
     # ---------------- the main path (the counts are read at its end)
     reset_launches()
     graph = resnet18(input_shape=shape)
@@ -3792,7 +3806,7 @@ def phase_path_h(dev, pct_observer, kl_observer):
     quantize_graph(graph, loader, calib_steps=CALIB_STEPS,
                    platform=TargetPlatform.TPU_INT8, verbose=False)
     torch.cuda.synchronize()
-    cal_pct = cal_rates(LAST_CALIBRATION_PROFILE)
+    cal_pct = _cal_rates(LAST_CALIBRATION_PROFILE)
     cal_pct['quantize_graph_s'] = time.perf_counter() - t0
     kl_graph = resnet18(input_shape=shape)
     setting = QuantizationSettingFactory.default_setting()
@@ -3803,7 +3817,7 @@ def phase_path_h(dev, pct_observer, kl_observer):
                    platform=TargetPlatform.TPU_INT8, setting=setting,
                    verbose=False)
     torch.cuda.synchronize()
-    cal_kl = cal_rates(LAST_CALIBRATION_PROFILE)
+    cal_kl = _cal_rates(LAST_CALIBRATION_PROFILE)
     cal_kl['quantize_graph_s'] = time.perf_counter() - t0
     searched = {k: solvers.SEARCHES[k] - searches[k] for k in searches}
     if searched != {'native': 41, 'numpy': 0}:
@@ -4333,6 +4347,504 @@ def main_frontends() -> int:
     phase_build(['fake_quant', 'histogram'])
     launches, _ = phase_path_i(dev)
     log(f'[launches] path I {json.dumps(launches)}')
+    log(smi)
+    log(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': name, 'count': torch.cuda.device_count()}}))
+    return 0
+
+
+# ------------------------------------------------------------------ path J
+# the whole op library, and the zoo beyond ResNet: BERT-base at its
+# published widths (Devlin et al., 2019: L = 12, H = 768, A = 12, FFN 4H)
+# over pre-embedded N(0, 1) inputs of 128 tokens, in batches of 32
+BERT_BASE = dict(seq_len=128, d_model=768, n_heads=12, n_layers=12,
+                 d_ff=3072)
+BERT_BATCH, BERT_CHAIN, BERT_FP8_STEPS = 32, 4, 4
+# the JAX zoo test's bounds on the SNR against fp32
+# (tests/test_zoo_models.py:32-35 INT8, :38-52 FP8)
+BERT_SNR_INT8, BERT_SNR_FP8 = 0.1, 0.05
+# the card's 'int' against the CPU's on 2 sequences: between the integer
+# contractions, LayerNormalization, Softmax and Gelu run the two devices'
+# float32 libraries, whose last bits differ, so a code may flip at a grid
+# tie and travel: tests/test_torch_slice.py's bar for such a cascade
+BERT_INT_CARD_VS_CPU_SNR, BERT_CPU_SEQUENCES = 5e-3, 2
+# the other twelve zoo graphs at their builders' default sizes, each held
+# against fp32 within the SNR bound tests/test_zoo_models.py sets for it
+# (mobilenet_v2: the bound of its equalized run; it runs here without
+# equalization, ROADMAP.md queue 1 item 8); ResNet-18 within path A's bound
+# and tiny_cnn within the vision graphs' 0.1, which that file does not test
+ZOO_GRAPHS = {
+    'resnet18': SNR_INT8_BOUND, 'tiny_cnn': 0.1, 'mobilenet_v2': 0.6,
+    'se_resnet_lite': 0.1, 'resnext_lite': 0.1, 'shufflenet_v2_lite': 0.1,
+    'mha_fused_encoder': 0.1, 'crnn_ocr': 0.1, 'yolo_lite': 0.05,
+    'deeplab_lite': 0.05, 'srcnn': 0.05, 'unet_lite': 0.05,
+}
+ZOO_STEPS = 4
+# the op library's kernel rows on path J, by LAUNCHES key
+PATH_J_ROWS = {'1': 'fake_quant_tensorwise', '2': 'fake_quant_channelwise',
+               '3': 'histogram', '6t': 'floating_quant'}
+# row 1's launches in one BERT-base INT8 forward and row 6t's in one FP8
+# forward: one a quantization site that quantize_graph leaves active.
+# INT8: 32 a layer (the outputs of 8 MatMuls, 8 Adds, 4 Reshapes, 5
+# Transposes, the scale Mul, Softmax, Gelu and 2 LayerNormalizations, and 2
+# inputs); FP8 quantizes MatMul and LayerNormalization alone: 18 a layer (8
+# MatMul outputs and 6 inputs, 2 LayerNormalization inputs and 2 outputs)
+# and 3 more inputs in the first, where Q, K and V read the embeddings.
+# tests/test_torch_zoo.py counts the same on small BERT on the CPU. A replay
+# of a runner holds a chain of BERT_CHAIN INT8 forwards.
+BERT_INT8_SITES = 32 * BERT_BASE['n_layers']
+BERT_FP8_SITES = 18 * BERT_BASE['n_layers'] + 3
+
+
+def _op_cases():
+    """tests/torch_op_cases.py of this checkout (it imports nothing of
+    JAX)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, 'tests'))
+    import torch_op_cases
+    return torch_op_cases
+
+
+def phase_op_sweep(dev):
+    """Every case of tests/torch_op_cases.py (every op type of the table and
+    the NXP Resize) on the card against the same op on the CPU, within the
+    case's card tolerance (equal where the arithmetic is the same
+    elementwise order). The largest difference of each case goes to
+    chiprun_out/op_sweep.json; the worst by op type to the log."""
+    from ppq_tpu_torch.executor import DEFAULT_BACKEND_TABLE
+    cases = _op_cases()
+    missing = sorted(set(DEFAULT_BACKEND_TABLE)
+                     - {c.op_type for c in cases.CASES})
+    if missing:
+        raise AssertionError(f'op sweep: no case for {missing}')
+    t0 = time.perf_counter()
+    failed, rows = [], []
+    for case in cases.CASES:
+        bound = ('equal' if case.card == cases.EXACT else
+                 f'rtol {case.card[0]:g} atol {case.card[1]:g}')
+        try:
+            cpu = cases.run_port(case, 'cpu')
+            card = cases.run_port(case, dev)
+            err = cases.assert_close(card, cpu, case.card, case.id)
+        except Exception as exc:       # reported below: the path fails
+            failed.append((case.id, f'{type(exc).__name__}: {exc}'[:400]))
+            continue
+        rows.append(dict(case=case.id, op=case.op_type,
+                         platform=case.platform, max_abs_diff=err,
+                         bound=bound))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    os.makedirs('chiprun_out', exist_ok=True)
+    with open(os.path.join('chiprun_out', 'op_sweep.json'), 'w') as f:
+        json.dump(dict(rows=rows, failed=failed), f, indent=1)
+    if failed:
+        raise AssertionError(f'op sweep: {len(failed)} of '
+                             f'{len(cases.CASES)} cases failed on the card: '
+                             f'{failed}')
+    worst = {}
+    for r in rows:
+        key = r['op'] + (f'@{r["platform"]}' if r['platform'] else '')
+        worst[key] = max(worst.get(key, 0.0), r['max_abs_diff'])
+    summary = dict(cases=len(rows), op_types=len(worst),
+                   cases_equal=sum(r['max_abs_diff'] == 0 for r in rows),
+                   cases_held_equal=sum(r['bound'] == 'equal' for r in rows),
+                   seconds=seconds)
+    log(f'[path J] op sweep {json.dumps(summary)}')
+    log(f'[path J] op sweep worst |card - cpu| by op: '
+        f'{json.dumps({k: float(f"{v:.3g}") for k, v in worst.items() if v})}')
+    return summary
+
+
+def _cal_rates(prof):
+    """A compiled calibration's profile with its images (sequences) a
+    second, cold (capture included) and warm."""
+    sweep = prof['run_s'] + prof.get('run2_s', 0) + prof.get('search_s', 0)
+    return dict(prof, cold_img_per_s=prof['images'] / (prof['compile_s']
+                                                       + sweep),
+                warm_img_per_s=prof['images'] / sweep)
+
+
+def _bert_batches(dev, n, seed, batch=BERT_BATCH):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (batch, BERT_BASE['seq_len'], BERT_BASE['d_model'])
+    return [torch.randn(*shape, device=dev, generator=gen) for _ in range(n)]
+
+
+def _snr_and_top1(y, ref):
+    from ppq_tpu_torch.quantization.measure import torch_snr_error
+    snr = float(torch_snr_error(y.reshape(1, -1).float(),
+                                ref.reshape(1, -1).float()))
+    top1 = float((y.argmax(-1) == ref.argmax(-1)).float().mean())
+    return snr, top1
+
+
+def _zoo_graphs(dev, stats):
+    """The other twelve zoo graphs: TPU_INT8 with percentile calibration
+    over ZOO_STEPS seeded batches, the eager forward, and where the graph
+    compiles a 'highest' runner. Returns {name: (graph, x, eager, runner
+    output or None)}."""
+    from ppq_tpu_torch import TargetPlatform, TorchExecutor, quantize_graph
+    from ppq_tpu_torch import zoo
+    from ppq_tpu_torch.executor import compilable, compile_graph
+    out = {}
+    for k, name in enumerate(ZOO_GRAPHS):
+        graph = getattr(zoo, name)()
+        shape = list(next(iter(graph.inputs.values())).shape)
+        rng = np.random.RandomState(100 + k)
+        loader = [rng.randn(*shape).astype(np.float32)
+                  for _ in range(ZOO_STEPS + 1)]
+        t0 = time.perf_counter()
+        quantize_graph(graph, loader[:ZOO_STEPS], calib_steps=ZOO_STEPS,
+                       platform=TargetPlatform.TPU_INT8, verbose=False)
+        x = torch.as_tensor(loader[-1], device=dev)
+        y = TorchExecutor(graph).forward(x)[0]
+        ok, _ = compilable(graph)
+        y_run = compile_graph(graph).make_runner()(x)[0] if ok else None
+        torch.cuda.synchronize()
+        stats[name] = dict(shape=shape, seconds=time.perf_counter() - t0,
+                           compilable=ok)
+        out[name] = (graph, x, y, y_run)
+    return out
+
+
+def phase_path_j(dev):
+    """Path J: the op sweep (outside the counts), then the main path:
+    BERT-base at full width through quantize_graph with TPU_INT8
+    (percentile over CALIB_STEPS batches of 32 through the compiled
+    calibration; KL over KL_STEPS), its eager forward at batch 32 and the
+    'int', 'highest' and 'bf16' runners in chains of BERT_CHAIN; TPU_FP8
+    with fp8_setting (E4M3, the only format the setting offers) and its
+    eager forward; the other twelve zoo graphs. Then, outside the counts:
+    SNRs and argmax agreement against fp32, the 'int' sums against int64
+    on the CPU for a MatMul under 2^24 and an FFN-down MatMul over it, the
+    card's 'int' against the CPU's, replays against the uncaptured walk,
+    'highest' runners against the eager forward."""
+    from ppq_tpu_torch import TargetPlatform, TorchExecutor, quantize_graph
+    from ppq_tpu_torch import zoo
+    from ppq_tpu_torch.api import QuantizationSettingFactory
+    from ppq_tpu_torch.executor import compile_graph
+    from ppq_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ppq_tpu_torch.quantization import solvers
+    from ppq_tpu_torch.quantization.optim.fcalibration import \
+        LAST_CALIBRATION_PROFILE
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    t_path = time.perf_counter()
+    sweep = phase_op_sweep(dev)
+    torch.cuda.empty_cache()
+    loader = _bert_batches(dev, CALIB_STEPS, seed=0)
+    x_eval = _bert_batches(dev, 1, seed=1)[0]
+    xs = torch.stack(_bert_batches(dev, BERT_CHAIN, seed=2))
+    t0 = time.perf_counter()
+    base = zoo.bert_encoder(batch=BERT_BATCH, **BERT_BASE)
+    build_s = time.perf_counter() - t0
+    n_params = sum(int(np.asarray(v.value).size)
+                   for v in base.variables.values()
+                   if v.is_parameter and v.has_value)
+    name_in = next(iter(base.inputs))
+
+    # ---------------- the main path (the counts are read at its end)
+    reset_launches()
+    graph = base.copy(copy_value=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quantize_graph(graph, loader, calib_steps=CALIB_STEPS,
+                   platform=TargetPlatform.TPU_INT8, verbose=False)
+    torch.cuda.synchronize()
+    cal_pct = _cal_rates(LAST_CALIBRATION_PROFILE)
+    cal_pct['quantize_graph_s'] = time.perf_counter() - t0
+    kl_graph = base.copy(copy_value=True)
+    setting = QuantizationSettingFactory.default_setting()
+    setting.quantize_activation_setting.calib_algorithm = 'kl'
+    searches = dict(solvers.SEARCHES)
+    t0 = time.perf_counter()
+    quantize_graph(kl_graph, loader[:KL_STEPS], calib_steps=KL_STEPS,
+                   platform=TargetPlatform.TPU_INT8, setting=setting,
+                   verbose=False)
+    torch.cuda.synchronize()
+    cal_kl = _cal_rates(LAST_CALIBRATION_PROFILE)
+    cal_kl['quantize_graph_s'] = time.perf_counter() - t0
+    searched = {k: solvers.SEARCHES[k] - searches[k] for k in searches}
+    log(f'[path J] BERT-base INT8 calibration percentile '
+        f'{json.dumps(cal_pct)}')
+    log(f'[path J] BERT-base INT8 calibration kl {json.dumps(cal_kl)}; '
+        f'searches {searched}')
+    executor = TorchExecutor(graph)
+    before = dict(LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y_int8 = executor.forward(x_eval)[0]
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    per_forward_int8 = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                        if LAUNCHES[k] != before[k]}
+    y_kl = TorchExecutor(kl_graph).forward(x_eval)[0]
+    del executor, kl_graph
+    runners, outs, metrics = {}, {}, {}
+    for precision in ('int', 'highest', 'bf16'):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run = compile_graph(graph, precision=precision).make_runner(
+            chain=BERT_CHAIN)
+        metrics[precision], outs[precision] = _runner_metrics(
+            f'BERT-base {precision}', run, xs, batch=BERT_BATCH,
+            out_shape=xs.shape[1:], path='J')
+        runners[precision] = run
+        del run
+    fp8_graph = base.copy(copy_value=True)
+    t0 = time.perf_counter()
+    quantize_graph(fp8_graph, loader[:BERT_FP8_STEPS],
+                   calib_steps=BERT_FP8_STEPS,
+                   platform=TargetPlatform.TPU_FP8,
+                   setting=QuantizationSettingFactory.fp8_setting(),
+                   verbose=False)
+    torch.cuda.synchronize()
+    fp8_quantize_s = time.perf_counter() - t0
+    before = dict(LAUNCHES)
+    y_fp8 = TorchExecutor(fp8_graph).forward(x_eval)[0]
+    torch.cuda.synchronize()
+    per_forward_fp8 = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                       if LAUNCHES[k] != before[k]}
+    del fp8_graph, loader
+    torch.cuda.empty_cache()
+    zoo_stats = {}
+    zoo_out = _zoo_graphs(dev, zoo_stats)
+    launches = dict(LAUNCHES)
+    main_s = time.perf_counter() - t_path - sweep['seconds']
+
+    # ---------------- checks: these launches are not the main path's
+    absent = [row for row, k in PATH_J_ROWS.items() if launches.get(k, 0) <= 0]
+    if absent:
+        raise AssertionError(f'path J: rows {absent} did not launch')
+    per_replay = {p: m['launches_per_replay'] for p, m in metrics.items()}
+    if per_forward_int8 != {'fake_quant_tensorwise': BERT_INT8_SITES} or \
+            per_forward_fp8 != {'floating_quant': BERT_FP8_SITES} or \
+            any(v != {'fake_quant_tensorwise': BERT_CHAIN * BERT_INT8_SITES}
+                for v in per_replay.values()):
+        raise AssertionError(
+            f'path J: launches a BERT-base forward: INT8 {per_forward_int8}, '
+            f'FP8 {per_forward_fp8}, a replay {per_replay}; expected '
+            f'{BERT_INT8_SITES} of row 1, {BERT_FP8_SITES} of row 6t and '
+            f'{BERT_CHAIN * BERT_INT8_SITES} of row 1')
+    y_fp32 = TorchExecutor(base).forward(x_eval)[0]
+    snr_int8, top1_int8 = _snr_and_top1(y_int8, y_fp32)
+    snr_kl, top1_kl = _snr_and_top1(y_kl, y_fp32)
+    snr_fp8, top1_fp8 = _snr_and_top1(y_fp8, y_fp32)
+    if not (snr_int8 < BERT_SNR_INT8 and snr_kl < BERT_SNR_INT8
+            and snr_fp8 < BERT_SNR_FP8):
+        raise AssertionError(f'path J: BERT-base SNR against fp32: INT8 '
+                             f'{snr_int8} (KL {snr_kl}), FP8 {snr_fp8}')
+    del y_fp32
+    for precision in ('int', 'highest', 'bf16'):
+        if not torch.equal(runners[precision].walk(xs)[0], outs[precision]):
+            raise AssertionError(f'path J: the BERT-base {precision!r} '
+                                 f'replay differs from its uncaptured walk')
+        if precision != 'int':
+            del runners[precision]
+    torch.cuda.empty_cache()
+    run = runners.pop('int')
+    cg = run.cg
+    d_ff = BERT_BASE['d_ff']
+    risky = [graph.operations[n] for n in cg.int_accum_risk]
+    if len(risky) != BERT_BASE['n_layers'] or any(
+            np.asarray(op.inputs[1].value).shape[0] != d_ff for op in risky):
+        raise AssertionError(f'path J: int_accum_risk {cg.int_accum_risk} '
+                             f'is not the {BERT_BASE["n_layers"]} FFN-down '
+                             f'MatMuls')
+    safe = next(op for op in cg._order if op.name in cg.int_lowered
+                and op.name not in cg.int_accum_risk
+                and op.inputs[1].is_parameter)
+    probed = {}
+
+    def probe(op, qx, qw, y):
+        if op is safe or op is risky[0]:
+            probed[op.name] = (qx[0, :8].cpu(), qw.cpu(), y[0, :8].cpu())
+
+    cg.int_probe = probe
+    cg._walk(run.params, {name_in: xs[0]})
+    cg.int_probe = None
+    exact = {}
+    for name, (qx, qw, y) in probed.items():
+        gold = (qx.to(torch.int64) @ qw.to(torch.int64)).to(torch.float64)
+        diff = float((y.to(torch.float64) - gold).abs().max())
+        exact[name] = dict(equal=diff == 0, max_abs_diff=diff,
+                           over_2_24=name in cg.int_accum_risk)
+    if len(exact) != 2 or not exact[safe.name]['equal']:
+        raise AssertionError(f'path J: int64 sums {exact}')
+    cpu_cg = compile_graph(graph, precision='int', device='cpu')
+    cpu_out = cpu_cg.make_runner()(xs[0][:BERT_CPU_SEQUENCES].cpu())[0]
+    card_out = outs['int'][0][:BERT_CPU_SEQUENCES].cpu()
+    card_vs_cpu = dict(equal=bool(torch.equal(cpu_out, card_out)),
+                       max_abs_diff=float((cpu_out - card_out).abs().max()),
+                       share_differing=float((cpu_out != card_out)
+                                             .float().mean()))
+    card_vs_cpu['snr'], card_vs_cpu['top1'] = _snr_and_top1(card_out,
+                                                            cpu_out)
+    if card_vs_cpu['snr'] > BERT_INT_CARD_VS_CPU_SNR or \
+            cpu_cg.int_lowered != cg.int_lowered or \
+            cpu_cg.int_accum_risk != cg.int_accum_risk:
+        raise AssertionError(f"path J: the card's 'int' against the CPU's "
+                             f"{card_vs_cpu}")
+    snr_int_vs_highest, top1_int_vs_highest = _snr_and_top1(
+        outs['int'][0], outs['highest'][0])
+    del run, cpu_cg, outs
+    torch.cuda.empty_cache()
+    zoo_summary = {}
+    for name, (g, x, y, y_run) in zoo_out.items():
+        fp32 = TorchExecutor(getattr(zoo, name)()).forward(x)[0]
+        snr, top1 = _snr_and_top1(y, fp32)
+        if not (torch.isfinite(y).all() and y.shape == fp32.shape and
+                snr < ZOO_GRAPHS[name]):
+            raise AssertionError(f'path J: {name} SNR {snr} against fp32, '
+                                 f'bound {ZOO_GRAPHS[name]}')
+        if y_run is not None and not torch.equal(y_run, y):
+            raise AssertionError(f"path J: {name}'s 'highest' runner "
+                                 f"differs from its eager forward")
+        zoo_summary[name] = dict(zoo_stats[name], snr=snr,
+                                 bound=ZOO_GRAPHS[name],
+                                 runner_equals_eager=y_run is not None)
+    del zoo_out
+    torch.cuda.empty_cache()
+    summary = dict(
+        op_sweep=sweep, bert_build_s=build_s, bert_parameters=n_params,
+        calibration_percentile=cal_pct, calibration_kl=cal_kl,
+        kl_searches=searched, eager_forward_ms=eager_ms,
+        eager_seq_per_s=BERT_BATCH / eager_ms * 1e3,
+        runners=metrics, fp8_quantize_s=fp8_quantize_s,
+        snr_int8_vs_fp32=snr_int8, top1_int8_vs_fp32=top1_int8,
+        snr_kl_vs_fp32=snr_kl, top1_kl_vs_fp32=top1_kl,
+        snr_fp8_e4m3_vs_fp32=snr_fp8, top1_fp8_e4m3_vs_fp32=top1_fp8,
+        snr_int_vs_highest=snr_int_vs_highest,
+        top1_int_vs_highest=top1_int_vs_highest,
+        int_lowered=len(cg.int_lowered), int_coded=len(cg.int_coded),
+        int_accum_risk=cg.int_accum_risk, int64_sums=exact,
+        card_int_vs_cpu_int=card_vs_cpu, replay_equals_walk=True,
+        launches_per_forward_int8=per_forward_int8,
+        launches_per_forward_fp8=per_forward_fp8,
+        launches_by_row={row: launches[k] for row, k in PATH_J_ROWS.items()},
+        zoo=zoo_summary, main_path_s=main_s,
+        path_s=time.perf_counter() - t_path)
+    log(f'[path J] {json.dumps(summary)}')
+    return launches, summary
+
+
+def main_ops() -> int:
+    """Path J alone: the quick loop for the op library and the zoo."""
+    name, smi = phase_card()
+    import ppq_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+    dev = torch.device('cuda', 0)
+    torch.cuda.set_device(dev)
+    phase_build(['fake_quant', 'histogram', 'floating'])
+    launches, _ = phase_path_j(dev)
+    log(f'[launches] path J {json.dumps(launches)}')
+    log(smi)
+    log(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': name, 'count': torch.cuda.device_count()}}))
+    return 0
+
+
+# ------------------------------------------------------------ --fp8-sample
+# DirectMSE's sample (ROADMAP.md queue 3 item 36): path C's FP8 calibration
+# of ResNet-18 and BERT-base's (path J's) at these batch sizes
+FP8_SAMPLE_BERT_BATCHES = (4, 8, 16, 32)
+
+
+def _jax_sample_stride(value):
+    """The JAX package's DirectMSE stride: the size over 4096."""
+    return max(1, value.numel() // 4096)
+
+
+def _floating_scales(graph):
+    """Every floating TQC's scale, by op, side and index."""
+    return {f'{op.name}:{side}{i}': np.asarray(c.scale).reshape(-1).tolist()
+            for op in graph.operations.values() if hasattr(op, 'config')
+            for side, cfgs in (('in', op.config.input_quantization_config),
+                               ('out', op.config.output_quantization_config))
+            for i, c in enumerate(cfgs) if c.policy.floating and c.has_scale}
+
+
+def _fp8_sample_resnet(dev):
+    """Path C's quantize_graph and SNR against fp32."""
+    from ppq_tpu_torch import TargetPlatform, quantize_graph
+    from ppq_tpu_torch.api import QuantizationSettingFactory
+    from ppq_tpu_torch.zoo import resnet18
+    shape, loader, x_eval = _data()
+    x_dev = torch.as_tensor(x_eval, device=dev)
+    graph = resnet18(input_shape=shape)
+    quantize_graph(graph, loader[:TRAIN_BATCHES], calib_steps=TRAIN_BATCHES,
+                   platform=TargetPlatform.TPU_FP8,
+                   setting=QuantizationSettingFactory.fp8_setting(),
+                   verbose=False)
+    _, snr, top1 = _forward_vs(graph, x_dev, _fp32_forward(shape, x_dev))
+    return dict(snr_fp8=snr, top1_agree_fp8=top1), _floating_scales(graph)
+
+
+def _fp8_sample_bert(dev, batch):
+    """Path J's FP8 quantize_graph of BERT-base at `batch`, and its SNR
+    against fp32."""
+    from ppq_tpu_torch import TargetPlatform, TorchExecutor, quantize_graph
+    from ppq_tpu_torch import zoo
+    from ppq_tpu_torch.api import QuantizationSettingFactory
+    graph = zoo.bert_encoder(batch=batch, **BERT_BASE)
+    x_eval = _bert_batches(dev, 1, seed=1, batch=batch)[0]
+    y_fp32 = TorchExecutor(graph).forward(x_eval)[0]
+    quantize_graph(graph, _bert_batches(dev, BERT_FP8_STEPS, 0, batch),
+                   calib_steps=BERT_FP8_STEPS,
+                   platform=TargetPlatform.TPU_FP8,
+                   setting=QuantizationSettingFactory.fp8_setting(),
+                   verbose=False)
+    snr, top1 = _snr_and_top1(TorchExecutor(graph).forward(x_eval)[0], y_fp32)
+    return dict(snr_fp8=snr, top1_agree_fp8=top1)
+
+
+def main_fp8_sample(package_root=None) -> int:
+    """Path C's FP8 calibration, and BERT-base's where the package has it,
+    under DirectMSE's sample rules: the package's own, and where it has
+    `observers.sample_stride`, the JAX package's stride in its place. Each
+    rule's SNRs against fp32 and every floating scale go to
+    chiprun_out/fp8_sample_<package directory>.json, the scales that the
+    rules set apart to the log."""
+    name, smi = phase_card()
+    if package_root:
+        sys.path.insert(0, package_root)
+    import ppq_tpu_torch
+    from ppq_tpu_torch import zoo
+    from ppq_tpu_torch.quantization import observers
+    dev = torch.device('cuda', 0)
+    torch.cuda.set_device(dev)
+    phase_build(['fake_quant', 'histogram', 'floating'])
+    root = os.path.dirname(os.path.dirname(os.path.abspath(
+        ppq_tpu_torch.__file__)))
+    rules = {'own': None}
+    own = getattr(observers, 'sample_stride', None)
+    if own is not None:
+        rules['jax_stride'] = _jax_sample_stride
+    out = dict(package=root, rules={})
+    for rule, stride in rules.items():
+        if stride is not None:
+            observers.sample_stride = stride
+        try:
+            resnet, scales = _fp8_sample_resnet(dev)
+            bert = ({b: _fp8_sample_bert(dev, b)
+                     for b in FP8_SAMPLE_BERT_BATCHES}
+                    if hasattr(zoo, 'bert_encoder') else 'not in the package')
+        finally:
+            if stride is not None:
+                observers.sample_stride = own
+        out['rules'][rule] = dict(resnet18=resnet, bert_base=bert,
+                                  scales=scales)
+        log(f'[fp8 sample] {root} {rule}: '
+            f'{json.dumps(dict(resnet18=resnet, bert_base=bert))}')
+    if 'jax_stride' in out['rules']:
+        a = out['rules']['jax_stride']['scales']
+        b = out['rules']['own']['scales']
+        moved = {k: [a[k], b[k]] for k in b if a[k] != b[k]}
+        log(f'[fp8 sample] ResNet-18 scales the stride moves (JAX stride, '
+            f'own): {len(moved)} of {len(b)} {json.dumps(moved)}')
+    os.makedirs('chiprun_out', exist_ok=True)
+    with open(os.path.join('chiprun_out', 'fp8_sample_'
+                           f'{os.path.basename(root)}.json'), 'w') as f:
+        json.dump(out, f, indent=1)
     log(smi)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name, 'count': torch.cuda.device_count()}}))
@@ -4906,6 +5418,12 @@ def main() -> int:
         mode.add_argument('--frontends', action='store_true',
                           help='path I alone: ONNX in, quantize, export, '
                                'the exported files run again')
+        mode.add_argument('--ops', action='store_true',
+                          help='path J alone: the op sweep, BERT-base INT8 '
+                               'and FP8, the other zoo graphs')
+        mode.add_argument('--fp8-sample', action='store_true',
+                          help="path C's and BERT-base's FP8 calibration "
+                               "under DirectMSE's sample rules")
         ap.add_argument('--package-root', default=None,
                         help='import ppq_tpu_torch from this checkout')
         args = ap.parse_args()
@@ -4917,6 +5435,10 @@ def main() -> int:
             return main_compiled()
         if args.frontends:
             return main_frontends()
+        if args.ops:
+            return main_ops()
+        if args.fp8_sample:
+            return main_fp8_sample(args.package_root)
         return main_qmm(args.package_root)
     t_start = time.perf_counter()
     name, smi = phase_card()
@@ -4929,6 +5451,7 @@ def main() -> int:
     launches_h, _ = phase_path_h(dev, pct_graph, kl_graph)
     del pct_graph
     launches_i, _ = phase_path_i(dev)
+    launches_j, _ = phase_path_j(dev)
     launches_b, _, lsq_graph, train_loader = phase_path_b(dev, kl_graph)
     launches_c, _, fp8_graph, _ = phase_path_c(dev)
     launches_d, _, serve_params = phase_path_d(dev)
@@ -4936,8 +5459,8 @@ def main() -> int:
     launches_g, _ = phase_path_g(dev, serve_params)
     del serve_params
     launches_f, _ = phase_path_f(dev)
-    paths = dict(A=launches_a, H=launches_h, I=launches_i, B=launches_b,
-                 C=launches_c,
+    paths = dict(A=launches_a, H=launches_h, I=launches_i, J=launches_j,
+                 B=launches_b, C=launches_c,
                  D=launches_d, E=launches_e, F=launches_f, G=launches_g)
     # each path's counts were set to 0 before it and read just after it
     launches = {k: sum(p[k] for p in paths.values()) for k in launches_a}

@@ -5,3 +5,6 @@ from .compile import CompiledGraph, compilable, compile_graph
 from .executor import QuantizeDelegator, TorchExecutor, resolve_device
 from .ops.default import (DEFAULT_BACKEND_TABLE, ExecContext,
                           simulation_precision)
+
+# per-platform op-table overrides (the NXP Resize)
+from .ops import vendor as _vendor  # noqa: F401,E402

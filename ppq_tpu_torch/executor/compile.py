@@ -80,7 +80,7 @@ from ..quantization.qfunction import (device_qparams,
 from ..kernels.histogram import histogram
 from ..kernels.loader import LAUNCHES
 from .base import resolve_forward
-from .ops.default import ExecContext, simulation_precision
+from .ops.default import ExecContext, _host, simulation_precision
 
 # op types whose outputs depend on input *data* in shape-affecting ways: a
 # captured graph has static shapes
@@ -132,18 +132,6 @@ def _decode(v):
     return v.decode() if isinstance(v, _Coded) else v
 
 
-def _host(v) -> np.ndarray:
-    """An SOI operand as a host array. A tensor on the card is refused: its
-    value would need a synchronising read, which a capture cannot hold."""
-    if isinstance(v, torch.Tensor):
-        if v.device.type != 'cpu':
-            raise RuntimeError(
-                'a shape-or-index op meets a tensor on the card; the '
-                'compiled executor evaluates these ops on host values only')
-        return v.numpy()
-    return np.asarray(v)
-
-
 # ---------------------------------------------------------------------------
 # Host (numpy) evaluation of SOI-region ops at trace time: shape chains stay
 # concrete so that their consumers (Reshape, Slice, Resize) see static
@@ -159,7 +147,7 @@ def _soi_eval(op, vals):
                                               else int(end)], np.int64)
     if t == 'Size':
         return np.asarray(int(np.prod(vals[0].shape)), np.int64)
-    a = [_host(v) for v in vals]
+    a = [_host(op, v) for v in vals]
     if t == 'Gather':
         return np.take(a[0], a[1].astype(np.int64),
                        axis=int(attrs.get('axis', 0)))

@@ -12,7 +12,9 @@ redesign of ppq/executor/torch.py:76-682:
     another. Float parameters are uploaded to it once and cached by the
     identity of the host array: a pass that rewrites `Variable.value`
     (ParameterBakingPass, DEQUANTIZE_GRAPH) assigns a new array, and the
-    next forward uploads that one.
+    next forward uploads that one. A parameter at a shape-or-index input
+    (a Resize's scales, a Reshape's shape; ir/opdef.py) stays on the host,
+    where the op reads it, as the compiled executor keeps it.
   * `quantize_function` supports per-TQC delegates (LSQ pass plugs in
     trainable scales, reference torch.py:296,610).
   * `tracing_operation_meta` fills Variable.shape/dtype by running once.
@@ -37,7 +39,8 @@ import numpy as np
 import torch
 
 from ..core import DataType, TensorQuantizationConfig
-from ..ir import BaseGraph, Operation, QuantableOperation, Variable
+from ..ir import (BaseGraph, Operation, QuantableOperation, Variable,
+                  soi_input_indices)
 from ..quantization.qfunction import ppq_fake_quant
 from .base import (BaseGraphExecutor, QuantRuntimeHook, RuntimeHook,
                    resolve_forward)
@@ -200,11 +203,13 @@ class TorchExecutor(BaseGraphExecutor):
         for op in ops[:last_idx]:
             hook = hooks.get(op.name) if hooks else None
             in_vals = []
-            for var in op.inputs:
+            soi = soi_input_indices(op)
+            for idx, var in enumerate(op.inputs):
                 if var.name in values:
                     in_vals.append(values[var.name])
                 elif var.is_parameter:
-                    in_vals.append(self._parameter(var, parameters))
+                    in_vals.append(var.value if idx in soi
+                                   else self._parameter(var, parameters))
                 else:
                     raise RuntimeError(
                         f'Executing {op.name}: input variable {var.name} has '
@@ -291,11 +296,13 @@ class TorchExecutor(BaseGraphExecutor):
         graph = self.graph
         for op in self._executing_order:
             in_vals = []
-            for var in op.inputs:
+            soi = soi_input_indices(op)
+            for idx, var in enumerate(op.inputs):
                 if var.name in values:
                     in_vals.append(values[var.name])
                 elif var.is_parameter:
-                    in_vals.append(self._parameter(var))
+                    in_vals.append(var.value if idx in soi
+                                   else self._parameter(var))
                 else:
                     raise RuntimeError(f'tracing: no value for {var.name}')
             # record input meta

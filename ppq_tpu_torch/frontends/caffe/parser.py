@@ -9,10 +9,10 @@ Layer mapping (caffe → ONNX-semantic IR ops the executor understands):
   Eltwise→Add/Mul/Max, Concat, Softmax, Flatten, Reshape, Permute→Transpose,
   Dropout, Power, AbsVal→Abs, Interp/Upsample→Resize, Slice→Split.
 
-Port of ppq_tpu/frontends/caffe/parser.py. The port's op table runs the
-ResNet family's ops only (executor/ops/default.py); a net with a layer
-whose op is not in the table raises NotImplementedError when it is parsed
-(ROADMAP.md queue 1, item 3 ports the rest of the ops).
+Port of ppq_tpu/frontends/caffe/parser.py. Every op that a mapped layer
+becomes is in the port's op table (executor/ops/default.py, the JAX
+package's 129 op types); a graph that still holds an op the table lacks
+raises NotImplementedError when it is parsed, not at its first forward.
 """
 
 from __future__ import annotations
@@ -93,8 +93,8 @@ class CaffeParser(GraphBuilder):
                          - set(DEFAULT_BACKEND_TABLE))
         if missing:
             raise NotImplementedError(
-                f'Caffe net {g.name!r} needs ops the port does not run yet: '
-                f'{missing} (ROADMAP.md queue 1, item 3)')
+                f'Caffe net {g.name!r} needs ops that the op table does not '
+                f'hold: {missing}')
         return g
 
     def _param(self, g, name, value):

@@ -16,6 +16,7 @@ Observer registry mirrors OBSERVER_TABLE (observer/__init__.py:15-23):
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Tuple, Type
 
 import numpy as np
@@ -318,12 +319,30 @@ class ConstantObserver(BaseTensorObserver):
         self._activate(np.float32(1.0), np.float32(0.0))
 
 
+def sample_stride(value: torch.Tensor) -> int:
+    """DirectMSEObserver's stride: the size over 4096, as in the JAX
+    package, raised to the next number coprime with the last axis, so that
+    the sample reads every position of that axis."""
+    step = max(1, value.numel() // 4096)
+    last = value.shape[-1] if value.ndim else 1
+    while math.gcd(step, last) > 1:
+        step += 1
+    return step
+
+
 class DirectMSEObserver(BaseTensorObserver):
     """Sample-based MSE scale search for floating quant
     (observer/floating.py:51). Collects a bounded sample, then sweeps scale
     candidates minimizing fake-quant MSE. The sample stays on the device the
     values came from (the card for activations, the host for parameters), and
-    the sweep runs floating fake-quant there."""
+    the sweep runs floating fake-quant there.
+
+    The sample is every `step`-th element (`sample_stride`). The JAX
+    package's step, the size over 4096, reads only last / gcd(step, last)
+    positions of the last axis: one channel of 768 in BERT-base's [32, 128,
+    768] activations, eight at batch 4; the scale then fits those channels
+    alone. The port takes the next step coprime with the last axis
+    (ROADMAP.md queue 3, item 36)."""
 
     CANDIDATES = np.power(2.0, np.arange(-8, 9, dtype=np.float64))
 
@@ -333,10 +352,11 @@ class DirectMSEObserver(BaseTensorObserver):
         self._budget = 4096 * 8
 
     def observe(self, value):
-        flat = _as_tensor(value).reshape(-1)
+        value = _as_tensor(value)
+        flat = value.reshape(-1)
         if sum(s.numel() for s in self._samples) < self._budget:
-            step = max(1, flat.numel() // 4096)
-            self._samples.append(flat[::step][:4096].contiguous())
+            self._samples.append(
+                flat[::sample_stride(value)][:4096].contiguous())
 
     def render_quantization_config(self):
         from .qfunction import floating_fake_quant

@@ -2008,3 +2008,64 @@ def test_reloaded_qdq_graph_on_the_card_matches_the_simulation(cuda,
         assert got.is_cuda
         assert float(torch_snr_error(got, sim)) < 1e-3
         assert float((got - sim).abs().max() / sim.abs().max()) < 5e-2
+
+
+# ------------------------------------------------- the op library, the zoo
+# every case of tests/torch_op_cases.py (every op type of the table and the
+# NXP Resize: TopK's ties, Resize in every mode, LSTM and GRU with
+# sequence_lens, ScatterND on unique indices, NonZero, NMS, ...) on the card
+# against the same op on the CPU, within the case's card tolerance
+from torch_op_cases import CASES as OP_CASES  # noqa: E402
+
+
+@pytest.mark.parametrize('case', OP_CASES, ids=[c.id for c in OP_CASES])
+def test_op_case_on_the_card(cuda, case):
+    from torch_op_cases import assert_close, run_port
+    assert_close(run_port(case, cuda), run_port(case, 'cpu'), case.card,
+                 case.id)
+
+
+def test_ops_keep_card_tensors_on_the_card(cuda):
+    """An op given a card tensor returns one there (host ops return host
+    arrays); only NonZero and NonMaxSuppression read the card back."""
+    from torch_op_cases import port_inputs
+    from ppq_tpu_torch.core import TargetPlatform
+    from ppq_tpu_torch.executor import ExecContext, resolve_forward
+    from ppq_tpu_torch.ir import Operation
+    host_ops = {'Shape', 'Size', 'ConstantOfShape', 'Range', 'NonZero',
+                'NonMaxSuppression', 'Constant', 'Parameter',
+                'PPQDeviceSwitch'}
+    for case in OP_CASES:
+        values = port_inputs(case, cuda)
+        if case.op_type in host_ops or not any(
+                isinstance(v, torch.Tensor) for v in values):
+            continue
+        op = Operation('c', case.op_type, attributes=case.attrs)
+        op.outputs = [None] * case.n_out
+        out = resolve_forward(
+            TargetPlatform[case.platform or 'UNSPECIFIED'],
+            case.op_type)(op, values, ExecContext(device=cuda))
+        for o in (out if isinstance(out, (tuple, list)) else [out]):
+            assert isinstance(o, torch.Tensor) and o.is_cuda, case.id
+
+
+def test_small_bert_int_capture_equals_its_walk(cuda):
+    """Small BERT (the JAX zoo test's widths) quantized on the card: the
+    'int' runner's replay equals its uncaptured walk, bit for bit, and the
+    captured walk launches row 1."""
+    from ppq_tpu_torch import TargetPlatform, quantize_graph
+    from ppq_tpu_torch.executor import compile_graph
+    from ppq_tpu_torch.zoo import bert_encoder
+    rng = np.random.RandomState(0)
+    loader = [rng.randn(2, 16, 64).astype(np.float32) for _ in range(2)]
+    graph = bert_encoder(seq_len=16, d_model=64, n_heads=2, n_layers=2,
+                         d_ff=128, batch=2)
+    quantize_graph(graph, loader, calib_steps=2,
+                   platform=TargetPlatform.TPU_INT8, verbose=False)
+    cg = compile_graph(graph, precision='int')
+    run = cg.make_runner()
+    x = torch.as_tensor(loader[1], device=cuda)
+    got = run(x)[0]
+    assert run.launches_per_replay.get('fake_quant_tensorwise', 0) > 0
+    assert torch.equal(got, run.walk(x)[0])
+    assert len(cg.int_lowered) == 14 and not cg.int_accum_risk

@@ -221,6 +221,35 @@ def test_direct_mse_observer_picks_the_same_scale(spread):
     assert tc.state.name == jc.state.name == 'ACTIVATED'
 
 
+@pytest.mark.parametrize('shape,jax_stride,stride', [
+    ((3, 50, 41), 1, 1), ((2, 64, 16, 16), 8, 9), ((4, 128, 768), 96, 97),
+    ((32, 128, 768), 768, 769), ((8, 4096), 8, 9), ((2, 4096, 64), 128, 129),
+    ((2, 5, 6, 7), 1, 1), ((4, 96, 77), 7, 8)])
+def test_direct_mse_sample_reads_every_channel(shape, jax_stride, stride):
+    """Queue 3, item 36: the JAX package samples every (size // 4096)-th
+    element, which reads only last / gcd(stride, last) positions of the
+    last axis (one channel of BERT-base's [32, 128, 768] activations); the
+    port takes the next stride coprime with the last axis, and its sample
+    reads every position. Where the JAX stride is coprime already, the two
+    samples are the same elements."""
+    x = np.random.RandomState(3).randn(*shape).astype(np.float32)
+    jc, tc = _fp8_cfgs()
+    jo, to = jax_observers.DirectMSEObserver(jc), observers.DirectMSEObserver(tc)
+    jo.observe(x)
+    to.observe(torch.from_numpy(x))
+    flat = x.reshape(-1)
+    np.testing.assert_array_equal(np.asarray(jo._samples[0]),
+                                  flat[::jax_stride][:4096])
+    np.testing.assert_array_equal(to._samples[0].numpy(),
+                                  flat[::stride][:4096])
+    assert observers.sample_stride(torch.from_numpy(x)) == stride
+    columns = np.arange(0, flat.size, stride)[:4096] % shape[-1]
+    assert len(set(columns)) == min(shape[-1], columns.size)
+    jax_columns = np.arange(0, flat.size, jax_stride)[:4096] % shape[-1]
+    assert len(set(jax_columns)) == shape[-1] // np.gcd(jax_stride, shape[-1])
+    assert (stride == jax_stride) == (np.gcd(jax_stride, shape[-1]) == 1)
+
+
 def test_ppq_fake_quant_dispatch_vs_jax():
     """The floating and dynamic branches of ppq_fake_quant and
     fake_quant_np."""

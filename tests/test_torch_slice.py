@@ -29,10 +29,12 @@ import torch._dynamo  # noqa: F401
 import ppq_tpu
 import ppq_tpu_torch
 from ppq_tpu.api import QuantizationSettingFactory as JaxSettings
+from ppq_tpu.quantization import observers as jax_observers
 from ppq_tpu.quantization.optim import fcalibration
 from ppq_tpu.zoo import resnet18 as jax_resnet18
 from ppq_tpu_torch.api import QuantizationSettingFactory as TorchSettings
 from ppq_tpu_torch.core import PPQ_TPU_CONFIG
+from ppq_tpu_torch.quantization import observers
 from ppq_tpu_torch.interop import (load_parameters, load_quantization_configs,
                                    parameters_of, quantization_configs_of)
 from ppq_tpu_torch.zoo import resnet18 as torch_resnet18
@@ -221,12 +223,33 @@ def test_carried_across_forward_matches_tpu_executor(both):
     assert (y.argmax(-1) == y_jax.argmax(-1)).all()
 
 
+def _observe_at_the_ports_stride(self, value):
+    """The JAX package's DirectMSEObserver.observe, sampling at the port's
+    stride (`observers.sample_stride`, ROADMAP.md queue 3 item 36)."""
+    value = np.asarray(value, np.float32)
+    if sum(s.size for s in self._samples) < self._budget:
+        step = observers.sample_stride(torch.empty(value.shape, device='meta'))
+        self._samples.append(value.reshape(-1)[::step][:4096])
+
+
+def _jax_fp8(ports_stride):
+    graph = jax_resnet18(num_classes=10, input_shape=SHAPE)
+    with pytest.MonkeyPatch.context() as mp:
+        if ports_stride:
+            mp.setattr(jax_observers.DirectMSEObserver, 'observe',
+                       _observe_at_the_ports_stride)
+        ppq_tpu.quantize_graph(graph, _loader(), calib_steps=2,
+                               platform=ppq_tpu.TargetPlatform.TPU_FP8,
+                               setting=JaxSettings.fp8_setting(),
+                               verbose=False)
+    return graph
+
+
 @pytest.fixture(scope='module')
 def both_fp8():
-    jg = jax_resnet18(num_classes=10, input_shape=SHAPE)
-    ppq_tpu.quantize_graph(jg, _loader(), calib_steps=2,
-                           platform=ppq_tpu.TargetPlatform.TPU_FP8,
-                           setting=JaxSettings.fp8_setting(), verbose=False)
+    """The JAX package's graph sampled at the port's DirectMSE stride, the
+    port's, and the JAX package's graph as it samples itself."""
+    jg = _jax_fp8(ports_stride=True)
     y_jax = np.asarray(ppq_tpu.TPUExecutor(jg).forward(_loader()[0])[0])
     tg = torch_resnet18(num_classes=10, input_shape=SHAPE)
     ppq_tpu_torch.quantize_graph(
@@ -234,14 +257,19 @@ def both_fp8():
         platform=ppq_tpu_torch.TargetPlatform.TPU_FP8,
         setting=TorchSettings.fp8_setting(), verbose=False, device='cpu')
     executor = ppq_tpu_torch.TorchExecutor(tg, device='cpu')
-    return (jg, y_jax), (tg, executor.forward(_loader()[0])[0].numpy())
+    return ((jg, y_jax), (tg, executor.forward(_loader()[0])[0].numpy()),
+            _jax_fp8(ports_stride=False))
 
 
 def test_fp8_slice_states_and_scales(both_fp8):
     """quantize_graph(TPU_FP8) with fp8_setting: E4M3 TQCs on the conv
-    family, DirectMSE scales (powers of two) equal in both packages, biases
-    on the linear grid act scale x weight scale."""
-    (jg, _), (tg, _) = both_fp8
+    family, DirectMSE scales (powers of two) equal in both packages when
+    both sample the same elements, biases on the linear grid act scale x
+    weight scale. The port samples at a stride coprime with the last axis
+    (queue 3 item 36): against the JAX package's own stride, which reads 2
+    of 16 columns after the stem and 4 of 8 in layer 1 here, exactly one
+    scale moves."""
+    (jg, _), (tg, _), jg_own = both_fp8
     floating = scales = 0
     for op, side, idx, a, b in _config_pairs(jg, tg):
         assert a.state.name == b.state.name, (op.name, side, idx)
@@ -256,6 +284,12 @@ def test_fp8_slice_states_and_scales(both_fp8):
         if b.policy.floating and b.is_active or b.state.name == 'BAKED':
             floating += 1
             assert b.exponent_bits == 4 and b.num_of_bits == 8
+    moved = [(op.name, side, idx, float(np.asarray(a.scale)),
+              float(np.asarray(b.scale)))
+             for op, side, idx, a, b in _config_pairs(jg_own, tg)
+             if a.has_scale and not np.array_equal(np.asarray(a.scale),
+                                                   np.asarray(b.scale))]
+    assert len(moved) == 1, moved
     assert {op.type for op in tg.operations.values()
             if hasattr(op, 'config')} == {'Conv', 'Gemm'}
     assert floating >= 42 and scales >= 63
@@ -275,7 +309,7 @@ def test_fp8_slice_states_and_scales(both_fp8):
 
 
 def test_fp8_slice_output_matches_jax(both_fp8):
-    (_, y_jax), (_, y_torch) = both_fp8
+    (_, y_jax), (_, y_torch), _ = both_fp8
     assert y_torch.shape == y_jax.shape == (2, 10)
     assert np.isfinite(y_torch).all()
     assert _snr(y_torch, y_jax) < 5e-3
