@@ -63,10 +63,12 @@ def float_round_plain(scaled: torch.Tensor, exponent_bits: int,
     max_val, min_normal, min_sub = _layout(exponent_bits, mantissa_bits)
     bits = scaled.contiguous().view(torch.int32)
     drop = 23 - mantissa_bits
-    lsb = (bits >> drop) & 1
-    rounded = (bits + (((1 << (drop - 1)) - 1) + lsb)) & -(1 << drop)
-    y = torch.clamp(rounded.view(torch.float32), -max_val, max_val)
-    sub_grid = torch.round(y / min_sub) * min_sub   # min_sub is a power of 2
+    # in place on one fresh buffer: ((bits >> drop) & 1) + half - 1 + bits
+    rounded = bits >> drop
+    rounded.bitwise_and_(1).add_((1 << (drop - 1)) - 1).add_(bits)
+    rounded.bitwise_and_(-(1 << drop))
+    y = rounded.view(torch.float32).clamp_(-max_val, max_val)
+    sub_grid = torch.round(y / min_sub).mul_(min_sub)  # min_sub: a power of 2
     return torch.where(torch.abs(y) < min_normal, sub_grid, y)
 
 

@@ -24,6 +24,16 @@ from ppq_tpu_torch.quantization import qfunction
 pytestmark = pytest.mark.gpu
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One PyTorch thread for this module (see tests/test_torch_slice.py):
+    what is checked does not depend on it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():

@@ -18,6 +18,16 @@ from ppq_tpu.quantization import qfunction as jax_qfunction
 from ppq_tpu_torch.core import RoundingPolicy
 from ppq_tpu_torch.kernels import histogram, linear_quant
 
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One PyTorch thread for this module (see tests/test_torch_slice.py):
+    what is checked does not depend on it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 POLICIES = list(RoundingPolicy)
 MODES = {'tensor': None, 'axis0': 0, 'axis1': 1}
 SHAPE = (6, 5, 7, 9)

@@ -26,6 +26,16 @@ from ppq_tpu_torch.kernels.quant import (_BWD_LOADS, _BWD_THREADS,
                                          channelwise_bwd_plan,
                                          linear_quant_bwd_terms)
 
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One PyTorch thread for this module (see tests/test_torch_slice.py):
+    what is checked does not depend on it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 POLICIES = list(RoundingPolicy)
 MODES = {'tensor': None, 'axis0': 0, 'axis1': 1}
 SHAPE = (6, 5, 7, 9)

@@ -14,6 +14,16 @@ from ppq_tpu_torch.core import PPQ_TPU_CONFIG as TORCH_CONFIG
 from ppq_tpu_torch.core import QP, QuantizationPolicy, TensorQuantizationConfig
 from ppq_tpu_torch.quantization import observers, solvers
 
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One PyTorch thread for this module (see tests/test_torch_slice.py):
+    what is checked does not depend on it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 PER_TENSOR = int(QP.PER_TENSOR | QP.LINEAR | QP.SYMMETRICAL)
 PER_CHANNEL = int(QP.PER_CHANNEL | QP.LINEAR | QP.SYMMETRICAL)
 ASYM_TENSOR = int(QP.PER_TENSOR | QP.LINEAR | QP.ASYMMETRICAL)

@@ -25,6 +25,16 @@ from ppq_tpu_torch.core import (QuantizationPolicy, QuantizationProperty as QP,
 from ppq_tpu_torch.kernels import LAUNCHES
 from ppq_tpu_torch.quantization import observers, qfunction as tq
 
+
+@pytest.fixture(autouse=True, scope='module')
+def _one_torch_thread():
+    """One PyTorch thread for this module (see tests/test_torch_slice.py):
+    what is checked does not depend on it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 SHAPE = (4, 6, 5, 7)
 MODES = {'tensor': None, 'axis0': 0, 'axis1': 1}
 

@@ -18,6 +18,7 @@ most values differ by a bf16 step (2^-8 relative):
     up to 2^-7 of the value; measured: two steps on 2 of 2048 rows).
 """
 
+import copy
 import functools
 
 import jax
@@ -276,6 +277,21 @@ def test_qmatmul_routing_over_the_row_cap():
 
 # ------------------------------------------------------------ forward -----
 
+_JIT_FORWARD = {}
+
+
+def _jit_forward(jcfg):
+    """The JAX package's forward, jitted once per configuration (and by JAX
+    per input shape), so that the tests' many calls at one shape compile
+    once."""
+    key = repr(jcfg)
+    if key not in _JIT_FORWARD:
+        cfg = copy.deepcopy(jcfg)
+        _JIT_FORWARD[key] = jax.jit(lambda *args, active: jmodel.forward(
+            *args, cfg, active=active))
+    return _JIT_FORWARD[key]
+
+
 def _forward_both(pair, tokens, positions, write_pos, seq_lens, active,
                   caches=None):
     jcfg, jp, tcfg, tp = pair
@@ -284,8 +300,7 @@ def _forward_both(pair, tokens, positions, write_pos, seq_lens, active,
         caches = (jmodel.init_kv_cache(jcfg, B),
                   tmodel.init_kv_cache(tcfg, B, 'cpu'))
     jc, tc = caches
-    jl, jc = jax.jit(lambda *args, active: jmodel.forward(
-        *args, jcfg, active=active))(
+    jl, jc = _jit_forward(jcfg)(
             jp, jc, jnp.asarray(tokens), jnp.asarray(positions),
             jnp.asarray(write_pos), jnp.asarray(seq_lens),
             active=None if active is None else jnp.asarray(active))

@@ -14,6 +14,7 @@ One test holds the two compiled (default) paths against each other;
 tests/test_torch_fcalibration.py holds the port's compiled path itself.
 """
 
+import copy
 import os
 import subprocess
 import sys
@@ -246,22 +247,30 @@ def _jax_fp8(ports_stride):
 
 
 @pytest.fixture(scope='module')
-def both_fp8():
-    """The JAX package's graph sampled at the port's DirectMSE stride, the
-    port's, and the JAX package's graph as it samples itself."""
-    jg = _jax_fp8(ports_stride=True)
-    y_jax = np.asarray(ppq_tpu.TPUExecutor(jg).forward(_loader()[0])[0])
+def torch_fp8():
+    """The port's ResNet-18 quantized with TPU_FP8, once per module: tests
+    that change it take a copy."""
     tg = torch_resnet18(num_classes=10, input_shape=SHAPE)
     ppq_tpu_torch.quantize_graph(
         tg, _loader(), calib_steps=2,
         platform=ppq_tpu_torch.TargetPlatform.TPU_FP8,
         setting=TorchSettings.fp8_setting(), verbose=False, device='cpu')
+    return tg
+
+
+@pytest.fixture(scope='module')
+def both_fp8(torch_fp8):
+    """The JAX package's graph sampled at the port's DirectMSE stride, the
+    port's, and the JAX package's graph as it samples itself."""
+    jg = _jax_fp8(ports_stride=True)
+    y_jax = np.asarray(ppq_tpu.TPUExecutor(jg).forward(_loader()[0])[0])
+    tg = torch_fp8
     executor = ppq_tpu_torch.TorchExecutor(tg, device='cpu')
     return ((jg, y_jax), (tg, executor.forward(_loader()[0])[0].numpy()),
             _jax_fp8(ports_stride=False))
 
 
-def test_fp8_slice_states_and_scales(both_fp8):
+def test_fp8_slice_states_and_scales(both_fp8, torch_fp8):
     """quantize_graph(TPU_FP8) with fp8_setting: E4M3 TQCs on the conv
     family, DirectMSE scales (powers of two) equal in both packages when
     both sample the same elements, biases on the linear grid act scale x
@@ -294,11 +303,7 @@ def test_fp8_slice_states_and_scales(both_fp8):
             if hasattr(op, 'config')} == {'Conv', 'Gemm'}
     assert floating >= 42 and scales >= 63
     # carried across with the interop helpers, the floating policy included
-    fresh = torch_resnet18(num_classes=10, input_shape=SHAPE)
-    ppq_tpu_torch.quantize_graph(
-        fresh, _loader(), calib_steps=2,
-        platform=ppq_tpu_torch.TargetPlatform.TPU_FP8,
-        setting=TorchSettings.fp8_setting(), verbose=False, device='cpu')
+    fresh = copy.deepcopy(torch_fp8)
     carried = quantization_configs_of(jg)
     assert all(e['exponent_bits'] == 4 for (name, side, idx), e
                in carried.items() if side == 'in' and idx == 1)
@@ -316,18 +321,14 @@ def test_fp8_slice_output_matches_jax(both_fp8):
     assert (y_torch.argmax(-1) == y_jax.argmax(-1)).all()
 
 
-def test_fp8_slice_finetunes():
+def test_fp8_slice_finetunes(torch_fp8):
     """LSQ with frozen scales over the FP8 graph (the floating fake-quant's
     STE backward): every accepted block improved its loss against the fp32
     targets, scales stay as calibrated, and the forward stays finite. (The
     2x10 output sits on the E4M3 grid, too coarse for an end-to-end SNR
     claim at this size.)"""
     from ppq_tpu_torch.quantization.optim import LearnedStepSizePass
-    tg = torch_resnet18(num_classes=10, input_shape=SHAPE)
-    ppq_tpu_torch.quantize_graph(
-        tg, _loader(), calib_steps=2,
-        platform=ppq_tpu_torch.TargetPlatform.TPU_FP8,
-        setting=TorchSettings.fp8_setting(), verbose=False, device='cpu')
+    tg = copy.deepcopy(torch_fp8)
     executor = ppq_tpu_torch.TorchExecutor(tg, device='cpu')
     x = _loader()[0]
     before = executor.forward(x)[0].numpy()
@@ -374,12 +375,15 @@ def test_fp8_lsq_takes_block_inputs_after_the_earlier_blocks_trained():
         torch_resnet18(num_classes=100, input_shape=shape), device='cpu')
     refs = [fp32.forward(x)[0].numpy() for x in loader]
 
+    # the three runs start from the same calibrated graph, quantized once
+    calibrated = torch_resnet18(num_classes=100, input_shape=shape)
+    ppq_tpu_torch.quantize_graph(
+        calibrated, loader, calib_steps=4,
+        platform=ppq_tpu_torch.TargetPlatform.TPU_FP8,
+        setting=TorchSettings.fp8_setting(), verbose=False, device='cpu')
+
     def snr_after(lsq):
-        graph = torch_resnet18(num_classes=100, input_shape=shape)
-        ppq_tpu_torch.quantize_graph(
-            graph, loader, calib_steps=4,
-            platform=ppq_tpu_torch.TargetPlatform.TPU_FP8,
-            setting=TorchSettings.fp8_setting(), verbose=False, device='cpu')
+        graph = copy.deepcopy(calibrated)
         if lsq is not None:
             ppq_tpu_torch.manop(graph, lsq, calib_dataloader=loader,
                                 verbose=False, device='cpu')

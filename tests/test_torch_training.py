@@ -10,6 +10,7 @@ a full-size step, so trained weights drift apart element by element: the
 tests compare gradients at step 0 and losses after training, not weights.
 """
 
+import copy
 import functools
 
 import jax
@@ -64,10 +65,20 @@ def _loader():
     return [rng.randn(*SHAPE).astype(np.float32) for _ in range(4)]
 
 
+_PAIRS = {}
+
+
 def _pair(fp8=False):
     """tiny_cnn quantized by the JAX package (TPU_INT8, or TPU_FP8 with
     fp8_setting), and the port's graph of the same model carrying the same
-    TQCs (weights come from the same seed)."""
+    TQCs (weights come from the same seed). Both are built once per module
+    and every caller gets its own copy: the tests train and rewrite them."""
+    if fp8 not in _PAIRS:
+        _PAIRS[fp8] = _build_pair(fp8)
+    return copy.deepcopy(_PAIRS[fp8])
+
+
+def _build_pair(fp8):
     platform = 'TPU_FP8' if fp8 else 'TPU_INT8'
     jg = jax_tiny_cnn(input_shape=SHAPE)
     ppq_tpu.quantize_graph(
