@@ -52,6 +52,19 @@ Phases (each raises on failure, and the script then exits non-zero):
      (`--ops` runs this path alone; `--fp8-sample` runs path C's and
      BERT-base's FP8 calibration under the port's DirectMSE sample and
      the JAX package's);
+  4e. path K: the other passes, the analyses and the evaluation harnesses
+     at full width: BASELINE.json's MobileNetV2 configuration (width 1.0,
+     batch 32 at 224², TPU_INT8 per-channel, KL over 4, BiasCorrection,
+     LayerwiseEqualization) and the same without equalization, SNR and
+     top-1 against fp32; equalization alone against the fp32 output, the
+     card's uploaded weights against the host and the same pass on the
+     CPU; on ResNet-18 SSD equalization, channel split and horizontal layer
+     split (each alone against fp32, then through `quantize_graph`),
+     LearningToCalibPass and MatrixFactorizationPass; graphwise, layerwise,
+     statistical and parameter analyses (compiled against eager, seconds,
+     peak memory); `evaluate_classification` compiled against eager;
+     `quantzoo_benchmark` over ResNet-18 and MobileNetV2 x its three
+     schemes (`--passes` runs this path alone);
  5. path B: the same model, `quantize_graph` with `lsq_optimization` (LSQ
      over every block, weights and scales trained, 4 cached batches), the
      forward and its SNR against the fp32 model before and after LSQ; then
@@ -4370,9 +4383,10 @@ BERT_SNR_INT8, BERT_SNR_FP8 = 0.1, 0.05
 BERT_INT_CARD_VS_CPU_SNR, BERT_CPU_SEQUENCES = 5e-3, 2
 # the other twelve zoo graphs at their builders' default sizes, each held
 # against fp32 within the SNR bound tests/test_zoo_models.py sets for it
-# (mobilenet_v2: the bound of its equalized run; it runs here without
-# equalization, ROADMAP.md queue 1 item 8); ResNet-18 within path A's bound
-# and tiny_cnn within the vision graphs' 0.1, which that file does not test
+# (mobilenet_v2: the bound of its equalized run; it runs here with the
+# default setting, and path K runs it equalized, with KL and
+# BiasCorrection, at batch 32); ResNet-18 within path A's bound and
+# tiny_cnn within the vision graphs' 0.1, which that file does not test
 ZOO_GRAPHS = {
     'resnet18': SNR_INT8_BOUND, 'tiny_cnn': 0.1, 'mobilenet_v2': 0.6,
     'se_resnet_lite': 0.1, 'resnext_lite': 0.1, 'shufflenet_v2_lite': 0.1,
@@ -4387,12 +4401,16 @@ PATH_J_ROWS = {'1': 'fake_quant_tensorwise', '2': 'fake_quant_channelwise',
 # forward: one a quantization site that quantize_graph leaves active.
 # INT8: 32 a layer (the outputs of 8 MatMuls, 8 Adds, 4 Reshapes, 5
 # Transposes, the scale Mul, Softmax, Gelu and 2 LayerNormalizations, and 2
-# inputs); FP8 quantizes MatMul and LayerNormalization alone: 18 a layer (8
-# MatMul outputs and 6 inputs, 2 LayerNormalization inputs and 2 outputs)
-# and 3 more inputs in the first, where Q, K and V read the embeddings.
-# tests/test_torch_zoo.py counts the same on small BERT on the CPU. A replay
-# of a runner holds a chain of BERT_CHAIN INT8 forwards.
-BERT_INT8_SITES = 32 * BERT_BASE['n_layers']
+# inputs) and 4 more in the first, where K, V and the residual Add read the
+# embeddings and the Add's other input then joins its grid (the compiled
+# calibration calibrates every reader of a shared input: ROADMAP.md queue
+# 3, recorded difference 39); FP8 quantizes MatMul and LayerNormalization
+# alone: 18 a layer (8 MatMul outputs and 6 inputs, 2 LayerNormalization
+# inputs and 2 outputs) and 3 more inputs in the first, where Q, K and V
+# read the embeddings. tests/test_torch_zoo.py counts the same on small
+# BERT on the CPU. A replay of a runner holds a chain of BERT_CHAIN INT8
+# forwards.
+BERT_INT8_SITES = 32 * BERT_BASE['n_layers'] + 4
 BERT_FP8_SITES = 18 * BERT_BASE['n_layers'] + 3
 
 
@@ -4737,6 +4755,422 @@ def main_ops() -> int:
     phase_build(['fake_quant', 'histogram', 'floating'])
     launches, _ = phase_path_j(dev)
     log(f'[launches] path J {json.dumps(launches)}')
+    log(smi)
+    log(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': name, 'count': torch.cuda.device_count()}}))
+    return 0
+
+
+# ------------------------------------------------------------------ path K
+# BASELINE.json's MobileNetV2 configuration: the zoo builder at width 1.0,
+# 1000 classes, batch 32 at 224x224, TPU_INT8 (per-channel weights), KL over
+# PASSES_KL_STEPS batches, LayerwiseEqualization over 10 iterations and
+# BiasCorrection; its bound on the SNR against fp32 is the JAX zoo test's
+# (tests/test_zoo_models.py:102). The other passes and the analyses run on
+# ResNet-18 at the same batch.
+PASSES_BATCH, PASSES_KL_STEPS, PASSES_STEPS = 32, 4, 4
+EQUALIZATION_ITERATIONS = 10
+MOBILENET_SNR_BOUND = 0.6
+# a pass that keeps the function keeps the output within this share of its
+# largest value, the graph run in float64 before and after the pass (the
+# rewritten float32 weights round in their last bits: 3.8e-6 at MobileNetV2's
+# full width on the CPU). The float32 forwards of the two graphs differ by
+# more, 2.3e-5 there: the float32 forward's own rounding against float64 is
+# 2.1e-5 of that model's largest logit, so they are reported, not bounded.
+FP32_KEEP_TOL = 1e-5
+# the analyses' compiled reports against the eager executor's: the walk and
+# the executor run the same kernels on the same values
+ANALYSE_STEPS, ANALYSE_RTOL = 2, 1e-6
+QUANTZOO_CALIB, QUANTZOO_ERROR = 4, 2
+PATH_K_ROWS = {'1': 'fake_quant_tensorwise', '2': 'fake_quant_channelwise',
+               '3': 'histogram', '6t': 'floating_quant'}
+
+
+def _seeded_images(dev, n, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(PASSES_BATCH, 3, IMAGE, IMAGE, device=dev,
+                        generator=gen) for _ in range(n)]
+
+
+def _float64_output(graph, x):
+    """The graph's output with its float32 parameters and input in float64
+    (a copy: the graph keeps its values)."""
+    from ppq_tpu_torch import TorchExecutor
+    wide = graph.copy(copy_value=True)
+    for var in wide.variables.values():
+        if var.is_parameter and var.has_value and \
+                np.asarray(var.value).dtype == np.float32:
+            var.value = np.asarray(var.value, np.float64)
+    return TorchExecutor(wide).forward(x.double())[0]
+
+
+def _keeps_function(tag, make_pass, graph, x, loader=None):
+    """Run make_pass() on `graph` (formatted fp32) with an executor that
+    already ran; hold the float64 output of the graph after the pass
+    against the one before, within FP32_KEEP_TOL of its largest value; the
+    reused executor against a fresh one bit for bit (the rewritten weights
+    reached the card); and every weight the reused executor uploaded
+    against the host array bit for bit. Returns the float64 move, the
+    float32 move and the float32 forward's own error against float64, each
+    over the largest value, and the weights held."""
+    from ppq_tpu_torch import TorchExecutor
+    executor = TorchExecutor(graph)
+    before = executor.forward(x)[0]
+    wide_before = _float64_output(graph, x)
+    make_pass().optimize(graph, dataloader=loader, executor=executor)
+    executor.load_graph(graph)       # as quantize_graph does after a pass
+    after = executor.forward(x)[0]
+    fresh = TorchExecutor(graph).forward(x)[0]
+    if not torch.equal(after, fresh):
+        raise AssertionError(f'path K {tag}: the reused executor differs '
+                             f'from a fresh one on the rewritten graph')
+    held = 0
+    for name, (host, on_card) in executor._params.items():
+        if isinstance(on_card, torch.Tensor) and on_card.is_floating_point():
+            if host is not graph.variables[name].value or not torch.equal(
+                    on_card.cpu(), torch.as_tensor(graph.variables[name].value)):
+                raise AssertionError(f'path K {tag}: {name} on the card is '
+                                     f'not the host value')
+            held += 1
+    wide_after = _float64_output(graph, x)
+    top = float(wide_before.abs().max())
+    rel = float((wide_after - wide_before).abs().max()) / top
+    if rel > FP32_KEEP_TOL:
+        raise AssertionError(f'path K {tag}: the output moved by {rel} of '
+                             f'its largest value in float64 (bound '
+                             f'{FP32_KEEP_TOL})')
+    moved32 = float((after - before).abs().max()) / top
+    noise32 = float((before.double() - wide_before).abs().max()) / top
+    return dict(float64_moved=rel, float32_moved=moved32,
+                float32_vs_float64=noise32, weights_held=held)
+
+
+def _mobilenet_runs(dev, loader, x, y_fp32):
+    """MobileNetV2 through quantize_graph with and without equalization:
+    SNR and top-1 against fp32, calibration and KL search seconds."""
+    from ppq_tpu_torch import TargetPlatform, TorchExecutor, quantize_graph
+    from ppq_tpu_torch import zoo
+    from ppq_tpu_torch.api import QuantizationSettingFactory
+    from ppq_tpu_torch.quantization.optim.fcalibration import \
+        LAST_CALIBRATION_PROFILE
+    out = {}
+    for equalized in (True, False):
+        setting = QuantizationSettingFactory.default_setting()
+        setting.quantize_activation_setting.calib_algorithm = 'kl'
+        setting.bias_correct = True
+        setting.equalization = equalized
+        setting.equalization_setting.iterations = EQUALIZATION_ITERATIONS
+        graph = zoo.mobilenet_v2(input_shape=[PASSES_BATCH, 3, IMAGE, IMAGE])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        quantize_graph(graph, loader, calib_steps=PASSES_KL_STEPS,
+                       platform=TargetPlatform.TPU_INT8, setting=setting,
+                       verbose=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        y = TorchExecutor(graph).forward(x)[0]
+        snr, top1 = _snr_and_top1(y, y_fp32)
+        prof = dict(LAST_CALIBRATION_PROFILE)
+        out['equalized' if equalized else 'plain'] = dict(
+            snr=snr, top1=top1, quantize_graph_s=seconds,
+            calibration_s=prof['compile_s'] + prof['run_s']
+            + prof.get('run2_s', 0.0) + prof.get('search_s', 0.0),
+            kl_search_s=prof.get('search_s'), profile=prof)
+        if equalized:
+            out['graph'] = graph
+    return out
+
+
+# the prequant passes of the settings' flags at thresholds where they act
+# on the seeded models: SSD equalization on MobileNetV2 (its one pass has no
+# setting; ResNet-18's weights stay under its 0.5 threshold), the channel
+# and weight splits on ResNet-18 (its largest weights 0.16-0.85: the
+# defaults, 2 x the median and 2.0, split nothing)
+PREQUANT_PASSES = {
+    'ssd_equalization': ('mobilenet_v2', None),
+    'channel_split': ('resnet18', ('channel_split_setting', 0.9)),
+    'weight_split': ('resnet18', ('weight_split_setting', 0.5)),
+}
+
+
+def _prequant_passes(dev, loader, x, references):
+    """SSD equalization, channel split and horizontal layer split: each pass
+    alone keeps the function (`_keeps_function`) and changes the graph,
+    then quantize_graph with its setting flag (percentile, compiled
+    calibration): SNR against fp32."""
+    from ppq_tpu_torch import (TargetPlatform, TorchExecutor, format_graph,
+                               quantize_graph)
+    from ppq_tpu_torch import zoo
+    from ppq_tpu_torch.api import QuantizationSettingFactory
+    from ppq_tpu_torch.quantization.optim import (ChannelwiseSplitPass,
+                                                  HorizontalLayerSplitPass,
+                                                  SSDEqualizationPass)
+    shape = [PASSES_BATCH, 3, IMAGE, IMAGE]
+    passes = {
+        'ssd_equalization': lambda threshold: SSDEqualizationPass(
+            calib_steps=PASSES_STEPS),
+        'channel_split': lambda threshold: ChannelwiseSplitPass(
+            value_threshold=threshold),
+        'weight_split': lambda threshold: HorizontalLayerSplitPass(
+            value_threshold=threshold),
+    }
+    out = {}
+    for flag, make in passes.items():
+        model, sub = PREQUANT_PASSES[flag]
+        threshold = sub[1] if sub else None
+        graph = format_graph(getattr(zoo, model)(input_shape=shape))
+        values = {n: v.value for n, v in graph.variables.items()
+                  if v.is_parameter}
+        n_ops = len(graph.operations)
+        t0 = time.perf_counter()
+        kept = _keeps_function(flag, lambda: make(threshold), graph, x,
+                               loader)
+        pass_s = time.perf_counter() - t0
+        rewritten = sum(1 for n, v in graph.variables.items()
+                        if v.is_parameter and values.get(n) is not v.value)
+        if not rewritten:
+            raise AssertionError(f'path K {flag}: the pass changed nothing')
+        setting = QuantizationSettingFactory.default_setting()
+        setattr(setting, flag, True)
+        if sub:
+            getattr(setting, sub[0]).value_threshold = sub[1]
+        qgraph = getattr(zoo, model)(input_shape=shape)
+        t0 = time.perf_counter()
+        quantize_graph(qgraph, loader, calib_steps=PASSES_STEPS,
+                       platform=TargetPlatform.TPU_INT8, setting=setting,
+                       verbose=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        snr, top1 = _snr_and_top1(TorchExecutor(qgraph).forward(x)[0],
+                                  references[model])
+        bound = MOBILENET_SNR_BOUND if model == 'mobilenet_v2' \
+            else SNR_INT8_BOUND
+        if not snr < bound:
+            raise AssertionError(f'path K {flag}: SNR {snr} against fp32')
+        out[flag] = dict(kept, model=model, threshold=threshold,
+                         parameters_rewritten=rewritten,
+                         ops_added=len(graph.operations) - n_ops,
+                         pass_s=pass_s, quantize_graph_s=seconds, snr=snr,
+                         top1=top1)
+    return out
+
+
+def _experimental_on_resnet(dev, loader, x, y_fp32, quantized):
+    """LearningToCalibPass on a copy of the quantized ResNet-18, and
+    MatrixFactorizationPass on its classifier (split to MatMul + Add by
+    MetaxGemmSplitPass first: the pass factors plain MatMuls only), each
+    with its SNR against fp32 and its seconds."""
+    from ppq_tpu_torch import (TargetPlatform, TorchExecutor, format_graph,
+                               manop, quantize_graph)
+    from ppq_tpu_torch import zoo
+    from ppq_tpu_torch.quantization.optim import (LearningToCalibPass,
+                                                  MatrixFactorizationPass,
+                                                  MetaxGemmSplitPass)
+    out = {}
+    graph = quantized.copy(copy_value=True)
+    before, _ = _snr_and_top1(TorchExecutor(graph).forward(x)[0], y_fp32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ltc = LearningToCalibPass(calib_steps=PASSES_STEPS)
+    manop(graph, ltc, calib_dataloader=loader, verbose=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    after, top1 = _snr_and_top1(TorchExecutor(graph).forward(x)[0], y_fp32)
+    if not after < SNR_INT8_BOUND:
+        raise AssertionError(f'path K learning to calibrate: SNR {after}')
+    out['learning_to_calib'] = dict(snr_before=before, snr=after, top1=top1,
+                                    seconds=seconds)
+    shape = [PASSES_BATCH, 3, IMAGE, IMAGE]
+    graph = format_graph(zoo.resnet18(input_shape=shape))
+    t0 = time.perf_counter()
+    MetaxGemmSplitPass().optimize(graph)
+    mf = MatrixFactorizationPass(rank_ratio=0.5)
+    mf.optimize(graph)
+    pass_s = time.perf_counter() - t0
+    factored = [n for n in graph.operations if n.endswith('_svd_1')]
+    if not factored:
+        raise AssertionError('path K: MatrixFactorizationPass factored '
+                             'nothing')
+    fp32_snr, _ = _snr_and_top1(TorchExecutor(graph).forward(x)[0], y_fp32)
+    t0 = time.perf_counter()
+    quantize_graph(graph, loader, calib_steps=PASSES_STEPS,
+                   platform=TargetPlatform.TPU_INT8, verbose=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    snr, top1 = _snr_and_top1(TorchExecutor(graph).forward(x)[0], y_fp32)
+    out['matrix_factorization'] = dict(factored=factored, pass_s=pass_s,
+                                       fp32_snr=fp32_snr, snr=snr, top1=top1,
+                                       quantize_graph_s=seconds)
+    return out
+
+
+def _analyses(dev, graph, loader):
+    """graphwise, layerwise, statistical and parameter analyses of the
+    quantized ResNet-18 on the compiled executor, with seconds and the peak
+    memory of each; the graphwise and layerwise reports held against the
+    eager executor's within ANALYSE_RTOL."""
+    from ppq_tpu_torch.quantization import analyse
+    out, reports = {}, {}
+    runs = {
+        'graphwise': lambda: analyse.graphwise_error_analyse(
+            graph, loader, steps=ANALYSE_STEPS, verbose=False),
+        'layerwise': lambda: analyse.layerwise_error_analyse(
+            graph, loader, steps=ANALYSE_STEPS, verbose=False),
+        'statistical': lambda: analyse.statistical_analyse(
+            graph, loader, steps=ANALYSE_STEPS),
+        'parameter': lambda: analyse.parameter_analyse(graph),
+    }
+    for name, run in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        reports[name] = run()
+        torch.cuda.synchronize()
+        out[name] = dict(seconds=time.perf_counter() - t0, entries=len(
+            reports[name]), peak_mib=(torch.cuda.max_memory_allocated()
+                                      - base) / 2 ** 20)
+    saved = analyse.compilable
+    analyse.compilable = lambda g: (False, [])
+    try:
+        for name in ('graphwise', 'layerwise'):
+            t0 = time.perf_counter()
+            eager = runs[name]()
+            torch.cuda.synchronize()
+            worst = max(abs(eager[k] - v) / max(abs(v), 1e-30)
+                        for k, v in reports[name].items())
+            if eager.keys() != reports[name].keys() or \
+                    worst > ANALYSE_RTOL:
+                raise AssertionError(f'path K {name}: compiled against '
+                                     f'eager {worst}')
+            out[name].update(eager_seconds=time.perf_counter() - t0,
+                             eager_rel_diff=worst)
+    finally:
+        analyse.compilable = saved
+    out['graphwise']['worst'] = max(reports['graphwise'].items(),
+                                    key=lambda kv: kv[1])
+    out['layerwise']['worst'] = max(reports['layerwise'].items(),
+                                    key=lambda kv: kv[1])
+    return out
+
+
+def phase_path_k(dev):
+    """Path K: the prequant and manual passes, the analyses and the
+    evaluation harnesses at full width. The main path (the counts are read
+    at its end): BASELINE.json's MobileNetV2 configuration with and without
+    equalization; on ResNet-18 SSD equalization, channel split, horizontal
+    layer split, learning to calibrate and matrix factorization; the
+    analyses of a quantized ResNet-18; `evaluate_classification` compiled
+    and eager; `quantzoo_benchmark` over ResNet-18 and MobileNetV2 x its
+    three schemes. Every check raises: the passes that keep the function
+    against the fp32 output, the executor's copies of rewritten weights
+    against the host, SNR bounds, compiled reports against eager ones."""
+    from ppq_tpu_torch import (TargetPlatform, TorchExecutor, format_graph,
+                               quantize_graph)
+    from ppq_tpu_torch import zoo
+    from ppq_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ppq_tpu_torch.quantization.optim import LayerwiseEqualizationPass
+    from ppq_tpu_torch.zoo import evaluate
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.cuda.empty_cache()
+    t_path = time.perf_counter()
+    shape = [PASSES_BATCH, 3, IMAGE, IMAGE]
+    loader = _seeded_images(dev, PASSES_STEPS, seed=40)
+    x = _seeded_images(dev, 1, seed=41)[0]
+    summary = {}
+
+    reset_launches()
+    # MobileNetV2: equalization alone keeps the function, and the card
+    # computes with the rewritten weights; the same pass on the CPU gives
+    # the same weights
+    y_mnv2 = TorchExecutor(zoo.mobilenet_v2(input_shape=shape)).forward(x)[0]
+    graph = format_graph(zoo.mobilenet_v2(input_shape=shape))
+    kept = _keeps_function(
+        'equalization', lambda: LayerwiseEqualizationPass(
+            iterations=EQUALIZATION_ITERATIONS), graph, x)
+    on_cpu = format_graph(zoo.mobilenet_v2(input_shape=shape))
+    LayerwiseEqualizationPass(iterations=EQUALIZATION_ITERATIONS).optimize(
+        on_cpu)
+    for name, var in on_cpu.variables.items():
+        if var.is_parameter and var.has_value and not np.array_equal(
+                np.asarray(var.value), np.asarray(graph.variables[name].value)):
+            raise AssertionError(f'path K: equalized {name} differs from the '
+                                 f'same pass on the CPU')
+    del graph, on_cpu
+    summary['mobilenet_equalization'] = kept
+    runs = _mobilenet_runs(dev, loader, x, y_mnv2)
+    mnv2_graph = runs.pop('graph')
+    summary['mobilenet_v2'] = runs
+    if not runs['equalized']['snr'] < MOBILENET_SNR_BOUND:
+        raise AssertionError(f"path K: MobileNetV2 equalized SNR "
+                             f"{runs['equalized']['snr']} against fp32, bound "
+                             f"{MOBILENET_SNR_BOUND}")
+    del mnv2_graph
+    torch.cuda.empty_cache()
+
+    y_r18 = TorchExecutor(zoo.resnet18(input_shape=shape)).forward(x)[0]
+    summary['prequant_passes'] = _prequant_passes(
+        dev, loader, x, {'mobilenet_v2': y_mnv2, 'resnet18': y_r18})
+    r18 = zoo.resnet18(input_shape=shape)
+    t0 = time.perf_counter()
+    quantize_graph(r18, loader, calib_steps=PASSES_STEPS,
+                   platform=TargetPlatform.TPU_INT8, verbose=False)
+    torch.cuda.synchronize()
+    summary['resnet18_quantize_graph_s'] = time.perf_counter() - t0
+    summary['resnet18_experimental'] = _experimental_on_resnet(
+        dev, loader, x, y_r18, r18)
+    summary['analyses'] = _analyses(dev, r18, loader[:ANALYSE_STEPS])
+    # labels: the fp32 model's top-1, so top-1 reads the agreement of the
+    # quantized model with it
+    r18_fp32 = TorchExecutor(zoo.resnet18(input_shape=shape))
+    labelled = [(xb, r18_fp32.forward(xb)[0].argmax(-1).cpu().numpy())
+                for xb in loader]
+    del r18_fp32
+    compiled = evaluate.evaluate_classification(r18, labelled)
+    eager = evaluate.evaluate_classification(r18, labelled, compiled=False)
+    if (compiled['top1'], compiled['top5']) != (eager['top1'], eager['top5']):
+        raise AssertionError(f'path K: evaluate_classification compiled '
+                             f'{compiled} against eager {eager}')
+    summary['evaluate_classification'] = dict(compiled=compiled, eager=eager)
+    del r18
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    records = evaluate.quantzoo_benchmark(
+        {'resnet18': lambda: zoo.resnet18(input_shape=shape),
+         'mobilenet_v2': lambda: zoo.mobilenet_v2(input_shape=shape)},
+        {'resnet18': loader, 'mobilenet_v2': loader},
+        calib_steps=QUANTZOO_CALIB, error_steps=QUANTZOO_ERROR,
+        verbose=False)
+    torch.cuda.synchronize()
+    if len(records) != 6 or not all(
+            np.isfinite(r[k]) and 0 <= r[k] for r in records
+            for k in ('AQE', 'MQE', 'OQE')) or not all(
+            r['AQE'] <= r['MQE'] for r in records):
+        raise AssertionError(f'path K: quantzoo_benchmark {records}')
+    summary['quantzoo'] = dict(records=records,
+                               seconds=time.perf_counter() - t0)
+    launches = dict(LAUNCHES)
+    absent = [row for row, k in PATH_K_ROWS.items() if launches.get(k, 0) <= 0]
+    if absent:
+        raise AssertionError(f'path K: rows {absent} did not launch')
+    summary['launches_by_row'] = {row: launches[k]
+                                  for row, k in PATH_K_ROWS.items()}
+    summary['path_s'] = time.perf_counter() - t_path
+    log(f'[path K] {json.dumps(summary)}')
+    return launches, summary
+
+
+def main_passes() -> int:
+    """Path K alone: the quick loop for the passes and the analyses."""
+    name, smi = phase_card()
+    import ppq_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+    dev = torch.device('cuda', 0)
+    torch.cuda.set_device(dev)
+    phase_build(['fake_quant', 'histogram', 'floating'])
+    launches, _ = phase_path_k(dev)
+    log(f'[launches] path K {json.dumps(launches)}')
     log(smi)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name, 'count': torch.cuda.device_count()}}))
@@ -5421,6 +5855,10 @@ def main() -> int:
         mode.add_argument('--ops', action='store_true',
                           help='path J alone: the op sweep, BERT-base INT8 '
                                'and FP8, the other zoo graphs')
+        mode.add_argument('--passes', action='store_true',
+                          help='path K alone: equalization and the other '
+                               'passes, the analyses, the evaluation '
+                               'harnesses')
         mode.add_argument('--fp8-sample', action='store_true',
                           help="path C's and BERT-base's FP8 calibration "
                                "under DirectMSE's sample rules")
@@ -5437,6 +5875,8 @@ def main() -> int:
             return main_frontends()
         if args.ops:
             return main_ops()
+        if args.passes:
+            return main_passes()
         if args.fp8_sample:
             return main_fp8_sample(args.package_root)
         return main_qmm(args.package_root)
@@ -5452,6 +5892,7 @@ def main() -> int:
     del pct_graph
     launches_i, _ = phase_path_i(dev)
     launches_j, _ = phase_path_j(dev)
+    launches_k, _ = phase_path_k(dev)
     launches_b, _, lsq_graph, train_loader = phase_path_b(dev, kl_graph)
     launches_c, _, fp8_graph, _ = phase_path_c(dev)
     launches_d, _, serve_params = phase_path_d(dev)
@@ -5460,7 +5901,7 @@ def main() -> int:
     del serve_params
     launches_f, _ = phase_path_f(dev)
     paths = dict(A=launches_a, H=launches_h, I=launches_i, J=launches_j,
-                 B=launches_b, C=launches_c,
+                 K=launches_k, B=launches_b, C=launches_c,
                  D=launches_d, E=launches_e, F=launches_f, G=launches_g)
     # each path's counts were set to 0 before it and read just after it
     launches = {k: sum(p[k] for p in paths.values()) for k in launches_a}

@@ -28,6 +28,21 @@ def _set_blob(blob: 'pb.BlobProto', value: np.ndarray):
     blob.data.extend(float(v) for v in value.reshape(-1))
 
 
+def _channel_operand(value) -> Optional[np.ndarray]:
+    """A parameter operand of an Add or Mul as the blob of a Caffe Scale or
+    Bias layer (axis 1): one number, or one per channel of an NCHW tensor
+    ((1, C, 1, 1) or (C, 1, 1)). None where Caffe's layers cannot hold it."""
+    value = np.asarray(value, np.float32)
+    if value.size == 1:
+        return value.reshape(1)
+    shape = list(value.shape)
+    while shape and shape[0] == 1:
+        shape.pop(0)
+    if len(shape) == 3 and shape[1:] == [1, 1]:
+        return value.reshape(-1)
+    return None
+
+
 class CaffeExporter(GraphExporter):
     def export(self, file_path: str, graph: BaseGraph,
                config_path: Optional[str] = None, **kwargs):
@@ -139,6 +154,21 @@ class CaffeExporter(GraphExporter):
             _set_blob(scale.blobs.add(), gamma)
             _set_blob(scale.blobs.add(), beta)
             return
+        if t in ('Add', 'Mul') and len(params) == 1 and \
+                len(layer.bottom) == 1:
+            per_channel = _channel_operand(params[0].value)
+            if per_channel is not None:
+                # a Scale (Mul) or Bias (Add) layer, which the parser reads
+                # back to the same op; the JAX package's exporter writes a
+                # custom layer that no parser reads (ROADMAP.md queue 3,
+                # recorded difference 40)
+                if t == 'Mul':
+                    layer.type = 'Scale'
+                    layer.scale_param.bias_term = False
+                else:
+                    layer.type = 'Bias'
+                _set_blob(layer.blobs.add(), per_channel)
+                return
         if t in ('Add', 'Mul', 'Max') and not params:
             layer.type = 'Eltwise'
             layer.eltwise_param.operation = {

@@ -6,6 +6,7 @@ Layer mapping (caffe → ONNX-semantic IR ops the executor understands):
   Convolution→Conv, Deconvolution→ConvTranspose, InnerProduct→Gemm,
   Pooling→Max/AveragePool/Global*, ReLU→Relu/LeakyRelu, Sigmoid, TanH→Tanh,
   BatchNorm→BatchNormalization (+folds trailing Scale), Scale→Mul(+Add),
+  Bias→Add,
   Eltwise→Add/Mul/Max, Concat, Softmax, Flatten, Reshape, Permute→Transpose,
   Dropout, Power, AbsVal→Abs, Interp/Upsample→Resize, Slice→Split.
 
@@ -244,6 +245,15 @@ class CaffeParser(GraphBuilder):
                 g.create_operation('Mul', name=name,
                                    inputs=[bottoms[0], sc],
                                    outputs=[mul_out])
+            return
+
+        if t == 'Bias':
+            beta = w[0] if w else np.zeros(1)
+            c = beta.size
+            bv = self._param(g, f'{name}_bias',
+                             beta.reshape(1, c, 1, 1) if c > 1 else beta)
+            g.create_operation('Add', name=name, inputs=[bottoms[0], bv],
+                               outputs=make_tops(1))
             return
 
         if t == 'Eltwise':

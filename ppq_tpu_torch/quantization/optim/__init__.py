@@ -1,5 +1,4 @@
-"""The passes this slice of the port carries (the JAX package's other
-passes are listed in ROADMAP.md)."""
+"""The optimization passes (the JAX package's, by the same names)."""
 
 from .base import (QuantizationOptimizationPass,
                    QuantizationOptimizationPipeline)
@@ -9,8 +8,19 @@ from .calibration import (CalibrationHook, IsotoneCalibrationPass,
 from .fcalibration import (CompiledCalibrationPass,
                            compiled_calibration_supported)
 from .parameters import ParameterQuantizePass, PassiveParameterQuantizePass
+from .equalization import (ActivationEqualizationPass, ChannelwiseSplitPass,
+                           LayerwiseEqualizationPass)
+from .experimental import LearningToCalibPass, MatrixFactorizationPass
+from .extension import ExtensionPass
+from .morph import (GRUSplitPass, HorizontalLayerSplitPass,
+                    StemSpaceToDepthPass,
+                    NCNNFormatGemmPass, NXPResizeModeChangePass)
 from .refine import (MishFusionPass, QuantAlignmentPass, QuantizeFusionPass,
                      QuantizeSimplifyPass, SwishFusionPass)
+from .ssd import SSDEqualizationPass
+from .vendor import (MetaxGemmSplitPass, NxpInputRoundingRefinePass,
+                     NxpQuantizeFusionPass, PPLCudaAddConvReluMerge,
+                     PPLDSPTIReCalibrationPass)
 from .training import (AdaroundPass, BiasCorrectionPass, BlockRuntime,
                        LearnedStepSizePass, RoundTuningPass,
                        TrainableQuantDelegator, TrainingBasedPass)
@@ -18,11 +28,18 @@ from .training import (AdaroundPass, BiasCorrectionPass, BlockRuntime,
 __all__ = [
     'QuantizationOptimizationPass', 'QuantizationOptimizationPipeline',
     'ParameterBakingPass', 'CalibrationHook', 'IsotoneCalibrationPass',
-    'OperationObserver', 'RuntimeCalibrationPass', 'CompiledCalibrationPass',
-    'compiled_calibration_supported', 'ParameterQuantizePass',
+    'OperationObserver', 'RuntimeCalibrationPass', 'ParameterQuantizePass',
     'PassiveParameterQuantizePass', 'MishFusionPass', 'QuantAlignmentPass',
     'QuantizeFusionPass', 'QuantizeSimplifyPass', 'SwishFusionPass',
-    'AdaroundPass', 'BiasCorrectionPass', 'LearnedStepSizePass',
-    'RoundTuningPass', 'TrainingBasedPass', 'BlockRuntime',
-    'TrainableQuantDelegator',
+    'CompiledCalibrationPass', 'compiled_calibration_supported',
+    'ActivationEqualizationPass', 'ChannelwiseSplitPass',
+    'LayerwiseEqualizationPass', 'ExtensionPass', 'GRUSplitPass',
+    'StemSpaceToDepthPass',
+    'HorizontalLayerSplitPass', 'NCNNFormatGemmPass',
+    'NXPResizeModeChangePass', 'SSDEqualizationPass', 'AdaroundPass',
+    'BiasCorrectionPass', 'LearnedStepSizePass', 'RoundTuningPass',
+    'TrainingBasedPass', 'LearningToCalibPass', 'MatrixFactorizationPass',
+    'MetaxGemmSplitPass', 'NxpInputRoundingRefinePass',
+    'NxpQuantizeFusionPass', 'PPLCudaAddConvReluMerge',
+    'PPLDSPTIReCalibrationPass', 'BlockRuntime', 'TrainableQuantDelegator',
 ]

@@ -84,9 +84,16 @@ def _make_fold(kinds: Dict[str, str]):
     return fold
 
 
-def _activation_targets(graph: BaseGraph) -> Dict[str, TensorQuantizationConfig]:
-    """var name -> INITIAL root activation TQC awaiting calibration."""
-    targets = {}
+def _activation_roots(graph: BaseGraph
+                      ) -> Dict[str, List[TensorQuantizationConfig]]:
+    """var name -> every INITIAL root activation TQC of that variable
+    awaiting calibration, in graph order. A variable read by several
+    quantized ops has one root per reader, and each is calibrated from the
+    variable's one set of statistics, as the observer path gives each its
+    own observer of the same tensor. The JAX package's compiled path keeps
+    the first root only and leaves the others INITIAL (ROADMAP.md queue 3,
+    recorded difference 39)."""
+    roots: Dict[str, List[TensorQuantizationConfig]] = {}
     for op in graph.operations.values():
         if not isinstance(op, QuantableOperation):
             continue
@@ -94,8 +101,16 @@ def _activation_targets(graph: BaseGraph) -> Dict[str, TensorQuantizationConfig]
             if var.is_parameter:
                 continue
             if cfg.is_root and cfg.state == QuantizationStates.INITIAL:
-                targets.setdefault(var.name, cfg)
-    return targets
+                seen = roots.setdefault(var.name, [])
+                if all(cfg is not other for other in seen):
+                    seen.append(cfg)
+    return roots
+
+
+def _activation_targets(graph: BaseGraph) -> Dict[str, TensorQuantizationConfig]:
+    """var name -> the first INITIAL root activation TQC of the variable:
+    the one whose algorithm and settings its statistics follow."""
+    return {name: cfgs[0] for name, cfgs in _activation_roots(graph).items()}
 
 
 def compiled_calibration_supported(graph: BaseGraph,
@@ -105,8 +120,10 @@ def compiled_calibration_supported(graph: BaseGraph,
         return False
     if method is not None:
         return method in COMPILED_ALGOS
-    return all(cfg.observer_algorithm in COMPILED_ALGOS
-               for cfg in _activation_targets(graph).values())
+    # one statistic a variable: its roots must ask for one algorithm
+    return all(cfg.observer_algorithm in COMPILED_ALGOS and
+               cfg.observer_algorithm == cfgs[0].observer_algorithm
+               for cfgs in _activation_roots(graph).values() for cfg in cfgs)
 
 
 def _host(v) -> np.ndarray:
@@ -137,12 +154,14 @@ class CompiledCalibrationPass(QuantizationOptimizationPass):
     def optimize(self, graph: BaseGraph, dataloader=None, executor=None,
                  collate_fn=None, **kwargs):
         assert dataloader is not None, 'calibration requires a dataloader'
-        targets = _activation_targets(graph)
-        if not targets:
+        roots = _activation_roots(graph)
+        if not roots:
             return
         if self.method is not None:
-            for cfg in targets.values():
-                cfg.observer_algorithm = self.method
+            for cfgs in roots.values():
+                for cfg in cfgs:
+                    cfg.observer_algorithm = self.method
+        targets = {name: cfgs[0] for name, cfgs in roots.items()}
 
         cg = CompiledGraph(graph, device=getattr(executor, 'device', None))
         params = cg.init_params()
@@ -209,15 +228,15 @@ class CompiledCalibrationPass(QuantizationOptimizationPass):
         for name in onepass:
             if name in acc_host:
                 lo, hi = acc_host[name]
-                scale, offset = minmax_to_scale_offset(lo, hi, targets[name])
-                self._activate(targets[name], scale, offset)
+                for cfg in roots[name]:
+                    self._activate(cfg, *minmax_to_scale_offset(lo, hi, cfg))
         for name in percentile:
             if name in acc_host:
                 # eager-observer semantics: per-batch quantiles, averaged
                 lo, hi = acc_host[name]
-                scale, offset = minmax_to_scale_offset(
-                    lo / n_batches, hi / n_batches, targets[name])
-                self._activate(targets[name], scale, offset)
+                for cfg in roots[name]:
+                    self._activate(cfg, *minmax_to_scale_offset(
+                        lo / n_batches, hi / n_batches, cfg))
 
         if not twophase:
             return
@@ -245,17 +264,19 @@ class CompiledCalibrationPass(QuantizationOptimizationPass):
         for name in twophase:
             if name not in hists:
                 continue
-            cfg = targets[name]
-            levels = 1 << (cfg.num_of_bits - 1)
-            if algo_of[name] == 'kl':
-                best_bin = kl_threshold_search(hists[name], levels)
-            else:
-                best_bin = mse_threshold_search(
-                    hists[name], hist_scales[name], levels)
-            clip = (best_bin + 0.5) * hist_scales[name]
-            scale, offset = minmax_to_scale_offset(
-                np.asarray(-clip), np.asarray(clip), cfg)
-            self._activate(cfg, scale, offset)
+            clips = {}      # one search a bit width: roots may differ in it
+            for cfg in roots[name]:
+                levels = 1 << (cfg.num_of_bits - 1)
+                if levels not in clips:
+                    if algo_of[name] == 'kl':
+                        best_bin = kl_threshold_search(hists[name], levels)
+                    else:
+                        best_bin = mse_threshold_search(
+                            hists[name], hist_scales[name], levels)
+                    clips[levels] = (best_bin + 0.5) * hist_scales[name]
+                clip = clips[levels]
+                self._activate(cfg, *minmax_to_scale_offset(
+                    np.asarray(-clip), np.asarray(clip), cfg))
         LAST_CALIBRATION_PROFILE['run2_s'] = run2
         LAST_CALIBRATION_PROFILE['search_s'] = time.perf_counter() - t0
 

@@ -190,6 +190,12 @@ class BaseQuantizer:
         prequant = self.build_prequant_pipeline(setting)
         prequant.optimize(graph, dataloader=dataloader, executor=executor,
                           collate_fn=collate_fn, verbose=verbose)
+        # a prequant pass may add ops (a split layer's second half and the
+        # Add of the two): bind the executor to the graph as it now is. The
+        # JAX package traces with the op order bound before the passes, and
+        # the split layer's new ops then have no value (ROADMAP.md queue 3,
+        # recorded difference 41)
+        executor.load_graph(graph)
 
         if inputs is not None:
             executor.tracing_operation_meta(inputs)

@@ -1,7 +1,7 @@
 """Model zoo: deterministic ONNX-semantic models, the same graphs with the
 same names and seeded numpy weights as ppq_tpu.zoo (the vision,
-transformer, detection and segmentation families; the JAX package's
-`zoo/evaluate.py` waits for the port's `analyse.py`)."""
+transformer, detection and segmentation families), and the evaluation
+harnesses of `zoo/evaluate.py` (top-k accuracy, the QuantZoo errors)."""
 
 from .builder import NetBuilder
 from .detection import yolo_lite

@@ -228,3 +228,66 @@ def test_quantize_graph_follows_the_global_switch(monkeypatch, prefer):
         graph, _loader(), calib_steps=2, verbose=False,
         platform=ppq_tpu_torch.TargetPlatform.TPU_INT8, device='cpu')
     assert (_Recorder.runs - runs == 1) == prefer
+
+
+SMALL_BERT = dict(seq_len=16, d_model=64, n_heads=2, n_layers=2, d_ff=128)
+
+
+def test_every_reader_of_a_shared_input_is_calibrated():
+    """A graph input that several quantized ops read (small BERT's
+    embeddings: Q, K, V and the residual Add) has one root TQC a reader.
+    The port's compiled calibration calibrates each from the input's one
+    set of statistics, as both packages' observer paths do: every state and
+    every scale the JAX package's observer path gives, within 1e-6 relative
+    (the bar of test_compiled_against_the_jax_observer_path). The JAX
+    package's compiled path calibrates the first reader's only and leaves
+    the others INITIAL (ROADMAP.md queue 3, recorded difference 39)."""
+    from ppq_tpu import zoo as jax_zoo
+    from ppq_tpu_torch import zoo as torch_zoo
+    rng = np.random.RandomState(0)
+    loader = [rng.randn(1, 16, 64).astype(np.float32) for _ in range(2)]
+    graphs = {}
+    for compiled in (True, False):
+        jg = jax_zoo.bert_encoder(**SMALL_BERT)
+        saved = jax_fcal.compiled_calibration_supported
+        if not compiled:
+            jax_fcal.compiled_calibration_supported = \
+                lambda graph, method: False
+        try:
+            ppq_tpu.quantize_graph(jg, loader, calib_steps=2,
+                                   platform=ppq_tpu.TargetPlatform.TPU_INT8,
+                                   verbose=False)
+        finally:
+            jax_fcal.compiled_calibration_supported = saved
+        graphs[compiled] = jg
+    tg = torch_zoo.bert_encoder(**SMALL_BERT)
+    ppq_tpu_torch.quantize_graph(
+        tg, loader, calib_steps=2,
+        platform=ppq_tpu_torch.TargetPlatform.TPU_INT8, verbose=False,
+        device='cpu')
+    readers = [op.name for op in tg.operations.values()
+               if hasattr(op, 'config') and
+               any(v.name == 'embeddings' for v in op.inputs)]
+    assert len(readers) == 4
+
+    def input_state(graph, name):
+        op = graph.operations[name]
+        return next(cfg.state.name for var, cfg in op.config_pairs()
+                    if var.name == 'embeddings')
+
+    assert [input_state(tg, n) for n in readers] == ['ACTIVATED'] * 4
+    assert [input_state(graphs[True], n) for n in readers] == \
+        ['ACTIVATED'] + ['INITIAL'] * 3
+    observer = graphs[False]
+    n = 0
+    for name, op in observer.operations.items():
+        if not hasattr(op, 'config'):
+            continue
+        for (var, a), b in zip(op.config_pairs(), tg.operations[name].config):
+            assert a.state.name == b.state.name, (name, var.name)
+            if a.has_scale and not var.is_parameter:
+                np.testing.assert_allclose(np.asarray(b.scale),
+                                           np.asarray(a.scale), rtol=1e-6,
+                                           err_msg=f'{name} {var.name}')
+                n += 1
+    assert n > 50

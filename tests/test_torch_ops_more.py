@@ -39,8 +39,8 @@ def test_cast_to_int64_is_int64():
 def test_slice_to_int_min_with_a_negative_step_is_empty_in_both():
     """The JAX package's bounds turn an end below -dim with a negative step
     into -1, which numpy reads as the last index: the slice is empty, where
-    ONNX reads it as 'to the start'. The port computes the same (queue 3,
-    item 36)."""
+    ONNX reads it as 'to the start'. The port computes the same
+    (ROADMAP.md queue 3, known limit 8)."""
     case = next(c for c in CASES if c.id == 'Slice-reverse-to-int-min')
     got, = run_port(case)
     assert got.shape == (3, 4, 0)

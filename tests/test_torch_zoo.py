@@ -126,9 +126,26 @@ def _snr(pred, real):
     return float(((pred - real) ** 2).sum() / (real ** 2).sum())
 
 
+def _later_readers_of_shared_inputs(graph):
+    """Quantized ops that read a graph input after the first quantized op
+    that reads it. The JAX package's compiled calibration calibrates that
+    input's first root TQC only and leaves the others INITIAL (ROADMAP.md
+    queue 3, recorded difference 39); the port calibrates each, as both
+    packages' observer paths do (tests/test_torch_fcalibration.py)."""
+    later = set()
+    for name in graph.inputs:
+        # in the graph's op order, the order the calibration walks
+        readers = [op.name for op in graph.operations.values()
+                   if hasattr(op, 'config') and
+                   any(v.name == name for v in op.inputs)]
+        later.update(readers[1:])
+    return later
+
+
 def hold_quantized(quantized, key):
     jg, tg, loader = quantized(key)
     assert sorted(jg.operations) == sorted(tg.operations)
+    later = _later_readers_of_shared_inputs(tg)
     n_weights = n_acts = 0
     for name, op in jg.operations.items():
         other = tg.operations[name]
@@ -137,6 +154,12 @@ def hold_quantized(quantized, key):
             assert op.platform.name == other.platform.name, name
             continue
         assert op.platform.name == other.platform.name, name
+        if name in later and any(
+                a.state.name != b.state.name
+                for a, b in zip(op.config, other.config)):
+            # recorded difference 39: the port's roots are calibrated
+            assert all(b.state.name != 'INITIAL' for b in other.config)
+            continue
         for (var, a), b in zip(op.config_pairs(), other.config):
             assert a.state.name == b.state.name, (name, var.name)
             assert a.has_scale == b.has_scale, (name, var.name)
@@ -197,6 +220,7 @@ def test_bert_eager_forward_equals_jax_op_by_op(quantized):
     the simulated forward: LayerNormalization, Softmax, Gelu and the
     products compute the same float32 numbers on this CPU."""
     jg, tg, loader = quantized('bert-int8')
+    tg = tg.copy()           # the other tests read the port's own TQCs
     load_parameters(tg, parameters_of(jg))
     load_quantization_configs(tg, quantization_configs_of(jg))
     names = [v.name for op in jg.topological_sort() for v in op.outputs]
@@ -208,11 +232,14 @@ def test_bert_eager_forward_equals_jax_op_by_op(quantized):
                                    atol=1e-6, err_msg=name)
 
 
-# the fake-quant sites of a quantized BERT forward: INT8 32 a layer, all
+# the fake-quant sites of a quantized BERT forward: INT8 32 a layer and 4
+# more in the first, where K, V and the residual Add read the embeddings
+# (recorded difference 39: the JAX package's compiled calibration leaves
+# those three INITIAL, and the Add's other input then PASSIVE-free), all
 # tensorwise linear; FP8 18 a layer and 3 more, all tensorwise floating
 # (chip_smoke.py path J asserts the same counts of rows 1 and 6t at
 # BERT-base)
-BERT_SITES = {'bert-int8': (('linear', 'tensorwise'), lambda n: 32 * n),
+BERT_SITES = {'bert-int8': (('linear', 'tensorwise'), lambda n: 32 * n + 4),
               'bert-fp8': (('floating', 'tensorwise'), lambda n: 18 * n + 3)}
 
 
