@@ -14,11 +14,10 @@ the function is unchanged.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import List
 
 import numpy as np
 
-from ...core import ppq_warning
 from ...ir import BaseGraph, Operation
 
 # ops transparent to equalization (relay ops, reference equalization.py:292)

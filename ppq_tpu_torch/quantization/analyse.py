@@ -25,7 +25,7 @@ no capture and its memory pool outlives its op.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List
 
 import numpy as np
 import torch

@@ -17,13 +17,11 @@ queue 3, known limit 11).
 
 from __future__ import annotations
 
-from typing import Optional
-
 import numpy as np
 
 from ...core import ppq_info, ppq_warning
 from ...ir import BaseGraph
-from ..algorithm.equalization import (EqualizationHelper, EqualizationPair,
+from ..algorithm.equalization import (EqualizationHelper,
                                       find_equalization_pairs)
 from .base import QuantizationOptimizationPass
 

@@ -9,16 +9,15 @@ and the search and the SVD run in numpy as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from ...core import QuantizationStates, ppq_info, ppq_warning
 from ...ir import BaseGraph, QuantableOperation
 from ...utils.fetch import tensor_random_fetch
-from ..observers import minmax_to_scale_offset
 from .base import QuantizationOptimizationPass
-from .calibration import CalibrationHook, OperationObserver
+from .calibration import CalibrationHook
 
 
 class LearningToCalibPass(QuantizationOptimizationPass):

@@ -9,8 +9,6 @@ does."""
 
 from __future__ import annotations
 
-from typing import Optional
-
 import numpy as np
 
 from ...core import ppq_info

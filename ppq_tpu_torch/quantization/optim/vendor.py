@@ -8,12 +8,9 @@ Port of ppq_tpu/quantization/optim/vendor.py.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import numpy as np
 
-from ...core import (QuantizationStates, RoundingPolicy, TargetPlatform,
-                     ppq_info)
+from ...core import QuantizationStates, RoundingPolicy, ppq_info
 from ...ir import BaseGraph, QuantableOperation
 from .base import QuantizationOptimizationPass
 from .calibration import RuntimeCalibrationPass

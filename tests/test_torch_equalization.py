@@ -25,7 +25,6 @@ from ppq_tpu.api import QuantizationSettingFactory as JaxSettings
 from ppq_tpu.ir import format_graph as jax_format_graph
 from ppq_tpu.quantization.algorithm import equalization as jax_eq_algo
 from ppq_tpu.quantization.optim import equalization as jax_eq
-from ppq_tpu.quantization.optim import fcalibration as jax_fcal
 from ppq_tpu_torch import zoo as torch_zoo
 from ppq_tpu_torch.api import QuantizationSettingFactory as TorchSettings
 from ppq_tpu_torch.core import PPQ_TPU_CONFIG
