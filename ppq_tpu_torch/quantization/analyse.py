@@ -18,9 +18,10 @@ device. The compared tensors stay on the device until the scalar metrics,
 which are computed there in float32 (SNR, cosine, MSE) or float64 (the
 QuantZoo errors and the statistics), as the JAX package computes them on
 the host. A whole-graph analysis captures one CUDA graph for the quantized
-graph and one for the fp32 graph; `layerwise_error_analyse` builds two
-compiled graphs for every op it isolates and walks them uncaptured, so that
-no capture and its memory pool outlives its op.
+graph and one for the fp32 graph. `layerwise_error_analyse` runs the eager
+executor always: it runs two forwards for every op it isolates, and a
+compiled graph built for each would be walked once and dropped (where the
+JAX package builds two compiled programs an op).
 """
 
 from __future__ import annotations
@@ -65,18 +66,20 @@ def _feed(graph, batch):
     return {names[0]: batch}
 
 
-def _forward(graph: BaseGraph, names: List[str], device,
-             captured: bool = True) -> Callable:
+def _forward(graph: BaseGraph, names: List[str], device) -> Callable:
     """fn(batch) -> [the values of `names`] as float32 tensors on `device`:
     the compiled runner where the graph compiles (captured per input shape
-    on the card, or its uncaptured walk), else the eager executor."""
+    on the card), else the eager executor."""
     ok, _ = compilable(graph)
     if ok:
         runner = CompiledGraph(graph, output_names=names,
                                device=device).make_runner()
-        run = runner if captured else runner.walk
-        return lambda batch: run(_feed(graph, batch))
-    executor = TorchExecutor(graph, device=device)
+        return lambda batch: runner(_feed(graph, batch))
+    return _eager(TorchExecutor(graph, device=device), graph, names)
+
+
+def _eager(executor: TorchExecutor, graph: BaseGraph,
+           names: List[str]) -> Callable:
     return lambda batch: [
         v.to(torch.float32) for v in executor.forward(
             _feed(graph, batch), output_names=names)]
@@ -205,8 +208,8 @@ def layerwise_error_analyse(graph: BaseGraph, dataloader: Iterable,
     """Isolated per-op error: only one op quantized at a time
     (reference layerwise.py:15, incl. its interested_outputs scoping).
     Returns {op name: metric}. interested_ops: optional iterable of op
-    names to analyse — each isolated configuration is a separate
-    compiled graph, so scoping matters on big graphs."""
+    names to analyse — each isolated op costs two eager forwards of every
+    batch, so scoping matters on big graphs."""
     device = resolve_device(device)
     metric_fn = METRICS[method]
     qops = [op for op in graph.topological_sort()
@@ -221,18 +224,19 @@ def layerwise_error_analyse(graph: BaseGraph, dataloader: Iterable,
 
     # fp32 reference outputs of every analysed op
     dequantize_graph(graph)
+    executor = TorchExecutor(graph, device=device)
     report: Dict[str, float] = {}
     try:
         for op in qops:
             if not op.outputs:
                 continue
             out_name = op.outputs[0].name
-            fwd_f = _forward(graph, [out_name], device, captured=False)
+            fwd_f = _eager(executor, graph, [out_name])
             fp_vals = [fwd_f(b)[0] for b in batches]
 
             # re-quantize just this op
             op.restore_quantize_state()
-            fwd_q = _forward(graph, [out_name], device, captured=False)
+            fwd_q = _eager(executor, graph, [out_name])
             ms = []
             for b, fv in zip(batches, fp_vals):
                 qv = fwd_q(b)[0]

@@ -107,12 +107,6 @@ def _activation_roots(graph: BaseGraph
     return roots
 
 
-def _activation_targets(graph: BaseGraph) -> Dict[str, TensorQuantizationConfig]:
-    """var name -> the first INITIAL root activation TQC of the variable:
-    the one whose algorithm and settings its statistics follow."""
-    return {name: cfgs[0] for name, cfgs in _activation_roots(graph).items()}
-
-
 def compiled_calibration_supported(graph: BaseGraph,
                                    method: Optional[str]) -> bool:
     ok, _ = compilable(graph)

@@ -4,9 +4,11 @@
 tiny_cnn (4x3x16x16, 10 classes) is quantized by the JAX package and its
 parameters and TQCs are carried into the port's graph of the same seeded
 model, so both packages analyse the same quantized graph on the same
-batches. Each analysis runs on the port's compiled executor (the graph
-compiles) and, with `compilable` answering no, on its eager executor; the
-two give the same reports. Against the JAX package, reports agree within
+batches. Each whole-graph analysis runs on the port's compiled executor
+(the graph compiles) and, with `compilable` answering no, on its eager
+executor; the two give the same reports. The layerwise analysis runs the
+eager executor, and its report equals the compiled executor's isolations.
+Against the JAX package, reports agree within
 float32 summation order: the packages' convolutions sum in other orders,
 and a fake-quant code that lands on the other side of a rounding boundary
 moves a per-layer error by one step of that layer's grid. As in the JAX
@@ -27,9 +29,12 @@ from ppq_tpu import zoo as jax_zoo
 from ppq_tpu.quantization import analyse as jax_analyse
 from ppq_tpu.zoo import evaluate as jax_evaluate
 from ppq_tpu_torch import zoo as torch_zoo
+from ppq_tpu_torch.executor.compile import CompiledGraph
 from ppq_tpu_torch.interop import (load_parameters, load_quantization_configs,
                                    parameters_of, quantization_configs_of)
+from ppq_tpu_torch.ir import dequantize_graph, restore_graph_quantization
 from ppq_tpu_torch.quantization import analyse
+from ppq_tpu_torch.quantization.measure import torch_snr_error
 from ppq_tpu_torch.zoo import evaluate
 
 SHAPE = (4, 3, 16, 16)
@@ -116,7 +121,7 @@ def test_graphwise_error_analyse(pair, method, monkeypatch):
            got, SAME_RTOL)
 
 
-def test_layerwise_error_analyse(pair, eager):
+def test_layerwise_error_analyse(pair):
     """Every op isolated in the port; the JAX package's on three of them
     (each isolated op is two compiled programs there), and the port's
     scoped run equal to its whole run on those three."""
@@ -139,21 +144,36 @@ def test_layerwise_error_analyse(pair, eager):
 
 
 def test_layerwise_compiled_equals_eager(pair):
+    """The layerwise analysis runs the eager executor; each op's isolated
+    error equals the one the compiled executor gives for the same
+    isolation."""
     _, tg, loader = pair
     some = [name for name, op in tg.operations.items()
             if hasattr(op, 'config')][:4]
-    compiled = analyse.layerwise_error_analyse(
+    got = analyse.layerwise_error_analyse(
         tg, loader, steps=2, interested_ops=some, verbose=False,
         device='cpu')
-    saved = analyse.compilable
-    analyse.compilable = lambda graph: (False, [])
+    feeds = [{list(tg.inputs)[0]: x} for x in loader[:2]]
+    want = {}
+    dequantize_graph(tg)
     try:
-        walked = analyse.layerwise_error_analyse(
-            tg, loader, steps=2, interested_ops=some, verbose=False,
-            device='cpu')
+        for name in some:
+            op = tg.operations[name]
+            names = [op.outputs[0].name]
+            fp = CompiledGraph(tg, output_names=names,
+                               device='cpu').make_runner()
+            refs = [fp(feed)[0] for feed in feeds]
+            op.restore_quantize_state()
+            q = CompiledGraph(tg, output_names=names,
+                              device='cpu').make_runner()
+            want[name] = float(np.mean([
+                float(torch_snr_error(q(feed)[0].reshape(1, -1),
+                                      ref.reshape(1, -1)))
+                for feed, ref in zip(feeds, refs)]))
+            op.dequantize()
     finally:
-        analyse.compilable = saved
-    _close(walked, compiled, SAME_RTOL)
+        restore_graph_quantization(tg)
+    _close(got, want, SAME_RTOL)
 
 
 def test_statistical_variable_and_parameter_analyse(pair):

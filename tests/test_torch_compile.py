@@ -93,15 +93,26 @@ def r18():
 
 
 def _jax_forward(graph, x, **kw):
-    cg = jax_compile(graph, **kw)
-    out = cg.build_forward()(cg.init_params(), {'input': x})
-    return cg, np.asarray(out[0])
+    cg, (out,) = _jax_forwards(graph, [x], **kw)
+    return cg, out
 
 
 def _torch_forward(graph, x, **kw):
+    cg, (out,) = _torch_forwards(graph, [x], **kw)
+    return cg, out
+
+
+def _jax_forwards(graph, xs, **kw):
+    """One compiled program (one trace and XLA compile) run on each input."""
+    cg = jax_compile(graph, **kw)
+    fn, params = cg.build_forward(), cg.init_params()
+    return cg, [np.asarray(fn(params, {'input': x})[0]) for x in xs]
+
+
+def _torch_forwards(graph, xs, **kw):
     cg = compile_graph(graph, device='cpu', **kw)
-    out = cg.build_forward()(cg.init_params(), {'input': x})
-    return cg, out[0].numpy()
+    fn, params = cg.build_forward(), cg.init_params()
+    return cg, [fn(params, {'input': x})[0].numpy() for x in xs]
 
 
 def _snr(pred, real):
@@ -112,9 +123,9 @@ def _snr(pred, real):
 @pytest.mark.parametrize('model', ['tiny', 'r18'])
 def test_int_bit_equal_to_jax(model, request):
     jg, tg, loader = request.getfixturevalue(model)
-    for x in loader:
-        jc, want = _jax_forward(jg, x, precision='int')
-        tc, got = _torch_forward(tg, x, precision='int')
+    jc, wants = _jax_forwards(jg, loader, precision='int')
+    tc, gots = _torch_forwards(tg, loader, precision='int')
+    for got, want in zip(gots, wants):
         np.testing.assert_array_equal(got, want)
     assert tc.int_lowered == jc.int_lowered
     assert tc.int_coded == jc.int_coded
@@ -173,9 +184,9 @@ def test_int_contractions_equal_int64_gold(model, request):
                                            ('bf16', 2e-2)])
 def test_float_precisions_against_jax(r18, precision, bar):
     jg, tg, loader = r18
-    for x in loader:
-        _, want = _jax_forward(jg, x, precision=precision)
-        _, got = _torch_forward(tg, x, precision=precision)
+    _, wants = _jax_forwards(jg, loader, precision=precision)
+    _, gots = _torch_forwards(tg, loader, precision=precision)
+    for got, want in zip(gots, wants):
         assert got.dtype == np.float32 and np.isfinite(got).all()
         assert _snr(got, want) < bar
         assert (got.argmax(-1) == want.argmax(-1)).all()

@@ -1837,7 +1837,7 @@ def test_absmax_hist_two_sweeps_equal_the_observer_histogram(cuda):
     from ppq_tpu_torch.executor import compile_graph
     from ppq_tpu_torch.quantization.observers import KLObserver
     from ppq_tpu_torch.quantization.optim.fcalibration import (
-        _activation_targets, _make_fold)
+        _activation_roots, _make_fold)
     from ppq_tpu_torch.zoo import resnet18
     torch.backends.cudnn.deterministic = True
     rng = np.random.RandomState(1)
@@ -1848,7 +1848,7 @@ def test_absmax_hist_two_sweeps_equal_the_observer_histogram(cuda):
     quantize_graph(graph, loader, calib_steps=2, setting=setting,
                    platform=TargetPlatform.TPU_INT8, verbose=False,
                    device=cuda)
-    targets = _activation_targets(graph)
+    targets = _activation_roots(graph)
     assert len(targets) == 41
     bins = OBSERVER_KL_HIST_BINS
     spec = {n: {'kind': 'absmax_hist', 'bins': bins} for n in targets}
@@ -1865,7 +1865,7 @@ def test_absmax_hist_two_sweeps_equal_the_observer_histogram(cuda):
     for x in loader:
         acc2 = fold(acc2, fn(params, x, scales)[1])
     assert len(fn.captures) == (2 if cuda.type == 'cuda' else 0)
-    observers = {n: KLObserver(cfg) for n, cfg in targets.items()}
+    observers = {n: KLObserver(cfgs[0]) for n, cfgs in targets.items()}
     executor = TorchExecutor(graph)
     names = sorted(targets)
     for phase in (1, 2):

@@ -25,6 +25,7 @@ from ppq_tpu.api import QuantizationSettingFactory as JaxSettings
 from ppq_tpu.ir import format_graph as jax_format_graph
 from ppq_tpu.quantization.algorithm import equalization as jax_eq_algo
 from ppq_tpu.quantization.optim import equalization as jax_eq
+from ppq_tpu.quantization.optim import fcalibration as jax_fcal
 from ppq_tpu_torch import zoo as torch_zoo
 from ppq_tpu_torch.api import QuantizationSettingFactory as TorchSettings
 from ppq_tpu_torch.core import PPQ_TPU_CONFIG
@@ -136,13 +137,26 @@ def quantized_mobilenet():
     """MobileNetV2 in both packages through quantize_graph with SSD
     equalization (equalization checked by the output's loss, rolled back on
     drift, with the quantizer's executor) and LayerwiseEqualization, each
-    by its default (compiled) calibration."""
+    by its compiled calibration and by its observer path. (The JAX
+    package's observer path first: its compiled path then reuses most of
+    what that run compiled.)"""
     loader = _loader(MOBILENET['input_shape'])
-    jg = jax_zoo.mobilenet_v2(**MOBILENET)
-    ppq_tpu.quantize_graph(jg, loader, calib_steps=2,
-                           platform=ppq_tpu.TargetPlatform.TPU_INT8,
-                           setting=_setting(JaxSettings), verbose=False)
-    graphs = []
+    jax_graphs = {}
+    for compiled in (False, True):
+        jg = jax_zoo.mobilenet_v2(**MOBILENET)
+        saved = jax_fcal.compiled_calibration_supported
+        if not compiled:
+            jax_fcal.compiled_calibration_supported = \
+                lambda graph, method: False
+        try:
+            ppq_tpu.quantize_graph(jg, loader, calib_steps=2,
+                                   platform=ppq_tpu.TargetPlatform.TPU_INT8,
+                                   setting=_setting(JaxSettings),
+                                   verbose=False)
+        finally:
+            jax_fcal.compiled_calibration_supported = saved
+        jax_graphs[compiled] = jg
+    graphs = {}
     for compiled in (True, False):
         tg = torch_zoo.mobilenet_v2(**MOBILENET)
         saved = PPQ_TPU_CONFIG.PREFER_COMPILED_EXECUTOR
@@ -154,54 +168,57 @@ def quantized_mobilenet():
                 setting=_setting(TorchSettings), verbose=False, device='cpu')
         finally:
             PPQ_TPU_CONFIG.PREFER_COMPILED_EXECUTOR = saved
-        graphs.append(tg)
-    return jg, graphs[0], graphs[1]
+        graphs[compiled] = tg
+    return jax_graphs, graphs
+
+
+def _sites(op):
+    return (list(zip(op.inputs, op.config.input_quantization_config)) +
+            list(zip(op.outputs, op.config.output_quantization_config)))
 
 
 def test_quantize_with_equalization_matches_jax(quantized_mobilenet):
-    """The TQCs after calibration: the same states; the per-channel weight
-    scales bit for bit (minmax of bit-equal equalized weights) and the
-    weights themselves. The activation scales: the port's compiled
-    calibration equals its observer path within 2.5e-7 relative (one
-    float32 rounding of the summed quantiles; tests/test_torch_fcalibration
-    .py holds the port's observer path within 1e-6 of the JAX package's),
-    and the JAX package's compiled path within 2e-2: it departs from the
-    JAX package's own observer path (ROADMAP.md queue 3, recorded
-    difference 3: 6.1e-4 on ResNet-18; up to 1.8e-2 here, at two batches
-    of one image)."""
-    jg, tg, observer = quantized_mobilenet
-    weights = acts = 0
-    for name, op in jg.operations.items():
-        other = tg.operations[name]
-        assert hasattr(op, 'config') == hasattr(other, 'config'), name
-        if not hasattr(op, 'config'):
-            continue
-        sites = list(zip(op.inputs, op.config.input_quantization_config,
-                         other.config.input_quantization_config))
-        sites += list(zip(op.outputs, op.config.output_quantization_config,
-                          other.config.output_quantization_config))
-        for idx, (var, a, b) in enumerate(sites):
-            assert a.state.name == b.state.name, (name, var.name)
-            if not a.has_scale or (op.type == 'Conv' and idx == 2):
+    """The TQCs after calibration. The port's compiled path against the
+    JAX package's observer path: the same states, the per-channel weight
+    scales (minmax of bit-equal equalized weights) and the weights
+    themselves bit for bit, the activation scales within 5e-6 relative:
+    oneDNN and XLA sum convolutions in other orders, and the difference
+    grows with depth through MobileNetV2 (measured: 63 of 67 sites
+    within 1e-6, the bar tests/test_torch_fcalibration.py holds on
+    ResNet-18; conv_409, add_415, conv_465 and the last Gemm 1.06e-6 to
+    2.6e-6, as far from the port's observer path as from its compiled
+    one). The port's own two paths: the same states, the activation
+    scales within 2.5e-7 (one float32 rounding of the summed quantiles).
+    The JAX package's compiled path departs from its own observer path
+    (ROADMAP.md queue 3, recorded difference 3: 6.1e-4 on ResNet-18; up to
+    1.8e-2 here, at two batches of one image): pinned within 2e-2, with
+    the same states and weight scales."""
+    jax_graphs, graphs = quantized_mobilenet
+    tg = graphs[True]
+    for other, act_rtol in ((jax_graphs[False], 5e-6),
+                            (jax_graphs[True], 2e-2),
+                            (graphs[False], 2.5e-7)):
+        weights = acts = 0
+        for name, op in other.operations.items():
+            mine = tg.operations[name]
+            assert hasattr(op, 'config') == hasattr(mine, 'config'), name
+            if not hasattr(op, 'config'):
                 continue
-            if var.is_parameter:
-                np.testing.assert_array_equal(np.asarray(b.scale),
-                                              np.asarray(a.scale))
-                np.testing.assert_array_equal(
-                    np.asarray(tg.variables[var.name].value),
-                    np.asarray(var.value))
-                weights += 1
-            else:
-                np.testing.assert_allclose(np.asarray(b.scale),
-                                           np.asarray(a.scale), rtol=2e-2)
-                acts += 1
-    assert weights > 20 and acts > 20
-    for name, op in tg.operations.items():
-        if hasattr(op, 'config'):
-            for (var, a), b in zip(op.config_pairs(),
-                                   observer.operations[name].config):
+            for idx, ((var, a), (_, b)) in enumerate(zip(_sites(op),
+                                                         _sites(mine))):
                 assert a.state.name == b.state.name, (name, var.name)
-                if a.has_scale and not var.is_parameter:
-                    np.testing.assert_allclose(np.asarray(a.scale),
-                                               np.asarray(b.scale),
-                                               rtol=2.5e-7)
+                if not a.has_scale or (op.type == 'Conv' and idx == 2):
+                    continue
+                if var.is_parameter:
+                    np.testing.assert_array_equal(np.asarray(b.scale),
+                                                  np.asarray(a.scale))
+                    np.testing.assert_array_equal(
+                        np.asarray(tg.variables[var.name].value),
+                        np.asarray(var.value))
+                    weights += 1
+                else:
+                    np.testing.assert_allclose(
+                        np.asarray(b.scale), np.asarray(a.scale),
+                        rtol=act_rtol, err_msg=f'{name} {var.name}')
+                    acts += 1
+        assert weights > 20 and acts > 20

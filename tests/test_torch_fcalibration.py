@@ -241,25 +241,22 @@ def test_every_reader_of_a_shared_input_is_calibrated():
     every scale the JAX package's observer path gives, within 1e-6 relative
     (the bar of test_compiled_against_the_jax_observer_path). The JAX
     package's compiled path calibrates the first reader's only and leaves
-    the others INITIAL (ROADMAP.md queue 3, recorded difference 39)."""
+    the others INITIAL (ROADMAP.md queue 3, recorded difference 39):
+    tests/test_torch_zoo.py `hold_quantized` pins that on the same graph
+    and data, from the quantizations its module already makes."""
     from ppq_tpu import zoo as jax_zoo
     from ppq_tpu_torch import zoo as torch_zoo
     rng = np.random.RandomState(0)
     loader = [rng.randn(1, 16, 64).astype(np.float32) for _ in range(2)]
-    graphs = {}
-    for compiled in (True, False):
-        jg = jax_zoo.bert_encoder(**SMALL_BERT)
-        saved = jax_fcal.compiled_calibration_supported
-        if not compiled:
-            jax_fcal.compiled_calibration_supported = \
-                lambda graph, method: False
-        try:
-            ppq_tpu.quantize_graph(jg, loader, calib_steps=2,
-                                   platform=ppq_tpu.TargetPlatform.TPU_INT8,
-                                   verbose=False)
-        finally:
-            jax_fcal.compiled_calibration_supported = saved
-        graphs[compiled] = jg
+    observer = jax_zoo.bert_encoder(**SMALL_BERT)
+    saved = jax_fcal.compiled_calibration_supported
+    jax_fcal.compiled_calibration_supported = lambda graph, method: False
+    try:
+        ppq_tpu.quantize_graph(observer, loader, calib_steps=2,
+                               platform=ppq_tpu.TargetPlatform.TPU_INT8,
+                               verbose=False)
+    finally:
+        jax_fcal.compiled_calibration_supported = saved
     tg = torch_zoo.bert_encoder(**SMALL_BERT)
     ppq_tpu_torch.quantize_graph(
         tg, loader, calib_steps=2,
@@ -276,9 +273,7 @@ def test_every_reader_of_a_shared_input_is_calibrated():
                     if var.name == 'embeddings')
 
     assert [input_state(tg, n) for n in readers] == ['ACTIVATED'] * 4
-    assert [input_state(graphs[True], n) for n in readers] == \
-        ['ACTIVATED'] + ['INITIAL'] * 3
-    observer = graphs[False]
+    assert [input_state(observer, n) for n in readers] == ['ACTIVATED'] * 4
     n = 0
     for name, op in observer.operations.items():
         if not hasattr(op, 'config'):

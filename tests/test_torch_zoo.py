@@ -142,11 +142,16 @@ def _later_readers_of_shared_inputs(graph):
     return later
 
 
+# the TQCs recorded difference 39 sets apart: small BERT's embeddings at
+# layer 1's K and V MatMuls and its residual Add, and that Add's other input
+TIED_BY_DIFFERENCE_39 = {'bert-int8': 4}
+
+
 def hold_quantized(quantized, key):
     jg, tg, loader = quantized(key)
     assert sorted(jg.operations) == sorted(tg.operations)
     later = _later_readers_of_shared_inputs(tg)
-    n_weights = n_acts = 0
+    n_weights = n_acts = n_tied = 0
     for name, op in jg.operations.items():
         other = tg.operations[name]
         assert hasattr(op, 'config') == hasattr(other, 'config'), name
@@ -154,13 +159,23 @@ def hold_quantized(quantized, key):
             assert op.platform.name == other.platform.name, name
             continue
         assert op.platform.name == other.platform.name, name
-        if name in later and any(
-                a.state.name != b.state.name
-                for a, b in zip(op.config, other.config)):
-            # recorded difference 39: the port's roots are calibrated
-            assert all(b.state.name != 'INITIAL' for b in other.config)
-            continue
         for (var, a), b in zip(op.config_pairs(), other.config):
+            if name in later and \
+                    var.name in [v.name for v in other.inputs] and \
+                    a.state.name != b.state.name:
+                # recorded difference 39: the JAX compiled path leaves the
+                # shared input's TQC INITIAL, the port calibrates it; an
+                # Add aligns its inputs' scales, so its other input's state
+                # follows the shared one's (OVERLAPPED on INITIAL in JAX,
+                # PASSIVE in the port). Every other TQC of the op is held.
+                if var.name in tg.inputs:
+                    assert (a.state.name, b.state.name) == \
+                        ('INITIAL', 'ACTIVATED'), (name, var.name)
+                else:
+                    assert other.type == 'Add', (name, var.name)
+                    assert b.state.name != 'INITIAL', (name, var.name)
+                n_tied += 1
+                continue
             assert a.state.name == b.state.name, (name, var.name)
             assert a.has_scale == b.has_scale, (name, var.name)
             if not a.has_scale:
@@ -175,6 +190,7 @@ def hold_quantized(quantized, key):
                                            np.asarray(a.scale), rtol=5e-3)
                 n_acts += 1
     assert n_weights > 0 and n_acts > 0
+    assert n_tied == TIED_BY_DIFFERENCE_39.get(key, 0), n_tied
     y_jax = np.asarray(ppq_tpu.TPUExecutor(jg).forward(loader[0])[0])
     y = ppq_tpu_torch.TorchExecutor(tg, device='cpu').forward(
         loader[0])[0].numpy()
@@ -202,9 +218,11 @@ def hold_int_logits(quantized, key):
     name = list(jg.inputs)[0]
     jc = jax_compile(jg, precision='int')
     tc = compile_graph(tg, precision='int', device='cpu')
+    jfn, jparams = jc.build_forward(), jc.init_params()    # one XLA compile
+    tfn, tparams = tc.build_forward(), tc.init_params()
     for x in loader:
-        want = np.asarray(jc.build_forward()(jc.init_params(), {name: x})[0])
-        got = tc.build_forward()(tc.init_params(), {name: x})[0].numpy()
+        want = np.asarray(jfn(jparams, {name: x})[0])
+        got = tfn(tparams, {name: x})[0].numpy()
         np.testing.assert_array_equal(got, want)
     assert tc.int_lowered == jc.int_lowered and tc.int_lowered
     assert tc.int_coded == jc.int_coded
