@@ -32,6 +32,8 @@ from .loader import LAUNCHES, check, check_cuda_input, library, stream_of
 from .quant import _as_param, _broadcast
 
 _FP8_MAX = {(4, 3): 448.0, (5, 2): 57344.0}
+# below the largest float32, with room for the quotient's rounding
+_FINITE_QUOTIENT = 2.0 ** 126
 
 
 def float_max(exponent_bits: int, mantissa_bits: int) -> float:
@@ -68,7 +70,12 @@ def float_round_plain(scaled: torch.Tensor, exponent_bits: int,
     rounded.bitwise_and_(1).add_((1 << (drop - 1)) - 1).add_(bits)
     rounded.bitwise_and_(-(1 << drop))
     y = rounded.view(torch.float32).clamp_(-max_val, max_val)
-    sub_grid = torch.round(y / min_sub).mul_(min_sub)  # min_sub: a power of 2
+    # min_sub is a power of 2, and every value at or above min_normal is
+    # a multiple of it: where y / min_sub stays finite, rounding to the
+    # subnormal grid leaves those values as they are.
+    if max_val / min_sub < _FINITE_QUOTIENT:
+        return y.div_(min_sub).round_().mul_(min_sub)
+    sub_grid = torch.round(y / min_sub).mul_(min_sub)
     return torch.where(torch.abs(y) < min_normal, sub_grid, y)
 
 
@@ -78,8 +85,8 @@ def floating_quant_plain(x: torch.Tensor, scale, exponent_bits: int,
     """The forward kernel's arithmetic in plain PyTorch, on any device. The
     scale is a tensor on x's device, so that `x / s` is the IEEE quotient."""
     s = _broadcast(_as_param(scale, x.device), x.ndim, channel_axis)
-    scaled = torch.clamp(x / s, qmin, qmax)
-    return float_round_plain(scaled, exponent_bits, mantissa_bits) * s
+    scaled = (x / s).clamp_(qmin, qmax)
+    return float_round_plain(scaled, exponent_bits, mantissa_bits).mul_(s)
 
 
 def floating_quant_bwd_plain(x: torch.Tensor, g: torch.Tensor, scale,
