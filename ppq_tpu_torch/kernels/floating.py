@@ -32,8 +32,7 @@ from .loader import LAUNCHES, check, check_cuda_input, library, stream_of
 from .quant import _as_param, _broadcast
 
 _FP8_MAX = {(4, 3): 448.0, (5, 2): 57344.0}
-# below the largest float32, with room for the quotient's rounding
-_FINITE_QUOTIENT = 2.0 ** 126
+_FLOAT32_MAX = float(np.finfo(np.float32).max)
 
 
 def float_max(exponent_bits: int, mantissa_bits: int) -> float:
@@ -70,10 +69,10 @@ def float_round_plain(scaled: torch.Tensor, exponent_bits: int,
     rounded.bitwise_and_(1).add_((1 << (drop - 1)) - 1).add_(bits)
     rounded.bitwise_and_(-(1 << drop))
     y = rounded.view(torch.float32).clamp_(-max_val, max_val)
-    # min_sub is a power of 2, and every value at or above min_normal is
-    # a multiple of it: where y / min_sub stays finite, rounding to the
-    # subnormal grid leaves those values as they are.
-    if max_val / min_sub < _FINITE_QUOTIENT:
+    # min_sub is a power of 2 (the quotients are exact), and every value
+    # at or above min_normal is a multiple of it: where y / min_sub stays
+    # finite, rounding to the subnormal grid leaves those values as they are.
+    if max_val / min_sub <= _FLOAT32_MAX:
         return y.div_(min_sub).round_().mul_(min_sub)
     sub_grid = torch.round(y / min_sub).mul_(min_sub)
     return torch.where(torch.abs(y) < min_normal, sub_grid, y)
