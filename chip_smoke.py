@@ -77,10 +77,14 @@ Phases (each raises on failure, and the script then exits non-zero):
      model (16 layers, d_model 2048, INT8 weights, INT8 KV cache, 128
      slots) with the dense cache read (`use_ragged_attention=False`): `run`
      over 160 seeded requests in two waves, with a chunked prefill, eos
-     stops and per-request sampling; `benchmark_decode` at fill 16 and 512;
-     then, outside the counts, a burst against the same steps taken one by
-     one, the kernel path against the plain versions, and a torch.profiler
-     window over one burst;
+     stops and per-request sampling; `benchmark_decode` at fill 16 and 512,
+     its bursts captured as CUDA graphs (the engine's default on a card)
+     and uncaptured; then, outside the counts, one burst as a replay
+     against the same burst uncaptured, bit for bit (tokens and cache;
+     greedy and sampled, from one generator state), a burst against the
+     same steps taken one by one, the kernel path against the plain
+     versions, and torch.profiler windows over one burst, captured and
+     uncaptured (paths E, F and G do the same);
   8. path E: the engine's default configuration on the same weights: the
      ragged read through the paged-attention kernels (grouped at fill 16,
      per slot at fill 512), `run` and `benchmark_decode` as in D; then the
@@ -101,6 +105,15 @@ Phases (each raises on failure, and the script then exits non-zero):
  10. path F: INT4 weights (an INT8 lm_head), ragged read, 128 slots:
      `benchmark_decode` at fill 16 and 512, a short `run`, the kernel path
      against the plain path and every launch against its plain version;
+ 10b. path L: bench.py's serving track at its widths (`bench.py:396-499`):
+     path G's engine on path D's weights, `benchmark_serving(192, 64, 128,
+     sync_every=128)` through the planned loop (its timed run under
+     torch.cuda.set_sync_debug_mode('error') from its first dispatch to its
+     download, with no capture in it), its tokens against the synchronous
+     loop's, `benchmark_serving_mixed(192, 64, 96, sync_every=32)`, the
+     open-loop sweep at 0.6 / 0.8 / 0.95 of the mixed requests/s, every
+     block back after each, and the B=32 decode points, INT4 and INT8
+     (`--serving` runs this path alone);
  11. launches: every kernel ran on a path (the counts are set to 0 before
      each path and read after it); then, outside the counts, the time and
      the launches of an LSQ step block by block on the INT8 and the FP8
@@ -219,7 +232,21 @@ PATH_KERNELS = {
     # row 13 is not the engine's: path G launches it on its bursts' inputs
     'G': ('qmm_int8', 'qmm_gateup', 'bank_write', 'pool_write',
           'paged_attention_grouped', 'paged_attention_buffered'),
+    # the paged engine, then the dense B=32 points at fill 16, INT4 and INT8
+    'L': ('qmm_int8', 'qmm_gateup', 'qmm_int4', 'qmm_gateup_int4',
+          'bank_write', 'pool_write', 'window_write',
+          'paged_attention_grouped'),
 }
+# path L: bench.py's serving track (`bench.py:396-499`) on path G's engine;
+# the open-loop sweep's windows, cut from bench.py's 22 s to fit the smoke
+SWEEP_S = 6.0
+SERVING_KEYS = {
+    'benchmark_serving': ('requests_per_sec', 'generated_tokens_per_sec',
+                          'total_tokens_per_sec', 'wall_s'),
+    'benchmark_serving_mixed': ('requests_per_sec', 'generated_tokens_per_sec',
+                                'total_tokens_per_sec', 'wall_s',
+                                'ttft_p50_ms', 'ttft_p99_ms', 'tpot_p50_ms',
+                                'tpot_p99_ms')}
 # path G: path D's model with the paged KV cache (bench.py's paged
 # configuration: blocks of 256, the default pool of 128 * 1024 / 256 + 1
 # blocks); its prefix-cache run: 32 requests sharing a 512-token prefix
@@ -2242,22 +2269,51 @@ def _serve_run(tag, engine, reqs):
                 generated_tokens_per_s=generated / run_s, sync_every=SERVE_SYNC)
 
 
-def _serve_decode(engine):
-    """benchmark_decode at a near-empty and a half-full cache, with the
-    launches of each fill per decode step."""
+def _decode_at(engine, fill, steps=64, repeats=3):
+    """benchmark_decode at one fill, with its launches per decode step and
+    the captures it made. Returns the result."""
     from ppq_tpu_torch.kernels import LAUNCHES
+    before = dict(LAUNCHES)
+    captures = engine.graph_captures
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = engine.benchmark_decode(steps=steps, burst=BURST,
+                                     fill=fill, repeats=repeats)
+    result['call_s'] = time.perf_counter() - t0
+    # bank_write is launched once per decode step
+    steps = LAUNCHES['bank_write'] - before['bank_write']
+    result['decode_steps'] = steps
+    result['launches_per_step'] = {
+        k: (LAUNCHES[k] - v) / steps for k, v in before.items()
+        if LAUNCHES[k] != v}
+    result['captures'] = engine.graph_captures - captures
+    if result['captures']:
+        # the graph this call captured (the engine keeps them in order)
+        result['launches_per_replay'] = \
+            list(engine._graphs.values())[-1].launches_per_replay
+    return result
+
+
+def _serve_decode(engine, fills=(16, 512)):
+    """benchmark_decode at a near-empty and a half-full cache, each with its
+    bursts captured (the engine's default on the card: the first call of
+    the burst shape runs uncaptured and captures it, the timed regions
+    replay) and uncaptured, with the launches of each fill per decode
+    step (uncaptured: one timed burst). The captured run must capture once
+    and replay its graph in the timed regions."""
     decode = {}
-    for fill in (16, 512):
-        before = dict(LAUNCHES)
-        torch.cuda.synchronize()
-        result = engine.benchmark_decode(steps=64, burst=BURST, fill=fill)
-        # bank_write is launched once per decode step
-        steps = LAUNCHES['bank_write'] - before['bank_write']
-        result['decode_steps'] = steps
-        result['launches_per_step'] = {
-            k: (LAUNCHES[k] - v) / steps for k, v in before.items()
-            if LAUNCHES[k] != v}
-        decode[f'fill_{fill}'] = result
+    for fill in fills:
+        captured = _decode_at(engine, fill)
+        if captured['captures'] != 1:
+            raise AssertionError(f'benchmark_decode at fill {fill} made '
+                                 f'{captured["captures"]} captures, not 1')
+        # uncaptured: one timed burst (each reads 1.3-2.0 s of host time)
+        engine._capture = False
+        try:
+            captured['uncaptured'] = _decode_at(engine, fill, BURST, 1)
+        finally:
+            engine._capture = True
+        decode[f'fill_{fill}'] = captured
     return decode
 
 
@@ -2343,6 +2399,91 @@ def _witness(tag, engine, start, cur, fills, toks, n, ragged=False,
     return shadow.report(n)
 
 
+def _captured_vs_uncaptured(tag, engine, n=8, grouped=None, sampled=False):
+    """One burst of n steps from the same state (every slot admitted with a
+    seeded prompt of 8 to 120 tokens; every other slot sampling when
+    `sampled`), as a replay of its CUDA graph and uncaptured, each from the
+    same generator state: the tokens and every byte of the cache (dense:
+    k, v and their scales; paged: the pools) must be equal. A sampled
+    burst replayed twice in a row must draw other tokens on its sampled
+    slots and the same on its greedy ones. grouped: the dense engine's
+    read kernel (None: the engine's gate). Returns the summary."""
+    from ppq_tpu_torch.serving import Request, SamplingParams
+    cfg = engine.cfg
+    B = cfg.max_batch
+    engine._reset_cache()
+    engine.slot_len[:] = 0
+    engine.slot_req = [None] * B
+    rng = np.random.default_rng(7)
+    reqs = [Request(i, [int(t) for t in rng.integers(
+                1, cfg.vocab_size, size=int(rng.integers(8, 121)))],
+                    max_new_tokens=4 * n,
+                    sampling=SamplingParams(temperature=0.8, top_p=0.95)
+                    if sampled and i % 2 else None) for i in range(B)]
+    engine._admit_batch(list(enumerate(reqs)))
+    cur = torch.tensor([r.generated[-1] for r in reqs], dtype=torch.int32,
+                       device=engine.device)
+    seq = engine._tensor(engine.slot_len, torch.int32)
+    samp = engine._samp_arrays()
+    fills = [int(f) for f in engine.slot_len]
+    bucket = engine._decode_bucket(max(fills))
+    if grouped is None and not engine._paged:
+        grouped = engine._grouped_gate(fills, n, bucket)
+
+    def burst():
+        if engine._paged:
+            return engine._paged_decode(n, cur, seq, list(range(B)), samp)[0]
+        return engine._build_decode_burst(n, bucket, grouped)(
+            engine.params, engine.cache, cur, seq, samp)[0]
+    start = {k: v.clone() for k, v in engine.cache.items()}
+
+    def restore():
+        for k, v in start.items():
+            engine.cache[k].copy_(v)
+    captures = engine.graph_captures
+    burst()                                   # uncaptured, then the capture
+    restore()
+    engine._generator.manual_seed(11)
+    toks_c = burst()
+    cache_c = {k: v.clone() for k, v in engine.cache.items()}
+    differ = None
+    if sampled:
+        restore()
+        again = burst()
+        differ = int((again != toks_c)[:, 1::2].sum())
+        if not differ or not torch.equal(again[:, 0::2], toks_c[:, 0::2]):
+            raise AssertionError(f'path {tag}: two sampled replays drew '
+                                 f'{differ} other tokens on the sampled slots '
+                                 f'(or changed a greedy one)')
+    restore()
+    engine._capture = False
+    try:
+        engine._generator.manual_seed(11)
+        toks_u = burst()
+    finally:
+        engine._capture = True
+    same = torch.equal(toks_c, toks_u) and all(
+        torch.equal(v, engine.cache[k]) for k, v in cache_c.items())
+    made = engine.graph_captures - captures
+    summary = dict(steps=n, kernel=('pool' if engine._paged else
+                                    'grouped' if grouped else 'per-slot'),
+                   sampled=sampled, captures=made, bit_equal=same,
+                   sampled_tokens_differing_between_two_replays=differ)
+    log(f'[path {tag}] captured burst against the uncaptured burst: '
+        f'{json.dumps(summary)}')
+    if not same or made != 1:
+        raise AssertionError(f'path {tag}: the captured burst is not the '
+                             f'uncaptured one ({summary})')
+    engine.slot_len[:] = 0
+    engine.slot_req = [None] * B
+    if engine._paged:
+        for slot in range(B):
+            engine._alloc.release(slot)
+    del start, cache_c
+    torch.cuda.empty_cache()
+    return summary
+
+
 def _check_path_kernels(tag, launches):
     """The path launched each of its serving kernels and no other kernel."""
     mine = PATH_KERNELS[tag]
@@ -2382,6 +2523,8 @@ def phase_path_d(dev):
     host_us = _host_us(dev)
 
     # ---- comparisons and the profile: these launches are not the path's --
+    capture = [_captured_vs_uncaptured('D', engine),
+               _captured_vs_uncaptured('D', engine, sampled=True)]
     n = 8
     start, cur, fills, logits_a, toks_a, cache_a = _forced_start('D', engine, dev, n)
     # (2) the burst against the same steps taken one by one
@@ -2400,7 +2543,7 @@ def phase_path_d(dev):
     same_inputs = _witness('D', engine, start, cur, fills, toks_a, n)
     del cache_a, start, logits_a
     torch.cuda.empty_cache()
-    profile = {f'fill_{fill}': _profile_burst(engine, fill) for fill in (16, 512)}
+    profile = _profiles(engine, 'D')
 
     summary = dict(
         model=SERVE, weights_gib=weight_bytes / 2 ** 30,
@@ -2408,7 +2551,8 @@ def phase_path_d(dev):
         launches_in_run=launches_run, decode=decode,
         host_us_per_small_launch=host_us,
         burst_vs_steps=burst_vs_steps, kernel_vs_plain=kernel_vs_plain,
-        kernel_vs_plain_on_the_same_inputs=same_inputs, profile=profile,
+        kernel_vs_plain_on_the_same_inputs=same_inputs,
+        captured_vs_uncaptured=capture, profile=profile,
         peak_mem_gib_run_and_decode=peak)
     log(f'[path D] {json.dumps(summary)}')
     del engine
@@ -2452,6 +2596,9 @@ def phase_path_e(dev, params):
     if faults:
         raise AssertionError(f'path E: the kernels reported faults: {faults}')
     host_us = _host_us(dev)
+    capture = [_captured_vs_uncaptured('E', engine, grouped=True),
+               _captured_vs_uncaptured('E', engine, grouped=False),
+               _captured_vs_uncaptured('E', engine, sampled=True)]
 
     n = 8
     B = cfg.max_batch
@@ -2481,8 +2628,7 @@ def phase_path_e(dev, params):
                                  ragged=True, prefer_grouped=False)
     del cache_a, start, logits_a
     torch.cuda.empty_cache()
-    profile = {f'fill_{fill}': _profile_burst(engine, fill, tag='E')
-               for fill in (16, 512)}
+    profile = _profiles(engine, 'E')
     summary = dict(
         model=SERVE, use_ragged_attention=cfg.use_ragged_attention,
         weights_gib=weight_bytes / 2 ** 30, kv_cache_gib=cache_bytes / 2 ** 30,
@@ -2492,7 +2638,8 @@ def phase_path_e(dev, params):
         ragged_vs_dense=ragged_vs_dense, kernel_vs_plain=kernel_vs_plain,
         kernel_vs_plain_on_the_same_inputs=same_inputs,
         kernel_vs_plain_on_the_same_inputs_fused=same_inputs_fused,
-        profile=profile, peak_mem_gib_run_and_decode=peak)
+        captured_vs_uncaptured=capture, profile=profile,
+        peak_mem_gib_run_and_decode=peak)
     log(f'[path E] {json.dumps(summary)}')
     del engine
     torch.cuda.empty_cache()
@@ -2502,8 +2649,10 @@ def phase_path_e(dev, params):
 def phase_path_f(dev):
     """INT4 weights (an INT8 lm_head), the ragged read, 128 slots: the
     configuration bench.py serves at weight_bits=4. benchmark_decode at fill
-    16 and 512 and a short run; then, outside the counts, the kernel path
-    against the plain path and every launch against its plain version."""
+    16 and 512 and a short run; then, outside the counts, the captured burst
+    against the uncaptured one, the kernel path against the plain path and
+    every launch against its plain version. Returns the INT4 parameters too
+    (path L's B=32 point reuses them)."""
     from ppq_tpu_torch.kernels import LAUNCHES, read_faults, reset_launches
     from ppq_tpu_torch.serving import LlamaConfig, init_llama_params
     torch.cuda.empty_cache()
@@ -2515,7 +2664,6 @@ def phase_path_f(dev):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     engine, weight_bytes, cache_bytes = _serve_engine('F', cfg, params)
-    del params
     if not (cfg.use_ragged_attention and 'w_packed' in engine.params['layers'][0]['wqkv']
             and 'w_int' in engine.params['lm_head']):
         raise AssertionError('path F: not INT4 weights with an INT8 lm_head '
@@ -2528,6 +2676,8 @@ def phase_path_f(dev):
     faults = read_faults(dev)
     if faults:
         raise AssertionError(f'path F: the kernels reported faults: {faults}')
+    capture = [_captured_vs_uncaptured('F', engine),
+               _captured_vs_uncaptured('F', engine, sampled=True)]
 
     n = 8
     B = cfg.max_batch
@@ -2545,20 +2695,20 @@ def phase_path_f(dev):
                            ragged=True, prefer_grouped=grouped)
     del cache_a, start, logits_a
     torch.cuda.empty_cache()
-    profile = {f'fill_{fill}': _profile_burst(engine, fill, tag='F')
-               for fill in (16, 512)}
+    profile = _profiles(engine, 'F')
     summary = dict(
         model=dict(SERVE, weight_bits=4),
         lm_head_bits=cfg.resolved_lm_head_bits,
         weights_gib=weight_bytes / 2 ** 30, kv_cache_gib=cache_bytes / 2 ** 30,
         init_params_s=init_s, **run, decode=decode,
         kernel_vs_plain=kernel_vs_plain,
-        kernel_vs_plain_on_the_same_inputs=same_inputs, profile=profile,
+        kernel_vs_plain_on_the_same_inputs=same_inputs,
+        captured_vs_uncaptured=capture, profile=profile,
         peak_mem_gib_run_and_decode=peak)
     log(f'[path F] {json.dumps(summary)}')
     del engine
     torch.cuda.empty_cache()
-    return launches, summary
+    return launches, summary, params
 
 
 def _paged_forced(engine, pools, tables, cur, seq, forced, n, observe=None):
@@ -2779,7 +2929,7 @@ def phase_path_g(dev, params):
                              f'after run, {free0} before')
     launches_run = dict(LAUNCHES)
     decode = _serve_decode(engine)
-    engine.cache = engine._new_cache()
+    engine._reset_cache()
     row13 = [_row13_on_the_burst(engine, dev, fill) for fill in (16, 512)]
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2789,7 +2939,9 @@ def phase_path_g(dev, params):
     host_us = _host_us(dev)
 
     # ---- comparisons and the profile: these launches are not the path's --
-    engine.cache = engine._new_cache()
+    capture = [_captured_vs_uncaptured('G', engine),
+               _captured_vs_uncaptured('G', engine, sampled=True)]
+    engine._reset_cache()
     off_reqs, prefix_off = _prefix_run('G', engine, dev)
     del engine.cache
     torch.cuda.empty_cache()
@@ -2875,8 +3027,7 @@ def phase_path_g(dev, params):
     del start
     engine.cache = None
     torch.cuda.empty_cache()
-    profile = {f'fill_{fill}': _profile_burst(engine, fill, tag='G')
-               for fill in (16, 512)}
+    profile = _profiles(engine, 'G')
     summary = dict(
         model=dict(SERVE, paged_kv=True, kv_block_size=cfg.kv_block_size),
         pool=list(pool_shape), pool_blocks=pool_shape[1],
@@ -2886,12 +3037,198 @@ def phase_path_g(dev, params):
         host_us_per_small_launch=host_us,
         prefix_cache=dict(on=prefix_on, off=prefix_off, tokens=prefix_tokens),
         paged_vs_ragged=paged_vs_ragged, kernel_vs_plain=kernel_vs_plain,
-        kernel_vs_plain_on_the_same_inputs=same_inputs, profile=profile,
+        kernel_vs_plain_on_the_same_inputs=same_inputs,
+        captured_vs_uncaptured=capture, profile=profile,
         peak_mem_gib_run_decode_row13=peak)
     log(f'[path G] {json.dumps(summary)}')
     del engine
     torch.cuda.empty_cache()
     return launches, summary
+
+
+def _strict_planned_dispatch(engine, record):
+    """Wrap the engine's planned dispatch so that its second call (the
+    timed run of benchmark_serving; the first is its warm-up, which
+    captures) runs under torch.cuda.set_sync_debug_mode('error') from its
+    first dispatch to its download into pinned memory, and record its
+    requests and the captures it made."""
+    dispatch = engine._dispatch_planned
+    calls = []
+
+    def strict(requests, sync_every):
+        calls.append(len(requests))
+        if len(calls) != 2:
+            return dispatch(requests, sync_every)
+        captures = engine.graph_captures
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            out = dispatch(requests, sync_every)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        record.update(requests=requests, captures=engine.graph_captures - captures)
+        return out
+    engine._dispatch_planned = strict
+    return calls
+
+
+def _b32_point(dev, cfg_fields, params, tag):
+    """bench.py's B=32 decode point (`bench.py:484-499`): 32 slots,
+    benchmark_decode(steps=64, burst=32, repeats=2) at fill 16, captured,
+    then uncaptured."""
+    from ppq_tpu_torch.serving import LlamaConfig, ServingEngine
+    cfg = LlamaConfig(**dict(SERVE, max_batch=32, **cfg_fields))
+    engine = ServingEngine(cfg, params)
+    out = engine.benchmark_decode(steps=64, burst=32, repeats=2)
+    engine._capture = False
+    out['uncaptured'] = engine.benchmark_decode(steps=64, burst=32, repeats=2)
+    log(f'[path L] B=32 {tag}: {json.dumps(out)}')
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_path_l(dev, params8, params4):
+    """bench.py's serving track at its widths (`bench.py:396-499`): the
+    paged INT8 engine of 128 slots on path D's weights,
+    benchmark_serving(192, 64, 128, sync_every=128) on the planned loop
+    (its timed run under the sync debug mode 'error' from its first
+    dispatch to its download, with no capture), its tokens against the
+    synchronous loop's on the same requests, benchmark_serving_mixed(192,
+    64, 96, sync_every=32), the open-loop sweep at 0.6 / 0.8 / 0.95 of the
+    mixed run's requests/s (windows of SWEEP_S seconds, bench.py's 22 cut
+    to fit the smoke), every block back after each; then the B=32 decode
+    points, INT4 (path F's weights) and INT8."""
+    from ppq_tpu_torch.kernels import LAUNCHES, read_faults, reset_launches
+    from ppq_tpu_torch.serving import LlamaConfig, Request, ServingEngine
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = LlamaConfig(**SERVE, paged_kv=True)
+    reset_launches()
+    engine, weight_bytes, cache_bytes = _serve_engine('L', cfg, params8)
+    free = engine._alloc.num_blocks - 1
+
+    def blocks_back(what):
+        if engine._alloc.free_blocks != free or any(
+                r is not None for r in engine.slot_req):
+            raise AssertionError(f'path L: {engine._alloc.free_blocks} of '
+                                 f'{free} blocks free after {what}')
+
+    record = {}
+    calls = _strict_planned_dispatch(engine, record)
+    t0 = time.perf_counter()
+    serving = engine.benchmark_serving(n_requests=192, prompt_len=64,
+                                       max_new_tokens=128, sync_every=128)
+    serving['call_s'] = time.perf_counter() - t0
+    del engine._dispatch_planned
+    blocks_back('benchmark_serving')
+    if calls != [1, 192] or record['captures']:
+        raise AssertionError(f'path L: planned dispatches {calls}, '
+                             f'{record.get("captures")} captures in the '
+                             f'timed run')
+    planned = record['requests']
+    if not all(r.done and len(r.generated) == 128
+               and all(0 <= t < cfg.vocab_size for t in r.generated)
+               for r in planned):
+        raise AssertionError('path L: a planned request did not generate '
+                             'its budget of tokens in the vocabulary')
+    # the same requests through the synchronous loop (arrivals all at 0)
+    engine._reset_cache()
+    synchronous = [Request(r.rid, r.prompt, max_new_tokens=r.max_new_tokens)
+                   for r in planned]
+    t0 = time.perf_counter()
+    engine.run(synchronous, sync_every=128, arrivals=[0.0] * len(planned))
+    sync_s = time.perf_counter() - t0
+    blocks_back('the synchronous run')
+    equal = sum(a.generated == b.generated for a, b in zip(planned, synchronous))
+    if equal != len(planned):
+        raise AssertionError(f'path L: {len(planned) - equal} planned requests '
+                             f'differ from the synchronous loop\'s tokens')
+    serving.update(sync_debug_mode='error', captures_in_timed_run=0,
+                   tokens_equal_to_the_synchronous_loop=equal,
+                   synchronous_loop_s=sync_s)
+    log(f'[path L] benchmark_serving (planned): {json.dumps(serving)}')
+    # what one admit wave costs: the batched prefill runs every slot's row
+    admit_s = {}
+    for count in (1, cfg.max_batch):
+        engine._reset_cache()
+        wave = [(slot, Request(slot, planned[slot].prompt, max_new_tokens=2))
+                for slot in range(count)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine._admit_batch(wave)
+        torch.cuda.synchronize()
+        admit_s[f'{count}_requests'] = time.perf_counter() - t0
+        for slot in range(count):
+            engine.slot_req[slot] = None
+            engine.slot_len[slot] = 0
+            engine._alloc.release(slot)
+    engine._reset_cache()
+    log(f'[path L] one admit wave (a prefill of 128 rows x 128 tokens), '
+        f'seconds: {json.dumps(admit_s)}')
+
+    t0 = time.perf_counter()
+    mixed = engine.benchmark_serving_mixed(n_requests=192, mean_prompt=64,
+                                           max_new_tokens=96, sync_every=32)
+    mixed['call_s'] = time.perf_counter() - t0
+    blocks_back('benchmark_serving_mixed')
+    log(f'[path L] benchmark_serving_mixed: {json.dumps(mixed)}')
+    cap = mixed['requests_per_sec']
+    t0 = time.perf_counter()
+    captures = engine.graph_captures
+    sweep = engine.benchmark_serving_open_sweep(
+        rates=[0.6 * cap, 0.8 * cap, 0.95 * cap], duration_s=SWEEP_S,
+        mean_prompt=64, max_new_tokens=96, sync_every=32)
+    sweep['call_s'] = time.perf_counter() - t0
+    sweep['captures'] = engine.graph_captures - captures
+    blocks_back('the open-loop sweep')
+    log(f'[path L] benchmark_serving_open_sweep: {json.dumps(sweep)}')
+    for key, result in (('benchmark_serving', serving),
+                        ('benchmark_serving_mixed', mixed)):
+        for k in SERVING_KEYS[key]:
+            if not (np.isfinite(result[k]) and result[k] > 0):
+                raise AssertionError(f'path L {key}: {k} = {result.get(k)}')
+    if len(sweep['rate_points']) != 3:
+        raise AssertionError('path L: the sweep has not three points')
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    summary = dict(model=dict(SERVE, paged_kv=True,
+                              kv_block_size=cfg.kv_block_size),
+                   weights_gib=weight_bytes / 2 ** 30,
+                   kv_pool_gib=cache_bytes / 2 ** 30,
+                   graphs=len(engine._graphs), captures=engine.graph_captures,
+                   serving=serving, admit_wave_s=admit_s,
+                   serving_mixed=mixed, open_sweep=sweep,
+                   sweep_window_s=SWEEP_S, peak_mem_gib_serving=peak)
+    del engine, planned, synchronous
+    torch.cuda.empty_cache()
+    summary['decode_b32'] = {
+        'int4': _b32_point(dev, dict(weight_bits=4), params4, 'INT4'),
+        'int8': _b32_point(dev, {}, params8, 'INT8')}
+    launches = dict(LAUNCHES)
+    faults = read_faults(dev)
+    if faults:
+        raise AssertionError(f'path L: the kernels reported faults: {faults}')
+    log(f'[path L] {json.dumps(summary)}')
+    return launches, summary
+
+
+def main_serving() -> int:
+    """Path L alone: bench.py's serving track on the port."""
+    name, smi = phase_card()
+    import ppq_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+    from ppq_tpu_torch.serving import LlamaConfig, init_llama_params
+    dev = torch.device('cuda', 0)
+    torch.cuda.set_device(dev)
+    phase_build(['qmm', 'kv_write', 'paged_attention'])
+    params8 = init_llama_params(LlamaConfig(**SERVE), seed=0)
+    params4 = init_llama_params(LlamaConfig(**dict(SERVE, weight_bits=4)),
+                                seed=0)
+    launches, _ = phase_path_l(dev, params8, params4)
+    log(f'[launches] path L {json.dumps(launches)}')
+    _check_path_kernels('L', launches)
+    log(smi)
+    log(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': name, 'count': torch.cuda.device_count()}}))
+    return 0
 
 
 def _leaves(tree):
@@ -2905,14 +3242,17 @@ def _leaves(tree):
         yield tree
 
 
-def _profile_burst(engine, fill, n=8, tag='D'):
+def _profile_burst(engine, fill, n=8, tag='D', captured=True):
     """Where a decode step's time goes: torch.profiler over one burst of n
-    steps at the given cache fill: the device's busy share of the wall time
-    and the top kernels by device time. Returns the summary."""
+    steps at the given cache fill, a replay of its CUDA graph or (captured
+    False) uncaptured, on the engine's own cache: the device's busy share
+    of the wall time and the top kernels by device time. Returns the
+    summary."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     B = engine.cfg.max_batch
-    cache = engine._new_cache()
+    engine._reset_cache()
+    cache = engine.cache
     tokens = torch.zeros((B,), dtype=torch.int32, device=engine.device)
     seq = torch.full((B,), fill, dtype=torch.int32, device=engine.device)
     bucket = engine._decode_bucket(fill)
@@ -2933,22 +3273,31 @@ def _profile_burst(engine, fill, n=8, tag='D'):
 
         def burst():
             return dense(engine.params, cache, tokens, seq)[0].cpu()
-    burst()
-    t0 = time.perf_counter()
-    burst()
-    unprofiled_ms = (time.perf_counter() - t0) * 1e3 / n
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
+    mode = 'captured' if captured else 'uncaptured'
+    engine._capture = captured
+    try:
+        burst()
         t0 = time.perf_counter()
         burst()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        unprofiled_ms = (time.perf_counter() - t0) * 1e3 / n
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            burst()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        engine._capture = True
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if engine._paged:
+        for slot in range(B):
+            engine._alloc.release(slot)
     if not rows:
-        log(f'[profile {tag} fill {fill}] the profiler recorded no device '
-            f'time: not measured')
-        return None
+        log(f'[profile {tag} fill {fill} {mode}] the profiler recorded no '
+            f'device time: not measured')
+        return dict(unprofiled_ms_per_step=unprofiled_ms)
     busy_us = sum(t for _, t, _ in rows)
     ours = {name: sum(t for k, t, _ in rows if pattern in k)
             for name, pattern in (('qmm (int8, int4 and gate-up)', 'qmm'),
@@ -2957,24 +3306,30 @@ def _profile_burst(engine, fill, n=8, tag='D'):
                                   ('bank_write', 'bank_write_kernel'),
                                   ('window_write', 'window_write_kernel'),
                                   ('pool_write', 'pool_write_kernel'))}
-    log(f'[profile {tag} fill {fill}] burst of {n}: {unprofiled_ms:.3f} ms/step '
-        f'unprofiled, {wall_us / n / 1e3:.3f} ms/step under the profiler, '
-        f'device busy {busy_us / n / 1e3:.3f} ms/step, busy share of the '
-        f'profiled wall time {busy_us / wall_us:.3f}, of the unprofiled step '
+    log(f'[profile {tag} fill {fill} {mode}] burst of {n}: '
+        f'{unprofiled_ms:.3f} ms/step unprofiled, {wall_us / n / 1e3:.3f} '
+        f'ms/step under the profiler, device busy {busy_us / n / 1e3:.3f} '
+        f'ms/step, busy share of the profiled wall time '
+        f'{busy_us / wall_us:.3f}, of the unprofiled step '
         f'{busy_us / n / 1e3 / unprofiled_ms:.3f}; device events per step '
         f'{sum(c for _, _, c in rows) / n:.0f}; the port\'s kernels ms/step '
         f'{json.dumps({k: round(v / n / 1e3, 4) for k, v in ours.items()})}')
     for key, t, count in sorted(rows, key=lambda r: -r[1])[:12]:
-        log(f'[profile {tag} fill {fill}]   {t / n / 1e3:8.3f} ms/step  '
+        log(f'[profile {tag} fill {fill} {mode}]   {t / n / 1e3:8.3f} ms/step  '
             f'{count / n:7.1f} calls  {key[:90]}')
-    del cache
-    torch.cuda.empty_cache()
     return dict(unprofiled_ms_per_step=unprofiled_ms,
                 device_busy_ms_per_step=busy_us / n / 1e3,
                 busy_share_profiled=busy_us / wall_us,
                 busy_share_unprofiled=busy_us / n / 1e3 / unprofiled_ms,
                 device_events_per_step=sum(c for _, _, c in rows) / n,
                 ours_ms_per_step={k: v / n / 1e3 for k, v in ours.items()})
+
+
+def _profiles(engine, tag):
+    """The burst profile at fill 16 and 512, captured and uncaptured."""
+    return {f'fill_{fill}_{mode}': _profile_burst(engine, fill, tag=tag,
+                                                  captured=mode == 'captured')
+            for fill in (16, 512) for mode in ('captured', 'uncaptured')}
 
 
 def _plain_delegate(tensor, cfg):
@@ -5860,6 +6215,10 @@ def main() -> int:
                           help='path K alone: equalization and the other '
                                'passes, the analyses, the evaluation '
                                'harnesses')
+        mode.add_argument('--serving', action='store_true',
+                          help="path L alone: bench.py's serving track "
+                               "(planned loop, mixed, open-loop sweep, "
+                               "B=32 decode points)")
         mode.add_argument('--fp8-sample', action='store_true',
                           help="path C's and BERT-base's FP8 calibration "
                                "under DirectMSE's sample rules")
@@ -5878,6 +6237,8 @@ def main() -> int:
             return main_ops()
         if args.passes:
             return main_passes()
+        if args.serving:
+            return main_serving()
         if args.fp8_sample:
             return main_fp8_sample(args.package_root)
         return main_qmm(args.package_root)
@@ -5899,16 +6260,18 @@ def main() -> int:
     launches_d, _, serve_params = phase_path_d(dev)
     launches_e, _ = phase_path_e(dev, serve_params)
     launches_g, _ = phase_path_g(dev, serve_params)
-    del serve_params
-    launches_f, _ = phase_path_f(dev)
+    launches_f, _, int4_params = phase_path_f(dev)
+    launches_l, _ = phase_path_l(dev, serve_params, int4_params)
+    del serve_params, int4_params
     paths = dict(A=launches_a, H=launches_h, I=launches_i, J=launches_j,
                  K=launches_k, B=launches_b, C=launches_c,
-                 D=launches_d, E=launches_e, F=launches_f, G=launches_g)
+                 D=launches_d, E=launches_e, F=launches_f, G=launches_g,
+                 L=launches_l)
     # each path's counts were set to 0 before it and read just after it
     launches = {k: sum(p[k] for p in paths.values()) for k in launches_a}
     for tag, counts in paths.items():
         log(f'[launches] path {tag} {json.dumps(counts)}')
-    for tag in ('D', 'E', 'F', 'G'):
+    for tag in ('D', 'E', 'F', 'G', 'L'):
         _check_path_kernels(tag, paths[tag])
     missing = [k for k in KERNELS if launches.get(k, 0) <= 0]
     if missing:

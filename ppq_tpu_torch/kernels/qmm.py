@@ -22,16 +22,17 @@ Every body launches once a call: a 128-row tile of 128 weight columns,
 64 of the unpacked depth), the depth split across S blocks a tile
 (`_splits`, from the weight's shape and the body alone), the f32 partials
 summed in a fixed order inside the launch, in a workspace each (device,
-stream) keeps. The INT8 bodies multiply with `mma.sync`, the INT4
-bodies with `wgmma`. Two calls on the same inputs are bit-equal, and a
-row's result does not depend on the other rows of its batch. What bounds
-them at the decode shapes is the time of a step, not bytes or operations
-(csrc/qmm.cu, PERF.md).
+stream) keeps (a launch inside a CUDA-graph capture: its device's graph
+workspace, `reserve_graph_workspace`). The INT8 bodies multiply with
+`mma.sync`, the INT4 bodies with `wgmma`. Two calls on the same inputs
+are bit-equal, and a row's result does not depend on the other rows of
+its batch. What bounds them at the decode shapes is the time of a step,
+not bytes or operations (csrc/qmm.cu, PERF.md).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -250,11 +251,55 @@ def workspace_bytes(M: int, D: int, F: int, gateup: bool = False,
 # (device, stream) -> (partial sums, tile counters): allocated at the first
 # split launch on that stream, INT8 or INT4, grown when a larger shape
 # arrives, never shrunk. Launches on one stream run one after another, and
-# each leaves its counters at 0 for the next. A captured CUDA graph (ROADMAP
-# item 12) must allocate them before capture, at the largest shape either
-# body will replay.
+# each leaves its counters at 0 for the next. A launch inside a CUDA-graph
+# capture takes instead its device's graph pair (`reserve_graph_workspace`),
+# reserved before the first capture at the largest shape any graph of the
+# device replays: every graph reads and writes that one pair, and graphs
+# replay one at a time on one stream. A capture never grows it, and a pair
+# that a later reserve replaces stays allocated (a graph holds its address).
 _workspaces: Dict[Tuple[torch.device, int], Tuple[torch.Tensor,
                                                   torch.Tensor]] = {}
+_graph_workspaces: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+_retired_graph_workspaces: List[Tuple[torch.Tensor, torch.Tensor]] = []
+
+
+def _device_key(device) -> torch.device:
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    return device
+
+
+def launch_workspace(M: int, D: int, F: int, gateup: bool = False,
+                     int4: bool = False) -> Tuple[int, int]:
+    """(floats of partial sums, tile counters) of one launch, D unpacked and
+    F a panel's columns; (0, 0) when the depth is not split."""
+    if _splits(D, F, gateup, int4) == 1:
+        return 0, 0
+    return (workspace_bytes(M, D, F, gateup, int4) // 4,
+            -(-M // _BM) * (F // _bn(gateup)))
+
+
+def reserve_graph_workspace(device, launches) -> Tuple[int, int]:
+    """Make `device`'s graph pair cover every launch of `launches`, an
+    iterable of (M, D, F, gateup, int4) as `launch_workspace` takes them.
+    Call it outside a capture, before the graphs that replay those
+    launches are captured. Returns the pair's (floats, counters)."""
+    device = _device_key(device)
+    floats = tiles = 0
+    for launch in launches:
+        f, t = launch_workspace(*launch)
+        floats, tiles = max(floats, f), max(tiles, t)
+    ws, counters = _graph_workspaces.get(device, (None, None))
+    if ws is not None and ws.numel() >= floats and counters.numel() >= tiles:
+        return ws.numel(), counters.numel()
+    if ws is not None:
+        _retired_graph_workspaces.append((ws, counters))
+        floats, tiles = max(floats, ws.numel()), max(tiles, counters.numel())
+    ws = torch.empty(max(floats, 1), dtype=torch.float32, device=device)
+    counters = torch.zeros(max(tiles, 1), dtype=torch.int32, device=device)
+    _graph_workspaces[device] = (ws, counters)
+    return ws.numel(), counters.numel()
 
 
 def _workspace(device: torch.device, stream: int, floats: int, tiles: int):
@@ -273,10 +318,19 @@ def _split_args(x, M, D, F, gateup, int4):
     S = _splits(D, F, gateup, int4)
     if S == 1:
         return 1, None, None
-    ws, counters = _workspace(x.device,
-                              torch.cuda.current_stream(x.device).cuda_stream,
-                              workspace_bytes(M, D, F, gateup, int4) // 4,
-                              -(-M // _BM) * (F // _bn(gateup)))
+    floats, tiles = launch_workspace(M, D, F, gateup, int4)
+    if torch.cuda.is_current_stream_capturing():
+        ws, counters = _graph_workspaces.get(_device_key(x.device),
+                                             (None, None))
+        if ws is None or ws.numel() < floats or counters.numel() < tiles:
+            raise RuntimeError(
+                f'qmm: a captured launch of {M}x{D}x{F} needs {floats} '
+                f'partial floats and {tiles} counters in the graph '
+                f'workspace: reserve_graph_workspace before the capture')
+    else:
+        ws, counters = _workspace(
+            x.device, torch.cuda.current_stream(x.device).cuda_stream,
+            floats, tiles)
     return S, ws.data_ptr(), counters.data_ptr()
 
 

@@ -18,22 +18,35 @@ The single-device part of the JAX package's `ppq_tpu/serving/engine.py`.
     pool rows, the card sees block tables; with prefix_cache_blocks > 0,
     requests that share a prompt prefix adopt its cached blocks and
     prefill only the tail.
+  * on a card every decode burst is a CUDA graph, the counterpart of the
+    JAX package's jitted burst: the first call of a burst shape runs it
+    uncaptured and captures it, later calls copy their tokens, fills,
+    tables and sampling arrays into the graph's buffers and replay it
+    (`_CapturedBurst`). A graph writes the cache at the addresses it was
+    captured with, so where the JAX package builds a new cache on the same
+    engine the port zeroes the cache in place (`_reset_cache`).
+  * budget-only workloads (no eos) take the planned loop: every prefill
+    and burst is dispatched without a host wait and the tokens come back
+    in one download at the end (`_run_planned`). `prewarm_decode` captures
+    the burst shapes a run will meet before it is timed;
+    `benchmark_serving*` are the JAX package's serving benchmarks.
 
 Not ported yet (each raises NotImplementedError, see LlamaConfig.unported
-and ROADMAP.md): meshes and every tp/pp/sp/dp branch, W8A8 prefill, MoE
-layers, the planned (fully asynchronous) run loop, prewarming and the
-serving benchmarks.
+and ROADMAP.md): meshes and every tp/pp/sp/dp branch, W8A8 prefill and MoE
+layers.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..executor.executor import resolve_device
+from ..kernels import qmm as _qmm
+from ..kernels.loader import LAUNCHES
 from .config import LlamaConfig
 from .model import (Params, burst_forward, forward, fuse_decode_params,
                     init_kv_cache)
@@ -79,6 +92,64 @@ class SamplingParams:
     @property
     def greedy(self) -> bool:
         return self.temperature <= 0.0
+
+
+# --------------------------------------------------------- captured burst ---
+def _addresses(cache: Dict[str, torch.Tensor]) -> Tuple[int, ...]:
+    return tuple(t.data_ptr() for t in cache.values())
+
+
+class _CapturedBurst:
+    """One decode burst captured into a CUDA graph.
+
+    `walk(inputs)` is the burst on a dict of input tensors (tokens, fills,
+    tables, sampling arrays) over the engine's cache and parameters; it has
+    already run once uncaptured on the caller's stream (which loads the
+    kernels and sizes the workspaces, none of which a capture may do). The
+    inputs are copied into static buffers allocated outside the graph's
+    memory pool, then the walk is captured into the engine's pool, with the
+    engine's generator registered so that every replay draws fresh
+    uniforms from it. A call copies its inputs into the static buffers,
+    replays, and returns a copy of the tokens (the static output lies in
+    the shared pool, which the engine's other graphs reuse).
+
+    The launches the capture recorded are not counted at capture (nothing
+    ran); each replay adds `launches_per_replay` to `LAUNCHES`. The graph
+    writes the cache at the addresses it was captured with
+    (`cache_addresses`)."""
+
+    def __init__(self, walk: Callable, inputs: Dict[str, torch.Tensor],
+                 cache: Dict[str, torch.Tensor], generator: torch.Generator,
+                 pool):
+        self.cache_addresses = _addresses(cache)
+        self.static_in = {k: v.detach().clone().contiguous()
+                          for k, v in inputs.items()}
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(generator)
+        before = dict(LAUNCHES)
+        with torch.cuda.graph(self.graph, pool=pool):
+            self.static_out = walk(self.static_in)
+        self.launches_per_replay = {k: LAUNCHES[k] - before[k]
+                                    for k in LAUNCHES
+                                    if LAUNCHES[k] != before[k]}
+        LAUNCHES.update(before)
+
+    def __call__(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        for k, v in inputs.items():
+            self.static_in[k].copy_(v)
+        self.graph.replay()
+        for k, v in self.launches_per_replay.items():
+            LAUNCHES[k] += v
+        return self.static_out.clone()
+
+
+def _samp_inputs(samp) -> Dict[str, torch.Tensor]:
+    return {} if samp is None else {'samp_' + k: v for k, v in samp.items()}
+
+
+def _samp_of(inputs) -> Optional[Dict[str, torch.Tensor]]:
+    samp = {k[5:]: v for k, v in inputs.items() if k.startswith('samp_')}
+    return samp or None
 
 
 # ---------------------------------------------------------------- engine ---
@@ -140,6 +211,13 @@ class ServingEngine:
         self._decode_burst: Dict[Any, Any] = {}
         self._decode = self._build_decode()
         self._prefill: Dict[Any, Any] = {}           # bucket -> function
+        # captured bursts (on a card): one CUDA graph a burst shape, all in
+        # one memory pool (they never run at once); `_capture` False runs
+        # every burst uncaptured (to measure or compare the two)
+        self._capture = on_card
+        self._graphs: Dict[Any, _CapturedBurst] = {}
+        self._graph_pool = None
+        self.graph_captures = 0
 
     # --------------------------------------------------------------- state
     def _new_cache(self):
@@ -148,6 +226,10 @@ class ServingEngine:
         hand out rows that are free in the new one)."""
         if not self._paged:
             return init_kv_cache(self.cfg, self.cfg.max_batch, self.device)
+        self._new_allocator()
+        return init_paged_pools(self.cfg, self._alloc.num_blocks, self.device)
+
+    def _new_allocator(self):
         old = self._alloc
         self._alloc = BlockAllocator(old.num_blocks, old.max_batch,
                                      old.max_blocks_per_seq,
@@ -155,11 +237,76 @@ class ServingEngine:
         if self.cfg.prefix_cache_blocks:
             self.prefix_cache = PrefixCache(self._alloc, old.block_size,
                                             self.cfg.prefix_cache_blocks)
-        return init_paged_pools(self.cfg, old.num_blocks, self.device)
+
+    def _reset_cache(self):
+        """What `self.cache = self._new_cache()` does in the JAX package, in
+        place: the cache's tensors zeroed (the values of a new cache), a
+        paged engine's allocator and prefix cache new. The captured bursts
+        keep writing where they were captured, and no second cache is held
+        (recorded difference 42)."""
+        if self.cache is None:
+            self.cache = self._new_cache()
+            return
+        for t in self.cache.values():
+            t.zero_()
+        if self._paged:
+            self._new_allocator()
 
     def _tensor(self, array, dtype=None):
-        return torch.as_tensor(np.asarray(array), dtype=dtype,
-                               device=self.device)
+        """A host array on the engine's device. On a card through pinned
+        memory, without a host wait: the planned loop dispatches a whole run
+        before it reads anything back."""
+        t = torch.from_numpy(np.ascontiguousarray(array))
+        if dtype is not None:
+            t = t.to(dtype)
+        if self.device.type != 'cuda':
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _matmul_launches(self):
+        """(M, D, F, gateup, int4) of every dequant-matmul a decode step
+        launches (M = max_batch rows), for the graph workspace."""
+        B = self.cfg.max_batch
+        weights = [(name, wq) for layer in self.params['layers']
+                   for name, wq in layer.items()]
+        weights.append(('lm_head', self.params['lm_head']))
+        out = []
+        for name, wq in weights:
+            if not isinstance(wq, dict):
+                continue
+            if 'w_int' in wq:
+                D, F = wq['w_int'].shape
+                int4 = False
+            elif 'w_packed' in wq:
+                D, F = 2 * wq['w_packed'].shape[0], wq['w_packed'].shape[1]
+                int4 = True
+            else:
+                continue
+            gateup = name == 'w_gateup'
+            out.append((B, D, F // 2 if gateup else F, gateup, int4))
+        return out
+
+    def _burst(self, key, walk: Callable, inputs: Dict[str, torch.Tensor],
+               cache) -> torch.Tensor:
+        """Run one decode burst. On the card a replay of its captured graph:
+        the first call with a key (or with another cache than the one the
+        key was captured on) runs the walk uncaptured and captures it. On
+        the CPU, or with `_capture` off, the walk. A capture that fails
+        raises."""
+        if self.device.type != 'cuda' or not self._capture:
+            return walk(inputs)
+        graph = self._graphs.get(key)
+        if graph is not None and graph.cache_addresses == _addresses(cache):
+            return graph(inputs)
+        self._graphs.pop(key, None)
+        toks = walk(inputs)
+        _qmm.reserve_graph_workspace(self.device, self._matmul_launches())
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        self._graphs[key] = _CapturedBurst(walk, inputs, cache,
+                                           self._generator, self._graph_pool)
+        self.graph_captures += 1
+        return toks
 
     # ------------------------------------------------------------ programs
     def _forward(self, params, cache, tokens, positions, write_pos,
@@ -330,12 +477,19 @@ class ServingEngine:
         cfg = self.cfg
 
         def decode_burst(params, cache, tokens, seq_lens, samp=None):
-            with torch.no_grad():
-                return burst_forward(
-                    params, cache, tokens, seq_lens, n_steps, cfg,
-                    lambda logits, step: self._select(logits, samp),
-                    s_limit=s_limit, ragged=bool(cfg.use_ragged_attention),
-                    prefer_grouped=grouped, chunk=cfg.burst_chunk)
+            def walk(inputs):
+                with torch.no_grad():
+                    return burst_forward(
+                        params, cache, inputs['tokens'], inputs['seq_lens'],
+                        n_steps, cfg,
+                        lambda logits, step: self._select(logits,
+                                                          _samp_of(inputs)),
+                        s_limit=s_limit, ragged=bool(cfg.use_ragged_attention),
+                        prefer_grouped=grouped, chunk=cfg.burst_chunk)[0]
+            inputs = dict(tokens=tokens, seq_lens=seq_lens,
+                          **_samp_inputs(samp))
+            return self._burst(key + (samp is None,), walk, inputs,
+                               cache), cache
         self._decode_burst[key] = decode_burst
         return decode_burst
 
@@ -491,11 +645,18 @@ class ServingEngine:
         cfg = self.cfg
 
         def decode_burst(params, pools, tokens, seq_lens, tables, samp=None):
-            with torch.no_grad():
-                return burst_forward_paged(
-                    params, pools, tokens, seq_lens, tables, n_steps, cfg,
-                    lambda logits, step: self._select(logits, samp),
-                    chunk=cfg.burst_chunk, read_limit=read_limit)
+            def walk(inputs):
+                with torch.no_grad():
+                    return burst_forward_paged(
+                        params, pools, inputs['tokens'], inputs['seq_lens'],
+                        inputs['tables'], n_steps, cfg,
+                        lambda logits, step: self._select(logits,
+                                                          _samp_of(inputs)),
+                        chunk=cfg.burst_chunk, read_limit=read_limit)[0]
+            inputs = dict(tokens=tokens, seq_lens=seq_lens, tables=tables,
+                          **_samp_inputs(samp))
+            return self._burst(key + (tables.shape[1], samp is None), walk,
+                               inputs, pools), pools
         self._decode_burst[key] = decode_burst
         return decode_burst
 
@@ -630,20 +791,24 @@ class ServingEngine:
         """Continuous-batching generation loop until all requests finish.
 
         sync_every > 1 decodes that many steps per host round-trip (one
-        burst with the cache frozen); eos-terminated requests are truncated
-        after the burst. Exact for greedy decoding.
+        burst with the cache frozen, a replay of its CUDA graph on a card);
+        eos-terminated requests are truncated after the burst. Exact for
+        greedy decoding.
+
+        When no request has an eos_id, retirement depends only on token
+        BUDGETS, never on token VALUES: the whole schedule is known in
+        advance, so every prefill and burst is dispatched without a host
+        wait and the tokens download once, at the end (`_run_planned`).
 
         arrivals (open-loop mode): per-request arrival offsets in seconds
         from loop start, sorted ascending with `requests`. A request is only
         admissible once the wall clock passes its offset; the loop keeps
         decoding active slots while future requests are pending and sleeps
         only when it would otherwise spin empty.
-
-        This is the synchronous loop. The JAX package also has a planned
-        loop for budget-only workloads, which dispatches everything without
-        waiting; it makes the same scheduling decisions and is not ported
-        yet.
         """
+        if arrivals is None and requests and \
+                all(r.eos_id is None for r in requests) and sync_every > 1:
+            return self._run_planned(requests, sync_every)
         waiting = list(requests)
         t_start = now = time.perf_counter()
         arr = None
@@ -740,6 +905,435 @@ class ServingEngine:
                         self._alloc.release(slot)
         return requests
 
+    def _run_planned(self, requests: List[Request],
+                     sync_every: int) -> List[Request]:
+        """Fully-pipelined generation for budget-only workloads (no eos):
+        identical scheduling decisions to the synchronous loop (retirement
+        depends only on host-known budgets), but every prefill and burst is
+        dispatched without waiting, and the generated tokens download once
+        at the end: one copy into pinned memory, one wait."""
+        downloads, host, done = self._dispatch_planned(requests, sync_every)
+        if done is not None:
+            done.synchronize()
+        flat = host.numpy() if host is not None else None
+        at = 0
+        for kind, toks, what in downloads:
+            arr = flat[at:at + toks.numel()].reshape(tuple(toks.shape))
+            at += toks.numel()
+            if kind == 'prefill':
+                for slot, req in what:
+                    req.generated.append(int(arr[slot]))
+            elif kind == 'prefill_scalar':
+                what.generated.append(int(arr))
+            else:                                         # (n, B)
+                for slot, req, take in what:
+                    req.generated.extend(int(t) for t in arr[:take, slot])
+        return requests
+
+    def _dispatch_planned(self, requests: List[Request], sync_every: int):
+        """The planned loop up to its download: every prefill and burst,
+        then the copy of all their tokens into pinned host memory, with no
+        host wait (nothing here reads the card). Returns the download
+        entries (kind, tokens on the device, what they go to), the host
+        buffer and the event that marks the copy done (None off the card,
+        where the buffer is the tokens)."""
+        cfg = self.cfg
+        B = cfg.max_batch
+        waiting = list(requests)
+        cur_tok = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        downloads: List[Tuple] = []
+        vcount: Dict[int, int] = {}           # id(req) -> tokens planned
+
+        def put(cur, slot, tok):
+            # a copy: cur may be the last burst's tokens, still to download
+            cur = cur.clone()
+            cur[slot] = tok
+            return cur
+
+        while waiting or any(r is not None for r in self.slot_req):
+            admits = []
+            for slot in range(B):
+                if self.slot_req[slot] is None and waiting:
+                    admits.append((slot, waiting.pop(0)))
+            if admits and self._paged and self.prefix_cache is not None:
+                # prefix-cache hits adopt cached blocks; tail-only prefill
+                rest = []
+                for slot, req in admits:
+                    shared = self.prefix_cache.match(req.prompt, slot=slot)
+                    if shared:
+                        tok = self._admit_prefix_shared(req, slot, shared)
+                        cur_tok = put(cur_tok, slot, tok)
+                        vcount[id(req)] = 1
+                        downloads.append(('prefill_scalar', tok, req))
+                    else:
+                        rest.append((slot, req))
+                admits = rest
+            if admits:
+                long_admits = [(s, r) for s, r in admits
+                               if self._bucket_for(len(r.prompt)) == -1]
+                short_admits = [a for a in admits if a not in long_admits]
+                for slot, req in long_admits:
+                    tok = (self._admit_long_paged(req, slot) if self._paged
+                           else self._admit_long_device(req, slot))
+                    cur_tok = put(cur_tok, slot, tok)
+                    vcount[id(req)] = 1
+                    downloads.append(('prefill_scalar', tok, req))
+                if short_admits:
+                    bucket = self._bucket_for(
+                        max(len(r.prompt) for _, r in short_admits))
+                    toks = np.zeros((B, bucket), np.int32)
+                    lengths = np.zeros(B, np.int32)
+                    mask = np.zeros(B, bool)
+                    for slot, req in short_admits:
+                        toks[slot, :len(req.prompt)] = req.prompt
+                        lengths[slot] = len(req.prompt)
+                        mask[slot] = True
+                        self.slot_req[slot] = req
+                        self.slot_len[slot] = len(req.prompt)
+                        vcount[id(req)] = 1
+                    if self._paged:
+                        for slot, req in short_admits:
+                            self._alloc.ensure(slot, len(req.prompt))
+                        last, self.cache = self._prefill_paged_fn(bucket)(
+                            self.params, self.cache, self._tensor(toks),
+                            self._tensor(lengths),
+                            self._tensor(self._alloc.tables()),
+                            self._tensor(mask))
+                        if self.prefix_cache is not None:
+                            for slot, req in short_admits:
+                                self.prefix_cache.insert(
+                                    req.prompt,
+                                    self._alloc.slot_block_ids(slot),
+                                    slot=slot)
+                    else:
+                        last, self.cache = self._prefill_fn(bucket)(
+                            self.params, self.cache, self._tensor(toks),
+                            self._tensor(lengths), self._tensor(mask))
+                    cur_tok = torch.where(self._tensor(mask), last, cur_tok)
+                    downloads.append(('prefill', last, list(short_admits)))
+            active = [i for i, r in enumerate(self.slot_req)
+                      if r is not None]
+            if not active:
+                break
+            cache_room = int(self.cfg.max_seq_len - 1 -
+                             max(self.slot_len[s] for s in active))
+            n = max(1, min(sync_every, cache_room,
+                           self.cfg.max_decode_burst))
+            seq_lens = self._tensor(self.slot_len, torch.int32)
+            samp = self._samp_arrays()
+            if self._paged:
+                toks, self.cache = self._paged_decode(n, cur_tok, seq_lens,
+                                                      active, samp)
+            elif n == 1:
+                nxt, self.cache = self._decode(self.params, self.cache,
+                                               cur_tok, seq_lens, samp)
+                toks = nxt[None, :]
+            else:
+                s_need = int(max(self.slot_len[s] for s in active))
+                bucket = self._decode_bucket(s_need)
+                fills = [int(self.slot_len[s]) for s in active]
+                fn = self._build_decode_burst(
+                    n, bucket, grouped=self._grouped_gate(fills, n, bucket))
+                toks, self.cache = fn(self.params, self.cache, cur_tok,
+                                      seq_lens, samp)
+            cur_tok = toks[-1]
+            takes = []
+            for slot in active:
+                req = self.slot_req[slot]
+                # virtual generated count: budget-only math, mirrors the
+                # sync loop's new[:max(budget,0)] or new[:1]
+                budget = req.max_new_tokens - vcount[id(req)]
+                take = min(n, budget) if budget > 0 else 1
+                takes.append((slot, req, take))
+                self.slot_len[slot] += take
+                vcount[id(req)] += take
+                if (vcount[id(req)] >= req.max_new_tokens or
+                        self.slot_len[slot] >= self.cfg.max_seq_len - 1):
+                    req.done = True
+                    self.slot_req[slot] = None
+                    self.slot_len[slot] = 0
+                    if self._paged:
+                        self._alloc.release(slot)
+            downloads.append(('burst', toks, takes))
+        if not downloads:
+            return downloads, None, None
+        flat = torch.cat([toks.reshape(-1).to(torch.int32)
+                          for _, toks, _ in downloads])
+        if self.device.type != 'cuda':
+            return downloads, flat, None
+        host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+        host.copy_(flat, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return downloads, host, done
+
+    # ---------------------------------------------------------------- bench
+    def benchmark_serving(self, n_requests: int = 32, prompt_len: int = 64,
+                          max_new_tokens: int = 32, sync_every: int = 8,
+                          seed: int = 0) -> Dict[str, float]:
+        """End-to-end continuous-batching throughput: a burst of requests
+        streamed through run(), which includes prefill, scheduling, and
+        decode."""
+        rng = np.random.RandomState(seed)
+        reqs = [Request(i, rng.randint(1, self.cfg.vocab_size,
+                                       prompt_len).tolist(),
+                        max_new_tokens=max_new_tokens)
+                for i in range(n_requests)]
+        # warm the captured paths (one admit + one decode)
+        warm = [Request(-1, reqs[0].prompt,
+                        max_new_tokens=max(2, sync_every))]
+        self.run(warm, sync_every=sync_every)
+        self._reset_cache()
+        self.slot_len[:] = 0
+        self.slot_req = [None] * self.cfg.max_batch
+
+        t0 = time.perf_counter()
+        self.run(reqs, sync_every=sync_every)
+        dt = time.perf_counter() - t0
+        gen_tokens = sum(len(r.generated) for r in reqs)
+        prompt_tokens = n_requests * prompt_len
+        return {
+            'requests_per_sec': n_requests / dt,
+            'generated_tokens_per_sec': gen_tokens / dt,
+            'total_tokens_per_sec': (gen_tokens + prompt_tokens) / dt,
+            'wall_s': dt,
+        }
+
+    def _mixed_requests(self, n_requests, mean_prompt, max_new_tokens,
+                        eos_id, seed):
+        # log-normal prompt lengths, eos termination, sampling on every
+        # other request: the shared mixed / open-loop workload shape
+        rng = np.random.RandomState(seed)
+        bucket_cap = max(self.cfg.prefill_buckets) if \
+            self.cfg.prefill_buckets else self.cfg.max_seq_len // 2
+        lens = np.clip(
+            rng.lognormal(np.log(mean_prompt), 0.6, n_requests).astype(int),
+            4, min(bucket_cap, self.cfg.max_seq_len // 2))
+        reqs = []
+        for i, L in enumerate(lens):
+            samp = SamplingParams(temperature=0.8, top_p=0.95, seed=i) \
+                if i % 2 else None
+            reqs.append(Request(
+                i, rng.randint(3, self.cfg.vocab_size, int(L)).tolist(),
+                max_new_tokens=max_new_tokens, eos_id=eos_id,
+                sampling=samp))
+        return reqs, lens
+
+    def prewarm_decode(self, max_fill: int, sync_every: int,
+                       with_sampling: bool = True):
+        """Capture ahead of time the decode-burst variants a serving run
+        will traverse. Fills grow through generation, so each new read
+        bucket (and, on the dense engine, the grouped / per-slot kernel
+        choice; on the paged engine, the table width) selects a new burst
+        shape, whose first call runs uncaptured and captures it: inside a
+        timed window that capture would dominate it. The fill ladder and
+        the two sampling variants are the JAX package's (its compiles)."""
+        cfg = self.cfg
+        B = cfg.max_batch
+        n = max(1, min(sync_every, cfg.max_decode_burst))
+        if n <= 1:
+            return
+        cap = max(1, min(max_fill, cfg.max_seq_len - n - 2))
+        fills = sorted({min(f, cap)
+                        for f in (16, 48, 96, 192, 384, 768, cap)})
+        tokens = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        samps = [None]
+        if with_sampling:
+            # per-slot sampling arrays select another burst variant: a
+            # mixed workload runs BOTH (all-greedy straggler waves select
+            # samp=None)
+            save = [self.slot_req[0]]
+            self.slot_req[0] = Request(-3, [1], max_new_tokens=1,
+                                       sampling=SamplingParams(
+                                           temperature=0.8, top_p=0.95,
+                                           seed=0))
+            samps.append(self._samp_arrays())
+            self.slot_req[0] = save[0]
+        for fill in fills:
+            seq = torch.full((B,), fill, dtype=torch.int32,
+                             device=self.device)
+            self.slot_len[:] = fill
+            for samp in samps:
+                if self._paged:
+                    toks, self.cache = self._paged_decode(
+                        n, tokens, seq, list(range(B)), samp=samp)
+                else:
+                    bucket = self._decode_bucket(fill)
+                    fn = self._build_decode_burst(
+                        n, bucket,
+                        grouped=self._grouped_gate([fill] * B, n, bucket))
+                    toks, self.cache = fn(self.params, self.cache, tokens,
+                                          seq, samp)
+        # drop the garbage the warm bursts wrote
+        self.slot_len[:] = 0
+        if self._paged:
+            for slot in range(B):
+                self._alloc.release(slot)
+        self._reset_cache()
+
+    def _warm_serving(self, reqs, sync_every, eos_id):
+        """Capture every burst variant a measured serving run can hit, then
+        reset the cache and slots. TWO separate warm waves: the per-slot
+        sampling arrays select another burst variant, and a wave whose
+        active slots are ALL greedy selects the samp=None one; both happen
+        mid-run (greedy stragglers after sampled requests retire, and vice
+        versa)."""
+        p0 = reqs[0].prompt
+        p1 = reqs[1].prompt if len(reqs) > 1 else p0
+        self.run([Request(-1, p0, max_new_tokens=2,
+                          eos_id=eos_id)], sync_every=sync_every)
+        self.run([Request(-2, p1, max_new_tokens=2,
+                          eos_id=eos_id,
+                          sampling=SamplingParams(temperature=0.8,
+                                                  top_p=0.95, seed=0))],
+                 sync_every=sync_every)
+        # decode-burst bucket ladder: every read bucket the measured run
+        # can reach is captured HERE, not inside the timed window
+        max_fill = max((len(r.prompt) + r.max_new_tokens for r in reqs),
+                       default=64)
+        self.prewarm_decode(max_fill, sync_every,
+                            with_sampling=any(r.sampling is not None
+                                              for r in reqs))
+        self._reset_cache()
+        self.slot_len[:] = 0
+        self.slot_req = [None] * self.cfg.max_batch
+
+    @staticmethod
+    def _latency_percentiles(out, reqs):
+        # TTFT = queue + prefill to first token; TPOT = completion span /
+        # tokens after the first (burst-granular: tokens surface at host
+        # syncs every sync_every steps)
+        ttft = np.array([r.t_first - r.t_submit for r in reqs
+                         if r.t_first is not None])
+        tpot = np.array([(r.t_done - r.t_first) /
+                         max(len(r.generated) - 1, 1) for r in reqs
+                         if r.t_done is not None and r.t_first is not None])
+        if len(ttft):
+            out['ttft_p50_ms'] = float(np.percentile(ttft, 50) * 1e3)
+            out['ttft_p99_ms'] = float(np.percentile(ttft, 99) * 1e3)
+        if len(tpot):
+            out['tpot_p50_ms'] = float(np.percentile(tpot, 50) * 1e3)
+            out['tpot_p99_ms'] = float(np.percentile(tpot, 99) * 1e3)
+        return out
+
+    def benchmark_serving_mixed(self, n_requests: int = 128,
+                                mean_prompt: int = 64,
+                                max_new_tokens: int = 64,
+                                sync_every: int = 16,
+                                eos_id: int = 2,
+                                seed: int = 0) -> Dict[str, float]:
+        """Realistic mixed-workload throughput: log-normal prompt lengths,
+        eos-terminating requests, and per-request sampling on half the
+        batch. Retirement depends on token VALUES, so run() takes the
+        synchronous per-wave loop. Publish this alongside the planned-path
+        number from benchmark_serving(): the two bracket real deployments
+        (the planned number is the no-eos best case)."""
+        reqs, lens = self._mixed_requests(n_requests, mean_prompt,
+                                          max_new_tokens, eos_id, seed)
+        self._warm_serving(reqs, sync_every, eos_id)
+
+        t0 = time.perf_counter()
+        self.run(reqs, sync_every=sync_every)
+        dt = time.perf_counter() - t0
+        gen_tokens = sum(len(r.generated) for r in reqs)
+        prompt_tokens = int(np.sum(lens))
+        out = {
+            'requests_per_sec': n_requests / dt,
+            'generated_tokens_per_sec': gen_tokens / dt,
+            'total_tokens_per_sec': (gen_tokens + prompt_tokens) / dt,
+            'wall_s': dt,
+        }
+        return self._latency_percentiles(out, reqs)
+
+    def benchmark_serving_open(self, rate_rps: float,
+                               n_requests: int = 128,
+                               mean_prompt: int = 64,
+                               max_new_tokens: int = 64,
+                               sync_every: int = 8,
+                               eos_id: int = 2,
+                               seed: int = 0) -> Dict[str, float]:
+        """Open-loop latency-under-load: requests arrive by a Poisson
+        process at `rate_rps` and the engine serves whatever is due. TTFT
+        includes queueing from the scheduled ARRIVAL, so percentiles
+        degrade as offered load approaches capacity; throughput alone
+        saturates at min(rate, capacity)."""
+        reqs, lens = self._mixed_requests(n_requests, mean_prompt,
+                                          max_new_tokens, eos_id, seed)
+        arrivals = np.cumsum(np.random.RandomState(seed + 1).exponential(
+            1.0 / rate_rps, n_requests)).tolist()
+        self._warm_serving(reqs, sync_every, eos_id)
+
+        t0 = time.perf_counter()
+        self.run(reqs, sync_every=sync_every, arrivals=arrivals)
+        dt = time.perf_counter() - t0
+        gen_tokens = sum(len(r.generated) for r in reqs)
+        out = {
+            'offered_rate_rps': rate_rps,
+            'completed_rps': n_requests / dt,
+            'generated_tokens_per_sec': gen_tokens / dt,
+            'wall_s': dt,
+        }
+        return self._latency_percentiles(out, reqs)
+
+    def benchmark_serving_open_sweep(self, rates, duration_s: float = 20.0,
+                                     mean_prompt: int = 64,
+                                     max_new_tokens: int = 96,
+                                     sync_every: int = 32,
+                                     eos_id: int = 2,
+                                     seed: int = 0,
+                                     warmup_frac: float = 0.15):
+        """Steady-state open-loop latency-under-load across offered rates.
+
+        Each rate point runs a Poisson arrival stream spanning >=
+        duration_s, and the reported window EXCLUDES warm-up (the first
+        warmup_frac of the stream) and drain (everything after the last
+        scheduled arrival). A rate is *sustained* when completions inside
+        the window keep pace with arrivals (>= 95%); `sustainable_rps` is
+        the highest sustained offered rate. TTFT percentiles are taken over
+        requests that ARRIVE inside the window (queueing included), TPOT
+        over those that also complete in-run.
+        """
+        out = {'rate_points': [], 'sustainable_rps': 0.0,
+               'duration_s': duration_s}
+        for ri, rate in enumerate(rates):
+            n = max(8, int(round(rate * duration_s)))
+            reqs, _lens = self._mixed_requests(n, mean_prompt,
+                                               max_new_tokens, eos_id,
+                                               seed + ri)
+            arrivals = np.cumsum(np.random.RandomState(
+                seed + 17 + ri).exponential(1.0 / rate, n))
+            self._warm_serving(reqs, sync_every, eos_id)
+            t0 = time.perf_counter()
+            self.run(reqs, sync_every=sync_every,
+                     arrivals=arrivals.tolist())
+            wall = time.perf_counter() - t0
+            w0 = t0 + warmup_frac * float(arrivals[-1])
+            w1 = t0 + float(arrivals[-1])      # last scheduled arrival
+            win = max(w1 - w0, 1e-9)
+            arrived = [r for r in reqs if w0 <= r.t_submit <= w1]
+            done_in = [r for r in reqs
+                       if r.t_done is not None and w0 <= r.t_done <= w1]
+            gen_tok = sum(len(r.generated) for r in done_in)
+            offered_w = len(arrived) / win
+            completed_w = len(done_in) / win
+            sustained = completed_w >= 0.95 * offered_w
+            point = {
+                'offered_rps': float(rate),
+                'offered_in_window_rps': offered_w,
+                'completed_in_window_rps': completed_w,
+                'generated_tokens_per_sec': gen_tok / win,
+                'wall_s': wall,
+                'window_s': win,
+                'n_requests': n,
+                'sustained': bool(sustained),
+            }
+            out['rate_points'].append(
+                self._latency_percentiles(point, arrived))
+            if sustained:
+                out['sustainable_rps'] = max(out['sustainable_rps'],
+                                             float(rate))
+        return out
+
     def benchmark_decode(self, batch: Optional[int] = None, steps: int = 50,
                          warmup: int = 5, burst: Optional[int] = 32,
                          repeats: int = 3, fill: int = 16) -> Dict[str, float]:
@@ -754,7 +1348,10 @@ class ServingEngine:
         mid-generation steady state that pays real KV read traffic.
         """
         B = self.cfg.max_batch
-        cache = self._new_cache()
+        # the JAX package decodes into a new cache here; the port zeroes the
+        # engine's own (its captured bursts write there): one cache, not two
+        self._reset_cache()
+        cache = self.cache
         tokens = torch.zeros((B,), dtype=torch.int32, device=self.device)
         seq_lens = torch.full((B,), fill, dtype=torch.int32,
                               device=self.device)

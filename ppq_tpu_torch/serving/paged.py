@@ -18,7 +18,7 @@ block-major layout (row 12), as the JAX package's kernel path does; the
 burst's own columns live in small buffers (bank-write kernel, row 14) and
 join by an exact merge of partial softmaxes.
 
-Not ported yet (ROADMAP items 12, 13, 15): the native C++ allocator (the
+Not ported yet (ROADMAP items 13 and 15): the native C++ allocator (the
 `native=` switch is accepted and ignored: the Python free list gives the
 same allocation order), the dp-grouped allocator and prefix cache, and
 every sp / dp / pp function.

@@ -1714,6 +1714,139 @@ def test_paged_serving_engine_on_the_card(cuda):
     assert out['tokens_per_sec'] > 0 and read_faults(cuda) == []
 
 
+# ------------------------------------------------ captured decode bursts
+
+_CAPTURE_CASES = {
+    # (config fields, grouped kernel (None: the engine's gate), sampled)
+    'dense': (dict(use_ragged_attention=False), None, False),
+    'ragged_grouped': ({}, True, False),
+    'ragged_per_slot': ({}, False, False),
+    'int4': (dict(weight_bits=4), None, False),
+    'paged': (dict(paged_kv=True, kv_block_size=128), None, False),
+    'dense_sampled': ({}, None, True),
+    'paged_sampled': (dict(paged_kv=True, kv_block_size=128), None, True),
+}
+
+
+def _capture_engine(extra):
+    from ppq_tpu_torch.serving import (LlamaConfig, ServingEngine,
+                                       init_llama_params)
+    cfg = LlamaConfig(vocab_size=512, d_model=512, n_layers=2, n_heads=4,
+                      n_kv_heads=2, d_ff=1024, max_seq_len=256, max_batch=4,
+                      prefill_buckets=(16, 128), **extra)
+    return ServingEngine(cfg, init_llama_params(cfg, seed=0))
+
+
+def _admitted(engine, sampled, seed=0):
+    """Every slot admitted with a seeded prompt (fills 5 to 95), every
+    other one sampling when `sampled`. Returns the current tokens."""
+    from ppq_tpu_torch.serving import Request, SamplingParams
+    engine._reset_cache()
+    B = engine.cfg.max_batch
+    engine.slot_len[:] = 0
+    engine.slot_req = [None] * B
+    rng = np.random.default_rng(seed)
+    reqs = [Request(i, [int(t) for t in rng.integers(1, 512, size=5 + 30 * i)],
+                    max_new_tokens=64,
+                    sampling=SamplingParams(temperature=0.8, top_p=0.95)
+                    if sampled and i % 2 else None) for i in range(B)]
+    engine._admit_batch(list(enumerate(reqs)))
+    return torch.tensor([r.generated[-1] for r in reqs], dtype=torch.int32,
+                        device=engine.device)
+
+
+def _one_burst(engine, n, cur, grouped):
+    seq = engine._tensor(engine.slot_len, torch.int32)
+    samp = engine._samp_arrays()
+    if engine._paged:
+        toks, _ = engine._paged_decode(n, cur, seq,
+                                       list(range(engine.cfg.max_batch)),
+                                       samp)
+        return toks
+    fills = [int(f) for f in engine.slot_len]
+    bucket = engine._decode_bucket(max(fills))
+    if grouped is None:
+        grouped = engine._grouped_gate(fills, n, bucket)
+    toks, _ = engine._build_decode_burst(n, bucket, grouped)(
+        engine.params, engine.cache, cur, seq, samp)
+    return toks
+
+
+@pytest.mark.parametrize('case', list(_CAPTURE_CASES))
+def test_captured_burst_equals_the_uncaptured_burst(cuda, case):
+    """One burst of 8 from the same admitted state, as a replay of its CUDA
+    graph and uncaptured, from the same generator state: the tokens and
+    every byte of the cache (dense) or the pools (paged) equal. A sampled
+    burst's two consecutive replays draw different tokens; each replay
+    counts its launches once."""
+    extra, grouped, sampled = _CAPTURE_CASES[case]
+    engine = _capture_engine(extra)
+    cur = _admitted(engine, sampled)
+    start = {k: v.clone() for k, v in engine.cache.items()}
+
+    def restore():
+        for k, v in start.items():
+            engine.cache[k].copy_(v)
+    _one_burst(engine, 8, cur, grouped)         # uncaptured, then captured
+    restore()
+    assert engine.graph_captures == 1
+    (graph,) = engine._graphs.values()
+    reset_launches()
+    engine._generator.manual_seed(11)
+    toks_c = _one_burst(engine, 8, cur, grouped)
+    assert {k: v for k, v in LAUNCHES.items() if v} \
+        == graph.launches_per_replay
+    cache_c = {k: v.clone() for k, v in engine.cache.items()}
+    if sampled:
+        restore()
+        again = _one_burst(engine, 8, cur, grouped)
+        assert not torch.equal(again[:, 1::2], toks_c[:, 1::2])
+        assert torch.equal(again[:, 0::2], toks_c[:, 0::2])
+    restore()
+    engine._capture = False
+    engine._generator.manual_seed(11)
+    toks_u = _one_burst(engine, 8, cur, grouped)
+    engine._capture = True
+    assert engine.graph_captures == 1
+    assert torch.equal(toks_c, toks_u)
+    for k, v in cache_c.items():
+        assert torch.equal(v, engine.cache[k]), k
+
+
+def test_planned_loop_dispatches_without_a_host_sync(cuda):
+    """The planned loop's dispatch (every prefill, every replayed burst and
+    the download into pinned memory) makes no synchronizing call, once its
+    burst shapes are captured; its tokens equal the synchronous loop's."""
+    from ppq_tpu_torch.serving import Request
+    engine = _capture_engine(dict(paged_kv=True, kv_block_size=128))
+    rng = np.random.default_rng(3)
+
+    def requests():
+        return [Request(i, [int(t) for t in rng.integers(1, 512, size=20)],
+                        max_new_tokens=9) for i in range(6)]
+    warm = requests()
+    engine.run(warm, sync_every=4)
+    captures = engine.graph_captures
+    dispatch = engine._dispatch_planned
+
+    def strict(*args):
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            return dispatch(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    engine._dispatch_planned = strict
+    rng = np.random.default_rng(3)
+    planned = requests()
+    engine.run(planned, sync_every=4)
+    assert engine.graph_captures == captures
+    rng = np.random.default_rng(3)
+    synchronous = requests()
+    engine.run(synchronous, sync_every=4, arrivals=[0.0] * 6)
+    assert [r.generated for r in planned] == [r.generated for r in synchronous]
+    assert engine._alloc.free_blocks == engine._alloc.num_blocks - 1
+
+
 # ---------------------------------------------------- the compiled executor
 
 def _quantized_small(dev, algo='percentile', prefer_compiled=True):
