@@ -66,13 +66,16 @@ Phases (each raises on failure, and the script then exits non-zero):
      `quantzoo_benchmark` over ResNet-18 and MobileNetV2 x its three
      schemes (`--passes` runs this path alone);
  5. path B: the same model, `quantize_graph` with `lsq_optimization` (LSQ
-     over every block, weights and scales trained, 4 cached batches), the
-     forward and its SNR against the fp32 model before and after LSQ; then
+     over every block, weights and scales trained, 4 cached batches; every
+     step after a block's first a CUDA-graph replay), the forward and its
+     SNR against the fp32 model before and after LSQ; then
      BiasCorrectionPass and RoundTuningPass through `manop` on quantized
-     graphs;
+     graphs; outside the counts, LSQ, BiasCorrection and RoundTuning with
+     their steps captured against the same passes uncaptured, bit for bit
+     (trained tensors, Adam's state, decisions, the graph afterwards);
   6. path C: `quantize_graph` with TPU_FP8 and `fp8_setting`, the forward
      (equal to the plain path), then LearnedStepSizePass with frozen scales
-     through `manop`;
+     through `manop` (captured against uncaptured outside the counts);
   7. path D: the serving engine at the full width of the 1B Llama-class
      model (16 layers, d_model 2048, INT8 weights, INT8 KV cache, 128
      slots) with the dense cache read (`use_ragged_attention=False`): `run`
@@ -114,11 +117,22 @@ Phases (each raises on failure, and the script then exits non-zero):
      open-loop sweep at 0.6 / 0.8 / 0.95 of the mixed requests/s, every
      block back after each, and the B=32 decode points, INT4 and INT8
      (`--serving` runs this path alone);
+ 10c. path M: the LLM quantization path at the full width of bench.py's
+     1B decoder (`init_llama_params(quantized=False, seed=0)`): AWQ and
+     GPTQ INT4 and SmoothQuant W8A8 on the card beside round-to-nearest
+     (seconds, peak memory, logits SNR against the float model), each of
+     the three served (`run`, `benchmark_decode` at fill 16 captured, 32
+     slots; W8A8 launches no row 10, INT4 rows 9 and 10), the W8A8 int32
+     sums against int64, a MoE engine (8 experts top-2, 2 layers) and its
+     moe_ffn against the CPU, speculative decoding (k 4, a seeded 2-layer
+     draft and the target itself) against plain greedy, and AWQ / GPTQ on
+     the card against a child process's CPU run at 2 layers (`--llm` runs
+     this path alone);
  11. launches: every kernel ran on a path (the counts are set to 0 before
      each path and read after it); then, outside the counts, the time and
-     the launches of an LSQ step block by block on the INT8 and the FP8
-     graph, and torch.profiler breakdowns of the forward and of the first
-     block's LSQ steps.
+     the launches of an LSQ step, captured and uncaptured, block by block
+     on the INT8 and the FP8 graph, and torch.profiler breakdowns of the
+     forward and of the first block's LSQ steps.
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -145,6 +159,8 @@ SPIN_CYCLES_PER_S = 1.98e9     # H100 SXM's highest SM clock: a spin of
                                # torch.cuda._sleep lasts at least its time
 CALIB_BATCH, CALIB_STEPS, KL_STEPS, IMAGE = 32, 16, 4, 224
 TRAIN_BATCHES, LSQ_STEPS, ROUND_STEPS = 4, 16, 8
+# steps of the captured-against-uncaptured runs of paths B and C
+CAPTURE_STEPS = 6
 # smoke bounds on the output's noise-to-signal ratio against the fp32
 # model: int8 fake-quant of a 21-layer net measured 5.3e-4 at full width;
 # E4M3 keeps 3 mantissa bits at each of 42 quant sites and measured 4.5e-3
@@ -232,11 +248,15 @@ PATH_KERNELS = {
     # row 13 is not the engine's: path G launches it on its bursts' inputs
     'G': ('qmm_int8', 'qmm_gateup', 'bank_write', 'pool_write',
           'paged_attention_grouped', 'paged_attention_buffered'),
+    # the AWQ / GPTQ INT4, SmoothQuant W8A8 and MoE engines (ragged read)
+    'M': ('qmm_int8', 'qmm_int4', 'qmm_gateup_int4', 'bank_write',
+          'window_write', 'paged_attention_grouped'),
     # the paged engine, then the dense B=32 points at fill 16, INT4 and INT8
     'L': ('qmm_int8', 'qmm_gateup', 'qmm_int4', 'qmm_gateup_int4',
           'bank_write', 'pool_write', 'window_write',
           'paged_attention_grouped'),
 }
+PATH_MAY_LAUNCH = {'M': ('paged_attention_fused',)}
 # path L: bench.py's serving track (`bench.py:396-499`) on path G's engine;
 # the open-loop sweep's windows, cut from bench.py's 22 s to fit the smoke
 SWEEP_S = 6.0
@@ -2485,10 +2505,13 @@ def _captured_vs_uncaptured(tag, engine, n=8, grouped=None, sampled=False):
 
 
 def _check_path_kernels(tag, launches):
-    """The path launched each of its serving kernels and no other kernel."""
+    """The path launched each of its serving kernels and no other kernel
+    (path M may or may not read a slot through the per-slot kernel: its
+    fills decide)."""
     mine = PATH_KERNELS[tag]
+    extra = PATH_MAY_LAUNCH.get(tag, ())
     if any(launches[k] <= 0 for k in mine) or any(
-            launches[k] for k in launches if k not in mine):
+            launches[k] for k in launches if k not in mine + extra):
         raise AssertionError(f'path {tag} did not run exactly its kernels '
                              f'{mine}: {launches}')
 
@@ -3509,6 +3532,19 @@ def phase_path_b(dev, kl_graph):
     quantize_graph(plain, loader, calib_steps=TRAIN_BATCHES,
                    platform=TargetPlatform.TPU_INT8, verbose=False)
     _, snr_before, top1_before = _forward_vs(plain, x_dev, y_fp32)
+    capture = dict(
+        lsq=_captured_vs_uncaptured_pass(
+            'lsq int8', plain, lambda: LearnedStepSizePass(
+                steps=CAPTURE_STEPS, calib_steps=TRAIN_BATCHES),
+            loader, CAPTURE_STEPS),
+        bias_correction=_captured_vs_uncaptured_pass(
+            'bias correction', plain,
+            lambda: BiasCorrectionPass(steps=TRAIN_BATCHES), loader,
+            CAPTURE_STEPS),
+        round_tuning=_captured_vs_uncaptured_pass(
+            'round tuning', plain, lambda: RoundTuningPass(
+                steps=CAPTURE_STEPS, calib_steps=TRAIN_BATCHES),
+            loader, CAPTURE_STEPS))
     manop(plain, _inputs_taken_once(LearnedStepSizePass)(
         steps=LSQ_STEPS, calib_steps=TRAIN_BATCHES),
         calib_dataloader=loader, verbose=False)
@@ -3538,6 +3574,7 @@ def phase_path_b(dev, kl_graph):
         bias_blocks_accepted=sum(h['accepted'] for h in bias.history),
         round_tuning_s=round_s, snr_after_round_tuning=snr_round,
         top1_round_tuning=top1_round, plain_path_equal=True,
+        captured_vs_uncaptured=capture,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     log(f'[path B] {json.dumps(summary)}')
     return launches, summary, graph, loader
@@ -3561,13 +3598,18 @@ def phase_path_c(dev):
     torch.cuda.reset_peak_memory_stats()
 
     # row 6's launches by body, counted where qfunction calls the wrapper
-    # (one LAUNCHES key holds both)
+    # (one LAUNCHES key holds both); a call inside a capture launches
+    # nothing (its replays do, without calling the wrapper: LSQ's steps)
     bodies = dict(channelwise=0, tensorwise=0)
+    in_captures = dict(channelwise=0, tensorwise=0)
     floating_quant = qfunction.floating_quant
 
     def by_body(x, scale, e_bits, m_bits, qmin, qmax, channel_axis=None):
         if x.is_cuda and x.numel():
-            bodies['tensorwise' if channel_axis is None else 'channelwise'] += 1
+            counts = (in_captures if torch.cuda.is_current_stream_capturing()
+                      else bodies)
+            counts['tensorwise' if channel_axis is None
+                   else 'channelwise'] += 1
         return floating_quant(x, scale, e_bits, m_bits, qmin, qmax,
                               channel_axis)
 
@@ -3620,6 +3662,18 @@ def phase_path_c(dev):
     snr_train_tuned = _forward_vs(graph, x_train, y_fp32_train)[1]
     launches = dict(LAUNCHES)
     qfunction.floating_quant = floating_quant
+    # every LSQ step after a block's first is a replay of the block's
+    # capture: its row 6 launches are the capture's tensorwise calls
+    if in_captures['channelwise']:
+        raise AssertionError(f'path C: a capture held channelwise row 6 '
+                             f'calls: {in_captures}')
+    replayed = sum(h['replays'] * h['launches_per_replay'].get(
+        'floating_quant', 0) for h in lsq.history)
+    if any(h['replays'] != LSQ_STEPS - 1 for h in lsq.history):
+        raise AssertionError(f'path C: LSQ replays a block '
+                             f'{[h["replays"] for h in lsq.history]}, not '
+                             f'{LSQ_STEPS - 1}')
+    bodies['tensorwise'] += replayed
     if sum(bodies.values()) != launches['floating_quant']:
         raise AssertionError(f'path C: row 6 launched {launches["floating_quant"]} '
                              f'times, its bodies were called {bodies}')
@@ -3638,6 +3692,10 @@ def phase_path_c(dev):
     if not torch.equal(y_tuned, _plain_forward(graph, x_dev)):
         raise AssertionError('path C: finetuned kernel-path forward != '
                              'plain-path forward')
+    capture = _captured_vs_uncaptured_pass(
+        'lsq fp8', plain, lambda: LearnedStepSizePass(
+            is_scale_trainable=False, steps=CAPTURE_STEPS,
+            calib_steps=TRAIN_BATCHES), loader, CAPTURE_STEPS)
     manop(plain, _inputs_taken_once(LearnedStepSizePass)(
         is_scale_trainable=False, steps=LSQ_STEPS, calib_steps=TRAIN_BATCHES),
         calib_dataloader=loader, verbose=False)
@@ -3665,7 +3723,7 @@ def phase_path_c(dev):
         snr_fp8_after_lsq_with_block_inputs_taken_once=snr_once,
         snr_fp8_on_a_training_batch=snr_train,
         snr_fp8_on_a_training_batch_after_lsq=snr_train_tuned,
-        plain_path_equal=True,
+        plain_path_equal=True, captured_vs_uncaptured=capture,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     log(f'[path C] {json.dumps(summary)}')
     return launches, summary, graph, loader
@@ -3673,43 +3731,34 @@ def phase_path_c(dev):
 
 def phase_lsq_steps(tag, graph, loader, scales_trainable, profile_first,
                     n=4):
-    """What one LSQ step costs, block by block: the step the pass takes
-    (forward with gradient, loss, backward, Adam) run here by hand, n times
-    after 2 warm-up steps, with the wall time and the kernels' launches of
-    those n steps; for the first block (the largest activations) also a
-    torch.profiler breakdown. Runs after the paths' counts are read and
-    writes nothing back to the graph."""
+    """What one LSQ step costs, block by block, captured and uncaptured:
+    the pass's own block trainer (`LearnedStepSizePass.block_trainer`:
+    forward through the compiled block, loss, backward, Adam), n steps after
+    2 (captured: the first runs as it is and captures, the second is the
+    first replay), with the wall time and the kernels' launches of those n
+    steps; for the first block also a torch.profiler breakdown of both.
+    Runs after the paths' counts are read and writes nothing back to the
+    graph."""
     from ppq_tpu_torch import TorchExecutor
-    from ppq_tpu_torch.executor import simulation_precision
     from ppq_tpu_torch.kernels import LAUNCHES
     from ppq_tpu_torch.quantization.algorithm import BlockBuilder
     from ppq_tpu_torch.quantization.optim.training import (
-        BlockRuntime, LearnedStepSizePass, _unbaked_parameters)
+        LearnedStepSizePass, _unbaked_parameters)
     executor = TorchExecutor(graph)
     lsq = LearnedStepSizePass(calib_steps=TRAIN_BATCHES,
                               is_scale_trainable=scales_trainable)
-    total_s, total_launches = 0.0, {}
+    totals = {True: [0.0, {}], False: [0.0, {}]}
     with _unbaked_parameters(graph):
         blocks = BlockBuilder(graph).build(lsq.block_size)
         qt, fp = lsq.collect_caches(graph, blocks, loader, None, executor)
         for index, block in enumerate(blocks):
-            with BlockRuntime(executor, block,
-                              scales_trainable=scales_trainable) as runtime:
-                params = runtime.parameters()
-                for value in params.values():
-                    value.requires_grad_(True)
-                trainable = list(params.values())
-                if scales_trainable:
-                    trainable += runtime.qparams()
-                opt = torch.optim.Adam(trainable, lr=lsq.lr)
+            feeds = [lsq._feed(block, a, b) for a, b in zip(qt, fp)]
+            for captured in (True, False):
+                trainer = lsq.block_trainer(graph, block, executor.device,
+                                            capture=captured)
 
                 def step(i):
-                    opt.zero_grad(set_to_none=True)
-                    outs = runtime.run(params, qt[i % len(qt)],
-                                       with_gradient=True)
-                    with simulation_precision():
-                        runtime.loss(outs, fp[i % len(fp)]).backward()
-                    opt.step()
+                    trainer.step(feeds[i % len(feeds)])
 
                 for i in range(2):
                     step(i)
@@ -3722,16 +3771,93 @@ def phase_lsq_steps(tag, graph, loader, scales_trainable, profile_first,
                 seconds = time.perf_counter() - t0
                 per_step = {k: (LAUNCHES[k] - v) / n
                             for k, v in before.items() if LAUNCHES[k] != v}
-                log(f'[lsq step {tag}] {block}: {seconds / n * 1e3:.3f} '
-                    f'ms/step, launches per step {json.dumps(per_step)}')
-                total_s += seconds
+                how = 'captured' if captured else 'uncaptured'
+                if captured and trainer.step.replays != n + 1:
+                    raise AssertionError(f'lsq step {tag}: {n + 2} captured '
+                                         f'steps made {trainer.step.replays} '
+                                         f'replays')
+                log(f'[lsq step {tag}] {block} {how}: '
+                    f'{seconds / n * 1e3:.3f} ms/step, launches per step '
+                    f'{json.dumps(per_step)}')
+                totals[captured][0] += seconds
                 for k, v in per_step.items():
-                    total_launches[k] = total_launches.get(k, 0) + v
+                    totals[captured][1][k] = totals[captured][1].get(k, 0) + v
                 if index == 0 and profile_first:
-                    _profile_steps(tag, block, step, n=6)
-    log(f'[lsq step {tag}] mean over {len(blocks)} blocks: '
-        f'{total_s / (n * len(blocks)) * 1e3:.3f} ms/step, launches per step '
-        f'{json.dumps({k: v / len(blocks) for k, v in total_launches.items()})}')
+                    _profile_steps(f'{tag} {how}', block, step, n=6)
+                del trainer
+    for captured, (total_s, launches) in totals.items():
+        log(f'[lsq step {tag}] {"captured" if captured else "uncaptured"}, '
+            f'mean over {len(blocks)} blocks: '
+            f'{total_s / (n * len(blocks)) * 1e3:.3f} ms/step, launches per '
+            f'step {json.dumps(_per_block(launches, len(blocks)))}')
+
+
+def _per_block(launches, blocks):
+    return {k: v / blocks for k, v in launches.items()}
+
+
+def _same_state(a, b) -> bool:
+    """Nested dicts of tensors (and numbers) equal bit for bit."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and sorted(a) == sorted(b) and all(
+            _same_state(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    return a == b
+
+
+def _captured_vs_uncaptured_pass(tag, graph, make_pass, loader, steps):
+    """make_pass() through manop on two copies of a quantized graph, one
+    with every step after a block's first a CUDA-graph replay (the
+    default) and one uncaptured: the trained tensors and Adam's state of
+    every block, the decisions, and the graph's parameters and scales
+    afterwards must be equal bit for bit."""
+    import copy
+    from ppq_tpu_torch import manop
+    from ppq_tpu_torch.interop import quantization_configs_of
+    runs = []
+    for capture in (True, False):
+        g = copy.deepcopy(graph)
+        p = make_pass()
+        p.capture, p.keep_state = capture, True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        manop(g, p, calib_dataloader=loader, verbose=False)
+        torch.cuda.synchronize()
+        runs.append((g, p, time.perf_counter() - t0))
+    (ga, pa, sa), (gb, pb, sb) = runs
+    if len(pa.history) != len(pb.history) or not pa.history:
+        raise AssertionError(f'{tag}: {len(pa.history)} blocks captured, '
+                             f'{len(pb.history)} uncaptured')
+    replays = []
+    for ha, hb in zip(pa.history, pb.history):
+        for key in ('state', 'pre_loss', 'post_loss', 'accepted'):
+            if not _same_state(ha.get(key), hb.get(key)):
+                raise AssertionError(f'{tag} {ha["block"]}: {key} differs '
+                                     f'captured and uncaptured')
+        if 'replays' in ha:
+            if ha['replays'] != steps - 1 or hb['replays'] != 0:
+                raise AssertionError(f'{tag} {ha["block"]}: {ha["replays"]} '
+                                     f'replays of {steps} steps captured, '
+                                     f'{hb["replays"]} uncaptured')
+            replays.append(ha['replays'])
+    for name, var in ga.variables.items():
+        if var.is_parameter and not np.array_equal(
+                np.asarray(var.value), np.asarray(gb.variables[name].value)):
+            raise AssertionError(f'{tag}: parameter {name} differs captured '
+                                 f'and uncaptured')
+    ca, cb = quantization_configs_of(ga), quantization_configs_of(gb)
+    for key, entry in ca.items():
+        for part in ('scale', 'offset'):
+            if not np.array_equal(np.asarray(entry[part]),
+                                  np.asarray(cb[key][part])):
+                raise AssertionError(f'{tag}: {key} {part} differs captured '
+                                     f'and uncaptured')
+    result = dict(blocks=len(pa.history), steps=steps,
+                  replays_per_block=replays, seconds_captured=sa,
+                  seconds_uncaptured=sb, bit_equal=True)
+    log(f'[{tag}] captured vs uncaptured: {json.dumps(result)}')
+    return result
 
 
 def _profile_steps(tag, block, step, n):
@@ -6190,7 +6316,617 @@ def main_attention(package_root=None) -> int:
     return 0
 
 
+# ---------------------------------------------------------------- path M --
+# bench.py's 1B decoder (bench.py:399-407) at full width: float weights from
+# init_llama_params(quantized=False, seed=0), the calibrated quantizers on the
+# card beside round-to-nearest, their engines, W8A8, MoE and speculative
+# decoding. The engines keep 32 slots (path D's 128 are timed there).
+LLM = dict(SERVE, max_batch=32)
+LLM_CALIB, LLM_EVAL = (4, 128), (2, 128)
+LLM_REQUESTS, LLM_NEW_TOKENS = 16, 32
+# the MoE engine at the same widths, 8 experts top-2: depth cut to 2 layers
+# for the smoke's time (its expert stacks are 0.55 G INT8 parameters at 2
+# layers; drawing them with numpy takes most of its build)
+LLM_MOE = dict(LLM, n_layers=2, n_experts=8, top_k=2)
+SPEC_K, SPEC_TOKENS, SPEC_DRAFT_LAYERS = 4, 48, 2
+# the card-versus-CPU check of AWQ and GPTQ: the same widths at 2 layers, an
+# INT8 lm_head quantized before (the quantizers then leave it alone)
+LLM_CHECK = dict(LLM, n_layers=2, weight_bits=4)
+# what may differ between the card's AWQ / GPTQ and the CPU's: the
+# calibration captures, the products and GPTQ's H, inverse and Cholesky
+# factor sum in each device's order, and so does the mse scale search's
+# error per channel (recorded difference 44). AWQ: every alpha's error on
+# the card lies within 1 % of the CPU's; a group whose chosen alpha differs
+# is a near-tie when the card's gap between the two alphas is no larger
+# than how far the two devices' errors at them lie apart (random weights
+# have no outlier channels, so the alphas' errors lie close), and its
+# linears are then not compared. A channel whose scale differs (beyond
+# 1e-4: AWQ's s = m^alpha moves by float32 rounding with the captures) is a
+# near-tie of the mse search when, on the card's own weights, the CPU's
+# scale reconstructs the channel within 1e-3 of the card's error. Where the
+# scales agree, at most 2 % of an AWQ linear's codes may differ, each by
+# one step. GPTQ carries each row's rounding error into the rows after it,
+# so one code that falls the other way moves the rest of its column: its
+# codes are not compared one by one, but the layer objective each device's
+# codes reach, ||X W - X Q(W)||^2 over the card's calibration inputs, must
+# agree within 1 %.
+LLM_CHECK_ERROR_RTOL, LLM_CHECK_SAME_SCALE_RTOL = 0.01, 1e-4
+LLM_CHECK_SCALE_TIE, LLM_CHECK_AWQ_CODE_SHARE = 1e-3, 0.02
+LLM_CHECK_GPTQ_OBJECTIVE_RTOL = 0.01
+
+
+def _llm_cpu_reference_tree():
+    """The 2-layer float tree of the card-versus-CPU check, and its
+    calibration tokens, on the CPU."""
+    from ppq_tpu_torch.serving import LlamaConfig, init_llama_params
+    from ppq_tpu_torch.serving.model import quantize_weight
+    cfg = LlamaConfig(**LLM_CHECK)
+    fp = init_llama_params(cfg, seed=3, quantized=False, device='cpu')
+    fp['lm_head'] = quantize_weight(fp['lm_head']['w'].float(), 8,
+                                    device='cpu')
+    calib = np.random.default_rng(5).integers(1, cfg.vocab_size, LLM_CALIB)
+    return cfg, fp, calib
+
+
+def _quantized_leaves(tree):
+    """{layer/key: (codes int8, scale f32)} of every quantized linear of a
+    tree, on the host (INT4 unpacked)."""
+    from ppq_tpu_torch.serving.model import _unpack_int4
+    out = {}
+    for i, layer in enumerate(tree['layers']):
+        for key, wq in layer.items():
+            if isinstance(wq, dict) and 'scale' in wq:
+                codes = wq['w_int'] if 'w_int' in wq else \
+                    _unpack_int4(wq['w_packed'])
+                out[f'{i}/{key}'] = (codes.cpu(), wq['scale'].float().cpu())
+    return out
+
+
+def _awq_with_alphas(fp, cfg, calib):
+    """AWQ of a float tree and, per foldable group in order (each layer's
+    attn, then mlp), the chosen alpha and every alpha's error."""
+    from ppq_tpu_torch.serving import awq as awq_module
+    record = []
+    group_scale = awq_module._group_scale
+
+    def recording(xs, weights, bits, alphas=(0.0, 0.25, 0.5, 0.75, 1.0),
+                  max_rows=512, errors=None):
+        errs = []
+        s, a = group_scale(xs, weights, bits, alphas, max_rows, errors=errs)
+        record.append((a, dict(errs)))
+        return s, a
+
+    awq_module._group_scale = recording
+    try:
+        tree = awq_module.awq_quantize_llama_params(fp, cfg, calib)
+    finally:
+        awq_module._group_scale = group_scale
+    return tree, record
+
+
+def main_llm_cpu_reference(out_path) -> int:
+    """The CPU half of path M's card-versus-CPU check, run as a child
+    process while the card works: AWQ and GPTQ of the 2-layer tree on the
+    CPU, saved to out_path."""
+    from ppq_tpu_torch.serving import gptq_quantize_llama_params
+    torch.set_num_threads(CPU_REFERENCE_THREADS)
+    cfg, fp, calib = _llm_cpu_reference_tree()
+    t0 = time.perf_counter()
+    awq, alphas = _awq_with_alphas(fp, cfg, calib)
+    awq_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gptq = gptq_quantize_llama_params(fp, cfg, calib)
+    gptq_s = time.perf_counter() - t0
+    torch.save(dict(awq=_quantized_leaves(awq), gptq=_quantized_leaves(gptq),
+                    awq_alphas=alphas, awq_s=awq_s, gptq_s=gptq_s),
+               out_path + '.part')
+    os.replace(out_path + '.part', out_path)
+    return 0
+
+
+CPU_REFERENCE_THREADS = 4
+
+
+class _CpuReference:
+    """The child process that computes the CPU half of the card-versus-CPU
+    check on CPU_REFERENCE_THREADS of the host's 8 cores, started before
+    the serving paths (the full smoke) or with path M (`--llm`), so that
+    it is done when path M needs it; `result()` waits for it. Killed if the
+    smoke ends first."""
+
+    def __init__(self):
+        import tempfile
+        self.dir = tempfile.mkdtemp(prefix='chip_smoke_llm_')
+        self.path = os.path.join(self.dir, 'cpu_reference.pt')
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES='')
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             '--llm-cpu-reference', self.path], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def result(self, timeout=600):
+        out, _ = self.proc.communicate(timeout=timeout)
+        waited = time.perf_counter() - self.t0
+        if self.proc.returncode != 0:
+            raise AssertionError(f'the CPU reference failed:\n{out[-4000:]}')
+        ref = torch.load(self.path)
+        ref['wall_s_since_start'] = waited
+        return ref
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        import shutil
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def _llm_logits(params, cfg, tokens):
+    """A prefill forward's logits (f32) over a (B, T) token batch on a fresh
+    cache."""
+    from ppq_tpu_torch.serving.model import forward, init_kv_cache
+    B, T = tokens.shape
+    dev = params['embed'].device
+    with torch.no_grad():
+        logits, _ = forward(
+            params, init_kv_cache(cfg, B, device=dev),
+            torch.as_tensor(tokens, dtype=torch.int32, device=dev),
+            torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T),
+            torch.zeros(B, dtype=torch.int32, device=dev),
+            torch.full((B,), T, dtype=torch.int32, device=dev), cfg)
+    return logits
+
+
+def _logit_snr(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float(((got - want) ** 2).sum() / (want ** 2).sum())
+
+
+def _llm_requests(vocab, n=LLM_REQUESTS, seed=31):
+    from ppq_tpu_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    return [Request(i, [int(t) for t in rng.integers(1, vocab, int(
+        rng.integers(16, 100)))], max_new_tokens=LLM_NEW_TOKENS)
+        for i in range(n)]
+
+
+def _llm_engine(tag, cfg, params):
+    """An engine served: `run` over a few requests, `benchmark_decode` at
+    fill 16 (captured), and the launches of the two."""
+    from ppq_tpu_torch.kernels import LAUNCHES
+    from ppq_tpu_torch.serving import LlamaConfig, ServingEngine
+    before = dict(LAUNCHES)
+    engine = ServingEngine(LlamaConfig(**vars(cfg)), params)
+    run = _serve_run(tag, engine, _llm_requests(cfg.vocab_size))
+    decode = _decode_at(engine, 16)
+    if decode['captures'] != 1:
+        raise AssertionError(f'path M {tag}: benchmark_decode made '
+                             f'{decode["captures"]} captures, not 1')
+    counts = {k: LAUNCHES[k] - v for k, v in before.items()
+              if LAUNCHES[k] != v}
+    summary = dict(run=run, decode_fill_16=decode, launches=counts,
+                   norm_folded=engine.cfg.norm_folded)
+    del engine
+    torch.cuda.empty_cache()
+    return summary
+
+
+def _llm_quantize(make):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = make()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return params, dict(seconds=time.perf_counter() - t0, peak_mem_gib=peak)
+
+
+def _w8a8_sums(params, cfg, tokens):
+    """The W8A8 prefill's int32 sums at full width (layer 0's q|k|v product
+    over the calibration window) against an int64 reference (a float64
+    product of the same codes: exact below 2^53)."""
+    from ppq_tpu_torch.serving.model import _a8_quant, int8_product, rms_norm
+    layer = params['layers'][0]
+    dev = params['embed'].device
+    x = params['embed'][torch.as_tensor(tokens, device=dev).long()]
+    h = rms_norm(x, layer['attn_norm'], cfg.rms_eps)
+    q, _ = _a8_quant(h)
+    q = q.reshape(-1, q.shape[-1])
+    w = layer['wq']['w_int']
+    got = int8_product(q, w)
+    want = torch.round(q.double() @ w.double()).long()
+    if got.dtype != torch.int32 or not torch.equal(got.long(), want):
+        raise AssertionError('path M: the W8A8 int32 sums differ from the '
+                             'int64 reference')
+    return dict(rows=q.shape[0], depth=q.shape[1], width=w.shape[1],
+                max_abs_sum=int(want.abs().max()), equal=True)
+
+
+def _moe_card_vs_cpu(params, cfg, dev):
+    """One MoE layer's moe_ffn on the card against its plain CPU run on the
+    same inputs (float32 einsums, TF32 off on the card)."""
+    from ppq_tpu_torch.executor import simulation_precision
+    from ppq_tpu_torch.serving.moe import moe_ffn
+    moe = params['layers'][0]['moe']
+    x = torch.randn(2, 8, cfg.d_model, generator=torch.Generator().manual_seed(
+        4)).to(torch.bfloat16)
+    with torch.no_grad(), simulation_precision('highest'):
+        got = moe_ffn(x.to(dev), moe, top_k=cfg.top_k).float().cpu()
+    cpu = {k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict)
+               else v.cpu()) for k, v in moe.items()}
+    want = moe_ffn(x, cpu, top_k=cfg.top_k).float()
+    err = float((got - want).abs().max())
+    # bf16 outputs: one bf16 step of the largest |value| where the f32 sums'
+    # order tips a rounding
+    tol = 2 ** -7 * float(want.abs().max())
+    if not err <= tol:
+        raise AssertionError(f'path M: moe_ffn on the card vs the CPU: {err} '
+                             f'> {tol}')
+    return dict(max_abs_err=err, tolerance=tol)
+
+
+def _speculative(dev, fp, cfg):
+    """Target: the INT8 1B (round-to-nearest of the float tree); draft: a
+    seeded 2-layer model at the same width. The tokens must be the
+    target's plain greedy ones; acceptance and ms per token beside plain
+    greedy, and the target as its own draft."""
+    from ppq_tpu_torch.serving import (LlamaConfig, init_llama_params,
+                                       quantize_llama_params,
+                                       speculative_generate)
+    from ppq_tpu_torch.serving.speculative import _Decoder
+    tcfg = LlamaConfig(**dict(LLM, weight_bits=8))
+    target = quantize_llama_params(fp, tcfg)
+    dcfg = LlamaConfig(**dict(LLM, weight_bits=8,
+                              n_layers=SPEC_DRAFT_LAYERS))
+    draft = init_llama_params(dcfg, seed=1)
+    prompt = [int(t) for t in np.random.default_rng(9).integers(
+        1, cfg.vocab_size, 32)]
+
+    def plain():
+        dec = _Decoder(target, tcfg)
+        out = [int(dec.run(prompt)[-1])]
+        while len(out) < SPEC_TOKENS:
+            out.append(int(dec.run([out[-1]])[-1]))
+        return out
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3 / SPEC_TOKENS
+
+    plain()                                   # warm the kernels
+    ref, plain_ms = timed(plain)
+    summary = dict(k=SPEC_K, tokens=SPEC_TOKENS, prompt=len(prompt),
+                   plain_ms_per_token=plain_ms,
+                   window_equals_steps=_window_vs_steps(target, tcfg,
+                                                        prompt, ref))
+    for name, dp, dc in (('draft_2_layers', draft, dcfg),
+                         ('target_as_draft', target, tcfg)):
+        (toks, stats), ms = timed(lambda: speculative_generate(
+            target, tcfg, dp, dc, prompt, SPEC_TOKENS, k=SPEC_K))
+        if toks != ref:
+            first = next(i for i, (a, b) in enumerate(zip(toks, ref))
+                         if a != b)
+            raise AssertionError(f'path M: speculative tokens ({name}) leave '
+                                 f'the plain greedy ones at {first}')
+        summary[name] = dict(ms_per_token=ms, stats=stats,
+                             acceptance=stats['accepted'] / stats['proposed'])
+    if summary['target_as_draft']['acceptance'] != 1.0:
+        raise AssertionError('path M: the target as its own draft was not '
+                             'accepted throughout')
+    del target, draft
+    return summary
+
+
+def _window_vs_steps(params, cfg, prompt, continuation):
+    """What greedy speculation's exactness rests on: the logits of a
+    (1, k+1) window over the dense cache (`batch_invariant`, as the
+    decoders run) equal those of the same tokens as k+1 single steps, bit
+    for bit."""
+    import dataclasses
+    from ppq_tpu_torch.serving.model import forward, init_kv_cache
+    cfg = dataclasses.replace(cfg, use_kernel_matmul=True,
+                              batch_invariant=True)
+    dev = params['embed'].device
+
+    def run(cache, toks, start):
+        T = len(toks)
+        with torch.no_grad():
+            logits, _ = forward(
+                params, cache,
+                torch.tensor([toks], dtype=torch.int32, device=dev),
+                (start + torch.arange(T, dtype=torch.int32,
+                                      device=dev))[None],
+                torch.tensor([start], dtype=torch.int32, device=dev),
+                torch.tensor([start + T], dtype=torch.int32, device=dev),
+                cfg)
+        return logits[0]
+
+    cache = init_kv_cache(cfg, 1, device=dev)
+    run(cache, prompt, 0)
+    window = continuation[:SPEC_K + 1]
+    steps_cache = {k: v.clone() for k, v in cache.items()}
+    whole = run(cache, window, len(prompt))
+    single = torch.stack([run(steps_cache, [t], len(prompt) + i)[0]
+                          for i, t in enumerate(window)])
+    if not torch.equal(whole, single):
+        diff = (whole - single).abs().amax(dim=-1).tolist()
+        raise AssertionError(f'path M: a window of {len(window)} tokens and '
+                             f'the same single steps differ (max |diff| a '
+                             f'row {diff})')
+    return True
+
+
+def _scale_tie_gap(w, card_scale, cpu_scale, qmax):
+    """Per channel, how much more the CPU's scale's reconstruction error
+    is than the card's, relative, on the card's weights w (in, out)."""
+    def err(sc):
+        q = torch.clamp(torch.round(w / sc), -qmax - 1, qmax)
+        return torch.mean((q * sc - w) ** 2, dim=0)
+    e_card = err(card_scale)
+    return (err(cpu_scale) - e_card) / e_card
+
+
+def _effective_weights(fp, awq, key):
+    """The weights an AWQ linear's scale was searched on, on the card: the
+    groups' scaled by their s (= old gamma / folded gamma), wo and w_down
+    as they are."""
+    layer, name = key.split('/')
+    w = fp['layers'][int(layer)][name]['w'].float()
+    gamma = {'wq': 'attn_norm', 'wk': 'attn_norm', 'wv': 'attn_norm',
+             'w_gate': 'mlp_norm', 'w_up': 'mlp_norm'}.get(name)
+    if gamma is not None:
+        s = fp['layers'][int(layer)][gamma].float() \
+            / awq['layers'][int(layer)][gamma].float()
+        w = w * s[:, None]
+    return w
+
+
+def _card_vs_cpu(reference):
+    """AWQ and GPTQ of the 2-layer tree on the card against the CPU's."""
+    from ppq_tpu_torch.serving import (LlamaConfig,
+                                       gptq_quantize_llama_params,
+                                       init_llama_params)
+    from ppq_tpu_torch.executor import simulation_precision
+    from ppq_tpu_torch.serving.awq import capture_norm_inputs
+    from ppq_tpu_torch.serving.model import quantize_weight
+    cfg = LlamaConfig(**LLM_CHECK)
+    fp = init_llama_params(cfg, seed=3, quantized=False)
+    fp['lm_head'] = quantize_weight(fp['lm_head']['w'].float(), 8)
+    calib = np.random.default_rng(5).integers(1, cfg.vocab_size, LLM_CALIB)
+    awq, alphas = _awq_with_alphas(fp, cfg, calib)
+    caps = capture_norm_inputs(fp, cfg, calib, full=True)
+    qmax = (1 << (cfg.weight_bits - 1)) - 1
+    card = dict(awq=_quantized_leaves(awq),
+                gptq=_quantized_leaves(gptq_quantize_llama_params(fp, cfg,
+                                                                  calib)))
+    t0 = time.perf_counter()
+    ref = reference.result()
+    summary = dict(cpu_awq_s=ref['awq_s'], cpu_gptq_s=ref['gptq_s'],
+                   cpu_wall_s_since_start=ref['wall_s_since_start'],
+                   waited_s=time.perf_counter() - t0)
+    # AWQ groups whose alpha differs: a near-tie of the card's own errors,
+    # or a failure; their linears are not compared
+    skipped, ties = set(), []
+    groups = [(i, g) for i in range(cfg.n_layers) for g in ('attn', 'mlp')]
+    for (layer, group), (a, errs), (ra, rerrs) in zip(groups, alphas,
+                                                      ref['awq_alphas']):
+        apart = {x: abs(errs[x] - rerrs[x]) for x in errs}
+        if any(apart[x] > LLM_CHECK_ERROR_RTOL * rerrs[x] for x in errs):
+            raise AssertionError(f'path M awq layer {layer} {group}: errors '
+                                 f'{errs} on the card, {rerrs} on the CPU')
+        if a == ra:
+            continue
+        gap = abs(errs[a] - errs[ra])
+        if gap > apart[a] + apart[ra]:
+            raise AssertionError(f'path M awq layer {layer} {group}: alpha '
+                                 f'{a} on the card, {ra} on the CPU, errors '
+                                 f'{errs} and {rerrs}')
+        ties.append(dict(layer=layer, group=group, card=a, cpu=ra,
+                         gap=gap / errs[a]))
+        keys = ('wq', 'wk', 'wv') if group == 'attn' else ('w_gate', 'w_up')
+        skipped.update(f'{layer}/{k}' for k in keys)
+    summary['awq_alpha_ties'] = ties
+    worst_codes = worst_scales = worst_gap = 0.0
+    compared = 0
+    for key, (codes, scale) in card['awq'].items():
+        if key in skipped:
+            continue
+        rcodes, rscale = ref['awq'][key]
+        same = torch.isclose(scale, rscale, rtol=LLM_CHECK_SAME_SCALE_RTOL,
+                             atol=0)
+        if not same.all():
+            dev = fp['embed'].device
+            w = _effective_weights(fp, awq, key)[:, (~same).to(dev)]
+            gap = float(_scale_tie_gap(w, scale[~same].to(dev),
+                                       rscale[~same].to(dev), qmax).max())
+            if gap > LLM_CHECK_SCALE_TIE:
+                raise AssertionError(
+                    f'path M awq {key}: the CPU\'s scale of a channel '
+                    f'reconstructs it {gap} worse on the card')
+            worst_gap = max(worst_gap, gap)
+        differ = (codes != rcodes)[:, same]
+        share_c = float(differ.float().mean()) if differ.numel() else 0.0
+        steps = (codes.int() - rcodes.int()).abs()[:, same]
+        if share_c > LLM_CHECK_AWQ_CODE_SHARE or \
+                (steps.numel() and int(steps.max()) > 1):
+            raise AssertionError(
+                f'path M awq {key}: card vs CPU codes differ on {share_c} '
+                f'of the channels with equal scales, by up to '
+                f'{int(steps.max())}')
+        worst_codes = max(worst_codes, share_c)
+        worst_scales = max(worst_scales, float((~same).float().mean()))
+        compared += 1
+    summary['awq'] = dict(linears=compared, worst_code_share=worst_codes,
+                          worst_scale_share=worst_scales,
+                          worst_scale_tie_gap=worst_gap)
+    # GPTQ: the objective each device's codes reach on the card's inputs
+    inputs = {'wq': 'attn', 'wk': 'attn', 'wv': 'attn', 'wo': 'ctx',
+              'w_gate': 'mlp', 'w_up': 'mlp', 'w_down': 'act'}
+    worst, shares = 0.0, []
+    with simulation_precision('highest'):
+        for key, (codes, scale) in card['gptq'].items():
+            layer, name = key.split('/')
+            xs = caps[int(layer)][inputs[name]]
+            w = fp['layers'][int(layer)][name]['w'].float()
+            ref_out = xs @ w
+
+            def objective(c, sc):
+                deq = c.to(xs.device).float() * sc.to(xs.device)
+                return float(torch.mean((ref_out - xs @ deq) ** 2))
+
+            rcodes, rscale = ref['gptq'][key]
+            mine, theirs = objective(codes, scale), objective(rcodes, rscale)
+            rel = abs(mine - theirs) / mine
+            if rel > LLM_CHECK_GPTQ_OBJECTIVE_RTOL:
+                raise AssertionError(f'path M gptq {key}: objective {mine} '
+                                     f'on the card, {theirs} with the '
+                                     f'CPU\'s codes')
+            worst = max(worst, rel)
+            shares.append(float((codes != rcodes).float().mean()))
+    summary['gptq'] = dict(linears=len(shares), worst_objective_rel=worst,
+                           code_share_max=max(shares),
+                           code_share_mean=sum(shares) / len(shares))
+    return summary
+
+
+def phase_path_m(dev, reference):
+    """Path M: the LLM quantization path at the 1B decoder's full width.
+    `reference`: the _CpuReference, started just before."""
+    from ppq_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ppq_tpu_torch.serving import (LlamaConfig, awq_quantize_llama_params,
+                                       gptq_quantize_llama_params,
+                                       init_llama_params,
+                                       quantize_llama_params,
+                                       smoothquant_llama_params)
+    torch.cuda.empty_cache()
+    reset_launches()
+    t_path = time.perf_counter()
+    stages = {}
+
+    def stage(name):
+        stages[name] = time.perf_counter() - t_path
+        log(f'[path M] {name} done at {stages[name]:.1f} s')
+
+    cfg = LlamaConfig(**LLM)
+    cfg4 = LlamaConfig(**dict(LLM, weight_bits=4))
+    cfg_a8 = LlamaConfig(**dict(LLM, weight_bits=8, act_bits=8))
+    t0 = time.perf_counter()
+    fp = init_llama_params(cfg, seed=0, quantized=False)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(5)
+    calib = rng.integers(1, cfg.vocab_size, LLM_CALIB)
+    evalt = rng.integers(1, cfg.vocab_size, LLM_EVAL)
+    ref_logits = _llm_logits(fp, cfg, evalt)
+
+    quantizers = dict(
+        awq_int4=(cfg4, lambda: awq_quantize_llama_params(fp, cfg4, calib)),
+        gptq_int4=(cfg4, lambda: gptq_quantize_llama_params(fp, cfg4,
+                                                            calib)),
+        rtn_int4=(cfg4, lambda: quantize_llama_params(fp, cfg4)),
+        rtn_int4_mse=(cfg4, lambda: quantize_llama_params(fp, cfg4,
+                                                          method='mse')),
+        smoothquant_w8a8=(cfg_a8, lambda: smoothquant_llama_params(
+            fp, cfg_a8, calib)),
+        rtn_w8a8=(cfg_a8, lambda: quantize_llama_params(fp, cfg_a8)),
+    )
+    methods, kept = {}, {}
+    for name, (qcfg, make) in quantizers.items():
+        params, stats = _llm_quantize(make)
+        stats['logits_snr'] = _logit_snr(_llm_logits(params, qcfg, evalt),
+                                         ref_logits)
+        methods[name] = stats
+        log(f'[path M] {name}: {json.dumps(stats)}')
+        if name in ('awq_int4', 'gptq_int4', 'smoothquant_w8a8'):
+            kept[name] = (qcfg, params)
+        del params
+    for name in ('awq_int4', 'gptq_int4'):
+        if not methods[name]['logits_snr'] < 1.0:
+            raise AssertionError(f'path M {name}: logits SNR '
+                                 f'{methods[name]["logits_snr"]}')
+    stage('quantizers')
+    w8a8_sums = _w8a8_sums(kept['smoothquant_w8a8'][1], cfg_a8, calib)
+    engines = {}
+    for name, (qcfg, params) in kept.items():
+        engines[name] = _llm_engine(name, qcfg, params)
+        log(f'[path M] engine {name}: {json.dumps(engines[name])}')
+        counts = engines[name]['launches']
+        if qcfg.act_bits == 8:
+            if counts.get('qmm_gateup', 0) or \
+                    counts.get('qmm_gateup_int4', 0) or \
+                    not counts.get('qmm_int8', 0):
+                raise AssertionError(f'path M {name}: W8A8 decode launched '
+                                     f'{counts}: row 8 only, no row 10')
+        elif not (counts.get('qmm_int4', 0) and
+                  counts.get('qmm_gateup_int4', 0)):
+            raise AssertionError(f'path M {name}: INT4 decode launched '
+                                 f'{counts}: rows 9 and 10 expected')
+    del kept
+    stage('engines')
+
+    # MoE at the same widths, 8 experts top-2, 2 layers
+    moe_cfg = LlamaConfig(**LLM_MOE)
+    t0 = time.perf_counter()
+    moe_params = init_llama_params(moe_cfg, seed=0)
+    torch.cuda.synchronize()
+    moe_build_s = time.perf_counter() - t0
+    moe = _llm_engine('moe', moe_cfg, moe_params)
+    if moe['norm_folded'] or moe['launches'].get('qmm_gateup', 0):
+        raise AssertionError(f'path M moe: {moe}')
+    moe['build_s'] = moe_build_s
+    launches = dict(LAUNCHES)
+    stage('moe')
+
+    # ---- comparisons: these launches are not the path's -----------------
+    moe['card_vs_cpu'] = _moe_card_vs_cpu(moe_params, moe_cfg, dev)
+    log(f'[path M] moe: {json.dumps(moe)}')
+    del moe_params
+    torch.cuda.empty_cache()
+    stage('moe_card_vs_cpu')
+    spec = _speculative(dev, fp, cfg)
+    log(f'[path M] speculative: {json.dumps(spec)}')
+    del fp
+    torch.cuda.empty_cache()
+    stage('speculative')
+    check = _card_vs_cpu(reference)
+    log(f'[path M] awq / gptq card vs cpu: {json.dumps(check)}')
+    stage('awq_gptq_card_vs_cpu')
+    summary = dict(model=LLM, stages_s=stages, float_build_s=build_s,
+                   quantizers=methods,
+                   w8a8_int32_sums=w8a8_sums, engines=engines, moe=moe,
+                   moe_model=LLM_MOE, speculative=spec,
+                   awq_gptq_card_vs_cpu=check)
+    log(f'[path M] {json.dumps(summary)}')
+    return launches, summary
+
+
+def main_llm() -> int:
+    """Path M alone: the LLM quantization path at full width."""
+    name, smi = phase_card()
+    import ppq_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+    dev = torch.device('cuda', 0)
+    torch.cuda.set_device(dev)
+    phase_build(['qmm', 'kv_write', 'paged_attention'])
+    reference = _CpuReference()
+    try:
+        launches, _ = phase_path_m(dev, reference)
+    finally:
+        reference.close()
+    log(f'[launches] path M {json.dumps(launches)}')
+    _check_path_kernels('M', launches)
+    log(smi)
+    log(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': name, 'count': torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == '--llm-cpu-reference':
+        return main_llm_cpu_reference(sys.argv[2])
     if len(sys.argv) > 1:
         import argparse
         ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -6219,6 +6955,10 @@ def main() -> int:
                           help="path L alone: bench.py's serving track "
                                "(planned loop, mixed, open-loop sweep, "
                                "B=32 decode points)")
+        mode.add_argument('--llm', action='store_true',
+                          help='path M alone: AWQ, GPTQ, SmoothQuant W8A8, '
+                               'MoE and speculative decoding at the 1B '
+                               "decoder's full width")
         mode.add_argument('--fp8-sample', action='store_true',
                           help="path C's and BERT-base's FP8 calibration "
                                "under DirectMSE's sample rules")
@@ -6241,6 +6981,8 @@ def main() -> int:
             return main_serving()
         if args.fp8_sample:
             return main_fp8_sample(args.package_root)
+        if args.llm:
+            return main_llm()
         return main_qmm(args.package_root)
     t_start = time.perf_counter()
     name, smi = phase_card()
@@ -6257,21 +6999,28 @@ def main() -> int:
     launches_k, _ = phase_path_k(dev)
     launches_b, _, lsq_graph, train_loader = phase_path_b(dev, kl_graph)
     launches_c, _, fp8_graph, _ = phase_path_c(dev)
-    launches_d, _, serve_params = phase_path_d(dev)
-    launches_e, _ = phase_path_e(dev, serve_params)
-    launches_g, _ = phase_path_g(dev, serve_params)
-    launches_f, _, int4_params = phase_path_f(dev)
-    launches_l, _ = phase_path_l(dev, serve_params, int4_params)
-    del serve_params, int4_params
+    # path M's CPU half runs beside the serving paths
+    reference = _CpuReference()
+    try:
+        launches_d, _, serve_params = phase_path_d(dev)
+        launches_e, _ = phase_path_e(dev, serve_params)
+        launches_g, _ = phase_path_g(dev, serve_params)
+        launches_f, _, int4_params = phase_path_f(dev)
+        launches_l, _ = phase_path_l(dev, serve_params, int4_params)
+        del serve_params, int4_params
+        torch.cuda.empty_cache()
+        launches_m, _ = phase_path_m(dev, reference)
+    finally:
+        reference.close()
     paths = dict(A=launches_a, H=launches_h, I=launches_i, J=launches_j,
                  K=launches_k, B=launches_b, C=launches_c,
                  D=launches_d, E=launches_e, F=launches_f, G=launches_g,
-                 L=launches_l)
+                 L=launches_l, M=launches_m)
     # each path's counts were set to 0 before it and read just after it
     launches = {k: sum(p[k] for p in paths.values()) for k in launches_a}
     for tag, counts in paths.items():
         log(f'[launches] path {tag} {json.dumps(counts)}')
-    for tag in ('D', 'E', 'F', 'G', 'L'):
+    for tag in ('D', 'E', 'F', 'G', 'L', 'M'):
         _check_path_kernels(tag, paths[tag])
     missing = [k for k in KERNELS if launches.get(k, 0) <= 0]
     if missing:

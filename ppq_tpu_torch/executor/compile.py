@@ -9,13 +9,17 @@ counterpart of `jax.jit` is a CUDA graph: the same walk over the ops
 copies them into the capture's static buffers and replays it: one graph
 launch for the whole forward. On the CPU the same walk runs uncaptured.
 
-Two modes are ported:
+Three modes:
   * inference:   build_forward() / make_runner(chain)  -> outputs
   * calibration: build_calibration_forward(spec)       -> (outputs, stats)
                  (the functional observer transform: min/max, quantiles,
                  abs-max and histograms computed on the device in the walk)
-The trainable forward of the JAX package (`build_trainable_forward`, LSQ
-through the compiled graph) is a later slice (ROADMAP.md).
+  * training:    build_trainable_forward()             -> outputs that
+                 carry the autograd graph back to params and qparams (the
+                 fake-quant sites are the autograd Functions of
+                 quantization/qfunction.py). It runs uncaptured: a caller
+                 captures a whole step (forward, loss, backward, optimizer)
+                 instead (quantization/optim/training.py `_CapturedStep`).
 
 What a capture freezes. A CUDA graph replays the kernels with the arguments
 they had at capture: a host number passed to a kernel (the histogram's scale,
@@ -1100,6 +1104,18 @@ class CompiledGraph:
             if call is None:
                 return self._walk(params, inputs)
             return [o.clone() for o in call(inputs)]
+        return fn
+
+    def build_trainable_forward(self) -> Callable:
+        """fn(params, qparams, inputs) -> [outputs], differentiable in
+        params and qparams (the LSQ scale and offset gradients of the
+        fake-quant sites' backward kernels). The walk runs as it is, with
+        autograd on; the outputs keep the storage dtype of the precision."""
+        def fn(params, qparams, inputs):
+            inputs = self._feed(inputs)
+            with torch.enable_grad(), simulation_precision(self.precision):
+                outs, _ = self._trace(params, qparams, inputs)
+            return outs
         return fn
 
     def build_calibration_forward(self, stat_kind='minmax',

@@ -19,11 +19,13 @@ redesign of ppq/executor/torch.py:76-682:
     trainable scales, reference torch.py:296,610).
   * `tracing_operation_meta` fills Variable.shape/dtype by running once.
   * `partial_graph_forward` runs a contiguous op span (blockwise finetune).
-  * `forward_with_gradient`, and `partial_graph_forward(with_gradient=True)`,
-    record the autograd graph: fake-quant sites are differentiable
-    (quantization/qfunction.py), and `parameters` replaces named parameters
-    by the caller's tensors, so that a pass can train leaf tensors of its
-    own while the IR keeps its values.
+  * `forward_with_gradient` records the autograd graph through the compiled
+    trainable forward (executor/compile.py), and
+    `partial_graph_forward(with_gradient=True)` through this walk:
+    fake-quant sites are differentiable (quantization/qfunction.py), and
+    `parameters` replaces named parameters by the caller's tensors, so that
+    a caller can train leaf tensors of its own while the IR keeps its
+    values.
 
 Eager per-op execution keeps data-dependent (SOI) ops trivially correct —
 they run host-side numpy. The whole-graph path, the same walk captured once
@@ -161,15 +163,26 @@ class TorchExecutor(BaseGraphExecutor):
 
     def forward_with_gradient(self, inputs,
                               output_names: Optional[List[str]] = None,
-                              parameters: Optional[Dict[str, torch.Tensor]] = None
-                              ) -> List:
-        """Differentiable forward (reference torch.py:412): the outputs carry
-        the autograd graph back to `parameters` ({parameter name: tensor},
-        used in place of the IR's values), to the scales and offsets that
-        registered delegates hold, and to inputs that require a gradient."""
-        with torch.enable_grad(), simulation_precision():
-            return self.__forward(inputs, output_names, hooks=None,
-                                  parameters=parameters)
+                              parameters: Optional[Dict[str, torch.Tensor]] = None,
+                              qparams: Optional[dict] = None) -> List:
+        """Differentiable forward (reference torch.py:412) through the
+        compiled trainable forward (executor/compile.py
+        `build_trainable_forward`), as the JAX package's is. The outputs
+        carry the autograd graph back to `parameters` ({parameter name:
+        tensor}, used in place of the IR's values), to `qparams` (the
+        layout of `CompiledGraph.init_qparams`; the TQCs' own values if
+        None) and to inputs that require a gradient. Registered delegates
+        are not consulted. A graph with data-dependent ops raises, as
+        CompiledGraph does."""
+        from .compile import CompiledGraph
+        cg = CompiledGraph(self.graph, output_names=output_names,
+                           device=self._device)
+        params = cg.init_params()
+        params.update(parameters or {})
+        if qparams is None:
+            qparams = cg.init_qparams()
+        return cg.build_trainable_forward()(params, qparams,
+                                            self._feed(inputs))
 
     def __forward(self, inputs, output_names=None,
                   hooks: Optional[Dict[str, RuntimeHook]] = None,

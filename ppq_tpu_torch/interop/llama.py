@@ -2,11 +2,13 @@
 as numpy arrays.
 
 The JAX package's tree (`embed`, `final_norm`, `lm_head`, `layers[i]` with
-`w_int` / `w_packed` / `scale` / `w` leaves, fused or not) maps leaf for
-leaf onto the port's dictionaries of tensors; a packed INT4 leaf crosses as
-its int8 bytes. numpy has no bfloat16: bf16 leaves (`embed`,
-`w`, a 16-bit cache's `k` / `v`) cross as float32, which holds every bf16
-value exactly, and are rounded back on arrival.
+`w_int` / `w_packed` / `scale` / `w` leaves, fused or not, and a MoE
+layer's `moe` dict: the `router` and the stacked expert `w_int` / `scale`
+or `w`) maps leaf for leaf onto the port's dictionaries of tensors; a
+packed INT4 leaf crosses as its int8 bytes, and a Python number (an
+unpopped `top_k` / `n_experts`) stays a number. numpy has no bfloat16:
+bf16 leaves (`embed`, `w`, a 16-bit cache's `k` / `v`) cross as float32,
+which holds every bf16 value exactly, and are rounded back on arrival.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ def _walk(tree, leaf, key=None):
         return {k: _walk(v, leaf, k) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_walk(v, leaf, key) for v in tree]
+    if isinstance(tree, (bool, int, float)):
+        return tree
     return leaf(key, tree)
 
 

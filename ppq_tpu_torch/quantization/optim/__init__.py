@@ -21,9 +21,9 @@ from .ssd import SSDEqualizationPass
 from .vendor import (MetaxGemmSplitPass, NxpInputRoundingRefinePass,
                      NxpQuantizeFusionPass, PPLCudaAddConvReluMerge,
                      PPLDSPTIReCalibrationPass)
-from .training import (AdaroundPass, BiasCorrectionPass, BlockRuntime,
+from .training import (AdaroundPass, BiasCorrectionPass,
                        LearnedStepSizePass, RoundTuningPass,
-                       TrainableQuantDelegator, TrainingBasedPass)
+                       TrainingBasedPass)
 
 __all__ = [
     'QuantizationOptimizationPass', 'QuantizationOptimizationPipeline',
@@ -41,5 +41,5 @@ __all__ = [
     'TrainingBasedPass', 'LearningToCalibPass', 'MatrixFactorizationPass',
     'MetaxGemmSplitPass', 'NxpInputRoundingRefinePass',
     'NxpQuantizeFusionPass', 'PPLCudaAddConvReluMerge',
-    'PPLDSPTIReCalibrationPass', 'BlockRuntime', 'TrainableQuantDelegator',
+    'PPLDSPTIReCalibrationPass',
 ]

@@ -2,14 +2,17 @@
 (port of ppq_tpu/quantization/optim/training.py, itself a redesign of
 ppq/quantization/optim/training.py + legacy.py).
 
-All finetuning is blockwise (BlockBuilder). A block runs through the
-executor's `partial_graph_forward` with the autograd graph recorded: the
-fake-quant sites are `torch.autograd.Function`s over the hand-written forward
-and backward kernels (quantization/qfunction.py), trainable scales and
-offsets are `nn.Parameter`s held by one `TrainableQuantDelegator` per root
-TQC, weights are leaf tensors handed to the executor as parameter overrides,
-and the optimizer is `torch.optim.Adam`. The IR keeps its values until a
-block's result is accepted.
+All finetuning is blockwise (BlockBuilder). A block is compiled as an op
+span (`CompiledGraph(graph, op_span=block.rps, ...)`) and trained through
+its `build_trainable_forward()`, as the JAX package does: the fake-quant
+sites are `torch.autograd.Function`s over the hand-written forward and
+backward kernels (quantization/qfunction.py), weights and the roots' scales
+and offsets are leaf tensors of the pass's own, and the optimizer is
+`torch.optim.Adam`. The JAX package jits the whole step (forward, loss,
+gradient, Adam); here the step is a `_CapturedStep`: on the card the
+block's first step runs as it is and every later one is one replay of a
+CUDA graph that holds forward, loss, backward and Adam. The IR keeps its
+values until a block's result is accepted.
 
 Protocol per block (reference training.py:569-864):
   1. cache the fp32 reference outputs of ALL blocks over the calibration
@@ -24,19 +27,19 @@ Protocol per block (reference training.py:569-864):
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from types import SimpleNamespace
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ...core import COMPUTING_OP, QuantizationStates, ppq_info
-from ...executor.executor import QuantizeDelegator
+from ...executor.compile import CompiledGraph
 from ...executor.ops.default import simulation_precision
 from ...ir import (BaseGraph, QuantableOperation, dequantize_graph,
-                   restore_graph_quantization, soi_input_indices)
+                   restore_graph_quantization)
+from ...kernels.loader import LAUNCHES
 from ..algorithm.blocks import BlockBuilder, TrainableBlock
-from ..qfunction import (dynamic_linear_fake_quant, floating_fake_quant,
-                         linear_fake_quant)
 from .base import QuantizationOptimizationPass
 
 Cache = List[Dict[str, torch.Tensor]]
@@ -106,138 +109,120 @@ def _sync_fp32_shadow(graph: BaseGraph, var_name: str, value: np.ndarray):
             dest._fp32_params[var_name] = np.array(var.value, copy=True)
 
 
-def _is_trainable_cfg(cfg) -> bool:
-    root = cfg.dominated_by
-    return root.state in {QuantizationStates.ACTIVATED,
-                          QuantizationStates.PASSIVE} and root.has_scale
+def _shape_key(feed: Dict[str, torch.Tensor]):
+    return tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(feed.items()))
 
 
-class TrainableQuantDelegator(torch.nn.Module, QuantizeDelegator):
-    """The scale and offset of one root TQC as `nn.Parameter`s, applied at
-    every quant site that resolves to that root (executor/compile.py
-    `init_qparams` / `_apply_quant` in the JAX package). Under training the
-    offset of a symmetric TQC is a parameter too, and a floating TQC is
-    tensorwise."""
+class _CapturedStep:
+    """One block's step, the counterpart of the JAX package's jitted step:
+    `body(feed)` on a dict of tensors (a whole optimisation step, or one
+    evaluation of the block), returning None or a list of tensors.
 
-    def __init__(self, root, device, trainable: bool):
-        super().__init__()
-        self.root = root
-        self.scale = torch.nn.Parameter(
-            torch.as_tensor(np.asarray(root.scale, np.float32),
-                            device=device).clone(), requires_grad=trainable)
-        self.offset = torch.nn.Parameter(
-            torch.as_tensor(np.asarray(root.offset, np.float32),
-                            device=device).clone(), requires_grad=trainable)
+    On the card, the first call for each set of input shapes runs the body
+    as it is, on a side stream: that is a real step (its result counts), and
+    it loads the kernels, makes the optimizer's state and sizes the
+    workspaces, none of which a capture may do. Then the body is captured
+    into a CUDA graph on static copies of the inputs; capturing runs
+    nothing. Every later call copies its inputs into the static buffers and
+    replays the graph, which adds `launches_per_replay` to `LAUNCHES`. A
+    replay never waits on the host. With `capture=False`, and on the CPU,
+    every call runs the body as it is."""
 
-    def forward(self, tensor, config):
-        if not isinstance(tensor, torch.Tensor) or \
-                not tensor.is_floating_point() or not config.is_active:
-            return tensor
-        tensor = tensor.contiguous()
-        axis = config.channel_axis if config.policy.per_channel else None
-        if config.policy.dynamic:
-            return dynamic_linear_fake_quant(
-                tensor, config.quant_min, config.quant_max,
-                symmetric=config.policy.symmetric, rounding=config.rounding,
-                channel_axis=axis)
-        if config.policy.floating:
-            return floating_fake_quant(
-                tensor, self.scale, config.exponent_bits,
-                config.num_of_bits - 1 - config.exponent_bits,
-                config.quant_min, config.quant_max)
-        return linear_fake_quant(
-            tensor, self.scale, self.offset, config.quant_min,
-            config.quant_max, config.rounding, axis)
+    def __init__(self, body: Callable, device: torch.device,
+                 capture: bool = True):
+        self.body = body
+        self.capture = bool(capture) and torch.device(device).type == 'cuda'
+        self.graphs: Dict[tuple, tuple] = {}
+        self.launches_per_replay: Dict[str, int] = {}
+        self.replays = 0
 
-    def write_back(self):
-        """Push the trained scale and offset onto the root TQC."""
-        self.root.scale = self.scale.detach().cpu().numpy()
-        self.root.offset = self.offset.detach().cpu().numpy()
+    def __call__(self, feed: Dict[str, torch.Tensor]):
+        if not self.capture:
+            return self.body(feed)
+        key = _shape_key(feed)
+        entry = self.graphs.get(key)
+        if entry is None:
+            return self._first(key, feed)
+        graph, static_in, static_out, launches = entry
+        for k, v in feed.items():
+            static_in[k].copy_(v)
+        graph.replay()
+        self.replays += 1
+        for k, v in launches.items():
+            LAUNCHES[k] += v
+        return _cloned(static_out)
 
-
-class BlockRuntime:
-    """One block, ready to run and to train on an executor: the block's
-    float parameters as tensors on the executor's device, and one
-    TrainableQuantDelegator per root TQC, registered for every quant site of
-    the block that resolves to it. Use as a context manager; the delegates
-    are removed on exit."""
-
-    def __init__(self, executor, block: TrainableBlock,
-                 output_names: Optional[List[str]] = None,
-                 scales_trainable: bool = False):
-        self.executor = executor
-        self.block = block
-        self.output_names = list(output_names or block.output_names)
-        self.device = executor.device
-        self.delegators: Dict[object, TrainableQuantDelegator] = {}
-        self._registered = []
-        for op in block.rps:
-            if not isinstance(op, QuantableOperation):
-                continue
-            for cfg in op.config:
-                root = cfg.dominated_by
-                if not _is_trainable_cfg(root):
-                    continue
-                if root not in self.delegators:
-                    self.delegators[root] = TrainableQuantDelegator(
-                        root, self.device, scales_trainable)
-                executor.register_quantize_delegate(cfg, self.delegators[root])
-                self._registered.append(cfg)
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        for cfg in self._registered:
-            self.executor.remove_quantize_delegate(cfg)
-        self._registered = []
-
-    def parameters(self) -> Dict[str, torch.Tensor]:
-        """The block's float parameters, copied to the device (parameters at
-        shape and index slots stay with the IR)."""
-        soi_vars = set()
-        for op in self.block.rps:
-            for idx in soi_input_indices(op):
-                if idx < len(op.inputs):
-                    soi_vars.add(op.inputs[idx].name)
-        out = {}
-        for op in self.block.rps:
-            for var in op.inputs:
-                if not var.is_parameter or not var.has_value or \
-                        var.name in soi_vars or var.name in out:
-                    continue
-                value = np.asarray(var.value)
-                if np.issubdtype(value.dtype, np.floating):
-                    out[var.name] = torch.tensor(
-                        value.astype(np.float32, copy=False),
-                        device=self.device)
+    def _first(self, key, feed):
+        device = next(iter(feed.values())).device
+        main = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = self.body(feed)
+        main.wait_stream(side)
+        for t in out or []:
+            t.record_stream(main)
+        static_in = {k: v.detach().clone() for k, v in feed.items()}
+        graph = torch.cuda.CUDAGraph()
+        before = dict(LAUNCHES)
+        with torch.cuda.graph(graph):
+            static_out = self.body(static_in)
+        launches = {k: LAUNCHES[k] - before.get(k, 0) for k in LAUNCHES
+                    if LAUNCHES[k] != before.get(k, 0)}
+        LAUNCHES.update(before)            # the capture ran nothing
+        self.launches_per_replay = launches
+        self.graphs[key] = (graph, static_in, static_out, launches)
         return out
 
-    def qparams(self) -> List[torch.nn.Parameter]:
-        return [p for d in self.delegators.values() for p in (d.scale, d.offset)]
 
-    def run(self, params: Dict[str, torch.Tensor],
-            feed: Dict[str, torch.Tensor],
-            with_gradient: bool = False) -> List[torch.Tensor]:
-        return self.executor.partial_graph_forward(
-            self.block.rps, {n: feed[n] for n in self.block.input_names},
-            self.output_names, with_gradient=with_gradient, parameters=params)
+def _cloned(out):
+    return None if out is None else [t.clone() for t in out]
 
-    def loss(self, outs, targets: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Sum over the block's outputs of the mean squared error."""
-        total = 0.0
-        for name, out in zip(self.output_names, outs):
-            if name in self.block.output_names:
-                total = total + torch.mean((out - targets[name]) ** 2)
-        return total
 
-    def write_back_qparams(self):
-        for delegator in self.delegators.values():
-            delegator.write_back()
+def _mse(outs, targets: Dict[str, torch.Tensor], names) -> torch.Tensor:
+    """Sum over the named outputs of the mean squared error."""
+    total = 0.0
+    for name, out in zip(names, outs):
+        if name in targets:
+            total = total + torch.mean((out - targets[name]) ** 2)
+    return total
+
+
+def _block_graph(graph: BaseGraph, block: TrainableBlock, device,
+                 output_names: Optional[List[str]] = None):
+    """The block as a compiled op span and its trainable forward. Raises,
+    as CompiledGraph does, for a block with data-dependent ops."""
+    cg = CompiledGraph(graph, op_span=block.rps,
+                       input_names=block.input_names,
+                       output_names=list(output_names or block.output_names),
+                       device=device)
+    return cg, cg.build_trainable_forward()
+
+
+def _leaves(tree: Dict[str, torch.Tensor], trainable: bool):
+    """Private copies of init_params / init_qparams tensors (on the CPU
+    they may share memory with the IR's arrays), optionally trainable."""
+    def leaf(v):
+        return v.detach().clone().requires_grad_(trainable)
+    return {k: ({kk: leaf(vv) for kk, vv in v.items()}
+                if isinstance(v, dict) else leaf(v))
+            for k, v in tree.items()}
+
+
+def _qparam_tensors(qparams) -> List[torch.Tensor]:
+    return [t for pair in qparams.values() for t in pair.values()]
 
 
 class TrainingBasedPass(QuantizationOptimizationPass):
     """Shared machinery (reference optim/training.py:18)."""
+
+    # on the card every step after a block's first is a CUDA-graph replay;
+    # an instance set to False runs every step as it is (the same
+    # arithmetic)
+    capture = True
+    # an instance set to True keeps each block's trained tensors and
+    # optimizer state (on the host) in its history entry
+    keep_state = False
 
     def __init__(self, name: str, block_size: int = 4, steps: int = 500,
                  lr: float = 1e-4, calib_steps: int = 8):
@@ -250,10 +235,17 @@ class TrainingBasedPass(QuantizationOptimizationPass):
         # was decided
         self.history: List[dict] = []
 
-    def _record(self, what: str, block, pre_loss: float, post_loss: float):
+    def _record(self, what: str, block, pre_loss: float, post_loss: float,
+                step: Optional[_CapturedStep] = None, state=None):
         accepted = post_loss < pre_loss
-        self.history.append(dict(block=repr(block), pre_loss=pre_loss,
-                                 post_loss=post_loss, accepted=accepted))
+        entry = dict(block=repr(block), pre_loss=pre_loss,
+                     post_loss=post_loss, accepted=accepted)
+        if step is not None:
+            entry.update(replays=step.replays,
+                         launches_per_replay=dict(step.launches_per_replay))
+        if state is not None and self.keep_state:
+            entry['state'] = state()
+        self.history.append(entry)
         ppq_info(f'{what} {block}: loss {pre_loss:.3e} → {post_loss:.3e} '
                  f'({"accepted" if accepted else "rolled back"})')
         return accepted
@@ -306,12 +298,32 @@ class TrainingBasedPass(QuantizationOptimizationPass):
             tune(graph, executor, block, inputs, targets)
 
     @staticmethod
-    def block_loss(runtime: BlockRuntime, params, qt_cache: Cache,
-                   fp_cache: Cache) -> float:
-        total = torch.zeros((), device=runtime.device)
-        for qt, fp in zip(qt_cache, fp_cache):
-            total = total + runtime.loss(runtime.run(params, qt), fp)
+    def block_loss(fwd, params, qparams, block: TrainableBlock,
+                   qt_cache: Cache, fp_cache: Cache) -> float:
+        """The block's loss over the caches through its compiled forward
+        `fwd`: one read from the device."""
+        total = 0.0
+        with torch.no_grad():
+            for qt, fp in zip(qt_cache, fp_cache):
+                outs = fwd(params, qparams,
+                           {n: qt[n] for n in block.input_names})
+                total = total + _mse(outs, fp, block.output_names)
         return float(total) / max(len(qt_cache), 1)
+
+    @staticmethod
+    def _feed(block: TrainableBlock, qt, fp) -> Dict[str, torch.Tensor]:
+        """A step's inputs: the block's cached inputs and fp32 targets."""
+        feed = {'in:' + n: qt[n] for n in block.input_names}
+        feed.update({'out:' + n: fp[n] for n in block.output_names})
+        return feed
+
+    @staticmethod
+    def _adam(tensors, lr: float, device) -> torch.optim.Adam:
+        """optax.adam's defaults; on the card the capturable form (its step
+        count lives on the device), uncaptured steps included, so that a
+        captured and an uncaptured run do the same arithmetic."""
+        return torch.optim.Adam(tensors, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                capturable=torch.device(device).type == 'cuda')
 
 
 def _require(executor, dataloader, what: str):
@@ -320,6 +332,18 @@ def _require(executor, dataloader, what: str):
     if executor is None:
         raise ValueError(f'{what} requires an executor: it trains on the '
                          f"executor's device")
+
+
+def _host_state(params, qparams, opt) -> dict:
+    """Trained tensors and Adam's state, copied to the host."""
+    return {
+        'params': {k: v.detach().cpu() for k, v in params.items()},
+        'qparams': {k: {kk: vv.detach().cpu() for kk, vv in v.items()}
+                    for k, v in qparams.items()},
+        'adam': {i: {k: v.detach().cpu() for k, v in st.items()}
+                 for i, st in opt.state_dict()['state'].items()}
+        if opt is not None else {},
+    }
 
 
 class LearnedStepSizePass(TrainingBasedPass):
@@ -346,38 +370,60 @@ class LearnedStepSizePass(TrainingBasedPass):
             self._tune_blockwise(graph, blocks, dataloader, collate_fn,
                                  executor, self._finetune_block)
 
+    def block_trainer(self, graph, block, device,
+                      capture: Optional[bool] = None):
+        """One block's trainer: its compiled forward, its initial and its
+        trainable params and qparams, Adam, and `step(feed)` (a
+        `_CapturedStep`; `feed` from `_feed`). None when the block has
+        nothing to train. capture: the pass's own setting unless given."""
+        cg, fwd = _block_graph(graph, block, device)
+        params0 = cg.init_params()
+        qparams0 = cg.init_qparams()
+        if not params0 and not qparams0:
+            return None
+        params = _leaves(params0, True)
+        qparams = _leaves(qparams0, self.is_scale_trainable)
+        trainable = list(params.values())
+        if self.is_scale_trainable:
+            trainable += _qparam_tensors(qparams)
+        opt = self._adam(trainable, self.lr, device) if trainable else None
+
+        def body(feed):
+            opt.zero_grad(set_to_none=True)
+            outs = fwd(params, qparams,
+                       {n: feed['in:' + n] for n in block.input_names})
+            loss = _mse(outs, {n: feed['out:' + n]
+                               for n in block.output_names},
+                        block.output_names)
+            with simulation_precision():    # no TF32 in the backward
+                loss.backward()
+            opt.step()
+
+        return SimpleNamespace(
+            cg=cg, fwd=fwd, params0=params0, qparams0=qparams0,
+            params=params, qparams=qparams, opt=opt,
+            step=_CapturedStep(body, device, self.capture if capture is None
+                               else capture))
+
     def _finetune_block(self, graph, executor, block, qt_cache, fp_cache):
-        with BlockRuntime(executor, block,
-                          scales_trainable=self.is_scale_trainable) as runtime:
-            params = runtime.parameters()
-            if not params and not runtime.delegators:
-                return
-            pre_loss = self.block_loss(runtime, params, qt_cache, fp_cache)
-            for value in params.values():
-                value.requires_grad_(True)
-            trainable = list(params.values())
+        t = self.block_trainer(graph, block, executor.device)
+        if t is None:
+            return
+        pre_loss = self.block_loss(t.fwd, t.params0, t.qparams0, block,
+                                   qt_cache, fp_cache)
+        n_cache = len(qt_cache)
+        for it in range(self.steps if t.opt is not None else 0):
+            t.step(self._feed(block, qt_cache[it % n_cache],
+                              fp_cache[it % n_cache]))
+        post_loss = self.block_loss(t.fwd, t.params, t.qparams, block,
+                                    qt_cache, fp_cache)
+        # accept (reference check, training.py:115)
+        if self._record('LSQ', block, pre_loss, post_loss, t.step,
+                        lambda: _host_state(t.params, t.qparams, t.opt)):
+            for name, value in t.params.items():
+                _sync_fp32_shadow(graph, name, value.detach().cpu().numpy())
             if self.is_scale_trainable:
-                trainable += runtime.qparams()
-            opt = torch.optim.Adam(trainable, lr=self.lr, betas=(0.9, 0.999),
-                                   eps=1e-8)
-            n_cache = len(qt_cache)
-            for it in range(self.steps):
-                qt, fp = qt_cache[it % n_cache], fp_cache[it % n_cache]
-                opt.zero_grad(set_to_none=True)
-                loss = runtime.loss(
-                    runtime.run(params, qt, with_gradient=True), fp)
-                with simulation_precision():    # no TF32 in the backward
-                    loss.backward()
-                opt.step()
-            for value in params.values():
-                value.requires_grad_(False)
-            post_loss = self.block_loss(runtime, params, qt_cache, fp_cache)
-            # accept (reference check, training.py:115)
-            if self._record('LSQ', block, pre_loss, post_loss):
-                for name, value in params.items():
-                    _sync_fp32_shadow(graph, name, value.cpu().numpy())
-                if self.is_scale_trainable:
-                    runtime.write_back_qparams()
+                t.cg.write_back_qparams(t.qparams)
 
 
 class BiasCorrectionPass(TrainingBasedPass):
@@ -390,7 +436,8 @@ class BiasCorrectionPass(TrainingBasedPass):
     downstream op's correction re-absorbs upstream error that upstream
     corrections already fixed). Corrections are kept only if the
     block's MSE against the fp32 reference improves (reference
-    check/rollback, training.py:521-526)."""
+    check/rollback, training.py:521-526). Each evaluation of the block over
+    the cache is one `_CapturedStep` a batch."""
 
     def __init__(self, block_size: int = 4, steps: int = 32,
                  calib_steps: Optional[int] = None):
@@ -423,6 +470,15 @@ class BiasCorrectionPass(TrainingBasedPass):
         dims = [i for i in range(v.ndim) if i != axis]
         return v.to(torch.float64).mean(dim=dims)
 
+    def _evaluate(self, fwd, params, qparams, block, qt_cache, device):
+        """The block's outputs on every cached batch."""
+        def body(feed):
+            with torch.no_grad():
+                return fwd(params, qparams, feed)
+        step = _CapturedStep(body, device, self.capture)
+        return [step({n: qt[n] for n in block.input_names})
+                for qt in qt_cache]
+
     def _correct_block(self, graph, executor, block, qt_cache, fp_cache):
         targets = [op for op in block.rps
                    if isinstance(op, QuantableOperation)
@@ -431,24 +487,33 @@ class BiasCorrectionPass(TrainingBasedPass):
                    and op.inputs[-1].is_parameter]
         if not targets:
             return
+        device = executor.device
         t_outs = [op.outputs[0].name for op in targets]
         names = list(dict.fromkeys(list(block.output_names) + t_outs))
-        with BlockRuntime(executor, block, output_names=names) as runtime:
-            params = runtime.parameters()
-            qt_vals = [runtime.run(params, qt) for qt in qt_cache]
+        cg, fwd = _block_graph(graph, block, device, names)
+        params0 = cg.init_params()
+        qparams0 = cg.init_qparams()
         # the fp term: the same block, on the same inputs, dequantized
         for op in block.rps:
             if isinstance(op, QuantableOperation):
                 op.dequantize(parameter_only=False)
         try:
-            fp_vals = [executor.partial_graph_forward(
-                block.rps, {n: qt[n] for n in block.input_names}, names)
-                for qt in qt_cache]
+            cg_f, fwd_f = _block_graph(graph, block, device, names)
+            fp_vals = self._evaluate(fwd_f, cg_f.init_params(), {}, block,
+                                     qt_cache, device)
         finally:
             for op in block.rps:
                 if isinstance(op, QuantableOperation):
                     op.restore_quantize_state()
+        qt_vals = self._evaluate(fwd, params0, qparams0, block, qt_cache,
+                                 device)
 
+        def loss_of(vals) -> float:
+            total = sum(_mse(outs, fp, names)
+                        for outs, fp in zip(vals, fp_cache))
+            return float(total) / max(len(vals), 1)
+
+        pre_loss = loss_of(qt_vals)
         corrections = {}
         for op in targets:
             idx = names.index(op.outputs[0].name)
@@ -457,18 +522,17 @@ class BiasCorrectionPass(TrainingBasedPass):
                     for f, q in zip(fp_vals, qt_vals)]
             corrections[op.inputs[-1].name] = torch.stack(errs).mean(dim=0)
 
-        with BlockRuntime(executor, block, output_names=names) as runtime:
-            pre_loss = float(sum(runtime.loss(outs, fp) for outs, fp in
-                                 zip(qt_vals, fp_cache))) / max(len(qt_vals), 1)
-            params_new = dict(params)
-            for bname, err in corrections.items():
-                if bname in params_new:
-                    params_new[bname] = params_new[bname] + \
-                        err.to(params_new[bname].dtype)
-            post_loss = self.block_loss(runtime, params_new, qt_cache,
-                                        fp_cache)
+        params_new = dict(params0)
+        for bname, err in corrections.items():
+            if bname in params_new:
+                params_new[bname] = params_new[bname] + \
+                    err.to(params_new[bname].dtype)
+        post_loss = loss_of(self._evaluate(fwd, params_new, qparams0, block,
+                                           qt_cache, device))
         # accept (reference training.py:521)
-        if self._record('BiasCorrection', block, pre_loss, post_loss):
+        if self._record('BiasCorrection', block, pre_loss, post_loss,
+                        state=lambda: {'corrections': {
+                            k: v.cpu() for k, v in corrections.items()}}):
             for bname, err in corrections.items():
                 var = graph.variables[bname]
                 _sync_fp32_shadow(
@@ -569,12 +633,13 @@ class AdaroundPass(TrainingBasedPass):
             out[name] = q * wi['s']
         return out
 
-    def _objective(self, runtime, params0, winfo, qt, fp, beta):
+    def _objective(self, fwd, params0, qparams0, winfo, block, qt, fp, beta):
         """Block MSE with soft-rounded weights plus the regularizer that
-        pushes every h(v) to 0 or 1."""
-        loss = runtime.loss(
-            runtime.run(self._soft_weights(params0, winfo), qt,
-                        with_gradient=True), fp)
+        pushes every h(v) to 0 or 1. beta: a float32 tensor (a capture
+        reads it from the device)."""
+        outs = fwd(self._soft_weights(params0, winfo), qparams0,
+                   {n: qt[n] for n in block.input_names})
+        loss = _mse(outs, fp, block.output_names)
         reg = 0.0
         for wi in winfo.values():
             h = self._h(wi['v'])
@@ -585,24 +650,44 @@ class AdaroundPass(TrainingBasedPass):
         targets = self._weight_targets(block)
         if not targets:
             return
-        winfo, saved_states = self._soft_round_setup(targets, executor.device)
+        device = executor.device
+        winfo, saved_states = self._soft_round_setup(targets, device)
         try:
-            with BlockRuntime(executor, block) as runtime:
-                params0 = runtime.parameters()
-                opt = torch.optim.Adam([wi['v'] for wi in winfo.values()],
-                                       lr=self.lr, betas=(0.9, 0.999),
-                                       eps=1e-8)
-                n_cache = len(qt_cache)
-                b_hi, b_lo = self.beta_anneal
-                for it in range(self.steps):
-                    beta = b_hi + (b_lo - b_hi) * (it / max(self.steps - 1, 1))
-                    qt, fp = qt_cache[it % n_cache], fp_cache[it % n_cache]
-                    opt.zero_grad(set_to_none=True)
-                    total = self._objective(runtime, params0, winfo, qt, fp,
-                                            beta)
-                    with simulation_precision():    # no TF32 in the backward
-                        total.backward()
-                    opt.step()
+            cg, fwd = _block_graph(graph, block, device)
+            params0 = cg.init_params()
+            qparams0 = cg.init_qparams()
+            vs = [wi['v'] for wi in winfo.values()]
+            opt = self._adam(vs, self.lr, device)
+
+            def body(feed):
+                opt.zero_grad(set_to_none=True)
+                total = self._objective(
+                    fwd, params0, qparams0, winfo, block,
+                    {n: feed['in:' + n] for n in block.input_names},
+                    {n: feed['out:' + n] for n in block.output_names},
+                    feed['beta'])
+                with simulation_precision():    # no TF32 in the backward
+                    total.backward()
+                opt.step()
+
+            step = _CapturedStep(body, device, self.capture)
+            n_cache = len(qt_cache)
+            b_hi, b_lo = self.beta_anneal
+            betas = torch.tensor(
+                [b_hi + (b_lo - b_hi) * (it / max(self.steps - 1, 1))
+                 for it in range(self.steps)], dtype=torch.float32,
+                device=device)
+            for it in range(self.steps):
+                feed = self._feed(block, qt_cache[it % n_cache],
+                                  fp_cache[it % n_cache])
+                feed['beta'] = betas[it]
+                step(feed)
+            self.history.append(dict(
+                block=repr(block), replays=step.replays,
+                launches_per_replay=dict(step.launches_per_replay)))
+            if self.keep_state:
+                self.history[-1]['state'] = _host_state(
+                    {n: wi['v'] for n, wi in winfo.items()}, {}, opt)
 
             # finalize: hard rounding decision written into the weight
             for op, idx in targets:

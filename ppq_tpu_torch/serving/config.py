@@ -9,13 +9,13 @@ from typing import Optional
 @dataclass
 class LlamaConfig:
     """Llama-class decoder architecture + quantization + serving knobs:
-    quantized inference with INT8 or INT4 weights and an INT8 KV cache on
-    one card.
+    quantized inference with INT8 or INT4 weights (W8A8 prefill with
+    act_bits=8), dense or MoE FFNs and an INT8 KV cache on one card.
 
     The fields are those of the JAX package's `LlamaConfig`; its switch
-    `use_pallas_matmul` is `use_kernel_matmul` here. Values whose code path
-    is not ported yet are kept and raise `NotImplementedError` at engine
-    build (see `unported`).
+    `use_pallas_matmul` is `use_kernel_matmul` here, and `batch_invariant`
+    is the port's own. Every field's path is ported; a mesh (ROADMAP item
+    15) raises at engine build.
     """
 
     vocab_size: int = 32000
@@ -68,6 +68,14 @@ class LlamaConfig:
     kv_pool_blocks: Optional[int] = None
     kv_block_size: int = 256
 
+    # `model.forward` (prefill windows and single steps over the dense
+    # cache) computes each token's row as it would alone: its attention
+    # products and norms sum in float64, exact for bf16 operands, so a
+    # window of T tokens gives the logits of T single steps bit for bit.
+    # Greedy speculative decoding's exactness rests on it (speculative.py
+    # sets it for its decoders); the matmul kernels are per-row already.
+    batch_invariant: bool = False
+
     # longest single decode burst
     max_decode_burst: int = 128
     # in-burst banked-buffer chunk length (None = one chunk): the current
@@ -90,16 +98,3 @@ class LlamaConfig:
         return cls(vocab_size=256, d_model=128, n_layers=2, n_heads=4,
                    n_kv_heads=2, d_ff=256, max_seq_len=128, max_batch=4,
                    prefill_buckets=(16, 64))
-
-    def unported(self) -> Optional[str]:
-        """The first setting of this configuration whose code path the port
-        does not have yet, with the ROADMAP item that will bring it, or
-        None. Callers raise NotImplementedError with it: nothing falls back
-        silently."""
-        if self.act_bits == 8:
-            return ('act_bits=8 (the W8A8 prefill branch of qmatmul: '
-                    'ROADMAP item 11)')
-        if self.n_experts > 0:
-            return ('n_experts>0 (the moe branches and serving/moe.py: '
-                    'ROADMAP items 11 and 14)')
-        return None

@@ -31,9 +31,12 @@ The single-device part of the JAX package's `ppq_tpu/serving/engine.py`.
     the burst shapes a run will meet before it is timed;
     `benchmark_serving*` are the JAX package's serving benchmarks.
 
-Not ported yet (each raises NotImplementedError, see LlamaConfig.unported
-and ROADMAP.md): meshes and every tp/pp/sp/dp branch, W8A8 prefill and MoE
-layers.
+  * cfg.act_bits == 8 runs every prefill product W8A8 (serving/model.py
+    `qmatmul`); MoE layers (serving/moe.py) run in prefill and in the
+    captured bursts like every other layer.
+
+Not ported yet (raises NotImplementedError, ROADMAP.md item 15): meshes and
+every tp/pp/sp/dp branch.
 """
 
 from __future__ import annotations
@@ -173,12 +176,6 @@ class ServingEngine:
             cfg.use_ragged_attention = (
                 on_card and cfg.head_dim % 128 == 0
                 and cfg.max_seq_len % 128 == 0)
-        missing = cfg.unported()
-        if missing is not None:
-            raise NotImplementedError(missing)
-        if any('moe' in layer for layer in params['layers']):
-            raise NotImplementedError(
-                'MoE layers (serving/moe.py: ROADMAP items 11 and 14)')
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(self.sampling.seed)
         params = _to_device(params, self.device)

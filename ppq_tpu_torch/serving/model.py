@@ -1,5 +1,5 @@
 """Llama-class decoder: plain functions on tensors, with quantized weights
-and an INT8 KV cache. The dense part of the JAX package's
+and an INT8 KV cache. The single-device part of the JAX package's
 `ppq_tpu/serving/model.py`, function for function.
 
   * weights live as INT8 integers (or INT4 nibbles packed split-half,
@@ -19,6 +19,13 @@ and an INT8 KV cache. The dense part of the JAX package's
     write, scales applied to the logits / probabilities on read.
   * activations run bf16; matrix products round their operands to bf16 and
     accumulate and return f32; attention logits and softmax stay f32.
+  * W8A8 (cfg.act_bits == 8): a product over more than one token per row
+    block (prefill) quantizes its activations per token to int8 and sums
+    int8 x int8 in int32 (`torch._int_mm` on the card, an exact integer
+    product on the CPU), then applies both scales; decode keeps the
+    weight-only kernels, as in the JAX package.
+  * MoE layers (`layer['moe']`, serving/moe.py) replace the SwiGLU FFN by
+    the dense top-k expert mixture.
   * the cache and the burst buffers are updated IN PLACE (the JAX functions
     return new arrays and donate the old ones); a Python loop stands where
     `lax.scan` stood.
@@ -39,10 +46,11 @@ from ..kernels import paged_attention as _pa
 from ..kernels import qmm as _qmm
 from ..kernels import window_write as _window
 from .config import LlamaConfig
+from .moe import init_moe_params, moe_ffn
 
 Params = Dict[str, Any]
 
-BF16, F32 = torch.bfloat16, torch.float32
+BF16, F32, F64 = torch.bfloat16, torch.float32, torch.float64
 
 
 # ============================================================ weight quant ==
@@ -66,18 +74,45 @@ def _mse_weight_scale(w: np.ndarray, qmax: int, n_grid: int = 32,
     return best_s
 
 
+def _mse_weight_scale_tensor(w: torch.Tensor, qmax: int, n_grid: int = 32,
+                             shrink: float = 0.5) -> torch.Tensor:
+    """`_mse_weight_scale` on the device: the same float32 arithmetic, but
+    each channel's mean error sums in the device's order, so a channel whose
+    errors at two shrink factors lie within rounding of each other may take
+    the other one (recorded difference 44)."""
+    dev = w.device
+    qm = torch.tensor(float(qmax), dtype=F32, device=dev)
+    absmax = w.abs().amax(dim=0).clamp_min(1e-8)                # (out,)
+    best_s = absmax / qm
+    best_err = torch.full_like(best_s, float('inf'))
+    for g in range(n_grid):
+        f = 1.0 - shrink * g / n_grid                       # 1.0 -> 0.5+
+        s = absmax * f / qm
+        q = torch.clamp(torch.round(w / s), -qmax - 1, qmax)
+        err = torch.mean((q * s - w) ** 2, dim=0)
+        take = err < best_err
+        best_err = torch.where(take, err, best_err)
+        best_s = torch.where(take, s, best_s)
+    return best_s
+
+
 def quantize_weight(w, bits: int, method: str = 'minmax',
                     device=None) -> Dict[str, torch.Tensor]:
     """Per-output-channel symmetric weight quantization. w: (in, out), a
     numpy array or a tensor; the result lies on `device` (the card unless
     named), where the division and the rounding run (the same IEEE float32
-    arithmetic as numpy's, so codes and scales do not depend on the device).
-    method: 'minmax' (absmax range) or 'mse' (per-channel grid search)."""
+    arithmetic as numpy's, so codes do not depend on the device for given
+    scales). method: 'minmax' (absmax range) or 'mse' (per-channel grid
+    search: numpy's on the CPU, bit for bit the JAX package's, the
+    device's own on the card)."""
     device = resolve_device(device)
     if bits >= 16:
         return {'w': torch.as_tensor(w).to(device=device, dtype=BF16)}
     qmax = (1 << (bits - 1)) - 1
-    if method == 'mse':
+    if method == 'mse' and device.type == 'cuda':
+        wt = torch.as_tensor(w).to(device=device, dtype=F32)
+        scale = _mse_weight_scale_tensor(wt, qmax)
+    elif method == 'mse':
         w_np = np.asarray(w.cpu() if isinstance(w, torch.Tensor) else w,
                           np.float32)
         scale = torch.from_numpy(
@@ -109,6 +144,37 @@ def _unpack_int4(packed: torch.Tensor) -> torch.Tensor:
 _KERNEL_QMM_MAX_X_BYTES = 2 * 1024 * 1024
 
 
+def _a8_quant(x: torch.Tensor):
+    """Per-token (last-axis) symmetric int8 activation quantization:
+    (int8 codes, float32 scales of shape (..., 1))."""
+    xf = x.to(F32)
+    ax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
+    s = torch.clamp_min(ax, 1e-6) * (1.0 / 127.0)
+    q = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def int8_product(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(R, D) int8 @ (D, F) int8 -> (R, F) int32, exact: the JAX package's
+    `lax.dot_general(..., preferred_element_type=int32)`. On the card
+    `torch._int_mm` (cuBLASLt's int8 product), its operands padded with
+    zeros to its shape rules (more than 16 rows, depth and width multiples
+    of 8); on the CPU an int64 product."""
+    R, D = q.shape
+    Fo = w.shape[1]
+    if q.device.type != 'cuda':
+        return torch.matmul(q.to(torch.int64), w.to(torch.int64)) \
+            .to(torch.int32)
+    Rp = max(32, -(-R // 8) * 8)
+    Dp, Fp = -(-D // 8) * 8, -(-Fo // 8) * 8
+    if (Rp, Dp) != (R, D):
+        q = F_.pad(q, (0, Dp - D, 0, Rp - R))
+    if (Dp, Fp) != (D, Fo):
+        w = F_.pad(w, (0, Fp - Fo, 0, Dp - D))
+    out = torch._int_mm(q.contiguous(), w.contiguous())
+    return out[:R, :Fo] if (Rp, Fp) != (R, Fo) else out
+
+
 def _bf16_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b with both operands rounded to bf16 and an f32 result: bf16
     values and their products are exact in f32, so this is the bf16-operand,
@@ -117,7 +183,8 @@ def _bf16_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def qmatmul(x: torch.Tensor, wq: Dict[str, torch.Tensor],
-            kernel: bool = False, row_scale: Optional[torch.Tensor] = None,
+            kernel: bool = False, a8: bool = False,
+            row_scale: Optional[torch.Tensor] = None,
             residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x @ dequant(w).
 
@@ -127,6 +194,12 @@ def qmatmul(x: torch.Tensor, wq: Dict[str, torch.Tensor],
     or the unpacked nibbles times the scale, rounded to bf16) before the
     dot.
 
+    a8=True (W8A8) on a quantized weight and more than one token in the
+    second-to-last axis: per-token int8 activations, an int8 x int8 ->
+    int32 product (`int8_product`), then the token and channel scales and
+    the epilogue; the engine turns it on with cfg.act_bits == 8, and decode
+    (one token) keeps the weight-only paths.
+
     row_scale (lead-shaped, or (..., 1)): per-row f32 multiplier, the
     folded-rms_norm rsqrt factor. residual (same shape as the output): added
     after all scaling. Both ride the kernel's epilogue.
@@ -135,6 +208,16 @@ def qmatmul(x: torch.Tensor, wq: Dict[str, torch.Tensor],
     D = x.shape[-1]
     R = int(np.prod(lead)) if lead else 1
 
+    if a8 and 'w' not in wq and x.dim() >= 2 and x.shape[-2] > 1:
+        q, sx = _a8_quant(x)
+        w_int = wq['w_int'] if 'w_int' in wq else _unpack_int4(wq['w_packed'])
+        acc = int8_product(q.reshape(R, D), w_int)
+        flat = acc.to(F32) * sx.reshape(R, 1) * wq['scale'].to(F32)
+        if row_scale is not None:
+            flat = flat * row_scale.to(F32).reshape(R, 1)
+        if residual is not None:
+            flat = flat + residual.reshape(R, -1).to(F32)
+        return flat.reshape(*lead, -1).to(x.dtype)
     if kernel and 'w' not in wq and R * D * 2 <= _KERNEL_QMM_MAX_X_BYTES:
         int4 = 'w_packed' in wq
         wk = wq['w_packed'] if int4 else wq['w_int']
@@ -173,8 +256,6 @@ def init_llama_params(cfg: LlamaConfig, seed: int = 0,
     package's order, so a seed means the same weights in both packages; each
     matrix is quantized on the device."""
     device = resolve_device(device)
-    if cfg.n_experts > 0:
-        raise NotImplementedError(cfg.unported())
     rng = np.random.default_rng(seed)
     D, H, KV, Dh, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim, cfg.d_ff)
@@ -196,18 +277,27 @@ def init_llama_params(cfg: LlamaConfig, seed: int = 0,
                          cfg.resolved_lm_head_bits if quantized else 16),
         'layers': [],
     }
-    for _ in range(cfg.n_layers):
-        params['layers'].append({
+    for li in range(cfg.n_layers):
+        layer = {
             'attn_norm': torch.ones((D,), dtype=F32, device=device),
             'mlp_norm': torch.ones((D,), dtype=F32, device=device),
             'wq': dense(D, H * Dh),
             'wk': dense(D, KV * Dh),
             'wv': dense(D, KV * Dh),
             'wo': dense(H * Dh, D),
-            'w_gate': dense(D, F),
-            'w_up': dense(D, F),
-            'w_down': dense(F, D),
-        })
+        }
+        if cfg.n_experts > 0:
+            moe = init_moe_params(D, F, cfg.n_experts, cfg.top_k,
+                                  weight_bits=bits, seed=seed * 1000 + li,
+                                  device=device)
+            moe.pop('top_k')
+            moe.pop('n_experts')
+            layer['moe'] = moe
+        else:
+            layer['w_gate'] = dense(D, F)
+            layer['w_up'] = dense(D, F)
+            layer['w_down'] = dense(F, D)
+        params['layers'].append(layer)
     return params
 
 
@@ -231,7 +321,7 @@ def fold_norm_gamma(params: Params) -> bool:
 
     Folding needs fp weights ('w' present, pre-quantization); gammas that
     are already all-ones fold trivially. Returns True only if EVERY norm
-    folded."""
+    folded, never for a model with MoE layers."""
     def fold(owner, gkey, wkeys):
         g = owner[gkey].to(F32)
         if bool(torch.all(g == 1.0)):
@@ -248,6 +338,9 @@ def fold_norm_gamma(params: Params) -> bool:
 
     ok = True
     for layer in params['layers']:
+        if 'moe' in layer:
+            ok = False      # router / expert folding is not attempted
+            continue
         ok &= fold(layer, 'attn_norm',
                    ('wqkv',) if 'wqkv' in layer else ('wq', 'wk', 'wv'))
         ok &= fold(layer, 'mlp_norm',
@@ -296,17 +389,19 @@ def project_qkv(h, layer, cfg: LlamaConfig, kern: bool, row_scale=None):
     folded-attn_norm rsqrt factor (pass raw x as h in that case)."""
     B, T, _ = h.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    a8 = cfg.act_bits == 8
     if 'wqkv' in layer:
-        qkv = qmatmul(h, layer['wqkv'], kernel=kern, row_scale=row_scale)
+        qkv = qmatmul(h, layer['wqkv'], kernel=kern, a8=a8,
+                      row_scale=row_scale)
         q = qkv[..., :H * Dh].reshape(B, T, H, Dh)
         k = qkv[..., H * Dh:(H + KV) * Dh].reshape(B, T, KV, Dh)
         v = qkv[..., (H + KV) * Dh:].reshape(B, T, KV, Dh)
         return q, k, v
-    q = qmatmul(h, layer['wq'], kernel=kern,
+    q = qmatmul(h, layer['wq'], kernel=kern, a8=a8,
                 row_scale=row_scale).reshape(B, T, H, Dh)
-    k = qmatmul(h, layer['wk'], kernel=kern,
+    k = qmatmul(h, layer['wk'], kernel=kern, a8=a8,
                 row_scale=row_scale).reshape(B, T, KV, Dh)
-    v = qmatmul(h, layer['wv'], kernel=kern,
+    v = qmatmul(h, layer['wv'], kernel=kern, a8=a8,
                 row_scale=row_scale).reshape(B, T, KV, Dh)
     return q, k, v
 
@@ -332,9 +427,16 @@ def quantize_llama_params(params: Params, cfg: LlamaConfig,
 
 # ============================================================ components ===
 
-def rms_norm(x, gamma, eps):
+def rms_norm(x, gamma, eps, exact: bool = False):
+    """exact: the mean of squares sums in float64, where the squares of
+    bf16 values and their sum are exact, so a row's result does not depend
+    on how many rows the reduction runs over (cfg.batch_invariant)."""
     xf = x.to(F32)
-    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    if exact:
+        var = torch.mean(torch.square(x.to(F64)), dim=-1,
+                         keepdim=True).to(F32)
+    else:
+        var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * gamma).to(x.dtype)
 
 
@@ -435,22 +537,32 @@ def _heads_first(kv: torch.Tensor) -> torch.Tensor:
         F32, memory_format=torch.contiguous_format)
 
 
-def _qk_logits(q_g: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+def _qk_logits(q_g: torch.Tensor, k: torch.Tensor,
+               exact: bool = False) -> torch.Tensor:
     """einsum('btkrd,bskd->bkrts') with bf16 operands and an f32 result.
-    q_g: (B, T, KV, rep, Dh); k: (B, S, KV, Dh) -> (B, KV, rep, T, S)."""
+    q_g: (B, T, KV, rep, Dh); k: (B, S, KV, Dh) -> (B, KV, rep, T, S).
+    exact: the product sums in float64, where the products of bf16
+    operands and their sums are exact, then rounds once to f32: a row's
+    logits do not depend on how many rows the library product tiles
+    (cfg.batch_invariant)."""
     B, T, KV, rep, Dh = q_g.shape
-    qf = q_g.to(BF16).to(F32).permute(0, 2, 3, 1, 4).reshape(B, KV, rep * T, Dh)
-    out = torch.matmul(qf, _heads_first(k).transpose(-1, -2))
-    return out.reshape(B, KV, rep, T, k.shape[1])
+    acc = F64 if exact else F32
+    qf = q_g.to(BF16).to(acc).permute(0, 2, 3, 1, 4).reshape(B, KV, rep * T,
+                                                            Dh)
+    out = torch.matmul(qf, _heads_first(k).to(acc).transpose(-1, -2))
+    return out.to(F32).reshape(B, KV, rep, T, k.shape[1])
 
 
-def _pv_context(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _pv_context(p: torch.Tensor, v: torch.Tensor,
+                exact: bool = False) -> torch.Tensor:
     """einsum('bkrts,bskd->btkrd') with bf16 operands and an f32 result.
-    p: (B, KV, rep, T, S); v: (B, S, KV, Dh) -> (B, T, KV, rep, Dh)."""
+    p: (B, KV, rep, T, S); v: (B, S, KV, Dh) -> (B, T, KV, rep, Dh).
+    exact: as `_qk_logits`."""
     B, KV, rep, T, S = p.shape
-    pf = p.to(BF16).to(F32).reshape(B, KV, rep * T, S)
-    out = torch.matmul(pf, _heads_first(v))                  # (B,KV,rep*T,Dh)
-    return out.reshape(B, KV, rep, T, -1).permute(0, 3, 1, 2, 4)
+    acc = F64 if exact else F32
+    pf = p.to(BF16).to(acc).reshape(B, KV, rep * T, S)
+    out = torch.matmul(pf, _heads_first(v).to(acc))          # (B,KV,rep*T,Dh)
+    return out.to(F32).reshape(B, KV, rep, T, -1).permute(0, 3, 1, 2, 4)
 
 
 def attention(x, layer, cache_k, cache_v, cache_ks, cache_vs,
@@ -489,8 +601,9 @@ def attention(x, layer, cache_k, cache_v, cache_ks, cache_vs,
         cache_vs = _window_write(cache_vs, v_s, write_pos, active)
 
     # q heads regroup as (KV, rep): head h = k*rep + r
+    exact = cfg.batch_invariant
     q_g = q.reshape(B, T, KV, rep, Dh)
-    logits = _qk_logits(q_g, cache_k)
+    logits = _qk_logits(q_g, cache_k, exact)
     if cfg.kv_cache_bits == 8:
         logits = logits * cache_ks.transpose(1, 2)[:, :, None, None, :]
     logits = logits / math.sqrt(Dh)
@@ -498,9 +611,9 @@ def attention(x, layer, cache_k, cache_v, cache_ks, cache_vs,
     probs = torch.softmax(logits, dim=-1)
     if cfg.kv_cache_bits == 8:
         probs = probs * cache_vs.transpose(1, 2)[:, :, None, None, :]
-    ctx = _pv_context(probs, cache_v)
+    ctx = _pv_context(probs, cache_v, exact)
     ctx = ctx.reshape(B, T, H * Dh).to(x.dtype)
-    out = qmatmul(ctx, layer['wo'], kernel=kern)
+    out = qmatmul(ctx, layer['wo'], kernel=kern, a8=cfg.act_bits == 8)
     return out, cache_k, cache_v, cache_ks, cache_vs
 
 
@@ -509,12 +622,24 @@ def mlp(x, layer, cfg=None, row_scale=None, residual=None):
     fold_norm_gamma); residual: fused into the down-projection epilogue. On
     the kernel decode path gate/up/silu/mul run inside ONE kernel
     (kernels/qmm.py qmm_gateup): the (B, 2*d_ff) projection never reaches
-    device memory."""
+    device memory. With cfg.act_bits == 8 every product takes `a8` and the
+    fused gate|up kernel is skipped, as in the JAX package. A MoE layer
+    runs serving/moe.py's expert mixture (no folded-norm row scale: the
+    fold refuses MoE models), the residual added after."""
+    if 'moe' in layer:
+        if row_scale is not None:
+            raise ValueError('a folded-norm row scale reached a MoE layer; '
+                             'fold_norm_gamma refuses MoE models')
+        out = moe_ffn(x, layer['moe'],
+                      top_k=cfg.top_k if cfg is not None else 2)
+        return out if residual is None else residual + out
     kern = bool(cfg.use_kernel_matmul) if cfg is not None else False
+    a8 = cfg is not None and cfg.act_bits == 8
     lead = x.shape[:-1]
     D = x.shape[-1]
     R = int(np.prod(lead)) if lead else 1
-    if (kern and 'w_gateup' in layer and 'w' not in layer['w_gateup']
+    if (kern and not a8 and 'w_gateup' in layer
+            and 'w' not in layer['w_gateup']
             and R * D * 2 <= _KERNEL_QMM_MAX_X_BYTES):
         wgu = layer['w_gateup']
         wkey = 'w_int' if 'w_int' in wgu else 'w_packed'
@@ -528,14 +653,17 @@ def mlp(x, layer, cfg=None, row_scale=None, residual=None):
             return qmatmul(act, layer['w_down'], kernel=kern,
                            residual=residual)
     if 'w_gateup' in layer:
-        gu = qmatmul(x, layer['w_gateup'], kernel=kern, row_scale=row_scale)
+        gu = qmatmul(x, layer['w_gateup'], kernel=kern, a8=a8,
+                     row_scale=row_scale)
         Fh = gu.shape[-1] // 2
         g, u = gu[..., :Fh], gu[..., Fh:]
     else:
-        g = qmatmul(x, layer['w_gate'], kernel=kern, row_scale=row_scale)
-        u = qmatmul(x, layer['w_up'], kernel=kern, row_scale=row_scale)
+        g = qmatmul(x, layer['w_gate'], kernel=kern, a8=a8,
+                    row_scale=row_scale)
+        u = qmatmul(x, layer['w_up'], kernel=kern, a8=a8,
+                    row_scale=row_scale)
     return qmatmul(F_.silu(g.to(F32)).to(x.dtype) * u,
-                   layer['w_down'], kernel=kern, residual=residual)
+                   layer['w_down'], kernel=kern, a8=a8, residual=residual)
 
 
 def decoder_layer(layer, ck, cv, cks, cvs, x, positions, write_pos, cfg,
@@ -543,12 +671,13 @@ def decoder_layer(layer, ck, cv, cks, cvs, x, positions, write_pos, cfg,
     """One decoder layer over its cache slabs: pre-norm attention + MLP.
     x: (B, T, D); slabs: (B, S, KV, Dh) / (B, S, KV), written in place.
     Returns (x, ck, cv, cks, cvs)."""
-    h = rms_norm(x, layer['attn_norm'], cfg.rms_eps)
+    exact = cfg.batch_invariant
+    h = rms_norm(x, layer['attn_norm'], cfg.rms_eps, exact)
     attn_out, ck, cv, cks, cvs = attention(
         h, layer, ck, cv, cks, cvs, positions, write_pos, cfg, causal,
         active=active)
     x = x + attn_out
-    h = rms_norm(x, layer['mlp_norm'], cfg.rms_eps)
+    h = rms_norm(x, layer['mlp_norm'], cfg.rms_eps, exact)
     x = x + mlp(h, layer, cfg)
     return x, ck, cv, cks, cvs
 
@@ -606,6 +735,7 @@ def burst_forward(params: Params, cache: Dict[str, torch.Tensor],
     int8_cache = cfg.kv_cache_bits == 8
     kern = bool(cfg.use_kernel_matmul)
     folded = bool(cfg.norm_folded)
+    a8 = cfg.act_bits == 8        # one token a row: the weight-only paths
     dev = tokens.device
     seq_lens = seq_lens.to(torch.int32).contiguous()
     root_dh = math.sqrt(Dh)
@@ -782,22 +912,23 @@ def burst_forward(params: Params, cache: Dict[str, torch.Tensor],
             ctx = ctx.reshape(B, 1, H * Dh).to(x.dtype)
             if folded:
                 # residual adds + norms ride the kernels' epilogues
-                x = qmatmul(ctx, layer['wo'], kernel=kern, residual=x)
+                x = qmatmul(ctx, layer['wo'], kernel=kern, a8=a8, residual=x)
                 x = mlp(x, layer, cfg, row_scale=row_rsqrt(x, cfg.rms_eps),
                         residual=x)
             else:
-                x = x + qmatmul(ctx, layer['wo'], kernel=kern)
+                x = x + qmatmul(ctx, layer['wo'], kernel=kern, a8=a8)
                 h = rms_norm(x, layer['mlp_norm'], cfg.rms_eps)
                 x = x + mlp(h, layer, cfg)
         if bank_kernel:
             # one launch banks every layer's codes in place
             _bank.bank_write_inplace(bank, newk + newv, columns[ic:ic + 1])
         if folded:
-            logits = qmatmul(x, params['lm_head'], kernel=kern,
+            logits = qmatmul(x, params['lm_head'], kernel=kern, a8=a8,
                              row_scale=row_rsqrt(x, cfg.rms_eps)).to(F32)
         else:
             x = rms_norm(x, params['final_norm'], cfg.rms_eps)
-            logits = qmatmul(x, params['lm_head'], kernel=kern).to(F32)
+            logits = qmatmul(x, params['lm_head'], kernel=kern,
+                             a8=a8).to(F32)
         cur_tok = select_fn(logits[:, 0, :cfg.vocab_size], i).to(torch.int32)
         toks.append(cur_tok)
 
@@ -844,7 +975,7 @@ def forward(params: Params, cache: Dict[str, torch.Tensor],
             vs_all[li] if vs_all is not None else None,
             x, positions, write_pos, cfg, causal, active=active)
 
-    x = rms_norm(x, params['final_norm'], cfg.rms_eps)
+    x = rms_norm(x, params['final_norm'], cfg.rms_eps, cfg.batch_invariant)
     logits = qmatmul(x, params['lm_head'],
                      kernel=bool(cfg.use_kernel_matmul))
     # lm_head may be padded for the kernel's tiling (fuse_decode_params)

@@ -208,6 +208,7 @@ def prefill_paged(params: Params, pools: Dict, tokens, lengths, tables,
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     int8_cache = cfg.kv_cache_bits == 8
     kern = bool(cfg.use_kernel_matmul)
+    a8 = cfg.act_bits == 8
     dev = tokens.device
     positions = torch.arange(T, dtype=torch.int32, device=dev)[None] \
         .expand(B, T)
@@ -230,7 +231,7 @@ def prefill_paged(params: Params, pools: Dict, tokens, lengths, tables,
             vs_layers.append(v_s)
         ctx = _window_context(q, k_q, v_q, k_s, v_s, causal, Dh)
         ctx = ctx.reshape(B, T, H * Dh).to(x.dtype)
-        x = x + qmatmul(ctx, layer['wo'], kernel=kern)
+        x = x + qmatmul(ctx, layer['wo'], kernel=kern, a8=a8)
         h = rms_norm(x, layer['mlp_norm'], cfg.rms_eps)
         x = x + mlp(h, layer, cfg)
     write_kv_window(pools, torch.stack(k_layers), torch.stack(v_layers),
@@ -238,7 +239,7 @@ def prefill_paged(params: Params, pools: Dict, tokens, lengths, tables,
                     tables, torch.zeros((B,), dtype=torch.int32, device=dev),
                     active)
     x = rms_norm(x, params['final_norm'], cfg.rms_eps)
-    logits = qmatmul(x, params['lm_head'], kernel=kern)
+    logits = qmatmul(x, params['lm_head'], kernel=kern, a8=a8)
     # lm_head may be padded for the kernel's tiling (fuse_decode_params)
     return logits[..., :cfg.vocab_size].to(F32), pools
 
@@ -259,6 +260,7 @@ def prefill_chunk_paged(params: Params, pools: Dict, tokens, write_pos,
     rep = H // KV
     int8_cache = cfg.kv_cache_bits == 8
     kern = bool(cfg.use_kernel_matmul)
+    a8 = cfg.act_bits == 8
     dev = tokens.device
     Sp = prefix_blocks * pool_block_size(pools)
     root_dh = math.sqrt(Dh)
@@ -310,14 +312,14 @@ def prefill_chunk_paged(params: Params, pools: Dict, tokens, write_pos,
             pc = pc * v_s.transpose(1, 2)[:, :, None, None, :]
         ctx = _pv_context(pp, vp) + _pv_context(pc, v_q)
         ctx = ctx.reshape(B, T, H * Dh).to(x.dtype)
-        x = x + qmatmul(ctx, layer['wo'], kernel=kern)
+        x = x + qmatmul(ctx, layer['wo'], kernel=kern, a8=a8)
         h = rms_norm(x, layer['mlp_norm'], cfg.rms_eps)
         x = x + mlp(h, layer, cfg)
     write_kv_window(pools, torch.stack(k_layers), torch.stack(v_layers),
                     _stacked_scales(ks_layers), _stacked_scales(vs_layers),
                     tables, write_pos.to(torch.int32), active)
     x = rms_norm(x, params['final_norm'], cfg.rms_eps)
-    logits = qmatmul(x, params['lm_head'], kernel=kern)
+    logits = qmatmul(x, params['lm_head'], kernel=kern, a8=a8)
     return logits[..., :cfg.vocab_size].to(F32), pools
 
 
@@ -412,6 +414,7 @@ def burst_forward_paged(params: Params, pools: Dict, tokens: torch.Tensor,
     rep = H // KV
     int8_cache = cfg.kv_cache_bits == 8
     kern = bool(cfg.use_kernel_matmul)
+    a8 = cfg.act_bits == 8
     folded = bool(cfg.norm_folded)
     dev = tokens.device
     seq_lens = seq_lens.to(torch.int32).contiguous()
@@ -520,11 +523,11 @@ def burst_forward_paged(params: Params, pools: Dict, tokens: torch.Tensor,
             ctx = ctx.reshape(B, 1, H * Dh).to(x.dtype)
             if folded:
                 # residual adds + norms ride the kernels' epilogues
-                x = qmatmul(ctx, layer['wo'], kernel=kern, residual=x)
+                x = qmatmul(ctx, layer['wo'], kernel=kern, a8=a8, residual=x)
                 x = mlp(x, layer, cfg, row_scale=row_rsqrt(x, cfg.rms_eps),
                         residual=x)
             else:
-                x = x + qmatmul(ctx, layer['wo'], kernel=kern)
+                x = x + qmatmul(ctx, layer['wo'], kernel=kern, a8=a8)
                 h = rms_norm(x, layer['mlp_norm'], cfg.rms_eps)
                 x = x + mlp(h, layer, cfg)
         # this step's column of every layer lands at column i: codes through
@@ -539,11 +542,11 @@ def burst_forward_paged(params: Params, pools: Dict, tokens: torch.Tensor,
             ksb[:, :, :, i] = torch.stack(ks_new)
             vsb[:, :, :, i] = torch.stack(vs_new)
         if folded:
-            logits = qmatmul(x, params['lm_head'], kernel=kern,
+            logits = qmatmul(x, params['lm_head'], kernel=kern, a8=a8,
                              row_scale=row_rsqrt(x, cfg.rms_eps)).to(F32)
         else:
             x = rms_norm(x, params['final_norm'], cfg.rms_eps)
-            logits = qmatmul(x, params['lm_head'], kernel=kern).to(F32)
+            logits = qmatmul(x, params['lm_head'], kernel=kern, a8=a8).to(F32)
         cur_tok = select_fn(logits[:, 0, :cfg.vocab_size], i).to(torch.int32)
         toks.append(cur_tok)
 

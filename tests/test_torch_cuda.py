@@ -1047,7 +1047,7 @@ def test_serving_engine_on_the_card(cuda):
 
 def test_serving_engine_raises_without_a_card_or_for_unported_settings():
     """Runs with or without a card: device='cpu' is the only way onto the
-    CPU, and settings whose path is not ported raise."""
+    CPU; W8A8 and MoE settings build, and a mesh (not ported) raises."""
     from ppq_tpu_torch.serving import (LlamaConfig, ServingEngine,
                                        init_llama_params)
     small = dict(vocab_size=256, d_model=128, n_layers=1, n_heads=4,
@@ -1062,8 +1062,11 @@ def test_serving_engine_raises_without_a_card_or_for_unported_settings():
     for field, value in (('act_bits', 8), ('n_experts', 4)):
         cfg = LlamaConfig(**small)
         setattr(cfg, field, value)
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            ServingEngine(cfg, params, device='cpu')
+        ServingEngine(cfg, init_llama_params(cfg, device='cpu'),
+                      device='cpu')
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        ServingEngine(LlamaConfig(**small), params, mesh=object(),
+                      device='cpu')
     # the paged KV cache builds (head dim 128, blocks of 128)
     paged = dict(small, d_model=256, n_heads=2, n_kv_heads=1, max_seq_len=128)
     cfg = LlamaConfig(**paged, paged_kv=True)
@@ -2304,3 +2307,95 @@ def test_the_card_computes_with_rewritten_weights(cuda):
     assert torch.equal(fresh, compile_graph(graph, device=cuda)
                        .make_runner().walk(x)[0])
     assert not torch.equal(fresh, old)
+
+
+# ------------------------- captured finetuning step, W8A8 and MoE ----
+
+def test_lsq_captured_step_equals_uncaptured(cuda, monkeypatch):
+    """LearnedStepSizePass on tiny_cnn on the card, once with every step
+    after a block's first a CUDA-graph replay and once uncaptured: the
+    trained weights, scales and offsets and Adam's state of every block, and
+    the graph afterwards, bit for bit. cuDNN is held to its deterministic
+    algorithms, without which two uncaptured runs differ too."""
+    import copy
+
+    import ppq_tpu_torch
+    from ppq_tpu_torch.interop import quantization_configs_of
+    from ppq_tpu_torch.quantization.optim import LearnedStepSizePass
+    from ppq_tpu_torch.zoo import tiny_cnn
+    monkeypatch.setattr(torch.backends.cudnn, 'deterministic', True)
+    rng = np.random.RandomState(5)
+    loader = [rng.randn(2, 3, 16, 16).astype(np.float32) for _ in range(4)]
+    graph = tiny_cnn(input_shape=(2, 3, 16, 16))
+    ppq_tpu_torch.quantize_graph(
+        graph, loader, calib_steps=4,
+        platform=ppq_tpu_torch.TargetPlatform.TPU_INT8, verbose=False)
+    runs = []
+    for capture in (True, False):
+        g = copy.deepcopy(graph)
+        lsq = LearnedStepSizePass(block_size=2, steps=5, lr=1e-4,
+                                  calib_steps=4)
+        lsq.capture, lsq.keep_state = capture, True
+        ppq_tpu_torch.manop(g, lsq, calib_dataloader=loader, verbose=False)
+        runs.append((g, lsq.history))
+    (ga, ha), (gb, hb) = runs
+    assert len(ha) == len(hb) == 2
+    for a, b in zip(ha, hb):
+        assert a['replays'] == 4 and b['replays'] == 0
+        assert a['launches_per_replay']['fake_quant_bwd_tensorwise'] > 0
+        assert (a['pre_loss'], a['post_loss'], a['accepted']) \
+            == (b['pre_loss'], b['post_loss'], b['accepted'])
+        for part in ('params', 'qparams', 'adam'):
+            flat_a = [v for v in _tensor_leaves(a['state'][part])]
+            flat_b = [v for v in _tensor_leaves(b['state'][part])]
+            assert len(flat_a) == len(flat_b) > 0
+            assert all(torch.equal(x, y) for x, y in zip(flat_a, flat_b))
+    for name, var in ga.variables.items():
+        if var.is_parameter:
+            np.testing.assert_array_equal(var.value, gb.variables[name].value)
+    ca, cb = quantization_configs_of(ga), quantization_configs_of(gb)
+    for key, entry in ca.items():
+        if entry['scale'] is not None:
+            np.testing.assert_array_equal(entry['scale'], cb[key]['scale'])
+
+
+def _tensor_leaves(tree):
+    if isinstance(tree, dict):
+        for key in sorted(tree, key=str):
+            yield from _tensor_leaves(tree[key])
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+@pytest.mark.parametrize('R,D,F', [(1, 64, 40), (5, 60, 36), (17, 256, 512),
+                                   (130, 2048, 1024)])
+def test_w8a8_product_on_card_equals_cpu_int32_sums(cuda, R, D, F):
+    """The W8A8 prefill's int8 x int8 -> int32 product on the card
+    (`torch._int_mm`, operands padded to its shape rules) against the CPU's
+    exact integer product."""
+    from ppq_tpu_torch.serving.model import int8_product
+    gen = torch.Generator().manual_seed(R * 7 + D)
+    q = torch.randint(-127, 128, (R, D), dtype=torch.int8, generator=gen)
+    w = torch.randint(-128, 128, (D, F), dtype=torch.int8, generator=gen)
+    want = int8_product(q, w)
+    got = int8_product(q.to(cuda), w.to(cuda))
+    assert got.dtype == torch.int32 and got.shape == (R, F)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_moe_ffn_on_card_vs_plain_cpu(cuda):
+    """init_moe_params on the card equals the CPU's bit for bit; moe_ffn on
+    the card (float32 einsums, TF32 off) within 1e-5 of the largest output
+    of its CPU run."""
+    from ppq_tpu_torch.executor import simulation_precision
+    from ppq_tpu_torch.serving.moe import init_moe_params, moe_ffn
+    cpu = init_moe_params(256, 512, 8, 2, seed=3, device='cpu')
+    card = init_moe_params(256, 512, 8, 2, seed=3, device=cuda)
+    for key in ('router', 'w_gate', 'w_up', 'w_down'):
+        for a, b in zip(_tensor_leaves(cpu[key]), _tensor_leaves(card[key])):
+            assert torch.equal(a, b.cpu())
+    x = torch.randn(2, 7, 256, generator=torch.Generator().manual_seed(1))
+    want = moe_ffn(x, cpu)
+    with simulation_precision('highest'):
+        got = moe_ffn(x.to(cuda), card).cpu()
+    assert torch.allclose(got, want, rtol=0, atol=1e-5 * want.abs().max())

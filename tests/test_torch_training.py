@@ -34,6 +34,8 @@ from ppq_tpu.quantization.optim import training as jax_training
 from ppq_tpu.zoo import resnet18 as jax_resnet18
 from ppq_tpu.zoo.vision import tiny_cnn as jax_tiny_cnn
 from ppq_tpu_torch.api import QuantizationSettingFactory
+from ppq_tpu_torch.executor.compile import CompiledGraph as TorchCompiledGraph
+from ppq_tpu_torch.executor.compile import _cfg_key as torch_cfg_key
 from ppq_tpu_torch.core import QuantizationStates
 from ppq_tpu_torch.interop import (block_caches_from_numpy,
                                    block_caches_to_numpy,
@@ -199,45 +201,51 @@ def test_block_losses_and_step0_gradients_vs_jax():
                            for n, o in zip(jb.output_names, outs))
 
             gp, gq = jax.grad(loss_fn, argnums=(0, 1))(p0, q0)
-            with torch_training.BlockRuntime(
-                    executor, tb, scales_trainable=True) as runtime:
-                params = runtime.parameters()
-                assert sorted(params) == sorted(p0)
-                got_loss = tpass.block_loss(runtime, params, tqt, tfp)
-                np.testing.assert_allclose(got_loss, want_loss, rtol=1e-4)
-                for value in params.values():
-                    value.requires_grad_(True)
-                runtime.loss(runtime.run(params, tqt[0], with_gradient=True),
-                             tfp[0]).backward()
+            tcg = TorchCompiledGraph(tg, op_span=tb.rps,
+                                     input_names=tb.input_names,
+                                     output_names=tb.output_names,
+                                     device='cpu')
+            tfwd = tcg.build_trainable_forward()
+            params = {k: v.clone().requires_grad_(True)
+                      for k, v in tcg.init_params().items()}
+            qparams = {k: {kk: vv.clone().requires_grad_(True)
+                           for kk, vv in v.items()}
+                       for k, v in tcg.init_qparams().items()}
+            assert sorted(params) == sorted(p0)
+            got_loss = tpass.block_loss(tfwd, params, qparams, tb, tqt, tfp)
+            np.testing.assert_allclose(got_loss, want_loss, rtol=1e-4)
+            outs = tfwd(params, qparams, {n: tqt[0][n]
+                                          for n in tb.input_names})
+            sum(torch.mean((o - tfp[0][n]) ** 2)
+                for n, o in zip(tb.output_names, outs)).backward()
 
-                def close(mine, theirs):
-                    theirs = np.asarray(theirs)
-                    mine = (np.zeros_like(theirs) if mine is None
-                            else mine.numpy())
-                    assert mine.shape == theirs.shape
-                    np.testing.assert_allclose(
-                        mine, theirs, rtol=1e-3,
-                        atol=1e-3 * np.abs(theirs).max())
+            def close(mine, theirs):
+                theirs = np.asarray(theirs)
+                mine = (np.zeros_like(theirs) if mine is None
+                        else mine.numpy())
+                assert mine.shape == theirs.shape
+                np.testing.assert_allclose(
+                    mine, theirs, rtol=1e-3,
+                    atol=1e-3 * np.abs(theirs).max())
 
-                for name, value in params.items():
-                    close(value.grad, gp[name])
-                    compared += 1
-                roots = set()
-                for jop, top in zip(jb.rps, tb.rps):
-                    if not hasattr(jop, 'config'):
-                        continue
-                    for jc, tc in zip(jop.config, top.config):
-                        key = _cfg_key(jc.dominated_by)
-                        assert (key in gq) == (tc.dominated_by
-                                               in runtime.delegators)
-                        if key in gq and key not in roots:
-                            roots.add(key)
-                            d = runtime.delegators[tc.dominated_by]
-                            close(d.scale.grad, gq[key]['scale'])
-                            close(d.offset.grad, gq[key]['offset'])
-                            compared += 2
-                assert len(roots) == len(q0) == len(runtime.delegators)
-            assert not executor._delegates       # removed on exit
+            for name, value in params.items():
+                close(value.grad, gp[name])
+                compared += 1
+            roots = set()
+            for jop, top in zip(jb.rps, tb.rps):
+                if not hasattr(jop, 'config'):
+                    continue
+                for jc, tc in zip(jop.config, top.config):
+                    key = _cfg_key(jc.dominated_by)
+                    tkey = torch_cfg_key(tc.dominated_by)
+                    assert (key in gq) == (tkey in qparams)
+                    if key in gq and key not in roots:
+                        roots.add(key)
+                        close(qparams[tkey]['scale'].grad, gq[key]['scale'])
+                        close(qparams[tkey]['offset'].grad,
+                              gq[key]['offset'])
+                        compared += 2
+            assert len(roots) == len(q0) == len(qparams)
     assert compared > 20
 
 
@@ -277,25 +285,34 @@ def test_fp8_block_losses_and_step0_gradients_vs_jax(monkeypatch):
                            for n, o in zip(jb.output_names, outs))
 
             gp = jax.grad(loss_fn)(p0)
-            with torch_training.BlockRuntime(executor, tb) as runtime:
-                floating_sites += sum(d.root.policy.floating
-                                      for d in runtime.delegators.values())
-                params = runtime.parameters()
-                assert sorted(params) == sorted(p0)
+            tcg = TorchCompiledGraph(tg, op_span=tb.rps,
+                                     input_names=tb.input_names,
+                                     output_names=tb.output_names,
+                                     device='cpu')
+            tfwd = tcg.build_trainable_forward()
+            qparams = tcg.init_qparams()
+            floating_sites += len({
+                torch_cfg_key(tc.dominated_by) for top in tb.rps
+                if hasattr(top, 'config') for tc in top.config
+                if torch_cfg_key(tc.dominated_by) in qparams
+                and tc.dominated_by.policy.floating})
+            params = {k: v.clone().requires_grad_(True)
+                      for k, v in tcg.init_params().items()}
+            assert sorted(params) == sorted(p0)
+            np.testing.assert_allclose(
+                tpass.block_loss(tfwd, params, qparams, tb, tqt, tfp),
+                want_loss, rtol=1e-4)
+            outs = tfwd(params, qparams, {n: tqt[0][n]
+                                          for n in tb.input_names})
+            sum(torch.mean((o - tfp[0][n]) ** 2)
+                for n, o in zip(tb.output_names, outs)).backward()
+            for name, value in params.items():
+                theirs = np.asarray(gp[name])
+                assert np.abs(theirs).max() > 0
                 np.testing.assert_allclose(
-                    tpass.block_loss(runtime, params, tqt, tfp), want_loss,
-                    rtol=1e-4)
-                for value in params.values():
-                    value.requires_grad_(True)
-                runtime.loss(runtime.run(params, tqt[0], with_gradient=True),
-                             tfp[0]).backward()
-                for name, value in params.items():
-                    theirs = np.asarray(gp[name])
-                    assert np.abs(theirs).max() > 0
-                    np.testing.assert_allclose(
-                        value.grad.numpy(), theirs, rtol=1e-3,
-                        atol=1e-3 * np.abs(theirs).max())
-                    compared += 1
+                    value.grad.numpy(), theirs, rtol=1e-3,
+                    atol=1e-3 * np.abs(theirs).max())
+                compared += 1
     assert compared == 6 and floating_sites >= 6
 
 
@@ -550,10 +567,15 @@ def test_round_tuning_objective_and_step0_gradient_vs_jax(which):
 
                 vs = {n: wi['v0'] for n, wi in jinfo.items()}
                 want, grads = jax.value_and_grad(objective)(vs)
-                with torch_training.BlockRuntime(executor, tb) as runtime:
-                    got = tpass._objective(runtime, runtime.parameters(),
-                                           winfo, tqt[0], tfp[0], beta)
-                    got.backward()
+                tcg = TorchCompiledGraph(tg, op_span=tb.rps,
+                                         input_names=tb.input_names,
+                                         output_names=tb.output_names,
+                                         device='cpu')
+                got = tpass._objective(
+                    tcg.build_trainable_forward(), tcg.init_params(),
+                    tcg.init_qparams(), winfo, tb, tqt[0], tfp[0],
+                    torch.tensor(beta, dtype=torch.float32))
+                got.backward()
                 np.testing.assert_allclose(got.item(), float(want), rtol=1e-4)
                 assert sorted(winfo) == sorted(jinfo)
                 for name, wi in winfo.items():
