@@ -65,6 +65,21 @@ Phases (each raises on failure, and the script then exits non-zero):
      peak memory); `evaluate_classification` compiled against eager;
      `quantzoo_benchmark` over ResNet-18 and MobileNetV2 x its three
      schemes (`--passes` runs this path alone);
+  4f. path N: the rest of the single-card surface at the same width: each
+     of the 23 platforms of QUANTIZER_COLLECTION quantizes ResNet-18
+     (batch 32, 4 seeded batches; SNR and top-1 against fp32 bounded per
+     kind), and every TQC of each against a child process's CPU run on 2
+     batches of 8 (`--api-cpu-reference`); PFL's ParameterQuant and
+     QuantFunction on the 20 conv weights (FP8 per channel: row 6's
+     channelwise body; power-of-2; asymmetric) bit for bit against the
+     plain versions; a QConv2d / QLinear stack at ResNet-18's conv shapes
+     calibrated on 4 batches, one step held against the plain versions,
+     then 20 SGD steps whose loss falls; the TPU_INT8 graph's 'highest'
+     forward exported with torch.export, reloaded and held bit for bit
+     against the runner, `benchmark_graph` at 1 / 32 / 256 and
+     `profile_graph`; 16 seeded `.npy` batches through the native loader
+     into `quantize_graph`, the scales equal to the same batches from
+     memory (`--api` runs this path alone);
  5. path B: the same model, `quantize_graph` with `lsq_optimization` (LSQ
      over every block, weights and scales trained, 4 cached batches; every
      step after a block's first a CUDA-graph replay), the forward and its
@@ -104,7 +119,10 @@ Phases (each raises on failure, and the script then exits non-zero):
      prefix) against the same requests with the cache off, the paged burst
      against path E's ragged burst on the same prompt KV, the kernel path
      against the plain path, every launch against its plain version and the
-     profile;
+     profile; its engine runs the native block allocator
+     (PPQ_TPU_NATIVE_ALLOC=1; the port's default is the Python list), every
+     call its `run` made is replayed on the Python free list with the same
+     results, and both backends are timed on those calls;
  10. path F: INT4 weights (an INT8 lm_head), ragged read, 128 slots:
      `benchmark_decode` at fill 16 and 512, a short `run`, the kernel path
      against the plain path and every launch against its plain version;
@@ -256,6 +274,10 @@ PATH_KERNELS = {
           'bank_write', 'pool_write', 'window_write',
           'paged_attention_grouped'),
 }
+# path N: the quantization kernels (rows 1-6), and no serving kernel
+PATH_KERNELS['N'] = ('fake_quant_tensorwise', 'fake_quant_channelwise',
+                     'histogram', 'fake_quant_bwd_tensorwise',
+                     'fake_quant_bwd_channelwise', 'floating_quant')
 PATH_MAY_LAUNCH = {'M': ('paged_attention_fused',)}
 # path L: bench.py's serving track (`bench.py:396-499`) on path G's engine;
 # the open-loop sweep's windows, cut from bench.py's 22 s to fit the smoke
@@ -2918,7 +2940,97 @@ def _near_tie_tokens(tag, ref, got, params, cfg, dev):
                 requests_ending_at_a_near_tie=differing)
 
 
+class _AllocRecorder:
+    """Records the calls an engine makes on its block allocator, with what
+    each returned (or raised), so that a Python free list given the same
+    schedule can be held against them (`replay`)."""
+    CALLS = ('ensure', 'release', 'adopt', 'retain', 'unref', 'tables',
+             'slot_block_ids')
+
+    def __init__(self, alloc):
+        self.alloc, self.calls = alloc, []
+        for name in self.CALLS:
+            setattr(alloc, name, self._wrap(name, getattr(alloc, name)))
+
+    def _wrap(self, name, fn):
+        def call(*args):
+            args = tuple(a if isinstance(a, (int, np.integer)) else
+                         [int(b) for b in a] for a in args)
+            try:
+                out = fn(*args)
+            except (MemoryError, ValueError) as e:
+                self.calls.append((name, args, type(e)))
+                raise
+            self.calls.append((name, args, out.copy()
+                               if isinstance(out, np.ndarray) else out))
+            return out
+        return call
+
+    def close(self):
+        for name in self.CALLS:
+            self.alloc.__dict__.pop(name, None)
+
+    def replay(self) -> int:
+        from ppq_tpu_torch.serving.paged import BlockAllocator
+        a = self.alloc
+        python = BlockAllocator(a.num_blocks, a.max_batch,
+                                a.max_blocks_per_seq, a.block_size,
+                                native=False)
+        for i, (name, args, want) in enumerate(self.calls):
+            try:
+                got = getattr(python, name)(*args)
+            except (MemoryError, ValueError) as e:
+                got = type(e)
+            same = (np.array_equal(got, want) if isinstance(want, np.ndarray)
+                    else got == want)
+            if not same:
+                raise AssertionError(f'allocator call {i} {name}{args}: '
+                                     f'native {want}, Python {got}')
+        if python.free_blocks != a.free_blocks:
+            raise AssertionError(f'allocator: native {a.free_blocks} blocks '
+                                 f'free, Python {python.free_blocks}')
+        return len(self.calls)
+
+    def timed(self, reps: int = 5) -> dict:
+        """Host milliseconds of the recorded calls replayed on a new
+        allocator of each backend, the two alternating, the best of `reps`
+        each: the allocator's own time in the run."""
+        from ppq_tpu_torch.serving.paged import BlockAllocator
+        a, best = self.alloc, {}
+        for _ in range(reps):
+            for native in (True, False):
+                b = BlockAllocator(a.num_blocks, a.max_batch,
+                                   a.max_blocks_per_seq, a.block_size,
+                                   native=native)
+                calls = [(getattr(b, name), args)
+                         for name, args, _ in self.calls]
+                t0 = time.perf_counter()
+                for fn, args in calls:
+                    try:
+                        fn(*args)
+                    except (MemoryError, ValueError):
+                        pass
+                ms = (time.perf_counter() - t0) * 1e3
+                best[b.backend] = min(best.get(b.backend, ms), ms)
+        return best
+
+
 def phase_path_g(dev, params):
+    """Path G on the native block allocator (csrc/allocator.cc), which a
+    user asks for with PPQ_TPU_NATIVE_ALLOC=1: every engine the path builds
+    takes it (the port's default is the Python free list)."""
+    saved = os.environ.get('PPQ_TPU_NATIVE_ALLOC')
+    os.environ['PPQ_TPU_NATIVE_ALLOC'] = '1'
+    try:
+        return _path_g(dev, params)
+    finally:
+        if saved is None:
+            del os.environ['PPQ_TPU_NATIVE_ALLOC']
+        else:
+            os.environ['PPQ_TPU_NATIVE_ALLOC'] = saved
+
+
+def _path_g(dev, params):
     """Path D's model with the paged KV cache (bench.py's paged
     configuration): run over the 160 requests (the 200-token prompt through
     the chunked paged prefill) with every block back at its start,
@@ -2945,11 +3057,33 @@ def phase_path_g(dev, params):
         raise AssertionError(f'path G: pool {pool_shape}, blocks of '
                              f'{cfg.kv_block_size}')
     free0 = engine._alloc.free_blocks
+    # the engine's allocator is the native one; its run is held against the
+    # Python free list given the same calls, and both are timed on them
+    if engine._alloc.backend != 'native':
+        raise AssertionError('path G: the native block allocator did not '
+                             'build')
+    recorder = _AllocRecorder(engine._alloc)
     reqs = _serve_requests(cfg.vocab_size)
-    run = _serve_run('G', engine, reqs)
+    try:
+        run = _serve_run('G', engine, reqs)
+    finally:
+        recorder.close()
+    if engine._alloc is not recorder.alloc:
+        raise AssertionError('path G: the engine replaced its allocator in run')
     if engine._alloc.free_blocks != free0:
         raise AssertionError(f'path G: {engine._alloc.free_blocks} blocks free '
                              f'after run, {free0} before')
+    alloc_ms = recorder.timed()
+    run['allocator'] = dict(backend=engine._alloc.backend,
+                            calls_replayed=recorder.replay(),
+                            tables_read=sum(c[0] == 'tables'
+                                            for c in recorder.calls),
+                            native_ms=alloc_ms['native'],
+                            python_ms=alloc_ms['python'],
+                            native_share_of_run=alloc_ms['native'] / 1e3
+                            / run['run_s'],
+                            python_share_of_run=alloc_ms['python'] / 1e3
+                            / run['run_s'])
     launches_run = dict(LAUNCHES)
     decode = _serve_decode(engine)
     engine._reset_cache()
@@ -5659,6 +5793,499 @@ def main_passes() -> int:
     return 0
 
 
+# ------------------------------------------------------------------ path N
+# path N: the rest of the single-card surface at ResNet-18's full width.
+# Every registered platform quantizes the zoo ResNet-18 (batch 32 at 224²,
+# API_CALIB seeded batches; the FP8 platforms with fp8_setting, as path C);
+# the output's noise-to-signal ratio against fp32 and its top-1 agreement
+# stay within a bound per kind: 8-bit as path A (SNR_INT8_BOUND), FP8 as
+# path C (SNR_FP8_BOUND), INT4 weight-only 0.1 (0.051 in a CPU run
+# at 4x3x96x96: 4-bit per-channel weights, float activations); top-1 at
+# least 0.9 (0.75 for INT4; 1.0 for every platform on that CPU run).
+API_CALIB = 4
+API_KINDS = {'TPU_INT4_WEIGHT_ONLY': 'int4', 'TPU_FP8': 'fp8',
+             'TRT_FP8': 'fp8', 'GRAPHCORE_FP8': 'fp8'}
+API_SNR_BOUND = {'int8': SNR_INT8_BOUND, 'fp8': SNR_FP8_BOUND, 'int4': 0.1}
+API_TOP1_BOUND = {'int8': 0.9, 'fp8': 0.9, 'int4': 0.75}
+# the card against the CPU (a child process, `--api-cpu-reference`): every
+# platform on a cut calibration set, 2 seeded batches of 8. States, policies
+# and bit widths equal; scales that an observer takes from the parameter's
+# own values with min / max bit for bit; the other scales (activations,
+# derived biases) within API_CPU_RTOL, and the searches over histograms or
+# candidate grids (KL, DirectMSE, the floating scales) within
+# API_CPU_SEARCH_RTOL; an asymmetric offset within one code where its scale
+# differs. The two bounds are set from readings on the H100: the searches'
+# worst was 1.22e-6 (two runs, the seeded inputs picking the same bins on
+# both devices), while a pick one candidate away moves the scale by 2.4e-4
+# or more (one of KL's 4096 bins; 4.9e-4 for MSE's 2048; DirectMSE's
+# candidates are powers of two), so a search that picks another fails.
+API_CUT, API_CUT_BATCH = 2, 8
+API_CPU_RTOL, API_CPU_SEARCH_RTOL = 1e-5, 1e-4
+API_CPU_THREADS = 6
+# QAT at ResNet-18's conv shapes: 4 calibration batches, then 20 SGD steps
+# (momentum 0.9) on seeded labels, cycling over the 4 batches; the loss of
+# the last 4 steps below that of the first 4. One step held against the
+# same step through the plain versions: outputs bit for bit (the fake-quant
+# forward is), gradients within QAT_PLAIN_TOL of each tensor's largest
+# magnitude (the LSQ sums of rows 4 and 5 add in another order).
+QAT_STEPS, QAT_LR, QAT_MOMENTUM, QAT_PLAIN_TOL = 20, 0.05, 0.9, 1e-4
+API_BENCH_BATCHES = (1, 32, 256)
+DATAIO_FILES = 16
+PATH_N_ROWS = {'1': 'fake_quant_tensorwise', '2': 'fake_quant_channelwise',
+               '3': 'histogram', '4': 'fake_quant_bwd_tensorwise',
+               '5': 'fake_quant_bwd_channelwise', '6': 'floating_quant'}
+
+
+def _api_setting(name):
+    from ppq_tpu_torch.api import QuantizationSettingFactory
+    return (QuantizationSettingFactory.fp8_setting()
+            if API_KINDS.get(name) == 'fp8'
+            else QuantizationSettingFactory.default_setting())
+
+
+def _api_cut_set():
+    rng = np.random.RandomState(70)
+    return [rng.randn(API_CUT_BATCH, 3, IMAGE, IMAGE).astype(np.float32)
+            for _ in range(API_CUT)]
+
+
+def _api_tqcs(graph):
+    """{(op, side, index): (state, policy, bits, observer, is parameter,
+    scale, offset)} of every TQC that has a scale or a state."""
+    out = {}
+    for name, op in graph.operations.items():
+        if not hasattr(op, 'config'):
+            continue
+        for side, variables in (('in', op.inputs), ('out', op.outputs)):
+            cfgs = getattr(op.config, f'{side}put_quantization_config')
+            for i, (var, cfg) in enumerate(zip(variables, cfgs)):
+                scale = offset = None
+                if cfg.has_scale:     # Python floats: torch.load takes them
+                    scale = np.asarray(cfg.scale, np.float64).ravel().tolist()
+                    offset = np.asarray(cfg.offset,
+                                        np.float64).ravel().tolist()
+                out[(name, side, i)] = (
+                    cfg.state.name, int(cfg.policy), cfg.num_of_bits,
+                    cfg.observer_algorithm, bool(var.is_parameter), scale,
+                    offset)
+    return out
+
+
+def _api_quantize_all(device, loader, shape):
+    """Every platform of QUANTIZER_COLLECTION on a fresh seeded ResNet-18:
+    {platform: (graph, seconds)}."""
+    from ppq_tpu_torch import quantize_graph
+    from ppq_tpu_torch.quantization.quantizer import QUANTIZER_COLLECTION
+    from ppq_tpu_torch.zoo import resnet18
+    out = {}
+    for platform in QUANTIZER_COLLECTION:
+        graph = resnet18(input_shape=shape)
+        if device.type == 'cuda':
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        quantize_graph(graph, loader, calib_steps=len(loader),
+                       platform=platform, setting=_api_setting(platform.name),
+                       verbose=False, device=device)
+        if device.type == 'cuda':
+            torch.cuda.synchronize()
+        out[platform.name] = (graph, time.perf_counter() - t0)
+    return out
+
+
+def main_api_cpu_reference(out_path) -> int:
+    """The CPU half of path N's card-versus-CPU check, run as a child
+    process while the card works: every platform on the cut set on the CPU,
+    its TQCs saved to out_path."""
+    torch.set_num_threads(API_CPU_THREADS)
+    shape = [API_CUT_BATCH, 3, IMAGE, IMAGE]
+    t0 = time.perf_counter()
+    graphs = _api_quantize_all(torch.device('cpu'), _api_cut_set(), shape)
+    torch.save(dict(tqcs={k: _api_tqcs(g) for k, (g, _) in graphs.items()},
+                    seconds=time.perf_counter() - t0), out_path + '.part')
+    os.replace(out_path + '.part', out_path)
+    return 0
+
+
+def _api_cpu_reference():
+    """`--api-cpu-reference` as a child process (API_CPU_THREADS cores)."""
+    return _CpuReference('--api-cpu-reference')
+
+
+def _api_card_vs_cpu(card, cpu):
+    """Hold the card's TQCs of every platform against the CPU's; returns
+    the largest relative scale difference by class."""
+    worst = {'exact': 0.0, 'other': 0.0, 'search': 0.0}
+    for platform, want_all in cpu.items():
+        got_all = card[platform]
+        if got_all.keys() != want_all.keys():
+            raise AssertionError(f'path N: {platform} TQC sites differ')
+        for key, want in want_all.items():
+            got = got_all[key]
+            if got[:5] != want[:5]:
+                raise AssertionError(f'path N: {platform} {key} card '
+                                     f'{got[:5]} CPU {want[:5]}')
+            if want[5] is None:
+                continue
+            sg, sw = np.asarray(got[5]), np.asarray(want[5])
+            rel = float(np.max(np.abs(sg - sw) / np.maximum(np.abs(sw),
+                                                            1e-30)))
+            observer, parameter, state = want[3], want[4], want[0]
+            if parameter and observer == 'minmax' and \
+                    not state.startswith('PASSIVE'):
+                kind, bound = 'exact', 0.0
+            elif observer in ('kl', 'floating', 'mse'):
+                kind, bound = 'search', API_CPU_SEARCH_RTOL
+            else:
+                kind, bound = 'other', API_CPU_RTOL
+            worst[kind] = max(worst[kind], rel)
+            moved = np.abs(np.asarray(got[6]) - np.asarray(want[6]))
+            if rel > bound or np.any(moved > (1 if rel > 0 else 0)):
+                raise AssertionError(
+                    f'path N: {platform} {key} ({observer}) scale card '
+                    f'against CPU {rel:.3g} (bound {bound}), offsets moved '
+                    f'{float(moved.max())}')
+    return worst
+
+
+def _api_platforms(dev, x, y_fp32, loader):
+    """Step 1: every platform at full width, SNR and top-1 against fp32."""
+    from ppq_tpu_torch import TorchExecutor
+    from ppq_tpu_torch.quantization.measure import torch_snr_error
+    graphs = _api_quantize_all(dev, loader, list(x.shape))
+    rows = {}
+    for name, (graph, seconds) in graphs.items():
+        y = TorchExecutor(graph).forward(x)[0]
+        if tuple(y.shape) != tuple(y_fp32.shape) or \
+                not torch.isfinite(y).all():
+            raise AssertionError(f'path N: {name} output {tuple(y.shape)}, '
+                                 f'finite {bool(torch.isfinite(y).all())}')
+        kind = API_KINDS.get(name, 'int8')
+        snr = float(torch_snr_error(y, y_fp32))
+        top1 = float((y.argmax(-1) == y_fp32.argmax(-1)).float().mean())
+        rows[name] = dict(kind=kind, snr=snr, top1=top1,
+                          quantize_s=seconds)
+        if not (snr <= API_SNR_BOUND[kind] and top1 >= API_TOP1_BOUND[kind]):
+            raise AssertionError(f'path N: {name} SNR {snr} (bound '
+                                 f'{API_SNR_BOUND[kind]}), top-1 {top1} '
+                                 f'(bound {API_TOP1_BOUND[kind]})')
+    return graphs, rows
+
+
+def _api_pfl(dev, graph, x):
+    """Step 2: PFL on the TPU_INT8 graph's weights: ParameterQuant with an
+    FP8 per-channel config (row 6's channelwise body), a power-of-2
+    per-channel one (row 2) and an asymmetric per-tensor one (row 1), each
+    weight's QuantFunction held bit for bit against the plain version; then
+    the graph's forward with the FP8 weights."""
+    from ppq_tpu_torch import TorchExecutor
+    from ppq_tpu_torch import lib as PFL
+    from ppq_tpu_torch.kernels import floating_quant_plain, linear_quant_plain
+    convs = [op for op in graph.operations.values() if op.type == 'Conv']
+    configs = {
+        'fp8_channel': lambda: PFL.FloatingQuantizationConfig(
+            channel_axis=0, calibration='minmax'),
+        'power_of_2': lambda: PFL.LinearQuantizationConfig(
+            channel_axis=0, power_of_2=True),
+        'asymmetric': lambda: PFL.LinearQuantizationConfig(
+            symmetrical=False, quant_min=0, quant_max=255)}
+    held = {k: 0 for k in configs}
+    for op in convs:
+        weight = op.inputs[1]
+        w = torch.as_tensor(np.asarray(weight.value, np.float32), device=dev)
+        for label, make in configs.items():
+            cfg = make()
+            if PFL.ParameterQuant(graph, weight.name, cfg) != 1:
+                raise AssertionError(f'path N: ParameterQuant {label} on '
+                                     f'{weight.name}')
+            got = PFL.QuantFunction(w, cfg)
+            scale = np.asarray(cfg.scale, np.float32)
+            if label == 'fp8_channel':
+                want = floating_quant_plain(w, scale, 4, 3, -448.0, 448.0, 0)
+            else:
+                offset = (np.asarray(cfg.offset, np.float32) if label ==
+                          'asymmetric' else np.zeros_like(scale))
+                want = linear_quant_plain(
+                    w, scale, offset, cfg.quant_min, cfg.quant_max,
+                    cfg.rounding, 0 if cfg.policy.per_channel else None)
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f'path N: QuantFunction {label} on '
+                                     f'{weight.name} != plain')
+            held[label] += 1
+    # the FP8 per-channel configs stay on the weights: the forward runs
+    # row 6's channelwise body on every conv weight
+    for op in convs:
+        cfg = PFL.FloatingQuantizationConfig(channel_axis=0,
+                                             calibration='minmax')
+        PFL.ParameterQuant(graph, op.inputs[1].name, cfg)
+    y = TorchExecutor(graph).forward(x)[0]
+    if not torch.isfinite(y).all():
+        raise AssertionError('path N: PFL forward not finite')
+    return dict(held=held, convs=len(convs))
+
+
+def _qat_model(dev):
+    """QConv2d / QLinear at ResNet-18's conv shapes: the 7x7/2 stem to 64,
+    the max pool, 3x3 stages of 64, 128, 256 and 512 (stride 2 from the
+    second), the 1000-way head."""
+    from ppq_tpu_torch import qat
+    torch.manual_seed(0)
+    return torch.nn.Sequential(
+        qat.QConv2d(3, 64, 7, stride=2), torch.nn.ReLU(),
+        torch.nn.MaxPool2d(3, 2, 1),
+        qat.QConv2d(64, 64, 3), torch.nn.ReLU(),
+        qat.QConv2d(64, 128, 3, stride=2), torch.nn.ReLU(),
+        qat.QConv2d(128, 256, 3, stride=2), torch.nn.ReLU(),
+        qat.QConv2d(256, 512, 3, stride=2), torch.nn.ReLU(),
+        torch.nn.AdaptiveAvgPool2d(1), torch.nn.Flatten(),
+        qat.QLinear(512, 1000)).to(dev)
+
+
+def _qat_step(model, x, label):
+    model.zero_grad(set_to_none=True)
+    y = model(x)
+    loss = torch.nn.functional.cross_entropy(y, label)
+    loss.backward()
+    return y.detach(), loss.detach()
+
+
+def _api_qat(dev, loader):
+    """Step 3: calibrate, hold one step against the plain versions, then
+    train QAT_STEPS steps."""
+    import copy
+    from ppq_tpu_torch import qat
+    from ppq_tpu_torch.kernels import (LAUNCHES, linear_quant_bwd_plain,
+                                       linear_quant_plain)
+    from ppq_tpu_torch.quantization import qfunction
+    gen = torch.Generator(device=dev).manual_seed(71)
+    labels = [torch.randint(0, 1000, (x.shape[0],), device=dev,
+                            generator=gen) for x in loader]
+    model = _qat_model(dev)
+    qat.QATController().calibrate(model, loader)
+    scales = [float(layer.act_scale.detach())
+              for layer in qat.qat_layers(model)]
+    # one step, kernels against plain versions, outside the counts
+    before = dict(LAUNCHES)
+    twin = copy.deepcopy(model)
+    y_k, _ = _qat_step(model, loader[0], labels[0])
+    kernels = (qfunction.linear_quant, qfunction.linear_quant_bwd)
+    qfunction.linear_quant, qfunction.linear_quant_bwd = \
+        linear_quant_plain, linear_quant_bwd_plain
+    try:
+        y_p, _ = _qat_step(twin, loader[0], labels[0])
+    finally:
+        qfunction.linear_quant, qfunction.linear_quant_bwd = kernels
+    if not torch.equal(y_k, y_p):
+        raise AssertionError('path N: QAT outputs, kernels against plain')
+    worst = 0.0
+    for (name, p), q in zip(model.named_parameters(), twin.parameters()):
+        tol = QAT_PLAIN_TOL * float(q.grad.abs().max())
+        diff = float((p.grad - q.grad).abs().max())
+        worst = max(worst, diff / max(float(q.grad.abs().max()), 1e-30))
+        if not diff <= tol:
+            raise AssertionError(f'path N: QAT gradient of {name}, kernels '
+                                 f'against plain, {diff} (bound {tol})')
+    for k, v in before.items():
+        LAUNCHES[k] = v
+    del twin
+    opt = torch.optim.SGD(model.parameters(), lr=QAT_LR,
+                          momentum=QAT_MOMENTUM)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(QAT_STEPS):
+        i = step % len(loader)
+        _, loss = _qat_step(model, loader[i], labels[i])
+        opt.step()
+        losses.append(loss)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    losses = [float(v) for v in losses]
+    first, last = np.mean(losses[:4]), np.mean(losses[-4:])
+    if not (np.all(np.isfinite(losses)) and last < first):
+        raise AssertionError(f'path N: QAT losses {losses}')
+    return dict(seeded_scales=scales, losses=losses,
+                ms_per_step=seconds / QAT_STEPS * 1e3,
+                plain_gradient_worst=worst)
+
+
+def _api_deploy(dev, graph):
+    """Step 4: the TPU_INT8 graph's 'highest' forward exported at batch 32,
+    loaded and held bit for bit against the runner; benchmark_graph at
+    API_BENCH_BATCHES; profile_graph's trace."""
+    import tempfile
+    from ppq_tpu_torch.executor import compile_graph
+    from ppq_tpu_torch.utils import deploy
+    out = {}
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_deploy_') as tmp:
+        path = os.path.join(tmp, 'resnet18_int8.pt2')
+        t0 = time.perf_counter()
+        deploy.export_compiled_artifact(graph, path, precision='highest')
+        out['export_s'] = time.perf_counter() - t0
+        out['artifact_mb'] = os.path.getsize(path) / 2 ** 20
+        run = deploy.load_compiled_artifact(path)
+        runner = compile_graph(graph, precision='highest').make_runner()
+        gen = torch.Generator(device=dev).manual_seed(72)
+        for _ in range(2):
+            x = torch.randn(CALIB_BATCH, 3, IMAGE, IMAGE, device=dev,
+                            generator=gen)
+            got, want = run(x)[0], runner(x)[0]
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f'path N: loaded artifact against the runner, '
+                    f'{float((got - want).abs().max())}')
+        del runner
+        out['benchmark'] = deploy.benchmark_graph(
+            graph, batch_sizes=API_BENCH_BATCHES, iters=10, warmup=2)
+        logdir = deploy.profile_graph(graph, os.path.join(tmp, 'profile'),
+                                      iters=3, batch=CALIB_BATCH)
+        with open(os.path.join(logdir, 'trace.json')) as f:
+            events = json.load(f).get('traceEvents', [])
+        kernels = [e for e in events if e.get('cat') == 'kernel']
+        if not kernels:
+            raise AssertionError('path N: profile_graph traced no kernel')
+        out['profile'] = dict(kernel_events=len(kernels), fake_quant_events=sum(
+            'fake_quant' in e.get('name', '') for e in kernels))
+    torch.cuda.empty_cache()
+    return out
+
+
+def _api_dataio(dev):
+    """Step 5: DATAIO_FILES seeded .npy batches through the native loader
+    into quantize_graph, against the same batches from memory."""
+    import tempfile
+    from ppq_tpu_torch import quantize_graph
+    from ppq_tpu_torch.utils import load_calibration_dir
+    from ppq_tpu_torch.zoo import resnet18
+    rng = np.random.RandomState(73)
+    batches = [rng.randn(CALIB_BATCH, 3, IMAGE, IMAGE).astype(np.float32)
+               for _ in range(DATAIO_FILES)]
+    shape = [CALIB_BATCH, 3, IMAGE, IMAGE]
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_npy_') as tmp:
+        for i, b in enumerate(batches):
+            np.save(os.path.join(tmp, f'batch_{i:03d}.npy'), b)
+        loader = load_calibration_dir(tmp)
+        if not loader.native:
+            raise AssertionError('path N: the native npy loader did not build')
+        tqcs, seconds = [], []
+        for source in (loader, batches):
+            graph = resnet18(input_shape=shape)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            quantize_graph(graph, source, calib_steps=DATAIO_FILES,
+                           verbose=False, device=dev)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            tqcs.append(_api_tqcs(graph))
+    for key, want in tqcs[1].items():
+        got = tqcs[0][key]
+        if got[:5] != want[:5] or (want[5] is not None and not (
+                np.array_equal(got[5], want[5]) and
+                np.array_equal(got[6], want[6]))):
+            raise AssertionError(f'path N: {key} from the npy loader differs '
+                                 f'from the batches in memory')
+    return dict(files=DATAIO_FILES, from_files_s=seconds[0],
+                from_memory_s=seconds[1])
+
+
+def phase_path_n(dev, reference):
+    """Path N: every platform at full width, PFL, QAT, deploy, data I/O (see
+    the constants above); the card's TQCs of every platform against the
+    CPU's from `reference` (`_api_cpu_reference`)."""
+    from ppq_tpu_torch import TorchExecutor
+    from ppq_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ppq_tpu_torch.quantization import qfunction
+    from ppq_tpu_torch.zoo import resnet18
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.cuda.empty_cache()
+    t_path = time.perf_counter()
+    shape = [CALIB_BATCH, 3, IMAGE, IMAGE]
+    gen = torch.Generator(device=dev).manual_seed(74)
+    loader = [torch.randn(*shape, device=dev, generator=gen)
+              for _ in range(API_CALIB)]
+    x = torch.randn(*shape, device=dev, generator=gen)
+    y_fp32 = TorchExecutor(resnet18(input_shape=shape)).forward(x)[0]
+    summary, stages = {}, {}
+
+    # row 6's launches by body, counted where qfunction calls the wrapper
+    # (one LAUNCHES key holds both bodies), as path C counts them
+    bodies = dict(channelwise=0, tensorwise=0)
+    floating_quant = qfunction.floating_quant
+
+    def by_body(x, scale, e_bits, m_bits, qmin, qmax, channel_axis=None):
+        if x.is_cuda and x.numel():
+            bodies['tensorwise' if channel_axis is None
+                   else 'channelwise'] += 1
+        return floating_quant(x, scale, e_bits, m_bits, qmin, qmax,
+                              channel_axis)
+
+    qfunction.floating_quant = by_body
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        graphs, summary['platforms'] = _api_platforms(dev, x, y_fp32, loader)
+        stages['platforms_s'] = time.perf_counter() - t0
+        int8 = graphs.pop('TPU_INT8')[0]
+        del graphs
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        summary['deploy'] = _api_deploy(dev, int8)
+        stages['deploy_s'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        summary['pfl'] = _api_pfl(dev, int8, x)
+        stages['pfl_s'] = time.perf_counter() - t0
+        del int8
+        t0 = time.perf_counter()
+        summary['qat'] = _api_qat(dev, loader)
+        stages['qat_s'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        summary['dataio'] = _api_dataio(dev)
+        stages['dataio_s'] = time.perf_counter() - t0
+    finally:
+        qfunction.floating_quant = floating_quant
+    launches = dict(LAUNCHES)
+    rows = {row: launches[k] for row, k in PATH_N_ROWS.items()}
+    rows['6t'], rows['6c'] = bodies['tensorwise'], bodies['channelwise']
+    absent = [row for row, n in rows.items() if n <= 0]
+    if absent:
+        raise AssertionError(f'path N: rows {absent} did not launch: {rows}')
+    summary['launches_by_row'] = rows
+    # the card's TQCs against the CPU's, on the cut set, outside the counts
+    t0 = time.perf_counter()
+    cut = [torch.as_tensor(b, device=dev) for b in _api_cut_set()]
+    card = {k: _api_tqcs(g) for k, (g, _) in _api_quantize_all(
+        dev, cut, [API_CUT_BATCH, 3, IMAGE, IMAGE]).items()}
+    ref = reference.result()
+    summary['card_vs_cpu'] = dict(
+        worst_rel=_api_card_vs_cpu(card, ref['tqcs']),
+        platforms=len(ref['tqcs']), cpu_s=ref['seconds'],
+        waited_s=time.perf_counter() - t0)
+    stages['path_s'] = time.perf_counter() - t_path
+    summary['stages'] = stages
+    log(f'[path N] {json.dumps(summary)}')
+    return launches, summary
+
+
+def main_api() -> int:
+    """Path N alone."""
+    name, smi = phase_card()
+    import ppq_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+    dev = torch.device('cuda', 0)
+    torch.cuda.set_device(dev)
+    reference = _api_cpu_reference()
+    try:
+        phase_build(['fake_quant', 'histogram', 'fake_quant_bwd', 'floating'])
+        launches, _ = phase_path_n(dev, reference)
+    finally:
+        reference.close()
+    log(f'[launches] path N {json.dumps(launches)}')
+    _check_path_kernels('N', launches)
+    log(smi)
+    log(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': name, 'count': torch.cuda.device_count()}}))
+    return 0
+
+
 # ------------------------------------------------------------ --fp8-sample
 # DirectMSE's sample (ROADMAP.md queue 3 item 36): path C's FP8 calibration
 # of ResNet-18 and BERT-base's (path J's) at these batch sizes
@@ -6428,21 +7055,22 @@ CPU_REFERENCE_THREADS = 4
 
 
 class _CpuReference:
-    """The child process that computes the CPU half of the card-versus-CPU
-    check on CPU_REFERENCE_THREADS of the host's 8 cores, started before
-    the serving paths (the full smoke) or with path M (`--llm`), so that
-    it is done when path M needs it; `result()` waits for it. Killed if the
-    smoke ends first."""
+    """The child process that computes the CPU half of a card-versus-CPU
+    check (`mode`: path M's on CPU_REFERENCE_THREADS of the host's 8 cores,
+    started before the serving paths (the full smoke) or with path M
+    (`--llm`), so that it is done when path M needs it; path N's,
+    `--api-cpu-reference`); `result()` waits for it. Killed if the smoke
+    ends first."""
 
-    def __init__(self):
+    def __init__(self, mode='--llm-cpu-reference'):
         import tempfile
-        self.dir = tempfile.mkdtemp(prefix='chip_smoke_llm_')
+        self.dir = tempfile.mkdtemp(prefix='chip_smoke_ref_')
         self.path = os.path.join(self.dir, 'cpu_reference.pt')
         env = dict(os.environ, CUDA_VISIBLE_DEVICES='')
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__),
-             '--llm-cpu-reference', self.path], env=env,
+             mode, self.path], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
     def result(self, timeout=600):
@@ -6927,6 +7555,8 @@ def main_llm() -> int:
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == '--llm-cpu-reference':
         return main_llm_cpu_reference(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == '--api-cpu-reference':
+        return main_api_cpu_reference(sys.argv[2])
     if len(sys.argv) > 1:
         import argparse
         ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -6959,6 +7589,9 @@ def main() -> int:
                           help='path M alone: AWQ, GPTQ, SmoothQuant W8A8, '
                                'MoE and speculative decoding at the 1B '
                                "decoder's full width")
+        mode.add_argument('--api', action='store_true',
+                          help='path N alone: every platform, PFL, QAT, '
+                               'deploy and data I/O at full width')
         mode.add_argument('--fp8-sample', action='store_true',
                           help="path C's and BERT-base's FP8 calibration "
                                "under DirectMSE's sample rules")
@@ -6983,6 +7616,8 @@ def main() -> int:
             return main_fp8_sample(args.package_root)
         if args.llm:
             return main_llm()
+        if args.api:
+            return main_api()
         return main_qmm(args.package_root)
     t_start = time.perf_counter()
     name, smi = phase_card()
@@ -6997,6 +7632,11 @@ def main() -> int:
     launches_i, _ = phase_path_i(dev)
     launches_j, _ = phase_path_j(dev)
     launches_k, _ = phase_path_k(dev)
+    api_reference = _api_cpu_reference()
+    try:
+        launches_n, _ = phase_path_n(dev, api_reference)
+    finally:
+        api_reference.close()
     launches_b, _, lsq_graph, train_loader = phase_path_b(dev, kl_graph)
     launches_c, _, fp8_graph, _ = phase_path_c(dev)
     # path M's CPU half runs beside the serving paths
@@ -7013,14 +7653,14 @@ def main() -> int:
     finally:
         reference.close()
     paths = dict(A=launches_a, H=launches_h, I=launches_i, J=launches_j,
-                 K=launches_k, B=launches_b, C=launches_c,
+                 K=launches_k, N=launches_n, B=launches_b, C=launches_c,
                  D=launches_d, E=launches_e, F=launches_f, G=launches_g,
                  L=launches_l, M=launches_m)
     # each path's counts were set to 0 before it and read just after it
     launches = {k: sum(p[k] for p in paths.values()) for k in launches_a}
     for tag, counts in paths.items():
         log(f'[launches] path {tag} {json.dumps(counts)}')
-    for tag in ('D', 'E', 'F', 'G', 'L', 'M'):
+    for tag in ('D', 'E', 'F', 'G', 'L', 'M', 'N'):
         _check_path_kernels(tag, paths[tag])
     missing = [k for k in KERNELS if launches.get(k, 0) <= 0]
     if missing:

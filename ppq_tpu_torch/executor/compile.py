@@ -82,7 +82,7 @@ from ..quantization.qfunction import (device_qparams,
                                       linear_quant_codes,
                                       linear_recover_codes, ppq_fake_quant)
 from ..kernels.histogram import histogram
-from ..kernels.loader import LAUNCHES
+from ..kernels.loader import LAUNCHES, graph_capture
 from .base import resolve_forward
 from .ops.default import ExecContext, _host, simulation_precision
 
@@ -305,7 +305,7 @@ class _Capture:
         torch.cuda.current_stream(device).wait_stream(side)
         before = dict(LAUNCHES)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        with graph_capture(self.graph):
             self.static_out = body(self.static_in)
         self.held = held()
         self.launches = {k: LAUNCHES[k] - before.get(k, 0) for k in LAUNCHES

@@ -95,10 +95,13 @@ def paged_pools_to_numpy(pools):
 def block_allocator_from(alloc):
     """A port BlockAllocator in the state of the JAX package's Python one
     (duck-typed: its `free`, `slot_blocks` and `_refs`), so that tables,
-    free list and reference counts carry over with the pools."""
+    free list and reference counts carry over with the pools. The result
+    runs the Python free list: the native allocator's state cannot be set
+    from outside."""
     from ..serving.paged import BlockAllocator
     out = BlockAllocator(alloc.num_blocks, alloc.max_batch,
-                         alloc.max_blocks_per_seq, alloc.block_size)
+                         alloc.max_blocks_per_seq, alloc.block_size,
+                         native=False)
     out.free = [int(b) for b in alloc.free]
     out.slot_blocks = [[int(b) for b in blocks] for blocks in alloc.slot_blocks]
     out._refs = [int(r) for r in alloc._refs]

@@ -24,7 +24,8 @@ The kernels are built by `loader.build()` at first use; a wrapper given a
 CPU tensor runs the plain version, a CUDA tensor launches the kernel or
 raises. Inputs that only the card can check (a device-side column, fill or
 table row out of range) set a bit of the device's fault word, which
-`read_faults` reads.
+`read_faults` reads. The fake-quant wrappers are also custom operators
+(`ops.py`), which a traced program keeps as opaque nodes.
 """
 
 from .loader import LAUNCHES, build, read_faults, reset_launches
@@ -50,6 +51,7 @@ from .bank_write import (Bank, bank_write_inplace, bank_write_plain,
 from .window_write import (supports_dense, window_write_inplace,
                            window_write_plain)
 from .pool_write import pool_write_inplace, pool_write_plain
+from . import ops  # noqa: F401  (registers the custom operators)
 
 __all__ = ['LAUNCHES', 'build', 'read_faults', 'reset_launches', 'histogram',
            'histogram_plain', 'linear_quant', 'linear_quant_plain',

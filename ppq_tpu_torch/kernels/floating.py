@@ -28,7 +28,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .loader import LAUNCHES, check, check_cuda_input, library, stream_of
+from .loader import (LAUNCHES, check, check_cuda_input, library,
+                     stream_of, traced)
 from .quant import _as_param, _broadcast
 
 _FP8_MAX = {(4, 3): 448.0, (5, 2): 57344.0}
@@ -117,7 +118,12 @@ def floating_quant(x: torch.Tensor, scale, exponent_bits: int,
                    channel_axis: Optional[int] = None) -> torch.Tensor:
     """Floating fake-quant of x, tensorwise (channel_axis None) or along
     channel_axis. CPU tensors take the plain version; CUDA tensors the
-    kernel."""
+    kernel; a traced tensor the custom operator
+    `ppq_tpu_torch::floating_quant`, whose implementations are these two."""
+    if traced(x):
+        return torch.ops.ppq_tpu_torch.floating_quant(
+            x, _as_param(scale, x.device), int(exponent_bits),
+            int(mantissa_bits), float(qmin), float(qmax), channel_axis)
     if x.device.type == 'cpu':
         return floating_quant_plain(x, scale, exponent_bits, mantissa_bits,
                                     qmin, qmax, channel_axis)

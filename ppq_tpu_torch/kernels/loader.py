@@ -13,7 +13,9 @@ that a path went through the kernels.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import gc
 import os
 import shutil
 import subprocess
@@ -22,6 +24,7 @@ import time
 from typing import Dict, Iterable, List
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG_DIR, 'csrc')
@@ -123,6 +126,33 @@ LAUNCHES: Dict[str, int] = {
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}
+
+
+@contextlib.contextmanager
+def graph_capture(graph, pool=None):
+    """`torch.cuda.graph(graph, pool=pool)` with Python's cyclic garbage
+    collector held off for the capture: every CUDA graph of the port is
+    captured through it. A collection that ran inside a capture could free
+    another graph's objects (a CUDA graph, a memory pool, pinned buffers,
+    an unreachable serving engine's), whose destructors call CUDA APIs that
+    invalidate the capture in progress (cudaErrorStreamCaptureInvalidated:
+    seen with three engines on one set of weights in one process). The
+    garbage is collected after the capture instead."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
+def traced(x) -> bool:
+    """Whether `x` is a tensor of a trace (torch.export, torch.compile)
+    rather than one holding data: a wrapper then calls its custom operator
+    (`kernels/ops.py`), which the trace keeps as one opaque node."""
+    return torch.compiler.is_compiling() or isinstance(x, FakeTensor)
 
 
 def reset_launches() -> None:

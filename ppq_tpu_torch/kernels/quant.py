@@ -36,7 +36,8 @@ import torch
 
 from ..core import RoundingPolicy
 from ..quantization.rounding import round_tensor
-from .loader import LAUNCHES, check, check_cuda_input, library, stream_of
+from .loader import (LAUNCHES, check, check_cuda_input, library,
+                     stream_of, traced)
 
 # RoundingPolicy -> rounding code of csrc/fake_quant.cu
 ROUNDING_CODES = {
@@ -114,7 +115,13 @@ def linear_quant(x: torch.Tensor, scale, offset, qmin: float, qmax: float,
                  codes: bool = False) -> torch.Tensor:
     """Fake-quant (or codes) of x, tensorwise (channel_axis None) or along
     channel_axis. CPU tensors take the plain version; CUDA tensors the
-    kernel."""
+    kernel; a traced tensor the custom operator `ppq_tpu_torch::linear_quant`,
+    whose implementations are these two."""
+    if traced(x):
+        return torch.ops.ppq_tpu_torch.linear_quant(
+            x, _as_param(scale, x.device), _as_param(offset, x.device),
+            float(qmin), float(qmax), rounding.value, channel_axis,
+            bool(codes))
     if x.device.type == 'cpu':
         return linear_quant_plain(x, scale, offset, qmin, qmax, rounding,
                                   channel_axis, codes)

@@ -38,7 +38,7 @@ from ...executor.compile import CompiledGraph
 from ...executor.ops.default import simulation_precision
 from ...ir import (BaseGraph, QuantableOperation, dequantize_graph,
                    restore_graph_quantization)
-from ...kernels.loader import LAUNCHES
+from ...kernels.loader import LAUNCHES, graph_capture
 from ..algorithm.blocks import BlockBuilder, TrainableBlock
 from .base import QuantizationOptimizationPass
 
@@ -165,7 +165,7 @@ class _CapturedStep:
         static_in = {k: v.detach().clone() for k, v in feed.items()}
         graph = torch.cuda.CUDAGraph()
         before = dict(LAUNCHES)
-        with torch.cuda.graph(graph):
+        with graph_capture(graph):
             static_out = self.body(static_in)
         launches = {k: LAUNCHES[k] - before.get(k, 0) for k in LAUNCHES
                     if LAUNCHES[k] != before.get(k, 0)}

@@ -49,7 +49,7 @@ import torch
 
 from ..executor.executor import resolve_device
 from ..kernels import qmm as _qmm
-from ..kernels.loader import LAUNCHES
+from ..kernels.loader import LAUNCHES, graph_capture
 from .config import LlamaConfig
 from .model import (Params, burst_forward, forward, fuse_decode_params,
                     init_kv_cache)
@@ -130,7 +130,7 @@ class _CapturedBurst:
         self.graph = torch.cuda.CUDAGraph()
         self.graph.register_generator_state(generator)
         before = dict(LAUNCHES)
-        with torch.cuda.graph(self.graph, pool=pool):
+        with graph_capture(self.graph, pool=pool):
             self.static_out = walk(self.static_in)
         self.launches_per_replay = {k: LAUNCHES[k] - before[k]
                                     for k in LAUNCHES

@@ -18,16 +18,19 @@ block-major layout (row 12), as the JAX package's kernel path does; the
 burst's own columns live in small buffers (bank-write kernel, row 14) and
 join by an exact merge of partial softmaxes.
 
-Not ported yet (ROADMAP items 13 and 15): the native C++ allocator (the
-`native=` switch is accepted and ignored: the Python free list gives the
-same allocation order), the dp-grouped allocator and prefix cache, and
-every sp / dp / pp function.
+The allocator is a Python free list unless `native=True` or
+`PPQ_TPU_NATIVE_ALLOC=1` asks for the repository's native C++ one
+(`csrc/allocator.cc`, built at first use by `utils/native.py`; the Python
+list where the build fails): both give the same allocation order, and on the
+serving paths' calls the Python list is the faster (PERF.md §5). Not ported yet (ROADMAP item 15): the dp-grouped
+allocator and prefix cache, and every sp / dp / pp function.
 """
 
 from __future__ import annotations
 
 import hashlib
 import math
+import os
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
@@ -76,9 +79,17 @@ def init_paged_pools(cfg: LlamaConfig, num_blocks: int,
 class BlockAllocator:
     """Host-side free list over pool rows [1, num_blocks), row 0 being the
     trash block, with a reference count per row (prefix sharing). Tracks
-    each slot's logical -> physical block list. The JAX package's Python
-    allocator, whose allocation order its native one reproduces bit for bit;
-    `native` is accepted for its signature and ignored."""
+    each slot's logical -> physical block list.
+
+    Two backends with the same allocation order
+    (tests/test_native_allocator.py, tests/test_torch_native_io.py): this
+    Python list, and the native C++ allocator (the repository's
+    csrc/allocator.cc through ctypes, `native_alloc`) where `native` is True,
+    or None with PPQ_TPU_NATIVE_ALLOC=1, and the toolchain builds it. The
+    JAX package takes the native one by default; here the Python list is the
+    default, being the faster on the serving paths' calls (a ctypes call
+    costs more than the list operation it replaces; PERF.md §5). `backend`
+    says which runs."""
 
     def __init__(self, num_blocks: int, max_batch: int,
                  max_blocks_per_seq: int, block_size: int = BLK,
@@ -87,18 +98,59 @@ class BlockAllocator:
         self.max_batch = max_batch
         self.max_blocks_per_seq = max_blocks_per_seq
         self.block_size = block_size
-        self.free: List[int] = list(range(num_blocks - 1, 0, -1))
-        self.slot_blocks: List[List[int]] = [[] for _ in range(max_batch)]
-        self._refs: List[int] = [0] * num_blocks
+        self._nlib = None
+        self._handle = 0
+        if native is None:
+            native = os.environ.get('PPQ_TPU_NATIVE_ALLOC', '0') != '0'
+        if native:
+            from ..utils.native import native_alloc
+            lib = native_alloc()
+            if lib is not None:
+                handle = lib.create(num_blocks, max_batch,
+                                    max_blocks_per_seq, block_size)
+                if handle:
+                    self._nlib, self._handle = lib, handle
+                    # slot_block_ids reads its row from here: the C source
+                    # has no one-row read, only the whole table
+                    self._row_buf = np.zeros((max_batch, max_blocks_per_seq),
+                                             np.int32)
+        if self._nlib is None:
+            self.free: List[int] = list(range(num_blocks - 1, 0, -1))
+            self.slot_blocks: List[List[int]] = [[] for _ in range(max_batch)]
+            self._refs: List[int] = [0] * num_blocks
+
+    @property
+    def backend(self) -> str:
+        return 'native' if self._nlib is not None else 'python'
+
+    def __del__(self):
+        if getattr(self, '_nlib', None) is not None and self._handle:
+            self._nlib.destroy(self._handle)
+            self._handle = 0
+
+    def _check(self, rc: int, what: str) -> None:
+        if rc != 0:
+            raise RuntimeError(f'native allocator {what} rc={rc}')
 
     @property
     def free_blocks(self) -> int:
+        if self._nlib is not None:
+            return self._nlib.free_blocks(self._handle)
         return len(self.free)
 
     def ensure(self, slot: int, tokens: int) -> None:
         """Grow slot's block list to cover `tokens` positions; all or
         nothing when the pool runs out."""
         need = -(-tokens // self.block_size)
+        if self._nlib is not None:
+            rc = self._nlib.ensure(self._handle, slot, tokens)
+            if rc == -2:
+                raise ValueError(f'sequence needs {need} blocks > '
+                                 f'max {self.max_blocks_per_seq}')
+            if rc == -1:
+                raise MemoryError('KV block pool exhausted')
+            self._check(rc, 'ensure')
+            return
         if need > self.max_blocks_per_seq:
             raise ValueError(f'sequence needs {need} blocks > '
                              f'max {self.max_blocks_per_seq}')
@@ -117,6 +169,10 @@ class BlockAllocator:
     def adopt(self, slot: int, blocks) -> None:
         """Attach EXISTING (live) blocks, a cached prefix, to the front of
         an EMPTY slot's list, taking one reference each."""
+        if self._nlib is not None:
+            self._check(self._nlib.adopt(self._handle, slot, list(blocks)),
+                        'adopt')
+            return
         assert not self.slot_blocks[slot], 'adopt needs an empty slot'
         for b in blocks:
             assert self._refs[b] > 0, f'adopting dead block {b}'
@@ -125,11 +181,18 @@ class BlockAllocator:
 
     def retain(self, blocks) -> None:
         """Standalone references (the prefix cache's own holds)."""
+        if self._nlib is not None:
+            self._check(self._nlib.retain(self._handle, list(blocks)),
+                        'retain')
+            return
         for b in blocks:
             assert self._refs[b] > 0
             self._refs[b] += 1
 
     def unref(self, blocks) -> None:
+        if self._nlib is not None:
+            self._check(self._nlib.unref(self._handle, list(blocks)), 'unref')
+            return
         for b in reversed(list(blocks)):
             self._refs[b] -= 1
             if self._refs[b] == 0:
@@ -137,15 +200,28 @@ class BlockAllocator:
 
     def slot_block_ids(self, slot: int) -> List[int]:
         """The slot's current block list (its table row's prefix)."""
+        if self._nlib is not None:
+            n = self._nlib.slot_blocks(self._handle, slot)
+            if n == 0:
+                return []
+            self._nlib.tables(self._handle, self.max_batch,
+                              self.max_blocks_per_seq, out=self._row_buf)
+            return self._row_buf[slot, :n].tolist()
         return list(self.slot_blocks[slot])
 
     def release(self, slot: int) -> None:
+        if self._nlib is not None:
+            self._check(self._nlib.release(self._handle, slot), 'release')
+            return
         self.unref(self.slot_blocks[slot])
         self.slot_blocks[slot] = []
 
     def tables(self) -> np.ndarray:
         """(B, MB) int32 tables; unallocated entries point at the trash
         block 0."""
+        if self._nlib is not None:
+            return self._nlib.tables(self._handle, self.max_batch,
+                                     self.max_blocks_per_seq)
         t = np.zeros((self.max_batch, self.max_blocks_per_seq), np.int32)
         for s, blocks in enumerate(self.slot_blocks):
             t[s, :len(blocks)] = blocks

@@ -2399,3 +2399,141 @@ def test_moe_ffn_on_card_vs_plain_cpu(cuda):
     with simulation_precision('highest'):
         got = moe_ffn(x.to(cuda), card).cpu()
     assert torch.allclose(got, want, rtol=0, atol=1e-5 * want.abs().max())
+
+
+# ------------------------------------- custom operators, QAT, deploy, alloc
+@pytest.mark.parametrize('axis', [None, 0, 1])
+def test_custom_operators_equal_their_plain_twins(cuda, axis):
+    """The custom operators of kernels/ops.py on card tensors launch the
+    kernels (one launch each) and give the plain versions' bits; on CPU
+    tensors they are the plain versions."""
+    x, s, o, (qmin, qmax) = _case((6, 5, 7, 9), axis, True, seed=3)
+    for dev in (cuda, torch.device('cpu')):
+        xc = torch.from_numpy(x).to(dev)
+        st = torch.as_tensor(np.asarray(s, np.float32), device=dev)
+        ot = torch.as_tensor(np.asarray(o, np.float32), device=dev)
+        reset_launches()
+        got = torch.ops.ppq_tpu_torch.linear_quant(
+            xc, st, ot, float(qmin), float(qmax), 1, axis, False)
+        fgot = torch.ops.ppq_tpu_torch.floating_quant(
+            xc, st.abs() * 10, 4, 3, -448.0, 448.0, axis)
+        torch.cuda.synchronize()
+        assert sum(LAUNCHES.values()) == (2 if dev.type == 'cuda' else 0)
+        want = linear_quant_plain(xc, st, ot, qmin, qmax,
+                                  RoundingPolicy.ROUND_HALF_UP, axis)
+        fwant = floating_quant_plain(xc, st.abs() * 10, 4, 3, -448.0, 448.0,
+                                     axis)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert torch.equal(fgot.view(torch.int32), fwant.view(torch.int32))
+
+
+def _qat_stack(dev):
+    from ppq_tpu_torch import qat
+    torch.manual_seed(0)
+    model = torch.nn.Sequential(
+        qat.QConv2d(3, 8, 7, stride=2), torch.nn.ReLU(),
+        qat.QConv2d(8, 16, 3, stride=2), torch.nn.ReLU(),
+        torch.nn.Flatten(), qat.QLinear(16 * 4 * 4, 10))
+    return model.to(dev)
+
+
+def test_qat_step_on_the_card_equals_the_cpu(cuda):
+    """A QConv2d / QLinear stack calibrated on the card seeds the CPU's
+    scales (the first layer's bit for bit; behind a convolution within
+    1e-5: cuDNN and the CPU sum in other orders). From the CPU's calibrated
+    state, one SGD step on the card (rows 1 and 2 forward, 4 and 5
+    backward), TF32 off, against the same step on the CPU: outputs,
+    gradients and the stepped parameters within 1e-4 of their largest
+    magnitude (the convolutions' and the LSQ scale sums' orders)."""
+    from ppq_tpu_torch import qat
+    from ppq_tpu_torch.executor import simulation_precision
+    rng = np.random.RandomState(0)
+    xs = [torch.from_numpy(rng.randn(4, 3, 16, 16).astype(np.float32))
+          for _ in range(3)]
+    cpu = torch.device('cpu')
+    with simulation_precision('highest'):
+        seeded = []
+        for dev in (cuda, cpu):
+            model = _qat_stack(dev)
+            qat.QATController().calibrate(model, [x.to(dev) for x in xs])
+            seeded.append(torch.stack([m.act_scale.detach().cpu()
+                                       for m in qat.qat_layers(model)]))
+        assert seeded[0][0] == seeded[1][0]
+        torch.testing.assert_close(seeded[0], seeded[1], rtol=1e-5, atol=0)
+        state = model.state_dict()
+        results = []
+        for dev in (cuda, cpu):
+            model = _qat_stack(dev)
+            model.load_state_dict(state)
+            reset_launches()
+            opt = torch.optim.SGD(model.parameters(), lr=0.01)
+            y = model(xs[0].to(dev))
+            torch.mean(y ** 2).backward()
+            grads = [p.grad.detach().cpu().clone()
+                     for p in model.parameters()]
+            opt.step()
+            torch.cuda.synchronize()
+            if dev.type == 'cuda':
+                for name in ('fake_quant_tensorwise', 'fake_quant_channelwise',
+                             'fake_quant_bwd_tensorwise',
+                             'fake_quant_bwd_channelwise'):
+                    assert LAUNCHES[name] >= 3, (name, dict(LAUNCHES))
+            results.append((y.detach().cpu(), grads,
+                            [p.detach().cpu() for p in model.parameters()]))
+    (y_c, g_c, p_c), (y_h, g_h, p_h) = results
+    for got, want in [(y_c, y_h)] + list(zip(g_c, g_h)) + list(zip(p_c, p_h)):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+def test_artifact_on_the_card_equals_the_runner(cuda, tmp_path):
+    """A torch.export artifact of a card-quantized graph reloads on the
+    card, launches the fake-quant kernels through the custom operators and
+    equals the 'highest' runner bit for bit."""
+    from ppq_tpu_torch.executor import compile_graph
+    from ppq_tpu_torch.utils import deploy
+    torch.backends.cudnn.deterministic = True
+    graph, loader = _quantized_small(cuda)
+    path = str(tmp_path / 'model.pt2')
+    deploy.export_compiled_artifact(graph, path, precision='highest')
+    run = deploy.load_compiled_artifact(path)
+    runner = compile_graph(graph, precision='highest').make_runner()
+    for x in loader:
+        reset_launches()
+        got = run(x)[0]
+        torch.cuda.synchronize()
+        assert got.is_cuda and LAUNCHES['fake_quant_tensorwise'] > 0
+        assert torch.equal(got, runner(x)[0])
+
+
+def test_paged_engine_on_the_native_allocator_on_the_card(cuda, monkeypatch):
+    """The engine's native allocator on the card: the tokens, and the block
+    tables the engine uploads at every step, of the Python free list's run;
+    every block back."""
+    from ppq_tpu_torch.serving import (LlamaConfig, Request, ServingEngine,
+                                       init_llama_params)
+    cfg = dict(vocab_size=512, d_model=512, n_layers=2, n_heads=4,
+               n_kv_heads=2, d_ff=1024, max_seq_len=512, max_batch=4,
+               prefill_buckets=(16, 384), paged_kv=True, kv_block_size=128)
+    params = init_llama_params(LlamaConfig(**cfg), seed=0)
+    runs = []
+    for native in ('1', '0'):
+        monkeypatch.setenv('PPQ_TPU_NATIVE_ALLOC', native)
+        engine = ServingEngine(LlamaConfig(**cfg), params)
+        assert engine._alloc.backend == ('native' if native == '1'
+                                         else 'python')
+        rng = np.random.default_rng(0)
+        reqs = [Request(i, [int(t) for t in rng.integers(1, 512,
+                                                         size=5 + 70 * i)],
+                        max_new_tokens=9) for i in range(6)]
+        tables, alloc = [], engine._alloc
+        read = alloc.tables
+        alloc.tables = lambda: tables.append(read()) or tables[-1]
+        engine.run(reqs, sync_every=4)
+        assert all(r.done and len(r.generated) == 9 for r in reqs)
+        assert alloc.free_blocks == alloc.num_blocks - 1
+        runs.append(([r.generated for r in reqs], tables))
+    assert runs[0][0] == runs[1][0]
+    assert len(runs[0][1]) == len(runs[1][1]) > 0
+    for a, b in zip(runs[0][1], runs[1][1]):
+        np.testing.assert_array_equal(a, b)

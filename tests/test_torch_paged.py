@@ -79,7 +79,7 @@ def test_allocator_tables_bit_equal_after_the_same_schedule():
     kw = dict(num_blocks=33, max_batch=8, max_blocks_per_seq=4,
               block_size=128)
     j = jpaged.BlockAllocator(native=False, **kw)
-    t = tpaged.BlockAllocator(native=True, **kw)     # native= is ignored
+    t = tpaged.BlockAllocator(native=True, **kw)     # csrc/allocator.cc
     rng = np.random.RandomState(0)
     for step in range(400):
         slot = int(rng.randint(0, 8))

@@ -385,11 +385,25 @@ def test_open_loop_sweep_keys_and_steady_state_window():
 
 # ------------------------------------------------------ the cache reset ----
 
-@pytest.mark.parametrize('kind', list(CONFIGS))
-def test_reset_cache_in_place_gives_a_new_caches_values(kind):
-    """`_reset_cache` (recorded difference 42) leaves the values a new cache
-    has, in the same tensors, and a paged engine's allocator and prefix
-    cache as new ones are."""
+def _drain(alloc):
+    """Every slot grown one block at a time to its most, in slot order: the
+    block each step takes, or where the pool ran out, then the tables. With
+    a pool the slots can hold whole, this reads the allocator's whole free
+    list in order, on either backend."""
+    taken = []
+    for slot in range(alloc.max_batch):
+        for n in range(1, alloc.max_blocks_per_seq + 1):
+            try:
+                alloc.ensure(slot, n * alloc.block_size)
+            except MemoryError:
+                taken.append(('exhausted', slot, n))
+                continue
+            taken.append(alloc.slot_block_ids(slot)[-1])
+    return taken, alloc.tables().tolist(), alloc.free_blocks
+
+
+def _reset_and_new(kind):
+    """An engine after a run and `_reset_cache`, and a new engine."""
     eng = _port(kind)
     eng.run(_requests(Request, kind)[:3], sync_every=SYNC)
     addresses = [t.data_ptr() for t in eng.cache.values()]
@@ -399,9 +413,37 @@ def test_reset_cache_in_place_gives_a_new_caches_values(kind):
     assert [t.data_ptr() for t in eng.cache.values()] == addresses
     for key, t in fresh.cache.items():
         assert torch.equal(eng.cache[key], t)
+    return eng, fresh
+
+
+@pytest.mark.parametrize('kind', list(CONFIGS))
+def test_reset_cache_in_place_gives_a_new_caches_values(kind):
+    """`_reset_cache` (recorded difference 42) leaves the values a new cache
+    has, in the same tensors, and a paged engine's allocator and prefix
+    cache as new ones are."""
+    eng, fresh = _reset_and_new(kind)
     if kind == 'paged':
-        assert eng._alloc.free == fresh._alloc.free
+        assert eng._alloc.backend == fresh._alloc.backend
+        if eng._alloc.backend == 'python':
+            assert eng._alloc.free == fresh._alloc.free
         np.testing.assert_array_equal(eng._alloc.tables(),
                                       fresh._alloc.tables())
         assert eng.prefix_cache is not None and not eng.prefix_cache.index \
             and eng.prefix_cache.hits == eng.prefix_cache.misses == 0
+        # and the whole list in its order, as it is handed out
+        assert _drain(eng._alloc) == _drain(fresh._alloc)
+
+
+def test_reset_cache_in_place_gives_a_new_native_allocator(monkeypatch):
+    """The same reset on the native allocator (PPQ_TPU_NATIVE_ALLOC=1),
+    whose free list is not readable from Python: drained, the reset one
+    hands out the whole list in a new one's order."""
+    from ppq_tpu_torch.utils.native import native_alloc
+    if native_alloc() is None:
+        pytest.skip('the native allocator did not build (no g++)')
+    monkeypatch.setenv('PPQ_TPU_NATIVE_ALLOC', '1')
+    eng, fresh = _reset_and_new('paged')
+    assert eng._alloc.backend == fresh._alloc.backend == 'native'
+    assert eng._alloc.free_blocks == fresh._alloc.free_blocks
+    np.testing.assert_array_equal(eng._alloc.tables(), fresh._alloc.tables())
+    assert _drain(eng._alloc) == _drain(fresh._alloc)
