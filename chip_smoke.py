@@ -103,8 +103,9 @@ Phases (each raises on failure, and the script then exits non-zero):
      same steps taken one by one, the kernel path against the plain
      versions, and torch.profiler windows over one burst, captured and
      uncaptured (paths E, F and G do the same);
-  8. path E: the engine's default configuration on the same weights: the
-     ragged read through the paged-attention kernels (grouped at fill 16,
+  8. path E: the engine's default configuration on the first 8 of the
+     same weights' 16 layers (CUT_LAYERS; widths unchanged): the ragged
+     read through the paged-attention kernels (grouped at fill 16,
      per slot at fill 512), `run` and `benchmark_decode` as in D; then the
      ragged burst against D's dense burst, the kernel path against the plain
      path, every launch against its plain version, the profile and the
@@ -123,11 +124,13 @@ Phases (each raises on failure, and the script then exits non-zero):
      (PPQ_TPU_NATIVE_ALLOC=1; the port's default is the Python list), every
      call its `run` made is replayed on the Python free list with the same
      results, and both backends are timed on those calls;
- 10. path F: INT4 weights (an INT8 lm_head), ragged read, 128 slots:
+ 10. path F: INT4 weights (an INT8 lm_head), ragged read, 128 slots, 8
+     of the 16 layers:
      `benchmark_decode` at fill 16 and 512, a short `run`, the kernel path
      against the plain path and every launch against its plain version;
  10b. path L: bench.py's serving track at its widths (`bench.py:396-499`):
-     path G's engine on path D's weights, `benchmark_serving(192, 64, 128,
+     path G's engine on the first 8 of path D's 16 layers,
+     `benchmark_serving(192, 64, 128,
      sync_every=128)` through the planned loop (its timed run under
      torch.cuda.set_sync_debug_mode('error') from its first dispatch to its
      download, with no capture in it), its tokens against the synchronous
@@ -136,7 +139,8 @@ Phases (each raises on failure, and the script then exits non-zero):
      block back after each, and the B=32 decode points, INT4 and INT8
      (`--serving` runs this path alone);
  10c. path M: the LLM quantization path at the full width of bench.py's
-     1B decoder (`init_llama_params(quantized=False, seed=0)`): AWQ and
+     1B decoder, 8 of its 16 layers (`init_llama_params(quantized=False,
+     seed=0)`): AWQ and
      GPTQ INT4 and SmoothQuant W8A8 on the card beside round-to-nearest
      (seconds, peak memory, logits SNR against the float model), each of
      the three served (`run`, `benchmark_decode` at fill 16 captured, 32
@@ -146,6 +150,20 @@ Phases (each raises on failure, and the script then exits non-zero):
      draft and the target itself) against plain greedy, and AWQ / GPTQ on
      the card against a child process's CPU run at 2 layers (`--llm` runs
      this path alone);
+ 10d. path O: the parallel layer (ppq_tpu_torch/parallel, ring attention,
+     GPipe, tensor-parallel serving) on a world of four ranks that share
+     the card (parallel.spawn; gloo, every collective staged through host
+     memory): O1 ResNet-18's compiled calibration over dp 2 (percentile
+     and KL, 4 batches of 32 at 224²), O2 the dp 2 x tp 2 sharded step (3
+     steps towards the fp32 outputs), O3 ring attention over sp 2 and 4 at
+     the 1B decoder's heads (T 4096, bf16, causal and full), O4 the GPipe
+     forward over pp 2 of its 16 layers, O5 its tp-2 engines (INT8 dense,
+     ragged, paged; INT4: `run` over 32 requests, benchmark_decode for 8
+     steps at fill 16 and 512), O6 the dp 2 x tp 2 paged engine, O7 path
+     M's MoE engine at ep 2; each held against the same computation on one
+     card in this process, every rank's tokens equal; the seconds and ms a
+     step of ranks sharing one card are correctness figures, not scaling
+     figures (`--parallel` runs this path alone);
  11. launches: every kernel ran on a path (the counts are set to 0 before
      each path and read after it); then, outside the counts, the time and
      the launches of an LSQ step, captured and uncaptured, block by block
@@ -231,6 +249,17 @@ SERVE = dict(d_model=2048, n_layers=16, n_heads=16, n_kv_heads=8, d_ff=5632,
              vocab_size=32000, max_seq_len=1024, max_batch=128,
              weight_bits=8, kv_cache_bits=8, prefill_buckets=(128,))
 SERVE_REQUESTS, SERVE_SYNC, BURST = 160, 16, 32
+# Paths E, F, L and M run the first CUT_LAYERS of the decoder's 16 layers,
+# every width unchanged; D, G and O keep the 16. With every path at 16 the
+# full smoke read 1131 s of its 1200 on an H100 (700 W), and 1053 s with
+# only M at 8 and L's requests and windows cut
+CUT_LAYERS = 8
+CUT_SERVE = dict(SERVE, n_layers=CUT_LAYERS)
+
+
+def _first_layers(params):
+    """A parameter tree's first CUT_LAYERS layers (the tensors shared)."""
+    return dict(params, layers=params['layers'][:CUT_LAYERS])
 # Kernel path against plain path, and burst against single steps, teacher-
 # forced with the same tokens. Both sides multiply the same bf16 operands and
 # sum in f32 in another order, so some of a matmul's outputs round to the
@@ -1087,8 +1116,9 @@ def kernels_serving(dev, flush):
 
 
 def kernels_int4(dev, flush):
-    """Row 9 and row 10's INT4 body at path F's shapes (128 slots), each with
-    the epilogue a decode step gives it: the weights split-half packed, held
+    """Row 9 and row 10's INT4 body at path F's shapes (128 slots) and row
+    9 at a tp-2 rank's w_down shard (path O), each with the epilogue a
+    decode step gives it: the weights split-half packed, held
     against their plain versions (the nibbles unpacked, then row 8's and
     row 10's arithmetic) with rows 8 and 10's tolerances on the unpacked
     weight in f32 and bf16, two calls on the same inputs bit-equal (also
@@ -1114,7 +1144,9 @@ def kernels_int4(dev, flush):
     for label, d, f, has_row, has_res in (
             ('wqkv row_scale', D, Fq, True, False),
             ('wo residual', D, D, False, True),
-            ('w_down residual', Fh, D, False, True)):
+            ('w_down residual', Fh, D, False, True),
+            # a tp-2 rank's w_down shard (path O): 1408 packed rows
+            ('w_down tp-2 shard residual', Fh // 2, D, False, True)):
         x = torch.randn(B, d, device=dev, generator=gen).to(bf16)
         codes, w, scale = weight(d, f)
         row = torch.rand(B, device=dev, generator=gen) + 0.5 if has_row else None
@@ -1300,8 +1332,8 @@ def _attention_bound(lens, q, pool, tables_cols=0):
 
 
 def kernels_ragged(dev, flush):
-    """Rows 11 and 12 at path E's shapes: 128 slots, 16 layers, 8 KV heads
-    of 128, the int8 cache of max_seq_len 1024. Row 11 at fill 512 (window
+    """Rows 11 and 12 at path E's launch shapes: 128 slots, 8 KV heads of
+    128, the int8 cache of max_seq_len 1024 (16 layers of it here). Row 11 at fill 512 (window
     512, one 512-position block a slot, the layout `burst_forward` repacks
     for the per-slot kernel); row 12 at fill 16 (window 32, blocks of 32,
     groups of 32). Each against its plain version at the path's fills and
@@ -2606,7 +2638,8 @@ def phase_path_d(dev):
 
 
 def phase_path_e(dev, params):
-    """The engine's default configuration on the card, on path D's weights:
+    """The engine's default configuration on the card, on the first
+    CUT_LAYERS of path D's weights:
     `use_ragged_attention` left None must resolve to True. run and
     benchmark_decode as in D, the kernel of each fill checked; then, outside
     the counts, the ragged burst against the dense burst on the same cache,
@@ -2617,7 +2650,8 @@ def phase_path_e(dev, params):
     from ppq_tpu_torch.serving import LlamaConfig
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = LlamaConfig(**SERVE)
+    cfg = LlamaConfig(**CUT_SERVE)
+    params = _first_layers(params)
     reset_launches()
     engine, weight_bytes, cache_bytes = _serve_engine('E', cfg, params)
     if cfg.use_ragged_attention is not True:
@@ -2675,7 +2709,7 @@ def phase_path_e(dev, params):
     torch.cuda.empty_cache()
     profile = _profiles(engine, 'E')
     summary = dict(
-        model=SERVE, use_ragged_attention=cfg.use_ragged_attention,
+        model=CUT_SERVE, use_ragged_attention=cfg.use_ragged_attention,
         weights_gib=weight_bytes / 2 ** 30, kv_cache_gib=cache_bytes / 2 ** 30,
         **run, launches_in_run=launches_run, decode=decode,
         host_us_per_small_launch=host_us,
@@ -2702,7 +2736,7 @@ def phase_path_f(dev):
     from ppq_tpu_torch.serving import LlamaConfig, init_llama_params
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = LlamaConfig(**dict(SERVE, weight_bits=4))
+    cfg = LlamaConfig(**dict(CUT_SERVE, weight_bits=4))
     reset_launches()
     t0 = time.perf_counter()
     params = init_llama_params(cfg, seed=0)
@@ -2742,7 +2776,7 @@ def phase_path_f(dev):
     torch.cuda.empty_cache()
     profile = _profiles(engine, 'F')
     summary = dict(
-        model=dict(SERVE, weight_bits=4),
+        model=dict(CUT_SERVE, weight_bits=4),
         lm_head_bits=cfg.resolved_lm_head_bits,
         weights_gib=weight_bytes / 2 ** 30, kv_cache_gib=cache_bytes / 2 ** 30,
         init_params_s=init_s, **run, decode=decode,
@@ -3233,7 +3267,7 @@ def _b32_point(dev, cfg_fields, params, tag):
     benchmark_decode(steps=64, burst=32, repeats=2) at fill 16, captured,
     then uncaptured."""
     from ppq_tpu_torch.serving import LlamaConfig, ServingEngine
-    cfg = LlamaConfig(**dict(SERVE, max_batch=32, **cfg_fields))
+    cfg = LlamaConfig(**dict(CUT_SERVE, max_batch=32, **cfg_fields))
     engine = ServingEngine(cfg, params)
     out = engine.benchmark_decode(steps=64, burst=32, repeats=2)
     engine._capture = False
@@ -3246,7 +3280,8 @@ def _b32_point(dev, cfg_fields, params, tag):
 
 def phase_path_l(dev, params8, params4):
     """bench.py's serving track at its widths (`bench.py:396-499`): the
-    paged INT8 engine of 128 slots on path D's weights,
+    paged INT8 engine of 128 slots on the first CUT_LAYERS of path D's
+    weights,
     benchmark_serving(192, 64, 128, sync_every=128) on the planned loop
     (its timed run under the sync debug mode 'error' from its first
     dispatch to its download, with no capture), its tokens against the
@@ -3259,7 +3294,8 @@ def phase_path_l(dev, params8, params4):
     from ppq_tpu_torch.serving import LlamaConfig, Request, ServingEngine
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = LlamaConfig(**SERVE, paged_kv=True)
+    cfg = LlamaConfig(**CUT_SERVE, paged_kv=True)
+    params8, params4 = _first_layers(params8), _first_layers(params4)
     reset_launches()
     engine, weight_bytes, cache_bytes = _serve_engine('L', cfg, params8)
     free = engine._alloc.num_blocks - 1
@@ -3347,7 +3383,7 @@ def phase_path_l(dev, params8, params4):
     if len(sweep['rate_points']) != 3:
         raise AssertionError('path L: the sweep has not three points')
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    summary = dict(model=dict(SERVE, paged_kv=True,
+    summary = dict(model=dict(CUT_SERVE, paged_kv=True,
                               kv_block_size=cfg.kv_block_size),
                    weights_gib=weight_bytes / 2 ** 30,
                    kv_pool_gib=cache_bytes / 2 ** 30,
@@ -3376,8 +3412,8 @@ def main_serving() -> int:
     dev = torch.device('cuda', 0)
     torch.cuda.set_device(dev)
     phase_build(['qmm', 'kv_write', 'paged_attention'])
-    params8 = init_llama_params(LlamaConfig(**SERVE), seed=0)
-    params4 = init_llama_params(LlamaConfig(**dict(SERVE, weight_bits=4)),
+    params8 = init_llama_params(LlamaConfig(**CUT_SERVE), seed=0)
+    params4 = init_llama_params(LlamaConfig(**dict(CUT_SERVE, weight_bits=4)),
                                 seed=0)
     launches, _ = phase_path_l(dev, params8, params4)
     log(f'[launches] path L {json.dumps(launches)}')
@@ -6947,8 +6983,9 @@ def main_attention(package_root=None) -> int:
 # bench.py's 1B decoder (bench.py:399-407) at full width: float weights from
 # init_llama_params(quantized=False, seed=0), the calibrated quantizers on the
 # card beside round-to-nearest, their engines, W8A8, MoE and speculative
-# decoding. The engines keep 32 slots (path D's 128 are timed there).
-LLM = dict(SERVE, max_batch=32)
+# decoding. The engines keep 32 slots (path D's 128 are timed there), and
+# CUT_LAYERS of the 16 layers.
+LLM = dict(CUT_SERVE, max_batch=32)
 LLM_CALIB, LLM_EVAL = (4, 128), (2, 128)
 LLM_REQUESTS, LLM_NEW_TOKENS = 16, 32
 # the MoE engine at the same widths, 8 experts top-2: depth cut to 2 layers
@@ -7552,6 +7589,789 @@ def main_llm() -> int:
     return 0
 
 
+# ------------------------------------------------------------- path O ----
+# The parallel layer: four ranks share the one card (gloo; every collective
+# staged through host memory), spawned by ppq_tpu_torch.parallel.spawn.
+PAR_WORLD = 4
+PAR_CALIB_STEPS = 4
+# lr: the largest of 1e-5, 1e-6, 1e-7 whose three steps lower the loss
+# (1e-5 raised it 17-fold at step 2: Adam moves all 11.7 M weights at once)
+PAR_TRAIN_STEPS, PAR_LR = 3, 1e-6
+PAR_RING = dict(tokens=4096, heads=16, head_dim=128)
+PAR_PIPE = dict(batch=8, tokens=64, microbatches=4)
+PAR_REQUESTS, PAR_NEW_TOKENS, PAR_DECODE_STEPS = 32, 16, 8
+# bench.py's 1B decoder at path M's 32 slots; blocks of 256 for the paged
+# engine
+PAR_SERVE = dict(SERVE, max_batch=32)
+PAR_VARIANTS = {
+    'int8_dense': dict(use_ragged_attention=False),
+    'int8_ragged': dict(),
+    'int8_paged': dict(paged_kv=True, kv_block_size=256),
+    'int4_ragged': dict(weight_bits=4),
+}
+# The sharded step against one card's on the same global batch, walked in
+# the dp shards' halves (loss and gradients summed half by half: the
+# ranks' sums in their order): the same bits; 1e-6 relative and 1e-9 are
+# the bounds. Against one card's walk of all 32 at once the halves' cuDNN
+# algorithms differ (sum order), a code at a rounding tie flips and the
+# trajectories part: the losses held within 5 % (1.65 % measured), the
+# weights' distance reported only (Adam moves an element about lr a step
+# whatever its gradient's size, so no bound on it could fail). Adam does
+# not see a gradient's scale either, so the first step's all-reduced
+# gradients are held against one card's: their distance over the norm of
+# one card's, every weight at once, within 1e-6 of the halves' walk and 5 %
+# of the whole batch's (set before the first reading; 4.27 % measured, the
+# same cuDNN parting); a dp reduction that summed where it should average
+# would read 1.0
+PAR_LOSS_RTOL, PAR_PARAM_ATOL = 1e-6, 1e-9
+PAR_WHOLE_LOSS_RTOL = 0.05
+PAR_GRAD_RTOL = 0.05
+# ring attention against reference_attention: both sum in float32 and round
+# to bf16, in other orders: two bf16 steps of the largest |output|
+PAR_RING_TOL = 2 ** -7
+# O4, the pipeline against the flat walk of the same microbatches through
+# the 16 layers on one card: the same products on the same rows (a walk of
+# the whole batch at once would cross the matmul kernels' row cap, which
+# changes w_down's product: recorded difference 12, 0.022 of the largest
+# activation after 16 layers); bound one bf16 step of the largest
+# |activation|
+PAR_PIPE_TOL = 2 ** -8
+# O1's scales against one card's: the reductions are exact (min / max,
+# int64 histograms, the union of the ranks' top-k candidates holds the
+# whole batch's order statistics: bit for bit on the CPU), but on the card
+# a rank's convolutions at its dp shard's batch of 16 take other cuDNN
+# algorithms than one card's at 32, so the activations, and with them the
+# abs-max, the quantiles and a KL bin's width, move by float32 rounding
+# (measured 4.9e-7 percentile, 8.4e-7 KL). 2e-6 is a few float32 steps;
+# a KL threshold one bin of 2048 away moves its scale by 2.4e-4
+PAR_CALIB_RTOL = 2e-6
+PATH_KERNELS['O'] = ('fake_quant_tensorwise', 'fake_quant_channelwise',
+                     'histogram', 'fake_quant_bwd_tensorwise',
+                     'fake_quant_bwd_channelwise', 'qmm_int8', 'qmm_int4',
+                     'qmm_gateup', 'qmm_gateup_int4', 'paged_attention_fused',
+                     'paged_attention_grouped', 'bank_write', 'window_write',
+                     'pool_write')
+# what O1-O2 and O5-O6 must launch (rows 1-5; rows 8-12 and 14-16)
+PAR_QUANT_ROWS = PATH_KERNELS['O'][:5]
+PAR_SERVE_ROWS = PATH_KERNELS['O'][5:]
+# the sizes path O runs at (a CPU rehearsal passes smaller ones)
+PAR_PLAN = dict(image=[CALIB_BATCH, 3, IMAGE, IMAGE],
+                calib_steps=PAR_CALIB_STEPS, ring=PAR_RING, pipe=PAR_PIPE,
+                serve=PAR_SERVE, moe=LLM_MOE, requests=PAR_REQUESTS,
+                moe_requests=LLM_REQUESTS, new_tokens=PAR_NEW_TOKENS,
+                moe_new_tokens=LLM_NEW_TOKENS, fills=(16, 512))
+
+
+def _sync(dev):
+    if torch.device(dev).type == 'cuda':
+        torch.cuda.synchronize()
+
+
+def _o_llama_params(cfg, seed, dev):
+    """init_llama_params' tree for `cfg`, its float weights drawn on the
+    card from a seeded generator: every rank and the one-card reference
+    draw the same weights (the numpy draw of the 1B model takes ~17 s a
+    process), then each matrix is quantized as init_llama_params does."""
+    from ppq_tpu_torch.serving.model import quantize_weight
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    D, H, KV, Dh, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim, cfg.d_ff)
+
+    def draw(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def dense(i, o, bits=cfg.weight_bits):
+        return quantize_weight(draw((i, o), 1.0 / np.sqrt(i)), bits,
+                               device=dev)
+
+    def stack(i, o):
+        # init_moe_params' quantization: scales per (expert, out-channel)
+        w = draw((cfg.n_experts, i, o), 1.0 / np.sqrt(i))
+        qmax = (1 << (cfg.weight_bits - 1)) - 1
+        scale = w.abs().amax(dim=1).clamp_min(1e-8) / torch.tensor(
+            float(qmax), device=dev)
+        q = torch.round(w / scale[:, None, :]).clamp(-qmax - 1, qmax)
+        return {'w_int': q.to(torch.int8), 'scale': scale}
+
+    ones = torch.ones((D,), dtype=torch.float32, device=dev)
+    params = {'embed': draw((cfg.vocab_size, D), 0.02).to(torch.bfloat16),
+              'final_norm': ones.clone(),
+              'lm_head': dense(D, cfg.vocab_size, cfg.resolved_lm_head_bits),
+              'layers': []}
+    for _ in range(cfg.n_layers):
+        layer = {'attn_norm': ones.clone(), 'mlp_norm': ones.clone(),
+                 'wq': dense(D, H * Dh), 'wk': dense(D, KV * Dh),
+                 'wv': dense(D, KV * Dh), 'wo': dense(H * Dh, D)}
+        if cfg.n_experts:
+            layer['moe'] = {'router': draw((D, cfg.n_experts), 0.02),
+                            'w_gate': stack(D, F), 'w_up': stack(D, F),
+                            'w_down': stack(F, D)}
+        else:
+            layer.update(w_gate=dense(D, F), w_up=dense(D, F),
+                         w_down=dense(F, D))
+        params['layers'].append(layer)
+    return params
+
+
+def _o_requests(vocab, n, new, seed=41):
+    """n seeded requests of 16-99 prompt tokens and `new` new tokens (seed
+    31: path M's prompts)."""
+    from ppq_tpu_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    return [Request(i, [int(t) for t in rng.integers(1, vocab, int(
+        rng.integers(16, 100)))], max_new_tokens=new) for i in range(n)]
+
+
+def _o_calibration_graph(method, shape):
+    """The zoo ResNet-18 at `shape`, dispatched and quantized for TPU_INT8
+    with every activation awaiting `method`'s calibration (the compiled
+    calibration pass's input, tests/test_parallel_calibration.py's recipe)."""
+    from ppq_tpu_torch import TargetPlatform, dispatch_graph
+    from ppq_tpu_torch.ir import QuantableOperation, format_graph
+    from ppq_tpu_torch.quantization.optim import ParameterQuantizePass
+    from ppq_tpu_torch.quantization.quantizer import TPUInt8Quantizer
+    from ppq_tpu_torch.zoo import resnet18
+    g = format_graph(resnet18(input_shape=shape))
+    dispatch_graph(g, TargetPlatform.TPU_INT8)
+    q = TPUInt8Quantizer(g)
+    for name, op in list(g.operations.items()):
+        if op.platform == q.target_platform and \
+                op.type in q.quant_operation_types:
+            q.quantize_operation(name)
+    ParameterQuantizePass().optimize(g)
+    for op in g.operations.values():
+        if isinstance(op, QuantableOperation):
+            for var, cfg in op.config_pairs():
+                if not var.is_parameter:
+                    cfg.observer_algorithm = method
+    return g
+
+
+def _o_calibrate(plan, dev, mesh=None):
+    """O1: percentile and KL over the plan's batches (4 of 32 at 224²):
+    {method: (graph, scales, seconds)}."""
+    import types
+    from ppq_tpu_torch.quantization.optim import CompiledCalibrationPass
+    shape = plan['image']
+    rng = np.random.RandomState(0)          # _data()'s first batches
+    loader = [rng.randn(*shape).astype(np.float32)
+              for _ in range(plan['calib_steps'])]
+    out = {}
+    for method in ('percentile', 'kl'):
+        g = _o_calibration_graph(method, shape)
+        _sync(dev)
+        t0 = time.perf_counter()
+        CompiledCalibrationPass(calib_steps=plan['calib_steps'], mesh=mesh) \
+            .optimize(g, dataloader=loader,
+                      executor=types.SimpleNamespace(device=dev))
+        _sync(dev)
+        out[method] = (g, _activation_scales(g), time.perf_counter() - t0)
+    return out
+
+
+def _o_train_batch(plan, dev):
+    """O2's global batch (seeded) and its target, the seeded model's fp32
+    outputs: (numpy batch, target tensor on `dev`)."""
+    from ppq_tpu_torch import TorchExecutor
+    from ppq_tpu_torch.zoo import resnet18
+    x = np.random.RandomState(1).randn(*plan['image']).astype(np.float32)
+    target = TorchExecutor(resnet18(input_shape=plan['image']),
+                           device=dev).forward(x)[0].detach()
+    return x, target
+
+
+def _o_train(plan, graph, mesh, dev):
+    """O2: the sharded step on the KL graph, PAR_TRAIN_STEPS steps on one
+    seeded global batch (32 at 224²) towards the fp32 model's outputs:
+    (losses, full parameters, seconds a step, the first step's all-reduced
+    gradients: this rank's slices of the tp-sharded weights)."""
+    import copy
+    from ppq_tpu_torch.executor.compile import CompiledGraph
+    from ppq_tpu_torch.parallel import make_sharded_train_step, shard_batch
+    from ppq_tpu_torch.quantization.optim.training import _unbaked_parameters
+    graph = copy.deepcopy(graph)
+    x, target = _o_train_batch(plan, dev)
+    with _unbaked_parameters(graph):
+        cg = CompiledGraph(graph, device=dev)
+        step, state = make_sharded_train_step(cg, mesh, lr=PAR_LR)
+        xs = shard_batch(mesh, x, dev)
+        ts = shard_batch(mesh, target.cpu(), dev)
+        losses, times, grads = [], [], None
+        for _ in range(PAR_TRAIN_STEPS):
+            _sync(dev)
+            t0 = time.perf_counter()
+            state, loss = step(state, xs, ts)
+            losses.append(float(loss))
+            times.append(time.perf_counter() - t0)
+            if grads is None:
+                grads = {k: v.grad.detach().cpu() for k, v in
+                         state['trainable']['params'].items()}
+        full = {k: v.detach().cpu() for k, v in step.full_params().items()}
+    return losses, full, times, grads
+
+
+def _o_grad_apart(local, full, coords):
+    """A rank's first-step gradients against one card's: the distance over
+    the norm of one card's, every weight at once, one card's sliced as the
+    rank holds it (tp_param_shardings on the 2 x 2 mesh)."""
+    from ppq_tpu_torch.parallel.mesh import _tp_axis_for, local_slice
+    num = den = 0.0
+    for k, g in full.items():
+        ax = _tp_axis_for(k, tuple(g.shape), 2)
+        if ax is not None:
+            g = local_slice(g, tuple('tp' if i == ax else None
+                                     for i in range(g.dim())),
+                            {'dp': 2, 'tp': 2}, coords)
+        num += float((local[k].double() - g.double()).pow(2).sum())
+        den += float(g.double().pow(2).sum())
+    return (num / den) ** 0.5
+
+
+def _o_train_in_halves(plan, graph, dev, parts=2):
+    """O2's one-card reference: the sharded step's arithmetic on one card,
+    the global batch walked in the dp shards' `parts` halves, each half's
+    loss and gradients summed in the ranks' order, then Adam (optax's
+    defaults). Returns (losses, parameters, the first step's gradients)."""
+    import copy
+    from ppq_tpu_torch.executor.compile import CompiledGraph
+    from ppq_tpu_torch.executor.ops.default import simulation_precision
+    from ppq_tpu_torch.quantization.optim.training import _unbaked_parameters
+    graph = copy.deepcopy(graph)
+    x, target = _o_train_batch(plan, dev)
+    name = list(graph.inputs)[0]
+    with _unbaked_parameters(graph):
+        cg = CompiledGraph(graph, device=dev)
+        fwd = cg.build_trainable_forward()
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in cg.init_params().items()}
+        q = {k: {kk: vv.detach().clone().requires_grad_(True)
+                 for kk, vv in v.items()} for k, v in cg.init_qparams().items()}
+        tensors = list(params.values()) + [t for pair in q.values()
+                                           for t in pair.values()]
+        opt = torch.optim.Adam(tensors, lr=PAR_LR, betas=(0.9, 0.999),
+                               eps=1e-8)
+        xs = torch.from_numpy(x).to(dev).chunk(parts)
+        ts = target.chunk(parts)
+        losses, grads = [], None
+        for _ in range(PAR_TRAIN_STEPS):
+            opt.zero_grad(set_to_none=True)
+            total = None
+            for xh, th in zip(xs, ts):
+                out = fwd(params, q, {name: xh})[0].to(torch.float32)
+                loss = torch.sum((out - th) ** 2) / target.numel()
+                with simulation_precision():
+                    loss.backward()
+                total = loss.detach() if total is None \
+                    else total + loss.detach()
+            if grads is None:
+                grads = {k: v.grad.detach().cpu().clone()
+                         for k, v in params.items()}
+            opt.step()
+            losses.append(float(total))
+    return losses, {k: v.detach().cpu() for k, v in params.items()}, grads
+
+
+def _o_qkv(plan, dev):
+    gen = torch.Generator(device=dev).manual_seed(23)
+    ring = plan['ring']
+    shape = (1, ring['tokens'], ring['heads'], ring['head_dim'])
+    return [torch.randn(shape, generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(3)]
+
+
+def _o_block(cfg):
+    """One decoder layer without a cache (the GPipe block of O4): pre-norm
+    causal attention over the microbatch's own tokens (GQA heads expanded)
+    and the MLP, through the serving model's products and kernels."""
+    from ppq_tpu_torch.serving.model import (mlp, project_qkv, qmatmul,
+                                             rms_norm, rope)
+    from ppq_tpu_torch.serving.ring_attention import reference_attention
+    rep = cfg.n_heads // cfg.n_kv_heads
+
+    def block(layer, x):
+        B, T, D = x.shape
+        pos = torch.arange(T, dtype=torch.int32, device=x.device)[None] \
+            .expand(B, T)
+        h = rms_norm(x, layer['attn_norm'], cfg.rms_eps)
+        q, k, v = project_qkv(h, layer, cfg, True)
+        q, k = rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta)
+        ctx = reference_attention(q, k.repeat_interleave(rep, dim=2),
+                                  v.repeat_interleave(rep, dim=2))
+        x = x + qmatmul(ctx.reshape(B, T, D).to(x.dtype), layer['wo'],
+                        kernel=True)
+        return x + mlp(rms_norm(x, layer['mlp_norm'], cfg.rms_eps), layer,
+                       cfg)
+    return block
+
+
+def _o_pipe_input(plan, params, dev):
+    gen = torch.Generator(device=dev).manual_seed(29)
+    pipe = plan['pipe']
+    tokens = torch.randint(1, plan['serve']['vocab_size'],
+                           (pipe['batch'], pipe['tokens']),
+                           generator=gen, device=dev)
+    return params['embed'][tokens]
+
+
+def _o_probe(engine, reqs):
+    from ppq_tpu_torch.serving.model import forward, init_kv_cache
+    seq = reqs[0].prompt
+    T, dev = len(seq), engine.device
+    with torch.no_grad():
+        logits, _ = forward(
+            engine.params, init_kv_cache(engine.cfg, 1, dev),
+            torch.tensor([seq], dtype=torch.int32, device=dev),
+            torch.arange(T, dtype=torch.int32, device=dev)[None],
+            torch.zeros(1, dtype=torch.int32, device=dev),
+            torch.full((1,), T, dtype=torch.int32, device=dev), engine.cfg)
+    return logits[0, -1].float().cpu()
+
+
+def _o_serve(cfg, params, mesh, reqs, fills, dev):
+    """An engine on `mesh` (None: one card): `run` over the requests and
+    benchmark_decode for PAR_DECODE_STEPS steps at each fill. Returns its
+    tokens, probe logits, seconds, ms a step and the kernels it launched
+    (a one-card burst's replays count what they launch)."""
+    from ppq_tpu_torch.kernels import LAUNCHES
+    from ppq_tpu_torch.serving import ServingEngine
+    before = dict(LAUNCHES)
+    engine = ServingEngine(cfg, params, mesh=mesh, device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    engine.run(reqs, sync_every=SERVE_SYNC)
+    _sync(dev)
+    out = dict(tokens=[list(r.generated) for r in reqs],
+               prompts=[list(r.prompt) for r in reqs],
+               run_s=time.perf_counter() - t0,
+               logits=_o_probe(engine, reqs), decode={})
+    if not all(r.done and len(r.generated) == r.max_new_tokens
+               for r in reqs):
+        raise AssertionError(f'path O: a request did not finish ({cfg})')
+    for fill in fills:
+        d = engine.benchmark_decode(steps=PAR_DECODE_STEPS,
+                                    burst=PAR_DECODE_STEPS, fill=fill,
+                                    repeats=1)
+        out['decode'][f'fill_{fill}'] = d['ms_per_step']
+    out['launches'] = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+                       if v != before.get(k, 0)}
+    del engine
+    _empty(dev)
+    return out
+
+
+def _empty(dev):
+    if torch.device(dev).type == 'cuda':
+        torch.cuda.empty_cache()
+
+
+def _o_variant(plan, name):
+    from ppq_tpu_torch.serving import LlamaConfig
+    return LlamaConfig(**dict(plan['serve'], **PAR_VARIANTS[name]))
+
+
+def _o_serve_requests(plan, cfg):
+    return _o_requests(cfg.vocab_size, plan['requests'], plan['new_tokens'])
+
+
+def _o_moe_requests(plan, cfg):
+    return _o_requests(cfg.vocab_size, plan['moe_requests'],
+                       plan['moe_new_tokens'], seed=31)
+
+
+def _path_o_rank(o1_graph, plan):
+    """Path O on one rank of the world (every rank runs it). `o1_graph`:
+    the one-card KL graph, the sharded step's starting point; `plan`: the
+    sizes (PAR_PLAN). Returns the rank's results, its launches by step and
+    the backend and transport it used."""
+    from ppq_tpu_torch.kernels import LAUNCHES, reset_launches
+    from ppq_tpu_torch.parallel import make_mesh, multihost
+    from ppq_tpu_torch.parallel.mesh import Mesh
+    from ppq_tpu_torch.serving import LlamaConfig
+    from ppq_tpu_torch.serving.pipeline import (pipeline_forward,
+                                                stack_layer_params)
+    from ppq_tpu_torch.serving.ring_attention import \
+        sequence_parallel_attention
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dev = multihost.world_device()
+    rank = multihost.global_rank()
+    out = dict(rank=rank, backend=multihost.world_backend(),
+               transport_kind=multihost.world_transport(), seconds={},
+               launches={}, transport={})
+    t_path = time.perf_counter()
+
+    def run(name, fn):
+        reset_launches()
+        multihost.reset_transport()
+        _sync(dev)
+        t0 = time.perf_counter()
+        result = fn()
+        _sync(dev)
+        out['seconds'][name] = time.perf_counter() - t0
+        out['launches'][name] = {k: v for k, v in LAUNCHES.items() if v}
+        out['transport'][name] = dict(
+            calls=dict(multihost.TRANSPORT_COUNTS),
+            seconds=dict(multihost.TRANSPORT_SECONDS),
+            bytes=dict(multihost.TRANSPORT_BYTES))
+        multihost.sync_global_devices()     # the next step starts together
+        return result
+
+    # every rank builds every mesh (their groups are made collectively)
+    mesh22 = make_mesh(dp=2, tp=2)
+    sp = {n: Mesh(np.arange(n), ('sp',)) for n in (2, 4)}
+    pp2 = Mesh(np.arange(2), ('pp',))
+    tp2 = Mesh(np.arange(2).reshape(1, 2), ('dp', 'tp'))
+    ep2 = Mesh(np.arange(2), ('ep',))
+
+    # O1: dp 2 (the two ranks of a tp pair walk the same dp shard)
+    cal = run('O1', lambda: _o_calibrate(plan, dev, mesh22))
+    out['O1'] = {m: (s, t) for m, (_, s, t) in cal.items()}
+    del cal
+    # O2: dp 2 x tp 2 on the one-card KL graph
+    losses, full, times, grads = run('O2', lambda: _o_train(
+        plan, o1_graph, mesh22, dev))
+    out['O2'] = dict(losses=losses, step_s=times, grads=grads,
+                     coords=mesh22.coords,
+                     params=full if rank == 0 else None,
+                     digest={k: (float(v.double().sum()),
+                                 float(v.abs().max()))
+                             for k, v in full.items()})
+    del full, grads
+    # O3: ring attention over sp 2 (ranks 0, 1) and sp 4
+    rings = {}
+
+    def ring():
+        q, k, v = _o_qkv(plan, dev)
+        for n, mesh in sp.items():
+            if mesh.coords is None:
+                continue
+            T = q.shape[1] // n
+            i = mesh.index('sp')
+            part = slice(i * T, (i + 1) * T)
+            for causal in (True, False):
+                rings[(n, causal)] = sequence_parallel_attention(
+                    q[:, part], k[:, part], v[:, part], mesh,
+                    causal=causal).cpu()
+    run('O3', ring)
+    out['O3'] = rings
+    cfg = LlamaConfig(**plan['serve'])
+    params = _o_llama_params(cfg, 0, dev)
+
+    # O4: GPipe over pp 2 (ranks 0, 1) on the stacked layers
+    def pipe():
+        if pp2.coords is None:
+            return None
+        cfg.use_kernel_matmul = True
+        stacked = stack_layer_params(params['layers'])
+        return pipeline_forward(stacked, _o_pipe_input(plan, params, dev),
+                                _o_block(cfg), pp2,
+                                microbatches=plan['pipe']['microbatches']
+                                ).cpu()
+    out['O4'] = run('O4', pipe)
+    # O5: tp 2 (ranks 0, 1): INT8 dense, ragged, paged; INT4
+    serve = {}
+
+    def o5():
+        if tp2.coords is None:
+            return
+        params4 = _o_llama_params(_o_variant(plan, 'int4_ragged'), 0, dev)
+        for name in PAR_VARIANTS:
+            vcfg = _o_variant(plan, name)
+            t0 = time.perf_counter()
+            serve[name] = _o_serve(
+                vcfg, params4 if vcfg.weight_bits == 4 else params, tp2,
+                _o_serve_requests(plan, vcfg), plan['fills'], dev)
+            out['seconds'][f'O5 {name}'] = time.perf_counter() - t0
+    run('O5', o5)
+    out['O5'] = serve
+    # O6: dp 2 x tp 2, the paged INT8 engine on all four ranks
+    pcfg = _o_variant(plan, 'int8_paged')
+    out['O6'] = run('O6', lambda: _o_serve(
+        pcfg, params, mesh22, _o_serve_requests(plan, pcfg),
+        plan['fills'][:1], dev))
+    del params
+    _empty(dev)
+
+    # O7: path M's MoE engine (8 experts, top 2, 2 layers) at ep 2
+    def o7():
+        if ep2.coords is None:
+            return None
+        mcfg = LlamaConfig(**plan['moe'])
+        return _o_serve(mcfg, _o_llama_params(mcfg, 0, dev), ep2,
+                        _o_moe_requests(plan, mcfg), plan['fills'][:1], dev)
+    out['O7'] = run('O7', o7)
+    out['seconds']['path'] = time.perf_counter() - t_path
+    return out
+
+
+def _o_hold_serving(tag, ranks, one, params, cfg, dev, same_launches=True):
+    """Every rank's tokens equal; the tokens against the one-card engine's by
+    path G's near-tie rule; the probe logits within SERVE_LOGIT_TOL of the
+    largest |logit|. same_launches: every rank launched each serving row
+    as often as one card did on the same run (a tp rank's shard takes every
+    kernel one card's whole weight takes; not so for an expert-parallel
+    rank, which runs its share of the experts)."""
+    import types
+    for r in ranks[1:]:
+        if r['tokens'] != ranks[0]['tokens']:
+            raise AssertionError(f'path O {tag}: ranks took other tokens')
+    counts = {k: [one['launches'].get(k, 0)] +
+              [r['launches'].get(k, 0) for r in ranks]
+              for k in PAR_SERVE_ROWS}
+    counts = {k: v for k, v in counts.items() if any(v)}
+    if same_launches and any(len(set(v)) > 1 for v in counts.values()):
+        raise AssertionError(f'path O {tag}: launches (one card, then each '
+                             f'rank) differ: {counts}')
+    got = ranks[0]
+    want = one['logits']
+    worst = float((got['logits'] - want).abs().max() / want.abs().max())
+    if worst > SERVE_LOGIT_TOL:
+        raise AssertionError(f'path O {tag}: logits {worst} of the largest '
+                             f'|logit| from one card')
+
+    def reqs(run):
+        return [types.SimpleNamespace(rid=i, prompt=p, generated=t)
+                for i, (p, t) in enumerate(zip(run['prompts'],
+                                               run['tokens']))]
+    held = _near_tie_tokens(f'O {tag}', reqs(one), reqs(got), params, cfg,
+                            dev)
+    held['logits_max_diff_share_of_scale'] = worst
+    held['launches_one_card_then_ranks'] = counts
+    return held
+
+
+def phase_path_o(dev, plan=PAR_PLAN):
+    """Path O: the parallel layer on a world of PAR_WORLD ranks sharing the
+    card (spawned; gloo, collectives staged through the host). O1 dp-2
+    compiled calibration of ResNet-18 (percentile and KL, 4 batches of 32
+    at 224²), O2 the dp 2 x tp 2 sharded step (3 steps), O3 ring attention
+    over sp 2 and 4 at the 1B decoder's heads (T 4096, bf16, causal and
+    full), O4 the GPipe forward over pp 2 of its 16 layers, O5 its tp-2
+    engines (INT8 dense, ragged, paged; INT4), O6 the dp 2 x tp 2 paged
+    engine, O7 path M's MoE engine at ep 2. Each is held against the same
+    computation on one card in this process (`plan` sets the sizes; on the
+    CPU, where no kernel launches, at a small plan it rehearses the path).
+    Returns the launches summed over ranks and the summary."""
+    from ppq_tpu_torch.kernels import LAUNCHES
+    from ppq_tpu_torch.parallel import make_mesh, spawn
+    from ppq_tpu_torch.serving import LlamaConfig
+    from ppq_tpu_torch.serving.ring_attention import reference_attention
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    _empty(dev)
+    t_path = time.perf_counter()
+    summary = dict(world=PAR_WORLD, label='ms a step and seconds of ranks '
+                   'that share one card over gloo: a correctness figure, '
+                   'not a scaling figure')
+    # one card first: O1's scales, and O2's starting graph and step
+    cal = _o_calibrate(plan, dev)
+    kl_graph = cal['kl'][0]
+    one_step = _o_train(plan, kl_graph, make_mesh(1, dp=1, tp=1), dev)
+    halves = _o_train_in_halves(plan, kl_graph, dev)
+    _empty(dev)
+    t0 = time.perf_counter()
+    ranks = spawn(PAR_WORLD, _path_o_rank, (kl_graph, plan),
+                  device=dev.type, timeout=900)
+    summary['world_s'] = time.perf_counter() - t0
+    r0 = ranks[0]
+    summary['backend'] = r0['backend']
+    summary['transport'] = r0['transport_kind']
+    log(f'[path O] world of {PAR_WORLD} ranks on one card: backend '
+        f'{r0["backend"]}, transport {r0["transport_kind"]}; '
+        f'{summary["world_s"]:.1f} s')
+    for r in ranks:
+        log(f'[path O] rank {r["rank"]} seconds {json.dumps(r["seconds"])}')
+        log(f'[path O] rank {r["rank"]} launches {json.dumps(r["launches"])}')
+        log(f'[path O] rank {r["rank"]} collectives '
+            f'{json.dumps(r["transport"])}')
+
+    # O1: every rank's scales against one card's
+    o1 = {}
+    for method in ('percentile', 'kl'):
+        want = cal[method][1]
+        worst = 0.0
+        for r in ranks:
+            got = r['O1'][method][0]
+            if sorted(got) != sorted(want) or not want:
+                raise AssertionError(f'path O O1 {method}: other sites')
+            for key in want:
+                worst = max(worst, float(np.max(
+                    np.abs(got[key] - want[key]) / np.abs(want[key]))))
+        o1[method] = dict(sites=len(want), max_rel_diff=worst,
+                          one_card_s=cal[method][2],
+                          rank_s=[r['O1'][method][1] for r in ranks])
+    o1['limit'] = PAR_CALIB_RTOL
+    summary['O1'] = o1
+    log(f'[path O] O1 {json.dumps(o1)}')
+    if max(o1[m]['max_rel_diff'] for m in ('percentile', 'kl')) > \
+            PAR_CALIB_RTOL:
+        raise AssertionError(f'path O O1: scales from one card: {o1}')
+    del cal
+
+    # O2: losses and parameters against one card's step, walked in halves
+    # (tight) and all at once (losses held, weights reported), and the
+    # first step's gradients against one card's on the whole batch
+    got = r0['O2']['params']
+
+    def apart(losses, full):
+        rel = max(abs(a - b) / abs(b) for r in ranks
+                  for a, b in zip(r['O2']['losses'], losses))
+        return rel, max(float((got[k] - full[k]).abs().max()) for k in full)
+    same = all(r['O2']['digest'] == r0['O2']['digest'] and
+               r['O2']['losses'] == r0['O2']['losses'] for r in ranks)
+    rel, diff = apart(*halves[:2])
+    rel_whole, diff_whole = apart(*one_step[:2])
+    grad_rel = max(_o_grad_apart(r['O2']['grads'], one_step[3],
+                                 r['O2']['coords']) for r in ranks)
+    grad_halves = max(_o_grad_apart(r['O2']['grads'], halves[2],
+                                    r['O2']['coords']) for r in ranks)
+    summary['O2'] = dict(losses=r0['O2']['losses'], halves_losses=halves[0],
+                         one_card_losses=one_step[0],
+                         loss_max_rel_diff=rel, param_max_abs_diff=diff,
+                         whole_loss_max_rel_diff=rel_whole,
+                         whole_param_max_abs_diff_reported=diff_whole,
+                         first_step_grad_rel_diff=grad_rel,
+                         halves_first_step_grad_rel_diff=grad_halves,
+                         ranks_equal=same,
+                         limits=dict(loss_rtol=PAR_LOSS_RTOL,
+                                     param_atol=PAR_PARAM_ATOL,
+                                     whole_loss_rtol=PAR_WHOLE_LOSS_RTOL,
+                                     grad_rtol=PAR_GRAD_RTOL,
+                                     halves_grad_rtol=PAR_LOSS_RTOL),
+                         step_s=r0['O2']['step_s'],
+                         one_card_step_s=one_step[2])
+    log(f'[path O] O2 {json.dumps(summary["O2"])}')
+    if not same or rel > PAR_LOSS_RTOL or diff > PAR_PARAM_ATOL or \
+            rel_whole > PAR_WHOLE_LOSS_RTOL or not grad_rel <= PAR_GRAD_RTOL \
+            or not grad_halves <= PAR_LOSS_RTOL:
+        raise AssertionError(f'path O O2: {summary["O2"]}')
+    del one_step, halves, got
+
+    # O3: the chunks joined against reference_attention on one card
+    q, k, v = _o_qkv(plan, dev)
+    o3 = {}
+    for causal in (True, False):
+        want = reference_attention(q, k, v, causal=causal).float().cpu()
+        scale = float(want.abs().max())
+        for n in (2, 4):
+            joined = torch.cat([ranks[i]['O3'][(n, causal)]
+                                for i in range(n)], dim=1).float()
+            o3[f'sp{n}_{"causal" if causal else "full"}'] = \
+                float((joined - want).abs().max()) / scale
+    summary['O3'] = dict(max_diff_share_of_scale=o3, limit=PAR_RING_TOL,
+                         rank_s=[r['seconds']['O3'] for r in ranks])
+    log(f'[path O] O3 {json.dumps(summary["O3"])}')
+    if max(o3.values()) > PAR_RING_TOL:
+        raise AssertionError(f'path O O3: {o3}')
+    del q, k, v
+
+    # O4: the pipeline against the flat walk on one card
+    cfg = LlamaConfig(**plan['serve'])
+    params = _o_llama_params(cfg, 0, dev)
+    cfg.use_kernel_matmul = True
+    block = _o_block(cfg)
+    mbs = _o_pipe_input(plan, params, dev).chunk(plan['pipe']['microbatches'])
+    walked = []
+    with torch.no_grad():
+        for x in mbs:
+            for layer in params['layers']:
+                x = block(layer, x)
+            walked.append(x)
+    want = torch.cat(walked).float().cpu()
+    scale = float(want.abs().max())
+    summary['O4'] = dict(max_diff_share_of_scale=[
+        float((r['O4'].float() - want).abs().max()) / scale
+        for r in ranks[:2]], limit=PAR_PIPE_TOL,
+        rank_s=[r['seconds']['O4'] for r in ranks])
+    log(f'[path O] O4 {json.dumps(summary["O4"])}')
+    if max(summary['O4']['max_diff_share_of_scale']) > PAR_PIPE_TOL:
+        raise AssertionError(f'path O O4: {summary["O4"]}')
+
+    # O5-O7: the engines against one card's
+    o5 = {}
+    params4 = _o_llama_params(_o_variant(plan, 'int4_ragged'), 0, dev)
+    for name in PAR_VARIANTS:
+        vcfg = _o_variant(plan, name)
+        p = params4 if vcfg.weight_bits == 4 else params
+        one = _o_serve(vcfg, p, None, _o_serve_requests(plan, vcfg),
+                       plan['fills'], dev)
+        mine = [r['O5'][name] for r in ranks[:2]]
+        o5[name] = _o_hold_serving(name, mine, one, p,
+                                   _o_variant(plan, name), dev)
+        o5[name].update(run_s=mine[0]['run_s'],
+                        ms_per_step=mine[0]['decode'],
+                        one_card_run_s=one['run_s'],
+                        one_card_ms_per_step=one['decode'])
+    del params4
+    summary['O5'] = o5
+    pcfg = _o_variant(plan, 'int8_paged')
+    one = _o_serve(pcfg, params, None, _o_serve_requests(plan, pcfg),
+                   plan['fills'][:1], dev)
+    summary['O6'] = _o_hold_serving('dp2tp2_paged', [r['O6'] for r in ranks],
+                                    one, params, _o_variant(plan, 'int8_paged'),
+                                    dev)
+    summary['O6'].update(run_s=r0['O6']['run_s'],
+                         ms_per_step=r0['O6']['decode'],
+                         one_card_run_s=one['run_s'],
+                         one_card_ms_per_step=one['decode'])
+    del params
+    _empty(dev)
+    mcfg = LlamaConfig(**plan['moe'])
+    mparams = _o_llama_params(mcfg, 0, dev)
+    one = _o_serve(mcfg, mparams, None, _o_moe_requests(plan, mcfg),
+                   plan['fills'][:1], dev)
+    summary['O7'] = _o_hold_serving('moe_ep2', [r['O7'] for r in ranks[:2]],
+                                    one, mparams, LlamaConfig(**plan['moe']),
+                                    dev, same_launches=False)
+    summary['O7'].update(run_s=r0['O7']['run_s'],
+                         ms_per_step=r0['O7']['decode'],
+                         one_card_run_s=one['run_s'],
+                         one_card_ms_per_step=one['decode'])
+    del mparams
+    _empty(dev)
+    log(f'[path O] O5-O7 {json.dumps({k: summary[k] for k in ("O5", "O6", "O7")})}')
+
+    # the launches: summed over ranks; rows 1-5 on O1-O2, the serving rows
+    # on O5-O6
+    launches = {k: 0 for k in LAUNCHES}
+    by_step = {}
+    for r in ranks:
+        for step, counts in r['launches'].items():
+            for k, v in counts.items():
+                launches[k] += v
+                by_step.setdefault(step, {}).setdefault(k, 0)
+                by_step[step][k] += v
+    summary['launches_by_step'] = by_step
+    summary['path_s'] = time.perf_counter() - t_path
+    log(f'[path O] launches by step (summed over ranks) {json.dumps(by_step)}')
+    log(f'[path O] {summary["path_s"]:.1f} s')
+    if dev.type == 'cuda':
+        for rows, steps in ((PAR_QUANT_ROWS, ('O1', 'O2')),
+                            (PAR_SERVE_ROWS, ('O5', 'O6'))):
+            missing = [k for k in rows if not sum(
+                by_step.get(s, {}).get(k, 0) for s in steps)]
+            if missing:
+                raise AssertionError(f'path O {steps}: no launch of '
+                                     f'{missing}')
+    return launches, summary
+
+
+def main_parallel() -> int:
+    """Path O alone: the parallel layer on ranks that share the card."""
+    name, smi = phase_card()
+    import ppq_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+    dev = torch.device('cuda', 0)
+    torch.cuda.set_device(dev)
+    phase_build()
+    launches, _ = phase_path_o(dev)
+    log(f'[launches] path O {json.dumps(launches)}')
+    _check_path_kernels('O', launches)
+    log(smi)
+    log(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': name, 'count': torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == '--llm-cpu-reference':
         return main_llm_cpu_reference(sys.argv[2])
@@ -7592,6 +8412,11 @@ def main() -> int:
         mode.add_argument('--api', action='store_true',
                           help='path N alone: every platform, PFL, QAT, '
                                'deploy and data I/O at full width')
+        mode.add_argument('--parallel', action='store_true',
+                          help='path O alone: meshes, dp calibration, the '
+                               'sharded step, ring attention, GPipe and '
+                               'tp / dp x tp / ep serving on ranks that '
+                               'share the card')
         mode.add_argument('--fp8-sample', action='store_true',
                           help="path C's and BERT-base's FP8 calibration "
                                "under DirectMSE's sample rules")
@@ -7618,57 +8443,75 @@ def main() -> int:
             return main_llm()
         if args.api:
             return main_api()
+        if args.parallel:
+            return main_parallel()
         return main_qmm(args.package_root)
     t_start = time.perf_counter()
     name, smi = phase_card()
     import ppq_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
     dev = torch.device('cuda', 0)
     torch.cuda.set_device(dev)
-    phase_build()
-    kernel_results = phase_kernels(dev)
-    launches_a, _, pct_graph, kl_graph = phase_main_path(dev)
-    launches_h, _ = phase_path_h(dev, pct_graph, kl_graph)
+    seconds = {}
+
+    def timed(tag, fn, *args):
+        """fn(*args), its seconds logged and kept for the last lines."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[tag] = round(time.perf_counter() - t0, 1)
+        log(f'[time] {tag} {seconds[tag]} s')
+        return out
+
+    timed('build', phase_build)
+    kernel_results = timed('kernels', phase_kernels, dev)
+    launches_a, _, pct_graph, kl_graph = timed('A', phase_main_path, dev)
+    launches_h, _ = timed('H', phase_path_h, dev, pct_graph, kl_graph)
     del pct_graph
-    launches_i, _ = phase_path_i(dev)
-    launches_j, _ = phase_path_j(dev)
-    launches_k, _ = phase_path_k(dev)
+    launches_i, _ = timed('I', phase_path_i, dev)
+    launches_j, _ = timed('J', phase_path_j, dev)
+    launches_k, _ = timed('K', phase_path_k, dev)
     api_reference = _api_cpu_reference()
     try:
-        launches_n, _ = phase_path_n(dev, api_reference)
+        launches_n, _ = timed('N', phase_path_n, dev, api_reference)
     finally:
         api_reference.close()
-    launches_b, _, lsq_graph, train_loader = phase_path_b(dev, kl_graph)
-    launches_c, _, fp8_graph, _ = phase_path_c(dev)
+    launches_b, _, lsq_graph, train_loader = timed('B', phase_path_b, dev,
+                                                   kl_graph)
+    launches_c, _, fp8_graph, _ = timed('C', phase_path_c, dev)
     # path M's CPU half runs beside the serving paths
     reference = _CpuReference()
     try:
-        launches_d, _, serve_params = phase_path_d(dev)
-        launches_e, _ = phase_path_e(dev, serve_params)
-        launches_g, _ = phase_path_g(dev, serve_params)
-        launches_f, _, int4_params = phase_path_f(dev)
-        launches_l, _ = phase_path_l(dev, serve_params, int4_params)
+        launches_d, _, serve_params = timed('D', phase_path_d, dev)
+        launches_e, _ = timed('E', phase_path_e, dev, serve_params)
+        launches_g, _ = timed('G', phase_path_g, dev, serve_params)
+        launches_f, _, int4_params = timed('F', phase_path_f, dev)
+        launches_l, _ = timed('L', phase_path_l, dev, serve_params,
+                              int4_params)
         del serve_params, int4_params
         torch.cuda.empty_cache()
-        launches_m, _ = phase_path_m(dev, reference)
+        launches_m, _ = timed('M', phase_path_m, dev, reference)
     finally:
         reference.close()
+    torch.cuda.empty_cache()
+    launches_o, _ = timed('O', phase_path_o, dev)
     paths = dict(A=launches_a, H=launches_h, I=launches_i, J=launches_j,
                  K=launches_k, N=launches_n, B=launches_b, C=launches_c,
                  D=launches_d, E=launches_e, F=launches_f, G=launches_g,
-                 L=launches_l, M=launches_m)
+                 L=launches_l, M=launches_m, O=launches_o)
     # each path's counts were set to 0 before it and read just after it
     launches = {k: sum(p[k] for p in paths.values()) for k in launches_a}
     for tag, counts in paths.items():
         log(f'[launches] path {tag} {json.dumps(counts)}')
-    for tag in ('D', 'E', 'F', 'G', 'L', 'M', 'N'):
+    for tag in ('D', 'E', 'F', 'G', 'L', 'M', 'N', 'O'):
         _check_path_kernels(tag, paths[tag])
     missing = [k for k in KERNELS if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f'kernels not launched on any path: {missing}')
+    t0 = time.perf_counter()
     phase_lsq_steps('int8', lsq_graph, train_loader, scales_trainable=True,
                     profile_first=True)
     phase_lsq_steps('fp8', fp8_graph, train_loader, scales_trainable=False,
                     profile_first=False)
+    seconds['lsq steps'] = round(time.perf_counter() - t0, 1)
     line = {'kernels': [
         {'name': k, 'route': 'cuda', 'source': KERNELS[k][0],
          'replaces': KERNELS[k][1], 'launches': launches[k],
@@ -7677,7 +8520,8 @@ def main() -> int:
          'bound_ms': kernel_results[k]['bound_ms'],
          'bound_by': kernel_results[k]['bound_by'],
          'library_ms': kernel_results[k]['library_ms']} for k in KERNELS]}
-    log(f'[done] {time.perf_counter() - t_start:.1f} s; {smi}')
+    log(f'[done] {time.perf_counter() - t_start:.1f} s, by phase '
+        f'{json.dumps(seconds)}; {smi}')
     log(json.dumps(line))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name, 'count': torch.cuda.device_count()}}))

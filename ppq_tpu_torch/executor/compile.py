@@ -74,7 +74,8 @@ from ..core import (OBSERVER_KL_HIST_BINS, QuantizationStates,
 from ..ir import BaseGraph, Operation, QuantableOperation
 # the quantization package first: it imports the kernels in the order
 # their modules need
-from ..quantization.observers import quantile_rows_tensor
+from ..quantization.observers import (quantile_candidates,
+                                      quantile_rows_tensor)
 from ..quantization.qfunction import (device_qparams,
                                       dynamic_linear_fake_quant,
                                       filled_scalar, floating_fake_quant,
@@ -852,6 +853,8 @@ class CompiledGraph:
         """One site's calibration statistic, on the device:
           minmax          (min, max) over all axes but the channel axis
           percentile      (lo, hi) quantiles, `quantile_rows_tensor` (top-k)
+          percentile_topk a dp shard's (lo, hi) quantile candidates, the
+                          whole rows' length, whether per channel
           quantile_bisect (lo, hi) by 24 bisection steps on the threshold
           absmax          max |x|
           hist            |x| histogram at ranges / hist_scales' scale
@@ -900,6 +903,23 @@ class CompiledGraph:
                 hi = quantile_rows_tensor(rows, pct)[0]
                 lo = quantile_rows_tensor(rows, 1.0 - pct)[0]
             stats[var_name] = (lo, hi)
+        elif kind == 'percentile_topk':
+            # one dp shard's candidates for the percentile kind's quantiles
+            # of the whole batch, whose rows are `world` times this shard's
+            # (the data-parallel calibration joins every shard's and takes
+            # the quantiles of the union: `quantile_of_candidates`)
+            pct = entry['percentile']
+            per_channel = bool(cfg.policy.per_channel
+                               and cfg.channel_axis is not None)
+            if per_channel:
+                ax = cfg.channel_axis % v.ndim
+                rows = torch.movedim(v, ax, 0).reshape(v.shape[ax], -1)
+            else:
+                rows = v.reshape(1, -1)
+            n = rows.shape[1] * int(entry['world'])
+            stats[var_name] = (quantile_candidates(rows, 1.0 - pct, n),
+                               quantile_candidates(rows, pct, n), n,
+                               per_channel)
         elif kind == 'quantile_bisect':
             # per-tensor quantile without a sort: 24 bisection steps on the
             # threshold, compare and count; the smallest data-bracketing

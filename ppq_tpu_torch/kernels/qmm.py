@@ -69,6 +69,20 @@ def supports_int4(dp: int, f: int, b: int = 64) -> bool:
     return dp % 256 == 0 and f % 128 == 0 and b >= 1
 
 
+def tiles_int8(d: int, f: int, b: int = 64) -> bool:
+    """The shapes the INT8 body runs: the depth in whole 64-deep steps, the
+    columns in whole 128-column tiles. `supports` routes a weight as the
+    JAX package does; a row-parallel shard of a weight it routes here
+    (serving/tensor_parallel.py, a fraction of the depth) needs only this."""
+    return d % _BK == 0 and f % 128 == 0 and b >= 1
+
+
+def tiles_int4(dp: int, f: int, b: int = 64) -> bool:
+    """`tiles_int8` for the INT4 body, dp the packed depth (a step reads 32
+    packed rows)."""
+    return dp % (_BK // 2) == 0 and f % 128 == 0 and b >= 1
+
+
 def supports_gateup(d: int, f2: int, b: int, bits: int = 8) -> bool:
     """f2 = fused gate|up output width (2 * d_ff); bits 8 or 4."""
     if f2 % 2 or bits not in (8, 4):
@@ -380,7 +394,7 @@ def qmm_int8(x: torch.Tensor, w_int: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f'qmm_int8 runs on cpu or cuda, not {x.device}')
     B, D = x.shape
     F = w_int.shape[1]
-    if not supports(D, F, B):
+    if not tiles_int8(D, F, B):
         raise ValueError(f'qmm_int8 does not tile D={D}, F={F}')
     return _launch_qmm('ppq_qmm_int8', 'qmm_int8', x, w_int, scale,
                        out_dtype, row_scale, residual)
@@ -402,7 +416,7 @@ def qmm_int4(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f'qmm_int4 runs on cpu or cuda, not {x.device}')
     B, D = x.shape
     F = w_packed.shape[1]
-    if not supports_int4(D // 2, F, B):
+    if not tiles_int4(D // 2, F, B):
         raise ValueError(f'qmm_int4 does not tile D={D}, F={F}')
     return _launch_qmm('ppq_qmm_int4', 'qmm_int4', x, w_packed, scale,
                        out_dtype, row_scale, residual)

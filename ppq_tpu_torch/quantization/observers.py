@@ -72,20 +72,60 @@ def _order_statistics(rows: torch.Tensor, lo: int, hi: int):
     return low[:, lo], low[:, hi]
 
 
+def _quantile_position(n: int, q: float):
+    """(lower rank, upper rank, lower weight, upper weight) of the quantile
+    q of n values, in float32 on the host exactly as jnp computes them."""
+    pos = np.float32(q) * (np.float32(n) - np.float32(1))
+    low, high = np.floor(pos), np.ceil(pos)
+    high_w = np.float32(pos - low)
+    low_w = np.float32(1) - high_w
+    return (int(np.clip(low, 0, n - 1)), int(np.clip(high, 0, n - 1)),
+            float(low_w), float(high_w))
+
+
 def quantile_rows_tensor(rows: torch.Tensor, q: float) -> torch.Tensor:
     """`jnp.quantile(rows, q, axis=1)` (method 'linear') of a (R, n) float32
     tensor, as a tensor on its device: the position and weights are computed
     in float32 on the host exactly as jnp does, the interpolation in float32
     on the device. Nothing is read back, so a CUDA graph can hold it."""
-    n = rows.shape[1]
-    pos = np.float32(q) * (np.float32(n) - np.float32(1))
-    low, high = np.floor(pos), np.ceil(pos)
-    high_w = np.float32(pos - low)
-    low_w = np.float32(1) - high_w
-    lo = int(np.clip(low, 0, n - 1))
-    hi = int(np.clip(high, 0, n - 1))
+    lo, hi, low_w, high_w = _quantile_position(rows.shape[1], q)
     v_lo, v_hi = _order_statistics(rows, lo, hi)
-    return v_lo * float(low_w) + v_hi * float(high_w)
+    return v_lo * low_w + v_hi * high_w
+
+
+def quantile_candidates(rows: torch.Tensor, q: float,
+                        n_global: int) -> torch.Tensor:
+    """One shard's candidates for the quantile q of rows that are n_global
+    long in all (the shards joined along dim 1): the values of this shard
+    that could hold the quantile's two ranks, from the nearer end of the
+    order (the largest ones, descending, or the smallest, ascending).
+    `quantile_of_candidates` over every shard's candidates joined along dim
+    1 is `quantile_rows_tensor` of the joined rows, bit for bit."""
+    lo, hi, _, _ = _quantile_position(n_global, q)
+    n = rows.shape[1]
+    if hi >= n_global // 2:
+        k = min(n_global - lo, n)
+        return torch.topk(rows, k, dim=1, largest=True, sorted=True).values
+    k = min(hi + 1, n)
+    return torch.topk(rows, k, dim=1, largest=False, sorted=True).values
+
+
+def quantile_of_candidates(cands: torch.Tensor, q: float,
+                           n_global: int) -> torch.Tensor:
+    """The quantile q of the joined rows from every shard's
+    `quantile_candidates`: a shard's candidates hold every one of its values
+    among the joined rows' nearest k, so the union's order statistics are
+    the joined rows'."""
+    lo, hi, low_w, high_w = _quantile_position(n_global, q)
+    if hi >= n_global // 2:
+        top = torch.topk(cands, n_global - lo, dim=1, largest=True,
+                         sorted=True).values
+        v_lo, v_hi = top[:, n_global - 1 - lo], top[:, n_global - 1 - hi]
+    else:
+        low = torch.topk(cands, hi + 1, dim=1, largest=False,
+                         sorted=True).values
+        v_lo, v_hi = low[:, lo], low[:, hi]
+    return v_lo * low_w + v_hi * high_w
 
 
 def quantile_rows(rows: torch.Tensor, q: float) -> np.ndarray:

@@ -20,6 +20,17 @@ Semantics match the eager observers:
              clip search (native library, quantization/solvers.py)
 Histograms count in int64 on the device (the JAX package's in int32).
 Isotone and the other algorithms take the observer path.
+
+Data-parallel calibration (`mesh` with a 'dp' axis, the JAX package's
+`mesh` argument): every rank of the mesh runs this pass on the same graph
+and batches; each walks its dp shard of every batch through its own walk,
+and the statistics are reduced over 'dp' (min / max by MIN / MAX, the
+abs-max by MAX, the int64 histograms by SUM). A percentile site returns its
+shard's top-k candidates ('percentile_topk'); every batch gathers them over
+'dp' and takes the quantiles of the union, which are the whole batch's
+(`observers.quantile_of_candidates`). So the scales are one card's on the
+whole batches: bit for bit for minmax, KL and MSE, and percentile's exact
+quantile (difference 25) alike.
 """
 
 from __future__ import annotations
@@ -36,7 +47,7 @@ from ...core import (OBSERVER_KL_HIST_BINS, OBSERVER_MIN_SCALE,
                      TensorQuantizationConfig)
 from ...executor.compile import CompiledGraph, compilable
 from ...ir import BaseGraph, QuantableOperation
-from ..observers import minmax_to_scale_offset
+from ..observers import minmax_to_scale_offset, quantile_of_candidates
 from ..solvers import kl_threshold_search, mse_threshold_search
 from .base import QuantizationOptimizationPass
 
@@ -60,7 +71,7 @@ def _make_fold(kinds: Dict[str, str]):
         if kind == 'minmax':
             torch.minimum(a[0], s[0], out=a[0])
             torch.maximum(a[1], s[1], out=a[1])
-        elif kind in ('percentile', 'quantile_bisect'):
+        elif kind in ('percentile', 'quantile_bisect', 'percentile_topk'):
             a[0].add_(s[0])
             a[1].add_(s[1])
         elif kind == 'absmax_hist':
@@ -127,13 +138,76 @@ def _host(v) -> np.ndarray:
 class CompiledCalibrationPass(QuantizationOptimizationPass):
     """Activation calibration through the compiled walk, on the device of
     the executor it is handed (the card unless that executor runs
-    elsewhere). One device: the JAX package's data-parallel `mesh` has no
-    counterpart yet (ROADMAP.md queue 1, item 15)."""
+    elsewhere). mesh: a mesh with a 'dp' axis (parallel.make_mesh): every
+    rank of it calls the pass on the same batches, walks its dp shard of
+    each, and the statistics reduce over 'dp'."""
 
-    def __init__(self, method: Optional[str] = None, calib_steps: int = 32):
+    def __init__(self, method: Optional[str] = None, calib_steps: int = 32,
+                 mesh=None):
         super().__init__('Compiled Calibration Pass (CUDA graphs)')
         self.method = method
         self.calib_steps = calib_steps
+        self.mesh = mesh
+
+    def _dp(self):
+        """This rank's 'dp' line as (group, size); (None, 1) without one."""
+        if self.mesh is None:
+            return None, 1
+        return self.mesh.group('dp'), self.mesh.shape.get('dp', 1)
+
+    def _shard(self, feed: dict) -> dict:
+        """This rank's dp shard of a fed batch."""
+        if self.mesh is None:
+            return feed
+        from ...parallel.mesh import batch_sharding
+        dp = self._dp()[1]
+        out = {}
+        for k, v in feed.items():
+            if v.shape[0] % dp:
+                raise ValueError(f'batch {v.shape[0]} of {k!r} does not '
+                                 f'split over dp={dp}')
+            out[k] = batch_sharding(self.mesh, v.dim()).local(v) \
+                .contiguous()
+        return out
+
+    def _reduce(self, acc, kinds, sweep: int):
+        """Sweep 1's minmax and abs-max, or sweep 2's histograms, reduced
+        over 'dp' in place (the same bits on every rank)."""
+        group, _ = self._dp()
+        if group is None or acc is None:
+            return acc
+        from ...parallel.multihost import all_reduce
+        for n, v in acc.items():
+            if sweep == 2:
+                all_reduce(v[1], group, 'sum')
+            elif kinds[n] == 'minmax':
+                all_reduce(v[0], group, 'min')
+                all_reduce(v[1], group, 'max')
+            elif kinds[n] == 'absmax_hist':
+                all_reduce(v[0], group, 'max')
+        return acc
+
+    def _quantiles(self, stats, pct_of):
+        """On a mesh, a batch's percentile candidates gathered over 'dp' ->
+        the whole batch's (lo, hi) quantiles; other statistics (and every
+        one without a mesh) as they are."""
+        if self.mesh is None:
+            return stats
+        from ...parallel.multihost import all_gather
+        group, _ = self._dp()
+        out = dict(stats)
+        for n, pct in pct_of.items():
+            if n not in stats:
+                continue
+            lo_c, hi_c, total, per_channel = stats[n]
+            lo_c = all_gather(lo_c, group, dim=1)
+            hi_c = all_gather(hi_c, group, dim=1)
+            lo = quantile_of_candidates(lo_c, 1.0 - pct, total)
+            hi = quantile_of_candidates(hi_c, pct, total)
+            if not per_channel:
+                lo, hi = lo[0], hi[0]
+            out[n] = (lo, hi)
+        return out
 
     def _batches(self, dataloader, collate_fn):
         n = 0
@@ -169,10 +243,16 @@ class CompiledCalibrationPass(QuantizationOptimizationPass):
         spec = {}
         for n in onepass:
             spec[n] = {'kind': 'minmax'}
+        # sorted: the ranks of a mesh gather the sites in one order (a set's
+        # order follows each process's string hashes)
+        pct_of = {n: float(targets[n].detail.get(
+            OBSERVER_PERCENTILE_MANUL_OVERRIDE, OBSERVER_PERCENTILE))
+            for n in sorted(percentile)}
         for n in percentile:
-            spec[n] = {'kind': 'percentile', 'percentile': float(
-                targets[n].detail.get(OBSERVER_PERCENTILE_MANUL_OVERRIDE,
-                                      OBSERVER_PERCENTILE))}
+            spec[n] = ({'kind': 'percentile', 'percentile': pct_of[n]}
+                       if self.mesh is None else
+                       {'kind': 'percentile_topk', 'percentile': pct_of[n],
+                        'world': self._dp()[1]})
         for n in twophase:
             bins = (OBSERVER_KL_HIST_BINS if algo_of[n] == 'kl'
                     else OBSERVER_MSE_HIST_BINS)
@@ -187,7 +267,7 @@ class CompiledCalibrationPass(QuantizationOptimizationPass):
         for batch in self._batches(dataloader, collate_fn):
             feed = cg._feed(batch)
             n_images += int(next(iter(feed.values())).shape[0])
-            feeds.append(feed)
+            feeds.append(self._shard(feed))
         if not feeds:
             raise ValueError('Calibration dataloader yielded no batches.')
 
@@ -199,7 +279,7 @@ class CompiledCalibrationPass(QuantizationOptimizationPass):
         for i, feed in enumerate(feeds):
             t0 = time.perf_counter()
             _, stats = fn(params, feed, ranges1)
-            acc = fold(acc, stats)
+            acc = fold(acc, self._quantiles(stats, pct_of))
             dt = time.perf_counter() - t0
             if i == 0:
                 compile_s = dt
@@ -207,6 +287,7 @@ class CompiledCalibrationPass(QuantizationOptimizationPass):
                 run_s += dt
         n_batches = len(feeds)
         t0 = time.perf_counter()
+        acc = self._reduce(acc, kinds, sweep=1)
         # one read of what the host needs: sweep 1's histograms are
         # placeholders and stay on the device
         acc_host = {n: ((_host(v[0]),) if kinds[n] == 'absmax_hist'
@@ -251,6 +332,7 @@ class CompiledCalibrationPass(QuantizationOptimizationPass):
             acc2 = fold(acc2, stats)
             run2 += time.perf_counter() - t0
         t0 = time.perf_counter()
+        acc2 = self._reduce(acc2, kinds, sweep=2)
         hists = {n: _host(acc2[n][1]) for n in twophase if n in (acc2 or {})}
         run2 += time.perf_counter() - t0
 

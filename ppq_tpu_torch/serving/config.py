@@ -14,8 +14,9 @@ class LlamaConfig:
 
     The fields are those of the JAX package's `LlamaConfig`; its switch
     `use_pallas_matmul` is `use_kernel_matmul` here, and `batch_invariant`
-    is the port's own. Every field's path is ported; a mesh (ROADMAP item
-    15) raises at engine build.
+    is the port's own. Every field's path is ported; the engine takes tp,
+    dp and ep meshes, and pp / sp meshes (ROADMAP item 15b) raise at engine
+    build.
     """
 
     vocab_size: int = 32000

@@ -35,8 +35,19 @@ The single-device part of the JAX package's `ppq_tpu/serving/engine.py`.
     `qmatmul`); MoE layers (serving/moe.py) run in prefill and in the
     captured bursts like every other layer.
 
-Not ported yet (raises NotImplementedError, ROADMAP.md item 15): meshes and
-every tp/pp/sp/dp branch.
+  * on a mesh (`mesh=`, parallel.make_mesh / make_hybrid_mesh) every rank
+    of it builds the engine on the same global parameters and runs the same
+    requests: the rank keeps its tensor-parallel slices
+    (serving/tensor_parallel.py: Megatron layout over 'tp', experts over
+    'ep' or 'tp', the cache's kv heads over 'tp'; 'dp' replicates), the
+    hand kernels run on its shard, and the all-reduced activations and
+    gathered logits are the same bits on every rank, so every rank takes
+    the same tokens (sampled ones too: one generator a rank, seeded
+    alike). The bursts run uncaptured on a mesh: a gloo collective cannot
+    be captured.
+
+Not ported yet (raises NotImplementedError): pipeline (pp) and sequence
+(sp) meshes, ROADMAP.md item 15b.
 """
 
 from __future__ import annotations
@@ -55,6 +66,7 @@ from .model import (Params, burst_forward, forward, fuse_decode_params,
                     init_kv_cache)
 from .paged import (BlockAllocator, PrefixCache, burst_forward_paged,
                     init_paged_pools, prefill_chunk_paged, prefill_paged)
+from .tensor_parallel import mark_parallel, shard_llama_params
 
 
 # --------------------------------------------------------------- request ---
@@ -160,13 +172,12 @@ class ServingEngine:
     def __init__(self, cfg: LlamaConfig, params: Params, mesh=None,
                  sampling: Optional[SamplingParams] = None, device=None):
         """Runs on the card; without one it raises unless `device='cpu'`.
-        `params` are moved to the engine's device if they lie elsewhere."""
-        if mesh is not None:
-            raise NotImplementedError(
-                'a device mesh (tp / pp / sp / dp serving: ROADMAP item 15)')
+        `params` are moved to the engine's device if they lie elsewhere.
+        mesh: every rank of it builds the engine with the same global
+        `params` (its slices are taken here); pp / sp meshes raise (item
+        15b)."""
         self.device = resolve_device(device)
-        self.cfg = cfg
-        self.mesh = None
+        self.mesh = mesh
         self.sampling = sampling or SamplingParams()
         # resolve the kernel fast-path knobs (None = auto): on with a card
         on_card = self.device.type == 'cuda'
@@ -178,11 +189,24 @@ class ServingEngine:
                 and cfg.max_seq_len % 128 == 0)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(self.sampling.seed)
+        if mesh is not None:
+            if any('moe' in l for l in params['layers']) and \
+                    mesh.shape.get('pp', 1) > 1:
+                raise NotImplementedError(
+                    'pp + MoE is out of scope: expert all-reduces would '
+                    'serialize against the stage ring')
+            # this rank's slices and heads, before the per-rank fusion
+            params, cfg = shard_llama_params(params, cfg, mesh)
+        self.cfg = cfg
         params = _to_device(params, self.device)
+        lm_columns = next(iter(params['lm_head'].values())).shape[-1]
         # decode steps are launch-overhead-bound: fuse q|k|v and gate|up
         # projections into single matmuls (numerically identical:
-        # column-wise dequant is independent per column)
-        self.params = fuse_decode_params(params, cfg)
+        # column-wise dequant is independent per column); on a mesh each
+        # rank fuses its own columns
+        params = fuse_decode_params(params, cfg)
+        self.params = params if mesh is None else \
+            mark_parallel(params, mesh, lm_columns)
         self._paged = bool(cfg.paged_kv)
         self.prefix_cache = None
         if self._paged:
@@ -211,7 +235,7 @@ class ServingEngine:
         # captured bursts (on a card): one CUDA graph a burst shape, all in
         # one memory pool (they never run at once); `_capture` False runs
         # every burst uncaptured (to measure or compare the two)
-        self._capture = on_card
+        self._capture = on_card and mesh is None
         self._graphs: Dict[Any, _CapturedBurst] = {}
         self._graph_pool = None
         self.graph_captures = 0

@@ -47,6 +47,7 @@ from ..kernels import qmm as _qmm
 from ..kernels import window_write as _window
 from .config import LlamaConfig
 from .moe import init_moe_params, moe_ffn
+from .tensor_parallel import ColumnParallel, RowParallel
 
 Params = Dict[str, Any]
 
@@ -186,7 +187,31 @@ def qmatmul(x: torch.Tensor, wq: Dict[str, torch.Tensor],
             kernel: bool = False, a8: bool = False,
             row_scale: Optional[torch.Tensor] = None,
             residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x @ dequant(w).
+    """x @ dequant(w), `_qmatmul` on one card. On a rank of a tensor-
+    parallel mesh (serving/tensor_parallel.py): a RowParallel weight's
+    partial product in float32, all-reduced over 'tp', the residual added
+    once after the reduce, then the cast; a ColumnParallel weight's outputs
+    all-gathered over 'tp'."""
+    if isinstance(wq, RowParallel):
+        out = wq.reduce(_qmatmul(x, wq, kernel, a8, row_scale,
+                                 out_dtype=F32, shards=wq.shards))
+        if residual is not None:
+            out = out + residual.to(F32)
+        return out.to(x.dtype)
+    if isinstance(wq, ColumnParallel):
+        return wq.gather(_qmatmul(x, wq, kernel, a8, row_scale, residual))
+    return _qmatmul(x, wq, kernel, a8, row_scale, residual)
+
+
+def _qmatmul(x: torch.Tensor, wq: Dict[str, torch.Tensor],
+             kernel: bool = False, a8: bool = False,
+             row_scale: Optional[torch.Tensor] = None,
+             residual: Optional[torch.Tensor] = None,
+             out_dtype: Optional[torch.dtype] = None,
+             shards: int = 1) -> torch.Tensor:
+    """x @ dequant(w) on this device's weight (out_dtype: x's unless named;
+    shards: the weight is one of that many row shards, routed as one card
+    routes the whole weight).
 
     kernel=True routes supported shapes through the fused dequant-matmul
     kernels (INT8 `w_int`, INT4 `w_packed`): the scale multiplies the f32
@@ -207,6 +232,7 @@ def qmatmul(x: torch.Tensor, wq: Dict[str, torch.Tensor],
     lead = x.shape[:-1]
     D = x.shape[-1]
     R = int(np.prod(lead)) if lead else 1
+    od = out_dtype or x.dtype
 
     if a8 and 'w' not in wq and x.dim() >= 2 and x.shape[-2] > 1:
         q, sx = _a8_quant(x)
@@ -217,21 +243,22 @@ def qmatmul(x: torch.Tensor, wq: Dict[str, torch.Tensor],
             flat = flat * row_scale.to(F32).reshape(R, 1)
         if residual is not None:
             flat = flat + residual.reshape(R, -1).to(F32)
-        return flat.reshape(*lead, -1).to(x.dtype)
-    if kernel and 'w' not in wq and R * D * 2 <= _KERNEL_QMM_MAX_X_BYTES:
+        return flat.reshape(*lead, -1).to(od)
+    Dw = D * shards
+    if kernel and 'w' not in wq and R * Dw * 2 <= _KERNEL_QMM_MAX_X_BYTES:
         int4 = 'w_packed' in wq
         wk = wq['w_packed'] if int4 else wq['w_int']
         Fo = wk.shape[1]
-        if (_qmm.supports_int4(D // 2, Fo, R) and D % 2 == 0) if int4 \
-                else _qmm.supports(D, Fo, R):
+        if (_qmm.supports_int4(Dw // 2, Fo, R) and D % 2 == 0) if int4 \
+                else _qmm.supports(Dw, Fo, R):
             out = (_qmm.qmm_int4 if int4 else _qmm.qmm_int8)(
                 x.reshape(R, D), wk, wq['scale'],
-                out_dtype=x.dtype if x.dtype in (BF16, F32) else F32,
+                out_dtype=od if od in (BF16, F32) else F32,
                 row_scale=None if row_scale is None
                 else row_scale.reshape(R, 1).to(F32),
                 residual=None if residual is None
                 else residual.reshape(R, Fo))
-            return out.reshape(*lead, Fo).to(x.dtype)
+            return out.reshape(*lead, Fo).to(od)
     if 'w' in wq:
         w = wq['w']
     elif 'w_int' in wq:
@@ -244,7 +271,7 @@ def qmatmul(x: torch.Tensor, wq: Dict[str, torch.Tensor],
         flat = flat * row_scale.to(F32).reshape(R, 1)
     if residual is not None:
         flat = flat + residual.reshape(R, -1).to(F32)
-    return flat.reshape(out.shape).to(x.dtype)
+    return flat.reshape(out.shape).to(od)
 
 
 # =============================================================== init ======

@@ -7,9 +7,10 @@ router's top-k weights (renormalised to sum 1) combine the expert outputs.
 Expert weights use the dense path's INT8 per-channel weight-only format
 (scales per (expert, out-channel)).
 
-The JAX package shards the expert stacks over an 'ep' mesh axis
-(`shard_moe_params`); meshes are ROADMAP item 15, and here that function
-raises.
+On a mesh the expert stacks split over 'ep' (or 'tp'):
+`shard_moe_params` gives a rank its experts as an ExpertParallel dict
+(serving/tensor_parallel.py), and `moe_ffn` sums the ranks' shares with an
+all-reduce. MoE on a 'pp' mesh raises, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,6 +22,9 @@ import torch
 import torch.nn.functional as F_
 
 from ..executor.executor import resolve_device
+from ..parallel.multihost import all_reduce
+from .tensor_parallel import ExpertParallel
+from .tensor_parallel import shard_moe_params  # noqa: F401  (the API's)
 
 BF16, F32 = torch.bfloat16, torch.float32
 
@@ -60,12 +64,6 @@ def init_moe_params(d_model: int, d_ff: int, n_experts: int, top_k: int = 2,
     }
 
 
-def shard_moe_params(params: Dict, mesh) -> Dict:
-    """Expert parallelism over a device mesh: ROADMAP item 15."""
-    raise NotImplementedError(
-        'sharding the expert stacks over a mesh (ROADMAP item 15)')
-
-
 def _deq(wq) -> torch.Tensor:
     if 'w' in wq:
         return wq['w'].to(F32)
@@ -84,7 +82,9 @@ def moe_ffn(x: torch.Tensor, params: Dict,
             top_k: Optional[int] = None) -> torch.Tensor:
     """x: (B, T, D) -> (B, T, D). Dense-einsum top-k MoE in float32: every
     expert for every token, combined with the renormalised top-k router
-    weights (zeros off the top k)."""
+    weights (zeros off the top k). On a rank of an expert-parallel mesh
+    (an ExpertParallel `params`) the rank's experts only, their share
+    all-reduced in float32."""
     k = int(top_k if top_k is not None else params['top_k'])
     xf = x.to(F32)
     logits = torch.einsum('btd,de->bte', xf, params['router'].to(F32))
@@ -92,6 +92,10 @@ def moe_ffn(x: torch.Tensor, params: Dict,
     top_w, top_i = top_k_lower_index(gates, k)               # (B, T, k)
     top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)
     combine = torch.zeros_like(gates).scatter(-1, top_i, top_w)
+    sharded = isinstance(params, ExpertParallel)
+    if sharded:
+        e_local = params['w_gate'][next(iter(params['w_gate']))].shape[0]
+        combine = combine[..., params.offset:params.offset + e_local]
 
     wg, wu, wd = (_deq(params['w_gate']), _deq(params['w_up']),
                   _deq(params['w_down']))
@@ -100,4 +104,6 @@ def moe_ffn(x: torch.Tensor, params: Dict,
     h = F_.silu(g) * u                                       # (B, E, T, F)
     y = torch.einsum('betf,efd->betd', h, wd)                # (B, E, T, D)
     out = torch.einsum('betd,bte->btd', y, combine)
+    if sharded:
+        out = all_reduce(out.contiguous(), params.group)
     return out.to(x.dtype)

@@ -22,8 +22,13 @@ The allocator is a Python free list unless `native=True` or
 `PPQ_TPU_NATIVE_ALLOC=1` asks for the repository's native C++ one
 (`csrc/allocator.cc`, built at first use by `utils/native.py`; the Python
 list where the build fails): both give the same allocation order, and on the
-serving paths' calls the Python list is the faster (PERF.md §5). Not ported yet (ROADMAP item 15): the dp-grouped
-allocator and prefix cache, and every sp / dp / pp function.
+serving paths' calls the Python list is the faster (PERF.md §5).
+
+On a tp or dp x tp mesh each rank's pools hold its kv heads
+(`init_paged_pools` with the rank's config), and every rank keeps the same
+allocator, tables and prefix cache; rows 12 and 16 run on the local heads.
+Not ported yet (pp / sp meshes: ROADMAP item 15b): the dp-grouped
+allocator and prefix cache of an sp mesh, and every sp / pp function.
 """
 
 from __future__ import annotations

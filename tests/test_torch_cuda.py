@@ -1047,7 +1047,8 @@ def test_serving_engine_on_the_card(cuda):
 
 def test_serving_engine_raises_without_a_card_or_for_unported_settings():
     """Runs with or without a card: device='cpu' is the only way onto the
-    CPU; W8A8 and MoE settings build, and a mesh (not ported) raises."""
+    CPU; W8A8 and MoE settings build, and a pipeline mesh (item 15b, not
+    ported) raises."""
     from ppq_tpu_torch.serving import (LlamaConfig, ServingEngine,
                                        init_llama_params)
     small = dict(vocab_size=256, d_model=128, n_layers=1, n_heads=4,
@@ -1064,8 +1065,10 @@ def test_serving_engine_raises_without_a_card_or_for_unported_settings():
         setattr(cfg, field, value)
         ServingEngine(cfg, init_llama_params(cfg, device='cpu'),
                       device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        ServingEngine(LlamaConfig(**small), params, mesh=object(),
+    import types
+    with pytest.raises(NotImplementedError, match='ROADMAP item 15b'):
+        ServingEngine(LlamaConfig(**small), params,
+                      mesh=types.SimpleNamespace(shape={'pp': 2}),
                       device='cpu')
     # the paged KV cache builds (head dim 128, blocks of 128)
     paged = dict(small, d_model=256, n_heads=2, n_kv_heads=1, max_seq_len=128)
@@ -2537,3 +2540,50 @@ def test_paged_engine_on_the_native_allocator_on_the_card(cuda, monkeypatch):
     assert len(runs[0][1]) == len(runs[1][1]) > 0
     for a, b in zip(runs[0][1], runs[1][1]):
         np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------------ tensor-parallel serving --
+
+def test_tp_decode_on_the_card_two_ranks(cuda):
+    """Two ranks share the card (gloo, collectives staged through the host)
+    and serve a tp-2 engine, ragged read and paged cache: every rank takes
+    the same tokens, each request's tokens are the one-card engine's up to
+    a near-tie (the two candidates' one-card logits within 3e-2 of the
+    largest |logit|, path D's limit), the probe logits within 3e-2, and
+    the rank launched rows 8-12 and 14-16 on its shard."""
+    import torch_dist_cases as cases
+    from ppq_tpu_torch.parallel import spawn
+    from ppq_tpu_torch.serving import (LlamaConfig, SamplingParams,
+                                       ServingEngine, init_llama_params)
+    base = dict(vocab_size=512, d_model=512, n_layers=2, n_heads=4,
+                n_kv_heads=2, d_ff=1024, max_seq_len=256, max_batch=4,
+                prefill_buckets=(16, 64))
+    variants = [('ragged', base, [('dp', 1), ('tp', 2)], False, 4),
+                ('paged', dict(base, paged_kv=True, kv_block_size=128),
+                 [('dp', 1), ('tp', 2)], False, 4)]
+    ranks = spawn(2, cases.serve, (variants, 7, 21, 'cuda'), device='cuda',
+                  timeout=300)
+    for name, fields, _, _, _ in variants:
+        got = [r[name] for r in ranks]
+        assert got[0]['tokens'] == got[1]['tokens']
+        assert got[0]['backend'] == 'gloo' or torch.cuda.device_count() > 1
+        cfg = LlamaConfig(**fields)
+        one = ServingEngine(cfg, init_llama_params(cfg, seed=0),
+                            sampling=SamplingParams(seed=3))
+        reqs = cases._requests(7, cfg.vocab_size, 21)
+        one.run(reqs, sync_every=4)
+        want = cases._probe_logits(one, reqs[0].prompt)
+        tol = 3e-2 * np.abs(want).max()
+        np.testing.assert_allclose(got[0]['logits'], want, rtol=0, atol=tol)
+        for r, b_seq in zip(reqs, got[0]['tokens']):
+            for i, (a, b) in enumerate(zip(r.generated, b_seq)):
+                if a != b:
+                    lg = cases._probe_logits(one, r.prompt + b_seq[:i])
+                    assert abs(lg[a] - lg[b]) <= 3e-2 * np.abs(lg).max()
+                    break
+        rows = ('qmm_int8', 'qmm_gateup', 'bank_write') + (
+            ('pool_write', 'paged_attention_grouped') if name == 'paged'
+            else ('window_write',))
+        for g in got:
+            for row in rows:
+                assert g['launches'].get(row, 0) > 0, (name, row)

@@ -20,6 +20,7 @@ most values differ by a bf16 step (2^-8 relative):
 
 import copy
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -634,14 +635,18 @@ def test_sampler_thresholds_and_sampled_tokens():
 
 def test_engine_refuses_what_is_not_ported():
     """What the port does not have yet raises, naming its ROADMAP item: a
-    mesh (paged or not). Ragged attention, INT4 weights, the paged KV
-    cache, W8A8 prefill and MoE layers are ported and build."""
+    pipeline or sequence mesh (paged or not; item 15b). Ragged attention,
+    INT4 weights, the paged KV cache, W8A8 prefill and MoE layers are
+    ported and build (tp / dp / ep meshes: tests/test_torch_serving_tp.py)."""
     tcfg = LlamaConfig(**SIZES['dh32'])
     params = init_llama_params(tcfg, seed=0, device='cpu')
     for paged in (False, True):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            ServingEngine(LlamaConfig(**SIZES['dh32'], paged_kv=paged),
-                          params, mesh=object(), device='cpu')
+        for axis in ('pp', 'sp'):
+            # the axes alone: the refusal comes before any process group
+            mesh = types.SimpleNamespace(shape={'dp': 1, axis: 2})
+            with pytest.raises(NotImplementedError, match='ROADMAP item 15b'):
+                ServingEngine(LlamaConfig(**SIZES['dh32'], paged_kv=paged),
+                              params, mesh=mesh, device='cpu')
     ServingEngine(LlamaConfig(**SIZES['dh32'], act_bits=8), params,
                   device='cpu')
     moe_cfg = LlamaConfig(**SIZES['dh32'], n_experts=4)

@@ -439,11 +439,18 @@ def test_no_silent_cpu(monkeypatch):
 
 
 def test_import_hygiene():
-    """The port and chip_smoke.py import neither JAX nor ppq_tpu."""
+    """The port (its parallel layer too), chip_smoke.py and the rank bodies
+    of the multi-rank tests import neither JAX nor ppq_tpu."""
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['ppq_tpu'] = None; "
             "import ppq_tpu_torch, ppq_tpu_torch.kernels, "
-            "ppq_tpu_torch.interop, chip_smoke; print('ok')")
+            "ppq_tpu_torch.interop, ppq_tpu_torch.parallel, "
+            "ppq_tpu_torch.parallel._rank, "
+            "ppq_tpu_torch.serving.ring_attention, "
+            "ppq_tpu_torch.serving.pipeline, "
+            "ppq_tpu_torch.serving.tensor_parallel, chip_smoke; "
+            "sys.path.insert(0, 'tests'); import torch_dist_cases; "
+            "print('ok')")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
