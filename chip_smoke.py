@@ -160,10 +160,15 @@ Phases (each raises on failure, and the script then exits non-zero):
      forward over pp 2 of its 16 layers, O5 its tp-2 engines (INT8 dense,
      ragged, paged; INT4: `run` over 32 requests, benchmark_decode for 8
      steps at fill 16 and 512), O6 the dp 2 x tp 2 paged engine, O7 path
-     M's MoE engine at ep 2; each held against the same computation on one
-     card in this process, every rank's tokens equal; the seconds and ms a
-     step of ranks sharing one card are correctness figures, not scaling
-     figures (`--parallel` runs this path alone);
+     M's MoE engine at ep 2, O8-O13 the pipeline and sequence legs (dense
+     pp 2 and sp 2; paged pp 2, sp 2 x tp 2, dp 2 x sp 2 with the grouped
+     prefix cache, pp 2 x sp 2: `run` on prompts that cross a shard's
+     positions or blocks, benchmark_decode for 4 steps at fill 16 and 512,
+     no fault bit, each rank's decode launches one card's); each held
+     against the same computation on one card in this process, every
+     rank's tokens equal; the seconds and ms a step of ranks sharing one
+     card are correctness figures, not scaling figures (`--parallel` runs
+     this path alone);
  11. launches: every kernel ran on a path (the counts are set to 0 before
      each path and read after it); then, outside the counts, the time and
      the launches of an LSQ step, captured and uncaptured, block by block
@@ -7609,6 +7614,38 @@ PAR_VARIANTS = {
     'int8_paged': dict(paged_kv=True, kv_block_size=256),
     'int4_ragged': dict(weight_bits=4),
 }
+# O8-O13: the pipeline and sequence meshes of the same engine (INT8, the
+# ragged read, blocks of 256 where paged): tag -> (name, fields, mesh axes,
+# first rank). Two-rank legs run two at a time on the rank pairs. The paged
+# legs' pool holds 97 blocks, what benchmark_decode at fill 512 takes (32
+# slots of 3 blocks and the trash row): its 'sp' shards split at block 49
+# (dp 2 x sp 2: at 25 in each dp row), inside the run's blocks. Their
+# prompts of up to 512 tokens admit in one batched prefill (chunks of 128,
+# one a prompt and 16 collectives a layer, took O11's run 28 s of 17)
+PAR_MESH_PAGED = dict(paged_kv=True, kv_block_size=256, kv_pool_blocks=97,
+                      prefill_buckets=(512,))
+PAR_MESH_LEGS = {
+    'O8': ('pp2_dense', {}, (('pp', 2),), 0),
+    'O9': ('sp2_dense', {}, (('sp', 2),), 2),
+    'O10': ('pp2_paged', PAR_MESH_PAGED, (('pp', 2),), 0),
+    'O11': ('sp2tp2_paged', PAR_MESH_PAGED, (('sp', 2), ('tp', 2)), 0),
+    'O12': ('dp2sp2_paged', dict(PAR_MESH_PAGED, prefix_cache_blocks=64),
+            (('dp', 2), ('sp', 2)), 0),
+    'O13': ('pp2sp2_paged', PAR_MESH_PAGED, (('pp', 2), ('sp', 2)), 0),
+}
+# their requests' prompt lengths: the dense legs' long prompt crosses
+# position 512, where a two-way sequence shard splits max_seq_len 1024 (a
+# dense chunk runs every slot's row: one long prompt); the paged legs'
+# 18 take 2-3 blocks of 256 (the 600-token one in chunks, the rest in one
+# prefill), the 505-510-token ones a third block in the run's first burst
+# of 8, which the second reads, so that the allocator's rows pass every
+# shard's boundary and slots read blocks of two shards (`spans`; at sp 2
+# from the second burst on). 16 new tokens each, in bursts of 8;
+# benchmark_decode 4 steps a burst. O12 then repeats the second prompt,
+# whose first two blocks its dp row's prefix cache holds
+PAR_MESH_DENSE_LENGTHS = (600, 40, 90, 70)
+PAR_MESH_PAGED_LENGTHS = (300, 600) + (505, 508, 510, 506) * 4
+PAR_MESH_NEW_TOKENS, PAR_MESH_SYNC, PAR_MESH_DECODE_STEPS = 16, 8, 4
 # The sharded step against one card's on the same global batch, walked in
 # the dp shards' halves (loss and gradients summed half by half: the
 # ranks' sums in their order): the same bits; 1e-6 relative and 1e-9 are
@@ -7654,12 +7691,21 @@ PATH_KERNELS['O'] = ('fake_quant_tensorwise', 'fake_quant_channelwise',
 # what O1-O2 and O5-O6 must launch (rows 1-5; rows 8-12 and 14-16)
 PAR_QUANT_ROWS = PATH_KERNELS['O'][:5]
 PAR_SERVE_ROWS = PATH_KERNELS['O'][5:]
+# what each of O8-O13 must launch on every rank of its mesh: rows 8 and 10,
+# the reads (row 11 or 12), row 14, and row 15 (dense) or 16 (paged)
+PAR_MESH_ROWS = ('qmm_int8', 'qmm_gateup', 'bank_write')
+PAR_READ_ROWS = ('paged_attention_fused', 'paged_attention_grouped')
 # the sizes path O runs at (a CPU rehearsal passes smaller ones)
 PAR_PLAN = dict(image=[CALIB_BATCH, 3, IMAGE, IMAGE],
                 calib_steps=PAR_CALIB_STEPS, ring=PAR_RING, pipe=PAR_PIPE,
                 serve=PAR_SERVE, moe=LLM_MOE, requests=PAR_REQUESTS,
                 moe_requests=LLM_REQUESTS, new_tokens=PAR_NEW_TOKENS,
-                moe_new_tokens=LLM_NEW_TOKENS, fills=(16, 512))
+                moe_new_tokens=LLM_NEW_TOKENS, fills=(16, 512),
+                mesh_legs=PAR_MESH_LEGS, mesh_paged=PAR_MESH_PAGED,
+                mesh_dense_lengths=PAR_MESH_DENSE_LENGTHS,
+                mesh_paged_lengths=PAR_MESH_PAGED_LENGTHS,
+                mesh_new_tokens=PAR_MESH_NEW_TOKENS, mesh_sync=PAR_MESH_SYNC,
+                mesh_decode_steps=PAR_MESH_DECODE_STEPS)
 
 
 def _sync(dev):
@@ -7914,46 +7960,113 @@ def _o_pipe_input(plan, params, dev):
 
 
 def _o_probe(engine, reqs):
+    """The engine's logits after the first prompt: one forward over a fresh
+    one-slot cache of the rank's shape (its slices of the global cache:
+    its kv heads, its stage's layers, its positions), staged on a 'pp'
+    mesh."""
     from ppq_tpu_torch.serving.model import forward, init_kv_cache
+    from ppq_tpu_torch.serving.pipeline import forward_staged
+    from ppq_tpu_torch.serving.tensor_parallel import rank_cache
     seq = reqs[0].prompt
     T, dev = len(seq), engine.device
-    with torch.no_grad():
-        logits, _ = forward(
-            engine.params, init_kv_cache(engine.cfg, 1, dev),
+    cache = init_kv_cache(engine.cfg, 1, dev) if engine.mesh is None else \
+        rank_cache(engine._model_cfg, engine.mesh, 1, dev)
+    args = (engine.params, cache,
             torch.tensor([seq], dtype=torch.int32, device=dev),
             torch.arange(T, dtype=torch.int32, device=dev)[None],
             torch.zeros(1, dtype=torch.int32, device=dev),
             torch.full((1,), T, dtype=torch.int32, device=dev), engine.cfg)
+    with torch.no_grad():
+        if engine._pp:
+            logits, _ = forward_staged(*args, engine.mesh, microbatches=1)
+        else:
+            logits, _ = forward(*args, sp_mesh=engine._sp_mesh)
     return logits[0, -1].float().cpu()
 
 
-def _o_serve(cfg, params, mesh, reqs, fills, dev):
-    """An engine on `mesh` (None: one card): `run` over the requests and
-    benchmark_decode for PAR_DECODE_STEPS steps at each fill. Returns its
-    tokens, probe logits, seconds, ms a step and the kernels it launched
-    (a one-card burst's replays count what they launch)."""
-    from ppq_tpu_torch.kernels import LAUNCHES
-    from ppq_tpu_torch.serving import ServingEngine
+def _o_block_spans(engine):
+    """The most pool shards one slot's blocks lie on, over every paged burst
+    of the engine's runs (1 where the block axis is not sharded)."""
+    from ppq_tpu_torch.serving.paged import block_shard
+    spans = [1]
+    shard = block_shard(engine.cache, engine.mesh) if engine._paged and \
+        engine.mesh is not None else None
+    if shard is not None:
+        real = engine._paged_decode
+
+        def watch(n, *a, **k):
+            for row in engine._alloc.tables():
+                spans.append(len({int(b) // shard.size for b in row if b}))
+            return real(n, *a, **k)
+        engine._paged_decode = watch
+    return spans
+
+
+def _o_serve(cfg, params, mesh, reqs, fills, dev, repeat=False,
+             sync=SERVE_SYNC, steps=PAR_DECODE_STEPS):
+    """An engine on `mesh` (None: one card): `run` over the requests, in
+    bursts of `sync`, and benchmark_decode for `steps` steps at each fill.
+    Returns its
+    tokens, probe logits, seconds, ms a step, the kernels it launched (a
+    one-card burst's replays count what they launch), the device's fault
+    bits, the collectives a decode step (count, host seconds, bytes), and
+    on a block-sharded pool the most shards one slot's blocks lay on.
+    repeat: a second `run` of the second prompt after the first run (it
+    lands on slot 0, on a dp-grouped pool in that prompt's dp row; on a
+    prefix-cached engine its blocks are adopted), its tokens and the prefix
+    cache's hits and misses."""
+    from ppq_tpu_torch.kernels import LAUNCHES, read_faults
+    from ppq_tpu_torch.parallel import multihost
+    from ppq_tpu_torch.serving import Request, ServingEngine
     before = dict(LAUNCHES)
+    cuda = torch.device(dev).type == 'cuda'
+    if cuda:
+        read_faults(dev)
     engine = ServingEngine(cfg, params, mesh=mesh, device=dev)
+    spans = _o_block_spans(engine)
     _sync(dev)
     t0 = time.perf_counter()
-    engine.run(reqs, sync_every=SERVE_SYNC)
+    engine.run(reqs, sync_every=sync)
     _sync(dev)
     out = dict(tokens=[list(r.generated) for r in reqs],
                prompts=[list(r.prompt) for r in reqs],
                run_s=time.perf_counter() - t0,
-               logits=_o_probe(engine, reqs), decode={})
+               logits=_o_probe(engine, reqs), decode={}, collectives={})
     if not all(r.done and len(r.generated) == r.max_new_tokens
                for r in reqs):
         raise AssertionError(f'path O: a request did not finish ({cfg})')
+    if repeat:
+        # outside the counts: one card repeats without a prefix cache
+        held = dict(LAUNCHES)
+        again = [Request(len(reqs), list(reqs[1].prompt),
+                         max_new_tokens=reqs[1].max_new_tokens)]
+        engine.run(again, sync_every=sync)
+        LAUNCHES.update(held)
+        out['repeat'] = dict(prompt=again[0].prompt,
+                             tokens=list(again[0].generated))
+        if engine.prefix_cache is not None:
+            out['repeat'].update(hits=engine.prefix_cache.hits,
+                                 misses=engine.prefix_cache.misses,
+                                 cache=type(engine.prefix_cache).__name__)
+    at_decode = dict(LAUNCHES)
     for fill in fills:
-        d = engine.benchmark_decode(steps=PAR_DECODE_STEPS,
-                                    burst=PAR_DECODE_STEPS, fill=fill,
+        multihost.reset_transport()
+        d = engine.benchmark_decode(steps=steps, burst=steps, fill=fill,
                                     repeats=1)
         out['decode'][f'fill_{fill}'] = d['ms_per_step']
+        # a warm burst and one timed burst of `steps` steps
+        ran = 2 * steps
+        out['collectives'][f'fill_{fill}'] = dict(
+            calls=sum(multihost.TRANSPORT_COUNTS.values()) / ran,
+            host_s=sum(multihost.TRANSPORT_SECONDS.values()) / ran,
+            bytes=sum(multihost.TRANSPORT_BYTES.values()) / ran)
     out['launches'] = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
                        if v != before.get(k, 0)}
+    out['decode_launches'] = {k: v - at_decode.get(k, 0)
+                              for k, v in LAUNCHES.items()
+                              if v != at_decode.get(k, 0)}
+    out['faults'] = read_faults(dev) if cuda else []
+    out['spans'] = max(spans)
     del engine
     _empty(dev)
     return out
@@ -7976,6 +8089,23 @@ def _o_serve_requests(plan, cfg):
 def _o_moe_requests(plan, cfg):
     return _o_requests(cfg.vocab_size, plan['moe_requests'],
                        plan['moe_new_tokens'], seed=31)
+
+
+def _o_mesh_config(plan, tag):
+    from ppq_tpu_torch.serving import LlamaConfig
+    return LlamaConfig(**dict(plan['serve'], **plan['mesh_legs'][tag][1]))
+
+
+def _o_mesh_requests(plan, cfg):
+    """O8-O13's requests: seeded prompts of the plan's lengths (the paged
+    legs' or the dense legs'), each with mesh_new_tokens new tokens."""
+    from ppq_tpu_torch.serving import Request
+    rng = np.random.default_rng(43)
+    lengths = plan['mesh_paged_lengths'] if cfg.paged_kv else \
+        plan['mesh_dense_lengths']
+    return [Request(i, [int(t) for t in rng.integers(1, cfg.vocab_size, n)],
+                    max_new_tokens=plan['mesh_new_tokens'])
+            for i, n in enumerate(lengths)]
 
 
 def _path_o_rank(o1_graph, plan):
@@ -8022,6 +8152,9 @@ def _path_o_rank(o1_graph, plan):
     pp2 = Mesh(np.arange(2), ('pp',))
     tp2 = Mesh(np.arange(2).reshape(1, 2), ('dp', 'tp'))
     ep2 = Mesh(np.arange(2), ('ep',))
+    legs = {tag: Mesh(first + np.arange(int(np.prod([n for _, n in axes])))
+                      .reshape([n for _, n in axes]), [a for a, _ in axes])
+            for tag, (_, _, axes, first) in plan['mesh_legs'].items()}
 
     # O1: dp 2 (the two ranks of a tp pair walk the same dp shard)
     cal = run('O1', lambda: _o_calibrate(plan, dev, mesh22))
@@ -8089,6 +8222,25 @@ def _path_o_rank(o1_graph, plan):
     out['O6'] = run('O6', lambda: _o_serve(
         pcfg, params, mesh22, _o_serve_requests(plan, pcfg),
         plan['fills'][:1], dev))
+    # O8-O13: the pipeline and sequence meshes, the two-rank legs a pair
+    # at a time (O8 on ranks 0, 1 beside O9 on 2, 3)
+    out['mesh'] = {}
+
+    def mesh_legs(tags):
+        for tag in tags:
+            if legs[tag].coords is None:
+                continue
+            mcfg = _o_mesh_config(plan, tag)
+            t0 = time.perf_counter()
+            out['mesh'][tag] = _o_serve(
+                mcfg, params, legs[tag], _o_mesh_requests(plan, mcfg),
+                plan['fills'], dev, repeat=bool(mcfg.prefix_cache_blocks),
+                sync=plan['mesh_sync'], steps=plan['mesh_decode_steps'])
+            out['seconds'][tag] = time.perf_counter() - t0
+    for tags in (('O8', 'O9'), ('O10',), ('O11',), ('O12',), ('O13',)):
+        tags = [t for t in tags if t in legs]
+        if tags:
+            run('+'.join(tags), lambda: mesh_legs(tags))
     del params
     _empty(dev)
 
@@ -8110,14 +8262,27 @@ def _o_hold_serving(tag, ranks, one, params, cfg, dev, same_launches=True):
     largest |logit|. same_launches: every rank launched each serving row
     as often as one card did on the same run (a tp rank's shard takes every
     kernel one card's whole weight takes; not so for an expert-parallel
-    rank, which runs its share of the experts)."""
+    rank, which runs its share of the experts); 'reads': so in the decode
+    bursts (`decode_launches`), with the two read kernels (rows 11 and 12)
+    counted together (a sequence shard reads its positions whole, where one
+    card's bucket may pick the per-slot kernel; a pp stage runs its L / pp
+    layers on each of pp microbatches, L launches a step as one card; a
+    chunked prefill's single row is one microbatch, half of one card's,
+    and is reported only)."""
     import types
     for r in ranks[1:]:
         if r['tokens'] != ranks[0]['tokens']:
             raise AssertionError(f'path O {tag}: ranks took other tokens')
-    counts = {k: [one['launches'].get(k, 0)] +
-              [r['launches'].get(k, 0) for r in ranks]
-              for k in PAR_SERVE_ROWS}
+
+    key = 'decode_launches' if same_launches == 'reads' else 'launches'
+
+    def rows(launches):
+        out = {k: launches.get(k, 0) for k in PAR_SERVE_ROWS}
+        if same_launches == 'reads':
+            out['reads'] = sum(out.pop(k) for k in PAR_READ_ROWS)
+        return out
+    counts = {k: [rows(one[key])[k]] + [rows(r[key])[k] for r in ranks]
+              for k in rows(one[key])}
     counts = {k: v for k, v in counts.items() if any(v)}
     if same_launches and any(len(set(v)) > 1 for v in counts.values()):
         raise AssertionError(f'path O {tag}: launches (one card, then each '
@@ -8138,6 +8303,76 @@ def _o_hold_serving(tag, ranks, one, params, cfg, dev, same_launches=True):
     held['logits_max_diff_share_of_scale'] = worst
     held['launches_one_card_then_ranks'] = counts
     return held
+
+
+def _o_hold_mesh_legs(plan, ranks, params, dev):
+    """O8-O13 against one card's engine on the same requests (the dense
+    engine with the ragged read for O8 and O9, the paged one for the rest,
+    its repeat of the first prompt for O12's prefix-cache hit): every
+    rank's tokens equal and held by the near-tie rule, the probe logits
+    within SERVE_LOGIT_TOL, no fault bit, each rank launching every
+    serving row of its leg as often as one card (a pp stage runs its
+    layers on each of pp microbatches, L / pp x pp = L launches of rows 8
+    and 10 a step; an sp rank runs every layer, read and write), and on
+    the paged sp legs a slot's blocks on two shards."""
+    out, refs = {}, {}
+    for tag, (name, fields, axes, _) in plan['mesh_legs'].items():
+        cfg = _o_mesh_config(plan, tag)
+        key = 'paged' if cfg.paged_kv else 'dense'
+        if key not in refs:
+            rcfg = _o_mesh_config(plan, tag)
+            rcfg.prefix_cache_blocks = 0
+            refs[key] = _o_serve(rcfg, params, None,
+                                 _o_mesh_requests(plan, rcfg), plan['fills'],
+                                 dev, repeat=cfg.paged_kv,
+                                 sync=plan['mesh_sync'],
+                                 steps=plan['mesh_decode_steps'])
+        one = refs[key]
+        mine = [r['mesh'][tag] for r in ranks if tag in r['mesh']]
+        if len(mine) != int(np.prod([n for _, n in axes])):
+            raise AssertionError(f'path O {tag}: {len(mine)} ranks reported')
+        shape = dict(axes)
+        held = _o_hold_serving(f'{tag} {name}', mine, one, params, cfg, dev,
+                               same_launches='reads')
+        faults = sorted({f for r in mine for f in r['faults']})
+        spans = [r['spans'] for r in mine]
+        held.update(run_launches_one_card_then_ranks={
+                        k: [one['launches'].get(k, 0)] +
+                        [r['launches'].get(k, 0) for r in mine]
+                        for k in PAR_SERVE_ROWS if one['launches'].get(k)
+                        or any(r['launches'].get(k) for r in mine)},
+                    run_s=mine[0]['run_s'], ms_per_step=mine[0]['decode'],
+                    rank_s=[r['run_s'] for r in mine],
+                    one_card_run_s=one['run_s'],
+                    one_card_ms_per_step=one['decode'],
+                    collectives_a_step=mine[0]['collectives'], faults=faults,
+                    block_spans=spans)
+        if faults:
+            raise AssertionError(f'path O {tag}: fault bits {faults}')
+        if cfg.paged_kv and shape.get('sp', 1) > 1 and min(spans) < 2:
+            raise AssertionError(f'path O {tag}: no slot held blocks of two '
+                                 f'shards: {spans}')
+        if 'repeat' in mine[0]:
+            rep = mine[0]['repeat']
+            if any(r['repeat']['tokens'] != rep['tokens'] for r in mine):
+                raise AssertionError(f'path O {tag}: ranks repeated other '
+                                     'tokens')
+            import types
+
+            def as_reqs(entry):
+                return [types.SimpleNamespace(rid=0, prompt=entry['prompt'],
+                                              generated=entry['tokens'])]
+            held['repeat'] = _near_tie_tokens(
+                f'O {tag} repeat', as_reqs(one['repeat']), as_reqs(rep),
+                params, cfg, dev)
+            held['repeat'].update({k: rep.get(k) for k in
+                                   ('hits', 'misses', 'cache')})
+            if cfg.prefix_cache_blocks and not rep.get('hits'):
+                raise AssertionError(f'path O {tag}: the repeated prompt '
+                                     f'did not hit the prefix cache: {rep}')
+        out[tag] = held
+        log(f'[path O] {tag} {name} {json.dumps(held)}')
+    return out
 
 
 def phase_path_o(dev, plan=PAR_PLAN):
@@ -8314,6 +8549,7 @@ def phase_path_o(dev, plan=PAR_PLAN):
                          ms_per_step=r0['O6']['decode'],
                          one_card_run_s=one['run_s'],
                          one_card_ms_per_step=one['decode'])
+    summary['mesh'] = _o_hold_mesh_legs(plan, ranks, params, dev)
     del params
     _empty(dev)
     mcfg = LlamaConfig(**plan['moe'])
@@ -8346,8 +8582,12 @@ def phase_path_o(dev, plan=PAR_PLAN):
     log(f'[path O] launches by step (summed over ranks) {json.dumps(by_step)}')
     log(f'[path O] {summary["path_s"]:.1f} s')
     if dev.type == 'cuda':
+        mesh_steps = tuple(s for s in by_step if s.startswith('O8')
+                           or s in ('O10', 'O11', 'O12', 'O13'))
         for rows, steps in ((PAR_QUANT_ROWS, ('O1', 'O2')),
-                            (PAR_SERVE_ROWS, ('O5', 'O6'))):
+                            (PAR_SERVE_ROWS, ('O5', 'O6')),
+                            (PAR_MESH_ROWS + ('window_write', 'pool_write'),
+                             mesh_steps)):
             missing = [k for k in rows if not sum(
                 by_step.get(s, {}).get(k, 0) for s in steps)]
             if missing:

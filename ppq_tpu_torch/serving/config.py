@@ -14,9 +14,9 @@ class LlamaConfig:
 
     The fields are those of the JAX package's `LlamaConfig`; its switch
     `use_pallas_matmul` is `use_kernel_matmul` here, and `batch_invariant`
-    is the port's own. Every field's path is ported; the engine takes tp,
-    dp and ep meshes, and pp / sp meshes (ROADMAP item 15b) raise at engine
-    build.
+    is the port's own. Every field's path is ported, and the engine takes
+    every mesh the JAX engine takes (tp, dp, ep, pp, sp and their
+    compositions).
     """
 
     vocab_size: int = 32000

@@ -45,9 +45,17 @@ The single-device part of the JAX package's `ppq_tpu/serving/engine.py`.
     the same tokens (sampled ones too: one generator a rank, seeded
     alike). The bursts run uncaptured on a mesh: a gloo collective cannot
     be captured.
-
-Not ported yet (raises NotImplementedError): pipeline (pp) and sequence
-(sp) meshes, ROADMAP.md item 15b.
+  * a 'pp' mesh: each rank holds its stage's layers and their cache slabs
+    or pool rows; prefills, chunks and bursts run the staged functions of
+    serving/pipeline.py (microbatches through the stages, the last stage's
+    activations broadcast, the logits replicated). An 'sp' mesh shards the
+    dense cache's sequence axis (reads merge their partial softmaxes over
+    'sp') or the paged pools' block axis (dp x sp: a dp-grouped allocator
+    and prefix cache, `GroupedBlockAllocator`); pp x sp shards a paged
+    pool's layers and blocks. Reads are never bucketed on an 'sp' mesh: a
+    bucket would slice a sharded axis. The JAX engine's refusals stand:
+    pp + MoE, a paged pp x sp mesh with dp or tp axes, and a max_batch or
+    n_layers that the axes do not divide.
 """
 
 from __future__ import annotations
@@ -64,9 +72,14 @@ from ..kernels.loader import LAUNCHES, graph_capture
 from .config import LlamaConfig
 from .model import (Params, burst_forward, forward, fuse_decode_params,
                     init_kv_cache)
-from .paged import (BlockAllocator, PrefixCache, burst_forward_paged,
-                    init_paged_pools, prefill_chunk_paged, prefill_paged)
-from .tensor_parallel import mark_parallel, shard_llama_params
+from .paged import (BlockAllocator, GroupedBlockAllocator, GroupedPrefixCache,
+                    PrefixCache, burst_forward_paged, init_paged_pools,
+                    prefill_chunk_paged, prefill_paged)
+from .pipeline import (burst_forward_staged, burst_forward_staged_paged,
+                       forward_staged, prefill_chunk_staged_paged,
+                       prefill_staged_paged)
+from .tensor_parallel import (mark_parallel, rank_cache, rank_pools,
+                              shard_llama_params)
 
 
 # --------------------------------------------------------------- request ---
@@ -174,8 +187,7 @@ class ServingEngine:
         """Runs on the card; without one it raises unless `device='cpu'`.
         `params` are moved to the engine's device if they lie elsewhere.
         mesh: every rank of it builds the engine with the same global
-        `params` (its slices are taken here); pp / sp meshes raise (item
-        15b)."""
+        `params` (its slices are taken here)."""
         self.device = resolve_device(device)
         self.mesh = mesh
         self.sampling = sampling or SamplingParams()
@@ -189,12 +201,18 @@ class ServingEngine:
                 and cfg.max_seq_len % 128 == 0)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(self.sampling.seed)
+        shape = {} if mesh is None else dict(mesh.shape)
+        self._pp = shape.get('pp', 1) > 1
+        # the mesh the sequence- or block-sharded paths take (None: no sp)
+        self._sp_mesh = mesh if shape.get('sp', 1) > 1 else None
+        # paged dp x sp: the batch's slots partition over dp rows, each
+        # row's blocks on its own shards (one allocator group a row)
+        self._paged_dp = 1
+        self._model_cfg = cfg
         if mesh is not None:
-            if any('moe' in l for l in params['layers']) and \
-                    mesh.shape.get('pp', 1) > 1:
-                raise NotImplementedError(
-                    'pp + MoE is out of scope: expert all-reduces would '
-                    'serialize against the stage ring')
+            self._check_mesh(cfg, params, shape)
+            if cfg.paged_kv and self._sp_mesh is not None and not self._pp:
+                self._paged_dp = shape.get('dp', 1)
             # this rank's slices and heads, before the per-rank fusion
             params, cfg = shard_llama_params(params, cfg, mesh)
         self.cfg = cfg
@@ -221,10 +239,15 @@ class ServingEngine:
             if cfg.head_dim % 128:
                 raise ValueError('paged_kv kernel path needs head_dim % '
                                  '128 == 0')
+            self._model_cfg.kv_block_size = blk
             mb_per_seq = cfg.max_seq_len // blk
             n_blocks = cfg.kv_pool_blocks or (cfg.max_batch * mb_per_seq + 1)
-            self._alloc = BlockAllocator(n_blocks, cfg.max_batch, mb_per_seq,
-                                         block_size=blk)
+            if self._sp_mesh is not None:
+                # whole blocks a shard
+                shards = shape['sp'] * self._paged_dp
+                n_blocks = -(-n_blocks // shards) * shards
+            self._alloc = self._make_alloc(n_blocks, cfg.max_batch,
+                                           mb_per_seq, blk)
         self.cache = self._new_cache()
         B = cfg.max_batch
         self.slot_len = np.zeros(B, np.int64)        # tokens in cache per slot
@@ -240,24 +263,64 @@ class ServingEngine:
         self._graph_pool = None
         self.graph_captures = 0
 
+    @staticmethod
+    def _check_mesh(cfg, params, shape):
+        """The JAX engine's refusals of a mesh (`ppq_tpu/serving/engine.py`
+        :178-190, :232-254)."""
+        pp, sp = shape.get('pp', 1), shape.get('sp', 1)
+        if pp > 1 and any('moe' in l for l in params['layers']):
+            raise NotImplementedError(
+                'pp + MoE is out of scope: expert all-reduces would '
+                'serialize against the stage ring')
+        if pp > 1 and cfg.max_batch % pp:
+            raise ValueError(f'max_batch ({cfg.max_batch}) must divide by '
+                             f'pp={pp} stages')
+        if pp > 1 and cfg.n_layers % pp:
+            raise ValueError(f'n_layers ({cfg.n_layers}) must divide by '
+                             f'pp={pp} stages')
+        if cfg.paged_kv and sp > 1:
+            if pp > 1 and (shape.get('dp', 1) > 1 or shape.get('tp', 1) > 1):
+                raise NotImplementedError(
+                    'paged_kv + sp x pp composes only as a pure pp x sp mesh '
+                    '(no dp / tp axes)')
+            if pp == 1 and cfg.max_batch % shape.get('dp', 1):
+                raise ValueError('paged_kv + dp needs max_batch % dp == 0')
+
+    def _make_alloc(self, n_blocks, max_batch, mb_per_seq, blk):
+        if self._paged_dp > 1:
+            return GroupedBlockAllocator(n_blocks, max_batch, mb_per_seq,
+                                         block_size=blk, groups=self._paged_dp)
+        return BlockAllocator(n_blocks, max_batch, mb_per_seq,
+                              block_size=blk)
+
     # --------------------------------------------------------------- state
     def _new_cache(self):
         """A fresh KV cache. Paged: fresh pools, a fresh allocator and an
         empty prefix cache (an index of the old allocator's blocks would
-        hand out rows that are free in the new one)."""
+        hand out rows that are free in the new one). On a mesh the rank's
+        slices of the global cache or pools (`tensor_parallel.rank_cache`,
+        `rank_pools`)."""
         if not self._paged:
+            if self.mesh is not None:
+                return rank_cache(self._model_cfg, self.mesh,
+                                  self.cfg.max_batch, self.device)
             return init_kv_cache(self.cfg, self.cfg.max_batch, self.device)
         self._new_allocator()
+        if self.mesh is not None:
+            return rank_pools(self._model_cfg, self.mesh,
+                              self._alloc.num_blocks, self.device)
         return init_paged_pools(self.cfg, self._alloc.num_blocks, self.device)
 
     def _new_allocator(self):
         old = self._alloc
-        self._alloc = BlockAllocator(old.num_blocks, old.max_batch,
-                                     old.max_blocks_per_seq,
-                                     block_size=old.block_size)
+        self._alloc = self._make_alloc(old.num_blocks, old.max_batch,
+                                       old.max_blocks_per_seq, old.block_size)
         if self.cfg.prefix_cache_blocks:
-            self.prefix_cache = PrefixCache(self._alloc, old.block_size,
-                                            self.cfg.prefix_cache_blocks)
+            # dp-grouped pools: one index a dp row, a cached chain adopted
+            # only on its own row
+            cache = GroupedPrefixCache if self._paged_dp > 1 else PrefixCache
+            self.prefix_cache = cache(self._alloc, old.block_size,
+                                      self.cfg.prefix_cache_blocks)
 
     def _reset_cache(self):
         """What `self.cache = self._new_cache()` does in the JAX package, in
@@ -332,9 +395,15 @@ class ServingEngine:
     # ------------------------------------------------------------ programs
     def _forward(self, params, cache, tokens, positions, write_pos,
                  seq_lens, active=None):
+        """model.forward, or the pipeline-staged variant on a 'pp' mesh."""
         with torch.no_grad():
+            if self._pp:
+                return forward_staged(params, cache, tokens, positions,
+                                      write_pos, seq_lens, self.cfg,
+                                      self.mesh, active=active)
             return forward(params, cache, tokens, positions, write_pos,
-                           seq_lens, self.cfg, active=active)
+                           seq_lens, self.cfg, active=active,
+                           sp_mesh=self._sp_mesh)
 
     @staticmethod
     def _topk_threshold(scaled, k_eff, iters=24):
@@ -470,7 +539,11 @@ class ServingEngine:
         reads the cache; reading all max_seq_len slots at short fills is
         pure waste). s_need is the deepest FILL only: the burst's own tokens
         live in the in-burst buffers, never in the frozen read window.
-        Floor 32."""
+        Floor 32. None (no bucketing, a full read) on an 'sp' mesh, where
+        the cache's sequence axis or the pool's block axis is sharded and
+        must not be sliced."""
+        if self._sp_mesh is not None:
+            return None
         b = 32
         while b < min(s_need, self.cfg.max_seq_len):
             b *= 2
@@ -499,14 +572,20 @@ class ServingEngine:
 
         def decode_burst(params, cache, tokens, seq_lens, samp=None):
             def walk(inputs):
+                args = (params, cache, inputs['tokens'], inputs['seq_lens'],
+                        n_steps, cfg)
+                sel = lambda logits, step: self._select(logits,
+                                                        _samp_of(inputs))
+                kw = dict(s_limit=s_limit,
+                          ragged=bool(cfg.use_ragged_attention),
+                          prefer_grouped=grouped, chunk=cfg.burst_chunk)
                 with torch.no_grad():
-                    return burst_forward(
-                        params, cache, inputs['tokens'], inputs['seq_lens'],
-                        n_steps, cfg,
-                        lambda logits, step: self._select(logits,
-                                                          _samp_of(inputs)),
-                        s_limit=s_limit, ragged=bool(cfg.use_ragged_attention),
-                        prefer_grouped=grouped, chunk=cfg.burst_chunk)[0]
+                    if self._pp:
+                        # each stage's slabs frozen, its own buffers
+                        return burst_forward_staged(*args, self.mesh,
+                                                    select_fn=sel, **kw)[0]
+                    return burst_forward(*args, sel, sp_mesh=self._sp_mesh,
+                                         **kw)[0]
             inputs = dict(tokens=tokens, seq_lens=seq_lens,
                           **_samp_inputs(samp))
             return self._burst(key + (samp is None,), walk, inputs,
@@ -568,8 +647,14 @@ class ServingEngine:
 
         def prefill(params, pools, tokens, lengths, tables, active):
             with torch.no_grad():
-                logits, pools = prefill_paged(params, pools, tokens, lengths,
-                                              tables, active, self.cfg)
+                if self._pp:
+                    logits, pools = prefill_staged_paged(
+                        params, pools, tokens, lengths, tables, active,
+                        self.cfg, self.mesh)
+                else:
+                    logits, pools = prefill_paged(
+                        params, pools, tokens, lengths, tables, active,
+                        self.cfg, sp_mesh=self._sp_mesh)
             last = torch.gather(
                 torch.argmax(logits, dim=-1),
                 1, torch.clamp_min(lengths.long() - 1, 0)[:, None])[:, 0]
@@ -584,9 +669,16 @@ class ServingEngine:
 
         def prefill_chunk(params, pools, tokens, write_pos, tables, active):
             with torch.no_grad():
-                logits, pools = prefill_chunk_paged(
-                    params, pools, tokens, write_pos, tables, active,
-                    prefix_blocks, self.cfg)
+                if self._pp:
+                    # one row (`_chunk_prefill_paged`): one microbatch
+                    logits, pools = prefill_chunk_staged_paged(
+                        params, pools, tokens, write_pos, tables, active,
+                        prefix_blocks, self.cfg, self.mesh,
+                        microbatches=1)
+                else:
+                    logits, pools = prefill_chunk_paged(
+                        params, pools, tokens, write_pos, tables, active,
+                        prefix_blocks, self.cfg, sp_mesh=self._sp_mesh)
             return torch.argmax(logits, dim=-1).to(torch.int32), pools
         self._prefill[key] = prefill_chunk
         return prefill_chunk
@@ -667,13 +759,17 @@ class ServingEngine:
 
         def decode_burst(params, pools, tokens, seq_lens, tables, samp=None):
             def walk(inputs):
+                args = (params, pools, inputs['tokens'], inputs['seq_lens'],
+                        inputs['tables'], n_steps, cfg)
+                sel = lambda logits, step: self._select(logits,
+                                                        _samp_of(inputs))
+                kw = dict(chunk=cfg.burst_chunk, read_limit=read_limit)
                 with torch.no_grad():
-                    return burst_forward_paged(
-                        params, pools, inputs['tokens'], inputs['seq_lens'],
-                        inputs['tables'], n_steps, cfg,
-                        lambda logits, step: self._select(logits,
-                                                          _samp_of(inputs)),
-                        chunk=cfg.burst_chunk, read_limit=read_limit)[0]
+                    if self._pp:
+                        return burst_forward_staged_paged(
+                            *args, self.mesh, select_fn=sel, **kw)[0]
+                    return burst_forward_paged(*args, sel,
+                                               sp_mesh=self._sp_mesh, **kw)[0]
             inputs = dict(tokens=tokens, seq_lens=seq_lens, tables=tables,
                           **_samp_inputs(samp))
             return self._burst(key + (tables.shape[1], samp is None), walk,

@@ -34,7 +34,7 @@ and an INT8 KV cache. The single-device part of the JAX package's
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +47,7 @@ from ..kernels import qmm as _qmm
 from ..kernels import window_write as _window
 from .config import LlamaConfig
 from .moe import init_moe_params, moe_ffn
+from .pipeline import _sp_merge_triple
 from .tensor_parallel import ColumnParallel, RowParallel
 
 Params = Dict[str, Any]
@@ -555,6 +556,89 @@ def _window_write(cache_slab, new, write_pos, active):
     return cache_slab
 
 
+class SeqShard(NamedTuple):
+    """A rank's share of a dense cache whose sequence axis is sharded over
+    'sp' (`tensor_parallel.cache_shardings`): positions [start, start +
+    size) of every slot, of `total` in all; reads merge their partial
+    softmaxes over `groups`."""
+    start: int
+    size: int
+    total: int
+    groups: tuple
+
+
+def seq_shard(cache: Dict[str, torch.Tensor], sp_mesh,
+              cfg: LlamaConfig) -> Optional[SeqShard]:
+    """The SeqShard of this rank's cache on `sp_mesh` (None: no mesh, a
+    one-rank sp axis, or a cache that holds every position)."""
+    n = 1 if sp_mesh is None else sp_mesh.shape.get('sp', 1)
+    size = cache['k'].shape[2]
+    if n == 1 or size == cfg.max_seq_len:
+        return None
+    return SeqShard(sp_mesh.index('sp') * size, size, size * n,
+                    (sp_mesh.group('sp'),))
+
+
+def _run_layers(x: torch.Tensor, body, stages=None) -> torch.Tensor:
+    """body(h, part, rows) -> h runs this rank's layers on the batch rows
+    `rows` (a slice) of microbatch `part`: once over the whole batch on one
+    card, on a pipeline (`stages`, a `pipeline._Stages`) on each of the
+    stage's microbatches as the schedule brings them. Returns the last
+    layer's (B, ...) output on every rank."""
+    if stages is None:
+        return body(x, 0, slice(None))
+    return stages.run(x, body)
+
+
+def _shard_window(slabs, news, write_pos, active, shard: SeqShard):
+    """The part of windows written at global write_pos that lands in this
+    rank's positions, as windows of W = min(T, shard.size) rows at local
+    offsets: (offsets (B,) int32, [(L, B, W, ...) windows]). slabs (L, B,
+    S_local, ...) and news (L, B, T, ...) pair up; a window row where no
+    token lands holds the slab's current row, so the write is a plain one
+    with no duplicate index. The global start is clamped as one card's
+    window write clamps it."""
+    B, T = news[0].shape[1:3]
+    S = shard.size
+    W = min(T, S)
+    dev = slabs[0].device
+    start = write_pos.to(torch.int64).clamp(0, max(shard.total - T, 0))
+    lw = start - shard.start                      # local row of token 0
+    off = lw.clamp(0, S - W)
+    rows = off[:, None] + torch.arange(W, device=dev)          # (B, W)
+    tok = rows - lw[:, None]
+    valid = (tok >= 0) & (tok < T)
+    if active is not None:
+        valid = valid & active.to(torch.bool)[:, None]
+    slots = torch.arange(B, device=dev)[:, None].expand(B, W)
+    tok = tok.clamp(0, T - 1)
+    out = []
+    for slab, new in zip(slabs, news):
+        keep = valid.reshape((1, B, W) + (1,) * (slab.dim() - 3))
+        out.append(torch.where(keep, new[:, slots, tok].to(slab.dtype),
+                               slab[:, slots, rows]).contiguous())
+    return off.to(torch.int32).contiguous(), out
+
+
+def _local_triple(q_g, k, v, ks, vs, mask, Dh, exact=False):
+    """The partial softmax of q_g (B, T, KV, rep, Dh) over the cache rows
+    k, v (B, S, KV, Dh) (scales (B, S, KV) or None) where `mask` (B, 1, 1,
+    T, S) holds: (acc (B, T, KV, rep, Dh), m, l (B, T, KV, rep)), the
+    one-card attention's numerics up to where p rounds; a row with no key
+    is empty (m = -1e30, l = 0, acc = 0)."""
+    s = _qk_logits(q_g, k, exact)                          # (B,KV,rep,T,S)
+    if ks is not None:
+        s = s * ks.transpose(1, 2)[:, :, None, None, :]
+    s = torch.where(mask, s / math.sqrt(Dh), -1e30)
+    m = s.amax(-1)
+    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(-1)
+    if vs is not None:
+        p = p * vs.transpose(1, 2)[:, :, None, None, :]
+    acc = _pv_context(p, v, exact)
+    return acc, m.permute(0, 3, 1, 2), l.permute(0, 3, 1, 2)
+
+
 def _heads_first(kv: torch.Tensor) -> torch.Tensor:
     """(B, S, KV, Dh) int8 codes or bf16 values -> (B, KV, S, Dh) f32
     (exact), contiguous, in one pass."""
@@ -594,7 +678,7 @@ def _pv_context(p: torch.Tensor, v: torch.Tensor,
 
 def attention(x, layer, cache_k, cache_v, cache_ks, cache_vs,
               positions, write_pos, cfg: LlamaConfig, causal_mask,
-              active=None):
+              active=None, shard: Optional[SeqShard] = None):
     """One attention block over an int8 KV cache layer slab.
 
     x: (B, T, D); positions: (B, T) absolute positions of the T new tokens;
@@ -605,40 +689,58 @@ def attention(x, layer, cache_k, cache_v, cache_ks, cache_vs,
     QK^T runs as a grouped-GQA product against the cache's codes (the
     per-(token, head) scales multiply the (T, S) logits afterwards), and the
     V readout folds its scales into the probabilities first.
+
+    shard: the slabs hold this rank's positions of a sequence-sharded cache
+    (causal_mask in its local columns): the window's tokens that land there
+    are written, the rank's partial softmax is merged over the shard's
+    groups (`pipeline._sp_merge_triple`), and every rank gets the context.
     """
     B, T, D = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     rep = H // KV
     kern = bool(cfg.use_kernel_matmul)
+    int8 = cfg.kv_cache_bits == 8
 
     q, k, v = project_qkv(x, layer, cfg, kern)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
-    if cfg.kv_cache_bits == 8:
+    if int8:
         k_q, k_s = _kv_quant(k)
         v_q, v_s = _kv_quant(v)
     else:
         k_q, v_q, k_s, v_s = k.to(BF16), v.to(BF16), None, None
 
-    cache_k = _window_write(cache_k, k_q, write_pos, active)
-    cache_v = _window_write(cache_v, v_q, write_pos, active)
-    if cfg.kv_cache_bits == 8:
-        cache_ks = _window_write(cache_ks, k_s, write_pos, active)
-        cache_vs = _window_write(cache_vs, v_s, write_pos, active)
-
     # q heads regroup as (KV, rep): head h = k*rep + r
     exact = cfg.batch_invariant
     q_g = q.reshape(B, T, KV, rep, Dh)
-    logits = _qk_logits(q_g, cache_k, exact)
-    if cfg.kv_cache_bits == 8:
-        logits = logits * cache_ks.transpose(1, 2)[:, :, None, None, :]
-    logits = logits / math.sqrt(Dh)
-    logits = torch.where(causal_mask, logits, -1e30)  # mask: (B,1,1,T,S)
-    probs = torch.softmax(logits, dim=-1)
-    if cfg.kv_cache_bits == 8:
-        probs = probs * cache_vs.transpose(1, 2)[:, :, None, None, :]
-    ctx = _pv_context(probs, cache_v, exact)
+    if shard is not None:
+        slabs = (cache_k, cache_v) + ((cache_ks, cache_vs) if int8 else ())
+        news = (k_q, v_q) + ((k_s, v_s) if int8 else ())
+        off, wins = _shard_window([t[None] for t in slabs],
+                                  [t[None] for t in news], write_pos, active,
+                                  shard)
+        for slab, win in zip(slabs, wins):
+            _window_write(slab, win[0], off, None)
+        acc, m, l = _local_triple(q_g, cache_k, cache_v, cache_ks, cache_vs,
+                                  causal_mask, Dh, exact)
+        acc, _, l = _sp_merge_triple(acc, m, l, shard.groups)
+        ctx = acc / torch.clamp_min(l, 1e-30)[..., None]
+    else:
+        cache_k = _window_write(cache_k, k_q, write_pos, active)
+        cache_v = _window_write(cache_v, v_q, write_pos, active)
+        if int8:
+            cache_ks = _window_write(cache_ks, k_s, write_pos, active)
+            cache_vs = _window_write(cache_vs, v_s, write_pos, active)
+        logits = _qk_logits(q_g, cache_k, exact)
+        if int8:
+            logits = logits * cache_ks.transpose(1, 2)[:, :, None, None, :]
+        logits = logits / math.sqrt(Dh)
+        logits = torch.where(causal_mask, logits, -1e30)  # mask: (B,1,1,T,S)
+        probs = torch.softmax(logits, dim=-1)
+        if int8:
+            probs = probs * cache_vs.transpose(1, 2)[:, :, None, None, :]
+        ctx = _pv_context(probs, cache_v, exact)
     ctx = ctx.reshape(B, T, H * Dh).to(x.dtype)
     out = qmatmul(ctx, layer['wo'], kernel=kern, a8=cfg.act_bits == 8)
     return out, cache_k, cache_v, cache_ks, cache_vs
@@ -694,15 +796,16 @@ def mlp(x, layer, cfg=None, row_scale=None, residual=None):
 
 
 def decoder_layer(layer, ck, cv, cks, cvs, x, positions, write_pos, cfg,
-                  causal, active=None):
+                  causal, active=None, shard: Optional[SeqShard] = None):
     """One decoder layer over its cache slabs: pre-norm attention + MLP.
-    x: (B, T, D); slabs: (B, S, KV, Dh) / (B, S, KV), written in place.
+    x: (B, T, D); slabs: (B, S, KV, Dh) / (B, S, KV), written in place
+    (shard: this rank's positions of a sequence-sharded cache).
     Returns (x, ck, cv, cks, cvs)."""
     exact = cfg.batch_invariant
     h = rms_norm(x, layer['attn_norm'], cfg.rms_eps, exact)
     attn_out, ck, cv, cks, cvs = attention(
         h, layer, ck, cv, cks, cvs, positions, write_pos, cfg, causal,
-        active=active)
+        active=active, shard=shard)
     x = x + attn_out
     h = rms_norm(x, layer['mlp_norm'], cfg.rms_eps, exact)
     x = x + mlp(h, layer, cfg)
@@ -714,7 +817,7 @@ def burst_forward(params: Params, cache: Dict[str, torch.Tensor],
                   n_steps: int, cfg: LlamaConfig, select_fn,
                   s_limit: Optional[int] = None, ragged: bool = False,
                   prefer_grouped: bool = True,
-                  chunk: Optional[int] = None):
+                  chunk: Optional[int] = None, sp_mesh=None, stages=None):
     """n consecutive decode steps with the big KV cache FROZEN: in-burst K/V
     live in small (L, B, n, KV, Dh) buffers; the cache is written ONCE at
     burst end (one window write for k and v), so a burst equals the same
@@ -746,6 +849,15 @@ def burst_forward(params: Params, cache: Dict[str, torch.Tensor],
     and the current token attends through a 1-wide chunk built from the same
     codes. Other head dims write the column at once and read it back.
 
+    sp_mesh: the cache holds this rank's positions of a sequence-sharded
+    cache (`seq_shard`): the frozen read covers them (the ragged one with
+    the local fills, clamp(fill - start, 0, S_local)), its partial softmax
+    merges over 'sp' (`pipeline._sp_merge_triple`) before the buffer's, and
+    the burst's window lands where its positions are. The JAX package leaves
+    this to GSPMD (recorded difference 56). stages: a `pipeline._Stages`:
+    the layers and cache slabs are this rank's stage's, run on its
+    microbatches, each repacked on its own (`pipeline.burst_forward_staged`).
+
     tokens: (B,) current token per slot; seq_lens: (B,) int32 cache fill;
     select_fn(logits (B, vocab) f32, step index) -> (B,) next tokens.
     Returns (toks (n, B) int32, the cache, updated in place).
@@ -756,6 +868,10 @@ def burst_forward(params: Params, cache: Dict[str, torch.Tensor],
     n = int(n_steps)
     KV, Dh, H = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
     rep = H // KV
+    shard = seq_shard(cache, sp_mesh, cfg)
+    if shard is not None and s_limit is not None:
+        raise ValueError('a sequence-sharded cache is read whole (no '
+                         's_limit): a read bucket would slice a sharded axis')
     S = cache['k'].shape[2]
     if s_limit is not None:
         S = min(s_limit, S)
@@ -766,6 +882,9 @@ def burst_forward(params: Params, cache: Dict[str, torch.Tensor],
     dev = tokens.device
     seq_lens = seq_lens.to(torch.int32).contiguous()
     root_dh = math.sqrt(Dh)
+    # the fills of the positions this rank holds
+    fills = seq_lens if shard is None else torch.clamp(
+        seq_lens - shard.start, 0, shard.size).to(torch.int32).contiguous()
 
     buf_dtype = torch.int8 if int8_cache else BF16
     if chunk is not None:
@@ -781,9 +900,10 @@ def burst_forward(params: Params, cache: Dict[str, torch.Tensor],
     vsb = torch.zeros((L, B, KV, n), dtype=F32, device=dev)
     slot_ids = torch.arange(S, device=dev)[None, None, None, :]
     buf_ids = torch.arange(CH, device=dev)[None, None, None, :]
-    frozen_mask = slot_ids < seq_lens[:, None, None, None]   # (B,1,1,S)
+    frozen_mask = slot_ids < fills[:, None, None, None]      # (B,1,1,S)
     # the bank kernel reads its column from device memory
     columns = torch.arange(CH, dtype=torch.int32, device=dev)
+    M = 1 if stages is None else stages.microbatches
 
     if ragged:
         Sf = cache['k'].shape[2]
@@ -802,19 +922,24 @@ def burst_forward(params: Params, cache: Dict[str, torch.Tensor],
             RBLK = 512
         else:
             RBLK = max(128, min(512, cap // 2))
-        G = _pa.grouped_group_size(B, RBLK, kv_dh=KV * Dh,
+        G = _pa.grouped_group_size(B // M, RBLK, kv_dh=KV * Dh,
                                    itemsize=1 if int8_cache else 2) \
             if prefer_grouped else 1
         repack = _pa.blockmajor_window if G > 1 else _pa.slotmajor_window
-        kv_pool_l, sc_pool_l = repack(
-            cache['k'], cache['v'], cache.get('k_scale') if int8_cache
-            else None, cache.get('v_scale') if int8_cache else None,
-            cap, RBLK)
-        tbl = None if G > 1 else _pa.identity_block_tables(B, cap, RBLK, dev)
+        # each microbatch's window (one on one card), repacked once
+        windows = []
+        for part in range(M):
+            rows = slice(part * B // M, (part + 1) * B // M)
+            windows.append(repack(
+                cache['k'][:, rows], cache['v'][:, rows],
+                cache['k_scale'][:, rows] if int8_cache else None,
+                cache['v_scale'][:, rows] if int8_cache else None, cap, RBLK))
+        tbl = None if G > 1 else _pa.identity_block_tables(B // M, cap, RBLK,
+                                                           dev)
 
     def buf_readout(pb, v_chunks, vs_chunks):
         """sum over chunks of (p * v_scale, rounded to bf16) @ v_chunk:
-        (B, KV, rep, cols) -> (B, 1, KV, rep, Dh) f32."""
+        (b, KV, rep, cols) -> (b, 1, KV, rep, Dh) f32."""
         acc = None
         off = 0
         for vc, vs in zip(v_chunks, vs_chunks):
@@ -828,7 +953,7 @@ def burst_forward(params: Params, cache: Dict[str, torch.Tensor],
         return acc
 
     def buf_logits(q_g, buf, scales, lim):
-        """q against (B, cols, KV, Dh) codes -> (B, KV, rep, cols); lim:
+        """q against (b, cols, KV, Dh) codes -> (b, KV, rep, cols); lim:
         columns below it are valid (None = all)."""
         t = _qk_logits(q_g, buf)[:, :, :, 0, :]
         if int8_cache:
@@ -852,103 +977,121 @@ def burst_forward(params: Params, cache: Dict[str, torch.Tensor],
         x = params['embed'][cur_tok.long()][:, None, :]      # (B,1,D)
         # rope tables depend only on pos: ONE build per step
         r_cos, r_sin = rope_tables(pos[:, None], cfg.rope_theta, Dh)
-        newk, newv = [], []       # per-layer (B,1,KV,Dh) banked codes
-        for li, layer in enumerate(layers):
-            if folded:
-                q, k, v = project_qkv(x, layer, cfg, kern,
-                                      row_scale=row_rsqrt(x, cfg.rms_eps))
-            else:
-                h = rms_norm(x, layer['attn_norm'], cfg.rms_eps)
-                q, k, v = project_qkv(h, layer, cfg, kern)
-            q = rope_apply(q, r_cos, r_sin)
-            k = rope_apply(k, r_cos, r_sin)
-            # quantize this step's K/V exactly like the cache so that
-            # burst == step by step
-            if int8_cache:
-                k_q, k_s = _kv_quant(k)
-                v_q, v_s = _kv_quant(v)
-                ks_cur = k_s.transpose(1, 2)                 # (B,KV,1)
-                vs_cur = v_s.transpose(1, 2)
-                ksb[li, :, :, i:i + 1] = ks_cur
-                vsb[li, :, :, i:i + 1] = vs_cur
-            else:
-                k_q, v_q = k.to(buf_dtype), v.to(buf_dtype)
-                ks_cur = vs_cur = None
-            if bank_kernel:
-                newk.append(k_q.contiguous())
-                newv.append(v_q.contiguous())
-            else:
-                kbuf[li, :, i] = k_q[:, 0]
-                vbuf[li, :, i] = v_q[:, 0]
+        # per-layer (b,1,KV,Dh) banked codes, a part a microbatch
+        newk, newv = [[] for _ in range(L)], [[] for _ in range(L)]
 
-            q_g = q.reshape(B, 1, KV, rep, Dh)
-            # in-burst logits: finished chunks (fully valid) + the masked
-            # current chunk (+ the current token as a 1-wide chunk)
-            lb_parts, v_chunks, vs_chunks = [], [], []
-            for f0 in range(0, c0, CH):
-                fin = slice(f0, f0 + CH)
-                lb_parts.append(buf_logits(q_g, kbuf[li][:, fin],
-                                           ksb[li][:, :, fin], None))
-                v_chunks.append(vbuf[li][:, fin])
-                vs_chunks.append(vsb[li][:, :, fin])
-            lb_parts.append(buf_logits(q_g, kbuf[li][:, span],
-                                       ksb[li][:, :, span],
-                                       ic if bank_kernel else ic + 1))
-            v_chunks.append(vbuf[li][:, span])
-            vs_chunks.append(vsb[li][:, :, span])
-            if bank_kernel:
-                lb_parts.append(buf_logits(q_g, k_q, ks_cur, None))
-                v_chunks.append(v_q)
-                vs_chunks.append(vs_cur)
-            lb = torch.cat(lb_parts, dim=-1) if len(lb_parts) > 1 \
-                else lb_parts[0]
-
-            if ragged:
-                # the frozen part through the paged-attention kernel (filled
-                # positions only); the buffer joins by an exact merge of the
-                # two partial softmaxes
-                if G > 1:
-                    acc_f, m_f, l_f = _pa.paged_attention_decode_grouped(
-                        q_g[:, 0], kv_pool_l, sc_pool_l, seq_lens, layer=li,
-                        block_size=RBLK, group=G)
+        def body(x, part, rows):
+            b = x.shape[0]
+            for li, layer in enumerate(layers):
+                if folded:
+                    q, k, v = project_qkv(x, layer, cfg, kern,
+                                          row_scale=row_rsqrt(x, cfg.rms_eps))
                 else:
-                    acc_f, m_f, l_f = _pa.paged_attention_decode_fused(
-                        q_g[:, 0], kv_pool_l, sc_pool_l, tbl, seq_lens,
-                        layer=li, block_size=RBLK)
-                m_b = lb.amax(-1)                            # (B,KV,rep)
-                p_b = torch.exp(lb - m_b[..., None])
-                l_b = p_b.sum(-1)
-                acc_b = buf_readout(p_b, v_chunks, vs_chunks)[:, 0]
-                ctx = _pa.merge_attention([(acc_f, m_f, l_f),
-                                           (acc_b, m_b, l_b)])
-            else:
-                # frozen-cache logits (codes read, scales folded post-dot)
-                lf = _qk_logits(q_g, cache['k'][li][:, :S])[:, :, :, 0, :]
+                    h = rms_norm(x, layer['attn_norm'], cfg.rms_eps)
+                    q, k, v = project_qkv(h, layer, cfg, kern)
+                q = rope_apply(q, r_cos[rows], r_sin[rows])
+                k = rope_apply(k, r_cos[rows], r_sin[rows])
+                kb, vb = kbuf[li][rows], vbuf[li][rows]
+                ksl, vsl = ksb[li][rows], vsb[li][rows]
+                # quantize this step's K/V exactly like the cache so that
+                # burst == step by step
                 if int8_cache:
-                    lf = lf * cache['k_scale'][li][:, :S] \
-                        .transpose(1, 2)[:, :, None, :]
-                lf = torch.where(frozen_mask, lf / root_dh, -1e30)
+                    k_q, k_s = _kv_quant(k)
+                    v_q, v_s = _kv_quant(v)
+                    ks_cur = k_s.transpose(1, 2)             # (b,KV,1)
+                    vs_cur = v_s.transpose(1, 2)
+                    ksl[:, :, i:i + 1] = ks_cur
+                    vsl[:, :, i:i + 1] = vs_cur
+                else:
+                    k_q, v_q = k.to(buf_dtype), v.to(buf_dtype)
+                    ks_cur = vs_cur = None
+                if bank_kernel:
+                    newk[li].append(k_q.contiguous())
+                    newv[li].append(v_q.contiguous())
+                else:
+                    kb[:, i] = k_q[:, 0]
+                    vb[:, i] = v_q[:, 0]
 
-                probs = torch.softmax(torch.cat([lf, lb], dim=-1), dim=-1)
-                pf, pb = probs[..., :S], probs[..., S:]
-                if int8_cache:
-                    pf = pf * cache['v_scale'][li][:, :S] \
-                        .transpose(1, 2)[:, :, None, :]
-                ctx = _pv_context(pf[:, :, :, None, :], cache['v'][li][:, :S]) \
-                    + buf_readout(pb, v_chunks, vs_chunks)
-            ctx = ctx.reshape(B, 1, H * Dh).to(x.dtype)
-            if folded:
-                # residual adds + norms ride the kernels' epilogues
-                x = qmatmul(ctx, layer['wo'], kernel=kern, a8=a8, residual=x)
-                x = mlp(x, layer, cfg, row_scale=row_rsqrt(x, cfg.rms_eps),
-                        residual=x)
-            else:
-                x = x + qmatmul(ctx, layer['wo'], kernel=kern, a8=a8)
-                h = rms_norm(x, layer['mlp_norm'], cfg.rms_eps)
-                x = x + mlp(h, layer, cfg)
+                q_g = q.reshape(b, 1, KV, rep, Dh)
+                # in-burst logits: finished chunks (fully valid) + the masked
+                # current chunk (+ the current token as a 1-wide chunk)
+                lb_parts, v_chunks, vs_chunks = [], [], []
+                for f0 in range(0, c0, CH):
+                    fin = slice(f0, f0 + CH)
+                    lb_parts.append(buf_logits(q_g, kb[:, fin],
+                                               ksl[:, :, fin], None))
+                    v_chunks.append(vb[:, fin])
+                    vs_chunks.append(vsl[:, :, fin])
+                lb_parts.append(buf_logits(q_g, kb[:, span], ksl[:, :, span],
+                                           ic if bank_kernel else ic + 1))
+                v_chunks.append(vb[:, span])
+                vs_chunks.append(vsl[:, :, span])
+                if bank_kernel:
+                    lb_parts.append(buf_logits(q_g, k_q, ks_cur, None))
+                    v_chunks.append(v_q)
+                    vs_chunks.append(vs_cur)
+                lb = torch.cat(lb_parts, dim=-1) if len(lb_parts) > 1 \
+                    else lb_parts[0]
+
+                ck, cv = cache['k'][li][rows, :S], cache['v'][li][rows, :S]
+                cks = cache['k_scale'][li][rows, :S] if int8_cache else None
+                cvs = cache['v_scale'][li][rows, :S] if int8_cache else None
+                if ragged or shard is not None:
+                    # the frozen part as a partial softmax (on a sharded
+                    # cache this rank's, merged over 'sp'); the buffer joins
+                    # by an exact merge of the two
+                    if not ragged:
+                        acc_f, m_f, l_f = (t[:, 0] for t in _local_triple(
+                            q_g, ck, cv, cks, cvs, frozen_mask[rows, None],
+                            Dh))
+                    elif G > 1:
+                        acc_f, m_f, l_f = _pa.paged_attention_decode_grouped(
+                            q_g[:, 0], windows[part][0], windows[part][1],
+                            fills[rows], layer=li, block_size=RBLK, group=G)
+                    else:
+                        acc_f, m_f, l_f = _pa.paged_attention_decode_fused(
+                            q_g[:, 0], windows[part][0], windows[part][1],
+                            tbl, fills[rows], layer=li, block_size=RBLK)
+                    if shard is not None:
+                        acc_f, m_f, l_f = _sp_merge_triple(acc_f, m_f, l_f,
+                                                           shard.groups)
+                    m_b = lb.amax(-1)                        # (b,KV,rep)
+                    p_b = torch.exp(lb - m_b[..., None])
+                    l_b = p_b.sum(-1)
+                    acc_b = buf_readout(p_b, v_chunks, vs_chunks)[:, 0]
+                    ctx = _pa.merge_attention([(acc_f, m_f, l_f),
+                                               (acc_b, m_b, l_b)])
+                else:
+                    # frozen-cache logits (codes read, scales folded post-dot)
+                    lf = _qk_logits(q_g, ck)[:, :, :, 0, :]
+                    if int8_cache:
+                        lf = lf * cks.transpose(1, 2)[:, :, None, :]
+                    lf = torch.where(frozen_mask[rows], lf / root_dh, -1e30)
+
+                    probs = torch.softmax(torch.cat([lf, lb], dim=-1), dim=-1)
+                    pf, pb = probs[..., :S], probs[..., S:]
+                    if int8_cache:
+                        pf = pf * cvs.transpose(1, 2)[:, :, None, :]
+                    ctx = _pv_context(pf[:, :, :, None, :], cv) \
+                        + buf_readout(pb, v_chunks, vs_chunks)
+                ctx = ctx.reshape(b, 1, H * Dh).to(x.dtype)
+                if folded:
+                    # residual adds + norms ride the kernels' epilogues
+                    x = qmatmul(ctx, layer['wo'], kernel=kern, a8=a8,
+                                residual=x)
+                    x = mlp(x, layer, cfg, row_scale=row_rsqrt(x, cfg.rms_eps),
+                            residual=x)
+                else:
+                    x = x + qmatmul(ctx, layer['wo'], kernel=kern, a8=a8)
+                    h = rms_norm(x, layer['mlp_norm'], cfg.rms_eps)
+                    x = x + mlp(h, layer, cfg)
+            return x
+        x = _run_layers(x, body, stages)
         if bank_kernel:
             # one launch banks every layer's codes in place
-            _bank.bank_write_inplace(bank, newk + newv, columns[ic:ic + 1])
+            _bank.bank_write_inplace(
+                bank, [torch.cat(p) if len(p) > 1 else p[0]
+                       for p in newk + newv], columns[ic:ic + 1])
         if folded:
             logits = qmatmul(x, params['lm_head'], kernel=kern, a8=a8,
                              row_scale=row_rsqrt(x, cfg.rms_eps)).to(F32)
@@ -961,17 +1104,23 @@ def burst_forward(params: Params, cache: Dict[str, torch.Tensor],
 
     # merge the burst buffers into the cache: the k/v code slabs through the
     # window-write kernel where the slab shape takes it, the small f32 scale
-    # slabs (and other head dims) through the indexed write
-    if _window.supports_dense(cache['k'].shape):
-        _window.window_write_inplace((cache['k'], cache['v']), (kbuf, vbuf),
-                                     seq_lens)
-    else:
-        _window.window_write_plain((cache['k'], cache['v']), (kbuf, vbuf),
-                                   seq_lens)
+    # slabs (and other head dims) through the indexed write; on a sharded
+    # cache the part of the window on this rank's positions, at its offsets
+    slabs, news, at = (cache['k'], cache['v']), (kbuf, vbuf), seq_lens
+    sslabs, snews = (), ()
     if int8_cache:
-        _window.window_write_plain(
-            (cache['k_scale'], cache['v_scale']),
-            (ksb.transpose(2, 3), vsb.transpose(2, 3)), seq_lens)
+        sslabs = (cache['k_scale'], cache['v_scale'])
+        snews = (ksb.transpose(2, 3), vsb.transpose(2, 3))
+    if shard is not None:
+        at, wins = _shard_window(slabs + sslabs, news + snews, seq_lens,
+                                 None, shard)
+        news, snews = tuple(wins[:2]), tuple(wins[2:])
+    if _window.supports_dense(cache['k'].shape):
+        _window.window_write_inplace(slabs, news, at)
+    else:
+        _window.window_write_plain(slabs, news, at)
+    if int8_cache:
+        _window.window_write_plain(sslabs, snews, at)
     return torch.stack(toks), cache
 
 
@@ -979,28 +1128,41 @@ def forward(params: Params, cache: Dict[str, torch.Tensor],
             tokens: torch.Tensor, positions: torch.Tensor,
             write_pos: torch.Tensor, seq_lens: torch.Tensor,
             cfg: LlamaConfig, active: Optional[torch.Tensor] = None,
+            sp_mesh=None, stages=None,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """tokens: (B, T); positions: (B, T); write_pos/seq_lens: (B,);
     active: optional (B,) bool: False slots leave their cache untouched.
+    sp_mesh: the cache holds this rank's positions of a sequence-sharded
+    cache (`seq_shard`); stages: a `pipeline._Stages`, the layers and
+    cache slabs this rank's stage's (`pipeline.forward_staged`).
     Returns (logits (B, T, vocab) f32, the cache, updated in place)."""
     S = cache['k'].shape[2]
     x = params['embed'][tokens.long()]
+    shard = seq_shard(cache, sp_mesh, cfg)
 
     # causal mask over cache slots: token t (absolute pos positions[b,t])
     # attends to cache slots [0, positions[b,t]]; shape broadcasts against
     # grouped-GQA logits (B, KV, rep, T, S)
     slot_ids = torch.arange(S, device=x.device)[None, None, None, None, :]
+    if shard is not None:
+        slot_ids = slot_ids + shard.start
     tok_pos = positions[:, None, None, :, None]              # (B,1,1,T,1)
     causal = slot_ids <= tok_pos                             # (B,1,1,T,S)
 
     ks_all = cache.get('k_scale')
     vs_all = cache.get('v_scale')
-    for li, layer in enumerate(params['layers']):
-        x, _, _, _, _ = decoder_layer(
-            layer, cache['k'][li], cache['v'][li],
-            ks_all[li] if ks_all is not None else None,
-            vs_all[li] if vs_all is not None else None,
-            x, positions, write_pos, cfg, causal, active=active)
+
+    def body(x, part, rows):
+        for li, layer in enumerate(params['layers']):
+            x, _, _, _, _ = decoder_layer(
+                layer, cache['k'][li][rows], cache['v'][li][rows],
+                ks_all[li][rows] if ks_all is not None else None,
+                vs_all[li][rows] if vs_all is not None else None,
+                x, positions[rows], write_pos[rows], cfg, causal[rows],
+                active=active[rows] if active is not None else None,
+                shard=shard)
+        return x
+    x = _run_layers(x, body, stages)
 
     x = rms_norm(x, params['final_norm'], cfg.rms_eps, cfg.batch_invariant)
     logits = qmatmul(x, params['lm_head'],

@@ -27,6 +27,16 @@ MoE layers split their expert stacks over 'ep', or 'tp' where the mesh has
 no 'ep' axis (`shard_moe_params`, ExpertParallel); each rank computes its
 experts' share and an all-reduce sums it. 'dp' replicates, as the JAX
 engine does when tp is 1.
+
+A 'pp' mesh gives each rank its stage's slice of the layers (n_layers / pp
+in its RankConfig) and replicates the rest, as the JAX engine's stacked
+P('pp') layout does (its other axes replicate there too). The caches follow
+`cache_shardings` (layer axis over 'pp', sequence axis over 'sp', kv heads
+over 'tp') and the paged pools `pool_shardings` (layer axis over 'pp', block
+axis over 'sp', or ('dp', 'sp') dp-major, kv heads over 'tp'); a rank's
+cache or pools are its slices of the global ones (`rank_cache`,
+`rank_pools`), a block-sharded pool with one more row, its own trash row
+(serving/paged.py `BlockShard`).
 """
 
 from __future__ import annotations
@@ -42,7 +52,6 @@ from ..parallel.multihost import all_gather, all_reduce
 from .config import LlamaConfig
 
 F32 = torch.float32
-PP_SP = ('pipeline (pp) and sequence (sp) meshes: ROADMAP item 15b')
 
 
 class RowParallel(dict):
@@ -111,12 +120,12 @@ class RankConfig(LlamaConfig):
         return self.d_model // (self.n_heads * self.tp)
 
 
-def rank_config(cfg: LlamaConfig, tp: int) -> LlamaConfig:
-    if tp == 1:
+def rank_config(cfg: LlamaConfig, tp: int, pp: int = 1) -> LlamaConfig:
+    if tp == 1 and pp == 1:
         return cfg
     fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     fields.update(n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
-                  d_ff=cfg.d_ff // tp, tp=tp)
+                  d_ff=cfg.d_ff // tp, n_layers=cfg.n_layers // pp, tp=tp)
     return RankConfig(**fields)
 
 
@@ -160,11 +169,19 @@ def param_shardings(cfg: LlamaConfig, mesh):
 
 
 def cache_shardings(cfg: LlamaConfig, mesh) -> Dict[str, Sharding]:
-    """KV cache placement, arrays (L, B, S, KV, Dh): 'tp' splits the
-    kv-head axis (each head's K/V stay on the rank that computes it). The
-    'pp' layer axis and the 'sp' sequence axis are item 15b."""
+    """KV cache placement, arrays (L, B, S, KV, Dh) (the JAX package's):
+      * 'pp' splits the layer axis (a stage holds its layers' slabs);
+      * 'sp' splits the sequence axis where max_seq_len divides (a rank
+        holds S / sp positions of every slot; reads merge over 'sp');
+      * 'tp' splits the kv-head axis (each head's K/V stay on the rank that
+        computes it), unless a pipeline replicates it."""
     axes = [None] * 5
-    if mesh.shape.get('tp', 1) > 1 and \
+    if mesh.shape.get('pp', 1) > 1:
+        axes[0] = 'pp'
+    if mesh.shape.get('sp', 1) > 1 and \
+            cfg.max_seq_len % mesh.shape['sp'] == 0:
+        axes[2] = 'sp'
+    if mesh.shape.get('tp', 1) > 1 and mesh.shape.get('pp', 1) == 1 and \
             cfg.n_kv_heads % mesh.shape['tp'] == 0:
         axes[3] = 'tp'
     kv = Sharding(mesh, tuple(axes))
@@ -173,6 +190,54 @@ def cache_shardings(cfg: LlamaConfig, mesh) -> Dict[str, Sharding]:
     if cfg.kv_cache_bits == 8:
         out['k_scale'] = sc
         out['v_scale'] = sc
+    return out
+
+
+def pool_shardings(cfg: LlamaConfig, mesh) -> Dict[str, Sharding]:
+    """Paged pool placement, kv (L, NB, 2, BLK, KV*Dh) and kv_scale (L, NB,
+    2, KV, BLK) (the JAX engine's): the layer axis over 'pp', the block axis
+    over 'sp' (over ('dp', 'sp'), dp-major, on a dp x sp mesh), the kv-head
+    axes over 'tp'."""
+    shape = mesh.shape
+    pp = 'pp' if shape.get('pp', 1) > 1 else None
+    blocks = None
+    if shape.get('sp', 1) > 1:
+        blocks = ('dp', 'sp') if shape.get('dp', 1) > 1 else 'sp'
+    tp = 'tp' if shape.get('tp', 1) > 1 and pp is None else None
+    out = {'kv': Sharding(mesh, (pp, blocks, None, None, tp))}
+    if cfg.kv_cache_bits == 8:
+        out['kv_scale'] = Sharding(mesh, (pp, blocks, None, tp, None))
+    return out
+
+
+def _local_shape(sharding: Sharding, shape) -> Tuple[int, ...]:
+    return tuple(sharding.local(torch.empty(shape, device='meta')).shape)
+
+
+def rank_cache(cfg: LlamaConfig, mesh, batch: int, device
+               ) -> Dict[str, torch.Tensor]:
+    """This rank's slices of the global KV cache of `cfg` (the model's
+    global config) for `batch` slots under `cache_shardings`, zeroed."""
+    from .model import init_kv_cache
+    full = init_kv_cache(cfg, batch, 'meta')
+    return {k: torch.zeros(_local_shape(sh, full[k].shape),
+                           dtype=full[k].dtype, device=device)
+            for k, sh in cache_shardings(cfg, mesh).items()}
+
+
+def rank_pools(cfg: LlamaConfig, mesh, num_blocks: int, device
+               ) -> Dict[str, torch.Tensor]:
+    """This rank's slices of the global block pools of `cfg` under
+    `pool_shardings`, zeroed; a block-sharded pool gains a leading row, the
+    rank's trash row (local row r + 1 holds the shard's r-th block)."""
+    from .paged import init_paged_pools
+    full = init_paged_pools(cfg, num_blocks, 'meta')
+    out = {}
+    for k, sh in pool_shardings(cfg, mesh).items():
+        shape = list(_local_shape(sh, full[k].shape))
+        if sh.spec[1] is not None:
+            shape[1] += 1
+        out[k] = torch.zeros(shape, dtype=full[k].dtype, device=device)
     return out
 
 
@@ -188,10 +253,18 @@ def _local(value, sharding: Sharding, key: str):
 def shard_llama_params(params: Dict[str, Any], cfg: LlamaConfig, mesh
                        ) -> Tuple[Dict[str, Any], LlamaConfig]:
     """This rank's slices of the global (unfused) parameter tree and its
-    RankConfig. Raises for pp / sp meshes (item 15b)."""
+    RankConfig: on a 'pp' mesh its stage's layers (every other axis
+    replicates, as the JAX engine's stacked layout does), else the tp /
+    ep slices ('dp' and 'sp' replicate the parameters)."""
     shape = dict(mesh.shape)
-    if shape.get('pp', 1) > 1 or shape.get('sp', 1) > 1:
-        raise NotImplementedError(PP_SP)
+    pp = shape.get('pp', 1)
+    if pp > 1:
+        L = len(params['layers'])
+        if L % pp:
+            raise ValueError(f'{L} layers do not split over pp={pp} stages')
+        per, s = L // pp, mesh.index('pp')
+        params = dict(params, layers=params['layers'][s * per:(s + 1) * per])
+        return params, rank_config(cfg, 1, pp)
     tp = shape.get('tp', 1)
     moe = any('moe' in l for l in params['layers'])
     if tp > 1:
@@ -238,7 +311,8 @@ def mark_parallel(params: Dict[str, Any], mesh,
     lm_head ColumnParallel over 'tp' (its first `lm_columns` outputs the
     rank's), MoE layers ExpertParallel."""
     shape = dict(mesh.shape)
-    tp = mesh.group('tp') if shape.get('tp', 1) > 1 else None
+    tp = mesh.group('tp') if shape.get('tp', 1) > 1 and \
+        shape.get('pp', 1) == 1 else None
     exp_axis = 'ep' if 'ep' in shape else 'tp'
     experts = mesh.group(exp_axis) if shape.get(exp_axis, 1) > 1 else None
     out = dict(params)

@@ -1047,8 +1047,9 @@ def test_serving_engine_on_the_card(cuda):
 
 def test_serving_engine_raises_without_a_card_or_for_unported_settings():
     """Runs with or without a card: device='cpu' is the only way onto the
-    CPU; W8A8 and MoE settings build, and a pipeline mesh (item 15b, not
-    ported) raises."""
+    CPU; W8A8 and MoE settings build, and what the JAX engine refuses on a
+    pipeline mesh (MoE layers, a max_batch the stages do not divide)
+    raises."""
     from ppq_tpu_torch.serving import (LlamaConfig, ServingEngine,
                                        init_llama_params)
     small = dict(vocab_size=256, d_model=128, n_layers=1, n_heads=4,
@@ -1066,8 +1067,13 @@ def test_serving_engine_raises_without_a_card_or_for_unported_settings():
         ServingEngine(cfg, init_llama_params(cfg, device='cpu'),
                       device='cpu')
     import types
-    with pytest.raises(NotImplementedError, match='ROADMAP item 15b'):
+    with pytest.raises(ValueError, match='max_batch'):
         ServingEngine(LlamaConfig(**small), params,
+                      mesh=types.SimpleNamespace(shape={'pp': 4}),
+                      device='cpu')
+    moe = LlamaConfig(**small, n_experts=4)
+    with pytest.raises(NotImplementedError, match='pp \\+ MoE'):
+        ServingEngine(moe, init_llama_params(moe, device='cpu'),
                       mesh=types.SimpleNamespace(shape={'pp': 2}),
                       device='cpu')
     # the paged KV cache builds (head dim 128, blocks of 128)

@@ -634,19 +634,34 @@ def test_sampler_thresholds_and_sampled_tokens():
 
 
 def test_engine_refuses_what_is_not_ported():
-    """What the port does not have yet raises, naming its ROADMAP item: a
-    pipeline or sequence mesh (paged or not; item 15b). Ragged attention,
-    INT4 weights, the paged KV cache, W8A8 prefill and MoE layers are
-    ported and build (tp / dp / ep meshes: tests/test_torch_serving_tp.py)."""
+    """Every setting is ported; what the JAX engine refuses, the port
+    refuses too, before any process group is touched: MoE on a pipeline
+    mesh, a paged pp x sp mesh with a dp or tp axis, a max_batch or
+    n_layers that the pipeline does not divide. Ragged attention, INT4
+    weights, the paged KV cache, W8A8 prefill and MoE layers build (the
+    meshes: tests/test_torch_serving_tp.py, test_torch_serving_pp_sp.py)."""
     tcfg = LlamaConfig(**SIZES['dh32'])
     params = init_llama_params(tcfg, seed=0, device='cpu')
     for paged in (False, True):
-        for axis in ('pp', 'sp'):
+        for axes, fields, error, match in (
+                ({'pp': 3}, {}, ValueError, 'max_batch'),
+                ({'pp': 4}, dict(max_batch=4), ValueError, 'n_layers'),
+                ({'pp': 2, 'sp': 2, 'tp': 2}, {}, NotImplementedError,
+                 'pure pp x sp'),
+                ({'pp': 2, 'sp': 2, 'dp': 2}, {}, NotImplementedError,
+                 'pure pp x sp')):
+            if not paged and match == 'pure pp x sp':
+                continue
             # the axes alone: the refusal comes before any process group
-            mesh = types.SimpleNamespace(shape={'dp': 1, axis: 2})
-            with pytest.raises(NotImplementedError, match='ROADMAP item 15b'):
-                ServingEngine(LlamaConfig(**SIZES['dh32'], paged_kv=paged),
-                              params, mesh=mesh, device='cpu')
+            mesh = types.SimpleNamespace(shape=axes)
+            cfg = LlamaConfig(**dict(SIZES['dh32'], **fields), paged_kv=paged)
+            with pytest.raises(error, match=match):
+                ServingEngine(cfg, params, mesh=mesh, device='cpu')
+    moe_cfg = LlamaConfig(**SIZES['dh32'], n_experts=4)
+    with pytest.raises(NotImplementedError, match='pp \\+ MoE'):
+        ServingEngine(moe_cfg, init_llama_params(moe_cfg, device='cpu'),
+                      mesh=types.SimpleNamespace(shape={'pp': 2}),
+                      device='cpu')
     ServingEngine(LlamaConfig(**SIZES['dh32'], act_bits=8), params,
                   device='cpu')
     moe_cfg = LlamaConfig(**SIZES['dh32'], n_experts=4)

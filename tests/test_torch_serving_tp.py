@@ -320,19 +320,34 @@ def test_row_shards_take_the_kernel_one_card_takes(monkeypatch):
         tensor_parallel.RowParallel(small, None, 32)
 
 
-def test_pp_and_sp_meshes_raise_naming_15b():
-    """A pipeline or sequence axis is item 15b: the engine and the
-    parameter sharding raise before any process group is touched; MoE on a
-    pipeline mesh raises as in the JAX package."""
+def test_pp_and_sp_meshes_keep_the_jax_engines_refusals():
+    """The JAX engine's refusals stand, before any process group is
+    touched: MoE on a pipeline mesh, a paged pp x sp mesh with a dp or tp
+    axis, a max_batch or n_layers that pp does not divide, a paged dp x sp
+    mesh whose dp does not divide max_batch. The parameter sharding gives a
+    pipeline stage its layers (n_layers / pp in its config) and refuses
+    layers that do not split."""
     cfg = LlamaConfig(**BASE)
     params = init_llama_params(cfg, seed=0, device='cpu')
-    for axes in ({'pp': 2}, {'sp': 2}, {'dp': 2, 'sp': 2, 'tp': 1}):
+    paged = dict(BASE, paged_kv=True, kv_block_size=128)
+    for axes, fields, error, match in (
+            ({'pp': 2, 'sp': 2, 'tp': 2}, paged, NotImplementedError,
+             'pure pp x sp'),
+            ({'pp': 2, 'sp': 2, 'dp': 2}, paged, NotImplementedError,
+             'pure pp x sp'),
+            ({'pp': 3}, BASE, ValueError, 'max_batch'),
+            ({'pp': 4}, dict(BASE, max_batch=8), ValueError, 'n_layers'),
+            ({'dp': 3, 'sp': 2}, paged, ValueError, 'max_batch % dp')):
         mesh = types.SimpleNamespace(shape=axes)
-        with pytest.raises(NotImplementedError, match='item 15b'):
-            ServingEngine(LlamaConfig(**BASE), params, mesh=mesh,
+        with pytest.raises(error, match=match):
+            ServingEngine(LlamaConfig(**fields), params, mesh=mesh,
                           device='cpu')
-        with pytest.raises(NotImplementedError, match='item 15b'):
-            tensor_parallel.shard_llama_params(params, cfg, mesh)
+    stage = types.SimpleNamespace(shape={'pp': 2}, index=lambda axis: 1)
+    local, rank_cfg = tensor_parallel.shard_llama_params(params, cfg, stage)
+    assert rank_cfg.n_layers == 1 and local['layers'] == params['layers'][1:]
+    with pytest.raises(ValueError, match='do not split'):
+        tensor_parallel.shard_llama_params(
+            params, cfg, types.SimpleNamespace(shape={'pp': 4}, index=lambda a: 0))
     moe_cfg = LlamaConfig(**BASE, n_experts=4)
     with pytest.raises(NotImplementedError, match='pp \\+ MoE'):
         ServingEngine(moe_cfg, init_llama_params(moe_cfg, device='cpu'),
